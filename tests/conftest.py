@@ -203,6 +203,14 @@ def pytest_configure(config):
     )
     config.addinivalue_line(
         "markers",
+        "gpu: PyTorch-port tests that launch the hand-written CUDA kernels "
+        "(tests/test_torch_*.py). They need a CUDA device and skip, with a "
+        "reason, where none is present. Like every test here they also "
+        "import JAX, so they run only where both exist; on the JAX-free "
+        "GPU machine chip_smoke.py proves the kernels",
+    )
+    config.addinivalue_line(
+        "markers",
         "crash(timeout=N): SIGKILL crash-recovery torture tests "
         "(tests/test_crash_recovery.py), driving subprocess training runs "
         "that are killed and auto-resumed. Tier-1; same HARD SIGALRM "
