@@ -1,7 +1,9 @@
 """GPU smoke test of the PyTorch port: builds the CUDA kernels, holds each
 against its plain PyTorch version, serves requests through the anytime
-serving path at the default model's full width, checks the kernel
-configuration end to end against the plain one, and times every kernel.
+serving path at the default model's full width — in the kernel
+configuration and in the fused-encoder one — checks both end to end (the
+kernel configuration against the plain one, the fused one against the
+kernel one), compares their stage times, and times every kernel.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -28,13 +30,16 @@ import torch.nn.functional as F
 from raft_stereo_tpu_torch.config import RAFTStereoConfig, ServeConfig
 from raft_stereo_tpu_torch.models import anytime
 from raft_stereo_tpu_torch.models.raft_stereo import RAFTStereo
-from raft_stereo_tpu_torch.ops import _build, corr, corr_cuda, gru_tail
+from raft_stereo_tpu_torch.ops import _build, corr, corr_cuda, encoder_cuda, gru_tail
 from raft_stereo_tpu_torch.serving.service import StereoService
 
 # The slice's model: the default architecture with the CUDA lookup and the
 # fused GRU tails, fp32 throughout.
 KERNEL_CONFIG = RAFTStereoConfig(corr_implementation="pallas", fused_gru_tail=True)
 PLAIN_CONFIG = RAFTStereoConfig(corr_implementation="reg", fused_gru_tail=False)
+# The second slice's model: the kernel configuration with the fused encoder
+# prelude (pyramid build, layer1 convs and joins as kernels).
+FUSED_CONFIG = RAFTStereoConfig(corr_implementation="pallas", fused_gru_tail=True, fused_encoder=True)
 SEED = 0
 DEVICE = "cuda"
 
@@ -45,14 +50,41 @@ FP32_FLOPS_PER_S = 67e12
 # Tolerances. The kernels are compiled with -fmad=false and round where the
 # plain versions round, so the lookup and motion tail are expected to agree
 # exactly; the GRU tail may differ in the last ulp of expf/tanhf.
-TOL = {"corr_lookup": 1e-5, "gru_tail": 1e-6, "motion_tail": 0.0}
+# The join is built the same way and must agree exactly. The conv and the
+# pyramid build need not sum in cuDNN's and cuBLAS's order (they may pick
+# other algorithms on another card or version), so their tolerances are
+# stated for unit-scale inputs (weights scaled by 1/sqrt(9*64), so y is
+# unit-scale too; the volume's dot products are divided by sqrt(D)).
+# The conv statistics are held relative to sum|y| and sum y^2 per channel.
+TOL = {"corr_lookup": 1e-5, "gru_tail": 1e-6, "motion_tail": 0.0,
+       "corr_pyramid": 2e-5, "encoder_conv": 1e-4, "encoder_join": 0.0}
+STATS_REL_TOL = 1e-5
 E2E_TOL_PX = 1e-3
+# Fused against kernel configuration: the prelude state to 1e-4 of its
+# largest magnitude; flow_up after 4 iterations to the JAX package's own
+# fused-against-XLA bound, |diff| <= 2e-2 px + 2e-2 |flow| per pixel
+# (tests/test_encoder_pallas.py, assert_allclose rtol = atol = 2e-2), since
+# random weights make the GRU amplify the encoder's rounding.
+FUSED_STATE_REL_TOL = 1e-4
+FUSED_FLOW_TOL_PX = 2e-2
+FUSED_FLOW_RTOL = 2e-2
 
 KERNELS = {
     "corr_lookup": ("raft_stereo_tpu_torch/csrc/corr_lookup.cu", "raft_stereo_tpu/ops/corr_pallas.py:90"),
     "gru_tail": ("raft_stereo_tpu_torch/csrc/gru_tail.cu", "raft_stereo_tpu/ops/gru_tail_pallas.py:48"),
     "motion_tail": ("raft_stereo_tpu_torch/csrc/gru_tail.cu", "raft_stereo_tpu/ops/gru_tail_pallas.py:55"),
+    "corr_pyramid": ("raft_stereo_tpu_torch/csrc/corr_pyramid.cu", "raft_stereo_tpu/ops/corr_pallas.py:617"),
+    "encoder_conv": ("raft_stereo_tpu_torch/csrc/encoder_conv.cu", "raft_stereo_tpu/ops/encoder_pallas.py:109"),
+    "encoder_join": ("raft_stereo_tpu_torch/csrc/encoder_join.cu", "raft_stereo_tpu/ops/encoder_pallas.py:275"),
 }
+SOURCES = ("corr_lookup", "gru_tail", "corr_pyramid", "encoder_conv", "encoder_join")
+# Requests each serving phase answers: (label, (H, W), deadline ms or None).
+REQUESTS = [
+    ("384x512 bucket", (384, 512), None),
+    ("512x768 bucket", (512, 768), None),
+    ("padded 300x500", (300, 500), None),
+    ("tight deadline", (512, 768), 1.0),
+]
 
 
 def log(msg: str) -> None:
@@ -60,13 +92,13 @@ def log(msg: str) -> None:
 
 
 def reset_launches() -> None:
-    for counts in (corr_cuda.LAUNCHES, gru_tail.LAUNCHES):
+    for counts in (corr_cuda.LAUNCHES, gru_tail.LAUNCHES, encoder_cuda.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
 
 def launches() -> dict:
-    return {**corr_cuda.LAUNCHES, **gru_tail.LAUNCHES}
+    return {**corr_cuda.LAUNCHES, **gru_tail.LAUNCHES, **encoder_cuda.LAUNCHES}
 
 
 def gpu_line() -> str:
@@ -139,6 +171,39 @@ def max_err(a, b) -> float:
     return float((a - b).abs().max().item())
 
 
+def affine_rows(gen, b, form):
+    """(B, 2, 64) pending-norm rows: instance [mean, inv] or batch [inv, shift]."""
+    if form == "none":
+        return None
+    u = torch.rand((b, 64), generator=gen, device=DEVICE) * 1.5 + 0.5
+    n = torch.randn((b, 64), generator=gen, device=DEVICE) * 0.3
+    return torch.stack([n, u] if form == "in" else [u, n], dim=1).contiguous()
+
+
+def conv_inputs(gen, b, h, w, form):
+    """Unit-scale operand, 3x3 64->64 weights scaled by 1/sqrt(9*64), bias,
+    and the form's affine rows."""
+    x = torch.randn((b, 64, h, w), generator=gen, device=DEVICE)
+    weight = torch.randn((64, 64, 3, 3), generator=gen, device=DEVICE) / (9 * 64) ** 0.5
+    bias = torch.randn((64,), generator=gen, device=DEVICE) * 0.1
+    return x, weight, bias, affine_rows(gen, b, form)
+
+
+def fmap_inputs(gen, b, h, w, d=256):
+    """Feature maps as the model hands them to the pyramid build: (B, H, W, D)
+    views of NCHW tensors."""
+    return tuple(torch.randn((b, d, h, w), generator=gen, device=DEVICE).permute(0, 2, 3, 1)
+                 for _ in range(2))
+
+
+def stats_rel_err(got, y) -> float:
+    """Conv statistics error, relative per channel to sum|y| and sum y^2."""
+    y = y.double()
+    scale = torch.stack([y.abs().sum(dim=(2, 3)), (y * y).sum(dim=(2, 3))], dim=1)
+    want = encoder_cuda.channel_stats(y.float()).double()
+    return float(((got.double() - want).abs() / scale).max().item())
+
+
 # -- timing --------------------------------------------------------------------
 
 def time_ms(fn, reps=30, flush=None) -> float:
@@ -165,9 +230,10 @@ def time_ms(fn, reps=30, flush=None) -> float:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    built = _build.build(["corr_lookup", "gru_tail"])
+    built = _build.build(SOURCES)
     log(f"[build] nvcc sm_90a, parallel: {built} ({time.perf_counter() - t0:.2f} s wall)")
-    for name in ("corr_lookup", "gru_tail"):
+    for name in SOURCES:
+        log(f"[build] {name}: flags {' '.join(_build.SOURCE_FLAGS[name])}")
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
@@ -210,6 +276,54 @@ def phase_kernels(gen) -> dict:
     return errs
 
 
+def phase_fused_kernels(gen) -> dict:
+    """The fused encoder's three kernels against their plain versions at the
+    main path's shapes: the conv at full resolution of both buckets (batch 1
+    is the context trunk, batch 2 the feature trunk), every form, with
+    statistics; the join over every form pair; the pyramid at both buckets'
+    1/4 resolution (D = 256) and at Middlebury-F."""
+    errs = {}
+
+    def check(name, err, label, extra=""):
+        log(f"[kernels] {name} {label}: max abs diff {err:.3e} (tol {TOL[name]:g}){extra}")
+        if not err <= TOL[name]:
+            raise AssertionError(f"{name} disagrees with its plain version at {label}: {err}")
+        errs[name] = max(errs.get(name, 0.0), err)
+
+    for hh, ww in ((384, 512), (512, 768)):
+        for b in (1, 2):
+            for form in ("none", "in", "bn"):
+                x, weight, bias, aff = conv_inputs(gen, b, hh, ww, form)
+                y, stats = encoder_cuda.fused_conv(x, weight, bias, aff, form, emit_stats=True)
+                torch.cuda.synchronize()
+                want_y, _ = encoder_cuda.plain_conv(x, weight, bias, aff, form, False)
+                rel = stats_rel_err(stats, want_y)
+                check("encoder_conv", max_err(y, want_y), f"b{b} {hh}x{ww} form {form}",
+                      f"; stats rel diff {rel:.3e} (tol {STATS_REL_TOL:g})")
+                if not rel <= STATS_REL_TOL:
+                    raise AssertionError(f"encoder_conv statistics disagree at b{b} {hh}x{ww} {form}: {rel}")
+                del x, y, want_y
+    hh, ww = 512, 768
+    for y_form in ("in", "bn"):
+        for skip_form in ("none", "in", "bn"):
+            skip = torch.randn((2, 64, hh, ww), generator=gen, device=DEVICE)
+            y = torch.randn((2, 64, hh, ww), generator=gen, device=DEVICE)
+            aff_y, aff_s = affine_rows(gen, 2, y_form), affine_rows(gen, 2, skip_form)
+            got = encoder_cuda.fused_join(skip, y, aff_y, y_form, aff_s, skip_form)
+            torch.cuda.synchronize()
+            want = encoder_cuda.plain_join(skip, y, aff_y, y_form, aff_s, skip_form)
+            check("encoder_join", max_err(got, want), f"b2 {hh}x{ww} y {y_form} skip {skip_form}")
+    for hh, ww in ((384, 512), (512, 768), (1984, 2880)):
+        f1, f2 = fmap_inputs(gen, 1, hh // 4, ww // 4)
+        got = corr_cuda.fused_pyramid_state(f1, f2, 4)
+        torch.cuda.synchronize()
+        want = corr_cuda.corr_state(f1, f2, 4)
+        check("corr_pyramid", max(max_err(g, w) for g, w in zip(got, want)),
+              f"{hh}x{ww} (rows {hh // 4}, W1 = W2 = {ww // 4}, D 256, 4 levels)")
+        del f1, f2, got, want
+    return errs
+
+
 def stereo_pair(rng, h, w, shift=12):
     """A textured pair whose right image is the left shifted by `shift` px."""
     left = rng.uniform(0, 255, (h, w + shift, 3)).astype(np.float32)
@@ -225,12 +339,7 @@ def phase_serving(rng) -> tuple:
     for key in warm["prelude_ms"]:
         log(f"[serving] {key}: prelude {warm['prelude_ms'][key]:.3f} ms, "
             f"chunk of {cfg.chunk_iters} iters {warm['chunk_est_ms'][key]:.3f} ms")
-    requests = [
-        ("384x512 bucket", (384, 512), None),
-        ("512x768 bucket", (512, 768), None),
-        ("padded 300x500", (300, 500), None),
-        ("tight deadline", (512, 768), 1.0),
-    ]
+    requests = REQUESTS
     reset_launches()
     iters_total = 0
     responses = []
@@ -250,7 +359,8 @@ def phase_serving(rng) -> tuple:
         raise AssertionError("the tight-deadline request did not exit after one chunk")
     if any(r["iters_completed"] != cfg.max_iters for _, r in responses[:-1]):
         raise AssertionError("a request without a deadline stopped short of max_iters")
-    want = {"corr_lookup": iters_total, "gru_tail": 3 * iters_total, "motion_tail": iters_total}
+    want = {"corr_lookup": iters_total, "gru_tail": 3 * iters_total, "motion_tail": iters_total,
+            "corr_pyramid": 0, "encoder_conv": 0, "encoder_join": 0}
     if counts != want:
         raise AssertionError(f"kernel launches {counts} != expected {want}")
     return service, counts
@@ -301,6 +411,109 @@ def phase_end_to_end(service, rng) -> None:
         raise AssertionError("kernel configuration disagrees with the plain configuration")
 
 
+def phase_serving_fused(rng, weights) -> tuple:
+    """The fused-encoder configuration served like the kernel one, on the
+    same weights; the launch counts are checked request by request."""
+    cfg = ServeConfig(model=FUSED_CONFIG)
+    t0 = time.perf_counter()
+    service = StereoService(cfg, device="cuda", seed=SEED)
+    service.engine.model.load_state_dict(weights)
+    service.start()
+    warm = service.warm_summary
+    log(f"[fused] boot + warm of {warm['combos']} (bucket, batch) combos: {time.perf_counter() - t0:.2f} s")
+    for key in warm["prelude_ms"]:
+        log(f"[fused] {key}: prelude {warm['prelude_ms'][key]:.3f} ms, "
+            f"chunk of {cfg.chunk_iters} iters {warm['chunk_est_ms'][key]:.3f} ms")
+    reset_launches()
+    totals = {k: 0 for k in launches()}
+    for label, (h, w), deadline_ms in REQUESTS:
+        before = launches()
+        i1, i2 = stereo_pair(rng, h, w)
+        res = service.submit(i1, i2, deadline_ms=deadline_ms).result()
+        delta = {k: v - before[k] for k, v in launches().items()}
+        it = res["iters_completed"]
+        want = {"corr_lookup": it, "gru_tail": 3 * it, "motion_tail": it,
+                "corr_pyramid": 1, "encoder_conv": 8, "encoder_join": 4}
+        log(f"[fused] {label}: bucket {res['bucket']}, iters_completed {it}, early_exit {res['early_exit']}, "
+            f"latency {res['latency_ms']:.3f} ms, launches {delta}")
+        disp = res["disparity"]
+        if disp.shape != (h, w) or not np.isfinite(disp).all():
+            raise AssertionError(f"fused {label}: disparity shape {disp.shape} or non-finite values")
+        if delta != want:
+            raise AssertionError(f"fused {label}: kernel launches {delta} != expected {want}")
+        if deadline_ms is not None and (it != cfg.chunk_iters or not res["early_exit"]):
+            raise AssertionError("fused: the tight-deadline request did not exit after one chunk")
+        if deadline_ms is None and it != cfg.max_iters:
+            raise AssertionError("fused: a request without a deadline stopped short of max_iters")
+    counts = launches()
+    log(f"[fused] launches over {len(REQUESTS)} requests: {counts}")
+    if any(v == 0 for v in counts.values()):
+        raise AssertionError(f"a kernel of the fused path was never launched: {counts}")
+    return service, counts
+
+
+def phase_fused_end_to_end(kernel_service, fused_service, rng) -> None:
+    """The fused configuration against the kernel one, same weights, one
+    384x512 input: (a) the prelude state, (b) flow_up after 4 iterations."""
+    km, fm = kernel_service.engine.model, fused_service.engine.model
+    i1, i2 = stereo_pair(rng, 384, 512)
+    i1 = torch.from_numpy(i1[None]).cuda()
+    i2 = torch.from_numpy(i2[None]).cuda()
+    with torch.inference_mode():
+        sk = anytime.prelude(km, i1, i2)
+        sf = anytime.prelude(fm, i1, i2)
+        parts = {f"corr level {l}": (a, b) for l, (a, b) in enumerate(zip(sk["corr"], sf["corr"]))}
+        parts.update({f"net {i}": (a, b) for i, (a, b) in enumerate(zip(sk["net"], sf["net"]))})
+        parts.update({f"context {i}.{j}": (a, b) for i, (ck, cf) in enumerate(zip(sk["context"], sf["context"]))
+                      for j, (a, b) in enumerate(zip(ck, cf))})
+        worst = 0.0
+        for name, (a, b) in parts.items():
+            rel = max_err(a, b) / max(float(a.abs().max().item()), 1e-30)
+            worst = max(worst, rel)
+            log(f"[fused-e2e] prelude {name} {tuple(a.shape)}: max abs diff {max_err(a, b):.3e}, "
+                f"relative to max |value| {rel:.3e}")
+        _, up_k = anytime.finalize(km, anytime.chunk(km, sk, 4))
+        _, up_f = anytime.finalize(fm, anytime.chunk(fm, sf, 4))
+    torch.cuda.synchronize()
+    err = max_err(up_k, up_f)
+    # The worst pixel's share of its allowance: at most 1 to pass.
+    share = float(((up_f - up_k).abs() / (FUSED_FLOW_TOL_PX + FUSED_FLOW_RTOL * up_k.abs())).max().item())
+    log(f"[fused-e2e] prelude state worst relative diff {worst:.3e} (tol {FUSED_STATE_REL_TOL:g}); "
+        f"flow_up after 4 iters max abs diff {err:.3e} px, worst pixel at {share:.3f} of "
+        f"{FUSED_FLOW_TOL_PX:g} px + {FUSED_FLOW_RTOL:g} |flow| (tol 1); |flow_up| max {up_k.abs().max().item():.3f}")
+    if not worst <= FUSED_STATE_REL_TOL:
+        raise AssertionError(f"fused prelude state disagrees with the kernel configuration: {worst}")
+    if not (torch.isfinite(up_f).all() and share <= 1.0):
+        raise AssertionError(f"fused flow_up disagrees with the kernel configuration: {err} px, share {share}")
+
+
+def phase_stage_compare(kernel_service, fused_service, reps=5) -> None:
+    """Prelude and 4-iteration chunk per bucket at batch 1 for both
+    configurations, taken in turns (kernel, fused, fused, kernel, ...):
+    median synchronized wall time of `reps` calls each."""
+    models = {"kernel": kernel_service.engine.model, "fused": fused_service.engine.model}
+    with torch.inference_mode():
+        for hw in kernel_service.config.buckets:
+            img = torch.zeros((1, *hw, 3), device=DEVICE)
+            times = {(name, stage): [] for name in models for stage in ("prelude", "chunk")}
+            order = ["kernel", "fused", "fused", "kernel"] * ((reps + 1) // 2)
+            for name in order[: 2 * reps]:
+                model = models[name]
+                t = time.perf_counter()
+                state = anytime.prelude(model, img, img)
+                torch.cuda.synchronize()
+                times[(name, "prelude")].append(time.perf_counter() - t)
+                t = time.perf_counter()
+                anytime.chunk(model, state, 4)
+                torch.cuda.synchronize()
+                times[(name, "chunk")].append(time.perf_counter() - t)
+            med = {k: statistics.median(v) * 1e3 for k, v in times.items()}
+            log(f"[stages-compare] {hw[0]}x{hw[1]}/b1: prelude kernel {med[('kernel', 'prelude')]:.3f} ms, "
+                f"fused {med[('fused', 'prelude')]:.3f} ms (difference "
+                f"{med[('kernel', 'prelude')] - med[('fused', 'prelude')]:.3f} ms); chunk of 4 kernel "
+                f"{med[('kernel', 'chunk')]:.3f} ms, fused {med[('fused', 'chunk')]:.3f} ms")
+
+
 def phase_timing(gen, errs, counts) -> list:
     """Kernel, plain and library times at the 512x768 bucket's shapes."""
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=DEVICE)  # 256 MB > L2
@@ -318,7 +531,8 @@ def phase_timing(gen, errs, counts) -> list:
         }
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         log(f"[timing] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {e['bound_ms']:.4f} ms "
-            f"({e['bound_by']}, {nbytes} B), library {lib}")
+            f"({e['bound_by']}, {nbytes} B, {flops} ops), library {lib}, "
+            f"launches {counts[name]} over {len(REQUESTS)} requests")
         out.append(e)
 
     for label, (hh, ww) in (("512x768", (512, 768)), ("1984x2880", (1984, 2880))):
@@ -362,6 +576,58 @@ def phase_timing(gen, errs, counts) -> list:
     plain_ms = time_ms(lambda: gru_tail.plain_motion_tail(pre, flow), flush=flush)
     hw = 128 * 192
     entry("motion_tail", ms, plain_ms, 4 * hw * (126 + 1 + 128), 126 * hw, None)
+    del pre, flow
+
+    for label, (hh, ww) in (("512x768", (512, 768)), ("1984x2880", (1984, 2880))):
+        f1, f2 = fmap_inputs(gen, 1, hh // 4, ww // 4)
+        b, h, w, d = f1.shape
+        ms = time_ms(lambda: corr_cuda.fused_pyramid_state(f1, f2, 4), flush=flush)
+        plain_ms = time_ms(lambda: corr_cuda.corr_state(f1, f2, 4), flush=flush)
+        # The library yardstick computes the volume only (no scaling, no pooling).
+        lib_ms = time_ms(lambda: torch.matmul(f1, f2.transpose(-1, -2)), flush=flush)
+        widths = [w >> l for l in range(4)]
+        nbytes = 4 * (2 * b * h * w * d + b * h * w * sum(widths))
+        # The GEMM, the division of each volume entry, an add and a halving per pooled value.
+        flops = 2 * b * h * w * w * d + b * h * w * (w + 2 * sum(widths[1:]))
+        if label == "512x768":
+            log(f"[timing] corr_pyramid {label}: library is torch.matmul of the volume alone")
+            entry("corr_pyramid", ms, plain_ms, nbytes, flops, lib_ms)
+        else:
+            log(f"[timing] corr_pyramid {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S) * 1e3:.4f} ms (operations), "
+                f"torch.matmul volume alone {lib_ms:.4f} ms")
+        del f1, f2
+
+    for hh, ww in ((512, 768), (384, 512)):
+        for b, form, stats in ((1, "in", True), (2, "in", True), (1, "bn", False)):
+            x, weight, bias, aff = conv_inputs(gen, b, hh, ww, form)
+            ms = time_ms(lambda: encoder_cuda.fused_conv(x, weight, bias, aff, form, stats), flush=flush)
+            plain_ms = time_ms(lambda: encoder_cuda.plain_conv(x, weight, bias, aff, form, stats), flush=flush)
+            z = encoder_cuda.apply_affine(x, aff, form)
+            lib_ms = time_ms(lambda: F.conv2d(z, weight, bias, padding=1), flush=flush)
+            hw = hh * ww
+            nbytes = 4 * (2 * b * 64 * hw + 64 * 64 * 9 + 64 + 2 * b * 64 * (1 + stats))
+            # The GEMM, the operand affine and relu (3 per input), bias and statistics (3 per output).
+            flops = 2 * 9 * 64 * 64 * b * hw + 3 * b * 64 * hw * (1 + stats)
+            label = f"b{b} {hh}x{ww} form {form}{' + stats' if stats else ''}"
+            if (hh, b, form) == (512, 1, "in"):
+                log(f"[timing] encoder_conv {label}: library is F.conv2d of the normalized operand "
+                    f"(cuDNN, TF32 off), without affine or statistics")
+                entry("encoder_conv", ms, plain_ms, nbytes, flops, lib_ms)
+            else:
+                log(f"[timing] encoder_conv {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                    f"bound {flops / FP32_FLOPS_PER_S * 1e3:.4f} ms (operations), F.conv2d {lib_ms:.4f} ms, "
+                    f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
+            del x, z
+
+    hw = 512 * 768
+    skip = torch.randn((1, 64, 512, 768), generator=gen, device=DEVICE)
+    y = torch.randn((1, 64, 512, 768), generator=gen, device=DEVICE)
+    aff_y, aff_s = affine_rows(gen, 1, "in"), affine_rows(gen, 1, "in")
+    ms = time_ms(lambda: encoder_cuda.fused_join(skip, y, aff_y, "in", aff_s, "in"), flush=flush)
+    plain_ms = time_ms(lambda: encoder_cuda.plain_join(skip, y, aff_y, "in", aff_s, "in"), flush=flush)
+    # Two affines and relus (3 ops each), the add and the last relu.
+    entry("encoder_join", ms, plain_ms, 4 * (3 * 64 * hw + 4 * 64), 8 * 64 * hw, None)
     return out
 
 
@@ -380,11 +646,19 @@ def main() -> int:
 
     phase_build()
     errs = phase_kernels(gen)
+    errs.update(phase_fused_kernels(gen))
     service, counts = phase_serving(rng)
     phase_stage_times(service)
     phase_end_to_end(service, rng)
-    del service
+    fused_service, fused_counts = phase_serving_fused(rng, service.engine.model.state_dict())
+    phase_fused_end_to_end(service, fused_service, rng)
+    phase_stage_compare(service, fused_service)
+    del service, fused_service
     torch.cuda.empty_cache()
+    # Each kernel's launches come from the serving run of the configuration
+    # whose slice added it.
+    for name in ("corr_pyramid", "encoder_conv", "encoder_join"):
+        counts[name] = fused_counts[name]
     kernels = phase_timing(gen, errs, counts)
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -8,7 +8,7 @@ original field for field.
 
 Not yet ported, so not present: `mixed_precision` and `corr_dtype` (the port
 runs fp32 throughout), the `"alt"` correlation strategy, `shared_backbone`,
-`sequential_encoder`, `fused_encoder`, `prefetch_lookup`, and every serving
+`sequential_encoder`, `prefetch_lookup`, and every serving
 option beyond the anytime engine's (batcher, fleet, AOT cache, streams).
 """
 
@@ -54,6 +54,18 @@ class RAFTStereoConfig:
     # Run the GRU gate tail and the motion-encoder concat as the fused CUDA
     # kernels of ops/gru_tail.py (test-mode forwards only, as in JAX).
     fused_gru_tail: bool = False
+    # Fused encoder prelude: the stem norm and both layer1 residual blocks
+    # run as the CUDA conv and join kernels of ops/encoder_cuda.py (each
+    # norm and relu folded into the next conv's operand read, the instance
+    # statistics into its epilogue), and with "pallas" the correlation
+    # volume and pyramid are built in one kernel (ops/corr_cuda.py
+    # `fused_pyramid_state`). Applies where the JAX package's does: even W
+    # at stem resolution, instance or batch norm. Test-mode forwards only,
+    # as in JAX: the kernels have no backward. The port has no train-mode
+    # forward yet; the training slice must gate this flag on test mode, as
+    # `raft_stereo_tpu/models/raft_stereo.py` does (`fused = cfg.fused_encoder
+    # and test_mode`).
+    fused_encoder: bool = False
 
     @property
     def context_dims(self) -> Tuple[int, ...]:

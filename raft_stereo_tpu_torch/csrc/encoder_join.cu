@@ -1,0 +1,107 @@
+// Residual join of the fused encoder's layer1 blocks for Hopper (sm_90a).
+//
+// Replaces the TPU kernel raft_stereo_tpu/ops/encoder_pallas.py `_join_kernel`
+// (launched by `fused_join_s2d`). Same function, in NCHW:
+//     out = relu(skip' + relu(n(y)))
+// where n is the block's pending norm over per-(batch, channel) rows
+// a = aff[b, 0, c], b = aff[b, 1, c]:
+//     form 1 "in": (v - a) * b      (instance norm from [mean, inv])
+//     form 2 "bn":  v * a + b       (frozen batch norm from [inv, shift])
+// and skip' = skip (form 0), or relu(n_skip(skip)) when the skip is the raw
+// stem output whose norm is still pending (layer1_0).
+//
+// What bounds it on the H100: bytes. It reads two fp32 tensors and writes
+// one (12 bytes per element) for a handful of flops: at the 512x768 bucket
+// (64 x 393,216 per image) that is 302 MB, 0.090 ms at 3.35 TB/s.
+//
+// Design: a grid-stride loop over the output, four elements per thread with
+// 16-byte loads and stores where every pointer is 16-byte aligned and H*W
+// divides by four (then a 4-wide group never straddles a channel plane), a
+// scalar loop otherwise; the wrapper (ops/encoder_cuda.py) passes the `vec`
+// flag after checking both. Each group reads its channel's two affine rows,
+// which stay in L1.
+//
+// Rounding: built with -fmad=false and written with explicit _rn
+// intrinsics, so each product and sum is rounded where the plain PyTorch
+// version rounds it: the kernel agrees with it exactly.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define FORM_NONE 0
+#define FORM_IN 1
+#define FORM_BN 2
+
+__device__ __forceinline__ float norm_relu(float v, float a, float b, int form) {
+    const float t = form == FORM_IN ? __fmul_rn(__fsub_rn(v, a), b) : __fadd_rn(__fmul_rn(v, a), b);
+    return fmaxf(t, 0.0f);
+}
+
+__device__ __forceinline__ float join_one(float s, float v, float ya, float yb, int y_form,
+                                          float sa, float sb, int skip_form) {
+    if (skip_form != FORM_NONE) s = norm_relu(s, sa, sb, skip_form);
+    return fmaxf(__fadd_rn(s, norm_relu(v, ya, yb, y_form)), 0.0f);
+}
+
+// Index unit: one element (vec = 0) or one 4-element group (vec = 1).
+template <typename Index>
+__global__ void join_kernel(const float* __restrict__ skip, const float* __restrict__ y,
+                            const float* __restrict__ aff_y, const float* __restrict__ aff_s,
+                            float* __restrict__ out, Index units, Index hw_units, int channels,
+                            int y_form, int skip_form, int vec) {
+    for (Index i = blockIdx.x * (Index)blockDim.x + threadIdx.x; i < units;
+         i += (Index)gridDim.x * blockDim.x) {
+        const Index plane = i / hw_units;  // b * C + c
+        const Index b = plane / channels;
+        const int c = (int)(plane - b * channels);
+        const Index row = b * 2 * channels + c;  // aff[b, 0, c]; aff[b, 1, c] is `channels` further
+        const float ya = aff_y[row], yb = aff_y[row + channels];
+        float sa = 0.0f, sb = 0.0f;
+        if (skip_form != FORM_NONE) {
+            sa = aff_s[row];
+            sb = aff_s[row + channels];
+        }
+        if (vec) {
+            const float4 s4 = reinterpret_cast<const float4*>(skip)[i];
+            const float4 v4 = reinterpret_cast<const float4*>(y)[i];
+            float4 r;
+            r.x = join_one(s4.x, v4.x, ya, yb, y_form, sa, sb, skip_form);
+            r.y = join_one(s4.y, v4.y, ya, yb, y_form, sa, sb, skip_form);
+            r.z = join_one(s4.z, v4.z, ya, yb, y_form, sa, sb, skip_form);
+            r.w = join_one(s4.w, v4.w, ya, yb, y_form, sa, sb, skip_form);
+            reinterpret_cast<float4*>(out)[i] = r;
+        } else {
+            out[i] = join_one(skip[i], y[i], ya, yb, y_form, sa, sb, skip_form);
+        }
+    }
+}
+
+extern "C" int raft_encoder_join_f32(const void* skip, const void* y, const void* aff_y,
+                                     const void* aff_skip, void* out, long long batch, int channels,
+                                     long long hw, int y_form, int skip_form, int vec, void* stream) {
+    if (y_form != FORM_IN && y_form != FORM_BN) return (int)cudaErrorInvalidValue;
+    if (skip_form < FORM_NONE || skip_form > FORM_BN) return (int)cudaErrorInvalidValue;
+    if (skip_form != FORM_NONE && aff_skip == nullptr) return (int)cudaErrorInvalidValue;
+    if (vec && hw % 4 != 0) return (int)cudaErrorInvalidValue;
+    const long long hw_units = vec ? hw / 4 : hw;
+    const long long units = batch * channels * hw_units;
+    if (units == 0) return 0;
+    const int threads = 256;
+    long long blocks = (units + threads - 1) / threads;
+    if (blocks > 132LL * 32) blocks = 132LL * 32;  // grid-stride beyond 32 blocks per SM
+    // 32-bit index arithmetic whenever the tensors fit it.
+    if (units * (vec ? 4 : 1) <= 0x7fffffffLL - blocks * threads) {
+        join_kernel<int><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+            (const float*)skip, (const float*)y, (const float*)aff_y, (const float*)aff_skip,
+            (float*)out, (int)units, (int)hw_units, channels, y_form, skip_form, vec);
+    } else {
+        join_kernel<long long><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+            (const float*)skip, (const float*)y, (const float*)aff_y, (const float*)aff_skip,
+            (float*)out, units, hw_units, channels, y_form, skip_form, vec);
+    }
+    return (int)cudaGetLastError();
+}
+
+extern "C" const char* raft_encoder_join_error_string(int status) {
+    return cudaGetErrorString((cudaError_t)status);
+}

@@ -5,6 +5,11 @@ Channel progression 64 -> 64 -> 96 -> 128, strides `1 + (downsample > k)`,
 a 7x7 stem (the JAX package's column-im2col stem is the same math as this
 plain conv), and per-scale (hidden, context) heads in `MultiBasicEncoder`,
 finest scale first.
+
+`fused_layer1` (config.fused_encoder) runs the stem norm and layer1 through
+the fused kernels of ops/encoder_cuda.py, on the same parameters, where the
+JAX package's `EncoderTrunk` takes its fused branch: even W at stem
+resolution and instance or batch norm.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import torch
 from torch import nn
 
 from raft_stereo_tpu_torch.models.layers import Conv, ResidualBlock, make_norm
+from raft_stereo_tpu_torch.ops import encoder_cuda
 
 
 def _stride(downsample: int, threshold: int) -> int:
@@ -24,8 +30,11 @@ def _stride(downsample: int, threshold: int) -> int:
 class EncoderTrunk(nn.Module):
     """Stem + layer1-3: input -> 128 channels at 1/2**downsample."""
 
-    def __init__(self, norm_fn: str, downsample: int, in_channels: int = 3):
+    def __init__(self, norm_fn: str, downsample: int, in_channels: int = 3,
+                 fused_layer1: bool = False):
         super().__init__()
+        self.norm_fn = norm_fn
+        self.fused_layer1 = fused_layer1
         self.conv1 = Conv(in_channels, 64, 7, stride=_stride(downsample, 2), padding=3)
         self.norm1 = make_norm(norm_fn, 64)
         s1, s2 = _stride(downsample, 1), _stride(downsample, 0)
@@ -37,20 +46,39 @@ class EncoderTrunk(nn.Module):
         self.layer3_1 = ResidualBlock(128, 128, norm_fn, stride=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = torch.relu(self.norm1(self.conv1(x)))
-        for layer in (self.layer1_0, self.layer1_1, self.layer2_0, self.layer2_1,
-                      self.layer3_0, self.layer3_1):
+        x = self.conv1(x)
+        if self.fused_layer1 and x.shape[3] % 2 == 0 and self.norm_fn in ("instance", "batch"):
+            x = self._fused_layer1(x)
+        else:
+            x = self.layer1_1(self.layer1_0(torch.relu(self.norm1(x))))
+        for layer in (self.layer2_0, self.layer2_1, self.layer3_0, self.layer3_1):
             x = layer(x)
         return x
+
+    def _fused_layer1(self, stem_y: torch.Tensor) -> torch.Tensor:
+        """Stem norm + layer1 from the RAW stem output: the stem's norm is
+        left pending and folded into the first conv's operand read."""
+        b, _, h, w = stem_y.shape
+        batch_norm = self.norm_fn == "batch"
+        if batch_norm:
+            stem_aff = encoder_cuda.bn_affine(*self.norm1.affine(), b)
+        else:
+            stem_aff = encoder_cuda.instance_affine_from_stats(encoder_cuda.channel_stats(stem_y), h * w)
+        blocks = []
+        for blk in (self.layer1_0, self.layer1_1):
+            affs = ((encoder_cuda.bn_affine(*blk.norm1.affine(), b),
+                     encoder_cuda.bn_affine(*blk.norm2.affine(), b)) if batch_norm else (None, None))
+            blocks.append((blk.conv1.weight, blk.conv1.bias, blk.conv2.weight, blk.conv2.bias, *affs))
+        return encoder_cuda.fused_layer1(stem_y, stem_aff, blocks, self.norm_fn)
 
 
 class BasicEncoder(nn.Module):
     """Correlation-feature encoder: trunk + 1x1 projection to `output_dim`."""
 
     def __init__(self, output_dim: int = 256, norm_fn: str = "instance", downsample: int = 3,
-                 in_channels: int = 3):
+                 in_channels: int = 3, fused_layer1: bool = False):
         super().__init__()
-        self.trunk = EncoderTrunk(norm_fn, downsample, in_channels)
+        self.trunk = EncoderTrunk(norm_fn, downsample, in_channels, fused_layer1)
         self.conv2 = Conv(128, output_dim, 1, padding=0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -67,11 +95,11 @@ class MultiBasicEncoder(nn.Module):
 
     def __init__(self, output_dims: Sequence[Tuple[int, ...]] = ((128, 128, 128), (128, 128, 128)),
                  norm_fn: str = "batch", downsample: int = 3, in_channels: int = 3,
-                 num_layers: int = 3):
+                 num_layers: int = 3, fused_layer1: bool = False):
         super().__init__()
         self.n_heads = len(output_dims)
         self.num_layers = num_layers
-        self.trunk = EncoderTrunk(norm_fn, downsample, in_channels)
+        self.trunk = EncoderTrunk(norm_fn, downsample, in_channels, fused_layer1)
         for j, dims in enumerate(output_dims):
             self.add_module(f"res08_{j}", ResidualBlock(128, 128, norm_fn, stride=1))
             self.add_module(f"out08_{j}", Conv(128, dims[2], 3))

@@ -39,9 +39,16 @@ class FrozenBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def affine(self):
+        """The folded (inv, shift) pair (fp32, as the parameters are), which
+        `forward` applies: the counterpart of calling the flax module with
+        x=None."""
         inv = torch.rsqrt(self.running_var + self.epsilon) * self.weight
         shift = self.bias - self.running_mean * inv
+        return inv, shift
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        inv, shift = self.affine()
         return x * inv[None, :, None, None] + shift[None, :, None, None]
 
 

@@ -27,10 +27,14 @@ from raft_stereo_tpu_torch.utils.geometry import convex_upsample, coords_grid_x
 
 def corr_state(cfg: RAFTStereoConfig, fmap1: torch.Tensor, fmap2: torch.Tensor):
     """Loop-invariant correlation state from NCHW feature maps: the pooled
-    pyramid, (B, H, W1, W2 // 2**l) per level, for both strategies."""
+    pyramid, (B, H, W1, W2 // 2**l) per level, for both strategies; with
+    "pallas" and `fused_encoder` built by one kernel (as in JAX, the flag
+    leaves the "reg" pyramid to the plain ops)."""
     f1 = fmap1.permute(0, 2, 3, 1)
     f2 = fmap2.permute(0, 2, 3, 1)
     if cfg.corr_implementation == "pallas":
+        if cfg.fused_encoder:
+            return corr_cuda.fused_pyramid_state(f1, f2, cfg.corr_levels)
         return corr_cuda.corr_state(f1, f2, cfg.corr_levels)
     return tuple(corr_ops.corr_pyramid(corr_ops.corr_volume(f1, f2), cfg.corr_levels))
 
@@ -58,11 +62,11 @@ class RAFTStereo(nn.Module):
         self.cnet = MultiBasicEncoder(
             output_dims=(tuple(cfg.hidden_dims), tuple(cfg.context_dims)),
             norm_fn="batch", downsample=cfg.n_downsample, in_channels=cfg.in_channels,
-            num_layers=cfg.n_gru_layers,
+            num_layers=cfg.n_gru_layers, fused_layer1=cfg.fused_encoder,
         )
         self.fnet = BasicEncoder(
             output_dim=256, norm_fn="instance", downsample=cfg.n_downsample,
-            in_channels=cfg.in_channels,
+            in_channels=cfg.in_channels, fused_layer1=cfg.fused_encoder,
         )
         # Scale i (finest first) feeds a GRU of width hidden_dims[2 - i].
         for i in range(cfg.n_gru_layers):

@@ -6,7 +6,7 @@ build takes seconds. Libraries land in `raft_stereo_tpu_torch/_build/`
 (git-ignored), named by a hash of the source and the flags, so an edited
 source is rebuilt and an unchanged one is reused. The build happens at first
 use, never at import; `build(names)` compiles several sources in parallel,
-one `nvcc` process each.
+one `nvcc` process each. Each source has its own flags (`SOURCE_FLAGS`).
 
 No fallback: a missing `nvcc` or a failed compile raises.
 """
@@ -27,14 +27,29 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
-# -fmad=false: no multiply-add contraction, so each kernel rounds exactly
-# where its plain PyTorch version does (see the notes in the .cu files).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false",
+    "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+# Flags of each source beyond NVCC_FLAGS. -fmad=false (no multiply-add
+# contraction) keeps an elementwise kernel rounding exactly where its plain
+# PyTorch version rounds, so the card shows no difference at all. The two
+# GEMM-shaped kernels build with contraction on: under -fmad=false every
+# FFMA of their inner loops would become an FMUL plus an FADD, twice the
+# issue count, and cuBLAS and cuDNN, their plain versions' libraries, sum
+# with FFMAs too; where their rounding must match elementwise ops (the
+# operand affine, the division by sqrt(D), the pooling) they use explicit
+# __f*_rn intrinsics.
+# No source uses --use_fast_math: divisions and square roots stay IEEE.
+SOURCE_FLAGS = {
+    "corr_lookup": ("-fmad=false",),
+    "gru_tail": ("-fmad=false",),
+    "encoder_join": ("-fmad=false",),
+    "corr_pyramid": ("-fmad=true",),
+    "encoder_conv": ("-fmad=true",),
+}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -50,9 +65,20 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (looked on PATH, $CUDA_HOME and /usr/local/cuda)")
 
 
+def nvcc_flags(name: str) -> tuple:
+    """Every nvcc flag of `csrc/<name>.cu`: the common ones, then its own."""
+    return NVCC_FLAGS + SOURCE_FLAGS[name]
+
+
+def nvcc_command(nvcc: str, name: str, out: Path) -> list:
+    """The command line that compiles `csrc/<name>.cu` into `out`."""
+    return [nvcc, *nvcc_flags(name), "-o", str(out), str(CSRC_DIR / f"{name}.cu")]
+
+
 def _target(name: str) -> Path:
+    """The library of `csrc/<name>.cu`, named by a hash of its source and flags."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(nvcc_flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -70,9 +96,8 @@ def build(names: Iterable[str]) -> Dict[str, float]:
         if so.exists():
             continue
         tmp = so.with_suffix(f".tmp{os.getpid()}")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
         procs[name] = (so, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            nvcc_command(nvcc, name, tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ))
     times = {}
     errors = []

@@ -3,6 +3,10 @@
 
 `corr_state` builds the unpadded pyramid once per forward; the 128-lane
 padded layout of the TPU state is not carried over, only its values.
+`fused_pyramid_state` (config.fused_encoder) builds the same levels in one
+launch of `csrc/corr_pyramid.cu` for CUDA tensors — the volume GEMM with
+the pooling chain in its epilogue — and runs `corr_state`, its plain
+version, for CPU tensors.
 `corr_lookup` samples every level in one launch of the hand-written kernel
 `csrc/corr_lookup.cu` for CUDA tensors, and runs the plain version
 (`ops/corr.py` `corr_lookup`) for CPU tensors. There is no other route: a
@@ -23,14 +27,65 @@ from raft_stereo_tpu_torch.ops import _build, corr
 
 # Kernel launches since the last reset; chip_smoke.py reads it to prove the
 # serving path went through the kernel.
-LAUNCHES = {"corr_lookup": 0}
+LAUNCHES = {"corr_lookup": 0, "corr_pyramid": 0}
 MAX_LEVELS = 8  # csrc/corr_lookup.cu MAX_LEVELS
+# csrc/corr_pyramid.cu: a 64-column volume tile pools into every level, so
+# its columns must align to 2**(L-1).
+PYRAMID_MAX_LEVELS = 7
 
 
 def corr_state(fmap1: torch.Tensor, fmap2: torch.Tensor, levels: int) -> Tuple[torch.Tensor, ...]:
     """fmap1 (B, H, W1, D), fmap2 (B, H, W2, D) -> the L contiguous fp32
     pyramid levels (B, H, W1, W2 // 2**l)."""
     return tuple(corr.corr_pyramid(corr.corr_volume(fmap1, fmap2), levels))
+
+
+def fused_pyramid_state(fmap1: torch.Tensor, fmap2: torch.Tensor, levels: int) -> Tuple[torch.Tensor, ...]:
+    """`corr_state` in one kernel launch: fmap1 (B, H, W1, D), fmap2
+    (B, H, W2, D), any strides (the model passes permuted views of its NCHW
+    feature maps, which the kernel reads in place) -> the L contiguous fp32
+    levels (B, H, W1, W2 // 2**l)."""
+    if not fmap1.is_cuda:
+        return corr_state(fmap1, fmap2, levels)
+    b, h, w1, d = fmap1.shape
+    w2 = fmap2.shape[2]
+    if tuple(fmap2.shape) != (b, h, w2, d):
+        raise ValueError(f"fmap2 shape {tuple(fmap2.shape)} does not match fmap1 {tuple(fmap1.shape)}")
+    if not 1 <= levels <= PYRAMID_MAX_LEVELS:
+        raise ValueError(f"corr_pyramid kernel takes 1..{PYRAMID_MAX_LEVELS} levels, got {levels}")
+    for t in (fmap1, fmap2):
+        if t.device != fmap1.device or t.dtype != torch.float32:
+            raise ValueError("corr_pyramid kernel needs fp32 tensors on one CUDA device")
+        if t.requires_grad and torch.is_grad_enabled():
+            raise ValueError("corr_pyramid kernel has no backward; call it without grad")
+    out = tuple(torch.empty((b, h, w1, w2 >> l), dtype=torch.float32, device=fmap1.device)
+                for l in range(levels))
+    ptrs = (ctypes.c_void_p * levels)(*[o.data_ptr() for o in out])
+    strides = (ctypes.c_longlong * 8)(*fmap1.stride(), *fmap2.stride())
+    lib = _pyramid_lib()
+    status = lib.raft_corr_pyramid_f32(
+        fmap1.data_ptr(), fmap2.data_ptr(), ctypes.cast(strides, ctypes.c_void_p),
+        b, h, w1, w2, d, levels, ctypes.cast(ptrs, ctypes.c_void_p),
+        torch.cuda.current_stream(fmap1.device).cuda_stream,
+    )
+    _build.check(status, "corr_pyramid kernel", lib.raft_corr_pyramid_error_string)
+    LAUNCHES["corr_pyramid"] += 1
+    return out
+
+
+def _pyramid_lib():
+    lib = _build.load("corr_pyramid")
+    fn = lib.raft_corr_pyramid_f32
+    if fn.argtypes is None:
+        fn.argtypes = (
+            [ctypes.c_void_p] * 3  # fmap1, fmap2, host array of the 8 element strides
+            + [ctypes.c_int] * 6  # B, H, W1, W2, D, levels
+            + [ctypes.c_void_p] * 2  # host array of level pointers, stream
+        )
+        fn.restype = ctypes.c_int
+        lib.raft_corr_pyramid_error_string.argtypes = [ctypes.c_int]
+        lib.raft_corr_pyramid_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def _lib():

@@ -1,0 +1,220 @@
+"""Fused encoder layer1 on CUDA (config.fused_encoder): counterpart of
+`raft_stereo_tpu/ops/encoder_pallas.py`.
+
+The stem norm and the two layer1 residual blocks run as two hand-written
+kernels, in NCHW at C = 64:
+
+- `fused_conv` (`csrc/encoder_conv.cu`): a 3x3 stride-1 "same" conv of
+  `z = form(x)`, plus bias, where the pending norm and relu of the previous
+  layer are applied to the operand as it is read, and optionally the
+  per-channel `[sum y, sum y^2]` of the output (the next instance norm's
+  statistics) from the conv's epilogue.
+- `fused_join` (`csrc/encoder_join.cu`): the block tail
+  `relu(skip' + relu(norm(y)))` in one elementwise pass, where `skip'` may
+  carry the stem's pending norm.
+
+Affine forms, with `a = aff[:, 0]` and `b = aff[:, 1]` per (batch, channel):
+"none" `x`; "in" `relu((x - a) * b)` (instance norm from [mean, inv]);
+"bn" `relu(x * a + b)` (frozen batch norm from [inv, shift]). The zero
+padding of the conv pads `z`, not `x`.
+
+Each wrapper launches its kernel for CUDA tensors and runs its plain
+version (`plain_conv`, `plain_join`) for CPU tensors; a CUDA tensor the
+kernel cannot take raises. Test-mode only, as in JAX: there is no backward,
+so the wrappers refuse to run where autograd would record them. The TPU
+kernels' W-space-to-depth layout is not carried over, only their values.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from raft_stereo_tpu_torch.ops import _build
+
+# Kernel launches since the last reset; chip_smoke.py reads them to prove
+# the serving path went through the kernels. One conv call counts one
+# launch (its statistics reduction is a second, small launch of the call).
+LAUNCHES = {"encoder_conv": 0, "encoder_join": 0}
+FORMS = {"none": 0, "in": 1, "bn": 2}
+CHANNELS = 64  # layer1's width at every hidden_dims; the conv kernel is built for it
+TILE_H, TILE_W = 8, 32  # csrc/encoder_conv.cu TILE_H, TILE_W
+
+
+def apply_affine(x: torch.Tensor, aff: Optional[torch.Tensor], form: str) -> torch.Tensor:
+    """The operand stage of both kernels on NCHW `x` and (B, 2, C) `aff`."""
+    if form == "none":
+        return x
+    a = aff[:, 0, :, None, None]
+    b = aff[:, 1, :, None, None]
+    return torch.relu((x - a) * b if form == "in" else x * a + b)
+
+
+def channel_stats(y: torch.Tensor) -> torch.Tensor:
+    """(B, 2, C) fp32 [sum, sum of squares] of NCHW `y` over H x W."""
+    y = y.float()
+    return torch.stack([y.sum(dim=(2, 3)), (y * y).sum(dim=(2, 3))], dim=1)
+
+
+def plain_conv(x, weight, bias, aff, form, emit_stats):
+    """The plain PyTorch version of the conv kernel: (y, stats or None)."""
+    y = F.conv2d(apply_affine(x, aff, form), weight, bias, padding=1)
+    return y, (channel_stats(y) if emit_stats else None)
+
+
+def plain_join(skip, y, aff_y, y_form, aff_skip=None, skip_form="none"):
+    """The plain PyTorch version of the join kernel."""
+    return torch.relu(apply_affine(skip, aff_skip, skip_form) + apply_affine(y, aff_y, y_form))
+
+
+def instance_affine_from_stats(stats: torch.Tensor, n: int, epsilon: float = 1e-5) -> torch.Tensor:
+    """(B, 2, C) [sum, sumsq] over n values -> (B, 2, C) [mean, inv] rows,
+    the one-pass statistics of models/layers.InstanceNorm."""
+    mean = stats[:, 0] / n
+    var = torch.clamp(stats[:, 1] / n - mean * mean, min=0.0)
+    return torch.stack([mean, torch.rsqrt(var + epsilon)], dim=1)
+
+
+def bn_affine(inv: torch.Tensor, shift: torch.Tensor, batch: int) -> torch.Tensor:
+    """A frozen batch norm's folded affine as (B, 2, C) rows, one per
+    batch element, so the kernels index every affine per batch element."""
+    return torch.stack([inv, shift]).float()[None].expand(batch, 2, inv.shape[-1]).contiguous()
+
+
+def _conv_lib():
+    lib = _build.load("encoder_conv")
+    if lib.raft_encoder_conv_f32.argtypes is None:
+        lib.raft_encoder_conv_f32.argtypes = (
+            [ctypes.c_void_p] * 4  # x, weight (Ci, 3, 3, Co), bias, aff or NULL
+            + [ctypes.c_int] * 4  # form, batch, H, W
+            + [ctypes.c_void_p] * 4  # y, partial sums or NULL, stats or NULL, stream
+        )
+        lib.raft_encoder_conv_f32.restype = ctypes.c_int
+        lib.raft_encoder_conv_error_string.argtypes = [ctypes.c_int]
+        lib.raft_encoder_conv_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _join_lib():
+    lib = _build.load("encoder_join")
+    if lib.raft_encoder_join_f32.argtypes is None:
+        lib.raft_encoder_join_f32.argtypes = (
+            [ctypes.c_void_p] * 5  # skip, y, aff_y, aff_skip or NULL, out
+            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]  # batch, channels, H*W
+            + [ctypes.c_int] * 3  # y_form, skip_form, vec
+            + [ctypes.c_void_p]  # stream
+        )
+        lib.raft_encoder_join_f32.restype = ctypes.c_int
+        lib.raft_encoder_join_error_string.argtypes = [ctypes.c_int]
+        lib.raft_encoder_join_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_operands(name, tensors, device):
+    for t in tensors:
+        if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} kernel needs contiguous fp32 tensors on one CUDA device")
+        if t.requires_grad and torch.is_grad_enabled():
+            raise ValueError(f"{name} kernel has no backward; call it without grad")
+
+
+def fused_conv(x, weight, bias, aff: Optional[torch.Tensor], form: str = "none",
+               emit_stats: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """3x3 "same" conv of form(x) with bias: x (B, 64, H, W), weight
+    (64, 64, 3, 3) OIHW, bias (64,), aff (B, 2, 64) or None with "none".
+    Returns (y (B, 64, H, W), stats (B, 2, 64) [sum, sumsq] of y or None)."""
+    if form not in FORMS:
+        raise ValueError(f"form {form!r} not in {tuple(FORMS)}")
+    if (aff is None) != (form == "none"):
+        raise ValueError("aff must be given iff form != 'none'")
+    if not x.is_cuda:
+        return plain_conv(x, weight, bias, aff, form, emit_stats)
+    b, c, h, w = x.shape
+    if c != CHANNELS or tuple(weight.shape) != (CHANNELS, CHANNELS, 3, 3) or tuple(bias.shape) != (CHANNELS,):
+        raise ValueError(f"encoder_conv kernel takes 64 -> 64 channels, 3x3; got x {tuple(x.shape)}, "
+                         f"weight {tuple(weight.shape)}, bias {tuple(bias.shape)}")
+    if aff is not None and tuple(aff.shape) != (b, 2, CHANNELS):
+        raise ValueError(f"aff shape {tuple(aff.shape)} != {(b, 2, CHANNELS)}")
+    _check_operands("encoder_conv", [t for t in (x, weight, bias, aff) if t is not None], x.device)
+    # (Ci, 3, 3, Co): each input channel's 9 x 64 weights contiguous, the
+    # layout the kernel stages into shared memory with 16-byte loads.
+    w_t = weight.permute(1, 2, 3, 0).contiguous()
+    y = torch.empty_like(x)
+    stats = partial = None
+    if emit_stats:
+        tiles = -(-h // TILE_H) * -(-w // TILE_W)
+        partial = torch.empty((b, tiles, 2, CHANNELS), dtype=torch.float32, device=x.device)
+        stats = torch.empty((b, 2, CHANNELS), dtype=torch.float32, device=x.device)
+    lib = _conv_lib()
+    status = lib.raft_encoder_conv_f32(
+        x.data_ptr(), w_t.data_ptr(), bias.data_ptr(), 0 if aff is None else aff.data_ptr(),
+        FORMS[form], b, h, w, y.data_ptr(),
+        0 if partial is None else partial.data_ptr(), 0 if stats is None else stats.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(status, "encoder_conv kernel", lib.raft_encoder_conv_error_string)
+    LAUNCHES["encoder_conv"] += 1
+    return y, stats
+
+
+def fused_join(skip, y, aff_y, y_form: str, aff_skip: Optional[torch.Tensor] = None,
+               skip_form: str = "none") -> torch.Tensor:
+    """relu(skip' + relu(y_form(y))) over NCHW (B, C, H, W); skip' is
+    `skip` for "none", else relu(skip_form(skip)) with `aff_skip`."""
+    if y_form not in ("in", "bn"):
+        raise ValueError(f"y_form {y_form!r} not in ('in', 'bn')")
+    if skip_form not in FORMS:
+        raise ValueError(f"skip_form {skip_form!r} not in {tuple(FORMS)}")
+    if aff_skip is None and skip_form != "none":
+        raise ValueError("aff_skip required for skip_form != 'none'")
+    if not skip.is_cuda:
+        return plain_join(skip, y, aff_y, y_form, aff_skip, skip_form)
+    b, c, h, w = skip.shape
+    if tuple(y.shape) != tuple(skip.shape):
+        raise ValueError(f"y shape {tuple(y.shape)} != skip shape {tuple(skip.shape)}")
+    affs = [aff_y] + ([aff_skip] if skip_form != "none" else [])
+    for a in affs:
+        if tuple(a.shape) != (b, 2, c):
+            raise ValueError(f"affine shape {tuple(a.shape)} != {(b, 2, c)}")
+    _check_operands("encoder_join", (skip, y, *affs), skip.device)
+    out = torch.empty_like(skip)
+    hw = h * w
+    vec = int(hw % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (skip, y, out)))
+    lib = _join_lib()
+    status = lib.raft_encoder_join_f32(
+        skip.data_ptr(), y.data_ptr(), aff_y.data_ptr(),
+        aff_skip.data_ptr() if skip_form != "none" else 0, out.data_ptr(),
+        b, c, hw, FORMS[y_form], FORMS[skip_form], vec,
+        torch.cuda.current_stream(skip.device).cuda_stream,
+    )
+    _build.check(status, "encoder_join kernel", lib.raft_encoder_join_error_string)
+    LAUNCHES["encoder_join"] += 1
+    return out
+
+
+def fused_layer1(stem_y: torch.Tensor, stem_aff: torch.Tensor,
+                 blocks: Sequence[Tuple[torch.Tensor, ...]], norm_fn: str) -> torch.Tensor:
+    """Stem norm + the layer1 residual blocks, fused-kernel form.
+
+    stem_y: (B, 64, H, W) RAW stem conv output; stem_aff: (B, 2, 64) its
+    pending norm (instance [mean, inv] or batch [inv, shift]). blocks: per
+    residual block (w1, b1, w2, b2, aff_bn1, aff_bn2), the BN affines None
+    under instance norm (the conv kernels produce those statistics).
+    Returns the joined layer1 output."""
+    if norm_fn not in ("instance", "batch"):
+        raise ValueError(f"fused layer1 takes instance or batch norm, got {norm_fn!r}")
+    form = "in" if norm_fn == "instance" else "bn"
+    emit = norm_fn == "instance"
+    n = stem_y.shape[2] * stem_y.shape[3]
+    cur, cur_aff, cur_form = stem_y, stem_aff, form
+    for w1, b1, w2, b2, aff_bn1, aff_bn2 in blocks:
+        y1, s1 = fused_conv(cur, w1, b1, cur_aff, cur_form, emit_stats=emit)
+        aff1 = instance_affine_from_stats(s1, n) if emit else aff_bn1
+        y2, s2 = fused_conv(y1, w2, b2, aff1, form, emit_stats=emit)
+        aff2 = instance_affine_from_stats(s2, n) if emit else aff_bn2
+        cur = fused_join(cur, y2, aff2, form, aff_skip=cur_aff, skip_form=cur_form)
+        cur_aff, cur_form = None, "none"
+    return cur

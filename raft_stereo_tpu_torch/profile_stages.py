@@ -1,10 +1,12 @@
 """Device-time breakdown of the anytime serving stages on a CUDA card.
 
-    python -m raft_stereo_tpu_torch.profile_stages [--cases 384x512/1,512x768/1]
-        [--cudnn-benchmark off,on] [--top 8]
+    python -m raft_stereo_tpu_torch.profile_stages [--config kernel|fused]
+        [--cases 384x512/1,512x768/1] [--cudnn-benchmark off,on] [--top 8]
 
-Builds the default model with the CUDA lookup and fused GRU tails (seeded
-random weights, fp32, TF32 off), and for each (bucket, batch) case and
+Builds the default model with the CUDA lookup and fused GRU tails
+(`--config kernel`), or with the fused encoder prelude on top of them
+(`--config fused`: pyramid build, layer1 convs and joins as kernels), with
+seeded random weights, fp32, TF32 off, and for each (bucket, batch) case and
 cuDNN benchmark mode warms it, then times one prelude and one chunk of 4
 iterations (synchronized wall clock) and traces each with `torch.profiler`.
 Prints per stage the wall time, the summed device-kernel time, the device's
@@ -28,8 +30,13 @@ from raft_stereo_tpu_torch.models import anytime
 from raft_stereo_tpu_torch.models.init import build_model
 
 CHUNK_ITERS = 4
+CONFIGS = {
+    "kernel": RAFTStereoConfig(corr_implementation="pallas", fused_gru_tail=True),
+    "fused": RAFTStereoConfig(corr_implementation="pallas", fused_gru_tail=True, fused_encoder=True),
+}
 FAMILIES = (
-    ("port kernels", ("corr_lookup_kernel", "gru_tail_", "motion_tail_kernel")),
+    ("port kernels", ("corr_lookup_kernel", "gru_tail_", "motion_tail_kernel", "corr_pyramid_kernel",
+                      "encoder_conv_kernel", "encoder_stats_kernel", "join_kernel")),
     ("convolution", ("conv", "xmma", "cutlass", "implicit", "winograd", "gemm", "sm90", "fft")),
     ("copy / layout", ("copy", "transpose", "nchw", "nhwc", "cat", "memcpy", "memset", "fill")),
 )
@@ -82,6 +89,7 @@ def run_stage(label, fn, top):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--config", choices=sorted(CONFIGS), default="kernel")
     ap.add_argument("--cases", default="384x512/1,512x768/1,512x768/4")
     ap.add_argument("--cudnn-benchmark", default="off", help="comma list of off/on")
     ap.add_argument("--top", type=int, default=8)
@@ -93,15 +101,14 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True, timeout=60).stdout.strip())
-    cfg = RAFTStereoConfig(corr_implementation="pallas", fused_gru_tail=True)
-    model = build_model(cfg, seed=0, device="cuda")
+    model = build_model(CONFIGS[args.config], seed=0, device="cuda")
     for mode in args.cudnn_benchmark.split(","):
         torch.backends.cudnn.benchmark = mode == "on"
         for case in args.cases.split(","):
             hw, batch = case.split("/")
             h, w = map(int, hw.split("x"))
             img = torch.zeros((int(batch), h, w, 3), device="cuda")
-            print(f"[{h}x{w} b{batch}, cudnn.benchmark {mode}]")
+            print(f"[{args.config} config, {h}x{w} b{batch}, cudnn.benchmark {mode}]")
             with torch.inference_mode():
                 state = anytime.prelude(model, img, img)
                 run_stage("prelude", lambda: anytime.prelude(model, img, img), args.top)

@@ -1,10 +1,12 @@
 """The PyTorch port's test-mode forward, anytime split and serving core.
 
 - `RAFTStereo` against the JAX model on the same (perturbed) weights, with
-  the slice's kernel configuration (`pallas` + `fused_gru_tail`, the JAX
-  Pallas kernels in interpret mode) and with the plain `reg` one: 3
-  iterations at 48x64, rtol = atol = 1e-4 (precedent tests/test_model.py).
-- prelude + k chunks + finalize against a direct forward in the port: exact.
+  the kernel configuration (`pallas` + `fused_gru_tail`, the JAX Pallas
+  kernels in interpret mode), with that plus `fused_encoder`, and with the
+  plain `reg` one: 3 iterations at 48x64, rtol = atol = 1e-4 (precedent
+  tests/test_model.py).
+- prelude + k chunks + finalize against a direct forward in the port, in the
+  kernel and the fused-encoder configurations: exact.
 - `AnytimeEngine.run_batch` and `StereoService.submit` on the CPU against
   the direct forward, deadline early exit, and bucket overflow.
 """
@@ -24,12 +26,18 @@ from raft_stereo_tpu_torch.models.raft_stereo import RAFTStereo
 from raft_stereo_tpu_torch.serving.engine import AnytimeEngine
 from raft_stereo_tpu_torch.serving.service import BucketOverflowError, StereoService
 from raft_stereo_tpu_torch.utils.checkpoints import load_jax_variables
-from torch_parity import jax_apply, jax_init, torch_single_thread  # noqa: F401 (autouse fixture)
+from torch_parity import (  # noqa: F401 (autouse fixtures)
+    jax_apply,
+    jax_init,
+    pallas_tpu_compiler_params,
+    torch_single_thread,
+)
 
 H, W, ITERS = 48, 64, 3
 HID = (32, 32, 32)
 KERNEL = {"corr_implementation": "pallas", "fused_gru_tail": True}
 PLAIN = {"corr_implementation": "reg", "fused_gru_tail": False}
+FUSED = dict(KERNEL, fused_encoder=True)
 
 
 def _halve_kernels(tree):
@@ -65,7 +73,8 @@ def port_model(weights, **flags):
     return load_jax_variables(model, weights).eval()
 
 
-@pytest.mark.parametrize("flags", [KERNEL, PLAIN], ids=["pallas+fused_gru_tail", "reg"])
+@pytest.mark.parametrize("flags", [KERNEL, PLAIN, FUSED],
+                         ids=["pallas+fused_gru_tail", "reg", "pallas+fused_gru_tail+fused_encoder"])
 def test_forward_matches_jax(weights, images, flags):
     jm = JaxRAFTStereo(JaxConfig(hidden_dims=HID, **flags))
     want_lo, want_up = jax_apply(jm, weights, *images, iters=ITERS, test_mode=True)
@@ -78,7 +87,14 @@ def test_forward_matches_jax(weights, images, flags):
 
 
 def test_anytime_chunks_equal_direct_forward(weights, images):
-    model = port_model(weights, **KERNEL)
+    check_anytime_chunks(port_model(weights, **KERNEL), images)
+
+
+def test_fused_encoder_anytime_chunks_equal_direct_forward(weights, images):
+    check_anytime_chunks(port_model(weights, **FUSED), images)
+
+
+def check_anytime_chunks(model, images):
     i1, i2 = map(torch.from_numpy, images)
     with torch.inference_mode():
         direct = model(i1, i2, iters=6)

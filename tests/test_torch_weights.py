@@ -16,7 +16,7 @@ from raft_stereo_tpu_torch.config import RAFTStereoConfig
 from raft_stereo_tpu_torch.models.init import build_model
 from raft_stereo_tpu_torch.models.raft_stereo import RAFTStereo
 from raft_stereo_tpu_torch.utils.checkpoints import _flax_key, load_jax_variables
-from torch_parity import jax_init, torch_single_thread  # noqa: F401 (autouse fixture)
+from torch_parity import jax_init, pallas_tpu_compiler_params, torch_single_thread  # noqa: F401 (autouse fixtures)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -40,7 +40,21 @@ def _leaves(tree, prefix=()):
 
 def test_bridge_sets_every_tensor_from_its_leaf(bundle):
     cfg, variables = bundle
-    model = load_jax_variables(RAFTStereo(cfg), variables)
+    check_every_tensor_from_its_leaf(load_jax_variables(RAFTStereo(cfg), variables), variables)
+
+
+def test_bridge_takes_a_fused_encoder_tree():
+    """Variables of a JAX model initialized with `fused_encoder=True` (the
+    fused branch traced) fill the port's fused model: no leaf unused, no
+    tensor unset."""
+    img = jnp.zeros((1, 32, 64, 3))
+    flags = {"hidden_dims": (32, 48, 64), "corr_implementation": "pallas", "fused_encoder": True}
+    variables = jax_init(JaxRAFTStereo(JaxConfig(**flags)), img, img, iters=1, test_mode=True)
+    model = load_jax_variables(RAFTStereo(RAFTStereoConfig(**flags)), variables)
+    check_every_tensor_from_its_leaf(model, variables)
+
+
+def check_every_tensor_from_its_leaf(model, variables):
     leaves = {(c, *p): v for c in ("params", "batch_stats") for p, v in _leaves(variables[c])}
     state = model.state_dict()
     assert len(state) == len(leaves)

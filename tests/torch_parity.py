@@ -28,6 +28,25 @@ def torch_single_thread():
     torch.set_num_threads(prev)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def pallas_tpu_compiler_params():
+    """Lets the JAX package's fused encoder conv (`fused_conv_s2d`, which
+    names `pltpu.TPUCompilerParams`) run in Pallas interpret mode under a
+    JAX that has renamed the class to `pltpu.CompilerParams`. A no-op where
+    the old name exists; the JAX package itself is untouched. Import this
+    fixture into a test module that calls the fused conv."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    if hasattr(pltpu, "TPUCompilerParams"):
+        yield
+        return
+    pltpu.TPUCompilerParams = pltpu.CompilerParams
+    try:
+        yield
+    finally:
+        del pltpu.TPUCompilerParams
+
+
 def numpy_tree(tree):
     """A flax variables tree as nested dicts of numpy arrays."""
     if hasattr(tree, "items"):
