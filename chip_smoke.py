@@ -3,7 +3,10 @@ against its plain PyTorch version, serves requests through the anytime
 serving path at the default model's full width — in the kernel
 configuration and in the fused-encoder one — checks both end to end (the
 kernel configuration against the plain one, the fused one against the
-kernel one), compares their stage times, and times every kernel.
+kernel one), compares their stage times, trains the default model for a
+few steps at the training recipe's size (the lookup's backward as the
+scatter kernel) and checks one step against plain autograd, and times
+every kernel.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -27,11 +30,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from raft_stereo_tpu_torch.config import RAFTStereoConfig, ServeConfig
+from raft_stereo_tpu_torch.config import RAFTStereoConfig, ServeConfig, TrainConfig
 from raft_stereo_tpu_torch.models import anytime
 from raft_stereo_tpu_torch.models.raft_stereo import RAFTStereo
 from raft_stereo_tpu_torch.ops import _build, corr, corr_cuda, encoder_cuda, gru_tail
 from raft_stereo_tpu_torch.serving.service import StereoService
+from raft_stereo_tpu_torch.train.trainer import Trainer
 
 # The slice's model: the default architecture with the CUDA lookup and the
 # fused GRU tails, fp32 throughout.
@@ -40,6 +44,16 @@ PLAIN_CONFIG = RAFTStereoConfig(corr_implementation="reg", fused_gru_tail=False)
 # The second slice's model: the kernel configuration with the fused encoder
 # prelude (pyramid build, layer1 convs and joins as kernels).
 FUSED_CONFIG = RAFTStereoConfig(corr_implementation="pallas", fused_gru_tail=True, fused_encoder=True)
+# The third slice's: the training step at the train CLI's recipe (batch 6,
+# 320x720 crops, 16 iterations) with TrainConfig's optimizer and loss
+# defaults, remat on with the taps saved, fp32. The test-mode-only flags
+# are set so that the run shows their kernels never launch in training.
+TRAIN_CONFIG = RAFTStereoConfig(corr_implementation="pallas", fused_gru_tail=True, fused_encoder=True)
+TRAIN_PLAIN_CONFIG = RAFTStereoConfig(corr_implementation="reg")
+TRAIN_BATCH = 6
+TRAIN_HW = (320, 720)
+TRAIN_ITERS = 16
+TRAIN_TIMED_STEPS = 5
 SEED = 0
 DEVICE = "cuda"
 
@@ -57,7 +71,7 @@ FP32_FLOPS_PER_S = 67e12
 # unit-scale too; the volume's dot products are divided by sqrt(D)).
 # The conv statistics are held relative to sum|y| and sum y^2 per channel.
 TOL = {"corr_lookup": 1e-5, "gru_tail": 1e-6, "motion_tail": 0.0,
-       "corr_pyramid": 2e-5, "encoder_conv": 1e-4, "encoder_join": 0.0}
+       "corr_pyramid": 2e-5, "encoder_conv": 1e-4, "encoder_join": 0.0, "corr_scatter": 0.0}
 STATS_REL_TOL = 1e-5
 E2E_TOL_PX = 1e-3
 # Fused against kernel configuration: the prelude state to 1e-4 of its
@@ -68,6 +82,29 @@ E2E_TOL_PX = 1e-3
 FUSED_STATE_REL_TOL = 1e-4
 FUSED_FLOW_TOL_PX = 2e-2
 FUSED_FLOW_RTOL = 2e-2
+# The scatter kernel is built with -fmad=false and rounds where its plain
+# version does: exact (TOL["corr_scatter"] = 0). CorrLookup's d(pyramid)
+# against autograd of the plain lookup: the backward's one shared fraction
+# x - floor(x) differs from the forward's per-tap t - floor(t) by at most
+# half an ulp of t < W2 + 1, two such terms per sample plus the products'
+# rounding: 2**-23 (W2 + 3) max|g|.
+# A training step of the kernel configuration against the plain one
+# ("reg", autograd through the gather lookup) on the same weights and
+# batch: the forwards are equal, so the loss may differ only by the sum
+# order of the loss reduction (1e-6 relative); the gradients differ where
+# the shared fraction rounds and by autograd's atomic sum order in the
+# gather's backward, which the backward carries to every parameter: the
+# global norm to 1e-4 relative, each parameter's gradient to 1e-3 of its
+# own largest value — except the feature encoder trunk's, whose fp32
+# gradient passes an instance norm in every block and is ill-conditioned
+# for the cotangent the correlation hands back (tests/test_torch_train.py
+# measured two fp32 evaluations 4e-2 apart on the CPU): 1e-1, and its conv
+# biases, whose true gradient is zero (the norm removes any per-channel
+# constant): both sides' values within 1e-6 of the largest gradient.
+TRAIN_LOSS_RTOL = 1e-6
+TRAIN_NORM_RTOL = 1e-4
+TRAIN_GRAD_TOL = 1e-3
+TRAIN_FNET_GRAD_TOL = 1e-1
 
 KERNELS = {
     "corr_lookup": ("raft_stereo_tpu_torch/csrc/corr_lookup.cu", "raft_stereo_tpu/ops/corr_pallas.py:90"),
@@ -76,8 +113,9 @@ KERNELS = {
     "corr_pyramid": ("raft_stereo_tpu_torch/csrc/corr_pyramid.cu", "raft_stereo_tpu/ops/corr_pallas.py:617"),
     "encoder_conv": ("raft_stereo_tpu_torch/csrc/encoder_conv.cu", "raft_stereo_tpu/ops/encoder_pallas.py:109"),
     "encoder_join": ("raft_stereo_tpu_torch/csrc/encoder_join.cu", "raft_stereo_tpu/ops/encoder_pallas.py:275"),
+    "corr_scatter": ("raft_stereo_tpu_torch/csrc/corr_scatter.cu", "raft_stereo_tpu/ops/corr_pallas.py:156"),
 }
-SOURCES = ("corr_lookup", "gru_tail", "corr_pyramid", "encoder_conv", "encoder_join")
+SOURCES = ("corr_lookup", "gru_tail", "corr_pyramid", "encoder_conv", "encoder_join", "corr_scatter")
 # Requests each serving phase answers: (label, (H, W), deadline ms or None).
 REQUESTS = [
     ("384x512 bucket", (384, 512), None),
@@ -324,6 +362,175 @@ def phase_fused_kernels(gen) -> dict:
     return errs
 
 
+def scatter_inputs(gen, b, h, w1, w2, levels=4, radius=4):
+    """The lookup's coordinates at the recipe's 1/4 resolution (mostly in
+    range, 10% far outside on both sides) with the adversarial values in
+    the first row (negative, 0, integral, W2_l - 1, W2, +-1e6, NaN, inf),
+    and a unit-scale tap cotangent."""
+    _, coords = lookup_inputs(gen, b, h, w1, w2, levels, radius)
+    special = [-1.0, -3.5, 0.0, 3.0, float(w2), 1e6, -1e6, float("nan"), float("inf"), float("-inf")]
+    special += [float(((w2 >> l) - 1) << l) for l in range(levels)]
+    coords.view(-1)[: len(special)] = torch.tensor(special, device=DEVICE)
+    grad = torch.randn((b, h, w1, levels * (2 * radius + 1)), generator=gen, device=DEVICE)
+    return coords, grad, [w2 >> l for l in range(levels)]
+
+
+def phase_scatter_kernels(gen) -> dict:
+    """The scatter kernel against its plain version at the recipe's shape
+    (bitwise reproducible: no atomics), and CorrLookup's d(pyramid) against
+    autograd of the plain lookup."""
+    b, h, w = TRAIN_BATCH, TRAIN_HW[0] // 4, TRAIN_HW[1] // 4
+    coords, grad, widths = scatter_inputs(gen, b, h, w, w)
+    got = corr_cuda.corr_scatter(coords, grad, widths, 4)
+    again = corr_cuda.corr_scatter(coords, grad, widths, 4)
+    torch.cuda.synchronize()
+    want = corr_cuda.plain_corr_scatter(coords, grad, widths, 4)
+    err = max(max_err(g, w_) for g, w_ in zip(got, want))
+    same = all(torch.equal(g, a) for g, a in zip(got, again))
+    log(f"[kernels] corr_scatter b{b} {h}x{w} (W2 {w}, widths {widths}, adversarial coords): max abs diff "
+        f"{err:.3e} (tol {TOL['corr_scatter']:g}); two launches bitwise equal: {same}")
+    if not err <= TOL["corr_scatter"] or not same:
+        raise AssertionError(f"corr_scatter disagrees with its plain version ({err}) or is not reproducible")
+    del got, again, want
+    finite = torch.isfinite(coords)
+    coords = torch.where(finite, coords, torch.zeros_like(coords))
+    levels = [torch.randn((b, h, w, wl), generator=gen, device=DEVICE).requires_grad_() for wl in widths]
+    plain = [lvl.detach().clone().requires_grad_() for lvl in levels]
+    corr_cuda.corr_lookup(levels, coords, 4).backward(grad)
+    corr.corr_lookup(plain, coords, 4).backward(grad)
+    torch.cuda.synchronize()
+    err_ag = max(max_err(a.grad, p_.grad) for a, p_ in zip(levels, plain))
+    tol = 2.0**-23 * (w + 3) * float(grad.abs().max().item())
+    log(f"[kernels] CorrLookup d(pyramid) vs autograd of the plain lookup: max abs diff {err_ag:.3e} "
+        f"(tol 2**-23 (W2 + 3) max|g| = {tol:.3e})")
+    if not err_ag <= tol:
+        raise AssertionError(f"CorrLookup's gradient disagrees with autograd of the plain lookup: {err_ag}")
+    return {"corr_scatter": err}
+
+
+def train_batch(rng, b, h, w, max_disp=48.0):
+    """A synthetic training batch: a textured right image, a smooth
+    per-pixel disparity d (a slanted plane plus ripples, 2..max_disp px),
+    the left image sampled from the right at x - d (linear), flow = -d; a
+    pixel is invalid where x - d leaves the image, and 5% more at random."""
+    right = np.empty((b, h, w, 3), np.float32)
+    left = np.empty_like(right)
+    flow = np.empty((b, h, w, 1), np.float32)
+    valid = np.empty((b, h, w), np.float32)
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    for i in range(b):
+        # Texture: white noise blurred along x, at several scales.
+        tex = rng.uniform(0, 255, (h, w + 4, 3)).astype(np.float32)
+        tex = (tex[:, :-4] + tex[:, 1:-3] + tex[:, 2:-2] + tex[:, 3:-1] + tex[:, 4:]) / 5.0
+        right[i] = tex
+        a, bx, by = rng.uniform(0.3, 0.7), rng.uniform(-0.02, 0.02), rng.uniform(-0.02, 0.02)
+        d = max_disp * (a + bx * (xs - w / 2) / 10 + by * (ys - h / 2) / 10
+                        + 0.1 * np.sin(xs / rng.uniform(20, 60)) * np.cos(ys / rng.uniform(20, 60)))
+        d = np.clip(d, 2.0, max_disp).astype(np.float32)
+        src = xs - d
+        x0 = np.floor(src).astype(np.int64)
+        f = (src - x0)[..., None]
+        x0c, x1c = np.clip(x0, 0, w - 1), np.clip(x0 + 1, 0, w - 1)
+        row = np.arange(h)[:, None]
+        left[i] = tex[row, x0c] * (1 - f) + tex[row, x1c] * f
+        flow[i, ..., 0] = -d
+        valid[i] = ((src >= 0) & (rng.uniform(0, 1, (h, w)) >= 0.05)).astype(np.float32)
+    return {"image1": left, "image2": right, "flow": flow, "valid": valid}
+
+
+def phase_train(rng) -> tuple:
+    """The training step at the recipe: one warm step, then timed steps,
+    each with its launch counts. Returns (trainer, launch counts over the
+    timed steps, a batch for the e2e check)."""
+    h, w = TRAIN_HW
+    cfg = TrainConfig(model=TRAIN_CONFIG, batch_size=TRAIN_BATCH, train_iters=TRAIN_ITERS, seed=SEED)
+    t0 = time.perf_counter()
+    batches = [train_batch(rng, TRAIN_BATCH, h, w) for _ in range(3)]
+    log(f"[train] {len(batches)} synthetic batches of {TRAIN_BATCH}x{h}x{w} from seed {SEED}: "
+        f"{time.perf_counter() - t0:.2f} s; valid share {np.mean([b_['valid'].mean() for b_ in batches]):.3f}")
+    trainer = Trainer(cfg, (h, w, 3), device=DEVICE)
+    before = [p.detach().clone() for p in trainer.model.parameters()]
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    m = trainer.train_step(batches[0])
+    torch.cuda.synchronize()
+    log(f"[train] warm step: loss {m['live_loss']:.6f}, grad_norm {m['grad_norm']:.6f}, lr {m['learning_rate']:.6e}, "
+        f"{time.perf_counter() - t:.3f} s")
+    per_step = {"corr_lookup": TRAIN_ITERS, "corr_scatter": TRAIN_ITERS, "corr_pyramid": 0, "encoder_conv": 0,
+                "encoder_join": 0, "gru_tail": 0, "motion_tail": 0}
+    reset_launches()
+    secs = []
+    for i in range(TRAIN_TIMED_STEPS):
+        before_counts = launches()
+        t = time.perf_counter()
+        m = trainer.train_step(batches[(i + 1) % len(batches)])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        delta = {k: v - before_counts[k] for k, v in launches().items()}
+        log(f"[train] step {trainer.step}: loss {m['live_loss']:.6f}, grad_norm {m['grad_norm']:.6f}, "
+            f"lr {m['learning_rate']:.6e}, epe {m['epe']:.4f}, {secs[-1]:.3f} s, launches {delta}")
+        if not (np.isfinite(m["live_loss"]) and np.isfinite(m["grad_norm"]) and m["nonfinite"] == 0.0):
+            raise AssertionError(f"training step {trainer.step} is not finite: {m}")
+        if delta != per_step:
+            raise AssertionError(f"training step {trainer.step}: kernel launches {delta} != expected {per_step}")
+    totals = launches()
+    changed = sum(not torch.equal(a, p_) for a, p_ in zip(before, trainer.model.parameters()))
+    log(f"[train] median {statistics.median(secs):.3f} s/step over {TRAIN_TIMED_STEPS} steps "
+        f"(all: {', '.join(f'{x:.3f}' for x in secs)}); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({torch.cuda.max_memory_allocated()} B); "
+        f"{changed} of {len(before)} parameter tensors changed; launches over the timed steps {totals}")
+    if changed == 0:
+        raise AssertionError("training did not change the parameters")
+    return trainer, totals, batches[0]
+
+
+def step_grads(model_cfg, batch) -> tuple:
+    """One Trainer step from the seed's weights; returns (metrics, trainer
+    with the step's clipped gradients in .grad)."""
+    h, w = TRAIN_HW
+    cfg = TrainConfig(model=model_cfg, batch_size=TRAIN_BATCH, train_iters=TRAIN_ITERS, seed=SEED)
+    trainer = Trainer(cfg, (h, w, 3), device=DEVICE)
+    metrics = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    return metrics, trainer
+
+
+def phase_train_e2e(batch) -> None:
+    """One step of the kernel configuration against the plain one (the
+    "reg" lookup, autograd through its gather) from the same seeded weights
+    and batch: loss, global gradient norm, each parameter's gradient."""
+    mk, tk = step_grads(TRAIN_CONFIG, batch)
+    gk = {n: p.grad.detach().clone() for n, p in tk.model.named_parameters()}
+    del tk
+    mp, tp = step_grads(TRAIN_PLAIN_CONFIG, batch)
+    gp = {n: p.grad for n, p in tp.model.named_parameters()}
+    loss_rel = abs(mk["live_loss"] - mp["live_loss"]) / abs(mp["live_loss"])
+    norm_rel = abs(mk["grad_norm"] - mp["grad_norm"]) / mp["grad_norm"]
+    largest = float(max(g.abs().max().item() for g in gp.values()))
+    worst, worst_fnet = (0.0, ""), (0.0, "")
+    for name, g in gp.items():
+        a = gk[name]
+        fnet_trunk = name.startswith("fnet.trunk.")
+        if fnet_trunk and name.endswith(".bias") and "norm" not in name:
+            noise = max(float(a.abs().max().item()), float(g.abs().max().item())) / largest
+            if not noise <= 1e-6:
+                raise AssertionError(f"train e2e: {name} (a zero gradient) is {noise} of the largest gradient")
+            continue
+        rel = max_err(a, g) / max(float(g.abs().max().item()), 1e-30)
+        if fnet_trunk:
+            worst_fnet = max(worst_fnet, (rel, name))
+        else:
+            worst = max(worst, (rel, name))
+    log(f"[train-e2e] b{TRAIN_BATCH} {TRAIN_HW[0]}x{TRAIN_HW[1]}, {TRAIN_ITERS} iters, kernels vs plain autograd: "
+        f"loss {mk['live_loss']:.7f} vs {mp['live_loss']:.7f} (rel {loss_rel:.3e}, tol {TRAIN_LOSS_RTOL:g}); "
+        f"grad_norm {mk['grad_norm']:.6f} vs {mp['grad_norm']:.6f} (rel {norm_rel:.3e}, tol {TRAIN_NORM_RTOL:g}); "
+        f"worst parameter gradient {worst[0]:.3e} of its max ({worst[1]}, tol {TRAIN_GRAD_TOL:g}); "
+        f"feature-encoder trunk worst {worst_fnet[0]:.3e} ({worst_fnet[1]}, tol {TRAIN_FNET_GRAD_TOL:g})")
+    if not (loss_rel <= TRAIN_LOSS_RTOL and norm_rel <= TRAIN_NORM_RTOL and worst[0] <= TRAIN_GRAD_TOL
+            and worst_fnet[0] <= TRAIN_FNET_GRAD_TOL):
+        raise AssertionError("the kernel configuration's training step disagrees with the plain one")
+
+
 def stereo_pair(rng, h, w, shift=12):
     """A textured pair whose right image is the left shifted by `shift` px."""
     left = rng.uniform(0, 255, (h, w + shift, 3)).astype(np.float32)
@@ -360,7 +567,7 @@ def phase_serving(rng) -> tuple:
     if any(r["iters_completed"] != cfg.max_iters for _, r in responses[:-1]):
         raise AssertionError("a request without a deadline stopped short of max_iters")
     want = {"corr_lookup": iters_total, "gru_tail": 3 * iters_total, "motion_tail": iters_total,
-            "corr_pyramid": 0, "encoder_conv": 0, "encoder_join": 0}
+            "corr_pyramid": 0, "encoder_conv": 0, "encoder_join": 0, "corr_scatter": 0}
     if counts != want:
         raise AssertionError(f"kernel launches {counts} != expected {want}")
     return service, counts
@@ -401,8 +608,8 @@ def phase_end_to_end(service, rng) -> None:
     i1 = torch.from_numpy(i1[None]).cuda()
     i2 = torch.from_numpy(i2[None]).cuda()
     with torch.inference_mode():
-        lo_k, up_k = kernel_model(i1, i2, iters=4)
-        lo_p, up_p = plain_model(i1, i2, iters=4)
+        lo_k, up_k = kernel_model(i1, i2, iters=4, test_mode=True)
+        lo_p, up_p = plain_model(i1, i2, iters=4, test_mode=True)
     torch.cuda.synchronize()
     err_up, err_lo = max_err(up_k, up_p), max_err(lo_k, lo_p)
     log(f"[e2e] 384x512, 4 iters, kernels vs plain: flow_up max abs diff {err_up:.3e} px, "
@@ -433,7 +640,7 @@ def phase_serving_fused(rng, weights) -> tuple:
         delta = {k: v - before[k] for k, v in launches().items()}
         it = res["iters_completed"]
         want = {"corr_lookup": it, "gru_tail": 3 * it, "motion_tail": it,
-                "corr_pyramid": 1, "encoder_conv": 8, "encoder_join": 4}
+                "corr_pyramid": 1, "encoder_conv": 8, "encoder_join": 4, "corr_scatter": 0}
         log(f"[fused] {label}: bucket {res['bucket']}, iters_completed {it}, early_exit {res['early_exit']}, "
             f"latency {res['latency_ms']:.3f} ms, launches {delta}")
         disp = res["disparity"]
@@ -447,7 +654,7 @@ def phase_serving_fused(rng, weights) -> tuple:
             raise AssertionError("fused: a request without a deadline stopped short of max_iters")
     counts = launches()
     log(f"[fused] launches over {len(REQUESTS)} requests: {counts}")
-    if any(v == 0 for v in counts.values()):
+    if any(v == 0 for k, v in counts.items() if k != "corr_scatter"):
         raise AssertionError(f"a kernel of the fused path was never launched: {counts}")
     return service, counts
 
@@ -530,9 +737,11 @@ def phase_timing(gen, errs, counts) -> list:
             "library_ms": library_ms,
         }
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        where = (f"{TRAIN_TIMED_STEPS} training steps" if name == "corr_scatter"
+                 else f"{len(REQUESTS)} requests")
         log(f"[timing] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {e['bound_ms']:.4f} ms "
             f"({e['bound_by']}, {nbytes} B, {flops} ops), library {lib}, "
-            f"launches {counts[name]} over {len(REQUESTS)} requests")
+            f"launches {counts[name]} over {where}")
         out.append(e)
 
     for label, (hh, ww) in (("512x768", (512, 768)), ("1984x2880", (1984, 2880))):
@@ -620,6 +829,35 @@ def phase_timing(gen, errs, counts) -> list:
                     f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
             del x, z
 
+    # The scatter at the training recipe's 1/4 resolution. Its library
+    # yardstick is the backward of the F.grid_sample lookup timed above as
+    # the lookup's: autograd.grad of its output with respect to the sampled
+    # rows (atomic adds), on the same coordinates and cotangent.
+    b, h, w = TRAIN_BATCH, TRAIN_HW[0] // 4, TRAIN_HW[1] // 4
+    pyramid, coords = lookup_inputs(gen, b, h, w, w)
+    widths = [lvl.shape[-1] for lvl in pyramid]
+    grad = torch.randn((b, h, w, 36), generator=gen, device=DEVICE)
+    ms = time_ms(lambda: corr_cuda.corr_scatter(coords, grad, widths, 4), flush=flush)
+    plain_ms = time_ms(lambda: corr_cuda.plain_corr_scatter(coords, grad, widths, 4), flush=flush)
+    rows, grid = grid_sample_lookup_inputs(pyramid, coords, 4)
+    rows.requires_grad_()
+    sampled = F.grid_sample(rows, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+    # The cotangent in grid_sample's (level, query, tap) order.
+    gout = grad.reshape(-1, 4, 9).permute(1, 0, 2).reshape(sampled.shape).contiguous()
+    lib_ms = time_ms(lambda: torch.autograd.grad(sampled, rows, gout, retain_graph=True), flush=flush)
+    (d_rows,) = torch.autograd.grad(sampled, rows, gout, retain_graph=True)
+    d_rows = d_rows.reshape(4, -1, w)
+    lib_err = max(max_err(d_rows[l, :, :wl].reshape(b, h, w, wl), d)
+                  for l, (wl, d) in enumerate(zip(widths, corr_cuda.corr_scatter(coords, grad, widths, 4))))
+    log(f"[timing] corr_scatter b{b} {h}x{w}: library is autograd.grad of the F.grid_sample lookup "
+        f"(per-tap fractions, atomic adds); its d(pyramid) vs the kernel's max abs diff {lib_err:.3e}")
+    n_q = coords.numel()
+    # Coordinates and cotangent read once, every level's dense row written
+    # once; a multiply-add pair per output inside the window.
+    nbytes = 4 * (n_q + n_q * 36 + n_q * sum(widths))
+    entry("corr_scatter", ms, plain_ms, nbytes, 3 * n_q * 4 * 10, lib_ms)
+    del pyramid, coords, grad, rows, grid, sampled, gout, d_rows
+
     hw = 512 * 768
     skip = torch.randn((1, 64, 512, 768), generator=gen, device=DEVICE)
     y = torch.randn((1, 64, 512, 768), generator=gen, device=DEVICE)
@@ -655,10 +893,17 @@ def main() -> int:
     phase_stage_compare(service, fused_service)
     del service, fused_service
     torch.cuda.empty_cache()
-    # Each kernel's launches come from the serving run of the configuration
-    # whose slice added it.
+    errs.update(phase_scatter_kernels(gen))
+    trainer, train_counts, batch = phase_train(rng)
+    del trainer
+    torch.cuda.empty_cache()
+    phase_train_e2e(batch)
+    torch.cuda.empty_cache()
+    # Each kernel's launches come from the main-path run of the slice that
+    # added it: serving for the forward kernels, training for the scatter.
     for name in ("corr_pyramid", "encoder_conv", "encoder_join"):
         counts[name] = fused_counts[name]
+    counts["corr_scatter"] = train_counts["corr_scatter"]
     kernels = phase_timing(gen, errs, counts)
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -1,15 +1,18 @@
 """Configuration of the PyTorch port: the fields the ported path reads.
 
 A copy, not an import, of the matching parts of `raft_stereo_tpu/config.py`
-(`RAFTStereoConfig`, `input_channels`, the modality constants and the
-serving subset of `ServeConfig`): the port runs on machines without JAX and
-imports nothing from the JAX package. Defaults and validation match the
-original field for field.
+(`RAFTStereoConfig`, `input_channels`, the modality constants, the serving
+subset of `ServeConfig` and the training-step subset of `TrainConfig`): the
+port runs on machines without JAX and imports nothing from the JAX package.
+Defaults and validation match the original field for field.
 
 Not yet ported, so not present: `mixed_precision` and `corr_dtype` (the port
 runs fp32 throughout), the `"alt"` correlation strategy, `shared_backbone`,
-`sequential_encoder`, `prefetch_lookup`, and every serving
-option beyond the anytime engine's (batcher, fleet, AOT cache, streams).
+`sequential_encoder`, `prefetch_lookup`, `encoder_s2d` (a TPU layout; the
+port computes its values with the direct convs), every serving option beyond
+the anytime engine's (batcher, fleet, AOT cache, streams), and every training
+option beyond one process's optimizer step (data, augmentation, mesh,
+checkpoints, resilience beyond `nan_policy` "raise"/"skip", logging sinks).
 """
 
 from __future__ import annotations
@@ -29,6 +32,10 @@ MODALITIES = (MODALITY_RGB, MODALITY_PASSIVE_GATED, MODALITY_ALL_GATED)
 # samples the same pyramid with the hand-written CUDA kernel
 # (ops/corr_cuda.py).
 CORR_IMPLEMENTATIONS = ("reg", "pallas")
+# Non-finite loss or gradient norm: "raise" fails the step; "skip" drops
+# the update (params and optimizer state untouched) and goes on. The JAX
+# package's third policy, "rollback", needs checkpoints and is not ported.
+NAN_POLICIES = ("raise", "skip")
 
 
 def input_channels(data_modality: str) -> int:
@@ -61,11 +68,22 @@ class RAFTStereoConfig:
     # volume and pyramid are built in one kernel (ops/corr_cuda.py
     # `fused_pyramid_state`). Applies where the JAX package's does: even W
     # at stem resolution, instance or batch norm. Test-mode forwards only,
-    # as in JAX: the kernels have no backward. The port has no train-mode
-    # forward yet; the training slice must gate this flag on test mode, as
-    # `raft_stereo_tpu/models/raft_stereo.py` does (`fused = cfg.fused_encoder
-    # and test_mode`).
+    # as in JAX (`fused = cfg.fused_encoder and test_mode`): the kernels
+    # have no backward, so a training forward takes the direct path.
     fused_encoder: bool = False
+    # Rematerialize each GRU iteration in the backward pass
+    # (`torch.utils.checkpoint` of the iteration body): training memory
+    # drops from O(iters * per-iteration activations) to O(iters * carry) at
+    # the cost of one extra forward per iteration in backward. No effect on
+    # test-mode forwards.
+    remat_iterations: bool = True
+    # With remat_iterations on, additionally SAVE the correlation-lookup
+    # taps across the forward pass instead of recomputing them in backward
+    # (the JAX package's "save_only_these_names" policy on the taps): the
+    # lookup runs outside the checkpointed body, so its kernel runs once per
+    # iteration. The taps are small, (B, L*(2r+1), H/2^K, W/2^K) per
+    # iteration.
+    remat_save_corr: bool = True
 
     @property
     def context_dims(self) -> Tuple[int, ...]:
@@ -146,3 +164,29 @@ class ServeConfig:
             b *= 2
         sizes.append(self.max_batch)
         return tuple(sizes)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The training step's part of the training config (the JAX package's
+    `TrainConfig`, reference train_stereo.py:234-272): model, batch,
+    optimizer, schedule, loss and the non-finite policy."""
+
+    model: RAFTStereoConfig = dataclasses.field(default_factory=RAFTStereoConfig)
+    batch_size: int = 6
+    lr: float = 2e-4
+    num_steps: int = 100_000
+    train_iters: int = 16
+    wdecay: float = 1e-5
+    # Loss (train_stereo.py:35-70).
+    loss_gamma: float = 0.9
+    max_flow: float = 700.0
+    grad_clip_norm: float = 1.0
+    seed: int = 1234
+    nan_policy: str = "raise"
+    # Steps between metric lines that `Trainer.fit` logs.
+    log_every: int = 100
+
+    def __post_init__(self):
+        if self.nan_policy not in NAN_POLICIES:
+            raise ValueError(f"nan_policy {self.nan_policy!r} not in {NAN_POLICIES}")

@@ -7,7 +7,7 @@ counterpart of `raft_stereo_tpu/models/anytime.py`.
 
 All three run on one `RAFTStereo` module's parameters, through the same
 methods its `forward` uses, so prelude + k chunks + finalize equals
-`model(i1, i2, iters=k * chunk_iters)` exactly. The state is the dict
+`model(i1, i2, iters=k * chunk_iters, test_mode=True)` exactly. The state is the dict
 {"net", "coords1", "context", "corr", "coords0"}.
 """
 
@@ -22,7 +22,7 @@ from raft_stereo_tpu_torch.models.raft_stereo import RAFTStereo
 
 def prelude(model: RAFTStereo, image1: torch.Tensor, image2: torch.Tensor,
             flow_init: Optional[torch.Tensor] = None) -> dict:
-    return model.apply_flow_init(model.encode_features(image1, image2), flow_init)
+    return model.apply_flow_init(model.encode_features(image1, image2, test_mode=True), flow_init)
 
 
 def chunk(model: RAFTStereo, state: dict, chunk_iters: int) -> dict:

@@ -9,7 +9,10 @@ finest scale first.
 `fused_layer1` (config.fused_encoder) runs the stem norm and layer1 through
 the fused kernels of ops/encoder_cuda.py, on the same parameters, where the
 JAX package's `EncoderTrunk` takes its fused branch: even W at stem
-resolution and instance or batch norm.
+resolution and instance or batch norm, and only in a test-mode forward
+(`forward(x, test_mode=True)`), as the JAX model builds its encoders with
+`fused_layer1=cfg.fused_encoder and test_mode`: the kernels have no
+backward, so a training forward takes the direct path.
 """
 
 from __future__ import annotations
@@ -45,9 +48,10 @@ class EncoderTrunk(nn.Module):
         self.layer3_0 = ResidualBlock(96, 128, norm_fn, stride=s2)
         self.layer3_1 = ResidualBlock(128, 128, norm_fn, stride=1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, test_mode: bool = False) -> torch.Tensor:
         x = self.conv1(x)
-        if self.fused_layer1 and x.shape[3] % 2 == 0 and self.norm_fn in ("instance", "batch"):
+        if (self.fused_layer1 and test_mode and x.shape[3] % 2 == 0
+                and self.norm_fn in ("instance", "batch")):
             x = self._fused_layer1(x)
         else:
             x = self.layer1_1(self.layer1_0(torch.relu(self.norm1(x))))
@@ -81,8 +85,8 @@ class BasicEncoder(nn.Module):
         self.trunk = EncoderTrunk(norm_fn, downsample, in_channels, fused_layer1)
         self.conv2 = Conv(128, output_dim, 1, padding=0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv2(self.trunk(x))
+    def forward(self, x: torch.Tensor, test_mode: bool = False) -> torch.Tensor:
+        return self.conv2(self.trunk(x, test_mode))
 
 
 class MultiBasicEncoder(nn.Module):
@@ -121,8 +125,8 @@ class MultiBasicEncoder(nn.Module):
             return tuple(mods[f"out{scale}_{j}"](mods[f"res{scale}_{j}"](x)) for j in range(self.n_heads))
         return tuple(mods[f"out{scale}_{j}"](x) for j in range(self.n_heads))
 
-    def forward(self, x: torch.Tensor):
-        x = self.trunk(x)
+    def forward(self, x: torch.Tensor, test_mode: bool = False):
+        x = self.trunk(x, test_mode)
         scales = [self._heads(x, "08")]
         if self.num_layers >= 2:
             y = self.layer4_1(self.layer4_0(x))

@@ -1,12 +1,20 @@
-"""RAFT-Stereo test-mode forward on PyTorch: counterpart of
+"""RAFT-Stereo forward on PyTorch, test and train mode: counterpart of
 `raft_stereo_tpu/models/raft_stereo.py` (`encode_features`, `_corr_state`,
-`_corr_sample`, `_IterationBody`, `RAFTStereo(test_mode=True)`).
+`_corr_sample`, `_IterationBody`, `RAFTStereo`).
 
 Modules compute in NCHW; the public edges keep the JAX package's shapes:
-images (B, H, W, C) in [0, 255], `flow_lowres` (B, H/f, W/f) and `flow_up`
-(B, H, W, 1). The refinement loop is a Python loop over `iteration_step`,
-and the serving tier's chunked forward (models/anytime.py) is built from
-the same three functions as `RAFTStereo.forward`, so both agree exactly.
+images (B, H, W, C) in [0, 255]; in test mode `flow_lowres` (B, H/f, W/f)
+and `flow_up` (B, H, W, 1); in train mode the per-iteration upsampled
+flows in the blocked layout (iters, B, H/f, f, W/f, f). The refinement loop
+is a Python loop over `iteration_step`, and the serving tier's chunked
+forward (models/anytime.py) is built from the same three functions as the
+test-mode `RAFTStereo.forward`, so both agree exactly.
+
+The training forward detaches the coordinates at the start of every
+iteration, as JAX's `stop_gradient` does, and with `remat_iterations` runs
+each iteration body under `torch.utils.checkpoint`; with `remat_save_corr`
+the lookup stays outside it, so the taps are saved and the lookup kernel
+never runs again in backward.
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from raft_stereo_tpu_torch.config import RAFTStereoConfig
 from raft_stereo_tpu_torch.models.extractor import BasicEncoder, MultiBasicEncoder
@@ -22,18 +31,21 @@ from raft_stereo_tpu_torch.models.layers import Conv
 from raft_stereo_tpu_torch.models.update import BasicMultiUpdateBlock, UpsampleMaskHead
 from raft_stereo_tpu_torch.ops import corr as corr_ops
 from raft_stereo_tpu_torch.ops import corr_cuda
-from raft_stereo_tpu_torch.utils.geometry import convex_upsample, coords_grid_x
+from raft_stereo_tpu_torch.utils.geometry import convex_upsample, convex_upsample_blocked, coords_grid_x
 
 
-def corr_state(cfg: RAFTStereoConfig, fmap1: torch.Tensor, fmap2: torch.Tensor):
+def corr_state(cfg: RAFTStereoConfig, fmap1: torch.Tensor, fmap2: torch.Tensor, test_mode: bool):
     """Loop-invariant correlation state from NCHW feature maps: the pooled
     pyramid, (B, H, W1, W2 // 2**l) per level, for both strategies; with
-    "pallas" and `fused_encoder` built by one kernel (as in JAX, the flag
-    leaves the "reg" pyramid to the plain ops)."""
+    "pallas" and `fused_encoder` in test mode built by one kernel (as in
+    JAX, the flag leaves the "reg" pyramid to the plain ops). In train mode
+    the "pallas" pyramid is the plain volume and pooling, so autograd
+    reaches the feature maps through them, as JAX's autodiff does through
+    `pallas_corr_state`."""
     f1 = fmap1.permute(0, 2, 3, 1)
     f2 = fmap2.permute(0, 2, 3, 1)
     if cfg.corr_implementation == "pallas":
-        if cfg.fused_encoder:
+        if cfg.fused_encoder and test_mode:
             return corr_cuda.fused_pyramid_state(f1, f2, cfg.corr_levels)
         return corr_cuda.corr_state(f1, f2, cfg.corr_levels)
     return tuple(corr_ops.corr_pyramid(corr_ops.corr_volume(f1, f2), cfg.corr_levels))
@@ -49,8 +61,8 @@ def corr_sample(cfg: RAFTStereoConfig, state, coords: torch.Tensor) -> torch.Ten
 
 
 class RAFTStereo(nn.Module):
-    """Full model, test mode. Submodule names follow the JAX parameter tree
-    ("cnet", "fnet", "context_zqr_conv{i}", "update_block", "mask_head")."""
+    """Full model. Submodule names follow the JAX parameter tree ("cnet",
+    "fnet", "context_zqr_conv{i}", "update_block", "mask_head")."""
 
     # utils/checkpoints.py: the JAX package scans the update block under
     # the module "iteration".
@@ -78,7 +90,7 @@ class RAFTStereo(nn.Module):
         )
         self.mask_head = UpsampleMaskHead(cfg.n_downsample, cfg.hidden_dims[2])
 
-    def encode_features(self, image1: torch.Tensor, image2: torch.Tensor) -> dict:
+    def encode_features(self, image1: torch.Tensor, image2: torch.Tensor, test_mode: bool) -> dict:
         """Everything before the first GRU iteration: normalization, both
         encoders, the context biases, the correlation state and the
         coordinate grid. Returns the refinement state dict
@@ -86,8 +98,8 @@ class RAFTStereo(nn.Module):
         cfg = self.config
         image1 = (2.0 * (image1 / 255.0) - 1.0).permute(0, 3, 1, 2).contiguous()
         image2 = (2.0 * (image2 / 255.0) - 1.0).permute(0, 3, 1, 2).contiguous()
-        scales = self.cnet(image1)
-        fmaps = self.fnet(torch.cat([image1, image2], dim=0))
+        scales = self.cnet(image1, test_mode)
+        fmaps = self.fnet(torch.cat([image1, image2], dim=0), test_mode)
         fmap1, fmap2 = torch.chunk(fmaps, 2, dim=0)
 
         net = tuple(torch.tanh(s[0]) for s in scales)
@@ -99,28 +111,40 @@ class RAFTStereo(nn.Module):
             context.append(tuple(c.contiguous() for c in torch.chunk(czqr, 3, dim=1)))
 
         b, _, h, w = net[0].shape
-        coords0 = coords_grid_x(b, h, w, device=net[0].device)
+        coords0 = coords_grid_x(b, h, w, device=net[0].device, dtype=net[0].dtype)
         return {
             "net": net,
             "coords1": coords0,
             "context": tuple(context),
-            "corr": corr_state(cfg, fmap1, fmap2),
+            "corr": corr_state(cfg, fmap1, fmap2, test_mode),
             "coords0": coords0,
         }
 
     def iteration_step(self, state: dict) -> dict:
-        """One GRU refinement step: lookup, motion encoder, GRUs, flow head."""
+        """One test-mode GRU refinement step: lookup, motion encoder, GRUs,
+        flow head."""
+        net, coords1 = self._update(state, state["net"], state["coords1"].detach(), None, test_mode=True)
+        return dict(state, net=net, coords1=coords1)
+
+    def _update(self, state: dict, net, coords1: torch.Tensor, corr: Optional[torch.Tensor],
+                test_mode: bool):
+        """The iteration body from (net, coords1) to the next (net, coords1);
+        the lookup runs here unless its taps `corr` are given."""
         cfg = self.config
-        net, coords1, context = state["net"], state["coords1"], state["context"]
-        corr = corr_sample(cfg, state["corr"], coords1)
+        context = state["context"]
+        if corr is None:
+            corr = corr_sample(cfg, state["corr"], coords1)
         flow = (coords1 - state["coords0"])[:, None]
         n = cfg.n_gru_layers
         if cfg.slow_fast_gru and n == 3:
-            net = self.update_block(net, context, iter32=True, iter16=False, iter08=False, update=False)
+            net = self.update_block(net, context, iter32=True, iter16=False, iter08=False, update=False,
+                                    test_mode=test_mode)
         if cfg.slow_fast_gru and n >= 2:
-            net = self.update_block(net, context, iter32=n == 3, iter16=True, iter08=False, update=False)
-        net, delta_flow = self.update_block(net, context, corr, flow, iter32=n == 3, iter16=n >= 2)
-        return dict(state, net=net, coords1=coords1 + delta_flow[:, 0])
+            net = self.update_block(net, context, iter32=n == 3, iter16=True, iter08=False, update=False,
+                                    test_mode=test_mode)
+        net, delta_flow = self.update_block(net, context, corr, flow, iter32=n == 3, iter16=n >= 2,
+                                            test_mode=test_mode)
+        return net, coords1 + delta_flow[:, 0]
 
     def finalize(self, state: dict):
         """Mask head + convex upsample on the current state:
@@ -140,8 +164,40 @@ class RAFTStereo(nn.Module):
         return dict(state, coords1=state["coords1"] + flow_init)
 
     def forward(self, image1: torch.Tensor, image2: torch.Tensor, iters: int = 12,
-                flow_init: Optional[torch.Tensor] = None):
-        state = self.apply_flow_init(self.encode_features(image1, image2), flow_init)
+                flow_init: Optional[torch.Tensor] = None, test_mode: bool = False):
+        """test_mode=True: (flow_lowres (B, h, w), flow_up (B, H, W, 1)).
+        test_mode=False: the per-iteration upsampled flows, blocked
+        (iters, B, h, f, w, f) with element [it, b, y, i, x, j] at full-res
+        pixel (y*f + i, x*f + j) (`utils.geometry.unblock_predictions` gives
+        the row-major (iters, B, H, W, 1) stack)."""
+        state = self.apply_flow_init(self.encode_features(image1, image2, test_mode), flow_init)
+        if test_mode:
+            for _ in range(iters):
+                state = self.iteration_step(state)
+            return self.finalize(state)
+        return self._train_iterations(state, iters)
+
+    def _train_iterations(self, state: dict, iters: int) -> torch.Tensor:
+        """The training refinement loop, then the mask head once over the
+        stacked per-iteration hidden states and the convex upsample of every
+        iteration's flow (the JAX model's batched form after its scan)."""
+        cfg = self.config
+        remat = cfg.remat_iterations
+        lookup_outside = not remat or cfg.remat_save_corr
+        net, coords1 = state["net"], state["coords1"]
+        flows, net0s = [], []
         for _ in range(iters):
-            state = self.iteration_step(state)
-        return self.finalize(state)
+            coords1 = coords1.detach()
+            corr = corr_sample(cfg, state["corr"], coords1) if lookup_outside else None
+            if remat:
+                net, coords1 = checkpoint(self._update, state, net, coords1, corr, test_mode=False,
+                                          use_reentrant=False)
+            else:
+                net, coords1 = self._update(state, net, coords1, corr, test_mode=False)
+            flows.append(coords1 - state["coords0"])
+            net0s.append(net[0])
+        b, h, w = coords1.shape
+        f = cfg.downsample_factor
+        mask = self.mask_head(torch.cat(net0s, dim=0))
+        up = convex_upsample_blocked(torch.cat(flows, dim=0)[:, None], mask, f)
+        return up.reshape(iters, b, h, f, w, f)

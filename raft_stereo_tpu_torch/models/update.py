@@ -7,10 +7,12 @@ channel. The JAX package's segmented 3x3 convs (a sum of per-segment convs
 that never materializes the concat) are a concat plus one conv here: the
 same math up to rounding.
 
-With `fused_tail` (config.fused_gru_tail, test mode) the ConvGRU gate tail
-and the motion encoder's relu + concat run as the CUDA kernels of
-`ops/gru_tail.py`; r = sigmoid(convr + cr) stays in torch, and the tail
-kernel takes the pre-activations zx and qx.
+With `fused_tail` (config.fused_gru_tail) the ConvGRU gate tail and the
+motion encoder's relu + concat run as the CUDA kernels of `ops/gru_tail.py`
+in a test-mode forward (`test_mode=True`) only, as the JAX model gates the
+flag (`fused_tail=cfg.fused_gru_tail and test_mode`): the kernels have no
+backward. r = sigmoid(convr + cr) stays in torch, and the tail kernel takes
+the pre-activations zx and qx.
 """
 
 from __future__ import annotations
@@ -48,12 +50,12 @@ class ConvGRU(nn.Module):
         self.convr = Conv(hidden_dim + input_dim, hidden_dim, 3)
         self.convq = Conv(hidden_dim + input_dim, hidden_dim, 3)
 
-    def forward(self, h, cz, cr, cq, *inputs):
+    def forward(self, h, cz, cr, cq, *inputs, test_mode: bool = False):
         hx = torch.cat([h, *inputs], dim=1)
         r = torch.sigmoid(self.convr(hx) + cr)
         qx = self.convq(torch.cat([r * h, *inputs], dim=1))
         zx = self.convz(hx)
-        if self.fused_tail:
+        if self.fused_tail and test_mode:
             return gru_tail.fused_gru_tail(zx, cz, qx, cq, h)
         return gru_tail.plain_gru_tail(zx, cz, qx, cq, h)
 
@@ -71,11 +73,11 @@ class BasicMotionEncoder(nn.Module):
         self.convf2 = Conv(64, 64, 3)
         self.conv = Conv(128, 126, 3)
 
-    def forward(self, flow: torch.Tensor, corr: torch.Tensor) -> torch.Tensor:
+    def forward(self, flow: torch.Tensor, corr: torch.Tensor, test_mode: bool = False) -> torch.Tensor:
         cor = torch.relu(self.convc2(torch.relu(self.convc1(corr))))
         flo = torch.relu(self.convf2(torch.relu(self.convf1(flow))))
         pre = self.conv(torch.cat([cor, flo], dim=1))
-        if self.fused_tail:
+        if self.fused_tail and test_mode:
             return gru_tail.fused_motion_tail(pre, flow)
         return gru_tail.plain_motion_tail(pre, flow)
 
@@ -90,7 +92,8 @@ class BasicMultiUpdateBlock(nn.Module):
     `net` is the hidden-state tuple, finest first; `context` holds per-scale
     (cz, cr, cq). `hidden_dims[2]` is the finest scale's width. The
     iter08/iter16/iter32 flags give the slow_fast_gru schedule; with
-    `update=False` only the hidden states advance."""
+    `update=False` only the hidden states advance. `test_mode` lets
+    `fused_tail` take effect."""
 
     def __init__(self, hidden_dims: Sequence[int], corr_channels: int, n_gru_layers: int,
                  n_downsample: int, fused_tail: bool = False):
@@ -115,22 +118,25 @@ class BasicMultiUpdateBlock(nn.Module):
         iter16: bool = True,
         iter32: bool = True,
         update: bool = True,
+        test_mode: bool = False,
     ):
         net = list(net)
         n = self.n_gru_layers
         if iter32 and n == 3:
-            net[2] = self.gru32(net[2], *context[2], avg_pool2x(net[1]))
+            net[2] = self.gru32(net[2], *context[2], avg_pool2x(net[1]), test_mode=test_mode)
         if iter16 and n >= 2:
             if n > 2:
-                net[1] = self.gru16(net[1], *context[1], avg_pool2x(net[0]), _interp_to(net[2], net[1]))
+                net[1] = self.gru16(net[1], *context[1], avg_pool2x(net[0]), _interp_to(net[2], net[1]),
+                                    test_mode=test_mode)
             else:
-                net[1] = self.gru16(net[1], *context[1], avg_pool2x(net[0]))
+                net[1] = self.gru16(net[1], *context[1], avg_pool2x(net[0]), test_mode=test_mode)
         if iter08:
-            motion = self.encoder(flow, corr)
+            motion = self.encoder(flow, corr, test_mode=test_mode)
             if n > 1:
-                net[0] = self.gru08(net[0], *context[0], motion, _interp_to(net[1], net[0]))
+                net[0] = self.gru08(net[0], *context[0], motion, _interp_to(net[1], net[0]),
+                                    test_mode=test_mode)
             else:
-                net[0] = self.gru08(net[0], *context[0], motion)
+                net[0] = self.gru08(net[0], *context[0], motion, test_mode=test_mode)
         if not update:
             return tuple(net)
         return tuple(net), self.flow_head(net[0])

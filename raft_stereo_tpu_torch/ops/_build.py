@@ -45,6 +45,7 @@ NVCC_FLAGS = (
 # No source uses --use_fast_math: divisions and square roots stay IEEE.
 SOURCE_FLAGS = {
     "corr_lookup": ("-fmad=false",),
+    "corr_scatter": ("-fmad=false",),
     "gru_tail": ("-fmad=false",),
     "encoder_join": ("-fmad=false",),
     "corr_pyramid": ("-fmad=true",),

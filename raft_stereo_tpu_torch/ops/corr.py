@@ -1,6 +1,8 @@
 """1D (epipolar) all-pairs correlation: volume, pyramid and radius lookup.
 
-PyTorch counterpart of `raft_stereo_tpu/ops/corr.py` (fp32 only). Tensors
+PyTorch counterpart of `raft_stereo_tpu/ops/corr.py`. The model runs them
+in fp32; they follow their inputs' dtype, so a float64 copy of the model
+can serve the tests as an arbiter of fp32 rounding. Tensors
 keep the JAX package's layout at these functions: feature maps (B, H, W, D),
 volumes (B, H, W1, W2), coordinates (B, H, W1). `corr_lookup` is the
 "reg" strategy's lookup and the plain version of the CUDA lookup kernel in
@@ -20,7 +22,7 @@ from raft_stereo_tpu_torch.utils.geometry import linear_sample_1d
 def corr_volume(fmap1: torch.Tensor, fmap2: torch.Tensor) -> torch.Tensor:
     """(B, H, W1, D) x (B, H, W2, D) -> (B, H, W1, W2), divided by sqrt(D)."""
     dim = fmap1.shape[-1]
-    vol = torch.matmul(fmap1.float(), fmap2.float().transpose(-1, -2))
+    vol = torch.matmul(fmap1, fmap2.transpose(-1, -2))
     return vol / math.sqrt(dim)
 
 
@@ -44,9 +46,9 @@ def corr_lookup(pyramid: Sequence[torch.Tensor], coords: torch.Tensor, radius: i
     """(2r+1) linearly interpolated taps around `coords` / 2**l at every
     level; coords (B, H, W1) at level-0 resolution. Returns
     (B, H, W1, L*(2r+1)), level-major. Samples outside [0, W2_l) are zero."""
-    offsets = torch.arange(-radius, radius + 1, dtype=torch.float32, device=coords.device)
+    offsets = torch.arange(-radius, radius + 1, dtype=coords.dtype, device=coords.device)
     out = []
     for i, vol in enumerate(pyramid):
-        x = coords.float()[..., None] / (2**i) + offsets
+        x = coords[..., None] / (2**i) + offsets
         out.append(linear_sample_1d(vol, x))
     return torch.cat(out, dim=-1)

@@ -14,10 +14,10 @@ import torch
 import torch.nn.functional as F
 
 
-def coords_grid_x(batch: int, height: int, width: int, device=None) -> torch.Tensor:
-    """Base x-coordinate grid, (B, H, W) fp32. Stereo matching is 1D, so
-    only the x grid is carried."""
-    xs = torch.arange(width, dtype=torch.float32, device=device)
+def coords_grid_x(batch: int, height: int, width: int, device=None, dtype=torch.float32) -> torch.Tensor:
+    """Base x-coordinate grid, (B, H, W). Stereo matching is 1D, so only the
+    x grid is carried."""
+    xs = torch.arange(width, dtype=dtype, device=device)
     return xs[None, None, :].expand(batch, height, width).contiguous()
 
 
@@ -69,9 +69,9 @@ def resize_bilinear_align_corners(x: torch.Tensor, out_h: int, out_w: int) -> to
     the last bits)."""
     in_h, in_w = x.shape[-2:]
     if in_h != out_h:
-        x = torch.matmul(_interp_matrix(in_h, out_h, x.device), x)
+        x = torch.matmul(_interp_matrix(in_h, out_h, x.device).to(x.dtype), x)
     if in_w != out_w:
-        x = torch.matmul(x, _interp_matrix(in_w, out_w, x.device).t())
+        x = torch.matmul(x, _interp_matrix(in_w, out_w, x.device).to(x.dtype).t())
     return x
 
 
@@ -106,3 +106,11 @@ def convex_upsample(field: torch.Tensor, mask: torch.Tensor, factor: int) -> tor
     (B, C, H*f, W*f)."""
     b, c, h, w = field.shape
     return convex_upsample_blocked(field, mask, factor).reshape(b, c, h * factor, w * factor)
+
+
+def unblock_predictions(flows: torch.Tensor) -> torch.Tensor:
+    """(iters, B, H/f, f, W/f, f) blocked prediction stack (the train-mode
+    model output) -> (iters, B, H, W, 1) row-major full resolution: a pure
+    reshape."""
+    it, b, hb, f1, wb, f2 = flows.shape
+    return flows.reshape(it, b, hb * f1, wb * f2, 1)

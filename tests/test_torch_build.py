@@ -5,7 +5,7 @@ from pathlib import Path
 
 from raft_stereo_tpu_torch.ops import _build
 
-EXACT = ("corr_lookup", "gru_tail", "encoder_join")
+EXACT = ("corr_lookup", "corr_scatter", "gru_tail", "encoder_join")
 CONTRACTED = ("corr_pyramid", "encoder_conv")
 
 

@@ -212,7 +212,7 @@ def test_basic_encoder_fused_matches_jax(rng, width):
     v = jax_init(jm, jnp.asarray(x))
     tm = load_jax_variables(BasicEncoder(64, "instance", downsample=downsample, fused_layer1=True), v).eval()
     with torch.no_grad():
-        close(nhwc(tm(nchw(x))), jax_apply(jm, v, x))
+        close(nhwc(tm(nchw(x), test_mode=True)), jax_apply(jm, v, x))
 
 
 def test_multi_basic_encoder_fused_matches_jax(rng):
@@ -223,7 +223,7 @@ def test_multi_basic_encoder_fused_matches_jax(rng):
     tm = load_jax_variables(
         MultiBasicEncoder((HID, HID), "batch", downsample=2, num_layers=3, fused_layer1=True), v).eval()
     with torch.no_grad():
-        got = tm(nchw(x))
+        got = tm(nchw(x), test_mode=True)
     for g_scale, w_scale in zip(got, want):
         for g, w in zip(g_scale, w_scale):
             close(nhwc(g), w)

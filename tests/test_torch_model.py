@@ -79,7 +79,7 @@ def test_forward_matches_jax(weights, images, flags):
     jm = JaxRAFTStereo(JaxConfig(hidden_dims=HID, **flags))
     want_lo, want_up = jax_apply(jm, weights, *images, iters=ITERS, test_mode=True)
     with torch.inference_mode():
-        got_lo, got_up = port_model(weights, **flags)(*map(torch.from_numpy, images), iters=ITERS)
+        got_lo, got_up = port_model(weights, **flags)(*map(torch.from_numpy, images), iters=ITERS, test_mode=True)
     assert got_lo.shape == (1, H // 4, W // 4) and got_up.shape == (1, H, W, 1)
     assert np.abs(want_up).max() > 1.0  # the flows moved: the comparison has teeth
     np.testing.assert_allclose(got_lo.numpy(), want_lo, rtol=1e-4, atol=1e-4)
@@ -97,14 +97,14 @@ def test_fused_encoder_anytime_chunks_equal_direct_forward(weights, images):
 def check_anytime_chunks(model, images):
     i1, i2 = map(torch.from_numpy, images)
     with torch.inference_mode():
-        direct = model(i1, i2, iters=6)
+        direct = model(i1, i2, iters=6, test_mode=True)
         state = anytime.prelude(model, i1, i2)
         for _ in range(3):
             state = anytime.chunk(model, state, 2)
         chunked = anytime.finalize(model, state)
         # A warm start through the prelude equals the direct flow_init path.
         flow0 = direct[0] * 0.5
-        warm_direct = model(i1, i2, iters=2, flow_init=flow0)
+        warm_direct = model(i1, i2, iters=2, flow_init=flow0, test_mode=True)
         warm_chunked = anytime.finalize(model, anytime.chunk(model, anytime.prelude(model, i1, i2, flow0), 2))
     for a, b in zip(direct + warm_direct, chunked + warm_chunked):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
@@ -129,8 +129,8 @@ def test_engine_run_batch_matches_direct_forward(weights):
     i1, i2 = padded_pair(rng, b=2)
     res = engine.run_batch((64, 96), i1, i2, deadlines_s=[None, None], max_iters=[4, 1])
     with torch.inference_mode():
-        lo4, up4 = engine.model(i1, i2, iters=4)
-        lo2, up2 = engine.model(i1, i2, iters=2)
+        lo4, up4 = engine.model(i1, i2, iters=4, test_mode=True)
+        lo2, up2 = engine.model(i1, i2, iters=2, test_mode=True)
     # Row 0 runs its full budget; row 1 asked for 1 iteration and gets one
     # whole chunk (2), finalized at that point.
     assert [r.iters_completed for r in res] == [4, 2]
@@ -161,7 +161,7 @@ def test_service_submit_unpads_and_rejects_oversize(weights):
     assert out["iters_completed"] == 4 and not out["early_exit"] and out["latency_ms"] > 0
     bucket, padder, p1, p2 = service._admit(i1, i2)
     with torch.inference_mode():
-        _, up = service.engine.model(torch.from_numpy(p1[None]), torch.from_numpy(p2[None]), iters=4)
+        _, up = service.engine.model(torch.from_numpy(p1[None]), torch.from_numpy(p2[None]), iters=4, test_mode=True)
     np.testing.assert_array_equal(out["disparity"], padder.unpad(up.numpy())[0, :, :, 0])
     with pytest.raises(BucketOverflowError):
         service.submit(np.zeros((97, 70, 3)), np.zeros((97, 70, 3)))

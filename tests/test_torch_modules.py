@@ -100,8 +100,8 @@ def test_update_block(rng, fused_tail):
     tnet = tuple(nchw(n) for n in net)
     tctx = tuple(tuple(nchw(c) for c in scale) for scale in context)
     with torch.no_grad():
-        got_net, got_delta = tm(tnet, tctx, nchw(corr), nchw(flow))
-        got_slow = tm(tnet, tctx, iter08=False, update=False)
+        got_net, got_delta = tm(tnet, tctx, nchw(corr), nchw(flow), test_mode=True)
+        got_slow = tm(tnet, tctx, iter08=False, update=False, test_mode=True)
     close(nhwc(got_delta), want_delta)
     for g, w in zip(got_net, want_net):
         close(nhwc(g), w)

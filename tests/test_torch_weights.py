@@ -110,8 +110,8 @@ def test_flax_init_scale_is_reproduced():
 
 
 def test_port_imports_no_jax():
-    """Importing every port module and chip_smoke.py's imports loads no JAX
-    and nothing of the JAX package."""
+    """Importing every port module (the training package included) and
+    chip_smoke.py's imports loads no JAX and nothing of the JAX package."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import raft_stereo_tpu_torch\n"
@@ -121,7 +121,10 @@ def test_port_imports_no_jax():
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "             or k == 'raft_stereo_tpu' or k.startswith('raft_stereo_tpu.'))\n"
         "assert not bad, bad\n"
-        "print('ok', len([k for k in sys.modules if k.startswith('raft_stereo_tpu_torch')]))\n"
+        "walked = {k for k in sys.modules if k.startswith('raft_stereo_tpu_torch')}\n"
+        "for m in ('train.loss', 'train.optimizer', 'train.trainer', 'ops.corr_cuda', 'serving.service'):\n"
+        "    assert 'raft_stereo_tpu_torch.' + m in walked, m\n"
+        "print('ok', len(walked))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,

@@ -100,3 +100,33 @@ def nhwc(x: torch.Tensor) -> np.ndarray:
 def jnp_tree(tree):
     """A nested structure of numpy arrays as jax arrays."""
     return jax.tree.map(jnp.asarray, tree)
+
+
+def flax_params(model, grads: bool = False) -> dict:
+    """The parameters of a port module (or, with `grads`, their `.grad`) as
+    a nested dict of numpy arrays in the flax params layout (conv kernels
+    OIHW -> HWIO), through the weight bridge's name mapping run in
+    reverse."""
+    from raft_stereo_tpu_torch.utils.checkpoints import _flax_key
+
+    tree = {}
+    for name, p in model.named_parameters():
+        (collection, *path), is_kernel = _flax_key(model, name)
+        assert collection == "params", name
+        v = (p.grad if grads else p).detach().numpy().copy()
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v.transpose(2, 3, 1, 0) if is_kernel else v
+    return tree
+
+
+def flat_leaves(tree, prefix=()):
+    """{path tuple: leaf} of a nested dict."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_leaves(v, (*prefix, k)))
+        else:
+            out[(*prefix, k)] = np.asarray(v)
+    return out
