@@ -3,10 +3,12 @@ against its plain PyTorch version, serves requests through the anytime
 serving path at the default model's full width — in the kernel
 configuration and in the fused-encoder one — checks both end to end (the
 kernel configuration against the plain one, the fused one against the
-kernel one), compares their stage times, trains the default model for a
-few steps at the training recipe's size (the lookup's backward as the
-scatter kernel) and checks one step against plain autograd, and times
-every kernel.
+kernel one), compares their stage times, evaluates the default model on a
+synthetic Middlebury-F-sized set through the evaluate entry point (the
+windowed lookup, and the gate pair in its own configuration) and checks it
+against the dense configuration, trains the default model for a few steps
+at the training recipe's size (the lookup's backward as the scatter kernel)
+and checks one step against plain autograd, and times every kernel.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -21,6 +23,7 @@ then one JSON line describing the kernels, and as its last line
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -31,9 +34,11 @@ import torch
 import torch.nn.functional as F
 
 from raft_stereo_tpu_torch.config import RAFTStereoConfig, ServeConfig, TrainConfig
+from raft_stereo_tpu_torch.evaluate import Evaluator, SyntheticEvalDataset, validate_middlebury
 from raft_stereo_tpu_torch.models import anytime
+from raft_stereo_tpu_torch.models.init import build_model
 from raft_stereo_tpu_torch.models.raft_stereo import RAFTStereo
-from raft_stereo_tpu_torch.ops import _build, corr, corr_cuda, encoder_cuda, gru_tail
+from raft_stereo_tpu_torch.ops import _build, corr, corr_cuda, encoder_cuda, gates, gru_tail
 from raft_stereo_tpu_torch.serving.service import StereoService
 from raft_stereo_tpu_torch.train.trainer import Trainer
 
@@ -54,6 +59,20 @@ TRAIN_BATCH = 6
 TRAIN_HW = (320, 720)
 TRAIN_ITERS = 16
 TRAIN_TIMED_STEPS = 5
+# The fourth slice's: the evaluate entry point's configuration, the kernel
+# one with the windowed lookup, at 32 iterations on a synthetic set of two
+# Middlebury-F-sized pairs (1980x2870 pads to 1984x2880: the padding and
+# the crop run on the card); and the gates configuration, which needs the
+# fused tail off (it takes precedence over the gates, as in JAX), run with
+# the gates' environment variable set against its twin without it.
+EVAL_CONFIG = RAFTStereoConfig(corr_implementation="pallas", fused_gru_tail=True, prefetch_lookup=True)
+GATES_CONFIG = RAFTStereoConfig(corr_implementation="pallas", fused_gru_tail=False, prefetch_lookup=True)
+EVAL_SHAPE = (1980, 2870)
+# The windowed lookup's checks: the 512x768 bucket's 1/4 resolution and
+# Middlebury-F's, (label, (query rows, W1 = W2)).
+PREFETCH_CASES = (("512x768", (128, 192)), ("1984x2880", (496, 720)))
+EVAL_ITERS = 32
+GATES_E2E_ITERS = 4
 SEED = 0
 DEVICE = "cuda"
 
@@ -71,7 +90,8 @@ FP32_FLOPS_PER_S = 67e12
 # unit-scale too; the volume's dot products are divided by sqrt(D)).
 # The conv statistics are held relative to sum|y| and sum y^2 per channel.
 TOL = {"corr_lookup": 1e-5, "gru_tail": 1e-6, "motion_tail": 0.0,
-       "corr_pyramid": 2e-5, "encoder_conv": 1e-4, "encoder_join": 0.0, "corr_scatter": 0.0}
+       "corr_pyramid": 2e-5, "encoder_conv": 1e-4, "encoder_join": 0.0, "corr_scatter": 0.0,
+       "corr_prefetch_lookup": 0.0, "gates_rh": 1e-6, "gates_combine": 1e-6}
 STATS_REL_TOL = 1e-5
 E2E_TOL_PX = 1e-3
 # Fused against kernel configuration: the prelude state to 1e-4 of its
@@ -114,8 +134,13 @@ KERNELS = {
     "encoder_conv": ("raft_stereo_tpu_torch/csrc/encoder_conv.cu", "raft_stereo_tpu/ops/encoder_pallas.py:109"),
     "encoder_join": ("raft_stereo_tpu_torch/csrc/encoder_join.cu", "raft_stereo_tpu/ops/encoder_pallas.py:275"),
     "corr_scatter": ("raft_stereo_tpu_torch/csrc/corr_scatter.cu", "raft_stereo_tpu/ops/corr_pallas.py:156"),
+    "corr_prefetch_lookup": ("raft_stereo_tpu_torch/csrc/corr_prefetch.cu",
+                             "raft_stereo_tpu/ops/corr_pallas.py:463"),
+    "gates_rh": ("raft_stereo_tpu_torch/csrc/gates.cu", "raft_stereo_tpu/ops/gates_pallas.py:54"),
+    "gates_combine": ("raft_stereo_tpu_torch/csrc/gates.cu", "raft_stereo_tpu/ops/gates_pallas.py:59"),
 }
-SOURCES = ("corr_lookup", "gru_tail", "corr_pyramid", "encoder_conv", "encoder_join", "corr_scatter")
+SOURCES = ("corr_lookup", "gru_tail", "corr_pyramid", "encoder_conv", "encoder_join", "corr_scatter",
+           "corr_prefetch", "gates")
 # Requests each serving phase answers: (label, (H, W), deadline ms or None).
 REQUESTS = [
     ("384x512 bucket", (384, 512), None),
@@ -130,13 +155,18 @@ def log(msg: str) -> None:
 
 
 def reset_launches() -> None:
-    for counts in (corr_cuda.LAUNCHES, gru_tail.LAUNCHES, encoder_cuda.LAUNCHES):
+    for counts in (corr_cuda.LAUNCHES, gru_tail.LAUNCHES, encoder_cuda.LAUNCHES, gates.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
 
 def launches() -> dict:
-    return {**corr_cuda.LAUNCHES, **gru_tail.LAUNCHES, **encoder_cuda.LAUNCHES}
+    return {**corr_cuda.LAUNCHES, **gru_tail.LAUNCHES, **encoder_cuda.LAUNCHES, **gates.LAUNCHES}
+
+
+def expect(**counts) -> dict:
+    """The launch counts a run should show: `counts`, every other kernel 0."""
+    return {**{k: 0 for k in launches()}, **counts}
 
 
 def gpu_line() -> str:
@@ -456,8 +486,7 @@ def phase_train(rng) -> tuple:
     torch.cuda.synchronize()
     log(f"[train] warm step: loss {m['live_loss']:.6f}, grad_norm {m['grad_norm']:.6f}, lr {m['learning_rate']:.6e}, "
         f"{time.perf_counter() - t:.3f} s")
-    per_step = {"corr_lookup": TRAIN_ITERS, "corr_scatter": TRAIN_ITERS, "corr_pyramid": 0, "encoder_conv": 0,
-                "encoder_join": 0, "gru_tail": 0, "motion_tail": 0}
+    per_step = expect(corr_lookup=TRAIN_ITERS, corr_scatter=TRAIN_ITERS)
     reset_launches()
     secs = []
     for i in range(TRAIN_TIMED_STEPS):
@@ -566,8 +595,7 @@ def phase_serving(rng) -> tuple:
         raise AssertionError("the tight-deadline request did not exit after one chunk")
     if any(r["iters_completed"] != cfg.max_iters for _, r in responses[:-1]):
         raise AssertionError("a request without a deadline stopped short of max_iters")
-    want = {"corr_lookup": iters_total, "gru_tail": 3 * iters_total, "motion_tail": iters_total,
-            "corr_pyramid": 0, "encoder_conv": 0, "encoder_join": 0, "corr_scatter": 0}
+    want = expect(corr_lookup=iters_total, gru_tail=3 * iters_total, motion_tail=iters_total)
     if counts != want:
         raise AssertionError(f"kernel launches {counts} != expected {want}")
     return service, counts
@@ -639,8 +667,8 @@ def phase_serving_fused(rng, weights) -> tuple:
         res = service.submit(i1, i2, deadline_ms=deadline_ms).result()
         delta = {k: v - before[k] for k, v in launches().items()}
         it = res["iters_completed"]
-        want = {"corr_lookup": it, "gru_tail": 3 * it, "motion_tail": it,
-                "corr_pyramid": 1, "encoder_conv": 8, "encoder_join": 4, "corr_scatter": 0}
+        want = expect(corr_lookup=it, gru_tail=3 * it, motion_tail=it, corr_pyramid=1, encoder_conv=8,
+                      encoder_join=4)
         log(f"[fused] {label}: bucket {res['bucket']}, iters_completed {it}, early_exit {res['early_exit']}, "
             f"latency {res['latency_ms']:.3f} ms, launches {delta}")
         disp = res["disparity"]
@@ -654,7 +682,8 @@ def phase_serving_fused(rng, weights) -> tuple:
             raise AssertionError("fused: a request without a deadline stopped short of max_iters")
     counts = launches()
     log(f"[fused] launches over {len(REQUESTS)} requests: {counts}")
-    if any(v == 0 for k, v in counts.items() if k != "corr_scatter"):
+    if any(counts[k] == 0 for k in ("corr_lookup", "gru_tail", "motion_tail", "corr_pyramid", "encoder_conv",
+                                    "encoder_join")):
         raise AssertionError(f"a kernel of the fused path was never launched: {counts}")
     return service, counts
 
@@ -721,6 +750,186 @@ def phase_stage_compare(kernel_service, fused_service, reps=5) -> None:
                 f"{med[('kernel', 'chunk')]:.3f} ms, fused {med[('fused', 'chunk')]:.3f} ms")
 
 
+# -- the fourth slice: windowed lookup, gate pair, evaluate --------------------
+
+def exact_err(a, b) -> float:
+    """Max abs difference, NaN in the same places required (inf otherwise)."""
+    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+    if not torch.equal(nan_a, nan_b):
+        return float("inf")
+    return max_err(a.masked_fill(nan_a, 0.0), b.masked_fill(nan_b, 0.0))
+
+
+def prefetch_coords(gen, family, b, h, w1, w2):
+    """Lookup coordinates of one family: "smooth" (the model's regime: the
+    grid minus a smooth disparity of up to W2 / 4), "edge" (a ramp past
+    both ends of the row), "uniform" (uniform over the row and 6 past it:
+    the input that defeats the TPU kernel's window plan), "special" (10%
+    far outside, then in the first rows the float just below every
+    integer, the integers, and NaN, +-inf, +-1e6, -1, W2 - 1, W2)."""
+    base = torch.arange(w1, dtype=torch.float32, device=DEVICE).expand(b, h, w1)
+    if family == "smooth":
+        phase = torch.rand((b, h, 1), generator=gen, device=DEVICE) * 6.0
+        disp = (w2 / 8) * (1.0 + torch.sin(torch.linspace(0, 3.0, w1, device=DEVICE) + phase))
+        return (base - disp).contiguous()
+    if family == "edge":
+        return torch.linspace(-5.0, w2 + 5.0, w1, device=DEVICE).expand(b, h, w1).contiguous()
+    if family == "uniform":
+        return (torch.rand((b, h, w1), generator=gen, device=DEVICE) * (w2 + 12) - 6).contiguous()
+    coords = base - torch.rand((b, h, w1), generator=gen, device=DEVICE) * (w2 / 4)
+    far = (torch.rand((b, h, w1), generator=gen, device=DEVICE) - 0.5) * 4 * (w2 + 16)
+    coords = torch.where(torch.rand((b, h, w1), generator=gen, device=DEVICE) < 0.1, far, coords).contiguous()
+    flat = coords.view(-1)
+    ints = torch.arange(w1, dtype=torch.float32, device=DEVICE)
+    flat[:w1] = torch.nextafter(ints, torch.full_like(ints, -float("inf")))
+    flat[w1:2 * w1] = ints
+    special = [float("nan"), float("inf"), -float("inf"), 1e6, -1e6, -1.0, w2 - 1.0, float(w2)]
+    flat[2 * w1:2 * w1 + len(special)] = torch.tensor(special, device=DEVICE)
+    return coords
+
+
+def phase_prefetch_kernels(gen) -> dict:
+    """The windowed lookup against the dense kernel (bit for bit) and the
+    plain version (exact, NaN where it has NaN) at the 512x768 bucket's 1/4
+    resolution and at Middlebury-F's, every coordinate family."""
+    err = 0.0
+    for label, (h, w) in PREFETCH_CASES:
+        pyramid = tuple(torch.randn((1, h, w, w >> l), generator=gen, device=DEVICE) for l in range(4))
+        for family in ("smooth", "edge", "special", "uniform"):
+            coords = prefetch_coords(gen, family, 1, h, w, w)
+            got = corr_cuda.prefetch_corr_lookup(pyramid, coords, 4)
+            dense = corr_cuda.corr_lookup(pyramid, coords, 4)
+            torch.cuda.synchronize()
+            bitwise = torch.equal(got.view(torch.int32), dense.view(torch.int32))
+            e = exact_err(got, corr.corr_lookup(pyramid, coords, 4))
+            log(f"[prefetch-kernels] {label} (queries {h}x{w}, W2 {w}) {family} coords: bitwise equal to the "
+                f"dense kernel: {bitwise}; max abs diff to plain {e:.3e} (tol {TOL['corr_prefetch_lookup']:g})")
+            if not bitwise or not e <= TOL["corr_prefetch_lookup"]:
+                raise AssertionError(f"the windowed lookup disagrees at {label} {family}: bitwise {bitwise}, {e}")
+            err = max(err, e)
+        del pyramid
+    return {"corr_prefetch_lookup": err}
+
+
+def phase_gates_kernels(gen) -> dict:
+    """rh and combine against their plain versions at the GRU's three
+    scales of the 512x768 bucket (and one size with a scalar tail only);
+    combine against the fused GRU tail kernel, bit for bit."""
+    errs = {"gates_rh": 0.0, "gates_combine": 0.0}
+    cases = [(f"128x{512 // d}x{768 // d}", (1, 128, 512 // d, 768 // d)) for d in (4, 8, 16)]
+    for label, shape in cases + [("scalar tail 3x5x7", (1, 3, 5, 7))]:
+        zx, cz, qx, cq, h = (torch.randn(shape, generator=gen, device=DEVICE) * 2 for _ in range(5))
+        rh = gates.fused_rh(zx, cz, h)
+        combined = gates.fused_combine(zx, cz, qx, cq, h)
+        tail = gru_tail.fused_gru_tail(zx, cz, qx, cq, h)
+        torch.cuda.synchronize()
+        e_rh = max_err(rh, gates.plain_rh(zx, cz, h))
+        e_c = max_err(combined, gates.plain_combine(zx, cz, qx, cq, h))
+        same = torch.equal(combined, tail)
+        log(f"[gates-kernels] {label}: rh max abs diff {e_rh:.3e} (tol {TOL['gates_rh']:g}), combine "
+            f"{e_c:.3e} (tol {TOL['gates_combine']:g}); combine bitwise equal to the gru_tail kernel: {same}")
+        if not (e_rh <= TOL["gates_rh"] and e_c <= TOL["gates_combine"] and same):
+            raise AssertionError(f"the gate kernels disagree at {label}: rh {e_rh}, combine {e_c}, tail {same}")
+        errs = {"gates_rh": max(errs["gates_rh"], e_rh), "gates_combine": max(errs["gates_combine"], e_c)}
+    return errs
+
+
+def phase_evaluate() -> tuple:
+    """The evaluate entry point at Middlebury-F size: `validate_middlebury`
+    over two synthetic 1980x2870 pairs in the evaluate configuration, 32
+    iterations, with each image's forward seconds and launches; the first
+    image again in the kernel configuration (the dense lookup): flow_up
+    equal bit for bit; the gates configuration at 32 iterations (launches)
+    and against its twin without the variable at 4. Returns the launch
+    counts of the evaluate run and of the 32-iteration gates forward."""
+    dataset = SyntheticEvalDataset(n=2, shape=EVAL_SHAPE)
+    model = build_model(EVAL_CONFIG, seed=SEED, device=DEVICE)
+    evaluator = Evaluator(model, iters=EVAL_ITERS)
+    record = []
+
+    def timed(image1, image2):
+        before = launches()
+        flow, seconds = evaluator(image1, image2)
+        record.append((flow, seconds, {k: v - before[k] for k, v in launches().items() if v != before[k]}))
+        return flow, seconds
+
+    os.environ.pop(gates.ENV_VAR, None)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    result = validate_middlebury(timed, dataset=dataset)
+    wall = time.perf_counter() - t0
+    eval_counts = launches()
+    peak = torch.cuda.max_memory_allocated()
+    per_image = expect(corr_prefetch_lookup=EVAL_ITERS, gru_tail=3 * EVAL_ITERS, motion_tail=EVAL_ITERS)
+    for i, (flow, seconds, delta) in enumerate(record):
+        log(f"[evaluate] image {i + 1}/{len(dataset)}, {EVAL_SHAPE[0]}x{EVAL_SHAPE[1]} padded to "
+            f"{-(-EVAL_SHAPE[0] // 32) * 32}x{-(-EVAL_SHAPE[1] // 32) * 32}, "
+            f"{EVAL_ITERS} iters: forward {seconds:.3f} s, launches {delta}")
+        if expect(**delta) != per_image:
+            raise AssertionError(f"evaluate image {i + 1}: launches {delta} != expected {per_image}")
+        if flow.shape != EVAL_SHAPE or not np.isfinite(flow).all():
+            raise AssertionError(f"evaluate image {i + 1}: flow shape {flow.shape} or non-finite values")
+    log(f"[evaluate] metrics {result}; validate_middlebury {wall:.3f} s; peak memory "
+        f"{peak / 2**30:.2f} GiB ({peak} B); launches {eval_counts}")
+    if not all(np.isfinite(v) for v in result.values()):
+        raise AssertionError(f"evaluate metrics are not finite: {result}")
+
+    item = dataset.get_item(0, None)
+    pair = (item["image1"], item["image2"])
+    dense = build_model(KERNEL_CONFIG, seed=SEED, device=DEVICE)
+    dense.load_state_dict(model.state_dict())
+    dense_ev = Evaluator(dense, iters=EVAL_ITERS)
+    times = {"evaluate": [record[0][1]], "kernel": []}
+    for name, ev in (("kernel", dense_ev), ("kernel", dense_ev), ("evaluate", evaluator)):
+        flow, seconds = ev(*pair)
+        times[name].append(seconds)
+        if ev is dense_ev:
+            dense_flow = flow
+    equal = np.array_equal(dense_flow, record[0][0])
+    log(f"[evaluate] first image, {EVAL_ITERS} iters, kernel configuration (dense lookup) vs evaluate "
+        f"configuration (windowed lookup): flow_up bitwise equal {equal}, max abs diff "
+        f"{np.abs(dense_flow - record[0][0]).max():.3e}; forward s, in turns (evaluate, kernel, kernel, "
+        f"evaluate): evaluate {', '.join(f'{t:.3f}' for t in times['evaluate'])}; kernel "
+        f"{', '.join(f'{t:.3f}' for t in times['kernel'])}")
+    if not equal:
+        raise AssertionError("the evaluate configuration's flow differs from the dense kernel configuration's")
+    del dense
+
+    gated = build_model(GATES_CONFIG, seed=SEED, device=DEVICE)
+    gated.load_state_dict(model.state_dict())
+    ev = Evaluator(gated, iters=EVAL_ITERS)
+    os.environ[gates.ENV_VAR] = "1"
+    try:
+        reset_launches()
+        _, seconds = ev(*pair)
+        gates_counts = launches()
+        ev.iters = GATES_E2E_ITERS
+        reset_launches()
+        flow_gates, _ = ev(*pair)
+        short_counts = launches()
+    finally:
+        os.environ.pop(gates.ENV_VAR)
+    reset_launches()
+    flow_twin, _ = ev(*pair)
+    twin_counts = launches()
+    err = float(np.abs(flow_gates - flow_twin).max())
+    log(f"[evaluate] gates configuration, first image, {EVAL_ITERS} iters: forward {seconds:.3f} s, launches "
+        f"{gates_counts}; at {GATES_E2E_ITERS} iters against its twin without {gates.ENV_VAR}: flow_up max abs "
+        f"diff {err:.3e} px (tol {E2E_TOL_PX:g} px); twin launches {twin_counts}")
+    want = expect(corr_prefetch_lookup=EVAL_ITERS, gates_rh=3 * EVAL_ITERS, gates_combine=3 * EVAL_ITERS)
+    if gates_counts != want:
+        raise AssertionError(f"gates configuration: launches {gates_counts} != expected {want}")
+    it = GATES_E2E_ITERS
+    if short_counts != expect(corr_prefetch_lookup=it, gates_rh=3 * it, gates_combine=3 * it):
+        raise AssertionError(f"gates configuration at {it} iters: launches {short_counts}")
+    if twin_counts != expect(corr_prefetch_lookup=it):
+        raise AssertionError(f"gates twin: launches {twin_counts} != expected only the windowed lookup")
+    if not (np.isfinite(flow_gates).all() and err <= E2E_TOL_PX):
+        raise AssertionError(f"the gates configuration disagrees with its twin: {err} px")
+    return eval_counts, gates_counts
+
+
 def phase_timing(gen, errs, counts) -> list:
     """Kernel, plain and library times at the 512x768 bucket's shapes."""
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=DEVICE)  # 256 MB > L2
@@ -737,8 +946,10 @@ def phase_timing(gen, errs, counts) -> list:
             "library_ms": library_ms,
         }
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
-        where = (f"{TRAIN_TIMED_STEPS} training steps" if name == "corr_scatter"
-                 else f"{len(REQUESTS)} requests")
+        where = {"corr_scatter": f"{TRAIN_TIMED_STEPS} training steps",
+                 "corr_prefetch_lookup": "the [evaluate] run (2 images)",
+                 "gates_rh": f"one {EVAL_ITERS}-iteration gates forward",
+                 "gates_combine": f"one {EVAL_ITERS}-iteration gates forward"}.get(name, f"{len(REQUESTS)} requests")
         log(f"[timing] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {e['bound_ms']:.4f} ms "
             f"({e['bound_by']}, {nbytes} B, {flops} ops), library {lib}, "
             f"launches {counts[name]} over {where}")
@@ -747,6 +958,7 @@ def phase_timing(gen, errs, counts) -> list:
     for label, (hh, ww) in (("512x768", (512, 768)), ("1984x2880", (1984, 2880))):
         pyramid, coords = lookup_inputs(gen, 1, hh // 4, ww // 4, ww // 4)
         ms = time_ms(lambda: corr_cuda.corr_lookup(pyramid, coords, 4), flush=flush)
+        pf_ms = time_ms(lambda: corr_cuda.prefetch_corr_lookup(pyramid, coords, 4), flush=flush)
         plain_ms = time_ms(lambda: corr.corr_lookup(pyramid, coords, 4), flush=flush)
         nbytes = lookup_bytes(pyramid, coords, 4)
         if label == "512x768":
@@ -760,11 +972,14 @@ def phase_timing(gen, errs, counts) -> list:
             log(f"[timing] corr_lookup {label}: grid_sample vs kernel max abs diff "
                 f"{max_err(lib, corr_cuda.corr_lookup(pyramid, coords, 4)):.3e}")
             entry("corr_lookup", ms, plain_ms, nbytes, 3 * coords.numel() * 36, lib_ms)
+            # The windowed lookup computes the same function on the same inputs.
+            entry("corr_prefetch_lookup", pf_ms, plain_ms, nbytes, 3 * coords.numel() * 36, lib_ms)
             del rows, grid, lib
         else:
             # cuDNN's grid sampler refuses a batch of one row per query at
             # this size, so no library time here.
-            log(f"[timing] corr_lookup {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            log(f"[timing] corr_lookup {label}: kernel {ms:.4f} ms, windowed kernel (corr_prefetch_lookup) "
+                f"{pf_ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes), library not measured")
         del pyramid, coords
 
@@ -779,6 +994,24 @@ def phase_timing(gen, errs, counts) -> list:
             log(f"[timing] gru_tail 128x{512 // div}x{768 // div}: kernel {ms:.4f} ms, "
                 f"plain {plain_ms:.4f} ms, "
                 f"bound {6 * 4 * n / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes)")
+
+    for div in (4, 8, 16):
+        zx, cz, qx, cq, h = tail_inputs(gen, 128, 512 // div, 768 // div)
+        rh_ms = time_ms(lambda: gates.fused_rh(zx, cz, h), flush=flush)
+        rh_plain_ms = time_ms(lambda: gates.plain_rh(zx, cz, h), flush=flush)
+        c_ms = time_ms(lambda: gates.fused_combine(zx, cz, qx, cq, h), flush=flush)
+        c_plain_ms = time_ms(lambda: gates.plain_combine(zx, cz, qx, cq, h), flush=flush)
+        n = h.numel()
+        if div == 4:
+            # rh: two adds, a negation, an exp, a division and a product per
+            # element; combine: the GRU tail's dozen.
+            entry("gates_rh", rh_ms, rh_plain_ms, 4 * 4 * n, 6 * n, None)
+            entry("gates_combine", c_ms, c_plain_ms, 6 * 4 * n, 12 * n, None)
+        else:
+            log(f"[timing] gates 128x{512 // div}x{768 // div}: rh {rh_ms:.4f} ms (plain {rh_plain_ms:.4f}, "
+                f"bound {4 * 4 * n / HBM_BYTES_PER_S * 1e3:.4f}), combine {c_ms:.4f} ms (plain "
+                f"{c_plain_ms:.4f}, bound {6 * 4 * n / HBM_BYTES_PER_S * 1e3:.4f})")
+        del zx, cz, qx, cq, h
 
     pre, flow = motion_inputs(gen, 128, 192)
     ms = time_ms(lambda: gru_tail.fused_motion_tail(pre, flow), flush=flush)
@@ -885,6 +1118,8 @@ def main() -> int:
     phase_build()
     errs = phase_kernels(gen)
     errs.update(phase_fused_kernels(gen))
+    errs.update(phase_prefetch_kernels(gen))
+    errs.update(phase_gates_kernels(gen))
     service, counts = phase_serving(rng)
     phase_stage_times(service)
     phase_end_to_end(service, rng)
@@ -893,6 +1128,8 @@ def main() -> int:
     phase_stage_compare(service, fused_service)
     del service, fused_service
     torch.cuda.empty_cache()
+    eval_counts, gates_counts = phase_evaluate()
+    torch.cuda.empty_cache()
     errs.update(phase_scatter_kernels(gen))
     trainer, train_counts, batch = phase_train(rng)
     del trainer
@@ -900,10 +1137,15 @@ def main() -> int:
     phase_train_e2e(batch)
     torch.cuda.empty_cache()
     # Each kernel's launches come from the main-path run of the slice that
-    # added it: serving for the forward kernels, training for the scatter.
+    # added it: serving for the forward kernels, training for the scatter,
+    # evaluation for the windowed lookup, the gates configuration's forward
+    # for the gate pair.
     for name in ("corr_pyramid", "encoder_conv", "encoder_join"):
         counts[name] = fused_counts[name]
     counts["corr_scatter"] = train_counts["corr_scatter"]
+    counts["corr_prefetch_lookup"] = eval_counts["corr_prefetch_lookup"]
+    for name in ("gates_rh", "gates_combine"):
+        counts[name] = gates_counts[name]
     kernels = phase_timing(gen, errs, counts)
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

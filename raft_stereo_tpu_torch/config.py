@@ -7,12 +7,15 @@ port runs on machines without JAX and imports nothing from the JAX package.
 Defaults and validation match the original field for field.
 
 Not yet ported, so not present: `mixed_precision` and `corr_dtype` (the port
-runs fp32 throughout), the `"alt"` correlation strategy, `shared_backbone`,
-`sequential_encoder`, `prefetch_lookup`, `encoder_s2d` (a TPU layout; the
-port computes its values with the direct convs), every serving option beyond
-the anytime engine's (batcher, fleet, AOT cache, streams), and every training
-option beyond one process's optimizer step (data, augmentation, mesh,
-checkpoints, resilience beyond `nan_policy` "raise"/"skip", logging sinks).
+runs fp32 throughout; no bf16 volume or taps), the `"alt"` correlation
+strategy, `shared_backbone`, `sequential_encoder`, `encoder_s2d` (a TPU
+layout; the port computes its values with the direct convs), every serving
+option beyond the anytime engine's (batcher, fleet, AOT cache, streams),
+every training option beyond one process's optimizer step (data,
+augmentation, mesh, checkpoints, resilience beyond `nan_policy`
+"raise"/"skip", logging sinks), the dataset readers (evaluation runs on
+`evaluate.SyntheticEvalDataset` or a dataset object the caller passes) and
+the demo.
 """
 
 from __future__ import annotations
@@ -71,6 +74,14 @@ class RAFTStereoConfig:
     # as in JAX (`fused = cfg.fused_encoder and test_mode`): the kernels
     # have no backward, so a training forward takes the direct path.
     fused_encoder: bool = False
+    # Windowed correlation lookup (ops/corr_cuda.py `prefetch_corr_lookup`,
+    # csrc/corr_prefetch.cu): the same taps as the dense lookup, bit for
+    # bit, with each query's window of every level staged in shared memory
+    # so each pyramid sample is read from memory once. "pallas" only.
+    # Test-mode forwards only, as in JAX (`prefetch=cfg.prefetch_lookup and
+    # test_mode`): the kernel has no backward, so training keeps the dense
+    # lookup and its scatter.
+    prefetch_lookup: bool = False
     # Rematerialize each GRU iteration in the backward pass
     # (`torch.utils.checkpoint` of the iteration body): training memory
     # drops from O(iters * per-iteration activations) to O(iters * carry) at

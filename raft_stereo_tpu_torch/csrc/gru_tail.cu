@@ -18,18 +18,14 @@
 // In the motion tail a 4-wide group never straddles a channel because H*W
 // is a multiple of four on the vector path.
 //
-// Rounding: expf and tanhf (not the __expf fast path), sigmoid written as
-// 1 / (1 + exp(-x)) as PyTorch writes it, and -fmad=false so the blend is
-// rounded as the plain PyTorch version rounds it.
+// Rounding: the blend is `gru_blend` of gru_gates.cuh, which the gate pair
+// (csrc/gates.cu) shares; built with -fmad=false, it is rounded as the plain
+// PyTorch version rounds it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-__device__ __forceinline__ float tail_one(float zx, float cz, float qx, float cq, float h) {
-    const float z = 1.0f / (1.0f + expf(-(zx + cz)));
-    const float q = tanhf(qx + cq);
-    return (1.0f - z) * h + z * q;
-}
+#include "gru_gates.cuh"
 
 __global__ void gru_tail_vec4(const float4* __restrict__ zx, const float4* __restrict__ cz,
                               const float4* __restrict__ qx, const float4* __restrict__ cq,
@@ -39,10 +35,10 @@ __global__ void gru_tail_vec4(const float4* __restrict__ zx, const float4* __res
          i += (long long)gridDim.x * blockDim.x) {
         const float4 a = zx[i], b = cz[i], c = qx[i], d = cq[i], e = h[i];
         float4 r;
-        r.x = tail_one(a.x, b.x, c.x, d.x, e.x);
-        r.y = tail_one(a.y, b.y, c.y, d.y, e.y);
-        r.z = tail_one(a.z, b.z, c.z, d.z, e.z);
-        r.w = tail_one(a.w, b.w, c.w, d.w, e.w);
+        r.x = gru_blend(a.x, b.x, c.x, d.x, e.x);
+        r.y = gru_blend(a.y, b.y, c.y, d.y, e.y);
+        r.z = gru_blend(a.z, b.z, c.z, d.z, e.z);
+        r.w = gru_blend(a.w, b.w, c.w, d.w, e.w);
         out[i] = r;
     }
 }
@@ -53,7 +49,7 @@ __global__ void gru_tail_scalar(const float* __restrict__ zx, const float* __res
                                 long long n) {
     for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
          i += (long long)gridDim.x * blockDim.x) {
-        out[i] = tail_one(zx[i], cz[i], qx[i], cq[i], h[i]);
+        out[i] = gru_blend(zx[i], cz[i], qx[i], cq[i], h[i]);
     }
 }
 

@@ -30,7 +30,7 @@ from raft_stereo_tpu_torch.models.extractor import BasicEncoder, MultiBasicEncod
 from raft_stereo_tpu_torch.models.layers import Conv
 from raft_stereo_tpu_torch.models.update import BasicMultiUpdateBlock, UpsampleMaskHead
 from raft_stereo_tpu_torch.ops import corr as corr_ops
-from raft_stereo_tpu_torch.ops import corr_cuda
+from raft_stereo_tpu_torch.ops import corr_cuda, gates
 from raft_stereo_tpu_torch.utils.geometry import convex_upsample, convex_upsample_blocked, coords_grid_x
 
 
@@ -51,10 +51,14 @@ def corr_state(cfg: RAFTStereoConfig, fmap1: torch.Tensor, fmap2: torch.Tensor, 
     return tuple(corr_ops.corr_pyramid(corr_ops.corr_volume(f1, f2), cfg.corr_levels))
 
 
-def corr_sample(cfg: RAFTStereoConfig, state, coords: torch.Tensor) -> torch.Tensor:
-    """Correlation taps at `coords` (B, H, W1) -> NCHW (B, L*(2r+1), H, W1)."""
+def corr_sample(cfg: RAFTStereoConfig, state, coords: torch.Tensor, prefetch: bool = False) -> torch.Tensor:
+    """Correlation taps at `coords` (B, H, W1) -> NCHW (B, L*(2r+1), H, W1).
+    `prefetch` (the test-mode `prefetch_lookup` strategy) takes the windowed
+    lookup kernel in place of the dense one for "pallas"; it has no
+    backward, so callers keep it out of training forwards."""
     if cfg.corr_implementation == "pallas":
-        taps = corr_cuda.corr_lookup(state, coords, cfg.corr_radius)
+        lookup = corr_cuda.prefetch_corr_lookup if prefetch else corr_cuda.corr_lookup
+        taps = lookup(state, coords, cfg.corr_radius)
     else:
         taps = corr_ops.corr_lookup(state, coords, cfg.corr_radius)
     return taps.permute(0, 3, 1, 2).contiguous()
@@ -129,21 +133,24 @@ class RAFTStereo(nn.Module):
     def _update(self, state: dict, net, coords1: torch.Tensor, corr: Optional[torch.Tensor],
                 test_mode: bool):
         """The iteration body from (net, coords1) to the next (net, coords1);
-        the lookup runs here unless its taps `corr` are given."""
+        the lookup runs here unless its taps `corr` are given. The kernels
+        without a backward act only in test mode, as in JAX: the windowed
+        lookup (`prefetch_lookup`) and the gate pair (`ops/gates.py`,
+        switched on by its environment variable, read on every call; on CPU
+        tensors its wrappers run the plain versions)."""
         cfg = self.config
         context = state["context"]
         if corr is None:
-            corr = corr_sample(cfg, state["corr"], coords1)
+            corr = corr_sample(cfg, state["corr"], coords1, prefetch=cfg.prefetch_lookup and test_mode)
         flow = (coords1 - state["coords0"])[:, None]
         n = cfg.n_gru_layers
+        modes = {"test_mode": test_mode, "pallas_gates": gates.enabled() and test_mode}
         if cfg.slow_fast_gru and n == 3:
-            net = self.update_block(net, context, iter32=True, iter16=False, iter08=False, update=False,
-                                    test_mode=test_mode)
+            net = self.update_block(net, context, iter32=True, iter16=False, iter08=False, update=False, **modes)
         if cfg.slow_fast_gru and n >= 2:
             net = self.update_block(net, context, iter32=n == 3, iter16=True, iter08=False, update=False,
-                                    test_mode=test_mode)
-        net, delta_flow = self.update_block(net, context, corr, flow, iter32=n == 3, iter16=n >= 2,
-                                            test_mode=test_mode)
+                                    **modes)
+        net, delta_flow = self.update_block(net, context, corr, flow, iter32=n == 3, iter16=n >= 2, **modes)
         return net, coords1 + delta_flow[:, 0]
 
     def finalize(self, state: dict):

@@ -13,6 +13,12 @@ in a test-mode forward (`test_mode=True`) only, as the JAX model gates the
 flag (`fused_tail=cfg.fused_gru_tail and test_mode`): the kernels have no
 backward. r = sigmoid(convr + cr) stays in torch, and the tail kernel takes
 the pre-activations zx and qx.
+
+With `pallas_gates` (the experiment of `ops/gates.py`, switched on by its
+environment variable in a test-mode forward) the ConvGRU's gating runs as
+that module's two kernels instead: rh = sigmoid(rx + cr) * h before the
+candidate conv, and the blend after it. The fused tail takes precedence
+over it, as in JAX.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ import torch
 from torch import nn
 
 from raft_stereo_tpu_torch.models.layers import Conv
-from raft_stereo_tpu_torch.ops import gru_tail
+from raft_stereo_tpu_torch.ops import gates, gru_tail
 from raft_stereo_tpu_torch.utils.geometry import avg_pool2x, resize_bilinear_align_corners
 
 
@@ -50,8 +56,13 @@ class ConvGRU(nn.Module):
         self.convr = Conv(hidden_dim + input_dim, hidden_dim, 3)
         self.convq = Conv(hidden_dim + input_dim, hidden_dim, 3)
 
-    def forward(self, h, cz, cr, cq, *inputs, test_mode: bool = False):
+    def forward(self, h, cz, cr, cq, *inputs, test_mode: bool = False, pallas_gates: bool = False):
         hx = torch.cat([h, *inputs], dim=1)
+        if pallas_gates and not (self.fused_tail and test_mode):
+            zx = self.convz(hx)
+            rh = gates.fused_rh(self.convr(hx), cr, h)
+            qx = self.convq(torch.cat([rh, *inputs], dim=1))
+            return gates.fused_combine(zx, cz, qx, cq, h)
         r = torch.sigmoid(self.convr(hx) + cr)
         qx = self.convq(torch.cat([r * h, *inputs], dim=1))
         zx = self.convz(hx)
@@ -93,7 +104,7 @@ class BasicMultiUpdateBlock(nn.Module):
     (cz, cr, cq). `hidden_dims[2]` is the finest scale's width. The
     iter08/iter16/iter32 flags give the slow_fast_gru schedule; with
     `update=False` only the hidden states advance. `test_mode` lets
-    `fused_tail` take effect."""
+    `fused_tail` take effect; `pallas_gates` reaches every ConvGRU."""
 
     def __init__(self, hidden_dims: Sequence[int], corr_channels: int, n_gru_layers: int,
                  n_downsample: int, fused_tail: bool = False):
@@ -119,24 +130,25 @@ class BasicMultiUpdateBlock(nn.Module):
         iter32: bool = True,
         update: bool = True,
         test_mode: bool = False,
+        pallas_gates: bool = False,
     ):
         net = list(net)
         n = self.n_gru_layers
+        modes = {"test_mode": test_mode, "pallas_gates": pallas_gates}
         if iter32 and n == 3:
-            net[2] = self.gru32(net[2], *context[2], avg_pool2x(net[1]), test_mode=test_mode)
+            net[2] = self.gru32(net[2], *context[2], avg_pool2x(net[1]), **modes)
         if iter16 and n >= 2:
             if n > 2:
                 net[1] = self.gru16(net[1], *context[1], avg_pool2x(net[0]), _interp_to(net[2], net[1]),
-                                    test_mode=test_mode)
+                                    **modes)
             else:
-                net[1] = self.gru16(net[1], *context[1], avg_pool2x(net[0]), test_mode=test_mode)
+                net[1] = self.gru16(net[1], *context[1], avg_pool2x(net[0]), **modes)
         if iter08:
             motion = self.encoder(flow, corr, test_mode=test_mode)
             if n > 1:
-                net[0] = self.gru08(net[0], *context[0], motion, _interp_to(net[1], net[0]),
-                                    test_mode=test_mode)
+                net[0] = self.gru08(net[0], *context[0], motion, _interp_to(net[1], net[0]), **modes)
             else:
-                net[0] = self.gru08(net[0], *context[0], motion, test_mode=test_mode)
+                net[0] = self.gru08(net[0], *context[0], motion, **modes)
         if not update:
             return tuple(net)
         return tuple(net), self.flow_head(net[0])

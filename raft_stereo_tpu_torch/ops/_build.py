@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` file is compiled by `nvcc` into its own shared library
 with a plain C interface and loaded with `ctypes` — no PyTorch headers, so a
 build takes seconds. Libraries land in `raft_stereo_tpu_torch/_build/`
-(git-ignored), named by a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is reused. The build happens at first
+(git-ignored), named by a hash of the source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited source or header is rebuilt and
+an unchanged one is reused. The build happens at first
 use, never at import; `build(names)` compiles several sources in parallel,
 one `nvcc` process each. Each source has its own flags (`SOURCE_FLAGS`).
 
@@ -45,8 +46,10 @@ NVCC_FLAGS = (
 # No source uses --use_fast_math: divisions and square roots stay IEEE.
 SOURCE_FLAGS = {
     "corr_lookup": ("-fmad=false",),
+    "corr_prefetch": ("-fmad=false",),
     "corr_scatter": ("-fmad=false",),
     "gru_tail": ("-fmad=false",),
+    "gates": ("-fmad=false",),
     "encoder_join": ("-fmad=false",),
     "corr_pyramid": ("-fmad=true",),
     "encoder_conv": ("-fmad=true",),
@@ -77,9 +80,12 @@ def nvcc_command(nvcc: str, name: str, out: Path) -> list:
 
 
 def _target(name: str) -> Path:
-    """The library of `csrc/<name>.cu`, named by a hash of its source and flags."""
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(nvcc_flags(name)).encode()).hexdigest()[:16]
+    """The library of `csrc/<name>.cu`, named by a hash of its source, the
+    shared headers and its flags."""
+    parts = [(CSRC_DIR / f"{name}.cu").read_bytes()]
+    parts += [header.read_bytes() for header in sorted(CSRC_DIR.glob("*.cuh"))]
+    parts.append(" ".join(nvcc_flags(name)).encode())
+    digest = hashlib.sha256(b"\0".join(parts)).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -12,11 +12,20 @@ version, for CPU tensors.
 (`ops/corr.py` `corr_lookup`) for CPU tensors. There is no other route: a
 CUDA tensor the kernel cannot take raises.
 
+`prefetch_corr_lookup` (config.prefetch_lookup, test mode) computes the
+lookup's function with the windowed kernel `csrc/corr_prefetch.cu`: each
+query's window of every level staged in shared memory, bit for bit the
+dense kernel's taps on every input. It has no backward, as in JAX: it raises
+where autograd would record.
+
 The lookup's gradient is `CorrLookup`, the counterpart of the JAX package's
 custom VJP of `pallas_corr_lookup_padded`: d(pyramid) from the tap cotangent
 by `corr_scatter` (one launch of `csrc/corr_scatter.cu` per backward for
 CUDA tensors, `plain_corr_scatter` for CPU tensors), and no gradient to the
 coordinates. `corr_lookup` goes through it whenever autograd records.
+
+Not ported: the bf16 pyramid and taps (`corr_dtype="bfloat16"`, under
+`mixed_precision`) and the "alt" strategy's on-the-fly lookup.
 """
 
 from __future__ import annotations
@@ -30,8 +39,8 @@ from raft_stereo_tpu_torch.ops import _build, corr
 
 # Kernel launches since the last reset; chip_smoke.py reads it to prove the
 # serving and training paths went through the kernels.
-LAUNCHES = {"corr_lookup": 0, "corr_pyramid": 0, "corr_scatter": 0}
-MAX_LEVELS = 8  # csrc/corr_lookup.cu and csrc/corr_scatter.cu MAX_LEVELS
+LAUNCHES = {"corr_lookup": 0, "corr_pyramid": 0, "corr_scatter": 0, "corr_prefetch_lookup": 0}
+MAX_LEVELS = 8  # MAX_LEVELS of csrc/corr_lookup.cu, corr_prefetch.cu and corr_scatter.cu
 # csrc/corr_pyramid.cu: a 64-column volume tile pools into every level, so
 # its columns must align to 2**(L-1).
 PYRAMID_MAX_LEVELS = 7
@@ -91,20 +100,24 @@ def _pyramid_lib():
     return lib
 
 
+# The C signature of both lookup kernels, dense and windowed.
+_LOOKUP_ARGTYPES = [
+    ctypes.c_void_p,  # coords
+    ctypes.c_void_p,  # host array of level pointers
+    ctypes.c_void_p,  # host array of level widths (int32)
+    ctypes.c_int,  # num_levels
+    ctypes.c_longlong,  # n_queries
+    ctypes.c_int,  # radius
+    ctypes.c_void_p,  # out
+    ctypes.c_void_p,  # stream
+]
+
+
 def _lib():
     lib = _build.load("corr_lookup")
     fn = lib.raft_corr_lookup_f32
     if fn.argtypes is None:
-        fn.argtypes = [
-            ctypes.c_void_p,  # coords
-            ctypes.c_void_p,  # host array of level pointers
-            ctypes.c_void_p,  # host array of level widths (int32)
-            ctypes.c_int,  # num_levels
-            ctypes.c_longlong,  # n_queries
-            ctypes.c_int,  # radius
-            ctypes.c_void_p,  # out
-            ctypes.c_void_p,  # stream
-        ]
+        fn.argtypes = _LOOKUP_ARGTYPES
         fn.restype = ctypes.c_int
         lib.raft_corr_error_string.argtypes = [ctypes.c_int]
         lib.raft_corr_error_string.restype = ctypes.c_char_p
@@ -127,20 +140,29 @@ def _lookup(levels: Tuple[torch.Tensor, ...], coords: torch.Tensor, radius: int)
     version for CPU tensors."""
     if not coords.is_cuda:
         return corr.corr_lookup(levels, coords, radius)
+    lib = _lib()
+    out = _launch_lookup("corr_lookup", lib.raft_corr_lookup_f32, lib.raft_corr_error_string,
+                         levels, coords, radius)
+    LAUNCHES["corr_lookup"] += 1
+    return out
+
+
+def _launch_lookup(name, fn, error_string, levels, coords, radius) -> torch.Tensor:
+    """Check the operands of a lookup kernel (dense or windowed: one C
+    signature), launch it on the current stream and return its taps."""
     b, h, w1 = coords.shape
     if not 1 <= len(levels) <= MAX_LEVELS:
-        raise ValueError(f"corr_lookup kernel takes 1..{MAX_LEVELS} levels, got {len(levels)}")
+        raise ValueError(f"{name} kernel takes 1..{MAX_LEVELS} levels, got {len(levels)}")
     for t in (coords, *levels):
         if t.device != coords.device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError("corr_lookup kernel needs contiguous fp32 tensors on one CUDA device")
+            raise ValueError(f"{name} kernel needs contiguous fp32 tensors on one CUDA device")
     for lvl in levels:
         if lvl.dim() != 4 or tuple(lvl.shape[:3]) != (b, h, w1):
             raise ValueError(f"level shape {tuple(lvl.shape)} does not match coords {(b, h, w1)}")
     out = torch.empty((b, h, w1, len(levels) * (2 * radius + 1)), dtype=torch.float32, device=coords.device)
     ptrs = (ctypes.c_void_p * len(levels))(*[lvl.data_ptr() for lvl in levels])
     widths = (ctypes.c_int * len(levels))(*[lvl.shape[-1] for lvl in levels])
-    lib = _lib()
-    status = lib.raft_corr_lookup_f32(
+    status = fn(
         coords.data_ptr(),
         ctypes.cast(ptrs, ctypes.c_void_p),
         ctypes.cast(widths, ctypes.c_void_p),
@@ -150,8 +172,37 @@ def _lookup(levels: Tuple[torch.Tensor, ...], coords: torch.Tensor, radius: int)
         out.data_ptr(),
         torch.cuda.current_stream(coords.device).cuda_stream,
     )
-    _build.check(status, "corr_lookup kernel", lib.raft_corr_error_string)
-    LAUNCHES["corr_lookup"] += 1
+    _build.check(status, f"{name} kernel", error_string)
+    return out
+
+
+def _prefetch_lib():
+    lib = _build.load("corr_prefetch")
+    fn = lib.raft_corr_prefetch_f32
+    if fn.argtypes is None:
+        fn.argtypes = _LOOKUP_ARGTYPES
+        fn.restype = ctypes.c_int
+        lib.raft_corr_prefetch_error_string.argtypes = [ctypes.c_int]
+        lib.raft_corr_prefetch_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def prefetch_corr_lookup(state: Sequence[torch.Tensor], coords: torch.Tensor, radius: int) -> torch.Tensor:
+    """`corr_lookup`'s taps by the windowed kernel `csrc/corr_prefetch.cu`
+    for CUDA tensors (the counterpart of the JAX package's
+    `prefetch_corr_lookup_padded`, bit for bit the dense kernel's output on
+    every input), by the plain lookup (`ops/corr.py` `corr_lookup`) for CPU
+    tensors. No backward: raises where autograd would record."""
+    levels = tuple(state)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (coords, *levels)):
+        raise RuntimeError("prefetch_corr_lookup has no backward (test-mode forwards only); "
+                           "call it without grad or use corr_lookup")
+    if not coords.is_cuda:
+        return corr.corr_lookup(levels, coords, radius)
+    lib = _prefetch_lib()
+    out = _launch_lookup("corr_prefetch_lookup", lib.raft_corr_prefetch_f32,
+                         lib.raft_corr_prefetch_error_string, levels, coords, radius)
+    LAUNCHES["corr_prefetch_lookup"] += 1
     return out
 
 

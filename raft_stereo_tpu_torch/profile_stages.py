@@ -1,18 +1,21 @@
 """Device-time breakdown of the anytime serving stages, or of one training
 step, on a CUDA card.
 
-    python -m raft_stereo_tpu_torch.profile_stages [--config kernel|fused|train]
+    python -m raft_stereo_tpu_torch.profile_stages [--config kernel|fused|evaluate|train]
         [--cases 384x512/1,512x768/1] [--cudnn-benchmark off,on] [--top 8]
 
 Builds the default model with the CUDA lookup and fused GRU tails
 (`--config kernel`), or with the fused encoder prelude on top of them
-(`--config fused`: pyramid build, layer1 convs and joins as kernels), with
+(`--config fused`: pyramid build, layer1 convs and joins as kernels), or
+with the windowed lookup in place of the dense one (`--config evaluate`,
+the evaluate entry point's configuration), with
 seeded random weights, fp32, TF32 off, and for each (bucket, batch) case and
 cuDNN benchmark mode warms it, then times one prelude and one chunk of 4
 iterations (synchronized wall clock) and traces each with `torch.profiler`.
 Prints per stage the wall time, the summed device-kernel time, the device's
 busy share (kernel time over wall time), the time by kernel family, and the
-kernels that take most device time. Needs a CUDA device.
+kernels that take most device time, then times every distinct
+convolution of the forward alone, as below. Needs a CUDA device.
 
 `--config train` runs the training step instead, at the train CLI's recipe
 unless `--cases` names another (default 320x720/6, 16 iterations, remat on
@@ -49,13 +52,15 @@ CHUNK_ITERS = 4
 CONFIGS = {
     "kernel": RAFTStereoConfig(corr_implementation="pallas", fused_gru_tail=True),
     "fused": RAFTStereoConfig(corr_implementation="pallas", fused_gru_tail=True, fused_encoder=True),
+    "evaluate": RAFTStereoConfig(corr_implementation="pallas", fused_gru_tail=True, prefetch_lookup=True),
     "train": RAFTStereoConfig(corr_implementation="pallas"),
 }
 TRAIN_CASE = "320x720/6"
 TRAIN_ITERS = 16
 FAMILIES = (
     ("port kernels", ("corr_lookup_kernel", "corr_scatter_kernel", "gru_tail_", "motion_tail_kernel",
-                      "corr_pyramid_kernel", "encoder_conv_kernel", "encoder_stats_kernel", "join_kernel")),
+                      "corr_pyramid_kernel", "encoder_conv_kernel", "encoder_stats_kernel", "join_kernel",
+                      "corr_prefetch_kernel", "gates_rh_kernel", "gates_combine_kernel")),
     ("convolution", ("conv", "xmma", "cutlass", "implicit", "winograd", "gemm", "sm90", "fft")),
     ("copy / layout", ("copy", "transpose", "nchw", "nhwc", "cat", "memcpy", "memset", "fill")),
 )
@@ -186,9 +191,9 @@ def conv_ms(x, weight, stride, padding, reps=3):
 
 def time_convs(model, data, mask_batch) -> None:
     """Every distinct conv (input shape, weight shape, stride) of one
-    one-iteration training forward, and the mask head's first conv at the
-    step's batch of iterations x batch, timed alone with cuDNN's default
-    choice and with cuDNN off."""
+    one-iteration forward, and the mask head's first conv at
+    `mask_batch` (a training step's iterations x batch), timed alone with
+    cuDNN's default choice and with cuDNN off."""
     shapes, keys = {}, {}
     hooks = []
     for name, mod in model.named_modules():
@@ -252,6 +257,7 @@ def main(argv=None) -> int:
                 run_stage("prelude", lambda: anytime.prelude(model, img, img), args.top)
                 run_stage(f"chunk of {CHUNK_ITERS}",
                           lambda: anytime.chunk(model, state, CHUNK_ITERS), args.top)
+            time_convs(model, {"image1": img, "image2": img}, int(batch))
             del img, state
             torch.cuda.empty_cache()
     return 0

@@ -16,16 +16,25 @@ one to one, with three rules:
 
 The bridge raises on any JAX leaf left unused, any port tensor left unset,
 and any shape that disagrees.
+
+`load_reference_checkpoint(model, path)` restores the reference's `.pth`
+(`--restore_ckpt`): `convert_state_dict` and its helpers, a copy of the JAX
+package's (`raft_stereo_tpu/utils/checkpoints.py`; numpy only), map the
+torch state dict onto the flax variables tree, which the bridge then loads.
+The JAX package's own checkpoints are orbax directories; reading them needs
+the JAX stack, so the port refuses them.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+import os
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from raft_stereo_tpu_torch.config import RAFTStereoConfig
 from raft_stereo_tpu_torch.models.layers import FrozenBatchNorm, GroupNorm
 
 _NORM_CLASS = {FrozenBatchNorm: "FrozenBatchNorm", GroupNorm: "GroupNorm"}
@@ -90,3 +99,181 @@ def load_jax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
     if leaves:
         raise KeyError(f"JAX leaves left unused: {sorted('/'.join(k) for k in leaves)}")
     return module
+
+
+# --- the reference's `.pth` -> flax variables (a copy of the JAX package's) ---
+#
+# Layout conversions: conv weights OIHW -> HWIO; BatchNorm running stats ->
+# the `batch_stats` collection; the disparity-native slices: the motion
+# encoder's flow conv keeps only its x-input channel, the flow head only its
+# x-output row (both exact: flow-y is identically zero in the reference).
+
+
+def _conv(sd: Mapping[str, np.ndarray], key: str) -> Dict[str, np.ndarray]:
+    out = {"kernel": sd[f"{key}.weight"].transpose(2, 3, 1, 0)}
+    if f"{key}.bias" in sd:
+        out["bias"] = sd[f"{key}.bias"]
+    return out
+
+
+def _norm_params(sd, key):
+    return {"scale": sd[f"{key}.weight"], "bias": sd[f"{key}.bias"]}
+
+
+def _norm_stats(sd, key):
+    return {"mean": sd[f"{key}.running_mean"], "var": sd[f"{key}.running_var"]}
+
+
+class _TreeBuilder:
+    """Accumulates params and batch_stats trees addressed by path tuples."""
+    def __init__(self):
+        self.params: Dict[str, Any] = {}
+        self.stats: Dict[str, Any] = {}
+
+    def _set(self, tree, path, value):
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = value
+
+    def conv(self, sd, tkey, *path):
+        # Conv wrapper nests one flax nn.Conv named Conv_0.
+        self._set(self.params, (*path, "Conv_0"), _conv(sd, tkey))
+
+    def norm(self, sd, tkey, *path, kind="batch"):
+        if kind == "batch":
+            self._set(self.params, path, _norm_params(sd, tkey))
+            self._set(self.stats, path, _norm_stats(sd, tkey))
+        elif kind == "group":
+            self._set(self.params, path, _norm_params(sd, tkey))
+        # instance norm: parameter-free
+
+
+def _residual_block(b: _TreeBuilder, sd, tkey: str, path: Tuple[str, ...], norm: str, has_down: bool):
+    """ResidualBlock param mapping (models/layers.py ↔ reference
+    core/extractor.py:6-60). Flax auto-names the norm layers in call order:
+    norm1 → <Norm>_0, norm2 → <Norm>_1, downsample norm → <Norm>_2."""
+    norm_cls = {"batch": "FrozenBatchNorm", "instance": "InstanceNorm", "group": "GroupNorm"}[norm]
+    b.conv(sd, f"{tkey}.conv1", *path, "conv1")
+    b.conv(sd, f"{tkey}.conv2", *path, "conv2")
+    if norm in ("batch", "group"):
+        b.norm(sd, f"{tkey}.norm1", *path, f"{norm_cls}_0", kind=norm)
+        b.norm(sd, f"{tkey}.norm2", *path, f"{norm_cls}_1", kind=norm)
+    if has_down:
+        b.conv(sd, f"{tkey}.downsample.0", *path, "downsample")
+        if norm in ("batch", "group"):
+            b.norm(sd, f"{tkey}.downsample.1", *path, f"{norm_cls}_2", kind=norm)
+
+
+def _trunk(b: _TreeBuilder, sd, tprefix: str, path: Tuple[str, ...], norm: str, downsample: int):
+    """EncoderTrunk ↔ reference stem+layer1-3 (core/extractor.py:144-150,
+    168-174). Skip-path 1x1 exists iff stride>1 or channel change."""
+    b.conv(sd, f"{tprefix}conv1", *path, "conv1")
+    if norm == "batch":
+        b.norm(sd, f"{tprefix}norm1", *path, "FrozenBatchNorm_0", kind="batch")
+    elif norm == "group":
+        b.norm(sd, f"{tprefix}norm1", *path, "GroupNorm_0", kind="group")
+    _residual_block(b, sd, f"{tprefix}layer1.0", (*path, "layer1_0"), norm, has_down=False)
+    _residual_block(b, sd, f"{tprefix}layer1.1", (*path, "layer1_1"), norm, has_down=False)
+    _residual_block(b, sd, f"{tprefix}layer2.0", (*path, "layer2_0"), norm, has_down=True)  # 64→96
+    _residual_block(b, sd, f"{tprefix}layer2.1", (*path, "layer2_1"), norm, has_down=False)
+    _residual_block(b, sd, f"{tprefix}layer3.0", (*path, "layer3_0"), norm, has_down=True)  # 96→128
+    _residual_block(b, sd, f"{tprefix}layer3.1", (*path, "layer3_1"), norm, has_down=False)
+
+
+def convert_state_dict(
+    sd: Mapping[str, np.ndarray], config: RAFTStereoConfig
+) -> Dict[str, Any]:
+    """torch state_dict → flax variables {'params': ..., 'batch_stats': ...}
+    for `RAFTStereo(config)`. Exact up to the documented disparity-native
+    weight slices."""
+    b = _TreeBuilder()
+
+    # --- context encoder (cnet, batch norm) ---
+    _trunk(b, sd, "cnet.", ("cnet", "trunk"), "batch", config.n_downsample)
+    n_heads = 2  # (hidden, context) — reference output_dim=[hidden_dims, context_dims]
+    for j in range(n_heads):
+        _residual_block(b, sd, f"cnet.outputs08.{j}.0", ("cnet", f"res08_{j}"), "batch", has_down=False)
+        b.conv(sd, f"cnet.outputs08.{j}.1", "cnet", f"out08_{j}")
+        if config.n_gru_layers >= 2:
+            _residual_block(b, sd, f"cnet.outputs16.{j}.0", ("cnet", f"res16_{j}"), "batch", has_down=False)
+            b.conv(sd, f"cnet.outputs16.{j}.1", "cnet", f"out16_{j}")
+        if config.n_gru_layers >= 3:
+            b.conv(sd, f"cnet.outputs32.{j}", "cnet", f"out32_{j}")
+    if config.n_gru_layers >= 2:
+        _residual_block(b, sd, "cnet.layer4.0", ("cnet", "layer4_0"), "batch", has_down=True)
+        _residual_block(b, sd, "cnet.layer4.1", ("cnet", "layer4_1"), "batch", has_down=False)
+    if config.n_gru_layers >= 3:
+        _residual_block(b, sd, "cnet.layer5.0", ("cnet", "layer5_0"), "batch", has_down=True)
+        _residual_block(b, sd, "cnet.layer5.1", ("cnet", "layer5_1"), "batch", has_down=False)
+
+    # --- feature encoder (the port has no shared_backbone) ---
+    _trunk(b, sd, "fnet.", ("fnet", "trunk"), "instance", config.n_downsample)
+    b.conv(sd, "fnet.conv2", "fnet", "conv2")
+
+    # --- context zqr convs ---
+    for i in range(config.n_gru_layers):
+        b.conv(sd, f"context_zqr_convs.{i}", f"context_zqr_conv{i}")
+
+    # --- update block (under the scanned iteration body) ---
+    ub = ("iteration", "update_block")
+    gru_names = ["gru08"] + (["gru16"] if config.n_gru_layers >= 2 else []) + (
+        ["gru32"] if config.n_gru_layers >= 3 else []
+    )
+    for gname in gru_names:
+        for gate in ("convz", "convr", "convq"):
+            b.conv(sd, f"update_block.{gname}.{gate}", *ub, gname, gate)
+
+    enc = (*ub, "encoder")
+    b.conv(sd, "update_block.encoder.convc1", *enc, "convc1")
+    b.conv(sd, "update_block.encoder.convc2", *enc, "convc2")
+    # Disparity-native slice: flow conv keeps x-input channel only (exact —
+    # flow-y ≡ 0 in the reference).
+    w = sd["update_block.encoder.convf1.weight"]  # (64, 2, 7, 7)
+    b._set(
+        b.params,
+        (*enc, "convf1", "Conv_0"),
+        {"kernel": w[:, :1].transpose(2, 3, 1, 0), "bias": sd["update_block.encoder.convf1.bias"]},
+    )
+    b.conv(sd, "update_block.encoder.convf2", *enc, "convf2")
+    b.conv(sd, "update_block.encoder.conv", *enc, "conv")
+
+    fh = (*ub, "flow_head")
+    b.conv(sd, "update_block.flow_head.conv1", *fh, "conv1")
+    # Disparity-native slice: keep x-output row only (exact — y overwritten
+    # with 0 in the reference, core/raft_stereo.py:120).
+    w = sd["update_block.flow_head.conv2.weight"]  # (2, 256, 3, 3)
+    b._set(
+        b.params,
+        (*fh, "conv2", "Conv_0"),
+        {
+            "kernel": w[:1].transpose(2, 3, 1, 0),
+            "bias": sd["update_block.flow_head.conv2.bias"][:1],
+        },
+    )
+
+    # Mask head lives outside the scanned iteration body (models/update.py
+    # UpsampleMaskHead) — same weights, applied post-scan.
+    b.conv(sd, "update_block.mask.0", "mask_head", "mask_conv1")
+    b.conv(sd, "update_block.mask.2", "mask_head", "mask_conv2")
+
+    return {"params": b.params, "batch_stats": b.stats}
+
+
+
+def load_reference_state_dict(path: str) -> Dict[str, np.ndarray]:
+    """Read a reference `.pth` into {key: ndarray}, stripping the
+    DataParallel `module.` prefix."""
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path!r} is a directory: orbax checkpoints of the JAX package need the JAX stack to "
+            "read; the port restores the reference's .pth state dicts only"
+        )
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    return {k[len("module."):] if k.startswith("module.") else k: v.numpy() for k, v in state.items()}
+
+
+def load_reference_checkpoint(model: nn.Module, path: str) -> nn.Module:
+    """Restore a reference `.pth` into a port `RAFTStereo` in place:
+    `convert_state_dict`, then `load_jax_variables`."""
+    return load_jax_variables(model, convert_state_dict(load_reference_state_dict(path), model.config))

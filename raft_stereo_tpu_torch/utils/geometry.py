@@ -43,7 +43,14 @@ def linear_sample_1d(values: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 def _interp_matrix(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
     """(n_out, n_in) align-corners interpolation matrix: row o holds
     1 - frac and frac at the two samples around position o * (n_in - 1) /
-    (n_out - 1), as in the JAX package."""
+    (n_out - 1), as in the JAX package. Built outside inference mode even
+    when first asked for inside it: the cached matrix also serves training
+    forwards, and autograd cannot save an inference tensor."""
+    with torch.inference_mode(False):
+        return _build_interp_matrix(n_in, n_out, device)
+
+
+def _build_interp_matrix(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
     m = torch.zeros((n_out, n_in), dtype=torch.float32)
     if n_out == 1 or n_in == 1:
         m[:, 0] = 1.0

@@ -3,10 +3,13 @@
 PyTorch counterpart of `raft_stereo_tpu/utils/padding.py`: replicate-edge
 padding, 'sintel' mode centres the pad, any other mode pads the bottom rows
 only. `target=(H, W)` pads to an exact serving bucket. The serving front
-edge-pads on the host with `np.pad` and these `pad_amounts`.
+edge-pads on the host with `np.pad` and these `pad_amounts`; evaluation pads
+on the device with `pad`.
 """
 
 from __future__ import annotations
+
+import torch
 
 
 class InputPadder:
@@ -40,6 +43,18 @@ class InputPadder:
     def pad_amounts(self):
         """(left, right, top, bottom)."""
         return self._pad
+
+    def pad(self, *inputs: torch.Tensor):
+        """Replicate-edge pad (B, H, W, C) tensors on their own device; one
+        tensor for one input, else a list."""
+        left, right, top, bottom = self._pad
+        out = []
+        for x in inputs:
+            h, w = x.shape[1], x.shape[2]
+            rows = torch.arange(-top, h + bottom, device=x.device).clamp(0, h - 1)
+            cols = torch.arange(-left, w + right, device=x.device).clamp(0, w - 1)
+            out.append(x[:, rows][:, :, cols])
+        return out if len(out) > 1 else out[0]
 
     def unpad(self, x):
         """Crop a padded (B, H, W, C) array or tensor back to the input size."""

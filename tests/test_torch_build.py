@@ -1,11 +1,13 @@
 """The port's kernel build (ops/_build.py), without nvcc: each source's own
-flags reach its command line and the hash that names its library."""
+flags reach its command line and the hash that names its library, as does
+every shared header."""
 
+import shutil
 from pathlib import Path
 
 from raft_stereo_tpu_torch.ops import _build
 
-EXACT = ("corr_lookup", "corr_scatter", "gru_tail", "encoder_join")
+EXACT = ("corr_lookup", "corr_prefetch", "corr_scatter", "gru_tail", "gates", "encoder_join")
 CONTRACTED = ("corr_pyramid", "encoder_conv")
 
 
@@ -33,3 +35,13 @@ def test_library_hash_covers_the_flags(monkeypatch):
     assert _build._target("corr_lookup") == before["corr_lookup"]
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
     assert all(_build._target(name) != before[name] for name in EXACT)
+
+
+def test_library_hash_covers_the_shared_headers(monkeypatch, tmp_path):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    before = {name: _build._target(name) for name in EXACT + CONTRACTED}
+    header = csrc / "gru_gates.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert all(_build._target(name) != before[name] for name in before)

@@ -7,6 +7,13 @@ over `pallas_corr_state` — the TPU kernel in Pallas interpret mode.
 Cases: odd W2, W2 > 128 (several 128-lane tiles in the TPU kernel), and
 coordinates below 0 and past W2.
 
+The windowed lookup (`prefetch_lookup`): `corr_cuda.prefetch_corr_lookup`
+on CPU tensors (the plain lookup) against `prefetch_corr_lookup_padded` in
+interpret mode, on the five input families of tests/test_fast_path.py:
+smooth coordinates, W = 600 (a strict JAX window), odd width 27, edge
+coordinates, and uniform-random coordinates (JAX falls back to the dense
+kernel).
+
 The lookup's gradient: `plain_corr_scatter` (the plain version of the
 scatter kernel) against `_scatter_pallas_padded` in interpret mode,
 `CorrLookup` against `jax.vjp` of the padded lookup, and d(feature maps)
@@ -31,6 +38,7 @@ from raft_stereo_tpu.ops.corr_pallas import (
     pad_pyramid,
     pallas_corr_lookup_padded,
     pallas_corr_state,
+    prefetch_corr_lookup_padded,
 )
 from raft_stereo_tpu_torch.ops import corr, corr_cuda
 from torch_parity import torch_single_thread  # noqa: F401 (autouse fixture)
@@ -85,6 +93,47 @@ def test_cuda_strategy_on_cpu_matches_pallas_interpret(rng, case):
     np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
     # CPU tensors take the plain version: no kernel launch is counted.
     assert corr_cuda.LAUNCHES == before
+
+
+def prefetch_case(rng, family):
+    """tests/test_fast_path.py's inputs: (B, H, W, D) = (2, 4, W, 16)
+    feature maps and the family's coordinates."""
+    w = {"smooth": 24, "strict_window_600": 600, "odd_width_27": 27, "edge": 24, "uniform_random": 600}[family]
+    f1 = rng.standard_normal((2, 4, w, 16)).astype(np.float32)
+    f2 = rng.standard_normal((2, 4, w, 16)).astype(np.float32)
+    if family == "edge":
+        x = np.linspace(-5.0, w + 5.0, w, dtype=np.float32)
+    elif family == "uniform_random":
+        x = rng.uniform(-6, w + 6, size=(2, 4, w)).astype(np.float32)
+    else:  # the grid minus a smooth bounded disparity
+        disp = 0.5 + 5.5 * (0.5 + 0.5 * np.sin(np.linspace(0, 3.0, w, dtype=np.float32)))
+        x = np.arange(w, dtype=np.float32) - disp
+    return f1, f2, np.ascontiguousarray(np.broadcast_to(x, (2, 4, w)), dtype=np.float32)
+
+
+@pytest.mark.parametrize("family", ["smooth", "strict_window_600", "odd_width_27", "edge", "uniform_random"])
+def test_prefetch_lookup_on_cpu_matches_pallas_interpret(rng, family):
+    f1, f2, x = prefetch_case(rng, family)
+    state = pallas_corr_state(jnp.asarray(f1), jnp.asarray(f2), LEVELS)
+    want = np.asarray(prefetch_corr_lookup_padded(state, jnp.asarray(x), RADIUS))
+    before = dict(corr_cuda.LAUNCHES)
+    tstate = corr_cuda.corr_state(torch.from_numpy(f1), torch.from_numpy(f2), LEVELS)
+    got = corr_cuda.prefetch_corr_lookup(tstate, torch.from_numpy(x), RADIUS)
+    assert got.shape == (*x.shape, LEVELS * (2 * RADIUS + 1))
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
+    # CPU tensors take the plain version, the dense lookup's: no kernel
+    # launch is counted, and the taps are the dense wrapper's.
+    assert corr_cuda.LAUNCHES == before
+    assert torch.equal(got, corr_cuda.corr_lookup(tstate, torch.from_numpy(x), RADIUS))
+
+
+def test_prefetch_lookup_has_no_backward(rng):
+    f1, f2, x = prefetch_case(rng, "smooth")
+    levels = [lvl.requires_grad_() for lvl in corr_cuda.corr_state(torch.from_numpy(f1), torch.from_numpy(f2), LEVELS)]
+    with pytest.raises(RuntimeError, match="no backward"):
+        corr_cuda.prefetch_corr_lookup(levels, torch.from_numpy(x), RADIUS)
+    with torch.no_grad():
+        assert corr_cuda.prefetch_corr_lookup(levels, torch.from_numpy(x), RADIUS).shape[-1] == 36
 
 
 def test_far_out_of_range_taps_are_zero(rng):
@@ -252,3 +301,22 @@ def test_scatter_kernel_matches_plain_on_cuda(rng, case):
     for t, t2, w in zip(got, again, want):
         assert torch.equal(t, t2)  # no atomics: the same bits every launch
         np.testing.assert_array_equal(t.cpu().numpy(), w.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["smooth", "strict_window_600", "odd_width_27", "edge", "uniform_random"])
+def test_prefetch_kernel_equals_dense_kernel_on_cuda(rng, family):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the prefetch kernel has no CPU form")
+    f1, f2, x = prefetch_case(rng, family)
+    x.reshape(-1)[:5] = [np.nan, np.inf, -np.inf, 1e6, -1e6]
+    state = corr_cuda.corr_state(torch.from_numpy(f1).cuda(), torch.from_numpy(f2).cuda(), LEVELS)
+    coords = torch.from_numpy(x).cuda()
+    before = corr_cuda.LAUNCHES["corr_prefetch_lookup"]
+    got = corr_cuda.prefetch_corr_lookup(state, coords, RADIUS)
+    torch.cuda.synchronize()
+    assert corr_cuda.LAUNCHES["corr_prefetch_lookup"] == before + 1
+    dense = corr_cuda.corr_lookup(state, coords, RADIUS)
+    plain = corr.corr_lookup(state, coords, RADIUS)
+    np.testing.assert_array_equal(got.cpu().numpy(), dense.cpu().numpy())
+    np.testing.assert_array_equal(got.cpu().numpy(), plain.cpu().numpy())

@@ -68,6 +68,18 @@ def test_convex_upsample_and_blocked(rng, factor):
     np.testing.assert_allclose(got_b.transpose(0, 2, 3, 4, 5, 1), want_b, atol=ATOL * factor, rtol=0)
 
 
+def test_resize_is_differentiable_after_an_inference_mode_call():
+    """The interpolation matrices are cached per shape; one first built
+    under `torch.inference_mode` (a serving or evaluation forward) must
+    still serve a training forward at the same shapes afterwards."""
+    x = torch.ones((1, 2, 5, 7))
+    with torch.inference_mode():
+        tgeo.resize_bilinear_align_corners(x, 11, 13)
+    y = x.clone().requires_grad_()
+    tgeo.resize_bilinear_align_corners(y, 11, 13).sum().backward()
+    assert y.grad is not None and y.grad.shape == y.shape
+
+
 @pytest.mark.parametrize(
     "dims,kwargs",
     [
@@ -87,6 +99,10 @@ def test_input_padder(rng, dims, kwargs):
     got = np.pad(x, ((0, 0), (top, bottom), (left, right), (0, 0)), mode="edge")
     want = np.asarray(jp.pad(jnp.asarray(x)))
     np.testing.assert_array_equal(got, want)
+    # Evaluation pads on the device with InputPadder.pad, several tensors at once.
+    a, b = tp.pad(torch.from_numpy(x), torch.from_numpy(x + 1.0))
+    np.testing.assert_array_equal(a.numpy(), want)
+    np.testing.assert_array_equal(b.numpy(), want + 1.0)
     np.testing.assert_array_equal(tp.unpad(torch.from_numpy(got)).numpy(), x)
     np.testing.assert_array_equal(tp.unpad(want), np.asarray(jp.unpad(jnp.asarray(want))))
 

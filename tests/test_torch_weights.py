@@ -110,8 +110,9 @@ def test_flax_init_scale_is_reproduced():
 
 
 def test_port_imports_no_jax():
-    """Importing every port module (the training package included) and
-    chip_smoke.py's imports loads no JAX and nothing of the JAX package."""
+    """Importing every port module (the training package, the evaluate
+    entry point and its command line included) and chip_smoke.py's imports
+    loads no JAX and nothing of the JAX package."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import raft_stereo_tpu_torch\n"
@@ -122,7 +123,8 @@ def test_port_imports_no_jax():
         "             or k == 'raft_stereo_tpu' or k.startswith('raft_stereo_tpu.'))\n"
         "assert not bad, bad\n"
         "walked = {k for k in sys.modules if k.startswith('raft_stereo_tpu_torch')}\n"
-        "for m in ('train.loss', 'train.optimizer', 'train.trainer', 'ops.corr_cuda', 'serving.service'):\n"
+        "for m in ('train.loss', 'train.optimizer', 'train.trainer', 'ops.corr_cuda', 'serving.service',\n"
+        "          'evaluate', 'cli', '__main__', 'ops.gates'):\n"
         "    assert 'raft_stereo_tpu_torch.' + m in walked, m\n"
         "print('ok', len(walked))\n"
     )

@@ -80,6 +80,13 @@ def jax_init(module, *args, seed: int = 0, **kwargs):
     return perturb(init(jax.random.PRNGKey(seed), *args), seed)
 
 
+def halve_kernels(tree):
+    """A variables tree with every conv kernel halved: the model-level
+    parity tests' weights (tests/test_torch_model.py `weights` says why)."""
+    return {k: halve_kernels(v) if isinstance(v, dict) else (0.5 * v if k == "kernel" else v)
+            for k, v in tree.items()}
+
+
 def jax_apply(module, variables, *args, **kwargs):
     """One jitted flax apply at full fp32 precision, outputs as numpy."""
     with jax.default_matmul_precision("highest"):
