@@ -6,7 +6,8 @@ kernel configuration against the plain one, the fused one against the
 kernel one), compares their stage times, evaluates the default model on a
 synthetic Middlebury-F-sized set through the evaluate entry point (the
 windowed lookup, and the gate pair in its own configuration) and checks it
-against the dense configuration, trains the default model for a few steps
+against the dense and the plain configurations, runs the evaluate command
+line on its dry-run set, trains the default model for a few steps
 at the training recipe's size (the lookup's backward as the scatter kernel)
 and checks one step against plain autograd, and times every kernel.
 
@@ -22,8 +23,11 @@ then one JSON line describing the kernels, and as its last line
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -33,6 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from raft_stereo_tpu_torch import cli
 from raft_stereo_tpu_torch.config import RAFTStereoConfig, ServeConfig, TrainConfig
 from raft_stereo_tpu_torch.evaluate import Evaluator, SyntheticEvalDataset, validate_middlebury
 from raft_stereo_tpu_torch.models import anytime
@@ -72,7 +77,9 @@ EVAL_SHAPE = (1980, 2870)
 # Middlebury-F's, (label, (query rows, W1 = W2)).
 PREFETCH_CASES = (("512x768", (128, 192)), ("1984x2880", (496, 720)))
 EVAL_ITERS = 32
-GATES_E2E_ITERS = 4
+# Iterations of the evaluate path's end-to-end checks against plain code
+# and the gates' twin.
+E2E_ITERS = 4
 SEED = 0
 DEVICE = "cuda"
 
@@ -321,17 +328,21 @@ def phase_kernels(gen) -> dict:
         if not err <= TOL["corr_lookup"]:
             raise AssertionError(f"corr_lookup disagrees with its plain version at {hh}x{ww}: {err}")
         errs["corr_lookup"] = max(errs.get("corr_lookup", 0.0), err)
-    for div in (4, 8, 16):
-        h, w = 512 // div, 768 // div
-        ops = tail_inputs(gen, 128, h, w)
-        got = gru_tail.fused_gru_tail(*ops)
-        torch.cuda.synchronize()
-        err = max_err(got, gru_tail.plain_gru_tail(*ops))
-        log(f"[kernels] gru_tail 128x{h}x{w}: max abs diff {err:.3e} (tol {TOL['gru_tail']:g})")
-        if not err <= TOL["gru_tail"]:
-            raise AssertionError(f"gru_tail disagrees with its plain version at 1/{div}: {err}")
-        errs["gru_tail"] = max(errs.get("gru_tail", 0.0), err)
-    for hh, ww in cases[:2]:
+    # The tails at the GRU's three scales of the 512x768 bucket and of
+    # Middlebury-F (where each thread of the capped grid strides ~11 times).
+    for hh, ww in cases[1:]:
+        for div in (4, 8, 16):
+            h, w = hh // div, ww // div
+            ops = tail_inputs(gen, 128, h, w)
+            got = gru_tail.fused_gru_tail(*ops)
+            torch.cuda.synchronize()
+            err = max_err(got, gru_tail.plain_gru_tail(*ops))
+            log(f"[kernels] gru_tail 128x{h}x{w}: max abs diff {err:.3e} (tol {TOL['gru_tail']:g})")
+            if not err <= TOL["gru_tail"]:
+                raise AssertionError(f"gru_tail disagrees with its plain version at {hh}x{ww} 1/{div}: {err}")
+            errs["gru_tail"] = max(errs.get("gru_tail", 0.0), err)
+            del ops, got
+    for hh, ww in cases:
         pre, flow = motion_inputs(gen, hh // 4, ww // 4)
         got = gru_tail.fused_motion_tail(pre, flow)
         torch.cuda.synchronize()
@@ -813,10 +824,12 @@ def phase_prefetch_kernels(gen) -> dict:
 
 def phase_gates_kernels(gen) -> dict:
     """rh and combine against their plain versions at the GRU's three
-    scales of the 512x768 bucket (and one size with a scalar tail only);
+    scales of the 512x768 bucket and of Middlebury-F (and one size with a
+    scalar tail only);
     combine against the fused GRU tail kernel, bit for bit."""
     errs = {"gates_rh": 0.0, "gates_combine": 0.0}
-    cases = [(f"128x{512 // d}x{768 // d}", (1, 128, 512 // d, 768 // d)) for d in (4, 8, 16)]
+    cases = [(f"128x{hh // d}x{ww // d}", (1, 128, hh // d, ww // d))
+             for hh, ww in ((512, 768), (1984, 2880)) for d in (4, 8, 16)]
     for label, shape in cases + [("scalar tail 3x5x7", (1, 3, 5, 7))]:
         zx, cz, qx, cq, h = (torch.randn(shape, generator=gen, device=DEVICE) * 2 for _ in range(5))
         rh = gates.fused_rh(zx, cz, h)
@@ -839,7 +852,8 @@ def phase_evaluate() -> tuple:
     over two synthetic 1980x2870 pairs in the evaluate configuration, 32
     iterations, with each image's forward seconds and launches; the first
     image again in the kernel configuration (the dense lookup): flow_up
-    equal bit for bit; the gates configuration at 32 iterations (launches)
+    equal bit for bit; the evaluate configuration against the plain one
+    at 4 iterations; the gates configuration at 32 iterations (launches)
     and against its twin without the variable at 4. Returns the launch
     counts of the evaluate run and of the 32-iteration gates forward."""
     dataset = SyntheticEvalDataset(n=2, shape=EVAL_SHAPE)
@@ -896,6 +910,30 @@ def phase_evaluate() -> tuple:
         raise AssertionError("the evaluate configuration's flow differs from the dense kernel configuration's")
     del dense
 
+    # The evaluate configuration against the plain one ("reg", no fused
+    # tail: every kernel's plain version) at a few iterations: the windowed
+    # lookup and both tails held against plain code at Middlebury-F's shapes.
+    plain = build_model(PLAIN_CONFIG, seed=SEED, device=DEVICE)
+    plain.load_state_dict(model.state_dict())
+    reset_launches()
+    flow_plain, _ = Evaluator(plain, iters=E2E_ITERS)(*pair)
+    plain_counts = launches()
+    reset_launches()
+    flow_eval, _ = Evaluator(model, iters=E2E_ITERS)(*pair)
+    short_counts = launches()
+    err = float(np.abs(flow_eval - flow_plain).max())
+    log(f"[evaluate] first image, {E2E_ITERS} iters, evaluate configuration vs plain configuration: flow_up max "
+        f"abs diff {err:.3e} px (tol {E2E_TOL_PX:g} px); |flow_up| max {np.abs(flow_plain).max():.3f}; launches "
+        f"{short_counts}, plain {plain_counts}")
+    it = E2E_ITERS
+    if short_counts != expect(corr_prefetch_lookup=it, gru_tail=3 * it, motion_tail=it):
+        raise AssertionError(f"evaluate configuration at {it} iters: launches {short_counts}")
+    if plain_counts != expect():
+        raise AssertionError(f"plain configuration launched kernels: {plain_counts}")
+    if not (np.isfinite(flow_eval).all() and err <= E2E_TOL_PX):
+        raise AssertionError(f"the evaluate configuration disagrees with the plain configuration: {err} px")
+    del plain
+
     gated = build_model(GATES_CONFIG, seed=SEED, device=DEVICE)
     gated.load_state_dict(model.state_dict())
     ev = Evaluator(gated, iters=EVAL_ITERS)
@@ -904,7 +942,7 @@ def phase_evaluate() -> tuple:
         reset_launches()
         _, seconds = ev(*pair)
         gates_counts = launches()
-        ev.iters = GATES_E2E_ITERS
+        ev.iters = E2E_ITERS
         reset_launches()
         flow_gates, _ = ev(*pair)
         short_counts = launches()
@@ -915,12 +953,12 @@ def phase_evaluate() -> tuple:
     twin_counts = launches()
     err = float(np.abs(flow_gates - flow_twin).max())
     log(f"[evaluate] gates configuration, first image, {EVAL_ITERS} iters: forward {seconds:.3f} s, launches "
-        f"{gates_counts}; at {GATES_E2E_ITERS} iters against its twin without {gates.ENV_VAR}: flow_up max abs "
+        f"{gates_counts}; at {E2E_ITERS} iters against its twin without {gates.ENV_VAR}: flow_up max abs "
         f"diff {err:.3e} px (tol {E2E_TOL_PX:g} px); twin launches {twin_counts}")
     want = expect(corr_prefetch_lookup=EVAL_ITERS, gates_rh=3 * EVAL_ITERS, gates_combine=3 * EVAL_ITERS)
     if gates_counts != want:
         raise AssertionError(f"gates configuration: launches {gates_counts} != expected {want}")
-    it = GATES_E2E_ITERS
+    it = E2E_ITERS
     if short_counts != expect(corr_prefetch_lookup=it, gates_rh=3 * it, gates_combine=3 * it):
         raise AssertionError(f"gates configuration at {it} iters: launches {short_counts}")
     if twin_counts != expect(corr_prefetch_lookup=it):
@@ -930,8 +968,46 @@ def phase_evaluate() -> tuple:
     return eval_counts, gates_counts
 
 
+def phase_evaluate_cli() -> None:
+    """The evaluate entry point as a user runs it (`python -m
+    raft_stereo_tpu_torch evaluate`) on its dry-run set, with the evaluate
+    configuration's flags and no --device: the launch counts show that the
+    default device is the card and that the CLI's model (drawn on the CPU,
+    then moved) runs the kernels; its metrics against validate_middlebury
+    on a model built on the card from the same seed."""
+    argv = ["evaluate", "--dataset", "middlebury_F", "--dry_run", "--corr_implementation", "reg_cuda",
+            "--fused_gru_tail", "--prefetch_lookup"]
+    out = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    counts = launches()
+    for line in out.getvalue().splitlines():
+        log(f"[evaluate-cli] {line}")
+    n = len(SyntheticEvalDataset())
+    want = expect(corr_prefetch_lookup=n * EVAL_ITERS, gru_tail=3 * n * EVAL_ITERS, motion_tail=n * EVAL_ITERS)
+    log(f"[evaluate-cli] {' '.join(argv)}: exit {rc}, {wall:.3f} s, launches {counts}")
+    if rc != 0 or counts != want:
+        raise AssertionError(f"evaluate CLI: exit {rc}, launches {counts} != expected {want}")
+    found = re.search(r"Validation MiddleburyF: EPE (\S+), D1 (\S+)", out.getvalue())
+    if found is None:
+        raise AssertionError("evaluate CLI printed no validator line")
+    got = [float(v) for v in found.groups()]
+    evaluator = Evaluator(build_model(EVAL_CONFIG, seed=SEED, device=DEVICE), iters=EVAL_ITERS)
+    with contextlib.redirect_stdout(io.StringIO()):
+        want_metrics = list(validate_middlebury(evaluator, dataset=SyntheticEvalDataset()).values())
+    # The CLI prints six decimals.
+    ok = all(np.isfinite(g) and abs(g - w) <= 1e-4 * abs(w) + 1e-6 for g, w in zip(got, want_metrics))
+    log(f"[evaluate-cli] EPE, D1 {got} vs validate_middlebury on the card {want_metrics} (tol 1e-4 relative)")
+    if not ok:
+        raise AssertionError(f"evaluate CLI metrics {got} differ from validate_middlebury's {want_metrics}")
+
+
 def phase_timing(gen, errs, counts) -> list:
-    """Kernel, plain and library times at the 512x768 bucket's shapes."""
+    """Kernel, plain and library times at the 512x768 bucket's shapes (the
+    JSON rows), and at Middlebury-F's for the evaluate path's kernels."""
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=DEVICE)  # 256 MB > L2
     out = []
 
@@ -983,32 +1059,36 @@ def phase_timing(gen, errs, counts) -> list:
                 f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes), library not measured")
         del pyramid, coords
 
-    for div in (4, 8, 16):
-        ops = tail_inputs(gen, 128, 512 // div, 768 // div)
+    # The tails and gates at the GRU's three scales of the 512x768 bucket
+    # (the first is the JSON row's) and at Middlebury-F's 1/4.
+    gru_shapes = [(512 // d, 768 // d) for d in (4, 8, 16)] + [(496, 720)]
+    for h, w in gru_shapes:
+        ops = tail_inputs(gen, 128, h, w)
         ms = time_ms(lambda: gru_tail.fused_gru_tail(*ops), flush=flush)
         plain_ms = time_ms(lambda: gru_tail.plain_gru_tail(*ops), flush=flush)
         n = ops[0].numel()
-        if div == 4:
+        if (h, w) == gru_shapes[0]:
             entry("gru_tail", ms, plain_ms, 6 * 4 * n, 12 * n, None)
         else:
-            log(f"[timing] gru_tail 128x{512 // div}x{768 // div}: kernel {ms:.4f} ms, "
+            log(f"[timing] gru_tail 128x{h}x{w}: kernel {ms:.4f} ms, "
                 f"plain {plain_ms:.4f} ms, "
                 f"bound {6 * 4 * n / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes)")
+        del ops
 
-    for div in (4, 8, 16):
-        zx, cz, qx, cq, h = tail_inputs(gen, 128, 512 // div, 768 // div)
+    for hh, ww in gru_shapes:
+        zx, cz, qx, cq, h = tail_inputs(gen, 128, hh, ww)
         rh_ms = time_ms(lambda: gates.fused_rh(zx, cz, h), flush=flush)
         rh_plain_ms = time_ms(lambda: gates.plain_rh(zx, cz, h), flush=flush)
         c_ms = time_ms(lambda: gates.fused_combine(zx, cz, qx, cq, h), flush=flush)
         c_plain_ms = time_ms(lambda: gates.plain_combine(zx, cz, qx, cq, h), flush=flush)
         n = h.numel()
-        if div == 4:
+        if (hh, ww) == gru_shapes[0]:
             # rh: two adds, a negation, an exp, a division and a product per
             # element; combine: the GRU tail's dozen.
             entry("gates_rh", rh_ms, rh_plain_ms, 4 * 4 * n, 6 * n, None)
             entry("gates_combine", c_ms, c_plain_ms, 6 * 4 * n, 12 * n, None)
         else:
-            log(f"[timing] gates 128x{512 // div}x{768 // div}: rh {rh_ms:.4f} ms (plain {rh_plain_ms:.4f}, "
+            log(f"[timing] gates 128x{hh}x{ww}: rh {rh_ms:.4f} ms (plain {rh_plain_ms:.4f}, "
                 f"bound {4 * 4 * n / HBM_BYTES_PER_S * 1e3:.4f}), combine {c_ms:.4f} ms (plain "
                 f"{c_plain_ms:.4f}, bound {6 * 4 * n / HBM_BYTES_PER_S * 1e3:.4f})")
         del zx, cz, qx, cq, h
@@ -1130,6 +1210,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     eval_counts, gates_counts = phase_evaluate()
     torch.cuda.empty_cache()
+    phase_evaluate_cli()
     errs.update(phase_scatter_kernels(gen))
     trainer, train_counts, batch = phase_train(rng)
     del trainer

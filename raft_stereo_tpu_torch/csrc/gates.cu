@@ -18,9 +18,10 @@
 // 16-byte loads and stores when every pointer is 16-byte aligned (the
 // wrapper, ops/gates.py, passes that as `vec`), then a scalar loop over the
 // remaining elements (fewer than four on the vector path, all of them
-// otherwise). The formulas are gru_gates.cuh's, which the fused GRU tail
-// (csrc/gru_tail.cu) shares, so combine and the tail agree bit for bit;
-// combine keeps its own entry point and launch all the same.
+// otherwise). The loop, its grid and the formulas are gru_gates.cuh's, which
+// the fused GRU tail (csrc/gru_tail.cu) shares, so combine and the tail
+// agree bit for bit; combine keeps its own entry point and launch all the
+// same.
 //
 // Rounding: built with -fmad=false, as the plain PyTorch versions round.
 
@@ -32,60 +33,21 @@
 __global__ void gates_rh_kernel(const float* __restrict__ rx, const float* __restrict__ cr,
                                 const float* __restrict__ h, float* __restrict__ out,
                                 long long n, int vec) {
-    const long long stride = (long long)gridDim.x * blockDim.x;
-    const long long first = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-    const long long n4 = vec ? n / 4 : 0;
-    for (long long i = first; i < n4; i += stride) {
-        const float4 a = reinterpret_cast<const float4*>(rx)[i];
-        const float4 b = reinterpret_cast<const float4*>(cr)[i];
-        const float4 c = reinterpret_cast<const float4*>(h)[i];
-        float4 r;
-        r.x = gru_rh(a.x, b.x, c.x);
-        r.y = gru_rh(a.y, b.y, c.y);
-        r.z = gru_rh(a.z, b.z, c.z);
-        r.w = gru_rh(a.w, b.w, c.w);
-        reinterpret_cast<float4*>(out)[i] = r;
-    }
-    for (long long i = 4 * n4 + first; i < n; i += stride) out[i] = gru_rh(rx[i], cr[i], h[i]);
+    gru_stream(GruRh(), out, n, vec, rx, cr, h);
 }
 
 __global__ void gates_combine_kernel(const float* __restrict__ zx, const float* __restrict__ cz,
                                      const float* __restrict__ qx, const float* __restrict__ cq,
                                      const float* __restrict__ h, float* __restrict__ out,
                                      long long n, int vec) {
-    const long long stride = (long long)gridDim.x * blockDim.x;
-    const long long first = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-    const long long n4 = vec ? n / 4 : 0;
-    for (long long i = first; i < n4; i += stride) {
-        const float4 a = reinterpret_cast<const float4*>(zx)[i];
-        const float4 b = reinterpret_cast<const float4*>(cz)[i];
-        const float4 c = reinterpret_cast<const float4*>(qx)[i];
-        const float4 d = reinterpret_cast<const float4*>(cq)[i];
-        const float4 e = reinterpret_cast<const float4*>(h)[i];
-        float4 r;
-        r.x = gru_blend(a.x, b.x, c.x, d.x, e.x);
-        r.y = gru_blend(a.y, b.y, c.y, d.y, e.y);
-        r.z = gru_blend(a.z, b.z, c.z, d.z, e.z);
-        r.w = gru_blend(a.w, b.w, c.w, d.w, e.w);
-        reinterpret_cast<float4*>(out)[i] = r;
-    }
-    for (long long i = 4 * n4 + first; i < n; i += stride) {
-        out[i] = gru_blend(zx[i], cz[i], qx[i], cq[i], h[i]);
-    }
-}
-
-static unsigned grid_for(long long n, int vec, int threads) {
-    const long long units = vec ? (n + 3) / 4 : n;
-    long long blocks = (units + threads - 1) / threads;
-    if (blocks > 132LL * 32) blocks = 132LL * 32;  // grid-stride beyond 32 blocks per SM
-    return (unsigned)(blocks < 1 ? 1 : blocks);
+    gru_stream(GruBlend(), out, n, vec, zx, cz, qx, cq, h);
 }
 
 extern "C" int raft_gates_rh_f32(const void* rx, const void* cr, const void* h, void* out,
                                  long long n, int vec, void* stream) {
     if (n == 0) return 0;
     const int threads = 256;
-    gates_rh_kernel<<<grid_for(n, vec, threads), threads, 0, (cudaStream_t)stream>>>(
+    gates_rh_kernel<<<gru_stream_blocks(n, vec, threads), threads, 0, (cudaStream_t)stream>>>(
         (const float*)rx, (const float*)cr, (const float*)h, (float*)out, n, vec);
     return (int)cudaGetLastError();
 }
@@ -95,7 +57,7 @@ extern "C" int raft_gates_combine_f32(const void* zx, const void* cz, const void
                                       int vec, void* stream) {
     if (n == 0) return 0;
     const int threads = 256;
-    gates_combine_kernel<<<grid_for(n, vec, threads), threads, 0, (cudaStream_t)stream>>>(
+    gates_combine_kernel<<<gru_stream_blocks(n, vec, threads), threads, 0, (cudaStream_t)stream>>>(
         (const float*)zx, (const float*)cz, (const float*)qx, (const float*)cq, (const float*)h,
         (float*)out, n, vec);
     return (int)cudaGetLastError();

@@ -16,10 +16,11 @@
 // count (for the motion tail, H*W) divides by four; a scalar loop otherwise.
 // The wrappers (ops/gru_tail.py) pass the `vec` flag after checking both.
 // In the motion tail a 4-wide group never straddles a channel because H*W
-// is a multiple of four on the vector path.
+// is a multiple of four on the vector path. The tail's loop and formula are
+// `gru_stream` and `gru_blend` of gru_gates.cuh, which the gate pair
+// (csrc/gates.cu) shares.
 //
-// Rounding: the blend is `gru_blend` of gru_gates.cuh, which the gate pair
-// (csrc/gates.cu) shares; built with -fmad=false, it is rounded as the plain
+// Rounding: built with -fmad=false, the blend is rounded as the plain
 // PyTorch version rounds it.
 
 #include <cuda_runtime.h>
@@ -27,30 +28,11 @@
 
 #include "gru_gates.cuh"
 
-__global__ void gru_tail_vec4(const float4* __restrict__ zx, const float4* __restrict__ cz,
-                              const float4* __restrict__ qx, const float4* __restrict__ cq,
-                              const float4* __restrict__ h, float4* __restrict__ out,
-                              long long n4) {
-    for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n4;
-         i += (long long)gridDim.x * blockDim.x) {
-        const float4 a = zx[i], b = cz[i], c = qx[i], d = cq[i], e = h[i];
-        float4 r;
-        r.x = gru_blend(a.x, b.x, c.x, d.x, e.x);
-        r.y = gru_blend(a.y, b.y, c.y, d.y, e.y);
-        r.z = gru_blend(a.z, b.z, c.z, d.z, e.z);
-        r.w = gru_blend(a.w, b.w, c.w, d.w, e.w);
-        out[i] = r;
-    }
-}
-
-__global__ void gru_tail_scalar(const float* __restrict__ zx, const float* __restrict__ cz,
+__global__ void gru_tail_kernel(const float* __restrict__ zx, const float* __restrict__ cz,
                                 const float* __restrict__ qx, const float* __restrict__ cq,
                                 const float* __restrict__ h, float* __restrict__ out,
-                                long long n) {
-    for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-         i += (long long)gridDim.x * blockDim.x) {
-        out[i] = gru_blend(zx[i], cz[i], qx[i], cq[i], h[i]);
-    }
+                                long long n, int vec) {
+    gru_stream(GruBlend(), out, n, vec, zx, cz, qx, cq, h);
 }
 
 // out (B, c_pre + 2, HW); pre (B, c_pre, HW); flow (B, 1, HW). Index unit is
@@ -91,28 +73,14 @@ __global__ void motion_tail_kernel(const float* __restrict__ pre, const float* _
     }
 }
 
-static unsigned grid_for(long long n, int threads) {
-    long long blocks = (n + threads - 1) / threads;
-    if (blocks > 132LL * 32) blocks = 132LL * 32;  // grid-stride beyond 32 blocks per SM
-    return (unsigned)(blocks < 1 ? 1 : blocks);
-}
-
 extern "C" int raft_gru_tail_f32(const void* zx, const void* cz, const void* qx,
                                  const void* cq, const void* h, void* out, long long n,
                                  int vec, void* stream) {
     if (n == 0) return 0;
     const int threads = 256;
-    cudaStream_t s = (cudaStream_t)stream;
-    if (vec) {
-        const long long n4 = n / 4;
-        gru_tail_vec4<<<grid_for(n4, threads), threads, 0, s>>>(
-            (const float4*)zx, (const float4*)cz, (const float4*)qx, (const float4*)cq,
-            (const float4*)h, (float4*)out, n4);
-    } else {
-        gru_tail_scalar<<<grid_for(n, threads), threads, 0, s>>>(
-            (const float*)zx, (const float*)cz, (const float*)qx, (const float*)cq,
-            (const float*)h, (float*)out, n);
-    }
+    gru_tail_kernel<<<gru_stream_blocks(n, vec, threads), threads, 0, (cudaStream_t)stream>>>(
+        (const float*)zx, (const float*)cz, (const float*)qx, (const float*)cq, (const float*)h,
+        (float*)out, n, vec);
     return (int)cudaGetLastError();
 }
 
@@ -122,7 +90,7 @@ extern "C" int raft_motion_tail_f32(const void* pre, const void* flow, void* out
     const long long n = batch * (long long)(c_pre + 2) * (vec ? hw / 4 : hw);
     if (n == 0) return 0;
     const int threads = 256;
-    const unsigned blocks = grid_for(n, threads);
+    const unsigned blocks = gru_stream_blocks(n, 0, threads);
     const long long elements = batch * (long long)(c_pre + 2) * hw;
     // 32-bit index arithmetic whenever the tensors fit it.
     if (elements <= 0x7fffffffLL - (long long)blocks * threads) {

@@ -14,8 +14,10 @@ valid-pixel rule:
 The forward runs on the model's device (the card unless the caller built
 the model on the CPU); images are padded there, and the forward is timed
 between two `torch.cuda.synchronize` calls, so the KITTI FPS figure is
-device time. The dataset readers are not ported yet: a validator takes a
-dataset object (`SyntheticEvalDataset`, or any object with `__len__` and
+synchronized wall time: the device's work plus the host's launch gaps
+between kernels (`profile_stages` separates device time). The dataset
+readers are not ported yet: a validator takes a dataset object
+(`SyntheticEvalDataset`, or any object with `__len__` and
 `get_item(index, rng)` returning the item dict) and raises without one.
 """
 
