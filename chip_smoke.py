@@ -76,6 +76,31 @@ EVAL_SHAPE = (1980, 2870)
 # The windowed lookup's checks: the 512x768 bucket's 1/4 resolution and
 # Middlebury-F's, (label, (query rows, W1 = W2)).
 PREFETCH_CASES = (("512x768", (128, 192)), ("1984x2880", (496, 720)))
+# The fifth slice redesigned the pyramid build and the scatter. The
+# pyramid's checks, (label, (rows, W1 = W2, layout)): both buckets' 1/4
+# resolution and Middlebury-F's in the model's layout (permuted NCHW views,
+# 16-byte copies along W), the contiguous (B, H, W, D) layout (4-byte
+# copies along D), and widths no tile divides (odd: 4-byte copies).
+PYRAMID_CASES = (
+    ("384x512", (96, 128, "nchw")),
+    ("512x768", (128, 192, "nchw")),
+    ("1984x2880", (496, 720, "nchw")),
+    ("512x768 contiguous (B, H, W, D)", (128, 192, "bhwd")),
+    ("W 150", (3, 150, "nchw")),
+    ("W 150 contiguous (B, H, W, D)", (3, 150, "bhwd")),
+    ("W 37", (3, 37, "nchw")),
+)
+# The scatter's, beside the recipe: tests/test_torch_corr.py SCATTER_CASES,
+# (B, H, W1, W2, levels, radius): odd widths, a level of width 1, query
+# counts that are not a multiple of the queries per block.
+SCATTER_CASES = {
+    "r4_l4_multi_tile": (2, 3, 40, 150, 4, 4),
+    "r2_l2_two_w1_blocks": (1, 2, 800, 37, 2, 2),
+    "r1_l3_width_one": (1, 1, 9, 5, 3, 1),
+    "r3_l1": (2, 2, 16, 16, 1, 3),
+}
+# Queries per scatter block timed beside the plan's choice.
+SCATTER_RUNS = (16, 32, 64, 128)
 EVAL_ITERS = 32
 # Iterations of the evaluate path's end-to-end checks against plain code
 # and the gates' twin.
@@ -246,6 +271,11 @@ def max_err(a, b) -> float:
     return float((a - b).abs().max().item())
 
 
+def bitwise_equal(a, b) -> bool:
+    """Equal bit for bit (the sign of zero included)."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def affine_rows(gen, b, form):
     """(B, 2, 64) pending-norm rows: instance [mean, inv] or batch [inv, shift]."""
     if form == "none":
@@ -264,11 +294,14 @@ def conv_inputs(gen, b, h, w, form):
     return x, weight, bias, affine_rows(gen, b, form)
 
 
-def fmap_inputs(gen, b, h, w, d=256):
+def fmap_inputs(gen, b, h, w, d=256, layout="nchw"):
     """Feature maps as the model hands them to the pyramid build: (B, H, W, D)
-    views of NCHW tensors."""
+    views of NCHW tensors; with layout "bhwd", contiguous (B, H, W, D)."""
+    if layout == "bhwd":
+        return tuple(torch.randn((b, h, w, d), generator=gen, device=DEVICE) for _ in range(2))
     return tuple(torch.randn((b, d, h, w), generator=gen, device=DEVICE).permute(0, 2, 3, 1)
                  for _ in range(2))
+
 
 
 def stats_rel_err(got, y) -> float:
@@ -392,14 +425,20 @@ def phase_fused_kernels(gen) -> dict:
             torch.cuda.synchronize()
             want = encoder_cuda.plain_join(skip, y, aff_y, y_form, aff_s, skip_form)
             check("encoder_join", max_err(got, want), f"b2 {hh}x{ww} y {y_form} skip {skip_form}")
-    for hh, ww in ((384, 512), (512, 768), (1984, 2880)):
-        f1, f2 = fmap_inputs(gen, 1, hh // 4, ww // 4)
-        got = corr_cuda.fused_pyramid_state(f1, f2, 4)
-        torch.cuda.synchronize()
+    # Every tile the plan may pick, the plan's own choice first.
+    for label, (h, w, layout) in PYRAMID_CASES:
+        f1, f2 = fmap_inputs(gen, 1, h, w, layout=layout)
         want = corr_cuda.corr_state(f1, f2, 4)
-        check("corr_pyramid", max(max_err(g, w) for g, w in zip(got, want)),
-              f"{hh}x{ww} (rows {hh // 4}, W1 = W2 = {ww // 4}, D 256, 4 levels)")
-        del f1, f2, got, want
+        plan = corr_cuda.pyramid_plan_for(f1, f2, 4)
+        for tile in [None] + [t for t in corr_cuda.PYRAMID_TILES if t != plan.tile]:
+            p = corr_cuda.pyramid_plan_for(f1, f2, 4, tile)
+            got = corr_cuda.fused_pyramid_state(f1, f2, 4, tile=tile)
+            torch.cuda.synchronize()
+            check("corr_pyramid", max(max_err(g, w_) for g, w_ in zip(got, want)),
+                  f"{label} (rows {h}, W1 = W2 = {w}, D 256, 4 levels; tile {p.tile[0]}x{p.tile[1]}"
+                  f"{' (plan)' if tile is None else ''}, {4 * p.vec}-byte copies, {p.blocks} blocks)")
+            del got
+        del f1, f2, want
     return errs
 
 
@@ -411,7 +450,8 @@ def scatter_inputs(gen, b, h, w1, w2, levels=4, radius=4):
     _, coords = lookup_inputs(gen, b, h, w1, w2, levels, radius)
     special = [-1.0, -3.5, 0.0, 3.0, float(w2), 1e6, -1e6, float("nan"), float("inf"), float("-inf")]
     special += [float(((w2 >> l) - 1) << l) for l in range(levels)]
-    coords.view(-1)[: len(special)] = torch.tensor(special, device=DEVICE)
+    n = min(len(special), coords.numel())
+    coords.view(-1)[:n] = torch.tensor(special[:n], device=DEVICE)
     grad = torch.randn((b, h, w1, levels * (2 * radius + 1)), generator=gen, device=DEVICE)
     return coords, grad, [w2 >> l for l in range(levels)]
 
@@ -427,12 +467,29 @@ def phase_scatter_kernels(gen) -> dict:
     torch.cuda.synchronize()
     want = corr_cuda.plain_corr_scatter(coords, grad, widths, 4)
     err = max(max_err(g, w_) for g, w_ in zip(got, want))
-    same = all(torch.equal(g, a) for g, a in zip(got, again))
-    log(f"[kernels] corr_scatter b{b} {h}x{w} (W2 {w}, widths {widths}, adversarial coords): max abs diff "
-        f"{err:.3e} (tol {TOL['corr_scatter']:g}); two launches bitwise equal: {same}")
-    if not err <= TOL["corr_scatter"] or not same:
+    exact = all(bitwise_equal(g, w_) for g, w_ in zip(got, want))
+    same = all(bitwise_equal(g, a) for g, a in zip(got, again))
+    plan = corr_cuda.scatter_plan(coords.numel(), widths, 4)
+    log(f"[kernels] corr_scatter b{b} {h}x{w} (W2 {w}, widths {widths}, adversarial coords; {plan.run} queries "
+        f"per block, {plan.blocks} blocks): max abs diff {err:.3e} (tol {TOL['corr_scatter']:g}), bitwise plain "
+        f"{exact}; two launches bitwise equal: {same}")
+    if not err <= TOL["corr_scatter"] or not exact or not same:
         raise AssertionError(f"corr_scatter disagrees with its plain version ({err}) or is not reproducible")
     del got, again, want
+    # The test cases' shapes: bitwise the plain version and across launches.
+    for name, (cb, ch, cw1, cw2, levels, radius) in SCATTER_CASES.items():
+        c_coords, c_grad, c_widths = scatter_inputs(gen, cb, ch, cw1, cw2, levels, radius)
+        plan = corr_cuda.scatter_plan(c_coords.numel(), c_widths, radius)
+        got = corr_cuda.corr_scatter(c_coords, c_grad, c_widths, radius)
+        again = corr_cuda.corr_scatter(c_coords, c_grad, c_widths, radius)
+        torch.cuda.synchronize()
+        want = corr_cuda.plain_corr_scatter(c_coords, c_grad, c_widths, radius)
+        exact = all(bitwise_equal(g, w_) for g, w_ in zip(got, want))
+        same = all(bitwise_equal(g, a) for g, a in zip(got, again))
+        log(f"[kernels] corr_scatter {name} ({c_coords.numel()} queries, widths {c_widths}, radius {radius}; "
+            f"{plan.run} per block, {plan.blocks} blocks): bitwise plain {exact}; two launches bitwise equal: {same}")
+        if not exact or not same:
+            raise AssertionError(f"corr_scatter disagrees with its plain version or is not reproducible at {name}")
     finite = torch.isfinite(coords)
     coords = torch.where(finite, coords, torch.zeros_like(coords))
     levels = [torch.randn((b, h, w, wl), generator=gen, device=DEVICE).requires_grad_() for wl in widths]
@@ -1100,24 +1157,42 @@ def phase_timing(gen, errs, counts) -> list:
     entry("motion_tail", ms, plain_ms, 4 * hw * (126 + 1 + 128), 126 * hw, None)
     del pre, flow
 
+    # The pyramid at both shapes, with its rate and share of the bound, and
+    # each tile the plan may pick (the evidence for its choice).
     for label, (hh, ww) in (("512x768", (512, 768)), ("1984x2880", (1984, 2880))):
         f1, f2 = fmap_inputs(gen, 1, hh // 4, ww // 4)
         b, h, w, d = f1.shape
+        plan = corr_cuda.pyramid_plan_for(f1, f2, 4)
         ms = time_ms(lambda: corr_cuda.fused_pyramid_state(f1, f2, 4), flush=flush)
         plain_ms = time_ms(lambda: corr_cuda.corr_state(f1, f2, 4), flush=flush)
         # The library yardstick computes the volume only (no scaling, no pooling).
         lib_ms = time_ms(lambda: torch.matmul(f1, f2.transpose(-1, -2)), flush=flush)
+        tile_ms = {t: time_ms(lambda: corr_cuda.fused_pyramid_state(f1, f2, 4, tile=t), flush=flush)
+                   for t in corr_cuda.PYRAMID_TILES}
         widths = [w >> l for l in range(4)]
         nbytes = 4 * (2 * b * h * w * d + b * h * w * sum(widths))
         # The GEMM, the division of each volume entry, an add and a halving per pooled value.
         flops = 2 * b * h * w * w * d + b * h * w * (w + 2 * sum(widths[1:]))
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S) * 1e3
+        log(f"[timing] corr_pyramid {label}: kernel {ms:.4f} ms = {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+            f"{bound / ms:.0%} of its {bound:.4f} ms bound (tile {plan.tile[0]}x{plan.tile[1]}, "
+            f"{plan.blocks} blocks); torch.matmul of the volume alone {lib_ms:.4f} ms = "
+            f"{2 * b * h * w * w * d / (lib_ms * 1e-3) / 1e12:.1f} TFLOP/s; each tile: "
+            + ", ".join(f"{t[0]}x{t[1]} {t_ms:.4f} ms" for t, t_ms in tile_ms.items()))
+        # Where its time goes: maps twice as deep add one more GEMM over
+        # D = 256 and nothing else, so t(2D) - t(D) is the GEMM's time and
+        # 2 t(D) - t(2D) the rest (first loads, pooling, the stores).
+        g1, g2 = fmap_inputs(gen, 1, hh // 4, ww // 4, d=2 * d)
+        deep_ms = time_ms(lambda: corr_cuda.fused_pyramid_state(g1, g2, 4), flush=flush)
+        del g1, g2
+        log(f"[timing] corr_pyramid {label}: at D {2 * d} {deep_ms:.4f} ms, so the GEMM over D {d} takes "
+            f"{deep_ms - ms:.4f} ms ({2 * b * h * w * w * d / ((deep_ms - ms) * 1e-3) / 1e12:.1f} TFLOP/s) and the "
+            f"rest {2 * ms - deep_ms:.4f} ms")
         if label == "512x768":
-            log(f"[timing] corr_pyramid {label}: library is torch.matmul of the volume alone")
             entry("corr_pyramid", ms, plain_ms, nbytes, flops, lib_ms)
         else:
             log(f"[timing] corr_pyramid {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"bound {max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S) * 1e3:.4f} ms (operations), "
-                f"torch.matmul volume alone {lib_ms:.4f} ms")
+                f"bound {bound:.4f} ms (operations), torch.matmul volume alone {lib_ms:.4f} ms")
         del f1, f2
 
     for hh, ww in ((512, 768), (384, 512)):
@@ -1168,6 +1243,14 @@ def phase_timing(gen, errs, counts) -> list:
     # Coordinates and cotangent read once, every level's dense row written
     # once; a multiply-add pair per output inside the window.
     nbytes = 4 * (n_q + n_q * 36 + n_q * sum(widths))
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    plan = corr_cuda.scatter_plan(n_q, widths, 4)
+    run_ms = {r: time_ms(lambda: corr_cuda.corr_scatter(coords, grad, widths, 4, run=r), flush=flush)
+              for r in SCATTER_RUNS}
+    log(f"[timing] corr_scatter b{b} {h}x{w}: kernel {ms:.4f} ms = {nbytes / (ms * 1e-3) / 1e12:.3f} TB/s, "
+        f"{bound / ms:.0%} of its {bound:.4f} ms bound ({plan.run} queries per block, {plan.blocks} blocks); "
+        f"grid_sample backward {lib_ms:.4f} ms = {nbytes / (lib_ms * 1e-3) / 1e12:.3f} TB/s; queries per block: "
+        + ", ".join(f"{r} {r_ms:.4f} ms" for r, r_ms in run_ms.items()))
     entry("corr_scatter", ms, plain_ms, nbytes, 3 * n_q * 4 * 10, lib_ms)
     del pyramid, coords, grad, rows, grid, sampled, gout, d_rows
 

@@ -17,99 +17,179 @@
 // vector-Jacobian product of the forward kernel.
 //
 // What bounds it on the H100: bytes. It writes the whole dense pyramid
-// (sum_l W2_l floats per query) and reads 4 + 4*L*(2r+1) bytes per query;
-// there is at most one multiply-add pair per output.
+// (sum_l W2_l floats per query: 116 MB at the training recipe's 1/4
+// resolution, 0.035 ms at 3.35 TB/s) and reads 4 + 4*L*(2r+1) bytes per
+// query; there is at most one multiply-add pair per output.
 //
-// Design: one thread per OUTPUT element (query, level, sample), all levels
-// in one launch. Neighbouring threads write neighbouring samples of a row,
-// so stores are fully coalesced; the threads of one row read the same
-// coordinate and the same 2r+1 cotangents, which the L1 cache serves. Each
-// query writes only its own rows, so there are no atomics and the result is
-// the same on every run. The level of an output is found from the level
-// offsets with static indices (a by-value table indexed at run time would be
-// copied to local memory in every thread). The window test is done in float
-// before any integer conversion, so coordinates far outside the row, infinite
-// or NaN ones select no sample and cannot overflow an index.
+// Design: a block of 256 threads owns a run of Q consecutive queries
+// (ops/corr_cuda.py `scatter_plan` chooses Q, the grid and the shared
+// bytes) over all L levels, in two phases.
+// Phase 1 loads the run's coordinates and tap cotangents (contiguous,
+// Q x L(2r+1) floats) into shared memory and works out each (query, level)
+// once: x, floor(x), f, the window start floor(x) - r, or no window, and
+// the 2r+2 combined weights cw.
+// Phase 2 streams, level by level, the block's contiguous output span
+// [q0 W2_l, (q0 + Q) W2_l): 16-byte streaming stores (__stcs: the output is
+// not re-read soon), a scalar head and tail where the span does not start
+// or end on a 16-byte boundary (odd widths). Per float only its query and
+// sample (one division per 4 floats, then a wrapping counter), one compare
+// against the window and a shared read of cw are left: no float arithmetic.
+// Each query writes only its own rows, so there are no atomics and the
+// result is the same on every run. The window test is done in float before
+// any integer conversion, so coordinates far outside the row, infinite or
+// NaN ones select no sample and cannot overflow an index.
+//
+// Measured (chip_smoke.py [timing], H100 80GB HBM3 at 700 W; PERF.md
+// section 6, row 2): 2.42 TB/s at the recipe, 72% of the bound, with 32 to
+// 128 queries per block within 2% of each other (16: 15% slower).
 //
 // Rounding: x / 2**l is an exact IEEE division, floorf matches torch.floor,
 // and the library is compiled with -fmad=false, so cw is rounded exactly as
 // the plain PyTorch version (ops/corr_cuda.py plain_corr_scatter) rounds it.
 
 #include <cuda_runtime.h>
-#include <limits.h>
 #include <stdint.h>
 
 #define MAX_LEVELS 8
+#define THREADS 256
+#define NO_WINDOW 0x40000000  // a window start no sample index reaches
 
 struct LevelTable {
     float* ptr[MAX_LEVELS];
     int width[MAX_LEVELS];
-    int offset[MAX_LEVELS];  // first sample of the level in a query's run; INT_MAX past the last level
 };
 
+// d(level) of one float: sample s of local query j of the current level.
+__device__ __forceinline__ float cw_at(const int* start, const float* cw, int p, int s, int k_cw) {
+    const unsigned m = (unsigned)(s - start[p]);
+    return m < (unsigned)k_cw ? cw[p * k_cw + m] : 0.0f;
+}
+
 template <typename Index>
-__global__ void corr_scatter_kernel(const float* __restrict__ coords, const float* __restrict__ grad,
-                                    LevelTable levels, int num_levels, int radius, int samples,
-                                    Index total) {
+__global__ void __launch_bounds__(THREADS)
+corr_scatter_kernel(const float* __restrict__ coords, const float* __restrict__ grad, LevelTable levels,
+                    int num_levels, int radius, Index n_queries, int run) {
+    extern __shared__ __align__(16) float smem[];
     const int taps = 2 * radius + 1;
-    for (Index i = blockIdx.x * (Index)blockDim.x + threadIdx.x; i < total;
-         i += (Index)gridDim.x * blockDim.x) {
-        const Index q = i / samples;
-        const int rem = (int)(i - q * samples);
-        int l = 0;
-        float* base = levels.ptr[0];
+    const int k_cw = taps + 1;  // combined weights per (query, level)
+    const int lk = num_levels * taps;
+    float* g_s = smem;                               // run x L(2r+1) cotangents
+    float* cw_s = g_s + run * lk;                    // run x L x (2r+2) weights
+    int* start_s = (int*)(cw_s + run * num_levels * k_cw);  // run x L window starts
+    float* x_s = (float*)(start_s + run * num_levels);      // run coordinates
+
+    const int tid = threadIdx.x;
+    const Index q0 = (Index)blockIdx.x * run;
+    const int nq = (int)(n_queries - q0 < (Index)run ? n_queries - q0 : (Index)run);
+    for (int i = tid; i < nq; i += THREADS) x_s[i] = coords[q0 + i];
+    const float* g_run = grad + q0 * lk;
+    for (int i = tid; i < nq * lk; i += THREADS) g_s[i] = g_run[i];
+    __syncthreads();
+
+    // Phase 1: one (query, level) pair per thread and pass.
+    for (int p = tid; p < nq * num_levels; p += THREADS) {
+        const int j = p / num_levels;
+        const int l = p - j * num_levels;
         int w2 = levels.width[0];
-        int off = 0;
 #pragma unroll
-        for (int j = 1; j < MAX_LEVELS; ++j) {
-            if (rem >= levels.offset[j]) {
-                l = j;
-                base = levels.ptr[j];
-                w2 = levels.width[j];
-                off = levels.offset[j];
-            }
-        }
-        const int s = rem - off;
-        const float x = coords[q] / (float)(1 << l);
+        for (int t = 1; t < MAX_LEVELS; ++t)
+            if (t == l) w2 = levels.width[t];
+        const float x = x_s[j] / (float)(1 << l);
         const float x0f = floorf(x);
         const float frac = x - x0f;
-        // Window offset of sample s: m = s - (floor(x) - r), in float first.
-        const float mf = (float)s - (x0f - (float)radius);
-        float v = 0.0f;
-        if (mf >= 0.0f && mf <= (float)taps) {
-            const int m = (int)mf;
-            const float* g = grad + (long long)q * num_levels * taps + l * taps;
+        // Window start floor(x) - r, in float first: a sample s is selected
+        // where s - start lies in [0, 2r+1], which some s in [0, W2_l) reaches
+        // only for a start in [-(2r+1), W2_l - 1] (false for NaN).
+        const float startf = x0f - (float)radius;
+        const bool hit = startf >= -(float)taps && startf <= (float)(w2 - 1);
+        start_s[p] = hit ? (int)startf : NO_WINDOW;
+        const float* g = g_s + j * lk + l * taps;
+        float* cw = cw_s + p * k_cw;
+        for (int m = 0; m < k_cw; ++m) {
             const float g_lo = m < taps ? g[m] : 0.0f;
             const float g_hi = m > 0 ? g[m - 1] : 0.0f;
-            v = g_lo * (1.0f - frac) + g_hi * frac;
+            cw[m] = g_lo * (1.0f - frac) + g_hi * frac;
         }
-        base[(long long)q * w2 + s] = v;
+    }
+    __syncthreads();
+
+    // Phase 2: each level's span of the block, as one store stream.
+#pragma unroll 1
+    for (int l = 0; l < num_levels; ++l) {
+        float* base = levels.ptr[0];
+        int w2 = levels.width[0];
+#pragma unroll
+        for (int t = 1; t < MAX_LEVELS; ++t)
+            if (t == l) {
+                base = levels.ptr[t];
+                w2 = levels.width[t];
+            }
+        if (w2 == 0) continue;
+        float* dst = base + q0 * w2;
+        const int n = nq * w2;
+        // Floats before the first 16-byte boundary of the span.
+        int head = (int)((4 - (((uintptr_t)dst >> 2) & 3)) & 3);
+        head = head < n ? head : n;
+        const int nvec = (n - head) >> 2;
+        for (int e = tid; e < head; e += THREADS) {
+            const int j = e / w2;
+            __stcs(dst + e, cw_at(start_s, cw_s, j * num_levels + l, e - j * w2, k_cw));
+        }
+        for (int v = tid; v < nvec; v += THREADS) {
+            const int e0 = head + 4 * v;
+            int j = e0 / w2;
+            int s = e0 - j * w2;
+            float out[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                out[i] = cw_at(start_s, cw_s, j * num_levels + l, s, k_cw);
+                if (++s == w2) {
+                    s = 0;
+                    ++j;
+                }
+            }
+            __stcs(reinterpret_cast<float4*>(dst + e0), make_float4(out[0], out[1], out[2], out[3]));
+        }
+        for (int e = head + 4 * nvec + tid; e < n; e += THREADS) {
+            const int j = e / w2;
+            __stcs(dst + e, cw_at(start_s, cw_s, j * num_levels + l, e - j * w2, k_cw));
+        }
     }
 }
 
+// The launch plan (queries per block, blocks, shared bytes, 64-bit
+// indexing) comes from ops/corr_cuda.py `scatter_plan`.
 extern "C" int raft_corr_scatter_f32(const void* coords, const void* grad, void* const* level_ptrs,
                                      const int* level_widths, int num_levels, long long n_queries,
-                                     int radius, void* stream) {
-    if (num_levels < 1 || num_levels > MAX_LEVELS) return (int)cudaErrorInvalidValue;
+                                     int radius, int run, long long blocks, int shared_bytes, int wide,
+                                     void* stream) {
+    if (num_levels < 1 || num_levels > MAX_LEVELS || radius < 0 || run < 1) return (int)cudaErrorInvalidValue;
+    if (blocks != (n_queries + run - 1) / run || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    const long long lk = (long long)num_levels * (2 * radius + 1);
+    const long long need = 4LL * run * (lk + num_levels * (2LL * radius + 3) + 1);
+    if (shared_bytes < need) return (int)cudaErrorInvalidValue;
     LevelTable table;
-    int samples = 0;
+    long long widest = lk;
     for (int l = 0; l < MAX_LEVELS; ++l) {
         table.ptr[l] = l < num_levels ? (float*)level_ptrs[l] : nullptr;
         table.width[l] = l < num_levels ? level_widths[l] : 0;
-        table.offset[l] = l < num_levels ? samples : INT_MAX;
-        if (l < num_levels) samples += level_widths[l];
+        if (table.width[l] > widest) widest = table.width[l];
     }
-    const long long total = n_queries * samples;
-    if (total == 0) return 0;
-    const int threads = 256;
-    long long blocks = (total + threads - 1) / threads;
-    if (blocks > 132LL * 64) blocks = 132LL * 64;  // grid-stride beyond 64 blocks per SM
-    if (total <= 0x7fffffffLL - (long long)blocks * threads) {
-        corr_scatter_kernel<int><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-            (const float*)coords, (const float*)grad, table, num_levels, radius, samples, (int)total);
+    if (!wide && n_queries * widest > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    if (blocks == 0) return 0;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (wide) {
+        auto kernel = corr_scatter_kernel<long long>;
+        cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
+        if (err != cudaSuccess) return (int)err;
+        kernel<<<(unsigned)blocks, THREADS, shared_bytes, s>>>(
+            (const float*)coords, (const float*)grad, table, num_levels, radius, n_queries, run);
     } else {
-        corr_scatter_kernel<long long><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-            (const float*)coords, (const float*)grad, table, num_levels, radius, samples, total);
+        auto kernel = corr_scatter_kernel<int>;
+        cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
+        if (err != cudaSuccess) return (int)err;
+        kernel<<<(unsigned)blocks, THREADS, shared_bytes, s>>>(
+            (const float*)coords, (const float*)grad, table, num_levels, radius, (int)n_queries, run);
     }
     return (int)cudaGetLastError();
 }

@@ -24,6 +24,11 @@ by `corr_scatter` (one launch of `csrc/corr_scatter.cu` per backward for
 CUDA tensors, `plain_corr_scatter` for CPU tensors), and no gradient to the
 coordinates. `corr_lookup` goes through it whenever autograd records.
 
+The pyramid and scatter kernels launch what a plain function here plans
+(`pyramid_plan`: tile, copy width, grid, shared bytes; `scatter_plan`:
+queries per block, grid, shared bytes, 64-bit indexing); a shape or stride
+no plan takes raises.
+
 Not ported: the bf16 pyramid and taps (`corr_dtype="bfloat16"`, under
 `mixed_precision`) and the "alt" strategy's on-the-fly lookup.
 """
@@ -31,7 +36,7 @@ Not ported: the bf16 pyramid and taps (`corr_dtype="bfloat16"`, under
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -41,9 +46,142 @@ from raft_stereo_tpu_torch.ops import _build, corr
 # serving and training paths went through the kernels.
 LAUNCHES = {"corr_lookup": 0, "corr_pyramid": 0, "corr_scatter": 0, "corr_prefetch_lookup": 0}
 MAX_LEVELS = 8  # MAX_LEVELS of csrc/corr_lookup.cu, corr_prefetch.cu and corr_scatter.cu
-# csrc/corr_pyramid.cu: a 64-column volume tile pools into every level, so
-# its columns must align to 2**(L-1).
+# csrc/corr_pyramid.cu: a volume tile pools into every level, so its
+# columns must align to 2**(L-1); its level table holds 7.
 PYRAMID_MAX_LEVELS = 7
+# Its instantiations: tile (W1 x W2 extent of a block) -> register tile
+# per thread (TM x TN), on a (tile / register tile) grid of 256 threads;
+# its D chunk, ring depth and operand-row padding. Two blocks of either are
+# resident on an SM (its __launch_bounds__).
+PYRAMID_TILES = {(128, 128): (8, 8), (96, 192): (6, 12)}
+PYRAMID_TK, PYRAMID_STAGES, PYRAMID_PAD = 16, 4, 4
+PYRAMID_BLOCKS_PER_SM = 2
+NUM_SMS = 132  # H100 SXM
+# csrc/corr_scatter.cu: the default run of queries a block of 256 threads
+# owns (32-128 time within 2% of each other on the H100, PERF.md row 2).
+SCATTER_RUN = 64
+# H100 limits: dynamic shared memory of a block (227 KB) and the grid's x.
+MAX_SHARED_BYTES = 232448
+MAX_GRID_X = 2**31 - 1
+INT32_MAX = 2**31 - 1
+
+
+class PyramidPlan(NamedTuple):
+    """A launch of `csrc/corr_pyramid.cu`: one block of `threads` per (row,
+    tile of W1 x W2), the tiles of a row consecutive; `vec` floats per
+    asynchronous copy (4: 16 bytes along W; 1: one float)."""
+
+    tile: Tuple[int, int]
+    threads: int
+    vec: int
+    m_tiles: int
+    n_tiles: int
+    blocks: int
+    shared_bytes: int
+
+    def block_tile(self, block: int) -> Tuple[int, int, int]:
+        """(row, W1 start, W2 start) of `block`, as the kernel derives it."""
+        row, rem = divmod(block, self.m_tiles * self.n_tiles)
+        return row, (rem // self.n_tiles) * self.tile[0], (rem % self.n_tiles) * self.tile[1]
+
+
+def pyramid_shared_bytes(tile: Tuple[int, int]) -> int:
+    """The ring of D chunks (both operands) or the epilogue's padded volume
+    tile, which aliases it: whichever is larger."""
+    bm, bn = tile
+    ring = PYRAMID_STAGES * PYRAMID_TK * (bm + bn + 2 * PYRAMID_PAD)
+    return 4 * max(ring, bm * (bn + 1))
+
+
+def _pyramid_cost(tile: Tuple[int, int], rows: int, w1: int, w2: int) -> int:
+    """Relative time of a tile's grid: its waves (blocks over the blocks the
+    card holds at once) times the FFMAs of a block."""
+    bm, bn = tile
+    blocks = rows * -(-w1 // bm) * -(-w2 // bn)
+    return -(-blocks // (NUM_SMS * PYRAMID_BLOCKS_PER_SM)) * bm * bn
+
+
+def pyramid_plan(b: int, h: int, w1: int, w2: int, d: int, levels: int, strides: Sequence[int],
+                 aligned: bool = True, tile: Optional[Tuple[int, int]] = None) -> PyramidPlan:
+    """The launch plan of the pyramid kernel for fmap1 (B, H, W1, D) and
+    fmap2 (B, H, W2, D) with element strides `strides` (b, h, w, d of fmap1
+    then fmap2); `aligned`: both base addresses are 16-byte aligned.
+
+    Tile: among the tiles whose W2 extent is a multiple of 2**(L-1) (the
+    pooling stays inside a block), the one of least `_pyramid_cost`, the
+    larger on a tie; `tile` forces one. Copy width 16 bytes only where W is
+    the unit-stride axis of both maps and every other stride that moves is
+    a multiple of 4 floats. Raises for what no instantiation takes."""
+    if not 1 <= levels <= PYRAMID_MAX_LEVELS:
+        raise ValueError(f"corr_pyramid kernel takes 1..{PYRAMID_MAX_LEVELS} levels, got {levels}")
+    if len(strides) != 8 or min(b, h, w1, w2, d) < 0:
+        raise ValueError(f"corr_pyramid kernel: bad shape {(b, h, w1, w2, d)} or strides {tuple(strides)}")
+    step = 1 << (levels - 1)
+    admissible = [t for t in PYRAMID_TILES if t[1] % step == 0]
+    if tile is None:
+        tile = min(admissible, key=lambda t: (_pyramid_cost(t, b * h, w1, w2), -t[0] * t[1]))
+    elif tuple(tile) not in admissible:
+        raise ValueError(f"corr_pyramid kernel: tile {tile} is not one of {admissible} for {levels} levels")
+    tile = tuple(tile)
+    sizes = (b, h, w1, d, b, h, w2, d)
+    moving = [s for i, (s, n) in enumerate(zip(strides, sizes)) if n > 1 and i not in (2, 6)]
+    unit_w = all(n <= 1 or strides[i] == 1 for i, n in ((2, w1), (6, w2)))
+    vec = 4 if aligned and unit_w and all(s % 4 == 0 for s in moving) else 1
+    m_tiles, n_tiles = -(-w1 // tile[0]), -(-w2 // tile[1])
+    blocks = b * h * m_tiles * n_tiles
+    if blocks > MAX_GRID_X:
+        raise ValueError(f"corr_pyramid kernel: {blocks} blocks exceed the grid's {MAX_GRID_X}")
+    shared = pyramid_shared_bytes(tile)
+    if shared > MAX_SHARED_BYTES:
+        raise ValueError(f"corr_pyramid kernel: {shared} shared bytes exceed {MAX_SHARED_BYTES}")
+    tm, tn = PYRAMID_TILES[tile]
+    threads = (tile[0] // tm) * (tile[1] // tn)
+    return PyramidPlan(tile, threads, vec, m_tiles, n_tiles, blocks, shared)
+
+
+class ScatterPlan(NamedTuple):
+    """A launch of `csrc/corr_scatter.cu`: block i owns queries
+    [i * run, min((i + 1) * run, n_queries)); `wide`: 64-bit indexing."""
+
+    run: int
+    blocks: int
+    shared_bytes: int
+    wide: bool
+
+    def block_queries(self, block: int, n_queries: int) -> range:
+        return range(block * self.run, min((block + 1) * self.run, n_queries))
+
+
+def scatter_shared_bytes(run: int, levels: int, radius: int) -> int:
+    """Cotangents, combined weights, window starts and coordinates of a run."""
+    taps = 2 * radius + 1
+    return 4 * run * (levels * taps + levels * (taps + 2) + 1)
+
+
+def scatter_plan(n_queries: int, widths: Sequence[int], radius: int, run: Optional[int] = None) -> ScatterPlan:
+    """The launch plan of the scatter kernel: `run` queries per block
+    (default SCATTER_RUN, halved until its shared memory fits), one block
+    per run, and 64-bit indexing past 2**31 - 1 outputs (or cotangents).
+    Raises for what the kernel does not take."""
+    levels = len(widths)
+    if not 1 <= levels <= MAX_LEVELS:
+        raise ValueError(f"corr_scatter kernel takes 1..{MAX_LEVELS} levels, got {levels}")
+    if radius < 0 or n_queries < 0 or any(not 0 <= w < 2**24 for w in widths):
+        raise ValueError(f"corr_scatter kernel: bad radius {radius}, queries {n_queries} or widths {tuple(widths)}")
+    if run is None:
+        run = SCATTER_RUN
+        while run > 1 and scatter_shared_bytes(run, levels, radius) > MAX_SHARED_BYTES:
+            run //= 2
+    shared = scatter_shared_bytes(run, levels, radius)
+    if run < 1 or shared > MAX_SHARED_BYTES:
+        raise ValueError(f"corr_scatter kernel: a run of {run} queries needs {shared} shared bytes")
+    if run * max(max(widths), levels * (2 * radius + 1)) > INT32_MAX:
+        raise ValueError(f"corr_scatter kernel: a run's span of {run} x {max(widths)} exceeds int32")
+    blocks = -(-n_queries // run)
+    if blocks > MAX_GRID_X:
+        raise ValueError(f"corr_scatter kernel: {blocks} blocks exceed the grid's {MAX_GRID_X}")
+    wide = n_queries * max(sum(widths), levels * (2 * radius + 1)) > INT32_MAX
+    return ScatterPlan(run, blocks, shared, wide)
 
 
 def corr_state(fmap1: torch.Tensor, fmap2: torch.Tensor, levels: int) -> Tuple[torch.Tensor, ...]:
@@ -52,24 +190,25 @@ def corr_state(fmap1: torch.Tensor, fmap2: torch.Tensor, levels: int) -> Tuple[t
     return tuple(corr.corr_pyramid(corr.corr_volume(fmap1, fmap2), levels))
 
 
-def fused_pyramid_state(fmap1: torch.Tensor, fmap2: torch.Tensor, levels: int) -> Tuple[torch.Tensor, ...]:
+def fused_pyramid_state(fmap1: torch.Tensor, fmap2: torch.Tensor, levels: int,
+                        tile: Optional[Tuple[int, int]] = None) -> Tuple[torch.Tensor, ...]:
     """`corr_state` in one kernel launch: fmap1 (B, H, W1, D), fmap2
     (B, H, W2, D), any strides (the model passes permuted views of its NCHW
     feature maps, which the kernel reads in place) -> the L contiguous fp32
-    levels (B, H, W1, W2 // 2**l)."""
+    levels (B, H, W1, W2 // 2**l). `tile` forces one of `PYRAMID_TILES`
+    (for timing them; the default is `pyramid_plan`'s choice)."""
     if not fmap1.is_cuda:
         return corr_state(fmap1, fmap2, levels)
     b, h, w1, d = fmap1.shape
     w2 = fmap2.shape[2]
     if tuple(fmap2.shape) != (b, h, w2, d):
         raise ValueError(f"fmap2 shape {tuple(fmap2.shape)} does not match fmap1 {tuple(fmap1.shape)}")
-    if not 1 <= levels <= PYRAMID_MAX_LEVELS:
-        raise ValueError(f"corr_pyramid kernel takes 1..{PYRAMID_MAX_LEVELS} levels, got {levels}")
     for t in (fmap1, fmap2):
         if t.device != fmap1.device or t.dtype != torch.float32:
             raise ValueError("corr_pyramid kernel needs fp32 tensors on one CUDA device")
         if t.requires_grad and torch.is_grad_enabled():
             raise ValueError("corr_pyramid kernel has no backward; call it without grad")
+    plan = pyramid_plan_for(fmap1, fmap2, levels, tile)
     out = tuple(torch.empty((b, h, w1, w2 >> l), dtype=torch.float32, device=fmap1.device)
                 for l in range(levels))
     ptrs = (ctypes.c_void_p * levels)(*[o.data_ptr() for o in out])
@@ -78,11 +217,21 @@ def fused_pyramid_state(fmap1: torch.Tensor, fmap2: torch.Tensor, levels: int) -
     status = lib.raft_corr_pyramid_f32(
         fmap1.data_ptr(), fmap2.data_ptr(), ctypes.cast(strides, ctypes.c_void_p),
         b, h, w1, w2, d, levels, ctypes.cast(ptrs, ctypes.c_void_p),
+        *plan.tile, plan.vec, plan.m_tiles, plan.n_tiles, plan.blocks, plan.shared_bytes,
         torch.cuda.current_stream(fmap1.device).cuda_stream,
     )
     _build.check(status, "corr_pyramid kernel", lib.raft_corr_pyramid_error_string)
     LAUNCHES["corr_pyramid"] += 1
     return out
+
+
+def pyramid_plan_for(fmap1: torch.Tensor, fmap2: torch.Tensor, levels: int,
+                     tile: Optional[Tuple[int, int]] = None) -> PyramidPlan:
+    """`pyramid_plan` for these feature maps: their shapes, strides and
+    base-address alignment."""
+    b, h, w1, d = fmap1.shape
+    aligned = fmap1.data_ptr() % 16 == 0 and fmap2.data_ptr() % 16 == 0
+    return pyramid_plan(b, h, w1, fmap2.shape[2], d, levels, (*fmap1.stride(), *fmap2.stride()), aligned, tile)
 
 
 def _pyramid_lib():
@@ -92,7 +241,10 @@ def _pyramid_lib():
         fn.argtypes = (
             [ctypes.c_void_p] * 3  # fmap1, fmap2, host array of the 8 element strides
             + [ctypes.c_int] * 6  # B, H, W1, W2, D, levels
-            + [ctypes.c_void_p] * 2  # host array of level pointers, stream
+            + [ctypes.c_void_p]  # host array of level pointers
+            + [ctypes.c_int] * 5  # plan: tile (W1, W2 extent), vec, m_tiles, n_tiles
+            + [ctypes.c_longlong, ctypes.c_int]  # plan: blocks, shared bytes
+            + [ctypes.c_void_p]  # stream
         )
         fn.restype = ctypes.c_int
         lib.raft_corr_pyramid_error_string.argtypes = [ctypes.c_int]
@@ -238,6 +390,10 @@ def _scatter_lib():
             ctypes.c_int,  # num_levels
             ctypes.c_longlong,  # n_queries
             ctypes.c_int,  # radius
+            ctypes.c_int,  # plan: queries per block
+            ctypes.c_longlong,  # plan: blocks
+            ctypes.c_int,  # plan: shared bytes
+            ctypes.c_int,  # plan: 64-bit indexing
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
@@ -247,17 +403,17 @@ def _scatter_lib():
 
 
 def corr_scatter(coords: torch.Tensor, grad: torch.Tensor, widths: Sequence[int],
-                 radius: int) -> Tuple[torch.Tensor, ...]:
+                 radius: int, run: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
     """d(pyramid) of the lookup: coords (B, H, W1) at level-0 resolution,
     grad (B, H, W1, L*(2r+1)) the tap cotangent -> L dense levels
     (B, H, W1, widths[l]) fp32. One launch of `csrc/corr_scatter.cu` for
-    CUDA tensors, `plain_corr_scatter` for CPU tensors."""
+    CUDA tensors, `plain_corr_scatter` for CPU tensors. `run` forces the
+    queries per block (for timing; the default is `scatter_plan`'s)."""
     if not coords.is_cuda:
         return plain_corr_scatter(coords, grad, widths, radius)
     b, h, w1 = coords.shape
     levels = len(widths)
-    if not 1 <= levels <= MAX_LEVELS:
-        raise ValueError(f"corr_scatter kernel takes 1..{MAX_LEVELS} levels, got {levels}")
+    plan = scatter_plan(b * h * w1, widths, radius, run)
     if tuple(grad.shape) != (b, h, w1, levels * (2 * radius + 1)):
         raise ValueError(f"grad shape {tuple(grad.shape)} does not match coords {(b, h, w1)} "
                          f"with {levels} levels of {2 * radius + 1} taps")
@@ -276,6 +432,10 @@ def corr_scatter(coords: torch.Tensor, grad: torch.Tensor, widths: Sequence[int]
         levels,
         b * h * w1,
         radius,
+        plan.run,
+        plan.blocks,
+        plan.shared_bytes,
+        int(plan.wide),
         torch.cuda.current_stream(coords.device).cuda_stream,
     )
     _build.check(status, "corr_scatter kernel", lib.raft_corr_scatter_error_string)

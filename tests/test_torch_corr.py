@@ -299,8 +299,29 @@ def test_scatter_kernel_matches_plain_on_cuda(rng, case):
     assert corr_cuda.LAUNCHES["corr_scatter"] == before + 2
     want = corr_cuda.plain_corr_scatter(coords, grad, widths, radius)
     for t, t2, w in zip(got, again, want):
-        assert torch.equal(t, t2)  # no atomics: the same bits every launch
-        np.testing.assert_array_equal(t.cpu().numpy(), w.cpu().numpy())
+        # Bit for bit, the sign of zero included; no atomics: the same bits
+        # every launch.
+        assert torch.equal(t.view(torch.int32), t2.view(torch.int32))
+        np.testing.assert_array_equal(t.cpu().numpy().view(np.int32), w.cpu().numpy().view(np.int32))
+
+
+@pytest.mark.gpu
+def test_scatter_kernel_bitwise_at_the_training_recipe_on_cuda(rng):
+    """The recipe's 1/4 resolution (6 x 80 x 180 queries, widths
+    180/90/45/22, 1350 blocks of 64 queries) with NaN, infinite and far-out
+    coordinates in the first row: bit for bit the plain version, twice."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the scatter kernel has no CPU form")
+    x, g, widths = scatter_case(rng, 6, 80, 180, 180, 4, 4)
+    x.reshape(-1)[:3] = [np.nan, np.inf, -np.inf]
+    coords, grad = torch.from_numpy(x).cuda(), torch.from_numpy(g).cuda()
+    got = corr_cuda.corr_scatter(coords, grad, widths, 4)
+    again = corr_cuda.corr_scatter(coords, grad, widths, 4)
+    want = corr_cuda.plain_corr_scatter(coords, grad, widths, 4)
+    torch.cuda.synchronize()
+    for t, t2, w in zip(got, again, want):
+        assert torch.equal(t.view(torch.int32), t2.view(torch.int32))
+        assert torch.equal(t.view(torch.int32), w.view(torch.int32))
 
 
 @pytest.mark.gpu
