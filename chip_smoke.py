@@ -77,18 +77,24 @@ EVAL_SHAPE = (1980, 2870)
 # Middlebury-F's, (label, (query rows, W1 = W2)).
 PREFETCH_CASES = (("512x768", (128, 192)), ("1984x2880", (496, 720)))
 # The fifth slice redesigned the pyramid build and the scatter. The
-# pyramid's checks, (label, (rows, W1 = W2, layout)): both buckets' 1/4
-# resolution and Middlebury-F's in the model's layout (permuted NCHW views,
-# 16-byte copies along W), the contiguous (B, H, W, D) layout (4-byte
-# copies along D), and widths no tile divides (odd: 4-byte copies).
+# pyramid's checks, (label, (rows, W1 = W2, layout, levels)), each at the
+# plan's own choice: both buckets' 1/4 resolution and Middlebury-F's in the
+# model's layout (permuted NCHW views, 16-byte copies along W), the
+# contiguous (B, H, W, D) layout (4-byte copies along D), widths no tile
+# divides (odd: 4-byte copies), 128 rows at W 190 (the 96 x 192 tile with
+# the shared-memory epilogue), and 1, 5, 6 and 7 levels at W 192 (the
+# register epilogue up to 6 levels) and at W 150 (the shared-memory one).
 PYRAMID_CASES = (
-    ("384x512", (96, 128, "nchw")),
-    ("512x768", (128, 192, "nchw")),
-    ("1984x2880", (496, 720, "nchw")),
-    ("512x768 contiguous (B, H, W, D)", (128, 192, "bhwd")),
-    ("W 150", (3, 150, "nchw")),
-    ("W 150 contiguous (B, H, W, D)", (3, 150, "bhwd")),
-    ("W 37", (3, 37, "nchw")),
+    ("384x512", (96, 128, "nchw", 4)),
+    ("512x768", (128, 192, "nchw", 4)),
+    ("1984x2880", (496, 720, "nchw", 4)),
+    ("512x768 contiguous (B, H, W, D)", (128, 192, "bhwd", 4)),
+    ("W 150", (3, 150, "nchw", 4)),
+    ("W 150 contiguous (B, H, W, D)", (3, 150, "bhwd", 4)),
+    ("W 37", (3, 37, "nchw", 4)),
+    ("W 190", (128, 190, "nchw", 4)),
+    *((f"W 192, {lv} levels", (128, 192, "nchw", lv)) for lv in (1, 5, 6, 7)),
+    *((f"W 150, {lv} levels", (3, 150, "nchw", lv)) for lv in (1, 5, 6, 7)),
 )
 # The scatter's, beside the recipe: tests/test_torch_corr.py SCATTER_CASES,
 # (B, H, W1, W2, levels, radius): odd widths, a level of width 1, query
@@ -99,8 +105,6 @@ SCATTER_CASES = {
     "r1_l3_width_one": (1, 1, 9, 5, 3, 1),
     "r3_l1": (2, 2, 16, 16, 1, 3),
 }
-# Queries per scatter block timed beside the plan's choice.
-SCATTER_RUNS = (16, 32, 64, 128)
 EVAL_ITERS = 32
 # Iterations of the evaluate path's end-to-end checks against plain code
 # and the gates' twin.
@@ -392,8 +396,8 @@ def phase_fused_kernels(gen) -> dict:
     """The fused encoder's three kernels against their plain versions at the
     main path's shapes: the conv at full resolution of both buckets (batch 1
     is the context trunk, batch 2 the feature trunk), every form, with
-    statistics; the join over every form pair; the pyramid at both buckets'
-    1/4 resolution (D = 256) and at Middlebury-F."""
+    statistics; the join over every form pair; the pyramid (D = 256) at
+    every PYRAMID_CASES entry."""
     errs = {}
 
     def check(name, err, label, extra=""):
@@ -425,20 +429,19 @@ def phase_fused_kernels(gen) -> dict:
             torch.cuda.synchronize()
             want = encoder_cuda.plain_join(skip, y, aff_y, y_form, aff_s, skip_form)
             check("encoder_join", max_err(got, want), f"b2 {hh}x{ww} y {y_form} skip {skip_form}")
-    # Every tile the plan may pick, the plan's own choice first.
-    for label, (h, w, layout) in PYRAMID_CASES:
+    for label, (h, w, layout, levels) in PYRAMID_CASES:
         f1, f2 = fmap_inputs(gen, 1, h, w, layout=layout)
-        want = corr_cuda.corr_state(f1, f2, 4)
-        plan = corr_cuda.pyramid_plan_for(f1, f2, 4)
-        for tile in [None] + [t for t in corr_cuda.PYRAMID_TILES if t != plan.tile]:
-            p = corr_cuda.pyramid_plan_for(f1, f2, 4, tile)
-            got = corr_cuda.fused_pyramid_state(f1, f2, 4, tile=tile)
-            torch.cuda.synchronize()
-            check("corr_pyramid", max(max_err(g, w_) for g, w_ in zip(got, want)),
-                  f"{label} (rows {h}, W1 = W2 = {w}, D 256, 4 levels; tile {p.tile[0]}x{p.tile[1]}"
-                  f"{' (plan)' if tile is None else ''}, {4 * p.vec}-byte copies, {p.blocks} blocks)")
-            del got
-        del f1, f2, want
+        want = corr_cuda.corr_state(f1, f2, levels)
+        p = corr_cuda.pyramid_plan_for(f1, f2, levels)
+        got = corr_cuda.fused_pyramid_state(f1, f2, levels)
+        torch.cuda.synchronize()
+        if len(got) != levels:
+            raise AssertionError(f"corr_pyramid returned {len(got)} levels at {label}, not {levels}")
+        epilogue = "registers" if w % 4 == 0 and levels <= 6 else "shared memory"
+        check("corr_pyramid", max(max_err(g, w_) for g, w_ in zip(got, want)),
+              f"{label} (rows {h}, W1 = W2 = {w}, D 256, {levels} levels; tile {p.tile[0]}x{p.tile[1]}, "
+              f"{4 * p.vec}-byte copies, {epilogue} epilogue, {p.blocks} blocks)")
+        del f1, f2, want, got
     return errs
 
 
@@ -1157,8 +1160,7 @@ def phase_timing(gen, errs, counts) -> list:
     entry("motion_tail", ms, plain_ms, 4 * hw * (126 + 1 + 128), 126 * hw, None)
     del pre, flow
 
-    # The pyramid at both shapes, with its rate and share of the bound, and
-    # each tile the plan may pick (the evidence for its choice).
+    # The pyramid at both shapes, with its rate and share of the bound.
     for label, (hh, ww) in (("512x768", (512, 768)), ("1984x2880", (1984, 2880))):
         f1, f2 = fmap_inputs(gen, 1, hh // 4, ww // 4)
         b, h, w, d = f1.shape
@@ -1167,8 +1169,6 @@ def phase_timing(gen, errs, counts) -> list:
         plain_ms = time_ms(lambda: corr_cuda.corr_state(f1, f2, 4), flush=flush)
         # The library yardstick computes the volume only (no scaling, no pooling).
         lib_ms = time_ms(lambda: torch.matmul(f1, f2.transpose(-1, -2)), flush=flush)
-        tile_ms = {t: time_ms(lambda: corr_cuda.fused_pyramid_state(f1, f2, 4, tile=t), flush=flush)
-                   for t in corr_cuda.PYRAMID_TILES}
         widths = [w >> l for l in range(4)]
         nbytes = 4 * (2 * b * h * w * d + b * h * w * sum(widths))
         # The GEMM, the division of each volume entry, an add and a halving per pooled value.
@@ -1177,17 +1177,7 @@ def phase_timing(gen, errs, counts) -> list:
         log(f"[timing] corr_pyramid {label}: kernel {ms:.4f} ms = {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
             f"{bound / ms:.0%} of its {bound:.4f} ms bound (tile {plan.tile[0]}x{plan.tile[1]}, "
             f"{plan.blocks} blocks); torch.matmul of the volume alone {lib_ms:.4f} ms = "
-            f"{2 * b * h * w * w * d / (lib_ms * 1e-3) / 1e12:.1f} TFLOP/s; each tile: "
-            + ", ".join(f"{t[0]}x{t[1]} {t_ms:.4f} ms" for t, t_ms in tile_ms.items()))
-        # Where its time goes: maps twice as deep add one more GEMM over
-        # D = 256 and nothing else, so t(2D) - t(D) is the GEMM's time and
-        # 2 t(D) - t(2D) the rest (first loads, pooling, the stores).
-        g1, g2 = fmap_inputs(gen, 1, hh // 4, ww // 4, d=2 * d)
-        deep_ms = time_ms(lambda: corr_cuda.fused_pyramid_state(g1, g2, 4), flush=flush)
-        del g1, g2
-        log(f"[timing] corr_pyramid {label}: at D {2 * d} {deep_ms:.4f} ms, so the GEMM over D {d} takes "
-            f"{deep_ms - ms:.4f} ms ({2 * b * h * w * w * d / ((deep_ms - ms) * 1e-3) / 1e12:.1f} TFLOP/s) and the "
-            f"rest {2 * ms - deep_ms:.4f} ms")
+            f"{2 * b * h * w * w * d / (lib_ms * 1e-3) / 1e12:.1f} TFLOP/s")
         if label == "512x768":
             entry("corr_pyramid", ms, plain_ms, nbytes, flops, lib_ms)
         else:
@@ -1245,12 +1235,9 @@ def phase_timing(gen, errs, counts) -> list:
     nbytes = 4 * (n_q + n_q * 36 + n_q * sum(widths))
     bound = nbytes / HBM_BYTES_PER_S * 1e3
     plan = corr_cuda.scatter_plan(n_q, widths, 4)
-    run_ms = {r: time_ms(lambda: corr_cuda.corr_scatter(coords, grad, widths, 4, run=r), flush=flush)
-              for r in SCATTER_RUNS}
     log(f"[timing] corr_scatter b{b} {h}x{w}: kernel {ms:.4f} ms = {nbytes / (ms * 1e-3) / 1e12:.3f} TB/s, "
         f"{bound / ms:.0%} of its {bound:.4f} ms bound ({plan.run} queries per block, {plan.blocks} blocks); "
-        f"grid_sample backward {lib_ms:.4f} ms = {nbytes / (lib_ms * 1e-3) / 1e12:.3f} TB/s; queries per block: "
-        + ", ".join(f"{r} {r_ms:.4f} ms" for r, r_ms in run_ms.items()))
+        f"grid_sample backward {lib_ms:.4f} ms = {nbytes / (lib_ms * 1e-3) / 1e12:.3f} TB/s")
     entry("corr_scatter", ms, plain_ms, nbytes, 3 * n_q * 4 * 10, lib_ms)
     del pyramid, coords, grad, rows, grid, sampled, gout, d_rows
 

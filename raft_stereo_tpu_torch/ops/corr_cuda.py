@@ -36,7 +36,7 @@ Not ported: the bf16 pyramid and taps (`corr_dtype="bfloat16"`, under
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -56,9 +56,8 @@ PYRAMID_MAX_LEVELS = 7
 PYRAMID_TILES = {(128, 128): (8, 8), (96, 192): (6, 12)}
 PYRAMID_TK, PYRAMID_STAGES, PYRAMID_PAD = 16, 4, 4
 PYRAMID_BLOCKS_PER_SM = 2
-NUM_SMS = 132  # H100 SXM
-# csrc/corr_scatter.cu: the default run of queries a block of 256 threads
-# owns (32-128 time within 2% of each other on the H100, PERF.md row 2).
+# csrc/corr_scatter.cu: the run of queries a block of 256 threads owns
+# (32-128 time within 2% of each other on the H100, PERF.md row 2).
 SCATTER_RUN = 64
 # H100 limits: dynamic shared memory of a block (227 KB) and the grid's x.
 MAX_SHARED_BYTES = 232448
@@ -79,11 +78,6 @@ class PyramidPlan(NamedTuple):
     blocks: int
     shared_bytes: int
 
-    def block_tile(self, block: int) -> Tuple[int, int, int]:
-        """(row, W1 start, W2 start) of `block`, as the kernel derives it."""
-        row, rem = divmod(block, self.m_tiles * self.n_tiles)
-        return row, (rem // self.n_tiles) * self.tile[0], (rem % self.n_tiles) * self.tile[1]
-
 
 def pyramid_shared_bytes(tile: Tuple[int, int]) -> int:
     """The ring of D chunks (both operands) or the epilogue's padded volume
@@ -93,36 +87,34 @@ def pyramid_shared_bytes(tile: Tuple[int, int]) -> int:
     return 4 * max(ring, bm * (bn + 1))
 
 
-def _pyramid_cost(tile: Tuple[int, int], rows: int, w1: int, w2: int) -> int:
-    """Relative time of a tile's grid: its waves (blocks over the blocks the
-    card holds at once) times the FFMAs of a block."""
+def _pyramid_cost(tile: Tuple[int, int], rows: int, w1: int, w2: int, sms: int) -> int:
+    """Relative time of a tile's grid on a card of `sms` multiprocessors:
+    its waves (blocks over the blocks the card holds at once) times the
+    FFMAs of a block."""
     bm, bn = tile
     blocks = rows * -(-w1 // bm) * -(-w2 // bn)
-    return -(-blocks // (NUM_SMS * PYRAMID_BLOCKS_PER_SM)) * bm * bn
+    return -(-blocks // (sms * PYRAMID_BLOCKS_PER_SM)) * bm * bn
 
 
 def pyramid_plan(b: int, h: int, w1: int, w2: int, d: int, levels: int, strides: Sequence[int],
-                 aligned: bool = True, tile: Optional[Tuple[int, int]] = None) -> PyramidPlan:
+                 sms: int, aligned: bool = True) -> PyramidPlan:
     """The launch plan of the pyramid kernel for fmap1 (B, H, W1, D) and
     fmap2 (B, H, W2, D) with element strides `strides` (b, h, w, d of fmap1
-    then fmap2); `aligned`: both base addresses are 16-byte aligned.
+    then fmap2) on a card of `sms` multiprocessors; `aligned`: both base
+    addresses are 16-byte aligned.
 
     Tile: among the tiles whose W2 extent is a multiple of 2**(L-1) (the
     pooling stays inside a block), the one of least `_pyramid_cost`, the
-    larger on a tie; `tile` forces one. Copy width 16 bytes only where W is
-    the unit-stride axis of both maps and every other stride that moves is
-    a multiple of 4 floats. Raises for what no instantiation takes."""
+    larger on a tie. Copy width 16 bytes only where W is the unit-stride
+    axis of both maps and every other stride that moves is a multiple of 4
+    floats. Raises for what no instantiation takes."""
     if not 1 <= levels <= PYRAMID_MAX_LEVELS:
         raise ValueError(f"corr_pyramid kernel takes 1..{PYRAMID_MAX_LEVELS} levels, got {levels}")
     if len(strides) != 8 or min(b, h, w1, w2, d) < 0:
         raise ValueError(f"corr_pyramid kernel: bad shape {(b, h, w1, w2, d)} or strides {tuple(strides)}")
     step = 1 << (levels - 1)
     admissible = [t for t in PYRAMID_TILES if t[1] % step == 0]
-    if tile is None:
-        tile = min(admissible, key=lambda t: (_pyramid_cost(t, b * h, w1, w2), -t[0] * t[1]))
-    elif tuple(tile) not in admissible:
-        raise ValueError(f"corr_pyramid kernel: tile {tile} is not one of {admissible} for {levels} levels")
-    tile = tuple(tile)
+    tile = min(admissible, key=lambda t: (_pyramid_cost(t, b * h, w1, w2, sms), -t[0] * t[1]))
     sizes = (b, h, w1, d, b, h, w2, d)
     moving = [s for i, (s, n) in enumerate(zip(strides, sizes)) if n > 1 and i not in (2, 6)]
     unit_w = all(n <= 1 or strides[i] == 1 for i, n in ((2, w1), (6, w2)))
@@ -148,9 +140,6 @@ class ScatterPlan(NamedTuple):
     shared_bytes: int
     wide: bool
 
-    def block_queries(self, block: int, n_queries: int) -> range:
-        return range(block * self.run, min((block + 1) * self.run, n_queries))
-
 
 def scatter_shared_bytes(run: int, levels: int, radius: int) -> int:
     """Cotangents, combined weights, window starts and coordinates of a run."""
@@ -158,22 +147,21 @@ def scatter_shared_bytes(run: int, levels: int, radius: int) -> int:
     return 4 * run * (levels * taps + levels * (taps + 2) + 1)
 
 
-def scatter_plan(n_queries: int, widths: Sequence[int], radius: int, run: Optional[int] = None) -> ScatterPlan:
-    """The launch plan of the scatter kernel: `run` queries per block
-    (default SCATTER_RUN, halved until its shared memory fits), one block
-    per run, and 64-bit indexing past 2**31 - 1 outputs (or cotangents).
-    Raises for what the kernel does not take."""
+def scatter_plan(n_queries: int, widths: Sequence[int], radius: int) -> ScatterPlan:
+    """The launch plan of the scatter kernel: SCATTER_RUN queries per block,
+    halved until its shared memory fits, one block per run, and 64-bit
+    indexing past 2**31 - 1 outputs (or cotangents). Raises for what the
+    kernel does not take."""
     levels = len(widths)
     if not 1 <= levels <= MAX_LEVELS:
         raise ValueError(f"corr_scatter kernel takes 1..{MAX_LEVELS} levels, got {levels}")
     if radius < 0 or n_queries < 0 or any(not 0 <= w < 2**24 for w in widths):
         raise ValueError(f"corr_scatter kernel: bad radius {radius}, queries {n_queries} or widths {tuple(widths)}")
-    if run is None:
-        run = SCATTER_RUN
-        while run > 1 and scatter_shared_bytes(run, levels, radius) > MAX_SHARED_BYTES:
-            run //= 2
+    run = SCATTER_RUN
+    while run > 1 and scatter_shared_bytes(run, levels, radius) > MAX_SHARED_BYTES:
+        run //= 2
     shared = scatter_shared_bytes(run, levels, radius)
-    if run < 1 or shared > MAX_SHARED_BYTES:
+    if shared > MAX_SHARED_BYTES:
         raise ValueError(f"corr_scatter kernel: a run of {run} queries needs {shared} shared bytes")
     if run * max(max(widths), levels * (2 * radius + 1)) > INT32_MAX:
         raise ValueError(f"corr_scatter kernel: a run's span of {run} x {max(widths)} exceeds int32")
@@ -190,13 +178,11 @@ def corr_state(fmap1: torch.Tensor, fmap2: torch.Tensor, levels: int) -> Tuple[t
     return tuple(corr.corr_pyramid(corr.corr_volume(fmap1, fmap2), levels))
 
 
-def fused_pyramid_state(fmap1: torch.Tensor, fmap2: torch.Tensor, levels: int,
-                        tile: Optional[Tuple[int, int]] = None) -> Tuple[torch.Tensor, ...]:
+def fused_pyramid_state(fmap1: torch.Tensor, fmap2: torch.Tensor, levels: int) -> Tuple[torch.Tensor, ...]:
     """`corr_state` in one kernel launch: fmap1 (B, H, W1, D), fmap2
     (B, H, W2, D), any strides (the model passes permuted views of its NCHW
     feature maps, which the kernel reads in place) -> the L contiguous fp32
-    levels (B, H, W1, W2 // 2**l). `tile` forces one of `PYRAMID_TILES`
-    (for timing them; the default is `pyramid_plan`'s choice)."""
+    levels (B, H, W1, W2 // 2**l)."""
     if not fmap1.is_cuda:
         return corr_state(fmap1, fmap2, levels)
     b, h, w1, d = fmap1.shape
@@ -208,7 +194,7 @@ def fused_pyramid_state(fmap1: torch.Tensor, fmap2: torch.Tensor, levels: int,
             raise ValueError("corr_pyramid kernel needs fp32 tensors on one CUDA device")
         if t.requires_grad and torch.is_grad_enabled():
             raise ValueError("corr_pyramid kernel has no backward; call it without grad")
-    plan = pyramid_plan_for(fmap1, fmap2, levels, tile)
+    plan = pyramid_plan_for(fmap1, fmap2, levels)
     out = tuple(torch.empty((b, h, w1, w2 >> l), dtype=torch.float32, device=fmap1.device)
                 for l in range(levels))
     ptrs = (ctypes.c_void_p * levels)(*[o.data_ptr() for o in out])
@@ -225,13 +211,13 @@ def fused_pyramid_state(fmap1: torch.Tensor, fmap2: torch.Tensor, levels: int,
     return out
 
 
-def pyramid_plan_for(fmap1: torch.Tensor, fmap2: torch.Tensor, levels: int,
-                     tile: Optional[Tuple[int, int]] = None) -> PyramidPlan:
-    """`pyramid_plan` for these feature maps: their shapes, strides and
-    base-address alignment."""
+def pyramid_plan_for(fmap1: torch.Tensor, fmap2: torch.Tensor, levels: int) -> PyramidPlan:
+    """`pyramid_plan` for these CUDA feature maps: their shapes, strides,
+    base-address alignment and their card's multiprocessors."""
     b, h, w1, d = fmap1.shape
     aligned = fmap1.data_ptr() % 16 == 0 and fmap2.data_ptr() % 16 == 0
-    return pyramid_plan(b, h, w1, fmap2.shape[2], d, levels, (*fmap1.stride(), *fmap2.stride()), aligned, tile)
+    sms = torch.cuda.get_device_properties(fmap1.device).multi_processor_count
+    return pyramid_plan(b, h, w1, fmap2.shape[2], d, levels, (*fmap1.stride(), *fmap2.stride()), sms, aligned)
 
 
 def _pyramid_lib():
@@ -403,17 +389,16 @@ def _scatter_lib():
 
 
 def corr_scatter(coords: torch.Tensor, grad: torch.Tensor, widths: Sequence[int],
-                 radius: int, run: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
+                 radius: int) -> Tuple[torch.Tensor, ...]:
     """d(pyramid) of the lookup: coords (B, H, W1) at level-0 resolution,
     grad (B, H, W1, L*(2r+1)) the tap cotangent -> L dense levels
     (B, H, W1, widths[l]) fp32. One launch of `csrc/corr_scatter.cu` for
-    CUDA tensors, `plain_corr_scatter` for CPU tensors. `run` forces the
-    queries per block (for timing; the default is `scatter_plan`'s)."""
+    CUDA tensors, `plain_corr_scatter` for CPU tensors."""
     if not coords.is_cuda:
         return plain_corr_scatter(coords, grad, widths, radius)
     b, h, w1 = coords.shape
     levels = len(widths)
-    plan = scatter_plan(b * h * w1, widths, radius, run)
+    plan = scatter_plan(b * h * w1, widths, radius)
     if tuple(grad.shape) != (b, h, w1, levels * (2 * radius + 1)):
         raise ValueError(f"grad shape {tuple(grad.shape)} does not match coords {(b, h, w1)} "
                          f"with {levels} levels of {2 * radius + 1} taps")

@@ -271,38 +271,43 @@ def test_join_and_pyramid_kernels_match_plain_on_cuda(rng):
 
 
 # The pyramid kernel's plans at the model's shapes and at its edges:
-# (rows, W1 = W2, layout). Both buckets' 1/4 resolution and Middlebury-F's in
-# the model's layout (permuted NCHW views: 16-byte copies along W), the
-# contiguous (B, H, W, D) layout (4-byte copies along D), and widths no tile
-# divides.
+# (rows, W1 = W2, layout, levels). Both buckets' 1/4 resolution and
+# Middlebury-F's in the model's layout (permuted NCHW views: 16-byte copies
+# along W), the contiguous (B, H, W, D) layout (4-byte copies along D),
+# widths no tile divides, 128 rows at W 190 (the 96 x 192 tile with the
+# shared-memory epilogue), and 1, 5, 6 and 7 levels at W 192 (the register
+# epilogue up to 6) and W 150 (the shared-memory epilogue).
 PYRAMID_CUDA_CASES = {
-    "384x512": (96, 128, "nchw"),
-    "512x768": (128, 192, "nchw"),
-    "1984x2880": (496, 720, "nchw"),
-    "contiguous_bhwd": (5, 192, "bhwd"),
-    "w150": (3, 150, "nchw"),
-    "w150_contiguous_bhwd": (3, 150, "bhwd"),
-    "w37": (3, 37, "nchw"),
+    "384x512": (96, 128, "nchw", 4),
+    "512x768": (128, 192, "nchw", 4),
+    "1984x2880": (496, 720, "nchw", 4),
+    "contiguous_bhwd": (5, 192, "bhwd", 4),
+    "w150": (3, 150, "nchw", 4),
+    "w150_contiguous_bhwd": (3, 150, "bhwd", 4),
+    "w37": (3, 37, "nchw", 4),
+    "w190_shared_96x192": (128, 190, "nchw", 4),
+    **{f"w192_l{lv}": (128, 192, "nchw", lv) for lv in (1, 5, 6, 7)},
+    **{f"w150_l{lv}": (3, 150, "nchw", lv) for lv in (1, 5, 6, 7)},
 }
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", sorted(PYRAMID_CUDA_CASES))
 def test_pyramid_kernel_matches_corr_state_on_cuda(rng, case):
-    """Every tile the plan may pick against `corr_state` (tolerance 2e-5,
-    as in chip_smoke.py; the FFMA order is cuBLAS's, so 0.0 is expected)."""
+    """The plan's kernel against `corr_state` (tolerance 2e-5, as in
+    chip_smoke.py; the FFMA order is cuBLAS's, so 0.0 is expected)."""
     cuda_or_skip()
-    rows, w, layout = PYRAMID_CUDA_CASES[case]
+    rows, w, layout, levels = PYRAMID_CUDA_CASES[case]
     maps = [rng.standard_normal((1, 256, rows, w)).astype(np.float32) for _ in range(2)]
     if layout == "nchw":
         f1, f2 = (torch.from_numpy(m).cuda().permute(0, 2, 3, 1) for m in maps)
     else:
         f1, f2 = (torch.from_numpy(m.transpose(0, 2, 3, 1).copy()).cuda() for m in maps)
-    want = corr_cuda.corr_state(f1, f2, 4)
-    for tile in [None, *corr_cuda.PYRAMID_TILES]:
-        before = corr_cuda.LAUNCHES["corr_pyramid"]
-        got = corr_cuda.fused_pyramid_state(f1, f2, 4, tile=tile)
-        torch.cuda.synchronize()
-        assert corr_cuda.LAUNCHES["corr_pyramid"] == before + 1
-        for g, wl in zip(got, want):
-            np.testing.assert_allclose(g.cpu().numpy(), wl.cpu().numpy(), rtol=0, atol=2e-5)
+    want = corr_cuda.corr_state(f1, f2, levels)
+    before = corr_cuda.LAUNCHES["corr_pyramid"]
+    got = corr_cuda.fused_pyramid_state(f1, f2, levels)
+    torch.cuda.synchronize()
+    assert corr_cuda.LAUNCHES["corr_pyramid"] == before + 1
+    assert len(got) == levels
+    for g, wl in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), wl.cpu().numpy(), rtol=0, atol=2e-5)

@@ -11,6 +11,11 @@ unit-stride axis and every other moving stride and both base addresses are
 Scatter: the runs of queries cover every query exactly once (also where the
 count is not a multiple of the run), the shared bytes fit, and 64-bit
 indexing is chosen past 2**31 - 1 outputs.
+
+`block_tile` and `block_queries` below restate how the kernels map a block
+to its work; that the .cu files derive the same mapping is shown only on the
+card (chip_smoke.py PYRAMID_CASES and SCATTER_CASES, and the gpu-marked
+tests in test_torch_encoder.py and test_torch_corr.py).
 """
 
 import numpy as np
@@ -20,6 +25,7 @@ from raft_stereo_tpu_torch.ops import corr_cuda
 from torch_parity import torch_single_thread  # noqa: F401 (autouse fixture)
 
 WIDTHS = [1, 5, 32, 37, 96, 128, 150, 192, 720, 800]
+SMS = 132  # multiprocessors of an H100 SXM
 
 
 def model_strides(b, h, w, d=256):
@@ -32,93 +38,124 @@ def contiguous_strides(b, h, w, d=256):
     return (h * w * d, w * d, d, 1) * 2
 
 
-def covered(plan, rows, w1, w2):
-    """How many blocks cover each (row, w1, w2) cell; asserts every tile
-    start lies inside the map."""
-    count = np.zeros((rows, w1, w2), np.int32)
+def block_tile(plan, block):
+    """(row, W1 start, W2 start) of `block`, as csrc/corr_pyramid.cu derives it."""
+    row, rem = divmod(block, plan.m_tiles * plan.n_tiles)
+    return row, (rem // plan.n_tiles) * plan.tile[0], (rem % plan.n_tiles) * plan.tile[1]
+
+
+def assert_covered_once(plan, rows, w1, w2):
+    """Every (row, w1, w2) cell is covered by exactly one block; every tile
+    starts inside the map. A row's blocks are consecutive, so one row's
+    counts are held at a time."""
     bm, bn = plan.tile
-    for block in range(plan.blocks):
-        row, m0, n0 = plan.block_tile(block)
-        assert 0 <= row < rows and 0 <= m0 < w1 and 0 <= n0 < w2
-        count[row, m0:m0 + bm, n0:n0 + bn] += 1
-    return count
+    per_row = plan.m_tiles * plan.n_tiles
+    assert plan.blocks == rows * per_row
+    for r in range(rows):
+        count = np.zeros((w1, w2), np.int32)
+        for block in range(r * per_row, (r + 1) * per_row):
+            row, m0, n0 = block_tile(plan, block)
+            assert row == r and 0 <= m0 < w1 and 0 <= n0 < w2
+            count[m0:m0 + bm, n0:n0 + bn] += 1
+        assert (count == 1).all()
 
 
 @pytest.mark.parametrize("w", WIDTHS)
 def test_pyramid_plan_tiles_cover_once_and_keep_pooling_in_a_block(w):
-    b, h, d = 2, 3, 256
-    for levels in (1, 4, corr_cuda.PYRAMID_MAX_LEVELS):
-        step = 1 << (levels - 1)
-        plans = [corr_cuda.pyramid_plan(b, h, w, w, d, levels, model_strides(b, h, w))]
-        plans += [corr_cuda.pyramid_plan(b, h, w, w, d, levels, model_strides(b, h, w), tile=t)
-                  for t in corr_cuda.PYRAMID_TILES if t[1] % step == 0]
-        for plan in plans:
+    """At a few rows and at a wave's worth, where the plan may pick the
+    other tile, for 1, 4 and the most levels."""
+    d = 256
+    tiles = set()
+    for b, h in ((2, 3), (1, 128)):
+        for levels in (1, 4, corr_cuda.PYRAMID_MAX_LEVELS):
+            step = 1 << (levels - 1)
+            plan = corr_cuda.pyramid_plan(b, h, w, w, d, levels, model_strides(b, h, w), SMS)
+            tiles.add(plan.tile)
             assert plan.tile in corr_cuda.PYRAMID_TILES
             assert plan.tile[1] % step == 0
             assert plan.blocks == b * h * plan.m_tiles * plan.n_tiles
-            assert all(n0 % step == 0 for n0 in {plan.block_tile(i)[2] for i in range(plan.blocks)})
-            assert (covered(plan, b * h, w, w) == 1).all()
+            assert all(block_tile(plan, i)[2] % step == 0 for i in range(plan.blocks))
+            assert_covered_once(plan, b * h, w, w)
             assert 1 <= plan.blocks <= corr_cuda.MAX_GRID_X
             assert plan.threads <= 1024 and plan.threads % 32 == 0
             assert plan.shared_bytes == corr_cuda.pyramid_shared_bytes(plan.tile) <= corr_cuda.MAX_SHARED_BYTES
+    if w in (150, 192, 720):
+        # 6 rows take 128 x 128 (one wave either way); 128 rows fit in
+        # fewer waves of 96 x 192, so both tiles' mappings are covered.
+        assert tiles == set(corr_cuda.PYRAMID_TILES)
 
 
 def test_pyramid_plan_chooses_a_tile_per_shape():
     """The model's shapes: 384x512 (W 128) and Middlebury-F (W 720) take the
     128 x 128 tile, 512x768 (W 192) the 96 x 192 tile, one wave of 256
-    blocks on the card's 2 x 132 slots."""
-    for rows, w, tile in ((96, 128, (128, 128)), (128, 192, (96, 192)), (496, 720, (128, 128))):
-        plan = corr_cuda.pyramid_plan(1, rows, w, w, 256, 4, model_strides(1, rows, w))
-        assert plan.tile == tile and plan.vec == 4
-    plan = corr_cuda.pyramid_plan(1, 128, 192, 192, 256, 4, model_strides(1, 128, 192))
-    assert plan.blocks == 256 <= corr_cuda.NUM_SMS * corr_cuda.PYRAMID_BLOCKS_PER_SM
+    blocks on the card's 2 x 132 slots. 128 rows at W 190 take the 96 x 192
+    tile with 4-byte copies (a row of 190 floats breaks the 16-byte
+    alignment, and the epilogue goes through shared memory)."""
+    for rows, w, tile, vec in ((96, 128, (128, 128), 4), (128, 192, (96, 192), 4), (496, 720, (128, 128), 4),
+                               (128, 190, (96, 192), 1)):
+        plan = corr_cuda.pyramid_plan(1, rows, w, w, 256, 4, model_strides(1, rows, w), SMS)
+        assert (plan.tile, plan.vec) == (tile, vec)
+    plan = corr_cuda.pyramid_plan(1, 128, 192, 192, 256, 4, model_strides(1, 128, 192), SMS)
+    assert plan.blocks == 256 <= SMS * corr_cuda.PYRAMID_BLOCKS_PER_SM
+
+
+def test_pyramid_plan_tile_follows_the_cards_multiprocessors():
+    """7 rows at W 720: 252 blocks of 128 x 128 or 224 of 96 x 192. Both are
+    one wave on 132 multiprocessors (the tie keeps 128 x 128); on 114 (an
+    H100 PCIe) only the 224 are."""
+    strides = model_strides(1, 7, 720)
+    assert corr_cuda.pyramid_plan(1, 7, 720, 720, 256, 4, strides, SMS).tile == (128, 128)
+    assert corr_cuda.pyramid_plan(1, 7, 720, 720, 256, 4, strides, 114).tile == (96, 192)
 
 
 def test_pyramid_plan_copy_width():
     # The model's layout: W is the unit-stride axis and H*W, W, D*H*W are
     # multiples of 4 floats.
-    assert corr_cuda.pyramid_plan(1, 128, 192, 192, 256, 4, model_strides(1, 128, 192)).vec == 4
+    assert corr_cuda.pyramid_plan(1, 128, 192, 192, 256, 4, model_strides(1, 128, 192), SMS).vec == 4
     # The same views at an unaligned base address.
-    assert corr_cuda.pyramid_plan(1, 128, 192, 192, 256, 4, model_strides(1, 128, 192), aligned=False).vec == 1
+    assert corr_cuda.pyramid_plan(1, 128, 192, 192, 256, 4, model_strides(1, 128, 192), SMS,
+                                  aligned=False).vec == 1
     # H*W = 450 floats: a D step breaks the 16-byte alignment.
-    assert corr_cuda.pyramid_plan(1, 3, 150, 150, 256, 4, model_strides(1, 3, 150)).vec == 1
+    assert corr_cuda.pyramid_plan(1, 3, 150, 150, 256, 4, model_strides(1, 3, 150), SMS).vec == 1
     # The contiguous (B, H, W, D) layout: W is not the unit-stride axis.
-    assert corr_cuda.pyramid_plan(1, 128, 192, 192, 256, 4, contiguous_strides(1, 128, 192)).vec == 1
+    assert corr_cuda.pyramid_plan(1, 128, 192, 192, 256, 4, contiguous_strides(1, 128, 192), SMS).vec == 1
     # One map aligned, the other not.
     mixed = model_strides(1, 128, 192)[:4] + contiguous_strides(1, 128, 192)[4:]
-    assert corr_cuda.pyramid_plan(1, 128, 192, 192, 256, 4, mixed).vec == 1
+    assert corr_cuda.pyramid_plan(1, 128, 192, 192, 256, 4, mixed, SMS).vec == 1
     # A stride of a dimension of size 1 never moves, so it need not align.
     strides = (7, 192, 1, 128 * 192) * 2
-    assert corr_cuda.pyramid_plan(1, 128, 192, 192, 256, 4, strides).vec == 4
+    assert corr_cuda.pyramid_plan(1, 128, 192, 192, 256, 4, strides, SMS).vec == 4
 
 
 def test_pyramid_plan_raises_for_what_no_instantiation_takes():
     strides = model_strides(1, 4, 64)
     for levels in (0, corr_cuda.PYRAMID_MAX_LEVELS + 1):
         with pytest.raises(ValueError, match="levels"):
-            corr_cuda.pyramid_plan(1, 4, 64, 64, 256, levels, strides)
-    with pytest.raises(ValueError, match="tile"):
-        corr_cuda.pyramid_plan(1, 4, 64, 64, 256, 4, strides, tile=(64, 64))
+            corr_cuda.pyramid_plan(1, 4, 64, 64, 256, levels, strides, SMS)
     with pytest.raises(ValueError, match="grid"):
-        corr_cuda.pyramid_plan(2**16, 2**16, 720, 720, 256, 4, model_strides(1, 1, 720))
+        corr_cuda.pyramid_plan(2**16, 2**16, 720, 720, 256, 4, model_strides(1, 1, 720), SMS)
     with pytest.raises(ValueError, match="strides"):
-        corr_cuda.pyramid_plan(1, 4, 64, 64, 256, 4, strides[:6])
+        corr_cuda.pyramid_plan(1, 4, 64, 64, 256, 4, strides[:6], SMS)
+
+
+def block_queries(plan, block, n_queries):
+    """The queries of `block`, as csrc/corr_scatter.cu derives them."""
+    return range(block * plan.run, min((block + 1) * plan.run, n_queries))
 
 
 @pytest.mark.parametrize("n_queries", [1, 9, 63, 64, 65, 240, 1600, 86400])
 def test_scatter_plan_runs_cover_every_query_once(n_queries):
     widths = [180, 90, 45, 22]
-    for run in (None, 16, 64, 128):
-        plan = corr_cuda.scatter_plan(n_queries, widths, 4, run)
-        assert plan.run == (run or corr_cuda.SCATTER_RUN)
-        seen = np.zeros(n_queries, np.int32)
-        for block in range(plan.blocks):
-            queries = plan.block_queries(block, n_queries)
-            assert 1 <= len(queries) <= plan.run
-            seen[queries.start:queries.stop] += 1
-        assert (seen == 1).all()
-        assert plan.blocks == -(-n_queries // plan.run) <= corr_cuda.MAX_GRID_X
-        assert not plan.wide
+    plan = corr_cuda.scatter_plan(n_queries, widths, 4)
+    assert plan.run == corr_cuda.SCATTER_RUN
+    seen = np.zeros(n_queries, np.int32)
+    for block in range(plan.blocks):
+        queries = block_queries(plan, block, n_queries)
+        assert 1 <= len(queries) <= plan.run
+        seen[queries.start:queries.stop] += 1
+    assert (seen == 1).all()
+    assert plan.blocks == -(-n_queries // plan.run) <= corr_cuda.MAX_GRID_X
+    assert not plan.wide
 
 
 def test_scatter_plan_shared_bytes_fit():
@@ -150,5 +187,6 @@ def test_scatter_plan_raises_for_what_the_kernel_does_not_take():
         corr_cuda.scatter_plan(10, [8, 4], -1)
     with pytest.raises(ValueError, match="widths"):
         corr_cuda.scatter_plan(10, [2**24], 4)
+    # A window so wide that one query's weights overflow a block's shared memory.
     with pytest.raises(ValueError, match="shared"):
-        corr_cuda.scatter_plan(10, [8], 4, run=4096)
+        corr_cuda.scatter_plan(10, [8] * 8, 2000)
