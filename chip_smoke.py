@@ -9,7 +9,12 @@ windowed lookup, and the gate pair in its own configuration) and checks it
 against the dense and the plain configurations, runs the evaluate command
 line on its dry-run set, trains the default model for a few steps
 at the training recipe's size (the lookup's backward as the scatter kernel)
-and checks one step against plain autograd, and times every kernel.
+and checks one step against plain autograd, runs the JAX bench's
+mixed-precision configuration (bf16 compute, a bf16 pyramid, the fused
+encoder): its four bf16 kernel variants against their plain versions, the
+512x768 bucket served, the iteration path and the prelude against plain
+code, the bf16 pyramid's accuracy budget, a Middlebury-F image through the
+evaluate entry point and its command line, and times every kernel.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -37,7 +42,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from raft_stereo_tpu_torch import cli
+from raft_stereo_tpu_torch import cli, evaluate
 from raft_stereo_tpu_torch.config import RAFTStereoConfig, ServeConfig, TrainConfig
 from raft_stereo_tpu_torch.evaluate import Evaluator, SyntheticEvalDataset, validate_middlebury
 from raft_stereo_tpu_torch.models import anytime
@@ -109,12 +114,47 @@ EVAL_ITERS = 32
 # Iterations of the evaluate path's end-to-end checks against plain code
 # and the gates' twin.
 E2E_ITERS = 4
+# The sixth slice's: the JAX bench's configuration (bench.py), "pallas" with
+# bf16 compute, a bf16 pyramid and the fused encoder, served at the 512x768
+# bucket and evaluated on one Middlebury-F-sized image; and its twins for
+# the checks: without the fused encoder (direct convs, the plain pyramid)
+# and with the plain lookup ("reg").
+MIXED_CONFIG = RAFTStereoConfig(corr_implementation="pallas", mixed_precision=True, corr_dtype="bfloat16",
+                                fused_encoder=True)
+MIXED_UNFUSED_CONFIG = RAFTStereoConfig(corr_implementation="pallas", mixed_precision=True, corr_dtype="bfloat16")
+MIXED_REG_CONFIG = RAFTStereoConfig(corr_implementation="reg", mixed_precision=True, corr_dtype="bfloat16",
+                                    fused_encoder=True)
+MIXED_BUCKET = (512, 768)
+MIXED_REQUESTS = [
+    ("512x768 bucket", (512, 768), None),
+    ("padded 500x700", (500, 700), None),
+    ("tight deadline", (512, 768), 1.0),
+]
+# The bf16 pyramid's checks, as PYRAMID_CASES: the 512x768 bucket's and
+# Middlebury-F's shapes in the model's layout (16-byte copies of 8
+# elements), and the element-by-element copies (W 150: H*W not a multiple
+# of 8; the contiguous (B, H, W, D) layout), W 37, and 7 levels.
+PYRAMID_BF16_CASES = (
+    ("512x768", (128, 192, "nchw", 4)),
+    ("1984x2880", (496, 720, "nchw", 4)),
+    ("W 150", (3, 150, "nchw", 4)),
+    ("512x768 contiguous (B, H, W, D)", (128, 192, "bhwd", 4)),
+    ("W 37", (3, 37, "nchw", 4)),
+    ("W 192, 7 levels", (128, 192, "nchw", 7)),
+)
+# The bf16 conv's and join's shapes: full resolution of the 512x768 bucket
+# (every skip form of the join there) and of Middlebury-F, and 13x70, where
+# tiles end inside the image and rows are not 16-byte aligned (the
+# element-by-element stores).
+BF16_CONV_SHAPES = ((512, 768), (1984, 2880), (13, 70))
+BF16 = torch.bfloat16
 SEED = 0
 DEVICE = "cuda"
 
 # H100 SXM peaks (NVIDIA data sheet, full 700 W power limit).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_TENSOR_FLOPS_PER_S = 989e12  # dense
 
 # Tolerances. The kernels are compiled with -fmad=false and round where the
 # plain versions round, so the lookup and motion tail are expected to agree
@@ -157,6 +197,29 @@ FUSED_FLOW_RTOL = 2e-2
 # measured two fp32 evaluations 4e-2 apart on the CPU): 1e-1, and its conv
 # biases, whose true gradient is zero (the norm removes any per-channel
 # constant): both sides' values within 1e-6 of the largest gradient.
+# The bf16 variants against their plain versions on the same inputs: the
+# lookup and the join round where their plain versions round, so exactly.
+# The pyramid and the conv sum their bf16 products on the tensor cores, in
+# another order than cuBLAS and cuDNN, so a sum near a rounding boundary
+# may round one bf16 ulp the other way: each level-0 entry within 1 bf16
+# ulp of the larger magnitude of the pair, plus 2**-15 of the level's
+# largest magnitude for sums that cancel to near zero (the fp32 reordering
+# error of 256-576 products); each pooled level within the mean of its two
+# inputs' allowances plus its own ulp (a 1-ulp flip of an input carries into
+# the pooled value); each conv output as `conv_bf16_check` says (the bias is
+# added after the sum's rounding). The share of elements that differ is
+# printed.
+BF16_SUM_FLOOR = 2.0**-15
+# The mixed configuration against its twins on the same weights and input
+# (the 512x768 bucket): the iteration path with the lookup kernel against
+# the plain lookup ("reg"), from one prelude state, bit for bit; the fused
+# prelude against the unfused one: the correlation levels and the context
+# within 4 bf16 ulps of the tensor's largest magnitude (the layer1 convs
+# and instance statistics sum in another order, and a 1-ulp difference
+# passes through layers 2-3; measured at most 1.5 ulps on the CPU at
+# 128x192), the hidden state printed (tanh of the head: a steep tanh maps
+# an ulp of a large pre-activation onto a large difference).
+MIXED_STATE_ULPS = 4
 TRAIN_LOSS_RTOL = 1e-6
 TRAIN_NORM_RTOL = 1e-4
 TRAIN_GRAD_TOL = 1e-3
@@ -174,6 +237,10 @@ KERNELS = {
                              "raft_stereo_tpu/ops/corr_pallas.py:463"),
     "gates_rh": ("raft_stereo_tpu_torch/csrc/gates.cu", "raft_stereo_tpu/ops/gates_pallas.py:54"),
     "gates_combine": ("raft_stereo_tpu_torch/csrc/gates.cu", "raft_stereo_tpu/ops/gates_pallas.py:59"),
+    "corr_lookup_bf16": ("raft_stereo_tpu_torch/csrc/corr_lookup.cu", "raft_stereo_tpu/ops/corr_pallas.py:90"),
+    "corr_pyramid_bf16": ("raft_stereo_tpu_torch/csrc/corr_pyramid.cu", "raft_stereo_tpu/ops/corr_pallas.py:617"),
+    "encoder_conv_bf16": ("raft_stereo_tpu_torch/csrc/encoder_conv.cu", "raft_stereo_tpu/ops/encoder_pallas.py:109"),
+    "encoder_join_bf16": ("raft_stereo_tpu_torch/csrc/encoder_join.cu", "raft_stereo_tpu/ops/encoder_pallas.py:275"),
 }
 SOURCES = ("corr_lookup", "gru_tail", "corr_pyramid", "encoder_conv", "encoder_join", "corr_scatter",
            "corr_prefetch", "gates")
@@ -232,19 +299,20 @@ def lookup_inputs(gen, b, h, w1, w2, levels=4, radius=4):
     return tuple(pyramid), coords
 
 
-def lookup_bytes(pyramid, coords, radius) -> int:
+def lookup_bytes(pyramid, coords, radius, out_bytes=4) -> int:
     """Bytes the lookup must move on these inputs: coordinates and outputs
-    once, plus each in-range pyramid sample a query's window touches."""
+    (of `out_bytes` each) once, plus each in-range pyramid sample a query's
+    window touches."""
     n_q = coords.numel()
     k = 2 * radius + 1
-    total = 4 * n_q + 4 * n_q * len(pyramid) * k
+    total = 4 * n_q + out_bytes * n_q * len(pyramid) * k
     for lvl, vol in enumerate(pyramid):
         w2 = vol.shape[-1]
         lo = torch.floor(coords / (2**lvl) - radius)
         hi = lo + 2 * radius + 1
         touched = (torch.minimum(hi, torch.tensor(w2 - 1.0, device=coords.device))
                    - torch.maximum(lo, torch.zeros((), device=coords.device)) + 1).clamp(min=0)
-        total += 4 * int(touched.sum().item())
+        total += vol.element_size() * int(touched.sum().item())
     return total
 
 
@@ -915,7 +983,8 @@ def phase_evaluate() -> tuple:
     equal bit for bit; the evaluate configuration against the plain one
     at 4 iterations; the gates configuration at 32 iterations (launches)
     and against its twin without the variable at 4. Returns the launch
-    counts of the evaluate run and of the 32-iteration gates forward."""
+    counts of the evaluate run and of the 32-iteration gates forward, and
+    the first image's flow."""
     dataset = SyntheticEvalDataset(n=2, shape=EVAL_SHAPE)
     model = build_model(EVAL_CONFIG, seed=SEED, device=DEVICE)
     evaluator = Evaluator(model, iters=EVAL_ITERS)
@@ -1025,7 +1094,7 @@ def phase_evaluate() -> tuple:
         raise AssertionError(f"gates twin: launches {twin_counts} != expected only the windowed lookup")
     if not (np.isfinite(flow_gates).all() and err <= E2E_TOL_PX):
         raise AssertionError(f"the gates configuration disagrees with its twin: {err} px")
-    return eval_counts, gates_counts
+    return eval_counts, gates_counts, record[0][0]
 
 
 def phase_evaluate_cli() -> None:
@@ -1065,15 +1134,324 @@ def phase_evaluate_cli() -> None:
         raise AssertionError(f"evaluate CLI metrics {got} differ from validate_middlebury's {want_metrics}")
 
 
+# -- the sixth slice: mixed precision --------------------------------------------
+
+def bf16_ulp(x):
+    """One bf16 ulp at |x| (bf16 values): 2**(e - 8) for |x| = m 2**e,
+    m in [0.5, 1); 0 at 0."""
+    _, e = torch.frexp(x.float())
+    one = torch.ones_like(e, dtype=torch.float32)
+    return torch.where(x == 0, torch.zeros_like(one), torch.ldexp(one, e - 8))
+
+
+def conv_bf16_check(y, want, bias):
+    """(worst share of the allowance used, share of elements that differ) of
+    a bf16 conv output `y` against its plain version `want`: the conv's sum
+    is rounded to bf16 before the bf16 bias is added, so a sum that rounds
+    the other way moves the output by an ulp of the sum, whatever the
+    output's own size: 1 bf16 ulp of the pre-bias sum (|y - bias|, widened by
+    an ulp of y), plus 1 ulp of the output, plus BF16_SUM_FLOOR of the
+    largest |output|."""
+    b = bias.to(BF16).float()[None, :, None, None]
+    g, w = y.float(), want.float()
+    pre = torch.maximum((g - b).abs() + bf16_ulp(g), (w - b).abs() + bf16_ulp(w))
+    allow = bf16_ulp(pre) + bf16_ulp(torch.maximum(g.abs(), w.abs())) + BF16_SUM_FLOOR * float(w.abs().max().item())
+    diff = (g - w).abs()
+    return float((diff / allow).max().item()), float((diff > 0).float().mean().item())
+
+
+def pyramid_bf16_check(got, want):
+    """Every level of a bf16 pyramid against its plain version, by the
+    allowance of BF16_SUM_FLOOR: returns (worst share of the allowance used
+    over the levels, max abs diff, share of elements that differ per level)."""
+    allow, worst, shares = None, 0.0, []
+    err = 0.0
+    for g, w in zip(got, want):
+        diff = (g.float() - w.float()).abs()
+        own = bf16_ulp(torch.maximum(g.float().abs(), w.float().abs()))
+        if allow is None:
+            allow = own + BF16_SUM_FLOOR * float(w.float().abs().max().item())
+        else:
+            n = g.shape[-1]
+            allow = (allow[..., 0:2 * n:2] + allow[..., 1:2 * n:2]) * 0.5 + own
+        worst = max(worst, float((diff / allow).max().item()))
+        err = max(err, float(diff.max().item()))
+        shares.append(float((diff > 0).float().mean().item()))
+    return worst, err, shares
+
+
+def phase_bf16_kernels(gen) -> dict:
+    """The four bf16 variants against their plain versions at the 512x768
+    bucket's and Middlebury-F's shapes: the lookup at its four (level, tap)
+    dtype pairs and the join exactly, the pyramid (every PYRAMID_BF16_CASES
+    entry) and the conv (every form, with statistics) by BF16_SUM_FLOOR's
+    allowance. Returns each variant's max abs diff."""
+    errs = {"corr_lookup_bf16": 0.0, "corr_pyramid_bf16": 0.0, "encoder_conv_bf16": 0.0, "encoder_join_bf16": 0.0}
+    for label, (h, w, layout, levels) in PYRAMID_BF16_CASES:
+        f1, f2 = (f.to(BF16) for f in fmap_inputs(gen, 1, h, w, layout=layout))
+        plan = corr_cuda.pyramid_plan_for(f1, f2, levels)
+        got = corr_cuda.fused_pyramid_state(f1, f2, levels, BF16)
+        torch.cuda.synchronize()
+        want = corr_cuda.corr_state(f1, f2, levels, BF16)
+        worst, err, shares = pyramid_bf16_check(got, want)
+        log(f"[bf16-kernels] corr_pyramid_bf16 {label} (rows {h}, W {w}, D 256, {levels} levels; tile "
+            f"{plan.tile[0]}x{plan.tile[1]} on the tensor cores, {2 * plan.vec}-byte copies, {plan.blocks} blocks): "
+            f"max abs diff {err:.3e}, worst element at {worst:.3f} of its allowance (tol 1); share of elements that "
+            f"differ per level {', '.join(f'{x:.2e}' for x in shares)}")
+        if not (len(got) == levels and all(g.dtype == BF16 for g in got) and worst <= 1.0):
+            raise AssertionError(f"corr_pyramid_bf16 disagrees with its plain version at {label}: {worst}")
+        errs["corr_pyramid_bf16"] = max(errs["corr_pyramid_bf16"], err)
+        del f1, f2, got, want
+    for label, (h, w) in PREFETCH_CASES:
+        pyramid, coords = lookup_inputs(gen, 1, h, w, w)
+        for level_dtype in (torch.float32, BF16):
+            levels = tuple(lvl.to(level_dtype) for lvl in pyramid)
+            for out_dtype in (torch.float32, BF16):
+                got = corr_cuda.corr_lookup(levels, coords, 4, out_dtype)
+                torch.cuda.synchronize()
+                want = corr.corr_lookup(levels, coords, 4).to(out_dtype)
+                exact = got.dtype == out_dtype and torch.equal(got, want)
+                err = max_err(got.float(), want.float())
+                log(f"[bf16-kernels] corr_lookup {label} (queries {h}x{w}), levels {str(level_dtype)[6:]}, taps "
+                    f"{str(out_dtype)[6:]}: exact {exact}, max abs diff {err:.3e} (tol 0)")
+                if not exact:
+                    raise AssertionError(f"corr_lookup disagrees with its plain version at {label} "
+                                         f"({level_dtype}, {out_dtype})")
+                if torch.bfloat16 in (level_dtype, out_dtype):
+                    errs["corr_lookup_bf16"] = max(errs["corr_lookup_bf16"], err)
+        del pyramid, coords
+    # The conv and the join at full resolution: both buckets' feature trunk
+    # (batch 2, instance norm) and context trunk (batch 1, batch norm) at
+    # 512x768, and Middlebury-F's.
+    for hh, ww in BF16_CONV_SHAPES:
+        for b, forms in ((2, ("none", "in")), (1, ("bn",))):
+            for form in forms:
+                x, weight, bias, aff = conv_inputs(gen, b, hh, ww, form)
+                x = x.to(BF16)
+                y, stats = encoder_cuda.fused_conv(x, weight, bias, aff, form, emit_stats=True)
+                torch.cuda.synchronize()
+                want, _ = encoder_cuda.plain_conv(x, weight, bias, aff, form, False)
+                worst, share = conv_bf16_check(y, want, bias)
+                rel = stats_rel_err(stats, y)
+                err = max_err(y.float(), want.float())
+                log(f"[bf16-kernels] encoder_conv_bf16 b{b} {hh}x{ww} form {form}: max abs diff {err:.3e}, worst "
+                    f"element at {worst:.3f} of its allowance (tol 1), share differing {share:.2e}; statistics "
+                    f"against the stored bf16 outputs rel diff {rel:.3e} (tol {STATS_REL_TOL:g})")
+                if not (y.dtype == BF16 and worst <= 1.0 and rel <= STATS_REL_TOL):
+                    raise AssertionError(f"encoder_conv_bf16 disagrees at b{b} {hh}x{ww} {form}: {worst}, {rel}")
+                errs["encoder_conv_bf16"] = max(errs["encoder_conv_bf16"], err)
+                del want, stats
+                aff_y = affine_rows(gen, b, "in" if form != "bn" else "bn")
+                for skip_form in (("none", "in", "bn") if (hh, ww) == BF16_CONV_SHAPES[0] else (form,)):
+                    aff_s = affine_rows(gen, b, skip_form)
+                    y_form = "bn" if form == "bn" else "in"
+                    got = encoder_cuda.fused_join(x, y, aff_y, y_form, aff_s, skip_form)
+                    torch.cuda.synchronize()
+                    exact = torch.equal(got, encoder_cuda.plain_join(x, y, aff_y, y_form, aff_s, skip_form))
+                    log(f"[bf16-kernels] encoder_join_bf16 b{b} {hh}x{ww} y {y_form} skip {skip_form}: exact {exact} "
+                        f"(tol 0)")
+                    if not exact:
+                        raise AssertionError(f"encoder_join_bf16 disagrees at b{b} {hh}x{ww} {y_form}/{skip_form}")
+                    del got
+                del x, y
+    return errs
+
+
+def mixed_service(weights) -> StereoService:
+    cfg = ServeConfig(model=MIXED_CONFIG, buckets=(MIXED_BUCKET,))
+    service = StereoService(cfg, device="cuda", seed=SEED)
+    service.engine.model.load_state_dict(weights)
+    return service.start()
+
+
+def phase_mixed_serving(rng, weights) -> tuple:
+    """The bench configuration served at the 512x768 bucket (every batch
+    size warmed), on the kernel services' weights; the launch counts request
+    by request: the bf16 pyramid once, 8 bf16 convs, 4 bf16 joins, one bf16
+    lookup per iteration, nothing else."""
+    t0 = time.perf_counter()
+    service = mixed_service(weights)
+    cfg, warm = service.config, service.warm_summary
+    log(f"[mixed] boot + warm of {warm['combos']} (bucket, batch) combos: {time.perf_counter() - t0:.2f} s")
+    for key in warm["prelude_ms"]:
+        log(f"[mixed] {key}: prelude {warm['prelude_ms'][key]:.3f} ms, "
+            f"chunk of {cfg.chunk_iters} iters {warm['chunk_est_ms'][key]:.3f} ms")
+    reset_launches()
+    for label, (h, w), deadline_ms in MIXED_REQUESTS:
+        before = launches()
+        i1, i2 = stereo_pair(rng, h, w)
+        res = service.submit(i1, i2, deadline_ms=deadline_ms).result()
+        delta = {k: v - before[k] for k, v in launches().items()}
+        it = res["iters_completed"]
+        want = expect(corr_lookup_bf16=it, corr_pyramid_bf16=1, encoder_conv_bf16=8, encoder_join_bf16=4)
+        log(f"[mixed] {label}: bucket {res['bucket']}, iters_completed {it}, early_exit {res['early_exit']}, "
+            f"latency {res['latency_ms']:.3f} ms, launches {delta}")
+        disp = res["disparity"]
+        if disp.shape != (h, w) or not np.isfinite(disp).all():
+            raise AssertionError(f"mixed {label}: disparity shape {disp.shape} or non-finite values")
+        if delta != want:
+            raise AssertionError(f"mixed {label}: kernel launches {delta} != expected {want}")
+        if deadline_ms is not None and (it != cfg.chunk_iters or not res["early_exit"]):
+            raise AssertionError("mixed: the tight-deadline request did not exit after one chunk")
+        if deadline_ms is None and it != cfg.max_iters:
+            raise AssertionError("mixed: a request without a deadline stopped short of max_iters")
+    counts = launches()
+    log(f"[mixed] launches over {len(MIXED_REQUESTS)} requests: {counts}")
+    return service, counts
+
+
+def phase_mixed_e2e(service, rng) -> None:
+    """The bench configuration against its twins on the same weights, at the
+    512x768 bucket: (a) from one prelude state, 4 iterations with the bf16
+    lookup kernel against the plain lookup ("reg"): bit for bit; (b) the
+    fused prelude against the unfused one (direct convs, plain pyramid) by
+    MIXED_STATE_ULPS; (c) the dtypes at the boundaries."""
+    model = service.engine.model
+    weights = model.state_dict()
+    twins = {}
+    for name, cfg in (("reg", MIXED_REG_CONFIG), ("unfused", MIXED_UNFUSED_CONFIG)):
+        twin = build_model(cfg, seed=SEED, device=DEVICE)
+        twin.load_state_dict(weights)
+        twins[name] = twin
+    i1, i2 = (torch.from_numpy(x[None]).to(DEVICE) for x in stereo_pair(rng, *MIXED_BUCKET))
+    with torch.inference_mode():
+        state = anytime.prelude(model, i1, i2)
+        dtypes = {"net": state["net"][0].dtype, "context": state["context"][0][0].dtype,
+                  "corr": state["corr"][0].dtype, "coords": state["coords1"].dtype}
+        reset_launches()
+        out_k = anytime.finalize(model, anytime.chunk(model, state, 4))
+        k_counts = launches()
+        reset_launches()
+        out_p = anytime.finalize(twins["reg"], anytime.chunk(twins["reg"], state, 4))
+        p_counts = launches()
+        unfused = anytime.prelude(twins["unfused"], i1, i2)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(out_k, out_p))
+    names = ", ".join(f"{k} {str(v)[6:]}" for k, v in dtypes.items())
+    log(f"[mixed-e2e] {MIXED_BUCKET[0]}x{MIXED_BUCKET[1]}, dtypes {names}; 4 iterations "
+        f"from one prelude state, the bf16 lookup kernel vs the plain lookup: flow bitwise equal {same} "
+        f"(|flow_up| max {out_k[1].abs().max().item():.3f}); launches {k_counts}, plain {p_counts}")
+    if dtypes != {"net": BF16, "context": BF16, "corr": BF16, "coords": torch.float32}:
+        raise AssertionError(f"mixed state dtypes {dtypes}")
+    if not same or out_k[1].dtype != torch.float32 or not torch.isfinite(out_k[1]).all():
+        raise AssertionError("the mixed iteration path disagrees with its plain twin")
+    if k_counts != expect(corr_lookup_bf16=4) or p_counts != expect():
+        raise AssertionError(f"mixed e2e launches {k_counts}, plain {p_counts}")
+    parts = {f"corr level {l}": (a, b) for l, (a, b) in enumerate(zip(state["corr"], unfused["corr"]))}
+    parts.update({f"context {i}.{j}": (a, b) for i, (cf, cu) in enumerate(zip(state["context"], unfused["context"]))
+                  for j, (a, b) in enumerate(zip(cf, cu))})
+    parts.update({f"net {i} (printed)": (a, b) for i, (a, b) in enumerate(zip(state["net"], unfused["net"]))})
+    for name, (a, b) in parts.items():
+        scale = float(b.float().abs().max().item())
+        ulps = max_err(a.float(), b.float()) / float(bf16_ulp(torch.tensor(scale)).item())
+        share = float((a != b).float().mean().item())
+        log(f"[mixed-e2e] fused vs unfused prelude {name} {tuple(a.shape)}: max abs diff "
+            f"{max_err(a.float(), b.float()):.3e} = {ulps:.2f} bf16 ulps of the largest |value| {scale:.3f} "
+            f"(tol {MIXED_STATE_ULPS}), share differing {share:.3f}")
+        if "printed" not in name and not ulps <= MIXED_STATE_ULPS:
+            raise AssertionError(f"the mixed fused prelude disagrees with the unfused one at {name}: {ulps} ulps")
+
+
+def phase_mixed_budget() -> None:
+    """The bf16 pyramid's accuracy budget on the card (`evaluate.corr_precision`:
+    fp32 compute, the fused encoder and the lookup kernel, the bf16 pyramid
+    kernel against the fp32 one, 2 iterations on the JAX package's synthetic
+    plane pair at 128x192): the EPE delta within BF16_CORR_EPE_BUDGET_PX;
+    and the same pair's EPE with the bench configuration (bf16 compute too)."""
+    reset_launches()
+    got = evaluate.corr_precision(RAFTStereoConfig(corr_implementation="pallas", fused_encoder=True), seed=SEED)
+    counts = launches()
+    mixed = evaluate.corr_precision(MIXED_CONFIG, seed=SEED)
+    log(f"[mixed-budget] 128x192, 2 iters, fp32 compute: EPE fp32 pyramid {got['epe_fp32_px']:.6f} px, bf16 "
+        f"pyramid {got['epe_bf16_px']:.6f} px, delta {got['delta_px']:.6f} px (budget {got['budget_px']} px); "
+        f"launches {counts}; with bf16 compute (the bench configuration) EPE {mixed['epe_bf16_px']:.6f} px")
+    if counts != expect(corr_pyramid=1, corr_pyramid_bf16=1, encoder_conv=16, encoder_join=8, corr_lookup=2,
+                        corr_lookup_bf16=2):
+        raise AssertionError(f"corr_precision launches {counts}")
+    if not got["delta_px"] <= got["budget_px"]:
+        raise AssertionError(f"the bf16 pyramid's EPE delta {got['delta_px']} exceeds the budget")
+
+
+def phase_mixed_evaluate(fp32_flow) -> dict:
+    """The evaluate entry point in the bench configuration: one synthetic
+    Middlebury-F-sized pair (1980x2870, padded to 1984x2880 on the card), 32
+    iterations, batch 1: seconds, peak memory, launches, and the flow
+    against the fp32 evaluate configuration's on the same weights and image
+    (`fp32_flow`, printed: over 32 iterations of an untrained GRU the gap
+    is chaotic, see the budget check for the bounded regime)."""
+    dataset = SyntheticEvalDataset(n=1, shape=EVAL_SHAPE)
+    model = build_model(MIXED_CONFIG, seed=SEED, device=DEVICE)
+    evaluator = Evaluator(model, iters=EVAL_ITERS)
+    item = dataset.get_item(0, None)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    flow, seconds = evaluator(item["image1"], item["image2"])
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated()
+    flow2, seconds2 = evaluator(item["image1"], item["image2"])
+    want = expect(corr_lookup_bf16=EVAL_ITERS, corr_pyramid_bf16=1, encoder_conv_bf16=8, encoder_join_bf16=4)
+    gap = np.abs(flow - fp32_flow)
+    log(f"[mixed-evaluate] {EVAL_SHAPE[0]}x{EVAL_SHAPE[1]} padded to {-(-EVAL_SHAPE[0] // 32) * 32}x"
+        f"{-(-EVAL_SHAPE[1] // 32) * 32}, {EVAL_ITERS} iters, batch 1: "
+        f"forward {seconds:.3f} s, again {seconds2:.3f} s; peak memory {peak / 2**30:.2f} GiB ({peak} B); "
+        f"launches {counts}; flow bitwise equal across the two runs {np.array_equal(flow, flow2)}; against the fp32 "
+        f"evaluate configuration: mean |diff| {gap.mean():.4f} px, max {gap.max():.4f} px, |flow| mean "
+        f"{np.abs(fp32_flow).mean():.4f} px")
+    if counts != want:
+        raise AssertionError(f"mixed evaluate: launches {counts} != expected {want}")
+    if flow.shape != EVAL_SHAPE or not np.isfinite(flow).all():
+        raise AssertionError(f"mixed evaluate: flow shape {flow.shape} or non-finite values")
+    return counts
+
+
+def phase_mixed_cli() -> None:
+    """`evaluate --mixed_precision --corr_implementation reg_cuda
+    --fused_encoder --dry_run`, as a user runs it (the bf16 pyramid by the
+    JAX CLI's rule): exit 0, the bf16 kernels' launches per image, and the
+    metrics of validate_middlebury on the bench configuration built on the
+    card from the same seed."""
+    argv = ["evaluate", "--dataset", "middlebury_F", "--dry_run", "--mixed_precision", "--corr_implementation",
+            "reg_cuda", "--fused_encoder"]
+    out = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    counts = launches()
+    for line in out.getvalue().splitlines():
+        log(f"[mixed-cli] {line}")
+    n = len(SyntheticEvalDataset())
+    want = expect(corr_lookup_bf16=n * EVAL_ITERS, corr_pyramid_bf16=n, encoder_conv_bf16=8 * n,
+                  encoder_join_bf16=4 * n)
+    log(f"[mixed-cli] {' '.join(argv)}: exit {rc}, {wall:.3f} s, launches {counts}")
+    if rc != 0 or counts != want:
+        raise AssertionError(f"mixed evaluate CLI: exit {rc}, launches {counts} != expected {want}")
+    found = re.search(r"Validation MiddleburyF: EPE (\S+), D1 (\S+)", out.getvalue())
+    if found is None:
+        raise AssertionError("mixed evaluate CLI printed no validator line")
+    got = [float(v) for v in found.groups()]
+    evaluator = Evaluator(build_model(MIXED_CONFIG, seed=SEED, device=DEVICE), iters=EVAL_ITERS)
+    with contextlib.redirect_stdout(io.StringIO()):
+        want_metrics = list(validate_middlebury(evaluator, dataset=SyntheticEvalDataset()).values())
+    ok = all(np.isfinite(g) and abs(g - w) <= 1e-4 * abs(w) + 1e-6 for g, w in zip(got, want_metrics))
+    log(f"[mixed-cli] EPE, D1 {got} vs validate_middlebury on the card {want_metrics} (tol 1e-4 relative)")
+    if not ok:
+        raise AssertionError(f"mixed evaluate CLI metrics {got} differ from validate_middlebury's {want_metrics}")
+
+
 def phase_timing(gen, errs, counts) -> list:
     """Kernel, plain and library times at the 512x768 bucket's shapes (the
     JSON rows), and at Middlebury-F's for the evaluate path's kernels."""
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=DEVICE)  # 256 MB > L2
     out = []
 
-    def entry(name, ms, plain_ms, nbytes, flops, library_ms):
+    def entry(name, ms, plain_ms, nbytes, flops, library_ms, tensor_flops=0):
+        """`flops`: operations at the fp32 peak; `tensor_flops`: bf16
+        products, at the bf16 tensor-core peak."""
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOPS_PER_S * 1e3
+        t_ops = (flops / FP32_FLOPS_PER_S + tensor_flops / BF16_TENSOR_FLOPS_PER_S) * 1e3
         src, replaces = KERNELS[name]
         e = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -1082,7 +1460,10 @@ def phase_timing(gen, errs, counts) -> list:
             "library_ms": library_ms,
         }
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        mixed = f"{len(MIXED_REQUESTS)} requests of the mixed configuration"
         where = {"corr_scatter": f"{TRAIN_TIMED_STEPS} training steps",
+                 "corr_lookup_bf16": mixed, "corr_pyramid_bf16": mixed, "encoder_conv_bf16": mixed,
+                 "encoder_join_bf16": mixed,
                  "corr_prefetch_lookup": "the [evaluate] run (2 images)",
                  "gates_rh": f"one {EVAL_ITERS}-iteration gates forward",
                  "gates_combine": f"one {EVAL_ITERS}-iteration gates forward"}.get(name, f"{len(REQUESTS)} requests")
@@ -1249,6 +1630,78 @@ def phase_timing(gen, errs, counts) -> list:
     plain_ms = time_ms(lambda: encoder_cuda.plain_join(skip, y, aff_y, "in", aff_s, "in"), flush=flush)
     # Two affines and relus (3 ops each), the add and the last relu.
     entry("encoder_join", ms, plain_ms, 4 * (3 * 64 * hw + 4 * 64), 8 * 64 * hw, None)
+    del skip, y
+    out.extend(bf16_timing(gen, flush, entry))
+    return out
+
+
+def bf16_timing(gen, flush, entry) -> list:
+    """The bf16 variants (the mixed configuration's kernels) at the 512x768
+    bucket's shapes, the pyramid and the lookup also at Middlebury-F's. The
+    library calls: bf16 torch.matmul for the volume alone, F.grid_sample on
+    the bf16 levels (its grid in bf16 too, as it takes one dtype: the
+    positions rounded, so the closest call rather than the same function),
+    cuDNN's bf16 F.conv2d of the normalized operand."""
+    out = []
+    for label, (hh, ww) in (("512x768", (512, 768)), ("1984x2880", (1984, 2880))):
+        f1, f2 = (f.to(BF16) for f in fmap_inputs(gen, 1, hh // 4, ww // 4))
+        b, h, w, d = f1.shape
+        plan = corr_cuda.pyramid_plan_for(f1, f2, 4)
+        ms = time_ms(lambda: corr_cuda.fused_pyramid_state(f1, f2, 4, BF16), flush=flush)
+        plain_ms = time_ms(lambda: corr_cuda.corr_state(f1, f2, 4, BF16), flush=flush)
+        lib_ms = time_ms(lambda: torch.matmul(f1, f2.transpose(-1, -2)), flush=flush)
+        widths = [w >> l for l in range(4)]
+        nbytes = 2 * (2 * b * h * w * d + b * h * w * sum(widths))
+        gemm = 2 * b * h * w * w * d
+        rest = b * h * w * (w + 2 * sum(widths[1:]))
+        bound = max(nbytes / HBM_BYTES_PER_S, gemm / BF16_TENSOR_FLOPS_PER_S + rest / FP32_FLOPS_PER_S) * 1e3
+        log(f"[timing] corr_pyramid_bf16 {label}: kernel {ms:.4f} ms = {gemm / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+            f"{bound / ms:.0%} of its {bound:.4f} ms bound ({nbytes} B; tile {plan.tile[0]}x{plan.tile[1]}, "
+            f"{plan.blocks} blocks); plain {plain_ms:.4f} ms; bf16 torch.matmul of the volume alone {lib_ms:.4f} ms")
+        if label == "512x768":
+            entry("corr_pyramid_bf16", ms, plain_ms, nbytes, rest, lib_ms, tensor_flops=gemm)
+        del f1, f2
+    for label, (hh, ww) in (("512x768", (512, 768)), ("1984x2880", (1984, 2880))):
+        pyramid, coords = lookup_inputs(gen, 1, hh // 4, ww // 4, ww // 4)
+        pyramid = tuple(lvl.to(BF16) for lvl in pyramid)
+        times = {}
+        for out_dtype in (torch.float32, BF16):
+            times[out_dtype] = time_ms(lambda: corr_cuda.corr_lookup(pyramid, coords, 4, out_dtype), flush=flush)
+        plain_ms = time_ms(lambda: corr.corr_lookup(pyramid, coords, 4).to(BF16), flush=flush)
+        nbytes = lookup_bytes(pyramid, coords, 4, out_bytes=2)
+        log(f"[timing] corr_lookup_bf16 {label}: bf16 levels, bf16 taps {times[BF16]:.4f} ms, fp32 taps "
+            f"{times[torch.float32]:.4f} ms; plain {plain_ms:.4f} ms; bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
+            f"(bytes)")
+        if label == "512x768":
+            rows, grid = grid_sample_lookup_inputs(pyramid, coords, 4)
+            rows, grid = rows.to(BF16), grid.to(BF16)
+            lib_ms = time_ms(lambda: F.grid_sample(rows, grid, mode="bilinear", padding_mode="zeros",
+                                                   align_corners=True), flush=flush)
+            entry("corr_lookup_bf16", times[BF16], plain_ms, nbytes, 3 * coords.numel() * 36, lib_ms)
+            del rows, grid
+        del pyramid, coords
+    hh, ww, b = 512, 768, 1
+    x, weight, bias, aff = conv_inputs(gen, b, hh, ww, "in")
+    x = x.to(BF16)
+    ms = time_ms(lambda: encoder_cuda.fused_conv(x, weight, bias, aff, "in", True), flush=flush)
+    plain_ms = time_ms(lambda: encoder_cuda.plain_conv(x, weight, bias, aff, "in", True), flush=flush)
+    z = encoder_cuda.apply_affine(x, aff, "in")
+    wb, bb = weight.to(BF16), bias.to(BF16)
+    lib_ms = time_ms(lambda: F.conv2d(z, wb, bb, padding=1), flush=flush)
+    hw = hh * ww
+    log(f"[timing] encoder_conv_bf16 b{b} {hh}x{ww} form in + stats: library is cuDNN's bf16 F.conv2d of the "
+        f"normalized operand, without affine or statistics")
+    # bf16 operand and output; fp32 weights, bias, affine rows and statistics.
+    nbytes = 2 * (2 * b * 64 * hw) + 4 * (64 * 64 * 9 + 64 + 2 * b * 64 * 2)
+    entry("encoder_conv_bf16", ms, plain_ms, nbytes, 3 * b * 64 * hw * 2, lib_ms,
+          tensor_flops=2 * 9 * 64 * 64 * b * hw)
+    del x, z
+    skip = torch.randn((1, 64, hh, ww), generator=gen, device=DEVICE).to(BF16)
+    y = torch.randn((1, 64, hh, ww), generator=gen, device=DEVICE).to(BF16)
+    aff_y, aff_s = affine_rows(gen, 1, "in"), affine_rows(gen, 1, "in")
+    ms = time_ms(lambda: encoder_cuda.fused_join(skip, y, aff_y, "in", aff_s, "in"), flush=flush)
+    plain_ms = time_ms(lambda: encoder_cuda.plain_join(skip, y, aff_y, "in", aff_s, "in"), flush=flush)
+    entry("encoder_join_bf16", ms, plain_ms, 2 * 3 * 64 * hw + 4 * 4 * 64, 8 * 64 * hw, None)
     return out
 
 
@@ -1270,17 +1723,25 @@ def main() -> int:
     errs.update(phase_fused_kernels(gen))
     errs.update(phase_prefetch_kernels(gen))
     errs.update(phase_gates_kernels(gen))
+    errs.update(phase_bf16_kernels(gen))
+    torch.cuda.empty_cache()
     service, counts = phase_serving(rng)
     phase_stage_times(service)
     phase_end_to_end(service, rng)
     fused_service, fused_counts = phase_serving_fused(rng, service.engine.model.state_dict())
     phase_fused_end_to_end(service, fused_service, rng)
     phase_stage_compare(service, fused_service)
-    del service, fused_service
+    mixed_service_, mixed_counts = phase_mixed_serving(rng, service.engine.model.state_dict())
+    phase_mixed_e2e(mixed_service_, rng)
+    del service, fused_service, mixed_service_
     torch.cuda.empty_cache()
-    eval_counts, gates_counts = phase_evaluate()
+    eval_counts, gates_counts, eval_flow = phase_evaluate()
+    torch.cuda.empty_cache()
+    phase_mixed_evaluate(eval_flow)
     torch.cuda.empty_cache()
     phase_evaluate_cli()
+    phase_mixed_cli()
+    phase_mixed_budget()
     errs.update(phase_scatter_kernels(gen))
     trainer, train_counts, batch = phase_train(rng)
     del trainer
@@ -1290,13 +1751,16 @@ def main() -> int:
     # Each kernel's launches come from the main-path run of the slice that
     # added it: serving for the forward kernels, training for the scatter,
     # evaluation for the windowed lookup, the gates configuration's forward
-    # for the gate pair.
+    # for the gate pair, the mixed configuration's serving for the bf16
+    # variants.
     for name in ("corr_pyramid", "encoder_conv", "encoder_join"):
         counts[name] = fused_counts[name]
     counts["corr_scatter"] = train_counts["corr_scatter"]
     counts["corr_prefetch_lookup"] = eval_counts["corr_prefetch_lookup"]
     for name in ("gates_rh", "gates_combine"):
         counts[name] = gates_counts[name]
+    for name in ("corr_lookup_bf16", "corr_pyramid_bf16", "encoder_conv_bf16", "encoder_join_bf16"):
+        counts[name] = mixed_counts[name]
     kernels = phase_timing(gen, errs, counts)
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -4,11 +4,16 @@
     python -m raft_stereo_tpu_torch evaluate --dataset eth3d --dry_run --device cpu
 
 `evaluate` takes the JAX CLI's flags, names and defaults, plus `--device`
-(default "cuda"; "cpu" runs the kernels' plain versions). The model flags
-that the port does not have yet raise instead of being ignored:
-`--mixed_precision`, `--corr_dtype bfloat16`, `--shared_backbone`,
-`--corr_implementation alt`/`alt_cuda`. The other subcommands (`train`,
-`demo`, `serve`, `frontier`) are not ported yet and exit with code 2.
+(default "cuda"; "cpu" runs the kernels' plain versions). As in the JAX
+CLI, `--corr_dtype` defaults to bfloat16 only for `reg_cuda` with
+`--mixed_precision` (the reference's fp16 reg_cuda volume under AMP), and to
+float32 otherwise. The model flags that the port does not have yet raise
+instead of being ignored: `--shared_backbone`, `--corr_implementation
+alt`/`alt_cuda`, and the bf16 combinations the config refuses
+(`--mixed_precision` with `--fused_gru_tail`, `--prefetch_lookup` or the
+gate pair's environment variable; a bf16 pyramid with `--prefetch_lookup`).
+The other subcommands (`train`, `demo`, `serve`, `frontier`) are not ported
+yet and exit with code 2.
 """
 
 from __future__ import annotations
@@ -39,10 +44,12 @@ def _add_model_args(p: argparse.ArgumentParser):
     p.add_argument("--n_gru_layers", type=int, default=3)
     p.add_argument("--slow_fast_gru", action="store_true")
     p.add_argument("--shared_backbone", action="store_true", help="not ported: raises")
-    p.add_argument("--mixed_precision", action="store_true", help="not ported: raises")
+    p.add_argument("--mixed_precision", action="store_true",
+                   help="bf16 compute in the encoders and the update block (test-mode forwards)")
     p.add_argument(
         "--corr_dtype", choices=["float32", "bfloat16"], default=None,
-        help="storage dtype of the correlation pyramid; the port has float32 only",
+        help="storage dtype of the correlation pyramid (default: bfloat16 for reg_cuda with "
+        "--mixed_precision, else float32)",
     )
     p.add_argument("--data_modality", choices=list(MODALITIES), default="RGB")
     p.add_argument(
@@ -70,20 +77,27 @@ def _model_config(args) -> RAFTStereoConfig:
     """The port's config from the model flags; raises on flags the port
     does not have yet."""
     corr = _CORR_ALIASES.get(args.corr_implementation, args.corr_implementation)
+    corr_dtype = args.corr_dtype
+    if corr_dtype is None:
+        # The JAX CLI's rule: reg_cuda's role is the reference's fp16 volume
+        # under AMP, so a bf16 pyramid only for reg_cuda with mixed precision.
+        corr_dtype = "bfloat16" if args.corr_implementation == "reg_cuda" and args.mixed_precision else "float32"
+    from raft_stereo_tpu_torch.ops import gates
+
     unported = []
-    if args.mixed_precision:
-        unported.append("--mixed_precision")
-    if args.corr_dtype == "bfloat16":
-        unported.append("--corr_dtype bfloat16")
+    if args.mixed_precision and gates.enabled():
+        unported.append(f"--mixed_precision with {gates.ENV_VAR}=1")
     if args.shared_backbone:
         unported.append("--shared_backbone")
     if corr == "alt":
         unported.append(f"--corr_implementation {args.corr_implementation}")
     if unported:
-        raise ValueError(f"not ported yet: {', '.join(unported)} (the port runs fp32 'reg'/'pallas' models)")
+        raise ValueError(f"not ported yet: {', '.join(unported)}")
     return RAFTStereoConfig(
         hidden_dims=tuple(args.hidden_dims),
         corr_implementation=corr,
+        mixed_precision=args.mixed_precision,
+        corr_dtype=corr_dtype,
         corr_levels=args.corr_levels,
         corr_radius=args.corr_radius,
         n_downsample=args.n_downsample,

@@ -6,8 +6,13 @@ subset of `ServeConfig` and the training-step subset of `TrainConfig`): the
 port runs on machines without JAX and imports nothing from the JAX package.
 Defaults and validation match the original field for field.
 
-Not yet ported, so not present: `mixed_precision` and `corr_dtype` (the port
-runs fp32 throughout; no bf16 volume or taps), the `"alt"` correlation
+`mixed_precision` and `corr_dtype` are ported for test-mode forwards
+(inference, serving, evaluation): a bf16 `mixed_precision` forward with the
+fused GRU tail, the windowed lookup or the gate pair, and any training
+forward with bf16 compute or a bf16 pyramid, raise "not ported yet" (their
+bf16 kernels and the bf16 backward come later).
+
+Not yet ported, so not present: the `"alt"` correlation
 strategy, `shared_backbone`, `sequential_encoder`, `encoder_s2d` (a TPU
 layout; the port computes its values with the direct convs), every serving
 option beyond the anytime engine's (batcher, fleet, AOT cache, streams),
@@ -35,6 +40,7 @@ MODALITIES = (MODALITY_RGB, MODALITY_PASSIVE_GATED, MODALITY_ALL_GATED)
 # samples the same pyramid with the hand-written CUDA kernel
 # (ops/corr_cuda.py).
 CORR_IMPLEMENTATIONS = ("reg", "pallas")
+CORR_DTYPES = ("float32", "bfloat16")
 # Non-finite loss or gradient norm: "raise" fails the step; "skip" drops
 # the update (params and optimizer state untouched) and goes on. The JAX
 # package's third policy, "rollback", needs checkpoints and is not ported.
@@ -61,6 +67,18 @@ class RAFTStereoConfig:
     n_gru_layers: int = 3
     slow_fast_gru: bool = False
     data_modality: str = MODALITY_RGB
+    # bf16 compute in the encoders and the update block, the JAX package's
+    # dtype policy standing in for the reference's AMP autocast: parameters
+    # stay fp32 and are cast at use, the images are normalized in fp32 and
+    # then cast, the coordinates stay fp32, the lookup taps and the update
+    # block's inputs are bf16, and the mask goes back to fp32 before the
+    # convex upsample. Test-mode forwards only (see `check_trainable`).
+    mixed_precision: bool = False
+    # Storage dtype of the correlation pyramid. "bfloat16" builds the volume
+    # from bf16 operands with fp32 sums, divides by sqrt(D) in fp32 and
+    # rounds once; each level is pooled from the stored bf16 level; the
+    # lookup interpolates in fp32 either way (ops/corr.py).
+    corr_dtype: str = "float32"
     # Run the GRU gate tail and the motion-encoder concat as the fused CUDA
     # kernels of ops/gru_tail.py (test-mode forwards only, as in JAX).
     fused_gru_tail: bool = False
@@ -124,6 +142,24 @@ class RAFTStereoConfig:
             raise ValueError("hidden_dims must have 3 entries (coarse, mid, fine)")
         if self.data_modality not in MODALITIES:
             raise ValueError(f"unknown data_modality {self.data_modality!r}")
+        if self.corr_dtype not in CORR_DTYPES:
+            raise ValueError(f"corr_dtype must be float32 or bfloat16, got {self.corr_dtype!r}")
+        unported = []
+        if self.mixed_precision and self.fused_gru_tail:
+            unported.append("fused_gru_tail")
+        if (self.mixed_precision or self.corr_dtype == "bfloat16") and self.prefetch_lookup:
+            unported.append("prefetch_lookup")
+        if unported:
+            raise ValueError(f"not ported yet: {' and '.join(unported)} with "
+                             f"{'mixed_precision' if self.mixed_precision else 'corr_dtype=bfloat16'} "
+                             "(their bf16 kernels are still to come)")
+
+    def check_trainable(self) -> None:
+        """Raise for what a training forward cannot run yet: bf16 compute
+        or a bf16 pyramid (bf16 training needs the bf16 scatter)."""
+        if self.mixed_precision or self.corr_dtype == "bfloat16":
+            raise ValueError("not ported yet: training with mixed_precision or corr_dtype=bfloat16 "
+                             "(bf16 training needs the bf16 scatter); test-mode forwards only")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,3 +237,4 @@ class TrainConfig:
     def __post_init__(self):
         if self.nan_policy not in NAN_POLICIES:
             raise ValueError(f"nan_policy {self.nan_policy!r} not in {NAN_POLICIES}")
+        self.model.check_trainable()

@@ -11,6 +11,15 @@
 // (B, H, W1, W2 >> l) that the lookup kernel reads; the 128-lane padding of
 // the TPU state is not carried over.
 //
+// The operands and levels are fp32, or bf16 (`corr_dtype="bfloat16"`), as
+// the JAX kernel takes them: bf16 operands, their products (exact in fp32)
+// summed in fp32, the division by sqrt(D) in fp32 and one rounding to bf16;
+// each level pooled from the previous level's stored bf16 values with an
+// fp32 sum and rounded once. Each dtype has its own kernel: the fp32 one
+// below, and the bf16 one (`corr_pyramid_mma_kernel`, after it), whose
+// products are exactly the JAX kernel's, bf16 x bf16 on the tensor cores
+// with fp32 sums.
+//
 // What bounds it on the H100: operations. At the 512x768 bucket (128 rows,
 // W1 = W2 = 192, D = 256) the GEMM is 2.42 GFLOP of fp32 (0.036 ms at
 // 67 TFLOP/s) against about 60 MB of traffic (0.018 ms at 3.35 TB/s); at
@@ -51,6 +60,14 @@
 // aliases the drained ring, and each level is written once from it with
 // consecutive threads on consecutive columns.
 //
+// The bf16 kernel: in bf16 the bytes halve (365.6 MB of operands and 964
+// MB of levels at Middlebury-F) and the bound becomes the bytes, against
+// the 989 TFLOP/s of dense bf16 tensor cores: about 0.40 ms there. It keeps
+// the fp32 kernel's ring (bf16 rows, 16-byte copies of 8 elements), tiles
+// of 128 x 128 with mma.sync m16n8k16 (bf16 in, fp32 sums), ldmatrix.trans
+// fragments from the k-major rows, and the shared-memory epilogue with
+// bf16 stores. wgmma and TMA would be the next step.
+//
 // Measured (chip_smoke.py [timing], H100 80GB HBM3 at 700 W; PERF.md
 // section 6, row 4): 31.2 TFLOP/s at 512x768 (47% of the bound) and 36.7
 // at Middlebury-F (55%), against torch.matmul's volume alone at 32.7 and
@@ -65,21 +82,29 @@
 // pyramid is built from the stored volume exactly as the plain version
 // builds it. cuBLAS's fp32 GEMM on the H100 was measured to agree bit for
 // bit, but that is its choice of algorithm, so the checks keep a tolerance.
+// In bf16 the tensor cores sum the exact products in their own order, and
+// every stored value is rounded once to bf16 (round to nearest even), each
+// level from the previous level's rounded values: a sum that lands near a
+// rounding boundary may round one bf16 ulp away from the plain version's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dtype.cuh"
+
 #define TK 16        // D chunk
 #define STAGES 4     // chunks in the ring
-#define PAD 4        // floats of padding per operand row of a chunk
+#define PAD_BYTES 16 // padding per operand row of a chunk (4 floats, 8 bf16)
 #define MAX_LEVELS 7 // 2**(MAX_LEVELS-1) must divide every tile's W2 extent
 #define REG_LEVELS 6 // levels the register epilogue reaches (two in a thread, three shuffles)
 
+template <typename T>
 struct Levels {
-    float* ptr[MAX_LEVELS];
+    T* ptr[MAX_LEVELS];
 };
 
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem, int src_bytes) {
+template <typename E>
+__device__ __forceinline__ void cp_async16(E* smem, const E* gmem, int src_bytes) {
     const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(src_bytes));
 }
@@ -87,6 +112,14 @@ __device__ __forceinline__ void cp_async16(float* smem, const float* gmem, int s
 __device__ __forceinline__ void cp_async4(float* smem, const float* gmem, int src_bytes) {
     const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(src_bytes));
+}
+
+// One element into shared memory: an asynchronous 4-byte copy for fp32; a
+// bf16 element is 2 bytes, below cp.async's least size, so it is copied by
+// the thread itself (the ring's barriers order it like the others).
+__device__ __forceinline__ void copy_elem(float* smem, const float* gmem, bool ok) { cp_async4(smem, gmem, ok ? 4 : 0); }
+__device__ __forceinline__ void copy_elem(__nv_bfloat16* smem, const __nv_bfloat16* gmem, bool ok) {
+    *smem = ok ? *gmem : __float2bfloat16_rn(0.0f);
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
@@ -102,22 +135,20 @@ __device__ __forceinline__ int frag_pos(int i, int t) {
     return i < 4 * (T / 4) ? 4 * NT * (i / 4) + 4 * t + (i % 4) : 4 * NT * (T / 4) + 2 * t + (i - 4 * (T / 4));
 }
 
-template <int T, int NT>
-__device__ __forceinline__ void load_frag(const float* row, int t, float (&v)[T]) {
+// A thread's fragment of a staged operand row, widened to fp32: 4-element
+// runs (16 bytes of fp32, 8 of bf16) and a 2-element run for T = 4q + 2.
+template <int T, int NT, typename E>
+__device__ __forceinline__ void load_frag(const E* row, int t, float (&v)[T]) {
 #pragma unroll
-    for (int p = 0; p < T / 4; ++p) {
-        const float4 x = *reinterpret_cast<const float4*>(row + 4 * NT * p + 4 * t);
-        v[4 * p] = x.x; v[4 * p + 1] = x.y; v[4 * p + 2] = x.z; v[4 * p + 3] = x.w;
-    }
-    if constexpr (T % 4 == 2) {
-        const float2 y = *reinterpret_cast<const float2*>(row + 4 * NT * (T / 4) + 2 * t);
-        v[T - 2] = y.x; v[T - 1] = y.y;
-    }
+    for (int p = 0; p < T / 4; ++p) load_vec<4>(row + 4 * NT * p + 4 * t, v + 4 * p);
+    if constexpr (T % 4 == 2) load_vec<2>(row + 4 * NT * (T / 4) + 2 * t, v + T - 2);
 }
 
-// One pooled value from the stored pair, rounded as ops/corr.py rounds it.
+// One pooled value from the stored pair, rounded as ops/corr.py rounds it:
+// an fp32 sum and halving, then one rounding to the level's dtype.
+template <typename E>
 __device__ __forceinline__ float pool2(float left, float right) {
-    return __fmul_rn(__fadd_rn(left, right), 0.5f);
+    return Elem<E>::round(__fmul_rn(__fadd_rn(left, right), 0.5f));
 }
 
 // k rows of a chunk that one pass of 16-byte copies covers: the largest
@@ -130,42 +161,46 @@ constexpr int copy_rows(int per_row, int threads) {
 
 // One operand's rows [r0, r0 + R) of `n` along the tile axis, element
 // (r, d) at base[r * sr + d * sd], staged chunk by chunk into dst[k][r]
-// (row stride R + PAD). With VEC == 4 (sr == 1, 16-byte aligned runs) each
-// of the first PER_ROW x KPP threads owns one column group of 4 floats and
+// (row stride R + PAD elements, PAD_BYTES of padding). With VEC > 1 (16
+// bytes: 4 fp32 or 8 bf16 elements; sr == 1, 16-byte aligned runs) each of
+// the first PER_ROW x KPP threads owns one column group of VEC elements and
 // every KPP-th k row: its source pointer, byte count (zero-filled past n)
 // and shared offset are worked out once and kept in four registers, so a
-// chunk costs it a few instructions per copy. With VEC == 1 each float is
+// chunk costs it a few instructions per copy. With VEC == 1 each element is
 // its own copy, in the order of the smaller stride.
-template <int R, int THREADS, int VEC>
+template <typename E, int R, int THREADS, int VEC>
 struct ChunkLoader {
+    static constexpr int PAD = PAD_BYTES / (int)sizeof(E);
     static constexpr int LD = R + PAD;
-    static constexpr int PER_ROW = R / 4;
+    static constexpr int PER_ROW = R / (VEC > 1 ? VEC : 4);
     static constexpr int KPP = copy_rows(PER_ROW, THREADS);
-    const float* src;  // this thread's first copy at chunk 0, or the row base
+    static_assert(VEC == 1 || VEC * sizeof(E) == 16, "vector copies move 16 bytes");
+    static_assert((LD * sizeof(E)) % 16 == 0, "staged rows start 16-byte aligned");
+    const E* src;  // this thread's first copy at chunk 0, or the row base
     int kf, soff, bytes;  // first k row, shared offset, bytes (-1: no copies)
 
-    __device__ __forceinline__ ChunkLoader(const float* base, long long sd, int r0, int n, int tid)
+    __device__ __forceinline__ ChunkLoader(const E* base, long long sd, int r0, int n, int tid)
         : src(base), kf(0), soff(0), bytes(0) {
-        if constexpr (VEC == 4) {
+        if constexpr (VEC > 1) {
             const int k = tid / PER_ROW;
-            const int r = (tid - k * PER_ROW) * 4;
+            const int r = (tid - k * PER_ROW) * VEC;
             int valid = n - (r0 + r);
-            valid = valid < 0 ? 0 : (valid > 4 ? 4 : valid);
-            bytes = tid < PER_ROW * KPP ? 4 * valid : -1;
+            valid = valid < 0 ? 0 : (valid > VEC ? VEC : valid);
+            bytes = tid < PER_ROW * KPP ? (int)sizeof(E) * valid : -1;
             kf = k;
             soff = k * LD + r;
             if (valid) src = base + (r0 + r) + k * sd;
         }
     }
 
-    __device__ __forceinline__ void load(float* dst, int k0, int dim, int tid, const float* base, long long sr,
+    __device__ __forceinline__ void load(E* dst, int k0, int dim, int tid, const E* base, long long sr,
                                          long long sd, int r0, int n) const {
-        if constexpr (VEC == 4) {
+        if constexpr (VEC > 1) {
             if (bytes < 0) return;
 #pragma unroll
             for (int pass = 0; pass < TK / KPP; ++pass) {
                 const bool in_d = k0 + kf + pass * KPP < dim;
-                const float* p = in_d ? src + (long long)(k0 + pass * KPP) * sd : src;
+                const E* p = in_d ? src + (long long)(k0 + pass * KPP) * sd : src;
                 cp_async16(dst + soff + pass * KPP * LD, p, in_d ? bytes : 0);
             }
         } else {
@@ -176,8 +211,8 @@ struct ChunkLoader {
                 else { k = e / R; r = e - k * R; }
                 const int d = k0 + k;
                 const bool ok = r0 + r < n && d < dim;
-                const float* p = ok ? base + (long long)(r0 + r) * sr + (long long)d * sd : base;
-                cp_async4(dst + k * LD + r, p, ok ? 4 : 0);
+                const E* p = ok ? base + (long long)(r0 + r) * sr + (long long)d * sd : base;
+                copy_elem(dst + k * LD + r, p, ok);
             }
         }
     }
@@ -188,8 +223,8 @@ struct ChunkLoader {
 // tile's first BN >> L columns and out to `out` (width wl, the tile's
 // columns starting at c0), consecutive threads on consecutive columns.
 // Widths are compile-time, so the index arithmetic folds.
-template <int BM, int BN, int THREADS, int L>
-__device__ __forceinline__ void pool_level(float* tile, float* __restrict__ out, long long row_w1, int m0,
+template <typename E, int BM, int BN, int THREADS, int L>
+__device__ __forceinline__ void pool_level(float* tile, E* __restrict__ out, long long row_w1, int m0,
                                            int w1, int wl, int c0, int tid) {
     constexpr int LT = BN + 1;
     constexpr int COLS = BN >> L;
@@ -202,7 +237,7 @@ __device__ __forceinline__ void pool_level(float* tile, float* __restrict__ out,
         const int m = e / COLS;
         const int c = e - m * COLS;
         if (N % THREADS == 0 || e < N)
-            v[it] = pool2(tile[m * LT + 2 * c], tile[m * LT + 2 * c + 1]);
+            v[it] = pool2<E>(tile[m * LT + 2 * c], tile[m * LT + 2 * c + 1]);
     }
     __syncthreads();
 #pragma unroll
@@ -212,7 +247,7 @@ __device__ __forceinline__ void pool_level(float* tile, float* __restrict__ out,
         const int c = e - m * COLS;
         if (N % THREADS == 0 || e < N) {
             tile[m * LT + c] = v[it];
-            if (m0 + m < w1 && c0 + c < wl) out[(row_w1 + m0 + m) * wl + c0 + c] = v[it];
+            if (m0 + m < w1 && c0 + c < wl) Elem<E>::store(out + (row_w1 + m0 + m) * wl + c0 + c, v[it]);
         }
     }
     __syncthreads();
@@ -223,8 +258,7 @@ __device__ __forceinline__ void pool_level(float* tile, float* __restrict__ out,
 template <int LEN>
 __device__ __forceinline__ void store_run(float* dst, int n0, int c, int w, const float* v) {
     if (n0 + c + LEN <= w) {
-        if constexpr (LEN == 4) *reinterpret_cast<float4*>(dst + c) = make_float4(v[0], v[1], v[2], v[3]);
-        else *reinterpret_cast<float2*>(dst + c) = make_float2(v[0], v[1]);
+        store_vec<LEN>(dst + c, v);
     } else {
 #pragma unroll
         for (int q = 0; q < LEN; ++q)
@@ -232,7 +266,7 @@ __device__ __forceinline__ void store_run(float* dst, int n0, int c, int w, cons
     }
 }
 
-__device__ __forceinline__ float* level_ptr(const Levels& levels, int l) {
+__device__ __forceinline__ float* level_ptr(const Levels<float>& levels, int l) {
     float* out = levels.ptr[0];
 #pragma unroll
     for (int j = 1; j < MAX_LEVELS; ++j)
@@ -247,14 +281,14 @@ __device__ __forceinline__ float* level_ptr(const Levels& levels, int l) {
 // over lane bits 0-2, which are tx bits 0-2), the lane of the left column
 // keeping the result and storing it. Reaches level 5.
 __device__ __forceinline__ void pool_run_registers(const float* v, int c, int tx, bool in_row, long long out_row,
-                                                   int n0, int w2, int num_levels, const Levels& levels) {
+                                                   int n0, int w2, int num_levels, const Levels<float>& levels) {
     if (in_row) store_run<4>(levels.ptr[0] + out_row * w2 + n0, n0, c, w2, v);
     if (num_levels <= 1) return;
     int col = c >> 1;
-    const float l1[2] = {pool2(v[0], v[1]), pool2(v[2], v[3])};
+    const float l1[2] = {pool2<float>(v[0], v[1]), pool2<float>(v[2], v[3])};
     if (in_row) store_run<2>(levels.ptr[1] + out_row * (w2 >> 1) + (n0 >> 1), n0 >> 1, col, w2 >> 1, l1);
     if (num_levels <= 2) return;
-    float x = pool2(l1[0], l1[1]);
+    float x = pool2<float>(l1[0], l1[1]);
     col >>= 1;
     if (in_row && (n0 >> 2) + col < (w2 >> 2)) levels.ptr[2][out_row * (w2 >> 2) + (n0 >> 2) + col] = x;
 #pragma unroll
@@ -262,7 +296,7 @@ __device__ __forceinline__ void pool_run_registers(const float* v, int c, int tx
         if (num_levels <= l) return;  // uniform over the block: every lane shuffles
         const int bit = 1 << (l - 3);
         const float other = __shfl_xor_sync(0xffffffffu, x, bit);
-        x = (tx & bit) == 0 ? pool2(x, other) : pool2(other, x);
+        x = (tx & bit) == 0 ? pool2<float>(x, other) : pool2<float>(other, x);
         col >>= 1;
         const int wl = w2 >> l;
         if (in_row && (tx & (2 * bit - 1)) == 0 && (n0 >> l) + col < wl)
@@ -270,23 +304,49 @@ __device__ __forceinline__ void pool_run_registers(const float* v, int c, int tx
     }
 }
 
-// One block: the BM x BN tile of (W1, W2) of one row, TM x TN accumulators
-// per thread on a (BM / TM) x (BN / TN) thread grid; the tiles of a row
-// are consecutive blocks, so they share its operands in L2.
+// The levels of one tile from level 0 in shared memory (`tile`, BM x BN
+// floats, row stride BN + 1, values already rounded to E): level 0 written
+// out, then each pooled level in place (columns [0, BN >> l) hold level l
+// after step l), each written once with consecutive threads on consecutive
+// columns.
+template <typename E, int BM, int BN, int THREADS>
+__device__ __forceinline__ void epilogue_from_tile(float* tile, const Levels<E>& levels, long long row_w1, int m0,
+                                                   int n0, int w1, int w2, int num_levels, int tid) {
+    constexpr int LT = BN + 1;
+#pragma unroll 4
+    for (int e = tid; e < BM * BN; e += THREADS) {
+        const int m = e / BN;
+        const int n = e - m * BN;
+        if (m0 + m < w1 && n0 + n < w2) Elem<E>::store(levels.ptr[0] + (row_w1 + m0 + m) * w2 + n0 + n, tile[m * LT + n]);
+    }
+    if (num_levels > 1) pool_level<E, BM, BN, THREADS, 1>(tile, levels.ptr[1], row_w1, m0, w1, w2 >> 1, n0 >> 1, tid);
+    if (num_levels > 2) pool_level<E, BM, BN, THREADS, 2>(tile, levels.ptr[2], row_w1, m0, w1, w2 >> 2, n0 >> 2, tid);
+    if (num_levels > 3) pool_level<E, BM, BN, THREADS, 3>(tile, levels.ptr[3], row_w1, m0, w1, w2 >> 3, n0 >> 3, tid);
+    if (num_levels > 4) pool_level<E, BM, BN, THREADS, 4>(tile, levels.ptr[4], row_w1, m0, w1, w2 >> 4, n0 >> 4, tid);
+    if (num_levels > 5) pool_level<E, BM, BN, THREADS, 5>(tile, levels.ptr[5], row_w1, m0, w1, w2 >> 5, n0 >> 5, tid);
+    if (num_levels > 6) pool_level<E, BM, BN, THREADS, 6>(tile, levels.ptr[6], row_w1, m0, w1, w2 >> 6, n0 >> 6, tid);
+}
+
+// The fp32 build. One block: the BM x BN tile of (W1, W2) of one row, TM x
+// TN accumulators per thread on a (BM / TM) x (BN / TN) thread grid; the
+// tiles of a row are consecutive blocks, so they share its operands in L2.
 template <int BM, int BN, int TM, int TN, int VEC>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN), 2)
 corr_pyramid_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
                     long long s1b, long long s1h, long long s1w, long long s1d,
                     long long s2b, long long s2h, long long s2w, long long s2d,
                     int height, int w1, int w2, int dim, int num_levels, int m_tiles, int n_tiles,
-                    bool direct, Levels levels) {
-    static_assert(TN % 4 == 0, "the epilogue stores and pools float4 column runs");
+                    bool direct, Levels<float> levels) {
+    static_assert(TN % 4 == 0, "the epilogue stores and pools 4-element column runs");
     constexpr int NTM = BM / TM, NTN = BN / TN;
     constexpr int THREADS = NTM * NTN;
     constexpr int WN = NTN / 8;  // warps along N; a warp's lanes are 4 (M) x 8 (N)
-    constexpr int LDA = BM + PAD, LDB = BN + PAD;
+    using ALoader = ChunkLoader<float, BM, THREADS, VEC>;
+    using BLoader = ChunkLoader<float, BN, THREADS, VEC>;
+    constexpr int LDA = ALoader::LD, LDB = BLoader::LD;
     constexpr int STAGE = TK * (LDA + LDB);  // A then B
-    extern __shared__ __align__(16) float smem[];
+    extern __shared__ __align__(16) unsigned char smem_bytes[];
+    float* smem = reinterpret_cast<float*>(smem_bytes);
 
     const int tid = threadIdx.x;
     const int warp = tid >> 5, lane = tid & 31;
@@ -308,8 +368,8 @@ corr_pyramid_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
 #pragma unroll
         for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
 
-    const ChunkLoader<BM, THREADS, VEC> a_load(a_row, s1d, m0, w1, tid);
-    const ChunkLoader<BN, THREADS, VEC> b_load(b_row, s2d, n0, w2, tid);
+    const ALoader a_load(a_row, s1d, m0, w1, tid);
+    const BLoader b_load(b_row, s2d, n0, w2, tid);
     const int chunks = (dim + TK - 1) / TK;
 #pragma unroll
     for (int s = 0; s < STAGES - 1; ++s) {
@@ -373,75 +433,246 @@ corr_pyramid_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
     }
 
     // Otherwise through a padded tile in shared memory, which aliases the
-    // ring: level 0 from the registers, then each pooled level in place
-    // (columns [0, BN >> l) hold level l after step l), each written out
-    // with consecutive threads on consecutive columns.
-    constexpr int LT = BN + 1;
-    float* tile = smem;
+    // ring: level 0 from the registers, then `epilogue_from_tile`.
+    float* tile = reinterpret_cast<float*>(smem_bytes);
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
         for (int j = 0; j < TN; ++j)
-            tile[frag_pos<TM, NTM>(i, ty) * LT + frag_pos<TN, NTN>(j, tx)] = scaled(acc[i][j]);
+            tile[frag_pos<TM, NTM>(i, ty) * (BN + 1) + frag_pos<TN, NTN>(j, tx)] = scaled(acc[i][j]);
     __syncthreads();
-#pragma unroll 4
-    for (int e = tid; e < BM * BN; e += THREADS) {
-        const int m = e / BN;
-        const int n = e - m * BN;
-        if (m0 + m < w1 && n0 + n < w2) levels.ptr[0][(row_w1 + m0 + m) * w2 + n0 + n] = tile[m * LT + n];
+    epilogue_from_tile<float, BM, BN, THREADS>(tile, levels, row_w1, m0, n0, w1, w2, num_levels, tid);
+}
+
+// ---- The bf16 build: tensor cores ----------------------------------------
+
+// Four 8x8 bf16 matrices from shared memory, transposed: lanes 8j .. 8j+7
+// give the addresses of matrix j's eight 16-byte rows, and register j of
+// every lane receives its pair of matrix j's transpose (row lane / 4,
+// columns 2 (lane % 4) and the next).
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const __nv_bfloat16* p) {
+    const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(a));
+}
+
+// d += a (16 x 16, row-major) * b (16 x 8, column-major), bf16 products
+// summed in fp32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
+    asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+                 "{%8, %9}, {%0, %1, %2, %3};\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One block: the 128 x 128 tile of (W1, W2) of one row, 8 warps as 2 (M) x
+// 4 (N), each warp 64 x 32 of it as 4 x 4 tiles of mma.sync m16n8k16. The
+// operands come through the fp32 build's ring (bf16 elements, k-major rows,
+// 16-byte copies of 8 elements along W where the plan allows), one k-step
+// of 16 per chunk; ldmatrix.trans turns the k-major rows into the A and B
+// fragments. The epilogue writes the rounded level 0 into a shared tile
+// that aliases the drained ring and pools it there (`epilogue_from_tile`).
+constexpr int MMA_BM = 128, MMA_BN = 128, MMA_THREADS = 256;
+constexpr int MMA_WM = 64, MMA_WN = 32;  // a warp's tile
+constexpr int MMA_MT = MMA_WM / 16, MMA_NT = MMA_WN / 8;
+
+template <int VEC>
+__global__ void __launch_bounds__(MMA_THREADS, 2)
+corr_pyramid_mma_kernel(const __nv_bfloat16* __restrict__ f1, const __nv_bfloat16* __restrict__ f2,
+                        long long s1b, long long s1h, long long s1w, long long s1d,
+                        long long s2b, long long s2h, long long s2w, long long s2d,
+                        int height, int w1, int w2, int dim, int num_levels, int m_tiles, int n_tiles,
+                        Levels<__nv_bfloat16> levels) {
+    using bf16 = __nv_bfloat16;
+    using ALoader = ChunkLoader<bf16, MMA_BM, MMA_THREADS, VEC>;
+    using BLoader = ChunkLoader<bf16, MMA_BN, MMA_THREADS, VEC>;
+    constexpr int LDA = ALoader::LD, LDB = BLoader::LD;
+    constexpr int STAGE = TK * (LDA + LDB);  // A then B
+    static_assert(TK == 16, "one mma k-step per chunk");
+    extern __shared__ __align__(16) unsigned char smem_bytes[];
+    bf16* smem = reinterpret_cast<bf16*>(smem_bytes);
+
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int wm = warp / (MMA_BN / MMA_WN) * MMA_WM;  // the warp's first row and column in the tile
+    const int wn = warp % (MMA_BN / MMA_WN) * MMA_WN;
+    const int tiles = m_tiles * n_tiles;
+    const int row = blockIdx.x / tiles;  // b * H + h
+    const int rem = blockIdx.x - row * tiles;
+    const int m0 = (rem / n_tiles) * MMA_BM;
+    const int n0 = (rem - (rem / n_tiles) * n_tiles) * MMA_BN;
+    const int b = row / height;
+    const int h = row - b * height;
+    const bf16* a_row = f1 + b * s1b + h * s1h;
+    const bf16* b_row = f2 + b * s2b + h * s2h;
+
+    float acc[MMA_MT][MMA_NT][4];
+#pragma unroll
+    for (int i = 0; i < MMA_MT; ++i)
+#pragma unroll
+        for (int j = 0; j < MMA_NT; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.0f;
+
+    // ldmatrix row addresses: lane group q = lane / 8 gives one matrix's
+    // eight rows (r = lane % 8), k-major in shared memory. A's matrices in
+    // register order are (m, k) blocks (0, 0), (8, 0), (0, 8), (8, 8); a B
+    // load covers two n8 tiles, (k, n) blocks (0, 0), (8, 0), (0, 8), (8, 8).
+    const int q = lane >> 3, r = lane & 7;
+    const int a_off = (r + 8 * (q >> 1)) * LDA + wm + 8 * (q & 1);
+    const int b_off = (r + 8 * (q & 1)) * LDB + wn + 8 * (q >> 1);
+
+    const ALoader a_load(a_row, s1d, m0, w1, tid);
+    const BLoader b_load(b_row, s2d, n0, w2, tid);
+    const int chunks = (dim + TK - 1) / TK;
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+        if (s < chunks) {
+            a_load.load(smem + s * STAGE, s * TK, dim, tid, a_row, s1w, s1d, m0, w1);
+            b_load.load(smem + s * STAGE + TK * LDA, s * TK, dim, tid, b_row, s2w, s2d, n0, w2);
+        }
+        cp_async_commit();
     }
-    if (num_levels > 1) pool_level<BM, BN, THREADS, 1>(tile, levels.ptr[1], row_w1, m0, w1, w2 >> 1, n0 >> 1, tid);
-    if (num_levels > 2) pool_level<BM, BN, THREADS, 2>(tile, levels.ptr[2], row_w1, m0, w1, w2 >> 2, n0 >> 2, tid);
-    if (num_levels > 3) pool_level<BM, BN, THREADS, 3>(tile, levels.ptr[3], row_w1, m0, w1, w2 >> 3, n0 >> 3, tid);
-    if (num_levels > 4) pool_level<BM, BN, THREADS, 4>(tile, levels.ptr[4], row_w1, m0, w1, w2 >> 4, n0 >> 4, tid);
-    if (num_levels > 5) pool_level<BM, BN, THREADS, 5>(tile, levels.ptr[5], row_w1, m0, w1, w2 >> 5, n0 >> 5, tid);
-    if (num_levels > 6) pool_level<BM, BN, THREADS, 6>(tile, levels.ptr[6], row_w1, m0, w1, w2 >> 6, n0 >> 6, tid);
+    for (int kt = 0; kt < chunks; ++kt) {
+        cp_async_wait<STAGES - 2>();
+        __syncthreads();
+        const int next = kt + STAGES - 1;
+        if (next < chunks) {
+            bf16* dst = smem + (next % STAGES) * STAGE;
+            a_load.load(dst, next * TK, dim, tid, a_row, s1w, s1d, m0, w1);
+            b_load.load(dst + TK * LDA, next * TK, dim, tid, b_row, s2w, s2d, n0, w2);
+        }
+        cp_async_commit();
+        const bf16* as = smem + (kt % STAGES) * STAGE;
+        const bf16* bs = as + TK * LDA;
+        unsigned af[MMA_MT][4], bfr[MMA_NT][2];
+#pragma unroll
+        for (int i = 0; i < MMA_MT; ++i) ldmatrix_x4_trans(af[i], as + a_off + 16 * i);
+#pragma unroll
+        for (int j = 0; j < MMA_NT; j += 2) {
+            unsigned t[4];
+            ldmatrix_x4_trans(t, bs + b_off + 8 * j);
+            bfr[j][0] = t[0]; bfr[j][1] = t[1]; bfr[j + 1][0] = t[2]; bfr[j + 1][1] = t[3];
+        }
+#pragma unroll
+        for (int i = 0; i < MMA_MT; ++i)
+#pragma unroll
+            for (int j = 0; j < MMA_NT; ++j) mma_bf16(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the ring is drained: the epilogue tile may alias it
+
+    const float scale = sqrtf((float)dim);
+    const bool pow2 = (__float_as_uint(scale) & 0x7fffffu) == 0 && scale >= 1.0f;
+    const float inv = __frcp_rn(scale);
+    auto scaled = [&](float x) { return Elem<bf16>::round(pow2 ? __fmul_rn(x, inv) : __fdiv_rn(x, scale)); };
+    // Accumulator c of tile (i, j): row g (+8 for c >= 2), columns 2t, 2t+1.
+    constexpr int LT = MMA_BN + 1;
+    float* tile = reinterpret_cast<float*>(smem_bytes);
+    const int g = lane >> 2, t2 = 2 * (lane & 3);
+#pragma unroll
+    for (int i = 0; i < MMA_MT; ++i)
+#pragma unroll
+        for (int j = 0; j < MMA_NT; ++j) {
+            float* p = tile + (wm + 16 * i + g) * LT + wn + 8 * j + t2;
+            p[0] = scaled(acc[i][j][0]);
+            p[1] = scaled(acc[i][j][1]);
+            p[8 * LT] = scaled(acc[i][j][2]);
+            p[8 * LT + 1] = scaled(acc[i][j][3]);
+        }
+    __syncthreads();
+    epilogue_from_tile<bf16, MMA_BM, MMA_BN, MMA_THREADS>(tile, levels, (long long)row * w1, m0, n0, w1, w2,
+                                                           num_levels, tid);
+}
+
+// The shared bytes a kernel of element E with a BM x BN tile needs: its ring
+// or the fp32 epilogue tile that aliases it, whichever is larger.
+template <typename E, int BM, int BN>
+constexpr int needed_shared() {
+    constexpr int ring = STAGES * TK * (BM + BN + 2 * (PAD_BYTES / (int)sizeof(E))) * (int)sizeof(E);
+    constexpr int tile = BM * (BN + 1) * 4;
+    return ring > tile ? ring : tile;
+}
+
+template <typename E>
+static int level_table(Levels<E>& levels, void* const* level_ptrs, int num_levels, bool direct) {
+    for (int l = 0; l < MAX_LEVELS; ++l) {
+        levels.ptr[l] = l < num_levels ? (E*)level_ptrs[l] : nullptr;
+        // The register epilogue stores float4 runs: level rows must start
+        // 16-byte aligned, which the plan asks of W2 and the wrapper's
+        // allocations give.
+        if (direct && l < num_levels && ((uintptr_t)levels.ptr[l] & 15) != 0) return (int)cudaErrorInvalidValue;
+    }
+    return 0;
 }
 
 template <int BM, int BN, int TM, int TN, int VEC>
-static int launch(const float* f1, const float* f2, const long long* s, int height, int w1, int w2, int dim,
-                  int num_levels, int m_tiles, int n_tiles, long long blocks, int shared_bytes, bool direct,
-                  const Levels& levels, cudaStream_t stream) {
+static int launch(const void* f1, const void* f2, const long long* s, int height, int w1, int w2, int dim,
+                  int num_levels, void* const* level_ptrs, int m_tiles, int n_tiles, long long blocks,
+                  int shared_bytes, bool direct, cudaStream_t stream) {
     constexpr int THREADS = (BM / TM) * (BN / TN);
-    constexpr int RING = STAGES * TK * (BM + BN + 2 * PAD);
-    constexpr int TILE = BM * (BN + 1);
-    if (shared_bytes < 4 * (RING > TILE ? RING : TILE)) return (int)cudaErrorInvalidValue;
+    if (shared_bytes < needed_shared<float, BM, BN>()) return (int)cudaErrorInvalidValue;
+    Levels<float> levels;
+    int status = level_table(levels, level_ptrs, num_levels, direct);
+    if (status != 0) return status;
     auto kernel = corr_pyramid_kernel<BM, BN, TM, TN, VEC>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
     if (err != cudaSuccess) return (int)err;
     kernel<<<(unsigned)blocks, THREADS, shared_bytes, stream>>>(
-        f1, f2, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], height, w1, w2, dim, num_levels, m_tiles,
-        n_tiles, direct, levels);
+        (const float*)f1, (const float*)f2, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], height, w1, w2, dim,
+        num_levels, m_tiles, n_tiles, direct, levels);
     return (int)cudaGetLastError();
 }
 
-// strides: the 8 element strides (b, h, w, d) of f1 then f2. The launch
-// plan (tile, copy width, tiles per row, blocks, shared bytes) comes from
-// ops/corr_cuda.py `pyramid_plan`; a plan no instantiation takes is refused.
-extern "C" int raft_corr_pyramid_f32(const void* f1, const void* f2, const long long* strides,
-                                     int batch, int height, int w1, int w2, int dim, int num_levels,
-                                     void* const* level_ptrs, int tile_m, int tile_n, int vec, int m_tiles,
-                                     int n_tiles, long long blocks, int shared_bytes, void* stream) {
+template <int VEC>
+static int launch_mma(const void* f1, const void* f2, const long long* s, int height, int w1, int w2, int dim,
+                      int num_levels, void* const* level_ptrs, int m_tiles, int n_tiles, long long blocks,
+                      int shared_bytes, cudaStream_t stream) {
+    if (shared_bytes < needed_shared<__nv_bfloat16, MMA_BM, MMA_BN>()) return (int)cudaErrorInvalidValue;
+    Levels<__nv_bfloat16> levels;
+    level_table(levels, level_ptrs, num_levels, false);
+    auto kernel = corr_pyramid_mma_kernel<VEC>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<(unsigned)blocks, MMA_THREADS, shared_bytes, stream>>>(
+        (const __nv_bfloat16*)f1, (const __nv_bfloat16*)f2, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], height,
+        w1, w2, dim, num_levels, m_tiles, n_tiles, levels);
+    return (int)cudaGetLastError();
+}
+
+// f1, f2 and the levels are fp32 (bf16 = 0: the FFMA kernel) or bf16
+// (bf16 = 1: the tensor-core kernel, 128 x 128 tiles, the shared-memory
+// epilogue); strides: the 8 element strides (b, h, w, d) of f1 then f2. The
+// launch plan (tile, copy width, tiles per row, blocks, shared bytes,
+// register epilogue) comes from ops/corr_cuda.py `pyramid_plan`; a plan no
+// instantiation takes is refused.
+extern "C" int raft_corr_pyramid(const void* f1, const void* f2, const long long* strides, int batch,
+                                 int height, int w1, int w2, int dim, int num_levels, void* const* level_ptrs,
+                                 int tile_m, int tile_n, int vec, int m_tiles, int n_tiles, long long blocks,
+                                 int shared_bytes, int direct, int bf16, void* stream) {
     if (num_levels < 1 || num_levels > MAX_LEVELS) return (int)cudaErrorInvalidValue;
     if (tile_n % (1 << (num_levels - 1)) != 0) return (int)cudaErrorInvalidValue;
     if (blocks != (long long)batch * height * m_tiles * n_tiles || blocks > 0x7fffffffLL)
         return (int)cudaErrorInvalidValue;
     if ((long long)m_tiles * tile_m < w1 || (long long)n_tiles * tile_n < w2) return (int)cudaErrorInvalidValue;
+    if (direct && ((w2 & 3) != 0 || num_levels > REG_LEVELS || bf16)) return (int)cudaErrorInvalidValue;
     if (blocks == 0) return 0;
-    Levels levels;
-    // Level rows 16-byte aligned: the epilogue may store from registers.
-    bool direct = (w2 & 3) == 0;
-    for (int l = 0; l < MAX_LEVELS; ++l) {
-        levels.ptr[l] = l < num_levels ? (float*)level_ptrs[l] : nullptr;
-        direct = direct && ((uintptr_t)levels.ptr[l] & 15) == 0;
-    }
-    const float* a = (const float*)f1;
-    const float* b = (const float*)f2;
     cudaStream_t s = (cudaStream_t)stream;
+    if (bf16) {
+        if (tile_m != MMA_BM || tile_n != MMA_BN) return (int)cudaErrorInvalidValue;
+        if (vec == 8)
+            return launch_mma<8>(f1, f2, strides, height, w1, w2, dim, num_levels, level_ptrs, m_tiles, n_tiles,
+                                 blocks, shared_bytes, s);
+        if (vec == 1)
+            return launch_mma<1>(f1, f2, strides, height, w1, w2, dim, num_levels, level_ptrs, m_tiles, n_tiles,
+                                 blocks, shared_bytes, s);
+        return (int)cudaErrorInvalidValue;
+    }
 #define RAFT_PYRAMID_CASE(BM, BN, TM, TN, VEC)                                                          \
     if (tile_m == BM && tile_n == BN && vec == VEC)                                                     \
-        return launch<BM, BN, TM, TN, VEC>(a, b, strides, height, w1, w2, dim, num_levels, m_tiles,       \
-                                           n_tiles, blocks, shared_bytes, direct, levels, s);
+        return launch<BM, BN, TM, TN, VEC>(f1, f2, strides, height, w1, w2, dim, num_levels, level_ptrs,   \
+                                           m_tiles, n_tiles, blocks, shared_bytes, direct != 0, s);
     RAFT_PYRAMID_CASE(128, 128, 8, 8, 4)
     RAFT_PYRAMID_CASE(128, 128, 8, 8, 1)
     RAFT_PYRAMID_CASE(96, 192, 6, 12, 4)

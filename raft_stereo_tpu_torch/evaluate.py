@@ -19,10 +19,16 @@ between kernels (`profile_stages` separates device time). The dataset
 readers are not ported yet: a validator takes a dataset object
 (`SyntheticEvalDataset`, or any object with `__len__` and
 `get_item(index, rng)` returning the item dict) and raises without one.
+
+The Evaluator runs the model in its own configuration: a
+`mixed_precision` model takes the fp32 images and returns fp32 flows, its
+forward in bf16. `corr_precision` measures the bf16 pyramid's EPE delta
+against the fp32 one in the budget's regime (`BF16_CORR_EPE_BUDGET_PX`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
 from typing import Dict, Optional, Tuple
@@ -31,7 +37,9 @@ import numpy as np
 import torch
 
 from raft_stereo_tpu_torch.config import RAFTStereoConfig
+from raft_stereo_tpu_torch.models.init import build_model
 from raft_stereo_tpu_torch.models.raft_stereo import RAFTStereo
+from raft_stereo_tpu_torch.ops.corr import BF16_CORR_EPE_BUDGET_PX
 from raft_stereo_tpu_torch.utils.padding import InputPadder
 
 logger = logging.getLogger(__name__)
@@ -211,6 +219,77 @@ class SyntheticEvalDataset:
             "flow": np.full((h, w, 1), -4.0, np.float32),
             "valid": np.ones((h, w), np.float32),
         }
+
+
+def _sequence_texture(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
+    """Random smooth RGB texture in [0, 255]: noise octaves bilinearly
+    upsampled (a copy of the JAX package's `data/datasets.py` helper)."""
+    img = np.zeros((h, w, 3), np.float32)
+    for scale in (4, 8, 16):
+        gh, gw = max(2, h // scale), max(2, w // scale)
+        grid = rng.uniform(-1, 1, (gh, gw, 3)).astype(np.float32)
+        yy = np.linspace(0, gh - 1, h, dtype=np.float32)
+        xx = np.linspace(0, gw - 1, w, dtype=np.float32)
+        y0 = np.floor(yy).astype(int).clip(0, gh - 2)
+        x0 = np.floor(xx).astype(int).clip(0, gw - 2)
+        fy = (yy - y0)[:, None, None]
+        fx = (xx - x0)[None, :, None]
+        g = (
+            grid[y0][:, x0] * (1 - fy) * (1 - fx)
+            + grid[y0][:, x0 + 1] * (1 - fy) * fx
+            + grid[y0 + 1][:, x0] * fy * (1 - fx)
+            + grid[y0 + 1][:, x0 + 1] * fy * fx
+        )
+        img += g * scale
+    img -= img.min()
+    img *= 255.0 / max(img.max(), 1e-6)
+    return img
+
+
+def synthetic_plane_pair(rng: np.random.Generator, h: int, w: int, max_disp: float = 8.0) -> Dict[str, np.ndarray]:
+    """A stereo pair with known disparity: the first frame of the JAX
+    package's `make_synthetic_sequence(rng, 1, h, w, max_disp)` (a copy),
+    a smooth random texture under a tilted disparity plane of 0.5 to
+    `max_disp` px. Item dict as the validators take it; every pixel valid."""
+    margin = int(np.ceil(max_disp)) + 1
+    xs = np.arange(w, dtype=np.float32)[None, :]
+    ys = np.arange(h, dtype=np.float32)[:, None]
+    rows = np.arange(h)[:, None]
+    base = _sequence_texture(rng, h, w + margin)
+    a = rng.uniform(1.0, max_disp - 1.0)
+    bx = rng.uniform(-2.0, 2.0) / max(w, 1)
+    cy = rng.uniform(-2.0, 2.0) / max(h, 1)
+    disp = np.clip(a + bx * xs + cy * ys, 0.5, max_disp).astype(np.float32)
+    coords = xs + disp
+    x0 = np.floor(coords).astype(int)
+    fx = (coords - x0)[..., None]
+    x0 = np.clip(x0, 0, base.shape[1] - 2)
+    image2 = base[rows, x0] * (1 - fx) + base[rows, x0 + 1] * fx
+    return {
+        "image1": np.ascontiguousarray(base[:, :w], np.float32),
+        "image2": np.ascontiguousarray(image2, np.float32),
+        "flow": np.ascontiguousarray(-disp[..., None], np.float32),
+        "valid": np.ones((h, w), np.float32),
+    }
+
+
+def corr_precision(config: RAFTStereoConfig, seed: int = 0, device="cuda", shape: Tuple[int, int] = (128, 192),
+                   iters: int = 2) -> Dict[str, float]:
+    """The bf16 pyramid's accuracy against the fp32 pyramid in the regime of
+    `ops/corr.py` `BF16_CORR_EPE_BUDGET_PX` (the JAX bench's
+    `corr_precision` block): `config` with `corr_dtype` float32 and
+    bfloat16 on the same seeded weights, each evaluated over `iters`
+    iterations on `synthetic_plane_pair(default_rng(5), *shape)`.
+    Returns both EPEs (px), their difference and the budget."""
+    frame = synthetic_plane_pair(np.random.default_rng(5), *shape)
+    epe = {}
+    for dtype in ("float32", "bfloat16"):
+        model = build_model(dataclasses.replace(config, corr_dtype=dtype), seed=seed, device=device)
+        flow, _ = Evaluator(model, iters=iters)(frame["image1"], frame["image2"])
+        err = np.abs(flow - frame["flow"][..., 0]) * frame["valid"]
+        epe[dtype] = float(err.sum() / frame["valid"].sum())
+    return {"epe_fp32_px": epe["float32"], "epe_bf16_px": epe["bfloat16"],
+            "delta_px": abs(epe["bfloat16"] - epe["float32"]), "budget_px": BF16_CORR_EPE_BUDGET_PX}
 
 
 def make_validation_fn(

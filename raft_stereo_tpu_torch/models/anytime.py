@@ -8,7 +8,9 @@ counterpart of `raft_stereo_tpu/models/anytime.py`.
 All three run on one `RAFTStereo` module's parameters, through the same
 methods its `forward` uses, so prelude + k chunks + finalize equals
 `model(i1, i2, iters=k * chunk_iters, test_mode=True)` exactly. The state is the dict
-{"net", "coords1", "context", "corr", "coords0"}.
+{"net", "coords1", "context", "corr", "coords0"}; under mixed precision
+"net", "context" and the pyramid carry bf16 between the stages, the
+coordinates fp32.
 """
 
 from __future__ import annotations

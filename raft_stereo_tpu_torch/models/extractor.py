@@ -13,6 +13,10 @@ resolution and instance or batch norm, and only in a test-mode forward
 (`forward(x, test_mode=True)`), as the JAX model builds its encoders with
 `fused_layer1=cfg.fused_encoder and test_mode`: the kernels have no
 backward, so a training forward takes the direct path.
+
+Both encoders follow their input's dtype: under mixed precision the images
+arrive in bf16, the convs and norms run in bf16 on fp32 parameters, and the
+fused layer1 takes the kernels' bf16 variants.
 """
 
 from __future__ import annotations

@@ -7,6 +7,12 @@ statistics, `InstanceNorm` has no parameters and takes one-pass fp32
 statistics. Attribute names follow the flax module names, except that the
 norms of a block are `norm1`, `norm2`, `norm3` in call order (flax numbers
 them `<Norm>_0`, `_1`, `_2`; utils/checkpoints.py maps between the two).
+
+Compute dtype follows the input, as in the JAX package: parameters stay
+fp32 and are cast to a bf16 input's dtype at use (never the module itself,
+which the weight bridge and training keep in fp32). Under bf16 each torch
+op rounds its result to bf16; the norms take their statistics and fold
+their affines in fp32 and cast the result once.
 """
 
 from __future__ import annotations
@@ -17,7 +23,11 @@ import torch.nn.functional as F
 
 
 class Conv(nn.Conv2d):
-    """Conv2d with the JAX package's default symmetric padding kernel // 2."""
+    """Conv2d with the JAX package's default symmetric padding kernel // 2.
+    On an input of another dtype than its fp32 parameters (bf16) the conv
+    runs in the input's dtype with the kernel cast at use, its result is
+    rounded, and only then the cast bias is added (flax `nn.Conv` with
+    `dtype=x.dtype`)."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3, stride: int = 1,
                  padding: int = None):
@@ -25,6 +35,12 @@ class Conv(nn.Conv2d):
             in_features, features, kernel_size, stride=stride,
             padding=kernel_size // 2 if padding is None else padding,
         )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == self.weight.dtype:
+            return super().forward(x)
+        y = self._conv_forward(x, self.weight.to(x.dtype), None)
+        return y + self.bias.to(x.dtype)[None, :, None, None]
 
 
 class FrozenBatchNorm(nn.Module):
@@ -48,13 +64,15 @@ class FrozenBatchNorm(nn.Module):
         return inv, shift
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv, shift = self.affine()
-        return x * inv[None, :, None, None] + shift[None, :, None, None]
+        inv, shift = (t.to(x.dtype)[None, :, None, None] for t in self.affine())
+        return x * inv + shift
 
 
 class InstanceNorm(nn.Module):
     """Per-sample, per-channel normalization over (H, W), no parameters,
-    with the JAX package's one-pass statistics: var = E[x^2] - mean^2."""
+    with the JAX package's one-pass statistics: var = E[x^2] - mean^2, both
+    sums at least fp32 (a bf16 input is summed in fp32), then
+    (x - mean) * inv in the input's dtype."""
 
     def __init__(self, features: int, epsilon: float = 1e-5):
         super().__init__()
@@ -62,9 +80,11 @@ class InstanceNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n = x.shape[2] * x.shape[3]
-        mean = x.sum(dim=(2, 3), keepdim=True) / n
-        var = torch.clamp((x * x).sum(dim=(2, 3), keepdim=True) / n - mean * mean, min=0.0)
-        return (x - mean) * torch.rsqrt(var + self.epsilon)
+        xs = x.float() if x.dtype == torch.bfloat16 else x
+        mean = xs.sum(dim=(2, 3), keepdim=True) / n
+        var = torch.clamp((xs * xs).sum(dim=(2, 3), keepdim=True) / n - mean * mean, min=0.0)
+        inv = torch.rsqrt(var + self.epsilon)
+        return (x - mean.to(x.dtype)) * inv.to(x.dtype)
 
 
 class GroupNorm(nn.Module):
@@ -78,7 +98,10 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.group_norm(x, self.num_groups, self.weight, self.bias, self.epsilon)
+        """fp32 (at least) statistics and affine, cast back to x's dtype."""
+        if x.dtype != torch.bfloat16:
+            return F.group_norm(x, self.num_groups, self.weight, self.bias, self.epsilon)
+        return F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.epsilon).to(x.dtype)
 
 
 def make_norm(norm_fn: str, features: int) -> nn.Module:

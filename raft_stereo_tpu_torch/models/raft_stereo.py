@@ -10,6 +10,15 @@ is a Python loop over `iteration_step`, and the serving tier's chunked
 forward (models/anytime.py) is built from the same three functions as the
 test-mode `RAFTStereo.forward`, so both agree exactly.
 
+With `mixed_precision` the forward keeps the JAX package's dtype
+boundaries: the images are normalized in fp32 and then cast to bf16, the
+encoders and the update block run in bf16 on fp32 parameters cast at use,
+the correlation state is built from the feature maps widened to fp32 (by
+`corr_dtype`'s contract), the taps and the flow enter the update block in
+bf16, the coordinates stay fp32 (`coords1 += delta_flow` widened), and the
+mask goes back to fp32 before the convex upsample. A training forward with
+bf16 compute or a bf16 pyramid raises (not ported yet).
+
 The training forward detaches the coordinates at the start of every
 iteration, as JAX's `stop_gradient` does, and with `remat_iterations` runs
 each iteration body under `torch.utils.checkpoint`; with `remat_save_corr`
@@ -36,31 +45,41 @@ from raft_stereo_tpu_torch.utils.geometry import convex_upsample, convex_upsampl
 
 def corr_state(cfg: RAFTStereoConfig, fmap1: torch.Tensor, fmap2: torch.Tensor, test_mode: bool):
     """Loop-invariant correlation state from NCHW feature maps: the pooled
-    pyramid, (B, H, W1, W2 // 2**l) per level, for both strategies; with
-    "pallas" and `fused_encoder` in test mode built by one kernel (as in
-    JAX, the flag leaves the "reg" pyramid to the plain ops). In train mode
-    the "pallas" pyramid is the plain volume and pooling, so autograd
-    reaches the feature maps through them, as JAX's autodiff does through
-    `pallas_corr_state`."""
+    pyramid, (B, H, W1, W2 // 2**l) per level in `corr_dtype`, for both
+    strategies; with "pallas" and `fused_encoder` in test mode built by one
+    kernel (as in JAX, the flag leaves the "reg" pyramid to the plain ops).
+    In train mode the "pallas" pyramid is the plain volume and pooling, so
+    autograd reaches the feature maps through them, as JAX's autodiff does
+    through `pallas_corr_state`. bf16 maps are taken as fp32 values, as the
+    JAX model widens them (the kernel reads bf16 maps of a bf16 pyramid in
+    place: the same values)."""
     f1 = fmap1.permute(0, 2, 3, 1)
     f2 = fmap2.permute(0, 2, 3, 1)
+    corr_dtype = torch.bfloat16 if cfg.corr_dtype == "bfloat16" else torch.float32
     if cfg.corr_implementation == "pallas":
         if cfg.fused_encoder and test_mode:
-            return corr_cuda.fused_pyramid_state(f1, f2, cfg.corr_levels)
-        return corr_cuda.corr_state(f1, f2, cfg.corr_levels)
-    return tuple(corr_ops.corr_pyramid(corr_ops.corr_volume(f1, f2), cfg.corr_levels))
+            return corr_cuda.fused_pyramid_state(f1, f2, cfg.corr_levels, corr_dtype)
+        return corr_cuda.corr_state(f1, f2, cfg.corr_levels, corr_dtype)
+    return tuple(corr_ops.corr_pyramid(corr_ops.corr_volume(f1, f2, corr_dtype), cfg.corr_levels))
 
 
 def corr_sample(cfg: RAFTStereoConfig, state, coords: torch.Tensor, prefetch: bool = False) -> torch.Tensor:
-    """Correlation taps at `coords` (B, H, W1) -> NCHW (B, L*(2r+1), H, W1).
-    `prefetch` (the test-mode `prefetch_lookup` strategy) takes the windowed
-    lookup kernel in place of the dense one for "pallas"; it has no
-    backward, so callers keep it out of training forwards."""
+    """Correlation taps at `coords` (B, H, W1) -> NCHW (B, L*(2r+1), H, W1),
+    in the compute dtype (bf16 under `mixed_precision`: the lookup kernel
+    stores them so; the "reg" lookup's fp32 taps are cast). `prefetch` (the
+    test-mode `prefetch_lookup` strategy) takes the windowed lookup kernel in
+    place of the dense one for "pallas"; it has no backward, so callers keep
+    it out of training forwards."""
+    out_dtype = torch.bfloat16 if cfg.mixed_precision else None
     if cfg.corr_implementation == "pallas":
-        lookup = corr_cuda.prefetch_corr_lookup if prefetch else corr_cuda.corr_lookup
-        taps = lookup(state, coords, cfg.corr_radius)
+        if prefetch:
+            taps = corr_cuda.prefetch_corr_lookup(state, coords, cfg.corr_radius)
+        else:
+            taps = corr_cuda.corr_lookup(state, coords, cfg.corr_radius, out_dtype)
     else:
         taps = corr_ops.corr_lookup(state, coords, cfg.corr_radius)
+    if out_dtype is not None:
+        taps = taps.to(out_dtype)
     return taps.permute(0, 3, 1, 2).contiguous()
 
 
@@ -102,6 +121,11 @@ class RAFTStereo(nn.Module):
         cfg = self.config
         image1 = (2.0 * (image1 / 255.0) - 1.0).permute(0, 3, 1, 2).contiguous()
         image2 = (2.0 * (image2 / 255.0) - 1.0).permute(0, 3, 1, 2).contiguous()
+        # The coordinates keep the images' dtype (fp32; float64 in a float64
+        # copy of the model); the encoders take the compute dtype.
+        coords_dtype = image1.dtype
+        if cfg.mixed_precision:
+            image1, image2 = image1.to(torch.bfloat16), image2.to(torch.bfloat16)
         scales = self.cnet(image1, test_mode)
         fmaps = self.fnet(torch.cat([image1, image2], dim=0), test_mode)
         fmap1, fmap2 = torch.chunk(fmaps, 2, dim=0)
@@ -115,7 +139,7 @@ class RAFTStereo(nn.Module):
             context.append(tuple(c.contiguous() for c in torch.chunk(czqr, 3, dim=1)))
 
         b, _, h, w = net[0].shape
-        coords0 = coords_grid_x(b, h, w, device=net[0].device, dtype=net[0].dtype)
+        coords0 = coords_grid_x(b, h, w, device=net[0].device, dtype=coords_dtype)
         return {
             "net": net,
             "coords1": coords0,
@@ -140,24 +164,29 @@ class RAFTStereo(nn.Module):
         tensors its wrappers run the plain versions)."""
         cfg = self.config
         context = state["context"]
+        pallas_gates = gates.enabled() and test_mode
+        if pallas_gates and cfg.mixed_precision:
+            raise ValueError(f"not ported yet: the gate pair ({gates.ENV_VAR}=1) with mixed_precision")
         if corr is None:
             corr = corr_sample(cfg, state["corr"], coords1, prefetch=cfg.prefetch_lookup and test_mode)
         flow = (coords1 - state["coords0"])[:, None]
+        if cfg.mixed_precision:
+            flow = flow.to(torch.bfloat16)
         n = cfg.n_gru_layers
-        modes = {"test_mode": test_mode, "pallas_gates": gates.enabled() and test_mode}
+        modes = {"test_mode": test_mode, "pallas_gates": pallas_gates}
         if cfg.slow_fast_gru and n == 3:
             net = self.update_block(net, context, iter32=True, iter16=False, iter08=False, update=False, **modes)
         if cfg.slow_fast_gru and n >= 2:
             net = self.update_block(net, context, iter32=n == 3, iter16=True, iter08=False, update=False,
                                     **modes)
         net, delta_flow = self.update_block(net, context, corr, flow, iter32=n == 3, iter16=n >= 2, **modes)
-        return net, coords1 + delta_flow[:, 0]
+        return net, coords1 + delta_flow[:, 0].to(coords1.dtype)
 
     def finalize(self, state: dict):
         """Mask head + convex upsample on the current state:
         (flow_lowres (B, h, w), flow_up (B, H, W, 1))."""
         flow_lowres = state["coords1"] - state["coords0"]
-        mask = self.mask_head(state["net"][0])
+        mask = self.mask_head(state["net"][0]).to(flow_lowres.dtype)
         flow_up = convex_upsample(flow_lowres[:, None], mask, self.config.downsample_factor)
         return flow_lowres, flow_up.permute(0, 2, 3, 1)
 
@@ -177,6 +206,8 @@ class RAFTStereo(nn.Module):
         (iters, B, h, f, w, f) with element [it, b, y, i, x, j] at full-res
         pixel (y*f + i, x*f + j) (`utils.geometry.unblock_predictions` gives
         the row-major (iters, B, H, W, 1) stack)."""
+        if not test_mode:
+            self.config.check_trainable()
         state = self.apply_flow_init(self.encode_features(image1, image2, test_mode), flow_init)
         if test_mode:
             for _ in range(iters):

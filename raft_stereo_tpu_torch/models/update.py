@@ -5,7 +5,11 @@ The flow field is 1-channel disparity as in the JAX package; the motion
 encoder's output carries a zero plane in place of the always-zero flow-y
 channel. The JAX package's segmented 3x3 convs (a sum of per-segment convs
 that never materializes the concat) are a concat plus one conv here: the
-same math up to rounding.
+same math up to rounding. Under mixed precision the block runs in bf16
+(`layers.Conv` casts its fp32 parameters at use), where the difference is
+larger: JAX rounds each per-segment partial to bf16 before the sum, the
+concat conv rounds once. The flow head's output goes back to fp32 in the
+model, which keeps the coordinates fp32.
 
 With `fused_tail` (config.fused_gru_tail) the ConvGRU gate tail and the
 motion encoder's relu + concat run as the CUDA kernels of `ops/gru_tail.py`

@@ -24,6 +24,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -54,6 +56,10 @@ SOURCE_FLAGS = {
     "corr_pyramid": ("-fmad=true",),
     "encoder_conv": ("-fmad=true",),
 }
+
+# The dtype flag of the C entry points that take fp32 or bf16 tensors
+# (corr_lookup, corr_pyramid, encoder_conv, encoder_join): 0 fp32, 1 bf16.
+DTYPE_FLAGS = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

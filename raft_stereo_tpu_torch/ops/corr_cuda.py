@@ -6,11 +6,13 @@ padded layout of the TPU state is not carried over, only its values.
 `fused_pyramid_state` (config.fused_encoder) builds the same levels in one
 launch of `csrc/corr_pyramid.cu` for CUDA tensors — the volume GEMM with
 the pooling chain in its epilogue — and runs `corr_state`, its plain
-version, for CPU tensors.
+version, for CPU tensors. Both store the levels in fp32 or bf16
+(`corr_dtype`) by `ops/corr.py`'s contract.
 `corr_lookup` samples every level in one launch of the hand-written kernel
 `csrc/corr_lookup.cu` for CUDA tensors, and runs the plain version
-(`ops/corr.py` `corr_lookup`) for CPU tensors. There is no other route: a
-CUDA tensor the kernel cannot take raises.
+(`ops/corr.py` `corr_lookup`) for CPU tensors; it takes fp32 or bf16
+levels and stores fp32 or bf16 taps. There is no other route: a CUDA
+tensor the kernel cannot take raises.
 
 `prefetch_corr_lookup` (config.prefetch_lookup, test mode) computes the
 lookup's function with the windowed kernel `csrc/corr_prefetch.cu`: each
@@ -29,22 +31,25 @@ The pyramid and scatter kernels launch what a plain function here plans
 queries per block, grid, shared bytes, 64-bit indexing); a shape or stride
 no plan takes raises.
 
-Not ported: the bf16 pyramid and taps (`corr_dtype="bfloat16"`, under
-`mixed_precision`) and the "alt" strategy's on-the-fly lookup.
+Not ported: the bf16 variants of the scatter (bf16 training) and of the
+windowed lookup, and the "alt" strategy's on-the-fly lookup.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from raft_stereo_tpu_torch.ops import _build, corr
 
 # Kernel launches since the last reset; chip_smoke.py reads it to prove the
-# serving and training paths went through the kernels.
-LAUNCHES = {"corr_lookup": 0, "corr_pyramid": 0, "corr_scatter": 0, "corr_prefetch_lookup": 0}
+# serving and training paths went through the kernels. The bf16 variants
+# count apart: the pyramid's tensor-core kernel under "corr_pyramid_bf16",
+# a lookup with bf16 levels or taps under "corr_lookup_bf16".
+LAUNCHES = {"corr_lookup": 0, "corr_pyramid": 0, "corr_scatter": 0, "corr_prefetch_lookup": 0,
+            "corr_lookup_bf16": 0, "corr_pyramid_bf16": 0}
 MAX_LEVELS = 8  # MAX_LEVELS of csrc/corr_lookup.cu, corr_prefetch.cu and corr_scatter.cu
 # csrc/corr_pyramid.cu: a volume tile pools into every level, so its
 # columns must align to 2**(L-1); its level table holds 7.
@@ -54,8 +59,12 @@ PYRAMID_MAX_LEVELS = 7
 # its D chunk, ring depth and operand-row padding. Two blocks of either are
 # resident on an SM (its __launch_bounds__).
 PYRAMID_TILES = {(128, 128): (8, 8), (96, 192): (6, 12)}
+# The bf16 build, its tensor-core kernel: one tile of 256 threads (8 warps
+# of 64 x 32, mma.sync m16n8k16), the shared-memory epilogue only.
+PYRAMID_MMA_TILE, PYRAMID_MMA_THREADS = (128, 128), 256
 PYRAMID_TK, PYRAMID_STAGES, PYRAMID_PAD = 16, 4, 4
 PYRAMID_BLOCKS_PER_SM = 2
+PYRAMID_REG_LEVELS = 6  # REG_LEVELS of csrc/corr_pyramid.cu: levels its register epilogue reaches
 # csrc/corr_scatter.cu: the run of queries a block of 256 threads owns
 # (32-128 time within 2% of each other on the H100, PERF.md row 2).
 SCATTER_RUN = 64
@@ -67,8 +76,9 @@ INT32_MAX = 2**31 - 1
 
 class PyramidPlan(NamedTuple):
     """A launch of `csrc/corr_pyramid.cu`: one block of `threads` per (row,
-    tile of W1 x W2), the tiles of a row consecutive; `vec` floats per
-    asynchronous copy (4: 16 bytes along W; 1: one float)."""
+    tile of W1 x W2), the tiles of a row consecutive; `vec` elements per
+    asynchronous copy (16 bytes along W: 4 fp32 or 8 bf16; 1: one element);
+    `direct`: the epilogue pools and stores from the registers."""
 
     tile: Tuple[int, int]
     threads: int
@@ -77,14 +87,17 @@ class PyramidPlan(NamedTuple):
     n_tiles: int
     blocks: int
     shared_bytes: int
+    direct: bool
 
 
-def pyramid_shared_bytes(tile: Tuple[int, int]) -> int:
-    """The ring of D chunks (both operands) or the epilogue's padded volume
+def pyramid_shared_bytes(tile: Tuple[int, int], elem_bytes: int = 4) -> int:
+    """The ring of D chunks of both operands (elements of `elem_bytes`,
+    each staged row padded by 16 bytes) or the epilogue's padded fp32 volume
     tile, which aliases it: whichever is larger."""
     bm, bn = tile
-    ring = PYRAMID_STAGES * PYRAMID_TK * (bm + bn + 2 * PYRAMID_PAD)
-    return 4 * max(ring, bm * (bn + 1))
+    pad = PYRAMID_PAD * 4 // elem_bytes
+    ring = PYRAMID_STAGES * PYRAMID_TK * (bm + bn + 2 * pad) * elem_bytes
+    return max(ring, 4 * bm * (bn + 1))
 
 
 def _pyramid_cost(tile: Tuple[int, int], rows: int, w1: int, w2: int, sms: int) -> int:
@@ -97,38 +110,53 @@ def _pyramid_cost(tile: Tuple[int, int], rows: int, w1: int, w2: int, sms: int) 
 
 
 def pyramid_plan(b: int, h: int, w1: int, w2: int, d: int, levels: int, strides: Sequence[int],
-                 sms: int, aligned: bool = True) -> PyramidPlan:
+                 sms: int, aligned: bool = True, elem_bytes: int = 4) -> PyramidPlan:
     """The launch plan of the pyramid kernel for fmap1 (B, H, W1, D) and
     fmap2 (B, H, W2, D) with element strides `strides` (b, h, w, d of fmap1
     then fmap2) on a card of `sms` multiprocessors; `aligned`: both base
-    addresses are 16-byte aligned.
+    addresses are 16-byte aligned; `elem_bytes`: 4 for fp32 operands and
+    levels, 2 for bf16.
 
-    Tile: among the tiles whose W2 extent is a multiple of 2**(L-1) (the
-    pooling stays inside a block), the one of least `_pyramid_cost`, the
-    larger on a tie. Copy width 16 bytes only where W is the unit-stride
-    axis of both maps and every other stride that moves is a multiple of 4
-    floats. Raises for what no instantiation takes."""
+    Tile: in fp32, among the tiles whose W2 extent is a multiple of
+    2**(L-1) (the pooling stays inside a block), the one of least
+    `_pyramid_cost`, the larger on a tie; in bf16 the tensor-core kernel's
+    128 x 128. Copies move 16 bytes (4 fp32 or 8 bf16 elements) only where
+    W is the unit-stride axis of both maps and every other stride that
+    moves is a multiple of that many elements. The fp32 epilogue pools in
+    the registers (`direct`) where every level row starts 16-byte aligned
+    (W2 a multiple of 4: it stores float4 runs) and there are at most 6
+    levels; the bf16 kernel always pools in shared memory. Raises for what
+    no instantiation takes."""
+    if elem_bytes not in (2, 4):
+        raise ValueError(f"corr_pyramid kernel takes fp32 or bf16 (2 or 4 bytes), got {elem_bytes}")
     if not 1 <= levels <= PYRAMID_MAX_LEVELS:
         raise ValueError(f"corr_pyramid kernel takes 1..{PYRAMID_MAX_LEVELS} levels, got {levels}")
     if len(strides) != 8 or min(b, h, w1, w2, d) < 0:
         raise ValueError(f"corr_pyramid kernel: bad shape {(b, h, w1, w2, d)} or strides {tuple(strides)}")
-    step = 1 << (levels - 1)
-    admissible = [t for t in PYRAMID_TILES if t[1] % step == 0]
-    tile = min(admissible, key=lambda t: (_pyramid_cost(t, b * h, w1, w2, sms), -t[0] * t[1]))
+    if elem_bytes == 2:
+        tile = PYRAMID_MMA_TILE
+    else:
+        admissible = [t for t in PYRAMID_TILES if t[1] % (1 << (levels - 1)) == 0]
+        tile = min(admissible, key=lambda t: (_pyramid_cost(t, b * h, w1, w2, sms), -t[0] * t[1]))
     sizes = (b, h, w1, d, b, h, w2, d)
     moving = [s for i, (s, n) in enumerate(zip(strides, sizes)) if n > 1 and i not in (2, 6)]
     unit_w = all(n <= 1 or strides[i] == 1 for i, n in ((2, w1), (6, w2)))
-    vec = 4 if aligned and unit_w and all(s % 4 == 0 for s in moving) else 1
+    run = 16 // elem_bytes
+    vec = run if aligned and unit_w and all(s % run == 0 for s in moving) else 1
     m_tiles, n_tiles = -(-w1 // tile[0]), -(-w2 // tile[1])
     blocks = b * h * m_tiles * n_tiles
     if blocks > MAX_GRID_X:
         raise ValueError(f"corr_pyramid kernel: {blocks} blocks exceed the grid's {MAX_GRID_X}")
-    shared = pyramid_shared_bytes(tile)
+    shared = pyramid_shared_bytes(tile, elem_bytes)
     if shared > MAX_SHARED_BYTES:
         raise ValueError(f"corr_pyramid kernel: {shared} shared bytes exceed {MAX_SHARED_BYTES}")
-    tm, tn = PYRAMID_TILES[tile]
-    threads = (tile[0] // tm) * (tile[1] // tn)
-    return PyramidPlan(tile, threads, vec, m_tiles, n_tiles, blocks, shared)
+    if elem_bytes == 2:
+        threads, direct = PYRAMID_MMA_THREADS, False
+    else:
+        tm, tn = PYRAMID_TILES[tile]
+        threads = (tile[0] // tm) * (tile[1] // tn)
+        direct = w2 % 4 == 0 and levels <= PYRAMID_REG_LEVELS
+    return PyramidPlan(tile, threads, vec, m_tiles, n_tiles, blocks, shared, direct)
 
 
 class ScatterPlan(NamedTuple):
@@ -172,65 +200,77 @@ def scatter_plan(n_queries: int, widths: Sequence[int], radius: int) -> ScatterP
     return ScatterPlan(run, blocks, shared, wide)
 
 
-def corr_state(fmap1: torch.Tensor, fmap2: torch.Tensor, levels: int) -> Tuple[torch.Tensor, ...]:
-    """fmap1 (B, H, W1, D), fmap2 (B, H, W2, D) -> the L contiguous fp32
-    pyramid levels (B, H, W1, W2 // 2**l)."""
-    return tuple(corr.corr_pyramid(corr.corr_volume(fmap1, fmap2), levels))
+def corr_state(fmap1: torch.Tensor, fmap2: torch.Tensor, levels: int,
+               corr_dtype: torch.dtype = torch.float32) -> Tuple[torch.Tensor, ...]:
+    """fmap1 (B, H, W1, D), fmap2 (B, H, W2, D) -> the L contiguous pyramid
+    levels (B, H, W1, W2 // 2**l) in `corr_dtype` (fp32 or bf16; the JAX
+    package's `pallas_corr_state` values)."""
+    return tuple(corr.corr_pyramid(corr.corr_volume(fmap1, fmap2, corr_dtype), levels))
 
 
-def fused_pyramid_state(fmap1: torch.Tensor, fmap2: torch.Tensor, levels: int) -> Tuple[torch.Tensor, ...]:
+def fused_pyramid_state(fmap1: torch.Tensor, fmap2: torch.Tensor, levels: int,
+                        corr_dtype: torch.dtype = torch.float32) -> Tuple[torch.Tensor, ...]:
     """`corr_state` in one kernel launch: fmap1 (B, H, W1, D), fmap2
     (B, H, W2, D), any strides (the model passes permuted views of its NCHW
-    feature maps, which the kernel reads in place) -> the L contiguous fp32
-    levels (B, H, W1, W2 // 2**l)."""
+    feature maps, which the kernel reads in place) -> the L contiguous
+    levels (B, H, W1, W2 // 2**l) in `corr_dtype`. The kernel's operands
+    are in `corr_dtype` too: maps of another dtype are cast first (the bf16
+    contract rounds fp32 maps to bf16; bf16 maps of an fp32 pyramid widen
+    exactly), keeping their strides."""
     if not fmap1.is_cuda:
-        return corr_state(fmap1, fmap2, levels)
+        return corr_state(fmap1, fmap2, levels, corr_dtype)
     b, h, w1, d = fmap1.shape
     w2 = fmap2.shape[2]
     if tuple(fmap2.shape) != (b, h, w2, d):
         raise ValueError(f"fmap2 shape {tuple(fmap2.shape)} does not match fmap1 {tuple(fmap1.shape)}")
+    if corr_dtype not in _build.DTYPE_FLAGS:
+        raise ValueError(f"corr_pyramid kernel builds fp32 or bf16 levels, not {corr_dtype}")
     for t in (fmap1, fmap2):
-        if t.device != fmap1.device or t.dtype != torch.float32:
-            raise ValueError("corr_pyramid kernel needs fp32 tensors on one CUDA device")
+        if t.device != fmap1.device or t.dtype not in _build.DTYPE_FLAGS:
+            raise ValueError("corr_pyramid kernel needs fp32 or bf16 tensors on one CUDA device")
         if t.requires_grad and torch.is_grad_enabled():
             raise ValueError("corr_pyramid kernel has no backward; call it without grad")
+    fmap1, fmap2 = fmap1.to(corr_dtype), fmap2.to(corr_dtype)
     plan = pyramid_plan_for(fmap1, fmap2, levels)
-    out = tuple(torch.empty((b, h, w1, w2 >> l), dtype=torch.float32, device=fmap1.device)
+    out = tuple(torch.empty((b, h, w1, w2 >> l), dtype=corr_dtype, device=fmap1.device)
                 for l in range(levels))
     ptrs = (ctypes.c_void_p * levels)(*[o.data_ptr() for o in out])
     strides = (ctypes.c_longlong * 8)(*fmap1.stride(), *fmap2.stride())
     lib = _pyramid_lib()
-    status = lib.raft_corr_pyramid_f32(
+    status = lib.raft_corr_pyramid(
         fmap1.data_ptr(), fmap2.data_ptr(), ctypes.cast(strides, ctypes.c_void_p),
         b, h, w1, w2, d, levels, ctypes.cast(ptrs, ctypes.c_void_p),
         *plan.tile, plan.vec, plan.m_tiles, plan.n_tiles, plan.blocks, plan.shared_bytes,
+        int(plan.direct), _build.DTYPE_FLAGS[corr_dtype],
         torch.cuda.current_stream(fmap1.device).cuda_stream,
     )
     _build.check(status, "corr_pyramid kernel", lib.raft_corr_pyramid_error_string)
-    LAUNCHES["corr_pyramid"] += 1
+    LAUNCHES["corr_pyramid_bf16" if corr_dtype == torch.bfloat16 else "corr_pyramid"] += 1
     return out
 
 
 def pyramid_plan_for(fmap1: torch.Tensor, fmap2: torch.Tensor, levels: int) -> PyramidPlan:
-    """`pyramid_plan` for these CUDA feature maps: their shapes, strides,
-    base-address alignment and their card's multiprocessors."""
+    """`pyramid_plan` for these CUDA feature maps (both of the pyramid's
+    dtype): their shapes, strides, element size, base-address alignment and
+    their card's multiprocessors."""
     b, h, w1, d = fmap1.shape
     aligned = fmap1.data_ptr() % 16 == 0 and fmap2.data_ptr() % 16 == 0
     sms = torch.cuda.get_device_properties(fmap1.device).multi_processor_count
-    return pyramid_plan(b, h, w1, fmap2.shape[2], d, levels, (*fmap1.stride(), *fmap2.stride()), sms, aligned)
+    return pyramid_plan(b, h, w1, fmap2.shape[2], d, levels, (*fmap1.stride(), *fmap2.stride()), sms, aligned,
+                        fmap1.element_size())
 
 
 def _pyramid_lib():
     lib = _build.load("corr_pyramid")
-    fn = lib.raft_corr_pyramid_f32
+    fn = lib.raft_corr_pyramid
     if fn.argtypes is None:
         fn.argtypes = (
             [ctypes.c_void_p] * 3  # fmap1, fmap2, host array of the 8 element strides
             + [ctypes.c_int] * 6  # B, H, W1, W2, D, levels
             + [ctypes.c_void_p]  # host array of level pointers
             + [ctypes.c_int] * 5  # plan: tile (W1, W2 extent), vec, m_tiles, n_tiles
-            + [ctypes.c_longlong, ctypes.c_int]  # plan: blocks, shared bytes
-            + [ctypes.c_void_p]  # stream
+            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]  # plan: blocks, shared bytes, direct
+            + [ctypes.c_int, ctypes.c_void_p]  # bf16, stream
         )
         fn.restype = ctypes.c_int
         lib.raft_corr_pyramid_error_string.argtypes = [ctypes.c_int]
@@ -238,7 +278,8 @@ def _pyramid_lib():
     return lib
 
 
-# The C signature of both lookup kernels, dense and windowed.
+# The C signature of both lookup kernels, dense and windowed; the dense
+# kernel's adds two dtype flags (levels bf16, taps bf16) before the stream.
 _LOOKUP_ARGTYPES = [
     ctypes.c_void_p,  # coords
     ctypes.c_void_p,  # host array of level pointers
@@ -247,57 +288,74 @@ _LOOKUP_ARGTYPES = [
     ctypes.c_longlong,  # n_queries
     ctypes.c_int,  # radius
     ctypes.c_void_p,  # out
-    ctypes.c_void_p,  # stream
 ]
 
 
 def _lib():
     lib = _build.load("corr_lookup")
-    fn = lib.raft_corr_lookup_f32
+    fn = lib.raft_corr_lookup
     if fn.argtypes is None:
-        fn.argtypes = _LOOKUP_ARGTYPES
+        fn.argtypes = _LOOKUP_ARGTYPES + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.raft_corr_error_string.argtypes = [ctypes.c_int]
         lib.raft_corr_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def corr_lookup(state: Sequence[torch.Tensor], coords: torch.Tensor, radius: int) -> torch.Tensor:
-    """Taps of every pyramid level around `coords` (B, H, W1):
-    (B, H, W1, L*(2r+1)) fp32, level-major; zero outside [0, W2_l). Under
-    autograd (grad mode on and a level or `coords` requiring grad) the
-    result is differentiable in the levels through `CorrLookup`."""
+def corr_lookup(state: Sequence[torch.Tensor], coords: torch.Tensor, radius: int,
+                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Taps of every pyramid level (fp32 or bf16) around `coords` (B, H, W1):
+    (B, H, W1, L*(2r+1)) in `out_dtype` (fp32 or bf16; None: fp32, or the
+    plain version's own dtype on the CPU), level-major; zero outside
+    [0, W2_l). The interpolation is fp32 and each tap is rounded once to
+    `out_dtype`. Under autograd (grad mode on and a level or `coords`
+    requiring grad) the result is differentiable in fp32 levels through
+    `CorrLookup`; the bf16 backward is not ported yet."""
     levels = tuple(state)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (coords, *levels)):
+        if out_dtype == torch.bfloat16 or any(t.dtype == torch.bfloat16 for t in levels):
+            raise ValueError("not ported yet: the lookup's bf16 backward (bf16 training)")
         return CorrLookup.apply(coords, radius, *levels)
-    return _lookup(levels, coords, radius)
+    return _lookup(levels, coords, radius, out_dtype)
 
 
-def _lookup(levels: Tuple[torch.Tensor, ...], coords: torch.Tensor, radius: int) -> torch.Tensor:
+def _lookup(levels: Tuple[torch.Tensor, ...], coords: torch.Tensor, radius: int,
+            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The lookup without autograd: the kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    version (`ops/corr.py` `corr_lookup`, then one cast) for CPU tensors."""
     if not coords.is_cuda:
-        return corr.corr_lookup(levels, coords, radius)
+        taps = corr.corr_lookup(levels, coords, radius)
+        return taps if out_dtype is None else taps.to(out_dtype)
+    out_dtype = torch.float32 if out_dtype is None else out_dtype
+    if out_dtype not in _build.DTYPE_FLAGS or levels[0].dtype not in _build.DTYPE_FLAGS:
+        raise ValueError(f"corr_lookup kernel takes fp32 or bf16 levels and taps, got {levels[0].dtype} "
+                         f"and {out_dtype}")
     lib = _lib()
-    out = _launch_lookup("corr_lookup", lib.raft_corr_lookup_f32, lib.raft_corr_error_string,
-                         levels, coords, radius)
-    LAUNCHES["corr_lookup"] += 1
+    flags = (_build.DTYPE_FLAGS[levels[0].dtype], _build.DTYPE_FLAGS[out_dtype])
+    out = _launch_lookup("corr_lookup", lib.raft_corr_lookup, lib.raft_corr_error_string, levels, coords,
+                         radius, out_dtype, flags)
+    LAUNCHES["corr_lookup_bf16" if torch.bfloat16 in (levels[0].dtype, out_dtype) else "corr_lookup"] += 1
     return out
 
 
-def _launch_lookup(name, fn, error_string, levels, coords, radius) -> torch.Tensor:
+def _launch_lookup(name, fn, error_string, levels, coords, radius, out_dtype=torch.float32,
+                   flags=()) -> torch.Tensor:
     """Check the operands of a lookup kernel (dense or windowed: one C
-    signature), launch it on the current stream and return its taps."""
+    signature, then the kernel's own `flags`), launch it on the current
+    stream and return its taps: fp32 coordinates, levels all of the first
+    one's dtype, output in `out_dtype`."""
     b, h, w1 = coords.shape
     if not 1 <= len(levels) <= MAX_LEVELS:
         raise ValueError(f"{name} kernel takes 1..{MAX_LEVELS} levels, got {len(levels)}")
     for t in (coords, *levels):
-        if t.device != coords.device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name} kernel needs contiguous fp32 tensors on one CUDA device")
+        want = torch.float32 if t is coords else levels[0].dtype
+        if t.device != coords.device or t.dtype != want or not t.is_contiguous():
+            raise ValueError(f"{name} kernel needs contiguous tensors on one CUDA device: fp32 coordinates, "
+                             "levels of one dtype")
     for lvl in levels:
         if lvl.dim() != 4 or tuple(lvl.shape[:3]) != (b, h, w1):
             raise ValueError(f"level shape {tuple(lvl.shape)} does not match coords {(b, h, w1)}")
-    out = torch.empty((b, h, w1, len(levels) * (2 * radius + 1)), dtype=torch.float32, device=coords.device)
+    out = torch.empty((b, h, w1, len(levels) * (2 * radius + 1)), dtype=out_dtype, device=coords.device)
     ptrs = (ctypes.c_void_p * len(levels))(*[lvl.data_ptr() for lvl in levels])
     widths = (ctypes.c_int * len(levels))(*[lvl.shape[-1] for lvl in levels])
     status = fn(
@@ -308,6 +366,7 @@ def _launch_lookup(name, fn, error_string, levels, coords, radius) -> torch.Tens
         b * h * w1,
         radius,
         out.data_ptr(),
+        *flags,
         torch.cuda.current_stream(coords.device).cuda_stream,
     )
     _build.check(status, f"{name} kernel", error_string)
@@ -318,7 +377,7 @@ def _prefetch_lib():
     lib = _build.load("corr_prefetch")
     fn = lib.raft_corr_prefetch_f32
     if fn.argtypes is None:
-        fn.argtypes = _LOOKUP_ARGTYPES
+        fn.argtypes = _LOOKUP_ARGTYPES + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.raft_corr_prefetch_error_string.argtypes = [ctypes.c_int]
         lib.raft_corr_prefetch_error_string.restype = ctypes.c_char_p
@@ -337,6 +396,8 @@ def prefetch_corr_lookup(state: Sequence[torch.Tensor], coords: torch.Tensor, ra
                            "call it without grad or use corr_lookup")
     if not coords.is_cuda:
         return corr.corr_lookup(levels, coords, radius)
+    if levels[0].dtype != torch.float32:
+        raise ValueError("not ported yet: the windowed lookup's bf16 levels")
     lib = _prefetch_lib()
     out = _launch_lookup("corr_prefetch_lookup", lib.raft_corr_prefetch_f32,
                          lib.raft_corr_prefetch_error_string, levels, coords, radius)

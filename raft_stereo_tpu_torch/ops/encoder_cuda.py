@@ -18,6 +18,13 @@ Affine forms, with `a = aff[:, 0]` and `b = aff[:, 1]` per (batch, channel):
 "bn" `relu(x * a + b)` (frozen batch norm from [inv, shift]). The zero
 padding of the conv pads `z`, not `x`.
 
+The operands are fp32 or bf16 (the compute dtype; bf16 under mixed
+precision), with the JAX kernels' bf16 contract: the fp32 affine rows,
+weights and bias are cast to the operand dtype at use, the affine and relu
+run in that dtype, the conv sums its products in fp32, rounds the sum and
+adds the bias in the operand dtype, and the statistics are fp32 sums over
+the stored outputs. The join runs in the operand dtype.
+
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version (`plain_conv`, `plain_join`) for CPU tensors; a CUDA tensor the
 kernel cannot take raises. Test-mode only, as in JAX: there is no backward,
@@ -38,18 +45,20 @@ from raft_stereo_tpu_torch.ops import _build
 # Kernel launches since the last reset; chip_smoke.py reads them to prove
 # the serving path went through the kernels. One conv call counts one
 # launch (its statistics reduction is a second, small launch of the call).
-LAUNCHES = {"encoder_conv": 0, "encoder_join": 0}
+# The bf16 variants count under "<name>_bf16".
+LAUNCHES = {"encoder_conv": 0, "encoder_join": 0, "encoder_conv_bf16": 0, "encoder_join_bf16": 0}
 FORMS = {"none": 0, "in": 1, "bn": 2}
 CHANNELS = 64  # layer1's width at every hidden_dims; the conv kernel is built for it
 TILE_H, TILE_W = 8, 32  # csrc/encoder_conv.cu TILE_H, TILE_W
 
 
 def apply_affine(x: torch.Tensor, aff: Optional[torch.Tensor], form: str) -> torch.Tensor:
-    """The operand stage of both kernels on NCHW `x` and (B, 2, C) `aff`."""
+    """The operand stage of both kernels on NCHW `x` and (B, 2, C) `aff`,
+    in x's dtype (the rows cast at use)."""
     if form == "none":
         return x
-    a = aff[:, 0, :, None, None]
-    b = aff[:, 1, :, None, None]
+    a = aff[:, 0, :, None, None].to(x.dtype)
+    b = aff[:, 1, :, None, None].to(x.dtype)
     return torch.relu((x - a) * b if form == "in" else x * a + b)
 
 
@@ -60,8 +69,16 @@ def channel_stats(y: torch.Tensor) -> torch.Tensor:
 
 
 def plain_conv(x, weight, bias, aff, form, emit_stats):
-    """The plain PyTorch version of the conv kernel: (y, stats or None)."""
-    y = F.conv2d(apply_affine(x, aff, form), weight, bias, padding=1)
+    """The plain PyTorch version of the conv kernel: (y, stats or None). A
+    bf16 operand is convolved as fp32 values of the bf16-rounded operand
+    and weights (their products are exact in fp32; TF32 off on the card),
+    the sum rounded to bf16, then the bf16 bias added in bf16."""
+    z = apply_affine(x, aff, form)
+    if x.dtype == torch.bfloat16:
+        y = F.conv2d(z.float(), weight.to(x.dtype).float(), None, padding=1).to(x.dtype)
+        y = y + bias.to(x.dtype)[None, :, None, None]
+    else:
+        y = F.conv2d(z, weight, bias, padding=1)
     return y, (channel_stats(y) if emit_stats else None)
 
 
@@ -86,13 +103,14 @@ def bn_affine(inv: torch.Tensor, shift: torch.Tensor, batch: int) -> torch.Tenso
 
 def _conv_lib():
     lib = _build.load("encoder_conv")
-    if lib.raft_encoder_conv_f32.argtypes is None:
-        lib.raft_encoder_conv_f32.argtypes = (
+    if lib.raft_encoder_conv.argtypes is None:
+        lib.raft_encoder_conv.argtypes = (
             [ctypes.c_void_p] * 4  # x, weight (Ci, 3, 3, Co), bias, aff or NULL
             + [ctypes.c_int] * 4  # form, batch, H, W
-            + [ctypes.c_void_p] * 4  # y, partial sums or NULL, stats or NULL, stream
+            + [ctypes.c_void_p] * 3  # y, partial sums or NULL, stats or NULL
+            + [ctypes.c_int, ctypes.c_void_p]  # bf16, stream
         )
-        lib.raft_encoder_conv_f32.restype = ctypes.c_int
+        lib.raft_encoder_conv.restype = ctypes.c_int
         lib.raft_encoder_conv_error_string.argtypes = [ctypes.c_int]
         lib.raft_encoder_conv_error_string.restype = ctypes.c_char_p
     return lib
@@ -100,32 +118,45 @@ def _conv_lib():
 
 def _join_lib():
     lib = _build.load("encoder_join")
-    if lib.raft_encoder_join_f32.argtypes is None:
-        lib.raft_encoder_join_f32.argtypes = (
+    if lib.raft_encoder_join.argtypes is None:
+        lib.raft_encoder_join.argtypes = (
             [ctypes.c_void_p] * 5  # skip, y, aff_y, aff_skip or NULL, out
             + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]  # batch, channels, H*W
-            + [ctypes.c_int] * 3  # y_form, skip_form, vec
+            + [ctypes.c_int] * 4  # y_form, skip_form, vec, bf16
             + [ctypes.c_void_p]  # stream
         )
-        lib.raft_encoder_join_f32.restype = ctypes.c_int
+        lib.raft_encoder_join.restype = ctypes.c_int
         lib.raft_encoder_join_error_string.argtypes = [ctypes.c_int]
         lib.raft_encoder_join_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check_operands(name, tensors, device):
-    for t in tensors:
-        if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name} kernel needs contiguous fp32 tensors on one CUDA device")
+def _check_operands(name, operands, params, device):
+    """Contiguous tensors on one CUDA device, without grad: the operands
+    all fp32 or all bf16, the parameters (weights, bias, affine rows) fp32."""
+    dtype = operands[0].dtype
+    if dtype not in _build.DTYPE_FLAGS:
+        raise ValueError(f"{name} kernel takes fp32 or bf16 operands, got {dtype}")
+    for t, want in [(o, dtype) for o in operands] + [(p, torch.float32) for p in params]:
+        if t.device != device or t.dtype != want or not t.is_contiguous():
+            raise ValueError(f"{name} kernel needs contiguous {dtype} operands and fp32 parameters "
+                             "on one CUDA device")
         if t.requires_grad and torch.is_grad_enabled():
             raise ValueError(f"{name} kernel has no backward; call it without grad")
 
 
+def _rounded(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """fp32 `t` rounded to `dtype` (bf16), as fp32 again: how the kernels
+    receive the parameters they cast at use (the identity for fp32)."""
+    return t.to(dtype).float()
+
+
 def fused_conv(x, weight, bias, aff: Optional[torch.Tensor], form: str = "none",
                emit_stats: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """3x3 "same" conv of form(x) with bias: x (B, 64, H, W), weight
-    (64, 64, 3, 3) OIHW, bias (64,), aff (B, 2, 64) or None with "none".
-    Returns (y (B, 64, H, W), stats (B, 2, 64) [sum, sumsq] of y or None)."""
+    """3x3 "same" conv of form(x) with bias: x (B, 64, H, W) fp32 or bf16,
+    weight (64, 64, 3, 3) OIHW, bias (64,), aff (B, 2, 64) or None with
+    "none", all three fp32. Returns (y (B, 64, H, W) in x's dtype, stats
+    (B, 2, 64) fp32 [sum, sumsq] of y or None)."""
     if form not in FORMS:
         raise ValueError(f"form {form!r} not in {tuple(FORMS)}")
     if (aff is None) != (form == "none"):
@@ -138,10 +169,17 @@ def fused_conv(x, weight, bias, aff: Optional[torch.Tensor], form: str = "none",
                          f"weight {tuple(weight.shape)}, bias {tuple(bias.shape)}")
     if aff is not None and tuple(aff.shape) != (b, 2, CHANNELS):
         raise ValueError(f"aff shape {tuple(aff.shape)} != {(b, 2, CHANNELS)}")
-    _check_operands("encoder_conv", [t for t in (x, weight, bias, aff) if t is not None], x.device)
-    # (Ci, 3, 3, Co): each input channel's 9 x 64 weights contiguous, the
-    # layout the kernel stages into shared memory with 16-byte loads.
-    w_t = weight.permute(1, 2, 3, 0).contiguous()
+    _check_operands("encoder_conv", (x,), [t for t in (weight, bias, aff) if t is not None], x.device)
+    # fp32: (Ci, 3, 3, Co), each input channel's 9 x 64 weights contiguous,
+    # the layout the FFMA kernel stages with 16-byte loads; bf16: (3, 3, Co,
+    # Ci), each (tap, output channel)'s input channels contiguous, the
+    # tensor-core kernel's B operand rows.
+    if x.dtype == torch.bfloat16:
+        w_t = weight.to(torch.bfloat16).permute(2, 3, 0, 1).contiguous()
+    else:
+        w_t = weight.permute(1, 2, 3, 0).contiguous()
+    bias = _rounded(bias, x.dtype)
+    aff = None if aff is None else _rounded(aff, x.dtype)
     y = torch.empty_like(x)
     stats = partial = None
     if emit_stats:
@@ -149,21 +187,22 @@ def fused_conv(x, weight, bias, aff: Optional[torch.Tensor], form: str = "none",
         partial = torch.empty((b, tiles, 2, CHANNELS), dtype=torch.float32, device=x.device)
         stats = torch.empty((b, 2, CHANNELS), dtype=torch.float32, device=x.device)
     lib = _conv_lib()
-    status = lib.raft_encoder_conv_f32(
+    status = lib.raft_encoder_conv(
         x.data_ptr(), w_t.data_ptr(), bias.data_ptr(), 0 if aff is None else aff.data_ptr(),
         FORMS[form], b, h, w, y.data_ptr(),
         0 if partial is None else partial.data_ptr(), 0 if stats is None else stats.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        _build.DTYPE_FLAGS[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(status, "encoder_conv kernel", lib.raft_encoder_conv_error_string)
-    LAUNCHES["encoder_conv"] += 1
+    LAUNCHES["encoder_conv_bf16" if x.dtype == torch.bfloat16 else "encoder_conv"] += 1
     return y, stats
 
 
 def fused_join(skip, y, aff_y, y_form: str, aff_skip: Optional[torch.Tensor] = None,
                skip_form: str = "none") -> torch.Tensor:
-    """relu(skip' + relu(y_form(y))) over NCHW (B, C, H, W); skip' is
-    `skip` for "none", else relu(skip_form(skip)) with `aff_skip`."""
+    """relu(skip' + relu(y_form(y))) over NCHW (B, C, H, W), fp32 or bf16
+    (both alike; the fp32 affine rows cast at use); skip' is `skip` for
+    "none", else relu(skip_form(skip)) with `aff_skip`."""
     if y_form not in ("in", "bn"):
         raise ValueError(f"y_form {y_form!r} not in ('in', 'bn')")
     if skip_form not in FORMS:
@@ -179,19 +218,20 @@ def fused_join(skip, y, aff_y, y_form: str, aff_skip: Optional[torch.Tensor] = N
     for a in affs:
         if tuple(a.shape) != (b, 2, c):
             raise ValueError(f"affine shape {tuple(a.shape)} != {(b, 2, c)}")
-    _check_operands("encoder_join", (skip, y, *affs), skip.device)
+    _check_operands("encoder_join", (skip, y), affs, skip.device)
+    aff_y, aff_skip = (None if a is None else _rounded(a, skip.dtype) for a in (aff_y, aff_skip))
     out = torch.empty_like(skip)
     hw = h * w
     vec = int(hw % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (skip, y, out)))
     lib = _join_lib()
-    status = lib.raft_encoder_join_f32(
+    status = lib.raft_encoder_join(
         skip.data_ptr(), y.data_ptr(), aff_y.data_ptr(),
         aff_skip.data_ptr() if skip_form != "none" else 0, out.data_ptr(),
-        b, c, hw, FORMS[y_form], FORMS[skip_form], vec,
+        b, c, hw, FORMS[y_form], FORMS[skip_form], vec, _build.DTYPE_FLAGS[skip.dtype],
         torch.cuda.current_stream(skip.device).cuda_stream,
     )
     _build.check(status, "encoder_join kernel", lib.raft_encoder_join_error_string)
-    LAUNCHES["encoder_join"] += 1
+    LAUNCHES["encoder_join_bf16" if skip.dtype == torch.bfloat16 else "encoder_join"] += 1
     return out
 
 

@@ -1,15 +1,17 @@
 """Device-time breakdown of the anytime serving stages, or of one training
 step, on a CUDA card.
 
-    python -m raft_stereo_tpu_torch.profile_stages [--config kernel|fused|evaluate|train]
+    python -m raft_stereo_tpu_torch.profile_stages [--config kernel|fused|evaluate|mixed|train]
         [--cases 384x512/1,512x768/1] [--cudnn-benchmark off,on] [--top 8]
 
 Builds the default model with the CUDA lookup and fused GRU tails
 (`--config kernel`), or with the fused encoder prelude on top of them
 (`--config fused`: pyramid build, layer1 convs and joins as kernels), or
 with the windowed lookup in place of the dense one (`--config evaluate`,
-the evaluate entry point's configuration), with
-seeded random weights, fp32, TF32 off, and for each (bucket, batch) case and
+the evaluate entry point's configuration), or in the JAX bench's
+mixed-precision configuration (`--config mixed`: "pallas", bf16 compute, a
+bf16 pyramid, the fused encoder; its convolutions are timed in bf16), with
+seeded random weights, fp32 parameters, TF32 off, and for each (bucket, batch) case and
 cuDNN benchmark mode warms it, then times one prelude and one chunk of 4
 iterations (synchronized wall clock) and traces each with `torch.profiler`.
 Prints per stage the wall time, the summed device-kernel time, the device's
@@ -53,6 +55,8 @@ CONFIGS = {
     "kernel": RAFTStereoConfig(corr_implementation="pallas", fused_gru_tail=True),
     "fused": RAFTStereoConfig(corr_implementation="pallas", fused_gru_tail=True, fused_encoder=True),
     "evaluate": RAFTStereoConfig(corr_implementation="pallas", fused_gru_tail=True, prefetch_lookup=True),
+    "mixed": RAFTStereoConfig(corr_implementation="pallas", mixed_precision=True, corr_dtype="bfloat16",
+                              fused_encoder=True),
     "train": RAFTStereoConfig(corr_implementation="pallas"),
 }
 TRAIN_CASE = "320x720/6"
@@ -60,7 +64,8 @@ TRAIN_ITERS = 16
 FAMILIES = (
     ("port kernels", ("corr_lookup_kernel", "corr_scatter_kernel", "gru_tail_", "motion_tail_kernel",
                       "corr_pyramid_kernel", "encoder_conv_kernel", "encoder_stats_kernel", "join_kernel",
-                      "corr_prefetch_kernel", "gates_rh_kernel", "gates_combine_kernel")),
+                      "corr_prefetch_kernel", "gates_rh_kernel", "gates_combine_kernel", "corr_pyramid_mma_kernel",
+                      "encoder_conv_mma_kernel")),
     ("convolution", ("conv", "xmma", "cutlass", "implicit", "winograd", "gemm", "sm90", "fft")),
     ("copy / layout", ("copy", "transpose", "nchw", "nhwc", "cat", "memcpy", "memset", "fill")),
 )
@@ -160,7 +165,7 @@ def profile_train(case: str, top: int) -> None:
         report(label, wall_ms, prof, top)
     print(f"  traced step: wall {total:.3f} ms (under the profiler); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    time_convs(model, data, b * TRAIN_ITERS)
+    time_convs(model, data, b * TRAIN_ITERS, test_mode=False)
 
 
 def conv_ms(x, weight, stride, padding, reps=3):
@@ -189,35 +194,36 @@ def conv_ms(x, weight, stride, padding, reps=3):
     return out
 
 
-def time_convs(model, data, mask_batch) -> None:
-    """Every distinct conv (input shape, weight shape, stride) of one
-    one-iteration forward, and the mask head's first conv at
-    `mask_batch` (a training step's iterations x batch), timed alone with
-    cuDNN's default choice and with cuDNN off."""
+def time_convs(model, data, mask_batch, test_mode=True) -> None:
+    """Every distinct conv (input shape, weight shape, stride, dtype) of one
+    one-iteration forward (a test-mode one unless `test_mode` is False), and
+    the mask head's first conv at `mask_batch` (a training step's
+    iterations x batch), timed alone in its own dtype with cuDNN's default
+    choice and with cuDNN off."""
     shapes, keys = {}, {}
     hooks = []
     for name, mod in model.named_modules():
         if isinstance(mod, torch.nn.Conv2d):
             def hook(m, inp, out, name=name):
-                keys[name] = (tuple(inp[0].shape), tuple(m.weight.shape), m.stride, m.padding)
+                keys[name] = (tuple(inp[0].shape), tuple(m.weight.shape), m.stride, m.padding, inp[0].dtype)
                 shapes.setdefault(keys[name], name)
             hooks.append(mod.register_forward_hook(hook))
     with torch.no_grad():
-        model(data["image1"], data["image2"], iters=1)
+        model(data["image1"], data["image2"], iters=1, test_mode=test_mode)
     for h in hooks:
         h.remove()
-    xs, ws, stride, padding = keys["mask_head.mask_conv1"]
-    shapes[((mask_batch, *xs[1:]), ws, stride, padding)] = f"mask_head.mask_conv1 (batch {mask_batch})"
+    xs, ws, stride, padding, dtype = keys["mask_head.mask_conv1"]
+    shapes[((mask_batch, *xs[1:]), ws, stride, padding, dtype)] = f"mask_head.mask_conv1 (batch {mask_batch})"
     print(f"  distinct convolutions, timed alone (forward ms / forward + backward ms): "
           f"cuDNN's choice | cuDNN off")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for (xs, ws, stride, padding), name in shapes.items():
-        x = torch.randn(xs, generator=gen, device="cuda")
-        w = torch.randn(ws, generator=gen, device="cuda") * 0.05
+    for (xs, ws, stride, padding, dtype), name in shapes.items():
+        x = torch.randn(xs, generator=gen, device="cuda").to(dtype)
+        w = (torch.randn(ws, generator=gen, device="cuda") * 0.05).to(dtype)
         f, fb = conv_ms(x, w, stride, padding)
         with torch.backends.cudnn.flags(enabled=False):
             f_off, fb_off = conv_ms(x, w, stride, padding)
-        print(f"    {name:44s} x{xs} w{ws}: {f:9.3f} / {fb:9.3f} | {f_off:9.3f} / {fb_off:9.3f}")
+        print(f"    {name:44s} x{xs} w{ws} {str(dtype)[6:]}: {f:9.3f} / {fb:9.3f} | {f_off:9.3f} / {fb_off:9.3f}")
         del x, w
 
 

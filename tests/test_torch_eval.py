@@ -197,7 +197,8 @@ def test_cli_dry_run_on_cpu():
     assert "Validation ETH3D: EPE" in out.stdout
 
 
-@pytest.mark.parametrize("flags", [["--mixed_precision"], ["--corr_dtype", "bfloat16"], ["--shared_backbone"],
+@pytest.mark.parametrize("flags", [["--mixed_precision", "--fused_gru_tail"],
+                                   ["--corr_dtype", "bfloat16", "--prefetch_lookup"], ["--shared_backbone"],
                                    ["--corr_implementation", "alt"], ["--corr_implementation", "alt_cuda"]])
 def test_cli_unported_flags_raise(flags):
     with pytest.raises(ValueError, match="not ported yet"):

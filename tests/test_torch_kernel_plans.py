@@ -5,9 +5,13 @@ the plans are plain Python and the kernels launch exactly what they say.
 Pyramid: every W2 tile starts at a multiple of 2**(L-1) (the pooling chain
 stays inside a block), the blocks' tiles cover [0, W1) x [0, W2) of every
 row exactly once, the grid and block are within CUDA's limits, the shared
-bytes within the H100's 227 KB, 16-byte copies only where W is the
-unit-stride axis and every other moving stride and both base addresses are
-16-byte aligned, and an input no instantiation takes raises.
+bytes within the H100's 227 KB, 16-byte copies (4 fp32 or 8 bf16 elements)
+only where W is the unit-stride axis and every other moving stride and both
+base addresses are 16-byte aligned, the register epilogue only where level
+rows start aligned for its 4-element runs (W2 a multiple of 4) and L <= 6,
+and an input no instantiation takes raises. The bf16 build (elem_bytes 2)
+is the tensor-core kernel: one 128 x 128 tile, its own copy width and
+shared bytes, the shared-memory epilogue.
 Scatter: the runs of queries cover every query exactly once (also where the
 count is not a multiple of the run), the shared bytes fit, and 64-bit
 indexing is chosen past 2**31 - 1 outputs.
@@ -125,6 +129,55 @@ def test_pyramid_plan_copy_width():
     # A stride of a dimension of size 1 never moves, so it need not align.
     strides = (7, 192, 1, 128 * 192) * 2
     assert corr_cuda.pyramid_plan(1, 128, 192, 192, 256, 4, strides, SMS).vec == 4
+
+
+@pytest.mark.parametrize("w", WIDTHS)
+def test_bf16_pyramid_plan_takes_the_tensor_core_tile(w):
+    """The bf16 plan launches the tensor-core kernel: 128 x 128 tiles of 256
+    threads covering every row once, the shared-memory epilogue, a ring of
+    bf16 rows padded by 16 bytes (or the fp32 epilogue tile, which aliases
+    it, if larger), and 8-element copies where every moving stride allows."""
+    for b, h in ((2, 3), (1, 128)):
+        for levels in (1, 4, corr_cuda.PYRAMID_MAX_LEVELS):
+            strides = model_strides(b, h, w)
+            plan = corr_cuda.pyramid_plan(b, h, w, w, 256, levels, strides, SMS, elem_bytes=2)
+            assert (plan.tile, plan.threads, plan.direct) == (corr_cuda.PYRAMID_MMA_TILE, 256, False)
+            assert plan.tile[1] % (1 << (levels - 1)) == 0
+            assert_covered_once(plan, b * h, w, w)
+            bm, bn = plan.tile
+            ring = corr_cuda.PYRAMID_STAGES * corr_cuda.PYRAMID_TK * (bm + bn + 2 * 8) * 2
+            assert plan.shared_bytes == max(ring, 4 * bm * (bn + 1)) == corr_cuda.pyramid_shared_bytes(plan.tile, 2)
+            assert plan.shared_bytes <= corr_cuda.MAX_SHARED_BYTES
+            # The strides that move: D's (H*W), H's (W) for h > 1, B's for b > 1.
+            moving = [h * w] + [w] * (h > 1) + [256 * h * w] * (b > 1)
+            assert plan.vec == (8 if all(s % 8 == 0 for s in moving) else 1)
+
+
+def test_bf16_pyramid_plan_copy_width():
+    """16 bytes are 8 bf16 elements: every moving stride a multiple of 8."""
+    assert corr_cuda.pyramid_plan(1, 128, 192, 192, 256, 4, model_strides(1, 128, 192), SMS, elem_bytes=2).vec == 8
+    assert corr_cuda.pyramid_plan(1, 496, 720, 720, 256, 4, model_strides(1, 496, 720), SMS, elem_bytes=2).vec == 8
+    # W 36: H*W = 108 is a multiple of 4 but not of 8: fp32 copies 16 bytes, bf16 one element.
+    strides = model_strides(1, 3, 36)
+    assert corr_cuda.pyramid_plan(1, 3, 36, 36, 256, 4, strides, SMS).vec == 4
+    assert corr_cuda.pyramid_plan(1, 3, 36, 36, 256, 4, strides, SMS, elem_bytes=2).vec == 1
+    assert corr_cuda.pyramid_plan(1, 128, 192, 192, 256, 4, model_strides(1, 128, 192), SMS, aligned=False,
+                                  elem_bytes=2).vec == 1
+    assert corr_cuda.pyramid_plan(1, 128, 192, 192, 256, 4, contiguous_strides(1, 128, 192), SMS,
+                                  elem_bytes=2).vec == 1
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        corr_cuda.pyramid_plan(1, 3, 36, 36, 256, 4, strides, SMS, elem_bytes=8)
+
+
+def test_pyramid_plan_register_epilogue():
+    """The fp32 kernel's register epilogue stores float4 runs: level rows
+    must start 16-byte aligned, so W2 % 4 == 0, and the shuffles reach 6
+    levels; otherwise, and always in bf16, the shared-memory epilogue."""
+    for w, levels, direct in ((192, 4, True), (192, 6, True), (192, 7, False), (190, 4, False), (150, 4, False),
+                              (720, 4, True), (128, 1, True), (36, 3, True)):
+        plan = corr_cuda.pyramid_plan(1, 3, w, w, 256, levels, model_strides(1, 3, w), SMS)
+        assert plan.direct == direct, (w, levels)
+        assert not corr_cuda.pyramid_plan(1, 3, w, w, 256, levels, model_strides(1, 3, w), SMS, elem_bytes=2).direct
 
 
 def test_pyramid_plan_raises_for_what_no_instantiation_takes():
