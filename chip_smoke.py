@@ -14,7 +14,11 @@ mixed-precision configuration (bf16 compute, a bf16 pyramid, the fused
 encoder): its four bf16 kernel variants against their plain versions, the
 512x768 bucket served, the iteration path and the prelude against plain
 code, the bf16 pyramid's accuracy budget, a Middlebury-F image through the
-evaluate entry point and its command line, and times every kernel.
+evaluate entry point and its command line, trains in the JAX package's
+shipping numerics (bf16 compute and pyramid, the lookup's backward as the
+bf16 scatter kernel) at the JAX bench's training setup, checks one such
+step against plain autograd and runs the JAX package's shipping-numerics
+convergence test with the kernels, and times every kernel.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -50,6 +54,7 @@ from raft_stereo_tpu_torch.models.init import build_model
 from raft_stereo_tpu_torch.models.raft_stereo import RAFTStereo
 from raft_stereo_tpu_torch.ops import _build, corr, corr_cuda, encoder_cuda, gates, gru_tail
 from raft_stereo_tpu_torch.serving.service import StereoService
+from raft_stereo_tpu_torch.train import synthetic
 from raft_stereo_tpu_torch.train.trainer import Trainer
 
 # The slice's model: the default architecture with the CUDA lookup and the
@@ -68,7 +73,7 @@ TRAIN_PLAIN_CONFIG = RAFTStereoConfig(corr_implementation="reg")
 TRAIN_BATCH = 6
 TRAIN_HW = (320, 720)
 TRAIN_ITERS = 16
-TRAIN_TIMED_STEPS = 5
+TRAIN_TIMED_STEPS = 3
 # The fourth slice's: the evaluate entry point's configuration, the kernel
 # one with the windowed lookup, at 32 iterations on a synthetic set of two
 # Middlebury-F-sized pairs (1980x2870 pads to 1984x2880: the padding and
@@ -147,6 +152,34 @@ PYRAMID_BF16_CASES = (
 # tiles end inside the image and rows are not 16-byte aligned (the
 # element-by-element stores).
 BF16_CONV_SHAPES = ((512, 768), (1984, 2880), (13, 70))
+# The seventh slice's: the training step in the JAX package's shipping
+# numerics at the JAX bench's `train_step_s` setup (bench.py
+# `_train_step_seconds`: batch 4, 320x720 crops, 22 iterations, "pallas",
+# bf16 compute, a bf16 pyramid; remat with the taps saved, TrainConfig's
+# defaults otherwise), its plain twin ("reg": autograd through the bf16
+# gather), and the JAX package's shipping-numerics convergence test
+# (tests/test_train.py `test_long_horizon_shipping_numerics_convergence`:
+# 600 steps of batch 4 at 48x64, 5 iterations, lr 2e-4, a fresh synthetic
+# batch from default_rng((7, step)) each step; the mean loss of the last
+# 100 steps below 0.25 of the first 100's, and the held-out EPE over 8
+# samples at 12 iterations below 1 px).
+MIXED_TRAIN_CONFIG = RAFTStereoConfig(corr_implementation="pallas", mixed_precision=True, corr_dtype="bfloat16")
+MIXED_TRAIN_PLAIN_CONFIG = RAFTStereoConfig(corr_implementation="reg", mixed_precision=True, corr_dtype="bfloat16")
+MIXED_TRAIN_BATCH = 4
+MIXED_TRAIN_ITERS = 22
+MIXED_TRAIN_TIMED_STEPS = 3
+CONVERGE_STEPS, CONVERGE_BATCH, CONVERGE_HW, CONVERGE_ITERS, CONVERGE_LR = 600, 4, (48, 64), 5, 2e-4
+CONVERGE_LOSS_RATIO, CONVERGE_EPE_PX = 0.25, 1.0
+# The bf16 scatter's checks beyond SCATTER_CASES, (B, H, W1, W2, levels,
+# radius): the fp32 row's shape and the bench's (64-query runs: every span
+# of a level starts 16-byte aligned in bf16 too), and a window so wide that
+# a block owns one query (run 1), so that with odd widths the spans start at
+# every 2-byte offset and the element-by-element head and tail stores run.
+SCATTER_BF16_CASES = {
+    "6x80x180": (6, 80, 180, 180, 4, 4),
+    "4x80x180 (bench)": (4, 80, 180, 180, 4, 4),
+    "run 1, W2 1001 and 500, radius 4000": (1, 1, 61, 1001, 2, 4000),
+}
 BF16 = torch.bfloat16
 SEED = 0
 DEVICE = "cuda"
@@ -224,6 +257,25 @@ TRAIN_LOSS_RTOL = 1e-6
 TRAIN_NORM_RTOL = 1e-4
 TRAIN_GRAD_TOL = 1e-3
 TRAIN_FNET_GRAD_TOL = 1e-1
+# A mixed training step of the kernel configuration against the plain one
+# ("reg", autograd through the bf16 gather) on the same seeded weights and
+# batch, cuDNN deterministic in both: the forwards are bit for bit equal
+# (as `[mixed-e2e]` shows for the iteration path), so the loss may differ
+# only by the loss reduction's order; the gradients differ because the plain backward
+# rounds every tap's contribution to d(pyramid) to bf16 and sums them in
+# bf16, where the scatter rounds their fp32 sum once, and the difference
+# passes back through the bf16 volume into the feature encoder and on to
+# every parameter. Measured on an H100 80GB HBM3 at 700 W (PERF.md section
+# 2): loss and norm equal; the worst gradient 5.6e-3 of its largest value
+# (fnet.conv2.bias), the feature-encoder trunk's 1.24e-2, its zero-gradient
+# conv biases (see TRAIN_FNET_GRAD_TOL) 2.7e-3 of the model's largest
+# gradient. The bounds: the fp32 step's for the loss and the norm, 4 times
+# the measured values for the gradients.
+MIXED_TRAIN_LOSS_RTOL = 1e-6
+MIXED_TRAIN_NORM_RTOL = 1e-4
+MIXED_TRAIN_GRAD_TOL = 2.5e-2
+MIXED_TRAIN_FNET_GRAD_TOL = 5e-2
+MIXED_TRAIN_ZERO_GRAD_TOL = 1.1e-2
 
 KERNELS = {
     "corr_lookup": ("raft_stereo_tpu_torch/csrc/corr_lookup.cu", "raft_stereo_tpu/ops/corr_pallas.py:90"),
@@ -241,6 +293,7 @@ KERNELS = {
     "corr_pyramid_bf16": ("raft_stereo_tpu_torch/csrc/corr_pyramid.cu", "raft_stereo_tpu/ops/corr_pallas.py:617"),
     "encoder_conv_bf16": ("raft_stereo_tpu_torch/csrc/encoder_conv.cu", "raft_stereo_tpu/ops/encoder_pallas.py:109"),
     "encoder_join_bf16": ("raft_stereo_tpu_torch/csrc/encoder_join.cu", "raft_stereo_tpu/ops/encoder_pallas.py:275"),
+    "corr_scatter_bf16": ("raft_stereo_tpu_torch/csrc/corr_scatter.cu", "raft_stereo_tpu/ops/corr_pallas.py:156"),
 }
 SOURCES = ("corr_lookup", "gru_tail", "corr_pyramid", "encoder_conv", "encoder_join", "corr_scatter",
            "corr_prefetch", "gates")
@@ -652,51 +705,237 @@ def phase_train(rng) -> tuple:
     return trainer, totals, batches[0]
 
 
-def step_grads(model_cfg, batch) -> tuple:
-    """One Trainer step from the seed's weights; returns (metrics, trainer
-    with the step's clipped gradients in .grad)."""
+def step_grads(model_cfg, batch, batch_size=TRAIN_BATCH, iters=TRAIN_ITERS) -> tuple:
+    """One Trainer step from the seed's weights: (metrics, {name: the
+    step's clipped gradient})."""
     h, w = TRAIN_HW
-    cfg = TrainConfig(model=model_cfg, batch_size=TRAIN_BATCH, train_iters=TRAIN_ITERS, seed=SEED)
+    cfg = TrainConfig(model=model_cfg, batch_size=batch_size, train_iters=iters, seed=SEED)
     trainer = Trainer(cfg, (h, w, 3), device=DEVICE)
     metrics = trainer.train_step(batch)
     torch.cuda.synchronize()
-    return metrics, trainer
+    grads = {n: p.grad.detach().clone() for n, p in trainer.model.named_parameters()}
+    del trainer
+    torch.cuda.empty_cache()
+    return metrics, grads
+
+
+def compare_steps(mk, gk, mp, gp) -> dict:
+    """A step's metrics and gradients (kernel side `mk`, `gk`) against the
+    plain side's: the loss's and the global norm's relative differences,
+    and as (value, name) the worst parameter gradient's largest difference
+    over its own largest value, outside and inside the feature-encoder
+    trunk, and the larger side's largest value of the trunk's conv biases
+    (true gradient zero: the instance norm after them removes any
+    per-channel constant) over the model's largest gradient."""
+    largest = float(max(g.abs().max().item() for g in gp.values()))
+    out = {"loss": abs(mk["live_loss"] - mp["live_loss"]) / abs(mp["live_loss"]),
+           "norm": abs(mk["grad_norm"] - mp["grad_norm"]) / mp["grad_norm"],
+           "grad": (0.0, ""), "fnet": (0.0, ""), "zero": (0.0, "")}
+    for name, g in gp.items():
+        a = gk[name]
+        fnet_trunk = name.startswith("fnet.trunk.")
+        if fnet_trunk and name.endswith(".bias") and "norm" not in name:
+            noise = max(float(a.abs().max().item()), float(g.abs().max().item())) / largest
+            out["zero"] = max(out["zero"], (noise, name))
+            continue
+        rel = max_err(a, g) / max(float(g.abs().max().item()), 1e-30)
+        key = "fnet" if fnet_trunk else "grad"
+        out[key] = max(out[key], (rel, name))
+    return out
+
+
+def report_steps(tag, mk, mp, d, tols) -> None:
+    """Log `compare_steps`'s result `d` against `tols` (loss, norm, grad,
+    fnet, zero) and raise where a bound is passed."""
+    log(f"[{tag}] loss {mk['live_loss']:.7f} vs {mp['live_loss']:.7f} (rel {d['loss']:.3e}, tol {tols['loss']:g}); "
+        f"grad_norm {mk['grad_norm']:.6f} vs {mp['grad_norm']:.6f} (rel {d['norm']:.3e}, tol {tols['norm']:g}); "
+        f"worst parameter gradient {d['grad'][0]:.3e} of its max ({d['grad'][1]}, tol {tols['grad']:g}); "
+        f"feature-encoder trunk worst {d['fnet'][0]:.3e} ({d['fnet'][1]}, tol {tols['fnet']:g}); its "
+        f"zero-gradient biases at most {d['zero'][0]:.3e} of the largest gradient ({d['zero'][1]}, tol "
+        f"{tols['zero']:g})")
+    worst = {k: v if isinstance(v, float) else v[0] for k, v in d.items()}
+    failed = [k for k in tols if not worst[k] <= tols[k]]
+    if failed:
+        raise AssertionError(f"[{tag}] the kernel configuration's training step disagrees with the plain one: "
+                             f"{failed}")
 
 
 def phase_train_e2e(batch) -> None:
     """One step of the kernel configuration against the plain one (the
     "reg" lookup, autograd through its gather) from the same seeded weights
     and batch: loss, global gradient norm, each parameter's gradient."""
-    mk, tk = step_grads(TRAIN_CONFIG, batch)
-    gk = {n: p.grad.detach().clone() for n, p in tk.model.named_parameters()}
-    del tk
-    mp, tp = step_grads(TRAIN_PLAIN_CONFIG, batch)
-    gp = {n: p.grad for n, p in tp.model.named_parameters()}
-    loss_rel = abs(mk["live_loss"] - mp["live_loss"]) / abs(mp["live_loss"])
-    norm_rel = abs(mk["grad_norm"] - mp["grad_norm"]) / mp["grad_norm"]
-    largest = float(max(g.abs().max().item() for g in gp.values()))
-    worst, worst_fnet = (0.0, ""), (0.0, "")
-    for name, g in gp.items():
-        a = gk[name]
-        fnet_trunk = name.startswith("fnet.trunk.")
-        if fnet_trunk and name.endswith(".bias") and "norm" not in name:
-            noise = max(float(a.abs().max().item()), float(g.abs().max().item())) / largest
-            if not noise <= 1e-6:
-                raise AssertionError(f"train e2e: {name} (a zero gradient) is {noise} of the largest gradient")
-            continue
-        rel = max_err(a, g) / max(float(g.abs().max().item()), 1e-30)
-        if fnet_trunk:
-            worst_fnet = max(worst_fnet, (rel, name))
-        else:
-            worst = max(worst, (rel, name))
-    log(f"[train-e2e] b{TRAIN_BATCH} {TRAIN_HW[0]}x{TRAIN_HW[1]}, {TRAIN_ITERS} iters, kernels vs plain autograd: "
-        f"loss {mk['live_loss']:.7f} vs {mp['live_loss']:.7f} (rel {loss_rel:.3e}, tol {TRAIN_LOSS_RTOL:g}); "
-        f"grad_norm {mk['grad_norm']:.6f} vs {mp['grad_norm']:.6f} (rel {norm_rel:.3e}, tol {TRAIN_NORM_RTOL:g}); "
-        f"worst parameter gradient {worst[0]:.3e} of its max ({worst[1]}, tol {TRAIN_GRAD_TOL:g}); "
-        f"feature-encoder trunk worst {worst_fnet[0]:.3e} ({worst_fnet[1]}, tol {TRAIN_FNET_GRAD_TOL:g})")
-    if not (loss_rel <= TRAIN_LOSS_RTOL and norm_rel <= TRAIN_NORM_RTOL and worst[0] <= TRAIN_GRAD_TOL
-            and worst_fnet[0] <= TRAIN_FNET_GRAD_TOL):
-        raise AssertionError("the kernel configuration's training step disagrees with the plain one")
+    mk, gk = step_grads(TRAIN_CONFIG, batch)
+    mp, gp = step_grads(TRAIN_PLAIN_CONFIG, batch)
+    log(f"[train-e2e] b{TRAIN_BATCH} {TRAIN_HW[0]}x{TRAIN_HW[1]}, {TRAIN_ITERS} iters, kernels vs plain autograd")
+    report_steps("train-e2e", mk, mp, compare_steps(mk, gk, mp, gp),
+                 {"loss": TRAIN_LOSS_RTOL, "norm": TRAIN_NORM_RTOL, "grad": TRAIN_GRAD_TOL,
+                  "fnet": TRAIN_FNET_GRAD_TOL, "zero": 1e-6})
+
+
+def phase_bf16_scatter_kernels(gen) -> dict:
+    """The bf16 scatter against its plain version, bit for bit and across
+    launches, at SCATTER_BF16_CASES and SCATTER_CASES with the adversarial
+    coordinates of `scatter_inputs` (far out, infinite, NaN), for a bf16 or
+    fp32 cotangent into bf16 levels and a bf16 cotangent into fp32 levels
+    (mixed compute over an fp32 pyramid); then CorrLookup's bf16 d(pyramid)
+    against autograd of the plain bf16 lookup. Returns the max abs diff."""
+    err = 0.0
+    for name, (b, h, w1, w2, levels, radius) in {**SCATTER_BF16_CASES, **SCATTER_CASES}.items():
+        coords, grad32, widths = scatter_inputs(gen, b, h, w1, w2, levels, radius)
+        for grad_dtype, level_dtype in ((BF16, BF16), (torch.float32, BF16), (BF16, torch.float32)):
+            grad = grad32.to(grad_dtype)
+            dtypes = [level_dtype] * levels
+            plan = corr_cuda.scatter_plan(coords.numel(), widths, radius, torch.finfo(level_dtype).bits // 8)
+            got = corr_cuda.corr_scatter(coords, grad, widths, radius, dtypes)
+            again = corr_cuda.corr_scatter(coords, grad, widths, radius, dtypes)
+            torch.cuda.synchronize()
+            want = corr_cuda.plain_corr_scatter(coords, grad, widths, radius, dtypes)
+            bits = torch.int16 if level_dtype == BF16 else torch.int32
+            exact = all(g.dtype == level_dtype and torch.equal(g.view(bits), w_.view(bits))
+                        for g, w_ in zip(got, want))
+            same = all(torch.equal(g.view(bits), a.view(bits)) for g, a in zip(got, again))
+            e = max(max_err(g.float(), w_.float()) for g, w_ in zip(got, want))
+            log(f"[bf16-kernels] corr_scatter_bf16 {name} ({coords.numel()} queries, widths {widths}, radius "
+                f"{radius}; {plan.run} per block, {plan.blocks} blocks, {plan.vec} per vector store), cotangent "
+                f"{str(grad_dtype)[6:]}, levels {str(level_dtype)[6:]}: bitwise plain {exact}, max abs diff {e:.3e} "
+                f"(tol 0); two launches bitwise equal: {same}")
+            if not exact or not same:
+                raise AssertionError(f"corr_scatter_bf16 disagrees with its plain version or is not reproducible "
+                                     f"at {name} ({grad_dtype}, {level_dtype})")
+            err = max(err, e)
+            del got, again, want
+    # CorrLookup's bf16 d(pyramid) against autograd of the plain bf16
+    # lookup at the bench's shape. The plain backward rounds each tap's
+    # product to bf16 and adds a sample's two contributions in bf16; the
+    # scatter rounds their fp32 sum once. Allowance per element: 1 bf16 ulp
+    # of the contributions' summed magnitudes (the plain scatter of |g|),
+    # 1 of the value, and the fp32 fraction term of the fp32 check.
+    b, h, w = MIXED_TRAIN_BATCH, TRAIN_HW[0] // 4, TRAIN_HW[1] // 4
+    coords, grad32, widths = scatter_inputs(gen, b, h, w, w)
+    coords = torch.where(torch.isfinite(coords), coords, torch.zeros_like(coords))
+    grad = grad32.to(BF16)
+    levels = [torch.randn((b, h, w, wl), generator=gen, device=DEVICE).to(BF16).requires_grad_() for wl in widths]
+    plain = [lvl.detach().clone().requires_grad_() for lvl in levels]
+    before = launches()["corr_scatter_bf16"]
+    corr_cuda.corr_lookup(levels, coords, 4, BF16).backward(grad)
+    corr.corr_lookup(plain, coords, 4).to(BF16).backward(grad)
+    torch.cuda.synchronize()
+    magnitude = corr_cuda.plain_corr_scatter(coords, grad.float().abs(), widths, 4)
+    worst, shares = 0.0, []
+    for a, p_, m in zip(levels, plain, magnitude):
+        if a.grad.dtype != BF16 or p_.grad.dtype != BF16:
+            raise AssertionError(f"bf16 levels' gradients are {a.grad.dtype} and {p_.grad.dtype}, not bf16")
+        diff = (a.grad.float() - p_.grad.float()).abs()
+        allow = (bf16_ulp(m) + bf16_ulp(torch.maximum(a.grad.float().abs(), p_.grad.float().abs()))
+                 + 2.0**-23 * (w + 3) * float(grad.float().abs().max().item()))
+        worst = max(worst, float((diff / allow).max().item()))
+        shares.append(float((diff > 0).float().mean().item()))
+    log(f"[bf16-kernels] CorrLookup bf16 d(pyramid) b{b} {h}x{w} vs autograd of the plain bf16 lookup: worst "
+        f"element at {worst:.3f} of its allowance (1 bf16 ulp of the summed contributions + 1 of the value; tol 1), "
+        f"share of elements that differ per level {', '.join(f'{x:.2e}' for x in shares)}; scatter launches "
+        f"{launches()['corr_scatter_bf16'] - before}")
+    if not worst <= 1.0 or launches()["corr_scatter_bf16"] != before + 1:
+        raise AssertionError(f"CorrLookup's bf16 gradient disagrees with autograd of the plain lookup: {worst}")
+    return {"corr_scatter_bf16": err}
+
+
+def phase_mixed_train(rng) -> tuple:
+    """The training step in the shipping numerics at the JAX bench's setup:
+    one warm step, then timed steps with their launch counts, fp32
+    parameter gradients and finite metrics. Returns (launch counts over the
+    timed steps, a batch for the e2e check)."""
+    h, w = TRAIN_HW
+    b = MIXED_TRAIN_BATCH
+    cfg = TrainConfig(model=MIXED_TRAIN_CONFIG, batch_size=b, train_iters=MIXED_TRAIN_ITERS, seed=SEED)
+    batches = [train_batch(rng, b, h, w) for _ in range(3)]
+    trainer = Trainer(cfg, (h, w, 3), device=DEVICE)
+    before = [p.detach().clone() for p in trainer.model.parameters()]
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    m = trainer.train_step(batches[0])
+    torch.cuda.synchronize()
+    log(f"[mixed-train] b{b} {h}x{w}, {MIXED_TRAIN_ITERS} iters, bf16 compute and pyramid: warm step loss "
+        f"{m['live_loss']:.6f}, grad_norm {m['grad_norm']:.6f}, {time.perf_counter() - t:.3f} s")
+    per_step = expect(corr_lookup_bf16=MIXED_TRAIN_ITERS, corr_scatter_bf16=MIXED_TRAIN_ITERS)
+    reset_launches()
+    secs = []
+    for i in range(MIXED_TRAIN_TIMED_STEPS):
+        before_counts = launches()
+        t = time.perf_counter()
+        m = trainer.train_step(batches[(i + 1) % len(batches)])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        delta = {k: v - before_counts[k] for k, v in launches().items()}
+        log(f"[mixed-train] step {trainer.step}: loss {m['live_loss']:.6f}, grad_norm {m['grad_norm']:.6f}, "
+            f"epe {m['epe']:.4f}, {secs[-1]:.3f} s, launches {delta}")
+        if not (np.isfinite(m["live_loss"]) and np.isfinite(m["grad_norm"]) and m["nonfinite"] == 0.0):
+            raise AssertionError(f"mixed training step {trainer.step} is not finite: {m}")
+        if delta != per_step:
+            raise AssertionError(f"mixed training step {trainer.step}: kernel launches {delta} != expected {per_step}")
+    totals = launches()
+    params = list(trainer.model.parameters())
+    grad_dtypes = {str(p.grad.dtype) for p in params if p.grad is not None}
+    changed = sum(not torch.equal(a, p_) for a, p_ in zip(before, params))
+    log(f"[mixed-train] median {statistics.median(secs):.3f} s/step over {MIXED_TRAIN_TIMED_STEPS} steps "
+        f"(all: {', '.join(f'{x:.3f}' for x in secs)}); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({torch.cuda.max_memory_allocated()} B); "
+        f"{changed} of {len(before)} parameter tensors changed; parameter and gradient dtypes "
+        f"{sorted({str(p.dtype) for p in params})} / {sorted(grad_dtypes)}; launches over the timed steps {totals}")
+    if changed == 0:
+        raise AssertionError("mixed training did not change the parameters")
+    if grad_dtypes != {"torch.float32"} or any(p.grad is None or p.dtype != torch.float32 for p in params):
+        raise AssertionError(f"mixed training: parameters or gradients not all fp32 ({grad_dtypes})")
+    return totals, batches[0]
+
+
+def phase_mixed_train_e2e(batch) -> None:
+    """One mixed step of the kernel configuration against the plain one
+    ("reg", autograd through the bf16 gather) from the same seeded weights
+    and batch, cuDNN deterministic in both: loss, global norm, each
+    parameter's gradient, by the MIXED_TRAIN_* bounds."""
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
+        mk, gk = step_grads(MIXED_TRAIN_CONFIG, batch, MIXED_TRAIN_BATCH, MIXED_TRAIN_ITERS)
+        mp, gp = step_grads(MIXED_TRAIN_PLAIN_CONFIG, batch, MIXED_TRAIN_BATCH, MIXED_TRAIN_ITERS)
+    log(f"[mixed-train-e2e] b{MIXED_TRAIN_BATCH} {TRAIN_HW[0]}x{TRAIN_HW[1]}, {MIXED_TRAIN_ITERS} iters, bf16, "
+        f"kernels vs plain autograd, cuDNN deterministic")
+    report_steps("mixed-train-e2e", mk, mp, compare_steps(mk, gk, mp, gp),
+                 {"loss": MIXED_TRAIN_LOSS_RTOL, "norm": MIXED_TRAIN_NORM_RTOL, "grad": MIXED_TRAIN_GRAD_TOL,
+                  "fnet": MIXED_TRAIN_FNET_GRAD_TOL, "zero": MIXED_TRAIN_ZERO_GRAD_TOL})
+
+
+def phase_mixed_converge() -> None:
+    """The JAX package's shipping-numerics convergence test, run by the
+    port with the kernels: CONVERGE_STEPS fresh synthetic batches
+    (`train/synthetic.py`, the port's copy of the test's generator), then
+    the held-out EPE by `synthetic.validate_epe`."""
+    h, w = CONVERGE_HW
+    cfg = TrainConfig(model=MIXED_TRAIN_CONFIG, batch_size=CONVERGE_BATCH, num_steps=CONVERGE_STEPS,
+                      train_iters=CONVERGE_ITERS, lr=CONVERGE_LR)
+    trainer = Trainer(cfg, (h, w, 3), device=DEVICE)
+    reset_launches()
+    losses = []
+    t = time.perf_counter()
+    for step in range(CONVERGE_STEPS):
+        m = trainer.train_step(synthetic.make_batch(np.random.default_rng((7, step)), CONVERGE_BATCH, h, w))
+        losses.append(m["live_loss"])
+        if step % 100 == 99:
+            log(f"[mixed-converge] step {step + 1}: loss {m['live_loss']:.4f}, epe {m['epe']:.4f}, "
+                f"grad_norm {m['grad_norm']:.4f}, {time.perf_counter() - t:.1f} s")
+    train_s = time.perf_counter() - t
+    counts = launches()
+    t = time.perf_counter()
+    epe = synthetic.validate_epe(trainer.model, h, w, n=8, iters=12)
+    first, last = float(np.mean(losses[:100])), float(np.mean(losses[-100:]))
+    log(f"[mixed-converge] {CONVERGE_STEPS} steps of b{CONVERGE_BATCH} {h}x{w}, {CONVERGE_ITERS} iters, lr "
+        f"{CONVERGE_LR:g}: {train_s:.1f} s ({train_s / CONVERGE_STEPS * 1e3:.1f} ms/step), launches {counts}; mean "
+        f"loss first 100 {first:.4f}, last 100 {last:.4f} (ratio {last / first:.4f}, criterion < "
+        f"{CONVERGE_LOSS_RATIO}); held-out EPE {epe:.4f} px over 8 samples at 12 iters (criterion < "
+        f"{CONVERGE_EPE_PX}; the JAX package's TPU calibration 0.734), {time.perf_counter() - t:.1f} s")
+    want = expect(corr_lookup_bf16=CONVERGE_STEPS * CONVERGE_ITERS, corr_scatter_bf16=CONVERGE_STEPS * CONVERGE_ITERS)
+    if counts != want:
+        raise AssertionError(f"mixed convergence: kernel launches {counts} != expected {want}")
+    if not (np.all(np.isfinite(losses)) and last < CONVERGE_LOSS_RATIO * first and epe < CONVERGE_EPE_PX):
+        raise AssertionError(f"mixed convergence failed: loss {first} -> {last}, EPE {epe}")
 
 
 def stereo_pair(rng, h, w, shift=12):
@@ -1462,6 +1701,7 @@ def phase_timing(gen, errs, counts) -> list:
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         mixed = f"{len(MIXED_REQUESTS)} requests of the mixed configuration"
         where = {"corr_scatter": f"{TRAIN_TIMED_STEPS} training steps",
+                 "corr_scatter_bf16": f"{MIXED_TRAIN_TIMED_STEPS} mixed training steps",
                  "corr_lookup_bf16": mixed, "corr_pyramid_bf16": mixed, "encoder_conv_bf16": mixed,
                  "encoder_join_bf16": mixed,
                  "corr_prefetch_lookup": "the [evaluate] run (2 images)",
@@ -1702,6 +1942,35 @@ def bf16_timing(gen, flush, entry) -> list:
     ms = time_ms(lambda: encoder_cuda.fused_join(skip, y, aff_y, "in", aff_s, "in"), flush=flush)
     plain_ms = time_ms(lambda: encoder_cuda.plain_join(skip, y, aff_y, "in", aff_s, "in"), flush=flush)
     entry("encoder_join_bf16", ms, plain_ms, 2 * 3 * 64 * hw + 4 * 4 * 64, 8 * 64 * hw, None)
+    del skip, y
+    # The bf16 scatter (bf16 cotangent, bf16 levels) at the fp32 row's shape
+    # and at the bench's training setup (the JSON row). Library: autograd of
+    # the bf16 F.grid_sample lookup (bf16 rows and grid, as in the lookup's
+    # bf16 row) with respect to its rows.
+    for b in (TRAIN_BATCH, MIXED_TRAIN_BATCH):
+        h, w = TRAIN_HW[0] // 4, TRAIN_HW[1] // 4
+        pyramid, coords = lookup_inputs(gen, b, h, w, w)
+        widths = [lvl.shape[-1] for lvl in pyramid]
+        grad = torch.randn((b, h, w, 36), generator=gen, device=DEVICE).to(BF16)
+        dtypes = [BF16] * 4
+        ms = time_ms(lambda: corr_cuda.corr_scatter(coords, grad, widths, 4, dtypes), flush=flush)
+        plain_ms = time_ms(lambda: corr_cuda.plain_corr_scatter(coords, grad, widths, 4, dtypes), flush=flush)
+        rows, grid = grid_sample_lookup_inputs(pyramid, coords, 4)
+        rows = rows.to(BF16).requires_grad_()
+        sampled = F.grid_sample(rows, grid.to(BF16), mode="bilinear", padding_mode="zeros", align_corners=True)
+        gout = grad.reshape(-1, 4, 9).permute(1, 0, 2).reshape(sampled.shape).contiguous()
+        lib_ms = time_ms(lambda: torch.autograd.grad(sampled, rows, gout, retain_graph=True), flush=flush)
+        n_q = coords.numel()
+        # Coordinates (fp32) and the bf16 cotangent read once, every level's
+        # dense bf16 row written once.
+        nbytes = 4 * n_q + 2 * n_q * 36 + 2 * n_q * sum(widths)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"[timing] corr_scatter_bf16 b{b} {h}x{w}: kernel {ms:.4f} ms = {nbytes / (ms * 1e-3) / 1e12:.3f} TB/s, "
+            f"{bound / ms:.0%} of its {bound:.4f} ms bound ({nbytes} B); plain {plain_ms:.4f} ms; bf16 grid_sample "
+            f"backward {lib_ms:.4f} ms")
+        if b == MIXED_TRAIN_BATCH:
+            entry("corr_scatter_bf16", ms, plain_ms, nbytes, 3 * n_q * 4 * 10, lib_ms)
+        del pyramid, coords, grad, rows, grid, sampled, gout
     return out
 
 
@@ -1748,11 +2017,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_e2e(batch)
     torch.cuda.empty_cache()
+    errs.update(phase_bf16_scatter_kernels(gen))
+    torch.cuda.empty_cache()
+    mixed_train_counts, mixed_batch = phase_mixed_train(rng)
+    torch.cuda.empty_cache()
+    phase_mixed_train_e2e(mixed_batch)
+    torch.cuda.empty_cache()
+    phase_mixed_converge()
+    torch.cuda.empty_cache()
     # Each kernel's launches come from the main-path run of the slice that
     # added it: serving for the forward kernels, training for the scatter,
     # evaluation for the windowed lookup, the gates configuration's forward
     # for the gate pair, the mixed configuration's serving for the bf16
-    # variants.
+    # forward variants, mixed training for the bf16 scatter.
     for name in ("corr_pyramid", "encoder_conv", "encoder_join"):
         counts[name] = fused_counts[name]
     counts["corr_scatter"] = train_counts["corr_scatter"]
@@ -1761,6 +2038,7 @@ def main() -> int:
         counts[name] = gates_counts[name]
     for name in ("corr_lookup_bf16", "corr_pyramid_bf16", "encoder_conv_bf16", "encoder_join_bf16"):
         counts[name] = mixed_counts[name]
+    counts["corr_scatter_bf16"] = mixed_train_counts["corr_scatter_bf16"]
     kernels = phase_timing(gen, errs, counts)
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -7,10 +7,13 @@ port runs on machines without JAX and imports nothing from the JAX package.
 Defaults and validation match the original field for field.
 
 `mixed_precision` and `corr_dtype` are ported for test-mode forwards
-(inference, serving, evaluation): a bf16 `mixed_precision` forward with the
-fused GRU tail, the windowed lookup or the gate pair, and any training
-forward with bf16 compute or a bf16 pyramid, raise "not ported yet" (their
-bf16 kernels and the bf16 backward come later).
+(inference, serving, evaluation) and for training (the JAX package's
+shipping numerics: "pallas", bf16 compute, a bf16 pyramid, whose lookup's
+backward is the bf16 scatter kernel). A bf16 configuration with the fused
+GRU tail or the windowed lookup raises "not ported yet" at construction, and
+a `mixed_precision` test-mode forward with the gate pair raises in the
+model (their bf16 kernels come later); a training forward runs none of the
+three, as in JAX.
 
 Not yet ported, so not present: the `"alt"` correlation
 strategy, `shared_backbone`, `sequential_encoder`, `encoder_s2d` (a TPU
@@ -72,7 +75,8 @@ class RAFTStereoConfig:
     # stay fp32 and are cast at use, the images are normalized in fp32 and
     # then cast, the coordinates stay fp32, the lookup taps and the update
     # block's inputs are bf16, and the mask goes back to fp32 before the
-    # convex upsample. Test-mode forwards only (see `check_trainable`).
+    # convex upsample. Training keeps fp32 parameters, gradients and
+    # optimizer state, and an fp32 loss on fp32 flows.
     mixed_precision: bool = False
     # Storage dtype of the correlation pyramid. "bfloat16" builds the volume
     # from bf16 operands with fp32 sums, divides by sqrt(D) in fp32 and
@@ -154,13 +158,6 @@ class RAFTStereoConfig:
                              f"{'mixed_precision' if self.mixed_precision else 'corr_dtype=bfloat16'} "
                              "(their bf16 kernels are still to come)")
 
-    def check_trainable(self) -> None:
-        """Raise for what a training forward cannot run yet: bf16 compute
-        or a bf16 pyramid (bf16 training needs the bf16 scatter)."""
-        if self.mixed_precision or self.corr_dtype == "bfloat16":
-            raise ValueError("not ported yet: training with mixed_precision or corr_dtype=bfloat16 "
-                             "(bf16 training needs the bf16 scatter); test-mode forwards only")
-
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
@@ -217,7 +214,10 @@ class ServeConfig:
 class TrainConfig:
     """The training step's part of the training config (the JAX package's
     `TrainConfig`, reference train_stereo.py:234-272): model, batch,
-    optimizer, schedule, loss and the non-finite policy."""
+    optimizer, schedule, loss and the non-finite policy. Every model
+    configuration trains, fp32 or bf16: `RAFTStereoConfig(corr_implementation=
+    "pallas", mixed_precision=True, corr_dtype="bfloat16")` is the JAX
+    package's shipping training numerics."""
 
     model: RAFTStereoConfig = dataclasses.field(default_factory=RAFTStereoConfig)
     batch_size: int = 6
@@ -237,4 +237,3 @@ class TrainConfig:
     def __post_init__(self):
         if self.nan_policy not in NAN_POLICIES:
             raise ValueError(f"nan_policy {self.nan_policy!r} not in {NAN_POLICIES}")
-        self.model.check_trainable()

@@ -1,5 +1,6 @@
 // Element types of the kernels that take fp32 or bf16 tensors
-// (csrc/corr_lookup.cu, corr_pyramid.cu, encoder_conv.cu, encoder_join.cu).
+// (csrc/corr_lookup.cu, corr_pyramid.cu, encoder_conv.cu, encoder_join.cu,
+// corr_scatter.cu).
 //
 // Arithmetic is fp32 in both: an element is widened to float on load, and
 // `Elem<T>::round` rounds a float result to T's precision (round to nearest

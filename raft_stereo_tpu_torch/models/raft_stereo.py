@@ -16,8 +16,11 @@ encoders and the update block run in bf16 on fp32 parameters cast at use,
 the correlation state is built from the feature maps widened to fp32 (by
 `corr_dtype`'s contract), the taps and the flow enter the update block in
 bf16, the coordinates stay fp32 (`coords1 += delta_flow` widened), and the
-mask goes back to fp32 before the convex upsample. A training forward with
-bf16 compute or a bf16 pyramid raises (not ported yet).
+mask goes back to fp32 before the convex upsample, in both modes. Training
+keeps the same boundaries: with "pallas" the lookup kernel stores the taps
+in bf16 and they are saved in bf16 across the remat, the flows the loss
+reads are fp32, and the lookup's backward (`ops/corr_cuda.py` `CorrLookup`)
+returns d(pyramid) in the pyramid's dtype.
 
 The training forward detaches the coordinates at the start of every
 iteration, as JAX's `stop_gradient` does, and with `remat_iterations` runs
@@ -206,8 +209,6 @@ class RAFTStereo(nn.Module):
         (iters, B, h, f, w, f) with element [it, b, y, i, x, j] at full-res
         pixel (y*f + i, x*f + j) (`utils.geometry.unblock_predictions` gives
         the row-major (iters, B, H, W, 1) stack)."""
-        if not test_mode:
-            self.config.check_trainable()
         state = self.apply_flow_init(self.encode_features(image1, image2, test_mode), flow_init)
         if test_mode:
             for _ in range(iters):
@@ -236,6 +237,6 @@ class RAFTStereo(nn.Module):
             net0s.append(net[0])
         b, h, w = coords1.shape
         f = cfg.downsample_factor
-        mask = self.mask_head(torch.cat(net0s, dim=0))
+        mask = self.mask_head(torch.cat(net0s, dim=0)).to(coords1.dtype)
         up = convex_upsample_blocked(torch.cat(flows, dim=0)[:, None], mask, f)
         return up.reshape(iters, b, h, f, w, f)

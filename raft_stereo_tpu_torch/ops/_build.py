@@ -58,7 +58,8 @@ SOURCE_FLAGS = {
 }
 
 # The dtype flag of the C entry points that take fp32 or bf16 tensors
-# (corr_lookup, corr_pyramid, encoder_conv, encoder_join): 0 fp32, 1 bf16.
+# (corr_lookup, corr_pyramid, encoder_conv, encoder_join, corr_scatter):
+# 0 fp32, 1 bf16.
 DTYPE_FLAGS = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()

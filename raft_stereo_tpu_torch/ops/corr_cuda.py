@@ -23,16 +23,19 @@ where autograd would record.
 The lookup's gradient is `CorrLookup`, the counterpart of the JAX package's
 custom VJP of `pallas_corr_lookup_padded`: d(pyramid) from the tap cotangent
 by `corr_scatter` (one launch of `csrc/corr_scatter.cu` per backward for
-CUDA tensors, `plain_corr_scatter` for CPU tensors), and no gradient to the
-coordinates. `corr_lookup` goes through it whenever autograd records.
+CUDA tensors, `plain_corr_scatter` for CPU tensors), each level's gradient
+in that level's dtype, and no gradient to the coordinates. `corr_lookup`
+goes through it whenever autograd records, for fp32 or bf16 levels and
+taps (bf16 training: the scatter reads a bf16 cotangent in place and
+stores bf16 levels).
 
 The pyramid and scatter kernels launch what a plain function here plans
 (`pyramid_plan`: tile, copy width, grid, shared bytes; `scatter_plan`:
 queries per block, grid, shared bytes, 64-bit indexing); a shape or stride
 no plan takes raises.
 
-Not ported: the bf16 variants of the scatter (bf16 training) and of the
-windowed lookup, and the "alt" strategy's on-the-fly lookup.
+Not ported: the bf16 variant of the windowed lookup, and the "alt"
+strategy's on-the-fly lookup.
 """
 
 from __future__ import annotations
@@ -47,9 +50,10 @@ from raft_stereo_tpu_torch.ops import _build, corr
 # Kernel launches since the last reset; chip_smoke.py reads it to prove the
 # serving and training paths went through the kernels. The bf16 variants
 # count apart: the pyramid's tensor-core kernel under "corr_pyramid_bf16",
-# a lookup with bf16 levels or taps under "corr_lookup_bf16".
+# a lookup with bf16 levels or taps under "corr_lookup_bf16", a scatter
+# with a bf16 cotangent or bf16 levels under "corr_scatter_bf16".
 LAUNCHES = {"corr_lookup": 0, "corr_pyramid": 0, "corr_scatter": 0, "corr_prefetch_lookup": 0,
-            "corr_lookup_bf16": 0, "corr_pyramid_bf16": 0}
+            "corr_lookup_bf16": 0, "corr_pyramid_bf16": 0, "corr_scatter_bf16": 0}
 MAX_LEVELS = 8  # MAX_LEVELS of csrc/corr_lookup.cu, corr_prefetch.cu and corr_scatter.cu
 # csrc/corr_pyramid.cu: a volume tile pools into every level, so its
 # columns must align to 2**(L-1); its level table holds 7.
@@ -161,25 +165,35 @@ def pyramid_plan(b: int, h: int, w1: int, w2: int, d: int, levels: int, strides:
 
 class ScatterPlan(NamedTuple):
     """A launch of `csrc/corr_scatter.cu`: block i owns queries
-    [i * run, min((i + 1) * run, n_queries)); `wide`: 64-bit indexing."""
+    [i * run, min((i + 1) * run, n_queries)); `wide`: 64-bit indexing;
+    `vec`: output elements per 16-byte store (4 fp32 or 8 bf16)."""
 
     run: int
     blocks: int
     shared_bytes: int
     wide: bool
+    vec: int
 
 
 def scatter_shared_bytes(run: int, levels: int, radius: int) -> int:
-    """Cotangents, combined weights, window starts and coordinates of a run."""
+    """Cotangents, combined weights, window starts and coordinates of a run,
+    all 4 bytes an element whatever the cotangent's and levels' dtypes (a
+    bf16 cotangent is widened to fp32 as it is staged; the weights are
+    fp32 until the store rounds them)."""
     taps = 2 * radius + 1
     return 4 * run * (levels * taps + levels * (taps + 2) + 1)
 
 
-def scatter_plan(n_queries: int, widths: Sequence[int], radius: int) -> ScatterPlan:
-    """The launch plan of the scatter kernel: SCATTER_RUN queries per block,
-    halved until its shared memory fits, one block per run, and 64-bit
-    indexing past 2**31 - 1 outputs (or cotangents). Raises for what the
-    kernel does not take."""
+def scatter_plan(n_queries: int, widths: Sequence[int], radius: int, elem_bytes: int = 4) -> ScatterPlan:
+    """The launch plan of the scatter kernel for levels of `elem_bytes` (4
+    fp32, 2 bf16): SCATTER_RUN queries per block, halved until its shared
+    memory fits, one block per run, 64-bit indexing past 2**31 - 1 outputs
+    (or cotangents) and 16 // elem_bytes elements per vector store. The
+    index limits count elements, so they are the same for both dtypes; the
+    element size sets only the vector width. Raises for what the kernel
+    does not take."""
+    if elem_bytes not in (2, 4):
+        raise ValueError(f"corr_scatter kernel stores fp32 or bf16 levels (4 or 2 bytes), got {elem_bytes}")
     levels = len(widths)
     if not 1 <= levels <= MAX_LEVELS:
         raise ValueError(f"corr_scatter kernel takes 1..{MAX_LEVELS} levels, got {levels}")
@@ -197,7 +211,7 @@ def scatter_plan(n_queries: int, widths: Sequence[int], radius: int) -> ScatterP
     if blocks > MAX_GRID_X:
         raise ValueError(f"corr_scatter kernel: {blocks} blocks exceed the grid's {MAX_GRID_X}")
     wide = n_queries * max(sum(widths), levels * (2 * radius + 1)) > INT32_MAX
-    return ScatterPlan(run, blocks, shared, wide)
+    return ScatterPlan(run, blocks, shared, wide, 16 // elem_bytes)
 
 
 def corr_state(fmap1: torch.Tensor, fmap2: torch.Tensor, levels: int,
@@ -309,13 +323,11 @@ def corr_lookup(state: Sequence[torch.Tensor], coords: torch.Tensor, radius: int
     plain version's own dtype on the CPU), level-major; zero outside
     [0, W2_l). The interpolation is fp32 and each tap is rounded once to
     `out_dtype`. Under autograd (grad mode on and a level or `coords`
-    requiring grad) the result is differentiable in fp32 levels through
-    `CorrLookup`; the bf16 backward is not ported yet."""
+    requiring grad) the result is differentiable in the levels, fp32 or
+    bf16, through `CorrLookup`."""
     levels = tuple(state)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (coords, *levels)):
-        if out_dtype == torch.bfloat16 or any(t.dtype == torch.bfloat16 for t in levels):
-            raise ValueError("not ported yet: the lookup's bf16 backward (bf16 training)")
-        return CorrLookup.apply(coords, radius, *levels)
+        return CorrLookup.apply(coords, radius, out_dtype, *levels)
     return _lookup(levels, coords, radius, out_dtype)
 
 
@@ -407,27 +419,31 @@ def prefetch_corr_lookup(state: Sequence[torch.Tensor], coords: torch.Tensor, ra
 
 class CorrLookup(torch.autograd.Function):
     """`corr_lookup` with the JAX package's gradient contract
-    (`pallas_corr_lookup_padded`): d(levels) by `corr_scatter`, none to
-    `coords`. Saves only the coordinates and the level widths; the backward
-    needs no level values."""
+    (`pallas_corr_lookup_padded`): d(levels) by `corr_scatter`, each in its
+    level's dtype, none to `coords`. Saves only the coordinates and the
+    levels' widths and dtypes; the backward needs no level values. The taps
+    are stored in `out_dtype`, so the cotangent arrives in it (bf16 taps
+    give a bf16 cotangent, which the scatter reads in place)."""
 
     @staticmethod
-    def forward(ctx, coords: torch.Tensor, radius: int, *levels: torch.Tensor) -> torch.Tensor:
+    def forward(ctx, coords: torch.Tensor, radius: int, out_dtype: Optional[torch.dtype],
+                *levels: torch.Tensor) -> torch.Tensor:
         ctx.save_for_backward(coords)
         ctx.radius = radius
         ctx.widths = tuple(lvl.shape[-1] for lvl in levels)
-        return _lookup(levels, coords, radius)
+        ctx.dtypes = tuple(lvl.dtype for lvl in levels)
+        return _lookup(levels, coords, radius, out_dtype)
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
         (coords,) = ctx.saved_tensors
-        d_levels = corr_scatter(coords, grad.contiguous(), ctx.widths, ctx.radius)
-        return (None, None, *d_levels)
+        d_levels = corr_scatter(coords, grad.contiguous(), ctx.widths, ctx.radius, ctx.dtypes)
+        return (None, None, None, *d_levels)
 
 
 def _scatter_lib():
     lib = _build.load("corr_scatter")
-    fn = lib.raft_corr_scatter_f32
+    fn = lib.raft_corr_scatter
     if fn.argtypes is None:
         fn.argtypes = [
             ctypes.c_void_p,  # coords
@@ -441,6 +457,9 @@ def _scatter_lib():
             ctypes.c_longlong,  # plan: blocks
             ctypes.c_int,  # plan: shared bytes
             ctypes.c_int,  # plan: 64-bit indexing
+            ctypes.c_int,  # plan: elements per vector store
+            ctypes.c_int,  # the cotangent is bf16
+            ctypes.c_int,  # the levels are bf16
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
@@ -449,28 +468,37 @@ def _scatter_lib():
     return lib
 
 
-def corr_scatter(coords: torch.Tensor, grad: torch.Tensor, widths: Sequence[int],
-                 radius: int) -> Tuple[torch.Tensor, ...]:
+def corr_scatter(coords: torch.Tensor, grad: torch.Tensor, widths: Sequence[int], radius: int,
+                 dtypes: Optional[Sequence[torch.dtype]] = None) -> Tuple[torch.Tensor, ...]:
     """d(pyramid) of the lookup: coords (B, H, W1) at level-0 resolution,
     grad (B, H, W1, L*(2r+1)) the tap cotangent -> L dense levels
-    (B, H, W1, widths[l]) fp32. One launch of `csrc/corr_scatter.cu` for
-    CUDA tensors, `plain_corr_scatter` for CPU tensors."""
+    (B, H, W1, widths[l]), level l in dtypes[l] (None: the cotangent's
+    compute dtype, fp32 for an fp32 or bf16 cotangent). One launch of
+    `csrc/corr_scatter.cu` for CUDA tensors, which takes fp32 coordinates,
+    an fp32 or bf16 cotangent and levels all fp32 or all bf16, and raises
+    for anything else; `plain_corr_scatter` for CPU tensors."""
     if not coords.is_cuda:
-        return plain_corr_scatter(coords, grad, widths, radius)
+        return plain_corr_scatter(coords, grad, widths, radius, dtypes)
     b, h, w1 = coords.shape
     levels = len(widths)
-    plan = scatter_plan(b * h * w1, widths, radius)
+    dtypes = (torch.float32,) * levels if dtypes is None else tuple(dtypes)
+    if len(dtypes) != levels or len(set(dtypes)) != 1 or dtypes[0] not in _build.DTYPE_FLAGS:
+        raise ValueError(f"corr_scatter kernel stores levels all fp32 or all bf16, got {dtypes}")
+    if grad.dtype not in _build.DTYPE_FLAGS:
+        raise ValueError(f"corr_scatter kernel takes an fp32 or bf16 cotangent, got {grad.dtype}")
+    out_dtype = dtypes[0]
+    plan = scatter_plan(b * h * w1, widths, radius, torch.finfo(out_dtype).bits // 8)
     if tuple(grad.shape) != (b, h, w1, levels * (2 * radius + 1)):
         raise ValueError(f"grad shape {tuple(grad.shape)} does not match coords {(b, h, w1)} "
                          f"with {levels} levels of {2 * radius + 1} taps")
-    for t in (coords, grad):
-        if t.device != coords.device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError("corr_scatter kernel needs contiguous fp32 tensors on one CUDA device")
-    out = tuple(torch.empty((b, h, w1, w), dtype=torch.float32, device=coords.device) for w in widths)
+    if coords.dtype != torch.float32 or grad.device != coords.device or not (
+            coords.is_contiguous() and grad.is_contiguous()):
+        raise ValueError("corr_scatter kernel needs contiguous tensors on one CUDA device, fp32 coordinates")
+    out = tuple(torch.empty((b, h, w1, w), dtype=out_dtype, device=coords.device) for w in widths)
     ptrs = (ctypes.c_void_p * levels)(*[o.data_ptr() for o in out])
     c_widths = (ctypes.c_int * levels)(*widths)
     lib = _scatter_lib()
-    status = lib.raft_corr_scatter_f32(
+    status = lib.raft_corr_scatter(
         coords.data_ptr(),
         grad.data_ptr(),
         ctypes.cast(ptrs, ctypes.c_void_p),
@@ -482,20 +510,27 @@ def corr_scatter(coords: torch.Tensor, grad: torch.Tensor, widths: Sequence[int]
         plan.blocks,
         plan.shared_bytes,
         int(plan.wide),
+        plan.vec,
+        _build.DTYPE_FLAGS[grad.dtype],
+        _build.DTYPE_FLAGS[out_dtype],
         torch.cuda.current_stream(coords.device).cuda_stream,
     )
     _build.check(status, "corr_scatter kernel", lib.raft_corr_scatter_error_string)
-    LAUNCHES["corr_scatter"] += 1
+    LAUNCHES["corr_scatter_bf16" if torch.bfloat16 in (grad.dtype, out_dtype) else "corr_scatter"] += 1
     return out
 
 
-def plain_corr_scatter(coords: torch.Tensor, grad: torch.Tensor, widths: Sequence[int],
-                       radius: int) -> Tuple[torch.Tensor, ...]:
+def plain_corr_scatter(coords: torch.Tensor, grad: torch.Tensor, widths: Sequence[int], radius: int,
+                       dtypes: Optional[Sequence[torch.dtype]] = None) -> Tuple[torch.Tensor, ...]:
     """The function of `corr_scatter` in plain PyTorch: per level, x =
     coords / 2**l, one fraction f = x - floor(x) for every tap, and sample
     floor(x) - r + m of the query's row gets cw[m] = g[m](1-f) + g[m-1]f,
-    m = 0..2r+1 (g[-1] = g[2r+1] = 0); all other samples are zero."""
+    m = 0..2r+1 (g[-1] = g[2r+1] = 0); all other samples are zero. cw is
+    computed in fp32 (a bf16 cotangent widened, which is exact; a float64
+    one stays float64) and each level is cast once to dtypes[l] (None: that
+    compute dtype)."""
     k = 2 * radius + 1
+    grad = grad.to(torch.promote_types(grad.dtype, torch.float32))
     zero = grad.new_zeros((*grad.shape[:-1], 1))
     out = []
     for lvl, w2 in enumerate(widths):
@@ -509,5 +544,6 @@ def plain_corr_scatter(coords: torch.Tensor, grad: torch.Tensor, widths: Sequenc
         pos = torch.arange(w2, dtype=coords.dtype, device=coords.device)
         m = pos - (x0f[..., None] - radius)
         idx = torch.where((m >= 0) & (m <= k), m, float(k + 1)).long()
-        out.append(torch.gather(torch.cat([cw, zero], dim=-1), -1, idx))
+        d = torch.gather(torch.cat([cw, zero], dim=-1), -1, idx)
+        out.append(d if dtypes is None else d.to(dtypes[lvl]))
     return tuple(out)

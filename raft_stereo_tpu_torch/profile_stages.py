@@ -1,7 +1,7 @@
 """Device-time breakdown of the anytime serving stages, or of one training
 step, on a CUDA card.
 
-    python -m raft_stereo_tpu_torch.profile_stages [--config kernel|fused|evaluate|mixed|train]
+    python -m raft_stereo_tpu_torch.profile_stages [--config kernel|fused|evaluate|mixed|train|mixed-train]
         [--cases 384x512/1,512x768/1] [--cudnn-benchmark off,on] [--top 8]
 
 Builds the default model with the CUDA lookup and fused GRU tails
@@ -21,15 +21,22 @@ convolution of the forward alone, as below. Needs a CUDA device.
 
 `--config train` runs the training step instead, at the train CLI's recipe
 unless `--cases` names another (default 320x720/6, 16 iterations, remat on
-with the taps saved, the default model with the "pallas" lookup, seeded
-weights, a random batch): after one warm step it traces one step in three
-windows — forward with the loss, backward, clip and optimizer update — and
-prints the same breakdown for each. Then it times every distinct
-convolution of the step alone at its own shape (forward, and forward plus
-backward to data and weight; the mask head's at its batch of iterations x
-batch), with cuDNN's default algorithm choice and with cuDNN off (PyTorch's
-own im2col + GEMM), so that a convolution for which cuDNN picks a far
-slower algorithm stands out.
+with the taps saved, the default model with the "pallas" lookup, fp32,
+seeded weights, a random batch); `--config mixed-train` runs it in the JAX
+package's shipping numerics at the JAX bench's training setup (bf16
+compute, a bf16 pyramid, default 320x720/4, 22 iterations). After one warm
+step it traces one step in three windows — forward with the loss,
+backward, clip and optimizer update — and prints the same breakdown for
+each. Then it times every distinct convolution of the step alone at its
+own shape and dtype (the mask head's at its batch of iterations x batch)
+with cuDNN's default algorithm choice and with cuDNN off (PyTorch's own
+im2col + GEMM), so that a convolution for which cuDNN picks a far slower
+algorithm stands out.
+
+Every conv is timed three ways: forward, the backward to its input
+(dgrad) and the backward to its weight (wgrad), each alone
+(`torch.nn.grad`, which calls the same convolution backward as autograd),
+and for each the kernel that takes most of cuDNN's device time is named.
 """
 
 from __future__ import annotations
@@ -58,9 +65,11 @@ CONFIGS = {
     "mixed": RAFTStereoConfig(corr_implementation="pallas", mixed_precision=True, corr_dtype="bfloat16",
                               fused_encoder=True),
     "train": RAFTStereoConfig(corr_implementation="pallas"),
+    "mixed-train": RAFTStereoConfig(corr_implementation="pallas", mixed_precision=True, corr_dtype="bfloat16"),
 }
-TRAIN_CASE = "320x720/6"
-TRAIN_ITERS = 16
+# The training configurations' default case and iterations: the train CLI's
+# recipe, and the JAX bench's training setup (bench.py `_train_step_seconds`).
+TRAIN_SETUPS = {"train": ("320x720/6", 16), "mixed-train": ("320x720/4", 22)}
 FAMILIES = (
     ("port kernels", ("corr_lookup_kernel", "corr_scatter_kernel", "gru_tail_", "motion_tail_kernel",
                       "corr_pyramid_kernel", "encoder_conv_kernel", "encoder_stats_kernel", "join_kernel",
@@ -80,10 +89,12 @@ def family(name: str) -> str:
 
 
 def kernel_times(prof):
-    """{kernel name: (total device us, calls)} over the trace's device events."""
+    """{kernel name: (total device us, calls)} over the trace's device
+    events. User annotations on the device timeline (the optimizer's
+    `Optimizer.step#AdamW.step` range) span kernels and are left out."""
     out = defaultdict(lambda: [0.0, 0])
     for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        if evt.device_type != torch.autograd.DeviceType.CUDA or getattr(evt, "is_user_annotation", False):
             continue
         out[evt.name][0] += evt.time_range.elapsed_us()
         out[evt.name][1] += 1
@@ -122,20 +133,22 @@ def run_stage(label, fn, top):
     report(label, wall_ms, prof, top)
 
 
-def profile_train(case: str, top: int) -> None:
+def profile_train(config: str, case: str, top: int) -> None:
     """One warm training step, then one step traced in three windows."""
     hw, batch = case.split("/")
     h, w = map(int, hw.split("x"))
     b = int(batch)
-    cfg = TrainConfig(model=CONFIGS["train"], batch_size=b, train_iters=TRAIN_ITERS, seed=0)
+    iters = TRAIN_SETUPS[config][1]
+    cfg = TrainConfig(model=CONFIGS[config], batch_size=b, train_iters=iters, seed=0)
     trainer = Trainer(cfg, (h, w, 3), device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     data = {"image1": torch.rand((b, h, w, 3), generator=gen, device="cuda") * 255,
             "image2": torch.rand((b, h, w, 3), generator=gen, device="cuda") * 255,
             "flow": -torch.rand((b, h, w, 1), generator=gen, device="cuda") * 48,
             "valid": torch.ones((b, h, w), device="cuda")}
-    print(f"[train config, {h}x{w} b{b}, {TRAIN_ITERS} iters, remat_iterations "
-          f"{cfg.model.remat_iterations}, remat_save_corr {cfg.model.remat_save_corr}]")
+    print(f"[{config} config, {h}x{w} b{b}, {iters} iters, mixed_precision {cfg.model.mixed_precision}, "
+          f"corr_dtype {cfg.model.corr_dtype}, remat_iterations {cfg.model.remat_iterations}, "
+          f"remat_save_corr {cfg.model.remat_save_corr}]")
     trainer.train_step(data)
     torch.cuda.synchronize()
     model, opt = trainer.model, trainer.optimizer
@@ -144,7 +157,7 @@ def profile_train(case: str, top: int) -> None:
     windows = {}
 
     def forward():
-        flows = model(data["image1"], data["image2"], iters=TRAIN_ITERS)
+        flows = model(data["image1"], data["image2"], iters=iters)
         windows["loss"] = sequence_loss(flows, data["flow"], data["valid"], cfg.loss_gamma, cfg.max_flow)[0]
 
     def backward():
@@ -165,32 +178,33 @@ def profile_train(case: str, top: int) -> None:
         report(label, wall_ms, prof, top)
     print(f"  traced step: wall {total:.3f} ms (under the profiler); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    time_convs(model, data, b * TRAIN_ITERS, test_mode=False)
+    time_convs(model, data, b * iters, test_mode=False)
 
 
 def conv_ms(x, weight, stride, padding, reps=3):
-    """(forward ms, forward + backward ms) of one conv: the mean of `reps`
-    synchronized calls after one warm call."""
-    x = x.detach().requires_grad_()
-    weight = weight.detach().requires_grad_()
-
-    def fwd():
-        return F.conv2d(x, weight, None, stride, padding)
-
-    gy = torch.randn_like(fwd())
-
-    def fwd_bwd():
-        return torch.autograd.grad(fwd(), (x, weight), gy)
-
-    out = []
-    for fn in (fwd, fwd_bwd):
+    """{pass: (ms, kernel)} of one conv for its forward, dgrad and wgrad:
+    the mean of `reps` synchronized calls after one warm call, and the
+    device kernel that takes most of one traced call's time."""
+    gy = torch.randn_like(F.conv2d(x, weight, None, stride, padding))
+    passes = {
+        "forward": lambda: F.conv2d(x, weight, None, stride, padding),
+        "dgrad": lambda: torch.nn.grad.conv2d_input(x.shape, weight, gy, stride, padding),
+        "wgrad": lambda: torch.nn.grad.conv2d_weight(x, weight.shape, gy, stride, padding),
+    }
+    out = {}
+    for name, fn in passes.items():
         fn()
         torch.cuda.synchronize()
         t = time.perf_counter()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-        out.append((time.perf_counter() - t) / reps * 1e3)
+        ms = (time.perf_counter() - t) / reps * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kt = kernel_times(prof)
+        out[name] = (ms, max(kt, key=lambda k: kt[k][0]) if kt else "none")
     return out
 
 
@@ -214,16 +228,18 @@ def time_convs(model, data, mask_batch, test_mode=True) -> None:
         h.remove()
     xs, ws, stride, padding, dtype = keys["mask_head.mask_conv1"]
     shapes[((mask_batch, *xs[1:]), ws, stride, padding, dtype)] = f"mask_head.mask_conv1 (batch {mask_batch})"
-    print(f"  distinct convolutions, timed alone (forward ms / forward + backward ms): "
-          f"cuDNN's choice | cuDNN off")
+    print("  distinct convolutions, timed alone (forward / dgrad / wgrad ms): cuDNN's choice | cuDNN off; "
+          "then the kernel that takes most of cuDNN's time in each")
     gen = torch.Generator(device="cuda").manual_seed(0)
     for (xs, ws, stride, padding, dtype), name in shapes.items():
         x = torch.randn(xs, generator=gen, device="cuda").to(dtype)
         w = (torch.randn(ws, generator=gen, device="cuda") * 0.05).to(dtype)
-        f, fb = conv_ms(x, w, stride, padding)
+        on = conv_ms(x, w, stride, padding)
         with torch.backends.cudnn.flags(enabled=False):
-            f_off, fb_off = conv_ms(x, w, stride, padding)
-        print(f"    {name:44s} x{xs} w{ws} {str(dtype)[6:]}: {f:9.3f} / {fb:9.3f} | {f_off:9.3f} / {fb_off:9.3f}")
+            off = conv_ms(x, w, stride, padding)
+        print(f"    {name:44s} x{xs} w{ws} {str(dtype)[6:]}: "
+              + " / ".join(f"{on[k][0]:9.3f}" for k in on) + " | " + " / ".join(f"{off[k][0]:9.3f}" for k in off))
+        print("      " + "; ".join(f"{k} {v[1][:90]}" for k, v in on.items()))
         del x, w
 
 
@@ -231,7 +247,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", choices=sorted(CONFIGS), default="kernel")
     ap.add_argument("--cases", default=None,
-                    help="comma list of HxW/batch (default 384x512/1,512x768/1,512x768/4; train: 320x720/6)")
+                    help="comma list of HxW/batch (default 384x512/1,512x768/1,512x768/4; train: 320x720/6; "
+                         "mixed-train: 320x720/4)")
     ap.add_argument("--cudnn-benchmark", default="off", help="comma list of off/on")
     ap.add_argument("--top", type=int, default=8)
     args = ap.parse_args(argv)
@@ -242,12 +259,12 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True, timeout=60).stdout.strip())
-    if args.config == "train":
+    if args.config in TRAIN_SETUPS:
         for mode in args.cudnn_benchmark.split(","):
             torch.backends.cudnn.benchmark = mode == "on"
-            for case in (args.cases or TRAIN_CASE).split(","):
+            for case in (args.cases or TRAIN_SETUPS[args.config][0]).split(","):
                 print(f"[cudnn.benchmark {mode}]")
-                profile_train(case, args.top)
+                profile_train(args.config, case, args.top)
                 torch.cuda.empty_cache()
         return 0
     model = build_model(CONFIGS[args.config], seed=0, device="cuda")

@@ -15,9 +15,15 @@ opt_state; `learning_rate` in the metrics is the schedule at the trainer's
 step, as in JAX. Under "raise" the step raises `NonFiniteLossError` before
 any update lands.
 
+Mixed precision trains as in JAX (`RAFTStereoConfig(corr_implementation=
+"pallas", mixed_precision=True, corr_dtype="bfloat16")`, the JAX package's
+shipping numerics): bf16 compute and pyramid, with parameters, gradients,
+clipping, the AdamW state and the loss in fp32 (the layers cast the fp32
+parameters at use, so their gradients come back fp32) and no loss scaling.
+
 Not ported yet: checkpoints and resume, `nan_policy="rollback"`, the
 watchdog, the multi-host coordinator, data loading and augmentation,
-validation hooks, metric sinks, mixed precision, data parallelism.
+validation hooks, metric sinks, data parallelism.
 """
 
 from __future__ import annotations

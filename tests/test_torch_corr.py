@@ -41,7 +41,7 @@ from raft_stereo_tpu.ops.corr_pallas import (
     prefetch_corr_lookup_padded,
 )
 from raft_stereo_tpu_torch.ops import corr, corr_cuda
-from torch_parity import torch_single_thread  # noqa: F401 (autouse fixture)
+from torch_parity import scatter_case, torch_single_thread  # noqa: F401 (autouse fixture)
 
 TOL = 1e-5
 LEVELS, RADIUS = 4, 4
@@ -153,20 +153,6 @@ SCATTER_CASES = {
     "r1_l3_width_one": (1, 1, 9, 5, 3, 1),
     "r3_l1": (2, 2, 16, 16, 1, 3),
 }
-
-
-def scatter_case(rng, b, h, w1, w2, levels, radius):
-    """Coordinates mostly in range, a share far out on both sides, and in
-    the first row: negative, 0, integral, W2_l - 1 of every level, W2, far
-    out (+-1e6), and mid-sample."""
-    x = np.arange(w1, dtype=np.float32)[None, None, :] - rng.uniform(0, w2 / 3, (b, h, w1))
-    wild = rng.uniform(0, 1, (b, h, w1)) < 0.2
-    x = np.where(wild, rng.uniform(-3 * w2, 3 * w2, (b, h, w1)), x).astype(np.float32)
-    special = [-1.0, -3.5, 0.0, 3.0, float(w2), 1e6, -1e6, w2 - 0.5]
-    special += [float(((w2 >> l) - 1) << l) for l in range(levels)]
-    x.reshape(-1)[: len(special)] = special[: x.size]
-    g = rng.standard_normal((b, h, w1, levels * (2 * radius + 1))).astype(np.float32)
-    return x, g, [w2 >> l for l in range(levels)]
 
 
 @pytest.mark.parametrize("case", sorted(SCATTER_CASES))

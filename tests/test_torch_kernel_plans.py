@@ -14,10 +14,14 @@ is the tensor-core kernel: one 128 x 128 tile, its own copy width and
 shared bytes, the shared-memory epilogue.
 Scatter: the runs of queries cover every query exactly once (also where the
 count is not a multiple of the run), the shared bytes fit, and 64-bit
-indexing is chosen past 2**31 - 1 outputs.
+indexing is chosen past 2**31 - 1 outputs. The bf16 levels (elem_bytes 2)
+take the same runs, shared bytes and index limits (all counted in elements
+or fp32 staging), and 8 elements per 16-byte store: every level's span of
+a block splits into an element-by-element head up to its first 16-byte
+boundary, whole vectors and an element-by-element tail.
 
-`block_tile` and `block_queries` below restate how the kernels map a block
-to its work; that the .cu files derive the same mapping is shown only on the
+`block_tile`, `block_queries` and `span_split` below restate how the kernels
+map a block to its work; that the .cu files derive the same mapping is shown only on the
 card (chip_smoke.py PYRAMID_CASES and SCATTER_CASES, and the gpu-marked
 tests in test_torch_encoder.py and test_torch_corr.py).
 """
@@ -243,3 +247,64 @@ def test_scatter_plan_raises_for_what_the_kernel_does_not_take():
     # A window so wide that one query's weights overflow a block's shared memory.
     with pytest.raises(ValueError, match="shared"):
         corr_cuda.scatter_plan(10, [8] * 8, 2000)
+
+
+def span_split(start: int, n: int, elem_bytes: int):
+    """(head, vectors, tail) of a span of `n` elements that starts `start`
+    elements past a 16-byte boundary, as csrc/corr_scatter.cu splits each
+    level's span of a block (the level's base is 16-byte aligned)."""
+    vec = 16 // elem_bytes
+    head = min((16 - start * elem_bytes % 16) % 16 // elem_bytes, n)
+    vectors = (n - head) // vec
+    return head, vectors, n - head - vectors * vec
+
+
+@pytest.mark.parametrize("elem_bytes", [4, 2], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("w", [180, 90, 45, 22])
+def test_scatter_plan_spans_split_at_element_granularity(w, elem_bytes):
+    """At the bench's widths (57,600 queries: batch 4 at 80 x 180), and at a
+    count that leaves the last block a partial run: every span of every
+    block is covered once by its head, vectors and tail, the vectors start
+    on 16-byte boundaries, head and tail are shorter than a vector. Runs of
+    64 queries keep every block's span 16-byte aligned in bf16 too, so only
+    a partial last run has a tail; a run of one query (a window too wide
+    for more) starts its spans at every 2-byte offset."""
+    for n_queries in (57600, 57600 - 37):
+        plan = corr_cuda.scatter_plan(n_queries, [w], 4, elem_bytes)
+        assert plan.vec == 16 // elem_bytes and plan.run == corr_cuda.SCATTER_RUN
+        covered = np.zeros(n_queries * w, np.int32)
+        tails = 0
+        for block in range(plan.blocks):
+            queries = block_queries(plan, block, n_queries)
+            start, n = queries.start * w, len(queries) * w
+            head, vectors, tail = span_split(start, n, elem_bytes)
+            assert head == 0  # 64 * w elements: a multiple of 16 bytes
+            assert 0 <= tail < plan.vec and head + vectors * plan.vec + tail == n
+            assert (start + head) * elem_bytes % 16 == 0
+            covered[start:start + n] += 1
+            tails += tail > 0
+        assert (covered == 1).all()
+        assert tails == (n_queries * w % plan.vec != 0)
+    # One query per block (chip_smoke.py's "run 1" case): at the odd width
+    # the spans start at every element offset of a vector.
+    plan = corr_cuda.scatter_plan(61, [1001, 500], 4000, elem_bytes)
+    assert plan.run == 1 and plan.vec == 16 // elem_bytes
+    assert {span_split(q * 1001, 1001, elem_bytes)[0] for q in range(61)} == set(range(plan.vec))
+
+
+def test_bf16_scatter_plan_limits_count_elements():
+    """The bf16 plan takes the fp32 plan's runs, grid, shared bytes (a bf16
+    cotangent is staged widened to fp32) and 64-bit threshold (indices
+    count elements), and only the vector width differs; other element sizes
+    raise."""
+    widths = [180, 90, 45, 22]
+    n = (2**31 - 1) // 337
+    for n_queries, radius in ((57600, 4), (86400, 4), (n, 4), (n + 1, 4), (1000, 200)):
+        f32 = corr_cuda.scatter_plan(n_queries, widths, radius, 4)
+        b16 = corr_cuda.scatter_plan(n_queries, widths, radius, 2)
+        assert f32._replace(vec=8) == b16 and (f32.vec, b16.vec) == (4, 8)
+    assert not corr_cuda.scatter_plan(n, widths, 4, 2).wide
+    assert corr_cuda.scatter_plan(n + 1, widths, 4, 2).wide
+    assert corr_cuda.scatter_plan(57600, widths, 4, 2).shared_bytes == 4 * 64 * (36 + 40 + 4 + 1)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        corr_cuda.scatter_plan(10, [8], 4, 8)

@@ -79,6 +79,7 @@ from raft_stereo_tpu_torch.ops import corr, corr_cuda, encoder_cuda, gates
 from raft_stereo_tpu_torch.serving.engine import AnytimeEngine
 from raft_stereo_tpu_torch.utils.checkpoints import load_jax_variables
 from torch_parity import (  # noqa: F401 (autouse fixtures)
+    bf16_ulps,
     flax_params,
     halve_kernels,
     jax_apply,
@@ -96,21 +97,6 @@ H, W, ITERS = 48, 64, 2
 HID = (32, 32, 32)
 MIXED = {"mixed_precision": True, "corr_dtype": "bfloat16"}
 BENCH = dict(MIXED, corr_implementation="pallas", fused_encoder=True)
-
-
-def bf16_ulps(got, want) -> np.ndarray:
-    """Per-element distance in bf16 ulps of two arrays of bf16 values
-    (either side fp32 or bf16, torch or numpy): the difference of their
-    bit patterns as bf16, whose order follows the value's within one sign."""
-    a = np.asarray(got.float() if isinstance(got, torch.Tensor) else np.asarray(got, np.float32), np.float32)
-    b = np.asarray(want.float() if isinstance(want, torch.Tensor) else np.asarray(want, np.float32), np.float32)
-    assert (a.view(np.uint32) & 0xFFFF == 0).all() and (b.view(np.uint32) & 0xFFFF == 0).all()
-    ia = (a.view(np.int32) >> 16).astype(np.int64)
-    ib = (b.view(np.int32) >> 16).astype(np.int64)
-    # Map the sign-magnitude patterns onto one ordered line.
-    ia = np.where(ia < 0, -(ia & 0x7FFF), ia)
-    ib = np.where(ib < 0, -(ib & 0x7FFF), ib)
-    return np.abs(ia - ib)
 
 
 def to_bf16(x: np.ndarray) -> np.ndarray:
@@ -148,16 +134,26 @@ def test_config_refuses_unported_bf16_combinations(flags):
 @pytest.mark.parametrize("flags", [dict(mixed_precision=True), dict(corr_dtype="bfloat16")],
                          ids=["mixed", "bf16_corr"])
 def test_training_refuses_bf16(flags):
-    cfg = RAFTStereoConfig(hidden_dims=(16, 16, 16), **flags)
-    with pytest.raises(ValueError, match="not ported yet"):
-        TrainConfig(model=cfg)
+    """Since the bf16 scatter (tests/test_torch_mixed_train.py) bf16
+    training is ported: the name is kept, the refusal is gone. Each flag,
+    with the "pallas" lookup, is accepted by `TrainConfig`, one CPU training
+    forward and backward runs, and every parameter gradient is fp32 (the
+    layers cast the fp32 parameters at use); the lookup under autograd
+    returns each level's gradient in the level's dtype."""
+    cfg = RAFTStereoConfig(hidden_dims=(16, 16, 16), corr_implementation="pallas", **flags)
+    assert TrainConfig(model=cfg).model == cfg
     model = build_model(cfg, seed=0, device="cpu")
-    img = torch.zeros((1, 32, 64, 3))
-    with pytest.raises(ValueError, match="not ported yet"):
-        model(img, img, iters=1, test_mode=False)
+    rng = np.random.default_rng(3)
+    img1, img2 = (torch.from_numpy(rng.uniform(0, 255, (1, 32, 64, 3)).astype(np.float32)) for _ in range(2))
+    flows = model(img1, img2, iters=2, test_mode=False)
+    assert flows.dtype == torch.float32 and flows.shape == (2, 1, 8, 4, 16, 4)
+    flows.abs().mean().backward()
+    assert all(p.dtype == torch.float32 and p.grad is not None and p.grad.dtype == torch.float32
+               for p in model.parameters())
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters())
     levels = [torch.zeros((1, 2, 8, 8), dtype=BF16, requires_grad=True)]
-    with pytest.raises(ValueError, match="not ported yet"):
-        corr_cuda.corr_lookup(levels, torch.zeros((1, 2, 8)), 1)
+    corr_cuda.corr_lookup(levels, torch.zeros((1, 2, 8)), 1, BF16).sum().backward()
+    assert levels[0].grad.dtype == BF16 and levels[0].grad.shape == (1, 2, 8, 8)
 
 
 def test_gate_switch_refused_under_mixed_precision(monkeypatch):

@@ -123,8 +123,8 @@ def test_port_imports_no_jax():
         "             or k == 'raft_stereo_tpu' or k.startswith('raft_stereo_tpu.'))\n"
         "assert not bad, bad\n"
         "walked = {k for k in sys.modules if k.startswith('raft_stereo_tpu_torch')}\n"
-        "for m in ('train.loss', 'train.optimizer', 'train.trainer', 'ops.corr_cuda', 'serving.service',\n"
-        "          'evaluate', 'cli', '__main__', 'ops.gates'):\n"
+        "for m in ('train.loss', 'train.optimizer', 'train.trainer', 'train.synthetic', 'ops.corr_cuda',\n"
+        "          'serving.service', 'evaluate', 'cli', '__main__', 'ops.gates'):\n"
         "    assert 'raft_stereo_tpu_torch.' + m in walked, m\n"
         "print('ok', len(walked))\n"
     )

@@ -137,3 +137,32 @@ def flat_leaves(tree, prefix=()):
         else:
             out[(*prefix, k)] = np.asarray(v)
     return out
+
+
+def bf16_ulps(got, want) -> np.ndarray:
+    """Per-element distance in bf16 ulps of two arrays of bf16 values
+    (either side fp32 or bf16, torch or numpy): the difference of their
+    bit patterns as bf16, whose order follows the value's within one sign."""
+    a = np.asarray(got.float() if isinstance(got, torch.Tensor) else np.asarray(got, np.float32), np.float32)
+    b = np.asarray(want.float() if isinstance(want, torch.Tensor) else np.asarray(want, np.float32), np.float32)
+    assert (a.view(np.uint32) & 0xFFFF == 0).all() and (b.view(np.uint32) & 0xFFFF == 0).all()
+    ia = (a.view(np.int32) >> 16).astype(np.int64)
+    ib = (b.view(np.int32) >> 16).astype(np.int64)
+    # Map the sign-magnitude patterns onto one ordered line.
+    ia = np.where(ia < 0, -(ia & 0x7FFF), ia)
+    ib = np.where(ib < 0, -(ib & 0x7FFF), ib)
+    return np.abs(ia - ib)
+
+
+def scatter_case(rng, b, h, w1, w2, levels, radius):
+    """Coordinates mostly in range, a share far out on both sides, and in
+    the first row: negative, 0, integral, W2_l - 1 of every level, W2, far
+    out (+-1e6), and mid-sample."""
+    x = np.arange(w1, dtype=np.float32)[None, None, :] - rng.uniform(0, w2 / 3, (b, h, w1))
+    wild = rng.uniform(0, 1, (b, h, w1)) < 0.2
+    x = np.where(wild, rng.uniform(-3 * w2, 3 * w2, (b, h, w1)), x).astype(np.float32)
+    special = [-1.0, -3.5, 0.0, 3.0, float(w2), 1e6, -1e6, w2 - 0.5]
+    special += [float(((w2 >> l) - 1) << l) for l in range(levels)]
+    x.reshape(-1)[: len(special)] = special[: x.size]
+    g = rng.standard_normal((b, h, w1, levels * (2 * radius + 1))).astype(np.float32)
+    return x, g, [w2 >> l for l in range(levels)]
