@@ -18,7 +18,15 @@ evaluate entry point and its command line, trains in the JAX package's
 shipping numerics (bf16 compute and pyramid, the lookup's backward as the
 bf16 scatter kernel) at the JAX bench's training setup, checks one such
 step against plain autograd and runs the JAX package's shipping-numerics
-convergence test with the kernels, and times every kernel.
+convergence test with the kernels, serves the reference's realtime model
+(shared backbone, 1/8 resolution, two GRU levels, slow-fast GRU, 7
+iterations, mixed precision with the fused encoder and the fused GRU tail)
+at the default buckets, checks it against its plain twins and its fp32
+architecture against plain code, evaluates it on KITTI-shaped pairs and
+through its command line, runs the JAX bench's mixed configuration with
+each test-mode lever (the windowed lookup, the fused GRU tail, the gate
+pair) at Middlebury-F size with their bf16 kernels held against their plain
+versions, and times every kernel.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -33,6 +41,7 @@ then one JSON line describing the kernels, and as its last line
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -47,8 +56,9 @@ import torch
 import torch.nn.functional as F
 
 from raft_stereo_tpu_torch import cli, evaluate
+from raft_stereo_tpu_torch.profile_stages import LEVERS
 from raft_stereo_tpu_torch.config import RAFTStereoConfig, ServeConfig, TrainConfig
-from raft_stereo_tpu_torch.evaluate import Evaluator, SyntheticEvalDataset, validate_middlebury
+from raft_stereo_tpu_torch.evaluate import Evaluator, SyntheticEvalDataset, validate_kitti, validate_middlebury
 from raft_stereo_tpu_torch.models import anytime
 from raft_stereo_tpu_torch.models.init import build_model
 from raft_stereo_tpu_torch.models.raft_stereo import RAFTStereo
@@ -141,6 +151,9 @@ MIXED_REQUESTS = [
 # of 8; the contiguous (B, H, W, D) layout), W 37, and 7 levels.
 PYRAMID_BF16_CASES = (
     ("512x768", (128, 192, "nchw", 4)),
+    ("realtime 384x512 1/8", (48, 64, "nchw", 4)),
+    ("realtime 384x1248 1/8", (48, 156, "nchw", 4)),
+    ("realtime 512x768 1/8", (64, 96, "nchw", 4)),
     ("1984x2880", (496, 720, "nchw", 4)),
     ("W 150", (3, 150, "nchw", 4)),
     ("512x768 contiguous (B, H, W, D)", (128, 192, "bhwd", 4)),
@@ -148,10 +161,19 @@ PYRAMID_BF16_CASES = (
     ("W 192, 7 levels", (128, 192, "nchw", 7)),
 )
 # The bf16 conv's and join's shapes: full resolution of the 512x768 bucket
-# (every skip form of the join there) and of Middlebury-F, and 13x70, where
+# (every skip form of the join there) and of Middlebury-F, 13x70, where
 # tiles end inside the image and rows are not 16-byte aligned (the
-# element-by-element stores).
-BF16_CONV_SHAPES = ((512, 768), (1984, 2880), (13, 70))
+# element-by-element stores), and the realtime model's layer1 at half
+# resolution (its stem has stride 2) of the 384x512 and 512x768 buckets
+# and of the KITTI bucket 384x1248.
+BF16_CONV_SHAPES = ((512, 768), (1984, 2880), (13, 70), (192, 256), (256, 384), (192, 624))
+# The trunks that run the bf16 conv and join, as (batch, conv forms, trunk
+# norm, statistics emitted): the default model's feature trunk (2 images,
+# instance norm) and context trunk (1 image, frozen BN), and the realtime
+# model's shared context trunk (2 images, frozen BN; as fused_layer1 runs
+# it: block 1's convs of the stem's and its own BN, block 2's first conv of
+# a plain operand, no statistics). The join takes the trunk's norm.
+BF16_CONV_TRUNKS = ((2, ("none", "in"), "in", True), (1, ("bn",), "bn", True), (2, ("bn", "none"), "bn", False))
 # The seventh slice's: the training step in the JAX package's shipping
 # numerics at the JAX bench's `train_step_s` setup (bench.py
 # `_train_step_seconds`: batch 4, 320x720 crops, 22 iterations, "pallas",
@@ -164,6 +186,41 @@ BF16_CONV_SHAPES = ((512, 768), (1984, 2880), (13, 70))
 # 100 steps below 0.25 of the first 100's, and the held-out EPE over 8
 # samples at 12 iterations below 1 px).
 MIXED_TRAIN_CONFIG = RAFTStereoConfig(corr_implementation="pallas", mixed_precision=True, corr_dtype="bfloat16")
+# The eighth slice's: the reference's realtime model (its "fastest model":
+# shared backbone, 1/8 resolution, two GRU levels, slow-fast GRU, 7
+# iterations, reg_cuda under mixed precision, which the CLI maps onto
+# "pallas" with a bf16 pyramid) with the fused encoder and the fused GRU
+# tail, served at the default buckets in one 7-iteration chunk
+# (chunk_iters = max_iters = 7: the engine rounds a budget up to whole
+# chunks); its fp32 architecture twins; and the JAX bench's mixed
+# configuration with each test-mode lever in turn.
+REALTIME_ARCH = dict(shared_backbone=True, n_downsample=3, n_gru_layers=2, slow_fast_gru=True)
+REALTIME_CONFIG = RAFTStereoConfig(**REALTIME_ARCH, corr_implementation="pallas", mixed_precision=True,
+                                   corr_dtype="bfloat16", fused_encoder=True, fused_gru_tail=True)
+REALTIME_ITERS = 7
+REALTIME_REQUESTS = [
+    ("384x512 bucket", (384, 512)),
+    ("512x768 bucket", (512, 768)),
+    ("padded 375x500", (375, 500)),
+]
+REALTIME_E2E_HW = (384, 512)
+# The KITTI pair's shape (`--dataset kitti`; padded to 384x1248) and the
+# images `[realtime-evaluate]` times: one warm, then the median of the rest.
+KITTI_SHAPE = (375, 1242)
+KITTI_IMAGES = 5
+# Per request of 7 iterations: one bf16 pyramid, a bf16 lookup, three bf16
+# GRU tails (gru16 twice under slow_fast_gru, gru08 once) and a bf16 motion
+# tail per iteration, and the context trunk's fused layer1 (the only trunk
+# under shared_backbone): 4 bf16 convs (2 blocks x 2) and 2 bf16 joins.
+REALTIME_PER_REQUEST = dict(corr_pyramid_bf16=1, corr_lookup_bf16=REALTIME_ITERS, gru_tail_bf16=3 * REALTIME_ITERS,
+                            motion_tail_bf16=REALTIME_ITERS, encoder_conv_bf16=4, encoder_join_bf16=2)
+# The levers' bf16 kernels against their plain versions: the 512x768
+# bucket's three GRU scales, Middlebury-F's, the realtime model's at the
+# KITTI bucket (1/8 and 1/16), an odd shape (the scalar loop only), and a
+# view 2 bytes past a 16-byte boundary (the scalar loop on every pointer).
+LEVER_GRU_SHAPES = [(128, 512 // d, 768 // d) for d in (4, 8, 16)] + [
+    (128, 1984 // d, 2880 // d) for d in (4, 8, 16)] + [(128, 48, 156), (128, 24, 78), (3, 5, 7)]
+LEVER_PREFETCH_CASES = PREFETCH_CASES + (("384x1248 1/8", (48, 156)),)
 MIXED_TRAIN_PLAIN_CONFIG = RAFTStereoConfig(corr_implementation="reg", mixed_precision=True, corr_dtype="bfloat16")
 MIXED_TRAIN_BATCH = 4
 MIXED_TRAIN_ITERS = 22
@@ -294,6 +351,12 @@ KERNELS = {
     "encoder_conv_bf16": ("raft_stereo_tpu_torch/csrc/encoder_conv.cu", "raft_stereo_tpu/ops/encoder_pallas.py:109"),
     "encoder_join_bf16": ("raft_stereo_tpu_torch/csrc/encoder_join.cu", "raft_stereo_tpu/ops/encoder_pallas.py:275"),
     "corr_scatter_bf16": ("raft_stereo_tpu_torch/csrc/corr_scatter.cu", "raft_stereo_tpu/ops/corr_pallas.py:156"),
+    "gru_tail_bf16": ("raft_stereo_tpu_torch/csrc/gru_tail.cu", "raft_stereo_tpu/ops/gru_tail_pallas.py:48"),
+    "motion_tail_bf16": ("raft_stereo_tpu_torch/csrc/gru_tail.cu", "raft_stereo_tpu/ops/gru_tail_pallas.py:55"),
+    "gates_rh_bf16": ("raft_stereo_tpu_torch/csrc/gates.cu", "raft_stereo_tpu/ops/gates_pallas.py:54"),
+    "gates_combine_bf16": ("raft_stereo_tpu_torch/csrc/gates.cu", "raft_stereo_tpu/ops/gates_pallas.py:59"),
+    "corr_prefetch_lookup_bf16": ("raft_stereo_tpu_torch/csrc/corr_prefetch.cu",
+                                  "raft_stereo_tpu/ops/corr_pallas.py:463"),
 }
 SOURCES = ("corr_lookup", "gru_tail", "corr_pyramid", "encoder_conv", "encoder_join", "corr_scatter",
            "corr_prefetch", "gates")
@@ -1459,31 +1522,30 @@ def phase_bf16_kernels(gen) -> dict:
                 if torch.bfloat16 in (level_dtype, out_dtype):
                     errs["corr_lookup_bf16"] = max(errs["corr_lookup_bf16"], err)
         del pyramid, coords
-    # The conv and the join at full resolution: both buckets' feature trunk
-    # (batch 2, instance norm) and context trunk (batch 1, batch norm) at
-    # 512x768, and Middlebury-F's.
+    # The conv and the join at every BF16_CONV_SHAPES entry, in every
+    # BF16_CONV_TRUNKS trunk.
     for hh, ww in BF16_CONV_SHAPES:
-        for b, forms in ((2, ("none", "in")), (1, ("bn",))):
+        for b, forms, y_form, emit in BF16_CONV_TRUNKS:
             for form in forms:
                 x, weight, bias, aff = conv_inputs(gen, b, hh, ww, form)
                 x = x.to(BF16)
-                y, stats = encoder_cuda.fused_conv(x, weight, bias, aff, form, emit_stats=True)
+                y, stats = encoder_cuda.fused_conv(x, weight, bias, aff, form, emit_stats=emit)
                 torch.cuda.synchronize()
                 want, _ = encoder_cuda.plain_conv(x, weight, bias, aff, form, False)
                 worst, share = conv_bf16_check(y, want, bias)
-                rel = stats_rel_err(stats, y)
+                rel = stats_rel_err(stats, y) if emit else 0.0
                 err = max_err(y.float(), want.float())
-                log(f"[bf16-kernels] encoder_conv_bf16 b{b} {hh}x{ww} form {form}: max abs diff {err:.3e}, worst "
-                    f"element at {worst:.3f} of its allowance (tol 1), share differing {share:.2e}; statistics "
-                    f"against the stored bf16 outputs rel diff {rel:.3e} (tol {STATS_REL_TOL:g})")
-                if not (y.dtype == BF16 and worst <= 1.0 and rel <= STATS_REL_TOL):
+                log(f"[bf16-kernels] encoder_conv_bf16 b{b} {hh}x{ww} form {form} ({y_form} trunk): max abs diff "
+                    f"{err:.3e}, worst element at {worst:.3f} of its allowance (tol 1), share differing "
+                    f"{share:.2e}; " + (f"statistics against the stored bf16 outputs rel diff {rel:.3e} (tol "
+                                        f"{STATS_REL_TOL:g})" if emit else "no statistics"))
+                if not (y.dtype == BF16 and worst <= 1.0 and rel <= STATS_REL_TOL and (stats is None) != emit):
                     raise AssertionError(f"encoder_conv_bf16 disagrees at b{b} {hh}x{ww} {form}: {worst}, {rel}")
                 errs["encoder_conv_bf16"] = max(errs["encoder_conv_bf16"], err)
                 del want, stats
-                aff_y = affine_rows(gen, b, "in" if form != "bn" else "bn")
+                aff_y = affine_rows(gen, b, y_form)
                 for skip_form in (("none", "in", "bn") if (hh, ww) == BF16_CONV_SHAPES[0] else (form,)):
                     aff_s = affine_rows(gen, b, skip_form)
-                    y_form = "bn" if form == "bn" else "in"
                     got = encoder_cuda.fused_join(x, y, aff_y, y_form, aff_s, skip_form)
                     torch.cuda.synchronize()
                     exact = torch.equal(got, encoder_cuda.plain_join(x, y, aff_y, y_form, aff_s, skip_form))
@@ -1576,19 +1638,31 @@ def phase_mixed_e2e(service, rng) -> None:
         raise AssertionError("the mixed iteration path disagrees with its plain twin")
     if k_counts != expect(corr_lookup_bf16=4) or p_counts != expect():
         raise AssertionError(f"mixed e2e launches {k_counts}, plain {p_counts}")
-    parts = {f"corr level {l}": (a, b) for l, (a, b) in enumerate(zip(state["corr"], unfused["corr"]))}
-    parts.update({f"context {i}.{j}": (a, b) for i, (cf, cu) in enumerate(zip(state["context"], unfused["context"]))
+    check_bf16_prelude("[mixed-e2e]", state, unfused)
+
+
+def prelude_parts(fused, unfused) -> dict:
+    """{name: (fused, unfused)} of two prelude states: the correlation
+    levels, the context, and the hidden state (printed only, "(printed)")."""
+    parts = {f"corr level {l}": (a, b) for l, (a, b) in enumerate(zip(fused["corr"], unfused["corr"]))}
+    parts.update({f"context {i}.{j}": (a, b) for i, (cf, cu) in enumerate(zip(fused["context"], unfused["context"]))
                   for j, (a, b) in enumerate(zip(cf, cu))})
-    parts.update({f"net {i} (printed)": (a, b) for i, (a, b) in enumerate(zip(state["net"], unfused["net"]))})
-    for name, (a, b) in parts.items():
+    parts.update({f"net {i} (printed)": (a, b) for i, (a, b) in enumerate(zip(fused["net"], unfused["net"]))})
+    return parts
+
+
+def check_bf16_prelude(tag, fused, unfused) -> None:
+    """The fused bf16 prelude state against the unfused one, by
+    MIXED_STATE_ULPS of each tensor's largest magnitude."""
+    for name, (a, b) in prelude_parts(fused, unfused).items():
         scale = float(b.float().abs().max().item())
         ulps = max_err(a.float(), b.float()) / float(bf16_ulp(torch.tensor(scale)).item())
         share = float((a != b).float().mean().item())
-        log(f"[mixed-e2e] fused vs unfused prelude {name} {tuple(a.shape)}: max abs diff "
+        log(f"{tag} fused vs unfused prelude {name} {tuple(a.shape)}: max abs diff "
             f"{max_err(a.float(), b.float()):.3e} = {ulps:.2f} bf16 ulps of the largest |value| {scale:.3f} "
             f"(tol {MIXED_STATE_ULPS}), share differing {share:.3f}")
         if "printed" not in name and not ulps <= MIXED_STATE_ULPS:
-            raise AssertionError(f"the mixed fused prelude disagrees with the unfused one at {name}: {ulps} ulps")
+            raise AssertionError(f"{tag} the fused prelude disagrees with the unfused one at {name}: {ulps} ulps")
 
 
 def phase_mixed_budget() -> None:
@@ -1680,6 +1754,357 @@ def phase_mixed_cli() -> None:
         raise AssertionError(f"mixed evaluate CLI metrics {got} differ from validate_middlebury's {want_metrics}")
 
 
+# -- the eighth slice: the realtime model and the bf16 levers --------------------
+
+@contextlib.contextmanager
+def swapped(module, **fns):
+    """Replace attributes of `module` (a kernel wrapper by its plain twin)
+    inside the block only; the package itself has no such switch."""
+    saved = {name: getattr(module, name) for name in fns}
+    for name, fn in fns.items():
+        setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+def plain_twins(lever):
+    """This slice's wrappers of `lever` swapped for their plain twins:
+    "fused_gru_tail" (the tail and the motion tail) or "gates" (rh and
+    combine)."""
+    if lever == "fused_gru_tail":
+        return swapped(gru_tail, fused_gru_tail=gru_tail.plain_fused_gru_tail,
+                       fused_motion_tail=gru_tail.plain_motion_tail)
+    return swapped(gates, fused_rh=gates.plain_rh, fused_combine=gates.plain_combine)
+
+
+def bf16_bitwise(a, b) -> bool:
+    """Equal bit for bit (bf16 or fp32)."""
+    view = torch.int16 if a.dtype == BF16 else torch.int32
+    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+
+def offset_view(gen, shape, dtype):
+    """A contiguous tensor of `shape` whose data starts 2 bytes past a
+    16-byte boundary (the kernels then take their scalar loops)."""
+    n = int(np.prod(shape))
+    base = (torch.randn((n + 8,), generator=gen, device=DEVICE) * 2).to(dtype)
+    return base[1:n + 1].view(shape)
+
+
+def phase_bf16_lever_kernels(gen) -> dict:
+    """The five bf16 kernels of the levers against their plain versions:
+    the GRU tail, rh and combine bit for bit (the plain versions compute
+    the same fp32 formulas, which the fp32 kernels match bit for bit, and
+    round once to nearest even, as the kernels' store does), the motion
+    tail exactly, at LEVER_GRU_SHAPES and on 2-byte-offset views; the
+    windowed lookup bit for bit against the dense kernel and exactly (NaN
+    in the same places) against its plain version, at LEVER_PREFETCH_CASES,
+    every coordinate family, all four (level, tap) dtype pairs."""
+    errs = {k: 0.0 for k in ("gru_tail_bf16", "motion_tail_bf16", "gates_rh_bf16", "gates_combine_bf16",
+                             "corr_prefetch_lookup_bf16")}
+    for c, h, w in LEVER_GRU_SHAPES:
+        for offset in (False, True):
+            if offset:
+                zx, cz, qx, cq, hh = (offset_view(gen, (1, c, h, w), BF16) for _ in range(5))
+            else:
+                zx, cz, qx, cq, hh = ((torch.randn((1, c, h, w), generator=gen, device=DEVICE) * 2).to(BF16)
+                                      for _ in range(5))
+            got = {"gru_tail_bf16": gru_tail.fused_gru_tail(zx, cz, qx, cq, hh),
+                   "gates_rh_bf16": gates.fused_rh(zx, cz, hh),
+                   "gates_combine_bf16": gates.fused_combine(zx, cz, qx, cq, hh)}
+            torch.cuda.synchronize()
+            want = {"gru_tail_bf16": gru_tail.plain_fused_gru_tail(zx, cz, qx, cq, hh),
+                    "gates_rh_bf16": gates.plain_rh(zx, cz, hh),
+                    "gates_combine_bf16": gates.plain_combine(zx, cz, qx, cq, hh)}
+            label = f"{c}x{h}x{w}{' 2-byte offset' if offset else ''}"
+            for name in got:
+                same = bf16_bitwise(got[name], want[name])
+                err = max_err(got[name].float(), want[name].float())
+                errs[name] = max(errs[name], err)
+                if not same:
+                    raise AssertionError(f"{name} disagrees with its plain version at {label}: {err}")
+            same_as_tail = bf16_bitwise(got["gates_combine_bf16"], got["gru_tail_bf16"])
+            log(f"[bf16-lever-kernels] gru_tail, rh, combine bf16 {label}: bitwise equal to their plain versions "
+                f"(tol 0); combine bitwise equal to the tail: {same_as_tail}")
+            del zx, cz, qx, cq, hh, got, want
+    for h, w in ((128, 192), (496, 720), (48, 156), (7, 9)):
+        for offset in (False, True):
+            if offset:
+                pre, flow = offset_view(gen, (1, 126, h, w), BF16), offset_view(gen, (1, 1, h, w), BF16)
+            else:
+                pre = torch.randn((1, 126, h, w), generator=gen, device=DEVICE).to(BF16)
+                flow = torch.randn((1, 1, h, w), generator=gen, device=DEVICE).to(BF16)
+            got = gru_tail.fused_motion_tail(pre, flow)
+            torch.cuda.synchronize()
+            want = gru_tail.plain_motion_tail(pre, flow)
+            exact = got.dtype == BF16 and torch.equal(got, want)
+            log(f"[bf16-lever-kernels] motion_tail bf16 126x{h}x{w}{' 2-byte offset' if offset else ''}: "
+                f"exact {exact} (tol 0)")
+            if not exact:
+                raise AssertionError(f"motion_tail_bf16 disagrees with its plain version at {h}x{w}")
+            del pre, flow, got, want
+    for label, (h, w) in LEVER_PREFETCH_CASES:
+        pyramid = tuple(torch.randn((1, h, w, w >> l), generator=gen, device=DEVICE) for l in range(4))
+        for family in ("smooth", "edge", "special", "uniform"):
+            coords = prefetch_coords(gen, family, 1, h, w, w)
+            for level_dtype in (torch.float32, BF16):
+                levels = tuple(lvl.to(level_dtype) for lvl in pyramid)
+                for out_dtype in (torch.float32, BF16):
+                    got = corr_cuda.prefetch_corr_lookup(levels, coords, 4, out_dtype)
+                    dense = corr_cuda.corr_lookup(levels, coords, 4, out_dtype)
+                    torch.cuda.synchronize()
+                    bitwise = bf16_bitwise(got, dense)
+                    e = exact_err(got.float(), corr.corr_lookup(levels, coords, 4).to(out_dtype).float())
+                    if torch.bfloat16 in (level_dtype, out_dtype):
+                        errs["corr_prefetch_lookup_bf16"] = max(errs["corr_prefetch_lookup_bf16"], e)
+                    if not bitwise or not e <= 0.0:
+                        raise AssertionError(f"the windowed lookup disagrees at {label} {family} "
+                                             f"({level_dtype}, {out_dtype}): bitwise {bitwise}, {e}")
+            log(f"[bf16-lever-kernels] corr_prefetch_lookup {label} (queries {h}x{w}) {family} coords, levels and "
+                f"taps fp32/bf16 (four pairs): bitwise equal to the dense kernel and exact against the plain "
+                f"version (tol 0)")
+        del pyramid
+    return errs
+
+
+def realtime_expect(requests=1, **extra) -> dict:
+    return expect(**{k: v * requests for k, v in REALTIME_PER_REQUEST.items()}, **extra)
+
+
+def phase_realtime(rng) -> dict:
+    """The realtime configuration served through StereoService and
+    AnytimeEngine at the default buckets, batch 1, one 7-iteration chunk:
+    boot and warm-up time, each request's latency, bucket and
+    iters_completed, and its launches: REALTIME_PER_REQUEST, nothing else
+    (no fp32 form of any kernel)."""
+    cfg = ServeConfig(model=REALTIME_CONFIG, max_batch=1, chunk_iters=REALTIME_ITERS, max_iters=REALTIME_ITERS)
+    t0 = time.perf_counter()
+    service = StereoService(cfg, device=DEVICE, seed=SEED).start()
+    warm = service.warm_summary
+    log(f"[realtime] buckets {list(cfg.buckets)}, batch 1, chunk_iters = max_iters = {REALTIME_ITERS}: boot + warm "
+        f"of {warm['combos']} combos {time.perf_counter() - t0:.2f} s")
+    for key in warm["prelude_ms"]:
+        log(f"[realtime] {key}: prelude {warm['prelude_ms'][key]:.3f} ms, chunk of {REALTIME_ITERS} iters "
+            f"{warm['chunk_est_ms'][key]:.3f} ms")
+    reset_launches()
+    for label, (h, w) in REALTIME_REQUESTS:
+        before = launches()
+        i1, i2 = stereo_pair(rng, h, w)
+        res = service.submit(i1, i2).result()
+        delta = {k: v - before[k] for k, v in launches().items()}
+        log(f"[realtime] {label}: bucket {res['bucket']}, iters_completed {res['iters_completed']}, early_exit "
+            f"{res['early_exit']}, latency {res['latency_ms']:.3f} ms, launches {delta}")
+        disp = res["disparity"]
+        if disp.shape != (h, w) or not np.isfinite(disp).all():
+            raise AssertionError(f"realtime {label}: disparity shape {disp.shape} or non-finite values")
+        if res["iters_completed"] != REALTIME_ITERS or delta != realtime_expect():
+            raise AssertionError(f"realtime {label}: iters {res['iters_completed']}, launches {delta} != "
+                                 f"expected {realtime_expect()}")
+    counts = launches()
+    log(f"[realtime] launches over {len(REALTIME_REQUESTS)} requests: {counts}")
+    return counts
+
+
+def phase_realtime_e2e(rng) -> None:
+    """At 384x512 and 7 iterations: (a) the realtime configuration against
+    itself with this slice's wrappers (the bf16 GRU tail and motion tail)
+    swapped for their plain twins: flows bit for bit; (b) the realtime
+    architecture at fp32, kernels ("pallas", the fused tails) against "reg"
+    without them, within E2E_TOL_PX; (c) the fused encoder's prelude (the
+    shared context trunk's layer1 in frozen BN over [image1, image2]) against
+    the unfused one on the same weights: in the realtime configuration by
+    MIXED_STATE_ULPS, as `[mixed-e2e]`, and in its fp32 architecture by
+    FUSED_STATE_REL_TOL, as `[fused-e2e]`; printed: the fused against the
+    unfused bf16 GRU (`fused_gru_tail` off), which round at different points."""
+    i1, i2 = (torch.from_numpy(x[None]).to(DEVICE) for x in stereo_pair(rng, *REALTIME_E2E_HW))
+    model = build_model(REALTIME_CONFIG, seed=SEED, device=DEVICE)
+    runs = {}
+    with torch.inference_mode():
+        preludes = {}
+        fp32_fused = RAFTStereoConfig(**REALTIME_ARCH, corr_implementation="pallas", fused_encoder=True)
+        for name, cfg in (("bf16", REALTIME_CONFIG), ("fp32", fp32_fused)):
+            fused = build_model(cfg, seed=SEED, device=DEVICE)
+            unfused = build_model(dataclasses.replace(cfg, fused_encoder=False), seed=SEED, device=DEVICE)
+            unfused.load_state_dict(fused.state_dict())
+            reset_launches()
+            state = anytime.prelude(fused, i1, i2)
+            counts = launches()
+            preludes[name] = (state, anytime.prelude(unfused, i1, i2), counts)
+            del fused, unfused
+        reset_launches()
+        runs["kernels"] = (model(i1, i2, iters=REALTIME_ITERS, test_mode=True), launches())
+        reset_launches()
+        with plain_twins("fused_gru_tail"):
+            runs["twins"] = (model(i1, i2, iters=REALTIME_ITERS, test_mode=True), launches())
+        unfused = build_model(dataclasses.replace(REALTIME_CONFIG, fused_gru_tail=False), seed=SEED, device=DEVICE)
+        runs["unfused"] = (unfused(i1, i2, iters=REALTIME_ITERS, test_mode=True), None)
+        del unfused
+        fp32 = {}
+        for name, cfg in (("kernels", RAFTStereoConfig(**REALTIME_ARCH, corr_implementation="pallas",
+                                                       fused_gru_tail=True)),
+                          ("plain", RAFTStereoConfig(**REALTIME_ARCH, corr_implementation="reg"))):
+            m = build_model(cfg, seed=SEED, device=DEVICE)
+            reset_launches()
+            fp32[name] = (m(i1, i2, iters=REALTIME_ITERS, test_mode=True), launches())
+            del m
+    torch.cuda.synchronize()
+    (k_out, k_counts), (t_out, t_counts) = runs["kernels"], runs["twins"]
+    same = all(torch.equal(a, b) for a, b in zip(k_out, t_out))
+    gap = max_err(k_out[1], runs["unfused"][0][1])
+    log(f"[realtime-e2e] {REALTIME_E2E_HW[0]}x{REALTIME_E2E_HW[1]}, {REALTIME_ITERS} iters, the realtime "
+        f"configuration vs its bf16 GRU and motion tails swapped for their plain twins: flows bitwise equal {same} "
+        f"(|flow_up| max {k_out[1].abs().max().item():.3f}); launches {k_counts}, twins {t_counts}; printed, the "
+        f"fused vs the unfused bf16 GRU (fused_gru_tail off): flow_up max abs diff {gap:.4f} px")
+    if not same or not torch.isfinite(k_out[1]).all():
+        raise AssertionError("the realtime configuration disagrees with its plain twins")
+    if k_counts != realtime_expect() or t_counts != expect(
+            **{k: v for k, v in REALTIME_PER_REQUEST.items() if k not in ("gru_tail_bf16", "motion_tail_bf16")}):
+        raise AssertionError(f"realtime e2e launches {k_counts}, twins {t_counts}")
+    (fk, fk_counts), (fp, fp_counts) = fp32["kernels"], fp32["plain"]
+    err_up, err_lo = max_err(fk[1], fp[1]), max_err(fk[0], fp[0])
+    log(f"[realtime-e2e] the realtime architecture at fp32, {REALTIME_ITERS} iters, kernels vs plain (\"reg\", no "
+        f"fused tail): flow_up max abs diff {err_up:.3e} px, flow_lowres {err_lo:.3e} px (tol {E2E_TOL_PX:g} px); "
+        f"|flow_up| max {fp[1].abs().max().item():.3f}; launches {fk_counts}, plain {fp_counts}")
+    it = REALTIME_ITERS
+    if fk_counts != expect(corr_lookup=it, gru_tail=3 * it, motion_tail=it) or fp_counts != expect():
+        raise AssertionError(f"realtime fp32 launches {fk_counts}, plain {fp_counts}")
+    if not (torch.isfinite(fk[1]).all() and err_up <= E2E_TOL_PX and err_lo <= E2E_TOL_PX):
+        raise AssertionError(f"the fp32 realtime architecture disagrees with plain: {err_up} px")
+    fused, unfused, counts = preludes["bf16"]
+    log(f"[realtime-e2e] the realtime configuration's prelude, launches {counts}")
+    if counts != expect(corr_pyramid_bf16=1, encoder_conv_bf16=4, encoder_join_bf16=2):
+        raise AssertionError(f"realtime prelude launches {counts}")
+    check_bf16_prelude("[realtime-e2e]", fused, unfused)
+    fused, unfused, counts = preludes["fp32"]
+    worst = 0.0
+    for name, (a, b) in prelude_parts(fused, unfused).items():
+        rel = max_err(a, b) / max(float(a.abs().max().item()), 1e-30)
+        worst = max(worst, rel)
+        log(f"[realtime-e2e] fp32 fused vs unfused prelude {name} {tuple(a.shape)}: max abs diff "
+            f"{max_err(a, b):.3e}, relative to max |value| {rel:.3e}")
+    log(f"[realtime-e2e] fp32 fused prelude state worst relative diff {worst:.3e} (tol {FUSED_STATE_REL_TOL:g}); "
+        f"launches {counts}")
+    if counts != expect(corr_pyramid=1, encoder_conv=4, encoder_join=2) or not worst <= FUSED_STATE_REL_TOL:
+        raise AssertionError(f"the fp32 realtime fused prelude disagrees with the unfused one: {worst}, {counts}")
+
+
+def phase_realtime_evaluate(card: str) -> None:
+    """(a) The realtime command line through `cli.main` (`--dataset kitti
+    --dry_run`, at the dry run's synthetic shape): exit 0, its validator
+    line and REALTIME_PER_REQUEST launches per image. (b) `Evaluator(model,
+    iters=7)` with `validate_kitti` on KITTI_IMAGES synthetic KITTI-shaped
+    pairs: seconds per image (the median after one warm image), peak
+    memory and launches per image."""
+    argv = ["evaluate", "--dataset", "kitti", "--dry_run", "--shared_backbone", "--n_downsample", "3",
+            "--n_gru_layers", "2", "--slow_fast_gru", "--valid_iters", str(REALTIME_ITERS), "--corr_implementation",
+            "reg_cuda", "--mixed_precision", "--fused_encoder", "--fused_gru_tail"]
+    out = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    counts = launches()
+    for line in out.getvalue().splitlines():
+        log(f"[realtime-evaluate] {line}")
+    n = len(SyntheticEvalDataset())
+    log(f"[realtime-evaluate] {' '.join(argv)}: exit {rc}, {wall:.3f} s, launches {counts}")
+    if rc != 0 or counts != realtime_expect(n) or "Validation KITTI: EPE" not in out.getvalue():
+        raise AssertionError(f"realtime evaluate CLI: exit {rc}, launches {counts} != expected {realtime_expect(n)}")
+
+    model = build_model(REALTIME_CONFIG, seed=SEED, device=DEVICE)
+    evaluator = Evaluator(model, iters=REALTIME_ITERS)
+    record = []
+
+    def timed(image1, image2):
+        before = launches()
+        flow, seconds = evaluator(image1, image2)
+        record.append((flow, seconds, {k: v - before[k] for k, v in launches().items()}))
+        return flow, seconds
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.redirect_stdout(io.StringIO()):
+        result = validate_kitti(timed, dataset=SyntheticEvalDataset(n=KITTI_IMAGES, shape=KITTI_SHAPE))
+    peak = torch.cuda.max_memory_allocated()
+    seconds = [s for _, s, _ in record]
+    per_image = statistics.median(seconds[1:])
+    log(f"[realtime-evaluate] {card}; Evaluator(iters={REALTIME_ITERS}) + validate_kitti on {KITTI_IMAGES} "
+        f"synthetic {KITTI_SHAPE[0]}x{KITTI_SHAPE[1]} pairs (padded to {-(-KITTI_SHAPE[0] // 32) * 32}x"
+        f"{-(-KITTI_SHAPE[1] // 32) * 32}), batch 1: {per_image:.4f} s/image (median of images 2-{KITTI_IMAGES}; "
+        f"all: {', '.join(f'{s:.4f}' for s in seconds)} s); peak memory {peak / 2**30:.3f} GiB ({peak} B); "
+        f"launches per image {record[-1][2]}; metrics {result}")
+    for flow, _, delta in record:
+        if delta != realtime_expect() or flow.shape != KITTI_SHAPE or not np.isfinite(flow).all():
+            raise AssertionError(f"realtime evaluate: launches {delta} or flow {flow.shape} wrong")
+
+
+def phase_mixed_levers() -> dict:
+    """The JAX bench's mixed configuration on one synthetic Middlebury-F
+    image (1980x2870, 32 iterations) with each test-mode lever in turn
+    against the lever off, on the same seeded weights: seconds per image
+    (one warm run first) and the launches that show each lever's bf16
+    kernel ran. `prefetch_lookup` equals lever off bit for bit (the windowed
+    lookup is the dense one's function); `fused_gru_tail` and the gate pair
+    equal their runs with this slice's wrappers swapped for the plain
+    twins; their difference from lever off (other rounding points) is
+    printed. Returns the levers' launch counts."""
+    item = SyntheticEvalDataset(n=1, shape=EVAL_SHAPE).get_item(0, None)
+    pair = (item["image1"], item["image2"])
+    flows, counts = {}, {}
+    base = {"encoder_conv_bf16": 8, "encoder_join_bf16": 4, "corr_pyramid_bf16": 1}
+    it = EVAL_ITERS
+    wants = {"off": expect(**base, corr_lookup_bf16=it),
+             "prefetch_lookup": expect(**base, corr_prefetch_lookup_bf16=it),
+             "fused_gru_tail": expect(**base, corr_lookup_bf16=it, gru_tail_bf16=3 * it, motion_tail_bf16=it),
+             "gates": expect(**base, corr_lookup_bf16=it, gates_rh_bf16=3 * it, gates_combine_bf16=3 * it)}
+    if set(wants) != set(LEVERS):
+        raise AssertionError(f"[mixed-levers] expects launches for {sorted(wants)}, the levers are "
+                             f"{sorted(LEVERS)}")
+    weights = None
+    for name, (flags, gates_on) in LEVERS.items():
+        model = build_model(dataclasses.replace(MIXED_CONFIG, **flags), seed=SEED, device=DEVICE)
+        if weights is None:
+            weights = model.state_dict()
+        model.load_state_dict(weights)
+        evaluator = Evaluator(model, iters=EVAL_ITERS)
+        if gates_on:
+            os.environ[gates.ENV_VAR] = "1"
+        try:
+            evaluator(*pair)
+            reset_launches()
+            flows[name], seconds = evaluator(*pair)
+            counts[name] = launches()
+            twin = None
+            if name in ("fused_gru_tail", "gates"):
+                with plain_twins(name):
+                    reset_launches()
+                    twin, _ = evaluator(*pair)
+                    twin_counts = launches()
+        finally:
+            os.environ.pop(gates.ENV_VAR, None)
+        diff = np.abs(flows[name] - flows["off"])
+        log(f"[mixed-levers] {name}: {seconds:.4f} s/image ({EVAL_SHAPE[0]}x{EVAL_SHAPE[1]}, {EVAL_ITERS} iters, "
+            f"after one warm run); launches {counts[name]}; against lever off (printed): max abs diff "
+            f"{diff.max():.4f} px, mean {diff.mean():.5f} px")
+        if counts[name] != wants[name] or not np.isfinite(flows[name]).all():
+            raise AssertionError(f"mixed lever {name}: launches {counts[name]} != expected {wants[name]}")
+        if name == "prefetch_lookup" and not np.array_equal(flows[name], flows["off"]):
+            raise AssertionError("the bf16 windowed lookup changed the mixed flow")
+        if twin is not None:
+            same = np.array_equal(flows[name], twin)
+            log(f"[mixed-levers] {name} against its run with the wrappers swapped for the plain twins: bitwise "
+                f"equal {same}; twin launches {twin_counts}")
+            if not same:
+                raise AssertionError(f"mixed lever {name} disagrees with its plain twins")
+        del model, evaluator
+        torch.cuda.empty_cache()
+    return counts
+
+
 def phase_timing(gen, errs, counts) -> list:
     """Kernel, plain and library times at the 512x768 bucket's shapes (the
     JSON rows), and at Middlebury-F's for the evaluate path's kernels."""
@@ -1706,7 +2131,13 @@ def phase_timing(gen, errs, counts) -> list:
                  "encoder_join_bf16": mixed,
                  "corr_prefetch_lookup": "the [evaluate] run (2 images)",
                  "gates_rh": f"one {EVAL_ITERS}-iteration gates forward",
-                 "gates_combine": f"one {EVAL_ITERS}-iteration gates forward"}.get(name, f"{len(REQUESTS)} requests")
+                 "gates_combine": f"one {EVAL_ITERS}-iteration gates forward",
+                 "gru_tail_bf16": f"{len(REALTIME_REQUESTS)} requests of the realtime configuration",
+                 "motion_tail_bf16": f"{len(REALTIME_REQUESTS)} requests of the realtime configuration",
+                 "gates_rh_bf16": f"one {EVAL_ITERS}-iteration mixed forward with the gate pair",
+                 "gates_combine_bf16": f"one {EVAL_ITERS}-iteration mixed forward with the gate pair",
+                 "corr_prefetch_lookup_bf16": f"one {EVAL_ITERS}-iteration mixed forward with prefetch_lookup",
+                 }.get(name, f"{len(REQUESTS)} requests")
         log(f"[timing] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {e['bound_ms']:.4f} ms "
             f"({e['bound_by']}, {nbytes} B, {flops} ops), library {lib}, "
             f"launches {counts[name]} over {where}")
@@ -1872,6 +2303,7 @@ def phase_timing(gen, errs, counts) -> list:
     entry("encoder_join", ms, plain_ms, 4 * (3 * 64 * hw + 4 * 64), 8 * 64 * hw, None)
     del skip, y
     out.extend(bf16_timing(gen, flush, entry))
+    out.extend(lever_bf16_timing(gen, flush, entry))
     return out
 
 
@@ -1974,6 +2406,63 @@ def bf16_timing(gen, flush, entry) -> list:
     return out
 
 
+def lever_bf16_timing(gen, flush, entry) -> list:
+    """The levers' bf16 kernels at the 512x768 bucket's finest GRU scale
+    (128x128x192; the JSON rows), the tail also at the realtime model's
+    KITTI scales, and the windowed lookup at the bucket's 1/4 with bf16
+    levels and taps (the library call is row 1b's: F.grid_sample on the
+    bf16 levels, its grid in bf16)."""
+    out = []
+    for c, h, w in ((128, 128, 192), (128, 48, 156), (128, 24, 78)):
+        zx, cz, qx, cq, hh = ((torch.randn((1, c, h, w), generator=gen, device=DEVICE) * 2).to(BF16)
+                              for _ in range(5))
+        n = hh.numel()
+        ms = time_ms(lambda: gru_tail.fused_gru_tail(zx, cz, qx, cq, hh), flush=flush)
+        plain_ms = time_ms(lambda: gru_tail.plain_fused_gru_tail(zx, cz, qx, cq, hh), flush=flush)
+        if (h, w) == (128, 192):
+            entry("gru_tail_bf16", ms, plain_ms, 6 * 2 * n, 12 * n, None)
+            rh_ms = time_ms(lambda: gates.fused_rh(zx, cz, hh), flush=flush)
+            rh_plain_ms = time_ms(lambda: gates.plain_rh(zx, cz, hh), flush=flush)
+            entry("gates_rh_bf16", rh_ms, rh_plain_ms, 4 * 2 * n, 6 * n, None)
+            c_ms = time_ms(lambda: gates.fused_combine(zx, cz, qx, cq, hh), flush=flush)
+            c_plain_ms = time_ms(lambda: gates.plain_combine(zx, cz, qx, cq, hh), flush=flush)
+            entry("gates_combine_bf16", c_ms, c_plain_ms, 6 * 2 * n, 12 * n, None)
+        else:
+            log(f"[timing] gru_tail_bf16 {c}x{h}x{w} (realtime, KITTI bucket): kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {6 * 2 * n / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes)")
+        del zx, cz, qx, cq, hh
+    for h, w in ((128, 192), (48, 156)):
+        pre = torch.randn((1, 126, h, w), generator=gen, device=DEVICE).to(BF16)
+        flow = torch.randn((1, 1, h, w), generator=gen, device=DEVICE).to(BF16)
+        ms = time_ms(lambda: gru_tail.fused_motion_tail(pre, flow), flush=flush)
+        plain_ms = time_ms(lambda: gru_tail.plain_motion_tail(pre, flow), flush=flush)
+        hw = h * w
+        if (h, w) == (128, 192):
+            entry("motion_tail_bf16", ms, plain_ms, 2 * hw * (126 + 1 + 128), 126 * hw, None)
+        else:
+            log(f"[timing] motion_tail_bf16 126x{h}x{w} (realtime, KITTI bucket): kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {2 * hw * 255 / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes)")
+        del pre, flow
+    for label, (h, w) in (("512x768", (128, 192)), ("1984x2880", (496, 720))):
+        pyramid, coords = lookup_inputs(gen, 1, h, w, w)
+        pyramid = tuple(lvl.to(BF16) for lvl in pyramid)
+        ms = time_ms(lambda: corr_cuda.prefetch_corr_lookup(pyramid, coords, 4, BF16), flush=flush)
+        dense_ms = time_ms(lambda: corr_cuda.corr_lookup(pyramid, coords, 4, BF16), flush=flush)
+        plain_ms = time_ms(lambda: corr.corr_lookup(pyramid, coords, 4).to(BF16), flush=flush)
+        nbytes = lookup_bytes(pyramid, coords, 4, out_bytes=2)
+        log(f"[timing] corr_prefetch_lookup_bf16 {label}: windowed {ms:.4f} ms, dense bf16 kernel {dense_ms:.4f} ms "
+            f"(same call), plain {plain_ms:.4f} ms, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes)")
+        if label == "512x768":
+            rows, grid = grid_sample_lookup_inputs(pyramid, coords, 4)
+            rows, grid = rows.to(BF16), grid.to(BF16)
+            lib_ms = time_ms(lambda: F.grid_sample(rows, grid, mode="bilinear", padding_mode="zeros",
+                                                   align_corners=True), flush=flush)
+            entry("corr_prefetch_lookup_bf16", ms, plain_ms, nbytes, 3 * coords.numel() * 36, lib_ms)
+            del rows, grid
+        del pyramid, coords
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1993,6 +2482,7 @@ def main() -> int:
     errs.update(phase_prefetch_kernels(gen))
     errs.update(phase_gates_kernels(gen))
     errs.update(phase_bf16_kernels(gen))
+    errs.update(phase_bf16_lever_kernels(gen))
     torch.cuda.empty_cache()
     service, counts = phase_serving(rng)
     phase_stage_times(service)
@@ -2025,11 +2515,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_mixed_converge()
     torch.cuda.empty_cache()
+    realtime_counts = phase_realtime(rng)
+    torch.cuda.empty_cache()
+    phase_realtime_e2e(rng)
+    torch.cuda.empty_cache()
+    phase_realtime_evaluate(card)
+    torch.cuda.empty_cache()
+    lever_counts = phase_mixed_levers()
+    torch.cuda.empty_cache()
     # Each kernel's launches come from the main-path run of the slice that
     # added it: serving for the forward kernels, training for the scatter,
     # evaluation for the windowed lookup, the gates configuration's forward
     # for the gate pair, the mixed configuration's serving for the bf16
-    # forward variants, mixed training for the bf16 scatter.
+    # forward variants, mixed training for the bf16 scatter, the realtime
+    # configuration's serving for the bf16 GRU and motion tails, the mixed
+    # configuration's lever runs for the bf16 gate pair and windowed lookup.
     for name in ("corr_pyramid", "encoder_conv", "encoder_join"):
         counts[name] = fused_counts[name]
     counts["corr_scatter"] = train_counts["corr_scatter"]
@@ -2039,6 +2539,11 @@ def main() -> int:
     for name in ("corr_lookup_bf16", "corr_pyramid_bf16", "encoder_conv_bf16", "encoder_join_bf16"):
         counts[name] = mixed_counts[name]
     counts["corr_scatter_bf16"] = mixed_train_counts["corr_scatter_bf16"]
+    for name in ("gru_tail_bf16", "motion_tail_bf16"):
+        counts[name] = realtime_counts[name]
+    for name in ("gates_rh_bf16", "gates_combine_bf16"):
+        counts[name] = lever_counts["gates"][name]
+    counts["corr_prefetch_lookup_bf16"] = lever_counts["prefetch_lookup"]["corr_prefetch_lookup_bf16"]
     kernels = phase_timing(gen, errs, counts)
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -8,10 +8,12 @@
 CLI, `--corr_dtype` defaults to bfloat16 only for `reg_cuda` with
 `--mixed_precision` (the reference's fp16 reg_cuda volume under AMP), and to
 float32 otherwise. The model flags that the port does not have yet raise
-instead of being ignored: `--shared_backbone`, `--corr_implementation
-alt`/`alt_cuda`, and the bf16 combinations the config refuses
-(`--mixed_precision` with `--fused_gru_tail`, `--prefetch_lookup` or the
-gate pair's environment variable; a bf16 pyramid with `--prefetch_lookup`).
+instead of being ignored: `--corr_implementation alt`/`alt_cuda`. The
+reference's realtime model runs as `evaluate --dataset kitti --dry_run
+--shared_backbone --n_downsample 3 --n_gru_layers 2 --slow_fast_gru
+--valid_iters 7 --corr_implementation reg_cuda --mixed_precision
+--fused_encoder --fused_gru_tail` (a bf16 pyramid by the rule above).
+
 The other subcommands (`train`, `demo`, `serve`, `frontier`) are not ported
 yet and exit with code 2.
 """
@@ -43,7 +45,8 @@ def _add_model_args(p: argparse.ArgumentParser):
     p.add_argument("--n_downsample", type=int, default=2)
     p.add_argument("--n_gru_layers", type=int, default=3)
     p.add_argument("--slow_fast_gru", action="store_true")
-    p.add_argument("--shared_backbone", action="store_true", help="not ported: raises")
+    p.add_argument("--shared_backbone", action="store_true",
+                   help="one trunk for the context and feature encoders (the realtime model)")
     p.add_argument("--mixed_precision", action="store_true",
                    help="bf16 compute in the encoders and the update block (test-mode forwards)")
     p.add_argument(
@@ -82,17 +85,8 @@ def _model_config(args) -> RAFTStereoConfig:
         # The JAX CLI's rule: reg_cuda's role is the reference's fp16 volume
         # under AMP, so a bf16 pyramid only for reg_cuda with mixed precision.
         corr_dtype = "bfloat16" if args.corr_implementation == "reg_cuda" and args.mixed_precision else "float32"
-    from raft_stereo_tpu_torch.ops import gates
-
-    unported = []
-    if args.mixed_precision and gates.enabled():
-        unported.append(f"--mixed_precision with {gates.ENV_VAR}=1")
-    if args.shared_backbone:
-        unported.append("--shared_backbone")
     if corr == "alt":
-        unported.append(f"--corr_implementation {args.corr_implementation}")
-    if unported:
-        raise ValueError(f"not ported yet: {', '.join(unported)}")
+        raise ValueError(f"not ported yet: --corr_implementation {args.corr_implementation}")
     return RAFTStereoConfig(
         hidden_dims=tuple(args.hidden_dims),
         corr_implementation=corr,
@@ -103,6 +97,7 @@ def _model_config(args) -> RAFTStereoConfig:
         n_downsample=args.n_downsample,
         n_gru_layers=args.n_gru_layers,
         slow_fast_gru=args.slow_fast_gru,
+        shared_backbone=args.shared_backbone,
         data_modality=args.data_modality,
         fused_encoder=args.fused_encoder,
         prefetch_lookup=args.prefetch_lookup,

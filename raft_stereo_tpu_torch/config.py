@@ -9,14 +9,18 @@ Defaults and validation match the original field for field.
 `mixed_precision` and `corr_dtype` are ported for test-mode forwards
 (inference, serving, evaluation) and for training (the JAX package's
 shipping numerics: "pallas", bf16 compute, a bf16 pyramid, whose lookup's
-backward is the bf16 scatter kernel). A bf16 configuration with the fused
-GRU tail or the windowed lookup raises "not ported yet" at construction, and
-a `mixed_precision` test-mode forward with the gate pair raises in the
-model (their bf16 kernels come later); a training forward runs none of the
-three, as in JAX.
+backward is the bf16 scatter kernel). The test-mode levers run at bf16 as
+at fp32: `fused_gru_tail`, `prefetch_lookup` and the gate pair
+(`RAFT_STEREO_TPU_PALLAS_GATES=1`) take their kernels' bf16 forms; a
+training forward runs none of the three, as in JAX. `shared_backbone` is
+ported: the context encoder's trunk runs on both images and a residual
+block and a conv on its output give the correlation features (the
+reference's realtime model, with `n_downsample=3`, `n_gru_layers=2`,
+`slow_fast_gru`).
 
 Not yet ported, so not present: the `"alt"` correlation
-strategy, `shared_backbone`, `sequential_encoder`, `encoder_s2d` (a TPU
+strategy, `sequential_encoder` (and the JAX package's
+`sequential_batch_forward`), `encoder_s2d` (a TPU
 layout; the port computes its values with the direct convs), every serving
 option beyond the anytime engine's (batcher, fleet, AOT cache, streams),
 every training option beyond one process's optimizer step (data,
@@ -69,6 +73,11 @@ class RAFTStereoConfig:
     n_downsample: int = 2
     n_gru_layers: int = 3
     slow_fast_gru: bool = False
+    # One trunk for both encoders (models/raft_stereo.py `encode_features`):
+    # the context encoder's trunk runs on [image1, image2], its heads on
+    # image1's half, and `conv2_res` + `conv2_out` turn the whole trunk
+    # output into the correlation features; no `fnet` is built.
+    shared_backbone: bool = False
     data_modality: str = MODALITY_RGB
     # bf16 compute in the encoders and the update block, the JAX package's
     # dtype policy standing in for the reference's AMP autocast: parameters
@@ -148,15 +157,6 @@ class RAFTStereoConfig:
             raise ValueError(f"unknown data_modality {self.data_modality!r}")
         if self.corr_dtype not in CORR_DTYPES:
             raise ValueError(f"corr_dtype must be float32 or bfloat16, got {self.corr_dtype!r}")
-        unported = []
-        if self.mixed_precision and self.fused_gru_tail:
-            unported.append("fused_gru_tail")
-        if (self.mixed_precision or self.corr_dtype == "bfloat16") and self.prefetch_lookup:
-            unported.append("prefetch_lookup")
-        if unported:
-            raise ValueError(f"not ported yet: {' and '.join(unported)} with "
-                             f"{'mixed_precision' if self.mixed_precision else 'corr_dtype=bfloat16'} "
-                             "(their bf16 kernels are still to come)")
 
 
 @dataclasses.dataclass(frozen=True)

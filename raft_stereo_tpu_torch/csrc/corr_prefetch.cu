@@ -8,11 +8,15 @@
 // x = coords[q] / 2**l, the 2r+1 taps t = x - r .. x + r are each the linear
 // interpolation between samples floor(t) and floor(t)+1 of the query's own
 // row of level l; a sample outside [0, W2_l) is zero. Out
-// (B, H, W1, L*(2r+1)), level-major, fp32.
+// (B, H, W1, L*(2r+1)), level-major. The levels are fp32 or bf16 and the
+// taps fp32 or bf16, in the four pairs the dense kernel takes: a sample is
+// widened to fp32 as it is staged, the interpolation is fp32, and a tap is
+// rounded once to its dtype (round to nearest even), as the dense kernel
+// does.
 //
 // What bounds it on the H100: bytes. Per query and level the taps need the
-// 2r+2 samples around x (40 bytes at r = 4) and write 2r+1 outputs (36
-// bytes), with one multiply-add pair per output.
+// 2r+2 samples around x (40 bytes at r = 4 in fp32, 20 in bf16) and write
+// 2r+1 outputs (36 or 18 bytes), with one multiply-add pair per output.
 //
 // Design. The TPU kernel shares one window of 128-lane tiles across a block
 // of up to 256 queries, because a Pallas BlockSpec DMAs a (queries, 128) tile
@@ -31,7 +35,9 @@
 // half an ulp below an integer, so floor(t) is floor(x) + n or one more (the
 // rounding is monotone and floor(x) + n is representable). With that sample
 // every tap lands inside its window by construction, so the kernel is exact
-// on every input: no plan, no predicate, no fallback. Then the block forms
+// on every input: no plan, no predicate, no fallback. The window is staged
+// as fp32 whatever the levels' dtype (a bf16 sample widens exactly), so the
+// shared-memory plan per query is the same for both. Then the block forms
 // each tap exactly as corr_lookup.cu does (the same t, floor, fraction and
 // bounds tests; only the load comes from shared memory) and writes its
 // (queries, L*(2r+1)) output, one contiguous span, coalesced.
@@ -43,20 +49,24 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dtype.cuh"
+
 #define MAX_LEVELS 8
 #define BLOCK_QUERIES 64
 #define THREADS 256
 #define MAX_SHARED_BYTES (48 * 1024)
 
+template <typename TL>
 struct LevelTable {
-    const float* ptr[MAX_LEVELS];
+    const TL* ptr[MAX_LEVELS];
     int width[MAX_LEVELS];
 };
 
 // Select level l's row pointer base and width with static indices: indexing
 // the by-value table with the runtime `l` would copy it to local memory in
 // every thread.
-__device__ __forceinline__ void select_level(const LevelTable& levels, int l, const float*& base,
+template <typename TL>
+__device__ __forceinline__ void select_level(const LevelTable<TL>& levels, int l, const TL*& base,
                                              int& w2) {
     base = levels.ptr[0];
     w2 = levels.width[0];
@@ -69,9 +79,10 @@ __device__ __forceinline__ void select_level(const LevelTable& levels, int l, co
     }
 }
 
-__global__ void corr_prefetch_kernel(const float* __restrict__ coords, LevelTable levels,
+template <typename TL, typename TO>
+__global__ void corr_prefetch_kernel(const float* __restrict__ coords, LevelTable<TL> levels,
                                      int num_levels, int radius, int block_queries,
-                                     long long n_queries, float* __restrict__ out) {
+                                     long long n_queries, TO* __restrict__ out) {
     extern __shared__ float smem[];
     const int span = 2 * radius + 3;  // staged samples per (query, level)
     const int taps = 2 * radius + 1;
@@ -89,25 +100,25 @@ __global__ void corr_prefetch_kernel(const float* __restrict__ coords, LevelTabl
         const int rem = i - ql * per_query_win;
         const int l = rem / span;
         const int m = rem - l * span;
-        const float* base;
+        const TL* base;
         int w2;
         select_level(levels, l, base, w2);
         const float x = xs[ql] / (float)(1 << l);
         const float idx = floorf(x) - (float)radius + (float)m;
         float v = 0.0f;
-        if (idx >= 0.0f && idx <= (float)(w2 - 1)) v = base[(q0 + ql) * w2 + (int)idx];
+        if (idx >= 0.0f && idx <= (float)(w2 - 1)) v = Elem<TL>::load(base + (q0 + ql) * w2 + (int)idx);
         win[i] = v;
     }
     __syncthreads();
 
     const int per_query_out = num_levels * taps;
-    float* dst = out + q0 * per_query_out;
+    TO* dst = out + q0 * per_query_out;
     for (int i = threadIdx.x; i < nq * per_query_out; i += blockDim.x) {
         const int ql = i / per_query_out;
         const int rem = i - ql * per_query_out;
         const int l = rem / taps;
         const int k = rem - l * taps;
-        const float* unused;
+        const TL* unused;
         int w2;
         select_level(levels, l, unused, w2);
         const float x = xs[ql] / (float)(1 << l);
@@ -121,32 +132,48 @@ __global__ void corr_prefetch_kernel(const float* __restrict__ coords, LevelTabl
         float v0 = 0.0f, v1 = 0.0f;
         if (x0f >= 0.0f && x0f <= (float)(w2 - 1)) v0 = w[(int)(x0f - start)];
         if (x0f + 1.0f >= 0.0f && x0f + 1.0f <= (float)(w2 - 1)) v1 = w[(int)(x0f - start) + 1];
-        dst[i] = v0 * (1.0f - frac) + v1 * frac;
+        Elem<TO>::store(dst + i, v0 * (1.0f - frac) + v1 * frac);
     }
 }
 
-extern "C" int raft_corr_prefetch_f32(const void* coords, const void* const* level_ptrs,
-                                      const int* level_widths, int num_levels,
-                                      long long n_queries, int radius, void* out,
-                                      void* stream) {
-    if (num_levels < 1 || num_levels > MAX_LEVELS || radius < 0) return (int)cudaErrorInvalidValue;
-    LevelTable table;
+template <typename TL, typename TO>
+static int launch(const void* coords, const void* const* level_ptrs, const int* level_widths, int num_levels,
+                  long long n_queries, int radius, void* out, void* stream) {
+    LevelTable<TL> table;
     for (int l = 0; l < MAX_LEVELS; ++l) {
-        table.ptr[l] = l < num_levels ? (const float*)level_ptrs[l] : nullptr;
+        table.ptr[l] = l < num_levels ? (const TL*)level_ptrs[l] : nullptr;
         table.width[l] = l < num_levels ? level_widths[l] : 0;
     }
     if (n_queries == 0) return 0;
-    // Shared memory per query: its coordinate and its windows. Fewer queries
-    // per block where a large radius or many levels would pass 48 KB.
+    // Shared memory per query: its coordinate and its windows, all fp32.
+    // Fewer queries per block where a large radius or many levels would
+    // pass 48 KB.
     const long long per_query = 4LL * (1 + (long long)num_levels * (2 * radius + 3));
     long long bq = MAX_SHARED_BYTES / per_query;
     if (bq < 1) return (int)cudaErrorInvalidValue;
     if (bq > BLOCK_QUERIES) bq = BLOCK_QUERIES;
     const long long blocks = (n_queries + bq - 1) / bq;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    corr_prefetch_kernel<<<(unsigned)blocks, THREADS, (size_t)(bq * per_query), (cudaStream_t)stream>>>(
-        (const float*)coords, table, num_levels, radius, (int)bq, n_queries, (float*)out);
+    corr_prefetch_kernel<TL, TO><<<(unsigned)blocks, THREADS, (size_t)(bq * per_query), (cudaStream_t)stream>>>(
+        (const float*)coords, table, num_levels, radius, (int)bq, n_queries, (TO*)out);
     return (int)cudaGetLastError();
+}
+
+// coords fp32; the levels fp32 (level_bf16 = 0) or bf16 (1); the taps fp32
+// (out_bf16 = 0) or bf16 (1): the dense kernel's signature
+// (csrc/corr_lookup.cu `raft_corr_lookup`).
+extern "C" int raft_corr_prefetch(const void* coords, const void* const* level_ptrs, const int* level_widths,
+                                  int num_levels, long long n_queries, int radius, void* out, int level_bf16,
+                                  int out_bf16, void* stream) {
+    if (num_levels < 1 || num_levels > MAX_LEVELS || radius < 0) return (int)cudaErrorInvalidValue;
+    using bf16 = __nv_bfloat16;
+    if (level_bf16 && out_bf16)
+        return launch<bf16, bf16>(coords, level_ptrs, level_widths, num_levels, n_queries, radius, out, stream);
+    if (level_bf16)
+        return launch<bf16, float>(coords, level_ptrs, level_widths, num_levels, n_queries, radius, out, stream);
+    if (out_bf16)
+        return launch<float, bf16>(coords, level_ptrs, level_widths, num_levels, n_queries, radius, out, stream);
+    return launch<float, float>(coords, level_ptrs, level_widths, num_levels, n_queries, radius, out, stream);
 }
 
 extern "C" const char* raft_corr_prefetch_error_string(int status) {

@@ -1,6 +1,7 @@
 // Element types of the kernels that take fp32 or bf16 tensors
-// (csrc/corr_lookup.cu, corr_pyramid.cu, encoder_conv.cu, encoder_join.cu,
-// corr_scatter.cu).
+// (csrc/corr_lookup.cu, corr_prefetch.cu, corr_pyramid.cu, encoder_conv.cu,
+// encoder_join.cu, corr_scatter.cu, and through gru_gates.cuh gru_tail.cu
+// and gates.cu).
 //
 // Arithmetic is fp32 in both: an element is widened to float on load, and
 // `Elem<T>::round` rounds a float result to T's precision (round to nearest
@@ -33,7 +34,8 @@ struct Elem<__nv_bfloat16> {
 };
 
 // N consecutive elements as aligned vector accesses: fp32 runs of 2 or a
-// multiple of 4 (8 or 16 bytes per access), bf16 runs of 4 (8 bytes).
+// multiple of 4 (8 or 16 bytes per access), bf16 runs of 4 or 8 (8 or 16
+// bytes).
 template <int N>
 __device__ __forceinline__ void load_vec(const float* p, float* v) {
     if constexpr (N == 2) {
@@ -67,18 +69,35 @@ __device__ __forceinline__ uint32_t bf16_pack(float lo, float hi) {
            | ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
 }
 
-// Four bf16 values (8 bytes) as two 32-bit words.
+// Four bf16 values (8 bytes) as two 32-bit words, eight (16 bytes) as four.
 template <int N>
 __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* v) {
-    static_assert(N == 4, "bf16 runs of 4");
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    v[0] = bf16_lo(u.x); v[1] = bf16_hi(u.x);
-    v[2] = bf16_lo(u.y); v[3] = bf16_hi(u.y);
+    static_assert(N == 4 || N == 8, "bf16 runs of 4 or 8");
+    if constexpr (N == 4) {
+        const uint2 u = *reinterpret_cast<const uint2*>(p);
+        v[0] = bf16_lo(u.x); v[1] = bf16_hi(u.x);
+        v[2] = bf16_lo(u.y); v[3] = bf16_hi(u.y);
+    } else {
+        const uint4 u = *reinterpret_cast<const uint4*>(p);
+        v[0] = bf16_lo(u.x); v[1] = bf16_hi(u.x);
+        v[2] = bf16_lo(u.y); v[3] = bf16_hi(u.y);
+        v[4] = bf16_lo(u.z); v[5] = bf16_hi(u.z);
+        v[6] = bf16_lo(u.w); v[7] = bf16_hi(u.w);
+    }
 }
 
 // The values are rounded to bf16 (round to nearest even) as they are packed.
 template <int N>
 __device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* v) {
-    static_assert(N == 4, "bf16 runs of 4");
-    *reinterpret_cast<uint2*>(p) = make_uint2(bf16_pack(v[0], v[1]), bf16_pack(v[2], v[3]));
+    static_assert(N == 4 || N == 8, "bf16 runs of 4 or 8");
+    if constexpr (N == 4) {
+        *reinterpret_cast<uint2*>(p) = make_uint2(bf16_pack(v[0], v[1]), bf16_pack(v[2], v[3]));
+    } else {
+        *reinterpret_cast<uint4*>(p) = make_uint4(bf16_pack(v[0], v[1]), bf16_pack(v[2], v[3]),
+                                                  bf16_pack(v[4], v[5]), bf16_pack(v[6], v[7]));
+    }
 }
+
+// Elements of T in one 16-byte access: 4 fp32 or 8 bf16.
+template <typename T>
+constexpr int kVec16 = 16 / (int)sizeof(T);

@@ -5,9 +5,14 @@
 // Rounding: expf and tanhf (not the __expf fast path), sigmoid written as
 // 1 / (1 + exp(-x)) as PyTorch writes it, and both libraries are built with
 // -fmad=false, so every product and sum is rounded where the plain PyTorch
-// versions round them.
+// versions round them. bf16 operands are widened to fp32 exactly, the
+// formulas run in fp32 unchanged, and the result is rounded once to bf16,
+// the JAX kernels' contract (fp32 in registers, one store in the operand's
+// dtype).
 
 #pragma once
+
+#include "dtype.cuh"
 
 __device__ __forceinline__ float gru_sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
 
@@ -36,39 +41,47 @@ struct GruBlend {
     }
 };
 
-template <typename Op, typename... V>
-__device__ __forceinline__ float4 gru_apply4(Op op, V... v) {
-    float4 r;
-    r.x = op(v.x...);
-    r.y = op(v.y...);
-    r.z = op(v.z...);
-    r.w = op(v.w...);
-    return r;
+// One 16-byte unit of an operand, widened to fp32.
+template <int N>
+struct Unit {
+    float v[N];
+};
+
+template <int N, typename Op, typename... U>
+__device__ __forceinline__ void gru_apply_unit(Op op, float* r, const U&... u) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) r[k] = op(u.v[k]...);
 }
 
-// out[i] = op(in[i]...) for i < n, as a grid-stride loop: four elements per
-// thread with 16-byte loads and stores when `vec` (every pointer 16-byte
-// aligned; the wrapper checks), then a scalar loop over the remaining
-// elements (fewer than four on the vector path, all of them otherwise).
-// The kernels that call it take their pointers __restrict__.
-template <typename Op, typename... P>
-__device__ __forceinline__ void gru_stream(Op op, float* out, long long n, int vec,
-                                           const P*... in) {
+template <int N, typename T>
+__device__ __forceinline__ Unit<N> gru_load_unit(const T* p) {
+    Unit<N> u;
+    load_vec<N>(p, u.v);
+    return u;
+}
+
+// out[i] = op(in[i]...) for i < n, as a grid-stride loop over elements of T
+// (fp32 or bf16): each operand is widened to fp32 on load, `op` computes in
+// fp32, and the store rounds once to T (round to nearest even; the identity
+// for fp32, whose instantiation computes exactly what the fp32-only loop
+// did). With `vec` (every pointer 16-byte aligned; the wrapper checks)
+// each thread takes 16 bytes of every operand per step, 4 fp32 or 8 bf16
+// elements, then a scalar loop covers the remaining elements (fewer than
+// one unit on the vector path, all of them otherwise). The kernels that
+// call it take their pointers __restrict__; the grid is the wrapper's
+// (ops/_build.py `stream_blocks`).
+template <typename Op, typename T, typename... P>
+__device__ __forceinline__ void gru_stream(Op op, T* out, long long n, int vec, const P*... in) {
+    constexpr int N = kVec16<T>;
     const long long stride = (long long)gridDim.x * blockDim.x;
     const long long first = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-    const long long n4 = vec ? n / 4 : 0;
-    for (long long i = first; i < n4; i += stride) {
-        reinterpret_cast<float4*>(out)[i] = gru_apply4(op, reinterpret_cast<const float4*>(in)[i]...);
+    const long long nv = vec ? n / N : 0;
+    for (long long i = first; i < nv; i += stride) {
+        float r[N];
+        gru_apply_unit<N>(op, r, gru_load_unit<N>(in + N * i)...);
+        store_vec<N>(out + N * i, r);
     }
-    for (long long i = 4 * n4 + first; i < n; i += stride) out[i] = op(in[i]...);
-}
-
-// Blocks of a grid-stride pass over n elements (four per thread when
-// `vec`): one thread per unit of work, at most 32 blocks per SM of the
-// H100's 132; the loop strides over the rest.
-static inline unsigned gru_stream_blocks(long long n, int vec, int threads) {
-    const long long units = vec ? (n + 3) / 4 : n;
-    long long blocks = (units + threads - 1) / threads;
-    if (blocks > 132LL * 32) blocks = 132LL * 32;
-    return (unsigned)(blocks < 1 ? 1 : blocks);
+    for (long long i = N * nv + first; i < n; i += stride) {
+        Elem<T>::store(out + i, op(Elem<T>::load(in + i)...));
+    }
 }

@@ -99,7 +99,13 @@ class MultiBasicEncoder(nn.Module):
     Returns `num_layers` scales, finest first; each scale is a tuple of one
     tensor per entry of `output_dims`. `output_dims[j][2]` is the finest
     (1/2**downsample) width, `[j][1]` the next, `[j][0]` the coarsest.
-    Layers a smaller `num_layers` never runs are not built."""
+    Layers a smaller `num_layers` never runs are not built.
+
+    With `dual_inp` (the shared backbone) the input is the 2B batch
+    [image1, image2]: the trunk runs on all of it (with `fused_layer1` the
+    batch norm's fused layer1 over 2B images), the heads on the first B,
+    and the trunk output (2B, 128, ...) is returned as well:
+    (scales, trunk_out)."""
 
     def __init__(self, output_dims: Sequence[Tuple[int, ...]] = ((128, 128, 128), (128, 128, 128)),
                  norm_fn: str = "batch", downsample: int = 3, in_channels: int = 3,
@@ -129,8 +135,12 @@ class MultiBasicEncoder(nn.Module):
             return tuple(mods[f"out{scale}_{j}"](mods[f"res{scale}_{j}"](x)) for j in range(self.n_heads))
         return tuple(mods[f"out{scale}_{j}"](x) for j in range(self.n_heads))
 
-    def forward(self, x: torch.Tensor, test_mode: bool = False):
+    def forward(self, x: torch.Tensor, test_mode: bool = False, dual_inp: bool = False):
         x = self.trunk(x, test_mode)
+        trunk_out = None
+        if dual_inp:
+            trunk_out = x
+            x = x[: x.shape[0] // 2]
         scales = [self._heads(x, "08")]
         if self.num_layers >= 2:
             y = self.layer4_1(self.layer4_0(x))
@@ -138,4 +148,6 @@ class MultiBasicEncoder(nn.Module):
         if self.num_layers >= 3:
             z = self.layer5_1(self.layer5_0(y))
             scales.append(self._heads(z, "32", with_res=False))
+        if dual_inp:
+            return tuple(scales), trunk_out
         return tuple(scales)

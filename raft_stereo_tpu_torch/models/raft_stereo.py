@@ -39,7 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from raft_stereo_tpu_torch.config import RAFTStereoConfig
 from raft_stereo_tpu_torch.models.extractor import BasicEncoder, MultiBasicEncoder
-from raft_stereo_tpu_torch.models.layers import Conv
+from raft_stereo_tpu_torch.models.layers import Conv, ResidualBlock
 from raft_stereo_tpu_torch.models.update import BasicMultiUpdateBlock, UpsampleMaskHead
 from raft_stereo_tpu_torch.ops import corr as corr_ops
 from raft_stereo_tpu_torch.ops import corr_cuda, gates
@@ -68,15 +68,15 @@ def corr_state(cfg: RAFTStereoConfig, fmap1: torch.Tensor, fmap2: torch.Tensor, 
 
 def corr_sample(cfg: RAFTStereoConfig, state, coords: torch.Tensor, prefetch: bool = False) -> torch.Tensor:
     """Correlation taps at `coords` (B, H, W1) -> NCHW (B, L*(2r+1), H, W1),
-    in the compute dtype (bf16 under `mixed_precision`: the lookup kernel
-    stores them so; the "reg" lookup's fp32 taps are cast). `prefetch` (the
+    in the compute dtype (bf16 under `mixed_precision`: the lookup kernels
+    store them so; the "reg" lookup's fp32 taps are cast). `prefetch` (the
     test-mode `prefetch_lookup` strategy) takes the windowed lookup kernel in
-    place of the dense one for "pallas"; it has no backward, so callers keep
-    it out of training forwards."""
+    place of the dense one for "pallas", in the same dtypes; it has no
+    backward, so callers keep it out of training forwards."""
     out_dtype = torch.bfloat16 if cfg.mixed_precision else None
     if cfg.corr_implementation == "pallas":
         if prefetch:
-            taps = corr_cuda.prefetch_corr_lookup(state, coords, cfg.corr_radius)
+            taps = corr_cuda.prefetch_corr_lookup(state, coords, cfg.corr_radius, out_dtype)
         else:
             taps = corr_cuda.corr_lookup(state, coords, cfg.corr_radius, out_dtype)
     else:
@@ -88,7 +88,8 @@ def corr_sample(cfg: RAFTStereoConfig, state, coords: torch.Tensor, prefetch: bo
 
 class RAFTStereo(nn.Module):
     """Full model. Submodule names follow the JAX parameter tree ("cnet",
-    "fnet", "context_zqr_conv{i}", "update_block", "mask_head")."""
+    "fnet", "context_zqr_conv{i}", "update_block", "mask_head"; under
+    `shared_backbone` "conv2_res" and "conv2_out" in place of "fnet")."""
 
     # utils/checkpoints.py: the JAX package scans the update block under
     # the module "iteration".
@@ -102,10 +103,16 @@ class RAFTStereo(nn.Module):
             norm_fn="batch", downsample=cfg.n_downsample, in_channels=cfg.in_channels,
             num_layers=cfg.n_gru_layers, fused_layer1=cfg.fused_encoder,
         )
-        self.fnet = BasicEncoder(
-            output_dim=256, norm_fn="instance", downsample=cfg.n_downsample,
-            in_channels=cfg.in_channels, fused_layer1=cfg.fused_encoder,
-        )
+        if cfg.shared_backbone:
+            # The correlation head on the shared trunk (the JAX package's
+            # nn.Sequential of these two, named as there).
+            self.conv2_res = ResidualBlock(128, 128, "instance", stride=1)
+            self.conv2_out = Conv(128, 256, 3)
+        else:
+            self.fnet = BasicEncoder(
+                output_dim=256, norm_fn="instance", downsample=cfg.n_downsample,
+                in_channels=cfg.in_channels, fused_layer1=cfg.fused_encoder,
+            )
         # Scale i (finest first) feeds a GRU of width hidden_dims[2 - i].
         for i in range(cfg.n_gru_layers):
             width = cfg.hidden_dims[2 - i]
@@ -118,8 +125,11 @@ class RAFTStereo(nn.Module):
 
     def encode_features(self, image1: torch.Tensor, image2: torch.Tensor, test_mode: bool) -> dict:
         """Everything before the first GRU iteration: normalization, both
-        encoders, the context biases, the correlation state and the
-        coordinate grid. Returns the refinement state dict
+        encoders (under `shared_backbone` the context encoder's trunk on
+        both images, its heads on image1, and `conv2_res` + `conv2_out` on
+        the trunk for the feature maps), the context biases, the
+        correlation state and the coordinate grid. Returns the refinement
+        state dict
         {"net", "coords1", "context", "corr", "coords0"}, coords1 == coords0."""
         cfg = self.config
         image1 = (2.0 * (image1 / 255.0) - 1.0).permute(0, 3, 1, 2).contiguous()
@@ -129,8 +139,12 @@ class RAFTStereo(nn.Module):
         coords_dtype = image1.dtype
         if cfg.mixed_precision:
             image1, image2 = image1.to(torch.bfloat16), image2.to(torch.bfloat16)
-        scales = self.cnet(image1, test_mode)
-        fmaps = self.fnet(torch.cat([image1, image2], dim=0), test_mode)
+        if cfg.shared_backbone:
+            scales, trunk = self.cnet(torch.cat([image1, image2], dim=0), test_mode, dual_inp=True)
+            fmaps = self.conv2_out(self.conv2_res(trunk))
+        else:
+            scales = self.cnet(image1, test_mode)
+            fmaps = self.fnet(torch.cat([image1, image2], dim=0), test_mode)
         fmap1, fmap2 = torch.chunk(fmaps, 2, dim=0)
 
         net = tuple(torch.tanh(s[0]) for s in scales)
@@ -164,12 +178,11 @@ class RAFTStereo(nn.Module):
         without a backward act only in test mode, as in JAX: the windowed
         lookup (`prefetch_lookup`) and the gate pair (`ops/gates.py`,
         switched on by its environment variable, read on every call; on CPU
-        tensors its wrappers run the plain versions)."""
+        tensors its wrappers run the plain versions), at fp32 or bf16. The
+        flow enters the update block in the compute dtype, as in JAX."""
         cfg = self.config
         context = state["context"]
         pallas_gates = gates.enabled() and test_mode
-        if pallas_gates and cfg.mixed_precision:
-            raise ValueError(f"not ported yet: the gate pair ({gates.ENV_VAR}=1) with mixed_precision")
         if corr is None:
             corr = corr_sample(cfg, state["corr"], coords1, prefetch=cfg.prefetch_lookup and test_mode)
         flow = (coords1 - state["coords0"])[:, None]

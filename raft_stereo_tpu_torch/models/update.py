@@ -16,7 +16,10 @@ motion encoder's relu + concat run as the CUDA kernels of `ops/gru_tail.py`
 in a test-mode forward (`test_mode=True`) only, as the JAX model gates the
 flag (`fused_tail=cfg.fused_gru_tail and test_mode`): the kernels have no
 backward. r = sigmoid(convr + cr) stays in torch, and the tail kernel takes
-the pre-activations zx and qx.
+the pre-activations zx and qx. Under mixed precision the kernels compute in
+fp32 and round once to bf16, where the unfused bf16 formula
+(`gru_tail.plain_gru_tail`) rounds after every op, so the fused and unfused
+bf16 forwards differ by those roundings (fp32: bit for bit).
 
 With `pallas_gates` (the experiment of `ops/gates.py`, switched on by its
 environment variable in a test-mode forward) the ConvGRU's gating runs as

@@ -10,11 +10,19 @@ use, never at import; `build(names)` compiles several sources in parallel,
 one `nvcc` process each. Each source has its own flags (`SOURCE_FLAGS`).
 
 No fallback: a missing `nvcc` or a failed compile raises.
+
+The launch plumbing that the streaming elementwise kernels share (the GRU
+tail, the motion tail and the gate pair: ops/gru_tail.py, ops/gates.py)
+lives here too: their operand check, the 16-byte vector test and width,
+and `stream_blocks`, their grid: one thread per 16-byte unit of work, at
+most 32 blocks of 256 threads per multiprocessor of the card, read from
+the device.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -150,3 +158,52 @@ def check(status: int, what: str, error_string) -> None:
     library's `const char* (int)` wrapper of cudaGetErrorString."""
     if status != 0:
         raise RuntimeError(f"{what}: CUDA error {status} ({error_string(status).decode()})")
+
+
+# -- the streaming elementwise kernels' launch plumbing -------------------------
+
+STREAM_THREADS = 256  # threads per block of csrc/gru_tail.cu and csrc/gates.cu
+STREAM_BLOCKS_PER_SM = 32
+
+
+def stream_blocks(units: int, sms: int) -> int:
+    """Blocks of STREAM_THREADS threads for a grid-stride pass over `units`
+    units of work (elements, or 16-byte groups of them) on a card of `sms`
+    multiprocessors: one unit per thread, at most STREAM_BLOCKS_PER_SM
+    blocks per multiprocessor (the loop strides over the rest), at least
+    one."""
+    return max(1, min(-(-units // STREAM_THREADS), sms * STREAM_BLOCKS_PER_SM))
+
+
+@functools.lru_cache(maxsize=None)
+def multiprocessors(device_index: int) -> int:
+    """The multiprocessor count of CUDA device `device_index`, read once."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def device_blocks(units: int, device: torch.device) -> int:
+    """`stream_blocks` on `device`'s card."""
+    return stream_blocks(units, multiprocessors(device.index))
+
+
+def vector_width(dtype: torch.dtype) -> int:
+    """Elements of `dtype` in one 16-byte access: 4 fp32, 8 bf16."""
+    return 128 // torch.finfo(dtype).bits
+
+
+def aligned(tensors) -> bool:
+    """Whether every tensor's data starts on a 16-byte boundary."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def check_operands(name, tensors, device):
+    """Raise unless every tensor is contiguous, on `device`, and of one
+    dtype, fp32 or bf16 (a mix raises: the kernels have one element type),
+    and none requires grad (no backward)."""
+    dtype = tensors[0].dtype
+    for t in tensors:
+        if t.device != device or t.dtype != dtype or dtype not in DTYPE_FLAGS or not t.is_contiguous():
+            raise ValueError(f"{name} kernel needs contiguous tensors of one dtype, fp32 or bf16, on one "
+                             f"CUDA device; got {[(str(u.dtype), u.is_contiguous()) for u in tensors]}")
+        if t.requires_grad and torch.is_grad_enabled():
+            raise ValueError(f"{name} kernel has no backward; call it without grad")

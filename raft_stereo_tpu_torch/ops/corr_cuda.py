@@ -17,8 +17,9 @@ tensor the kernel cannot take raises.
 `prefetch_corr_lookup` (config.prefetch_lookup, test mode) computes the
 lookup's function with the windowed kernel `csrc/corr_prefetch.cu`: each
 query's window of every level staged in shared memory, bit for bit the
-dense kernel's taps on every input. It has no backward, as in JAX: it raises
-where autograd would record.
+dense kernel's taps on every input, in the same four (level, tap) dtype
+pairs. It has no backward, as in JAX: it raises where autograd would
+record.
 
 The lookup's gradient is `CorrLookup`, the counterpart of the JAX package's
 custom VJP of `pallas_corr_lookup_padded`: d(pyramid) from the tap cotangent
@@ -34,8 +35,7 @@ The pyramid and scatter kernels launch what a plain function here plans
 queries per block, grid, shared bytes, 64-bit indexing); a shape or stride
 no plan takes raises.
 
-Not ported: the bf16 variant of the windowed lookup, and the "alt"
-strategy's on-the-fly lookup.
+Not ported: the "alt" strategy's on-the-fly lookup.
 """
 
 from __future__ import annotations
@@ -50,10 +50,12 @@ from raft_stereo_tpu_torch.ops import _build, corr
 # Kernel launches since the last reset; chip_smoke.py reads it to prove the
 # serving and training paths went through the kernels. The bf16 variants
 # count apart: the pyramid's tensor-core kernel under "corr_pyramid_bf16",
-# a lookup with bf16 levels or taps under "corr_lookup_bf16", a scatter
-# with a bf16 cotangent or bf16 levels under "corr_scatter_bf16".
+# a lookup with bf16 levels or taps under "corr_lookup_bf16" (windowed:
+# "corr_prefetch_lookup_bf16"), a scatter with a bf16 cotangent or bf16
+# levels under "corr_scatter_bf16".
 LAUNCHES = {"corr_lookup": 0, "corr_pyramid": 0, "corr_scatter": 0, "corr_prefetch_lookup": 0,
-            "corr_lookup_bf16": 0, "corr_pyramid_bf16": 0, "corr_scatter_bf16": 0}
+            "corr_lookup_bf16": 0, "corr_pyramid_bf16": 0, "corr_scatter_bf16": 0,
+            "corr_prefetch_lookup_bf16": 0}
 MAX_LEVELS = 8  # MAX_LEVELS of csrc/corr_lookup.cu, corr_prefetch.cu and corr_scatter.cu
 # csrc/corr_pyramid.cu: a volume tile pools into every level, so its
 # columns must align to 2**(L-1); its level table holds 7.
@@ -292,8 +294,7 @@ def _pyramid_lib():
     return lib
 
 
-# The C signature of both lookup kernels, dense and windowed; the dense
-# kernel's adds two dtype flags (levels bf16, taps bf16) before the stream.
+# The C signature of both lookup kernels, dense and windowed.
 _LOOKUP_ARGTYPES = [
     ctypes.c_void_p,  # coords
     ctypes.c_void_p,  # host array of level pointers
@@ -302,18 +303,21 @@ _LOOKUP_ARGTYPES = [
     ctypes.c_longlong,  # n_queries
     ctypes.c_int,  # radius
     ctypes.c_void_p,  # out
+    ctypes.c_int,  # the levels are bf16
+    ctypes.c_int,  # the taps are bf16
+    ctypes.c_void_p,  # stream
 ]
 
 
-def _lib():
-    lib = _build.load("corr_lookup")
-    fn = lib.raft_corr_lookup
+def _lookup_lib(source: str, entry: str, error_string: str):
+    lib = _build.load(source)
+    fn = getattr(lib, entry)
     if fn.argtypes is None:
-        fn.argtypes = _LOOKUP_ARGTYPES + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = _LOOKUP_ARGTYPES
         fn.restype = ctypes.c_int
-        lib.raft_corr_error_string.argtypes = [ctypes.c_int]
-        lib.raft_corr_error_string.restype = ctypes.c_char_p
-    return lib
+        getattr(lib, error_string).argtypes = [ctypes.c_int]
+        getattr(lib, error_string).restype = ctypes.c_char_p
+    return fn, getattr(lib, error_string)
 
 
 def corr_lookup(state: Sequence[torch.Tensor], coords: torch.Tensor, radius: int,
@@ -336,26 +340,29 @@ def _lookup(levels: Tuple[torch.Tensor, ...], coords: torch.Tensor, radius: int,
     """The lookup without autograd: the kernel for CUDA tensors, the plain
     version (`ops/corr.py` `corr_lookup`, then one cast) for CPU tensors."""
     if not coords.is_cuda:
-        taps = corr.corr_lookup(levels, coords, radius)
-        return taps if out_dtype is None else taps.to(out_dtype)
+        return _plain_lookup(levels, coords, radius, out_dtype)
+    return _launch_lookup("corr_lookup", ("corr_lookup", "raft_corr_lookup", "raft_corr_error_string"),
+                          levels, coords, radius, out_dtype)
+
+
+def _plain_lookup(levels, coords, radius, out_dtype):
+    """The plain version of both lookup kernels: `ops/corr.py` `corr_lookup`,
+    then one cast to `out_dtype` (None: its own dtype)."""
+    taps = corr.corr_lookup(levels, coords, radius)
+    return taps if out_dtype is None else taps.to(out_dtype)
+
+
+def _launch_lookup(name, lib_names, levels, coords, radius, out_dtype=None) -> torch.Tensor:
+    """Check the operands of a lookup kernel (dense or windowed: one C
+    signature; `lib_names` = source, entry point, error-string function),
+    launch it on the current stream, count the launch under `name` (or
+    `name`_bf16 for bf16 levels or taps) and return its taps: fp32
+    coordinates, levels all of the first one's dtype (fp32 or bf16), output
+    in `out_dtype` (fp32 or bf16; None: fp32)."""
     out_dtype = torch.float32 if out_dtype is None else out_dtype
     if out_dtype not in _build.DTYPE_FLAGS or levels[0].dtype not in _build.DTYPE_FLAGS:
-        raise ValueError(f"corr_lookup kernel takes fp32 or bf16 levels and taps, got {levels[0].dtype} "
+        raise ValueError(f"{name} kernel takes fp32 or bf16 levels and taps, got {levels[0].dtype} "
                          f"and {out_dtype}")
-    lib = _lib()
-    flags = (_build.DTYPE_FLAGS[levels[0].dtype], _build.DTYPE_FLAGS[out_dtype])
-    out = _launch_lookup("corr_lookup", lib.raft_corr_lookup, lib.raft_corr_error_string, levels, coords,
-                         radius, out_dtype, flags)
-    LAUNCHES["corr_lookup_bf16" if torch.bfloat16 in (levels[0].dtype, out_dtype) else "corr_lookup"] += 1
-    return out
-
-
-def _launch_lookup(name, fn, error_string, levels, coords, radius, out_dtype=torch.float32,
-                   flags=()) -> torch.Tensor:
-    """Check the operands of a lookup kernel (dense or windowed: one C
-    signature, then the kernel's own `flags`), launch it on the current
-    stream and return its taps: fp32 coordinates, levels all of the first
-    one's dtype, output in `out_dtype`."""
     b, h, w1 = coords.shape
     if not 1 <= len(levels) <= MAX_LEVELS:
         raise ValueError(f"{name} kernel takes 1..{MAX_LEVELS} levels, got {len(levels)}")
@@ -370,6 +377,7 @@ def _launch_lookup(name, fn, error_string, levels, coords, radius, out_dtype=tor
     out = torch.empty((b, h, w1, len(levels) * (2 * radius + 1)), dtype=out_dtype, device=coords.device)
     ptrs = (ctypes.c_void_p * len(levels))(*[lvl.data_ptr() for lvl in levels])
     widths = (ctypes.c_int * len(levels))(*[lvl.shape[-1] for lvl in levels])
+    fn, error_string = _lookup_lib(*lib_names)
     status = fn(
         coords.data_ptr(),
         ctypes.cast(ptrs, ctypes.c_void_p),
@@ -378,43 +386,33 @@ def _launch_lookup(name, fn, error_string, levels, coords, radius, out_dtype=tor
         b * h * w1,
         radius,
         out.data_ptr(),
-        *flags,
+        _build.DTYPE_FLAGS[levels[0].dtype],
+        _build.DTYPE_FLAGS[out_dtype],
         torch.cuda.current_stream(coords.device).cuda_stream,
     )
     _build.check(status, f"{name} kernel", error_string)
+    LAUNCHES[f"{name}_bf16" if torch.bfloat16 in (levels[0].dtype, out_dtype) else name] += 1
     return out
 
 
-def _prefetch_lib():
-    lib = _build.load("corr_prefetch")
-    fn = lib.raft_corr_prefetch_f32
-    if fn.argtypes is None:
-        fn.argtypes = _LOOKUP_ARGTYPES + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.raft_corr_prefetch_error_string.argtypes = [ctypes.c_int]
-        lib.raft_corr_prefetch_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def prefetch_corr_lookup(state: Sequence[torch.Tensor], coords: torch.Tensor, radius: int) -> torch.Tensor:
+def prefetch_corr_lookup(state: Sequence[torch.Tensor], coords: torch.Tensor, radius: int,
+                         out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """`corr_lookup`'s taps by the windowed kernel `csrc/corr_prefetch.cu`
     for CUDA tensors (the counterpart of the JAX package's
     `prefetch_corr_lookup_padded`, bit for bit the dense kernel's output on
-    every input), by the plain lookup (`ops/corr.py` `corr_lookup`) for CPU
-    tensors. No backward: raises where autograd would record."""
+    every input, fp32 or bf16 levels and taps in `out_dtype` as
+    `corr_lookup` takes them), by the plain lookup (`ops/corr.py`
+    `corr_lookup`, then one cast) for CPU tensors. No backward: raises where
+    autograd would record."""
     levels = tuple(state)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (coords, *levels)):
         raise RuntimeError("prefetch_corr_lookup has no backward (test-mode forwards only); "
                            "call it without grad or use corr_lookup")
     if not coords.is_cuda:
-        return corr.corr_lookup(levels, coords, radius)
-    if levels[0].dtype != torch.float32:
-        raise ValueError("not ported yet: the windowed lookup's bf16 levels")
-    lib = _prefetch_lib()
-    out = _launch_lookup("corr_prefetch_lookup", lib.raft_corr_prefetch_f32,
-                         lib.raft_corr_prefetch_error_string, levels, coords, radius)
-    LAUNCHES["corr_prefetch_lookup"] += 1
-    return out
+        return _plain_lookup(levels, coords, radius, out_dtype)
+    return _launch_lookup("corr_prefetch_lookup",
+                          ("corr_prefetch", "raft_corr_prefetch", "raft_corr_prefetch_error_string"),
+                          levels, coords, radius, out_dtype)
 
 
 class CorrLookup(torch.autograd.Function):

@@ -23,6 +23,12 @@ two agree bit for bit; it has its own launch and its own count. Like the
 port's other elementwise kernels it is built by nvcc with -fmad=false
 (ops/_build.py), so that it rounds where the plain version rounds.
 
+Dtypes, the JAX kernels' contract: the operands all fp32 or all bf16 (a
+mix raises), the math fp32, the output rounded once to their dtype. The
+plain versions widen, compute in fp32 and round once the same way; on fp32
+operands they are the plain fp32 formulas. They are the kernels' twins,
+not the unfused ConvGRU's bf16 formula (which rounds after every op).
+
 Layout: elementwise over tensors of one shape (the model passes NCHW).
 """
 
@@ -33,12 +39,13 @@ import os
 
 import torch
 
-from raft_stereo_tpu_torch.ops import _build
+from raft_stereo_tpu_torch.ops import _build, gru_tail
 
 ENV_VAR = "RAFT_STEREO_TPU_PALLAS_GATES"
 # Kernel launches since the last reset; chip_smoke.py reads them to prove
-# the gates configuration went through the kernels.
-LAUNCHES = {"gates_rh": 0, "gates_combine": 0}
+# the gates configuration went through the kernels. The bf16 forms count
+# apart.
+LAUNCHES = {"gates_rh": 0, "gates_combine": 0, "gates_rh_bf16": 0, "gates_combine_bf16": 0}
 
 
 def enabled() -> bool:
@@ -47,61 +54,66 @@ def enabled() -> bool:
 
 
 def plain_rh(rx, cr, h):
-    """The plain PyTorch version of the rh kernel."""
-    return torch.sigmoid(rx + cr) * h
+    """The plain PyTorch version of the rh kernel: operands widened to fp32
+    (at least), sigmoid(rx + cr) * h, one rounding to rx's dtype."""
+    wide = [t.to(torch.promote_types(t.dtype, torch.float32)) for t in (rx, cr, h)]
+    return (torch.sigmoid(wide[0] + wide[1]) * wide[2]).to(rx.dtype)
 
 
 def plain_combine(zx, cz, qx, cq, h):
-    """The plain PyTorch version of the combine kernel."""
-    z = torch.sigmoid(zx + cz)
-    q = torch.tanh(qx + cq)
-    return (1.0 - z) * h + z * q
+    """The plain PyTorch version of the combine kernel: the fused GRU tail's
+    (`gru_tail.plain_fused_gru_tail`), output in zx's dtype (one dtype for
+    all operands on the card)."""
+    return gru_tail.plain_fused_gru_tail(zx, cz, qx, cq, h).to(zx.dtype)
 
 
 def _lib():
     lib = _build.load("gates")
-    if lib.raft_gates_rh_f32.argtypes is None:
-        tail = [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]  # n, vec, stream
-        lib.raft_gates_rh_f32.argtypes = [ctypes.c_void_p] * 4 + tail
-        lib.raft_gates_rh_f32.restype = ctypes.c_int
-        lib.raft_gates_combine_f32.argtypes = [ctypes.c_void_p] * 6 + tail
-        lib.raft_gates_combine_f32.restype = ctypes.c_int
+    if lib.raft_gates_rh.argtypes is None:
+        # n, vec, bf16, blocks, stream
+        tail = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.raft_gates_rh.argtypes = [ctypes.c_void_p] * 4 + tail
+        lib.raft_gates_rh.restype = ctypes.c_int
+        lib.raft_gates_combine.argtypes = [ctypes.c_void_p] * 6 + tail
+        lib.raft_gates_combine.restype = ctypes.c_int
         lib.raft_gates_error_string.argtypes = [ctypes.c_int]
         lib.raft_gates_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def _launch(name, fn, ops):
-    """Check the operands, launch `fn` on them and return its output."""
+    """Check the operands, launch `fn` on them and return its output (in
+    their dtype) and whether it was the bf16 form."""
     h = ops[-1]
     if any(t.shape != h.shape for t in ops):
         raise ValueError(f"{name} operands differ in shape: {[tuple(t.shape) for t in ops]}")
-    for t in ops:
-        if t.device != h.device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name} kernel needs contiguous fp32 tensors on one CUDA device")
-        if t.requires_grad and torch.is_grad_enabled():
-            raise ValueError(f"{name} kernel has no backward; call it without grad")
+    _build.check_operands(name, ops, h.device)
     out = torch.empty_like(h)
-    vec = int(all(t.data_ptr() % 16 == 0 for t in (*ops, out)))
-    status = fn(*[t.data_ptr() for t in ops], out.data_ptr(), h.numel(), vec,
+    n = h.numel()
+    vec = int(_build.aligned((*ops, out)))
+    width = _build.vector_width(h.dtype)
+    bf16 = h.dtype == torch.bfloat16
+    status = fn(*[t.data_ptr() for t in ops], out.data_ptr(), n, vec, int(bf16),
+                _build.device_blocks(-(-n // width) if vec else n, h.device),
                 torch.cuda.current_stream(h.device).cuda_stream)
     _build.check(status, f"{name} kernel", _lib().raft_gates_error_string)
-    return out
+    return out, bf16
 
 
 def fused_rh(rx, cr, h):
-    """sigmoid(rx + cr) * h in one pass."""
+    """sigmoid(rx + cr) * h in one pass, in the operands' dtype."""
     if not h.is_cuda:
         return plain_rh(rx, cr, h)
-    out = _launch("gates_rh", _lib().raft_gates_rh_f32, (rx, cr, h))
-    LAUNCHES["gates_rh"] += 1
+    out, bf16 = _launch("gates_rh", _lib().raft_gates_rh, (rx, cr, h))
+    LAUNCHES["gates_rh_bf16" if bf16 else "gates_rh"] += 1
     return out
 
 
 def fused_combine(zx, cz, qx, cq, h):
-    """(1 - z) * h + z * tanh(qx + cq) with z = sigmoid(zx + cz), one pass."""
+    """(1 - z) * h + z * tanh(qx + cq) with z = sigmoid(zx + cz), one pass,
+    in the operands' dtype."""
     if not h.is_cuda:
         return plain_combine(zx, cz, qx, cq, h)
-    out = _launch("gates_combine", _lib().raft_gates_combine_f32, (zx, cz, qx, cq, h))
-    LAUNCHES["gates_combine"] += 1
+    out, bf16 = _launch("gates_combine", _lib().raft_gates_combine, (zx, cz, qx, cq, h))
+    LAUNCHES["gates_combine_bf16" if bf16 else "gates_combine"] += 1
     return out

@@ -1,7 +1,8 @@
 """Device-time breakdown of the anytime serving stages, or of one training
 step, on a CUDA card.
 
-    python -m raft_stereo_tpu_torch.profile_stages [--config kernel|fused|evaluate|mixed|train|mixed-train]
+    python -m raft_stereo_tpu_torch.profile_stages
+        [--config kernel|fused|evaluate|mixed|realtime|mixed-levers|train|mixed-train]
         [--cases 384x512/1,512x768/1] [--cudnn-benchmark off,on] [--top 8]
 
 Builds the default model with the CUDA lookup and fused GRU tails
@@ -10,10 +11,15 @@ Builds the default model with the CUDA lookup and fused GRU tails
 with the windowed lookup in place of the dense one (`--config evaluate`,
 the evaluate entry point's configuration), or in the JAX bench's
 mixed-precision configuration (`--config mixed`: "pallas", bf16 compute, a
-bf16 pyramid, the fused encoder; its convolutions are timed in bf16), with
-seeded random weights, fp32 parameters, TF32 off, and for each (bucket, batch) case and
-cuDNN benchmark mode warms it, then times one prelude and one chunk of 4
-iterations (synchronized wall clock) and traces each with `torch.profiler`.
+bf16 pyramid, the fused encoder; its convolutions are timed in bf16), or
+the reference's realtime model in mixed precision (`--config realtime`:
+`shared_backbone`, `n_downsample=3`, `n_gru_layers=2`, `slow_fast_gru`,
+"pallas", bf16 compute and pyramid, the fused encoder and the fused GRU
+tail; its chunk is the model's 7 iterations; default case the KITTI bucket
+384x1248/1), with seeded random weights, fp32 parameters, TF32 off, and
+for each (bucket, batch) case and cuDNN benchmark mode warms it, then times
+one prelude and one chunk of 4 iterations (synchronized wall clock) and
+traces each with `torch.profiler`.
 Prints per stage the wall time, the summed device-kernel time, the device's
 busy share (kernel time over wall time), the time by kernel family, and the
 kernels that take most device time, then times every distinct
@@ -33,6 +39,17 @@ with cuDNN's default algorithm choice and with cuDNN off (PyTorch's own
 im2col + GEMM), so that a convolution for which cuDNN picks a far slower
 algorithm stands out.
 
+`--config mixed-levers` is the card's form of the JAX bench's
+`per_iter.levers` block: the mixed configuration at Middlebury-F
+(1984x2880/1 unless `--cases` names another) with each test-mode lever on
+in turn (`prefetch_lookup`, `fused_gru_tail`, the gate pair through
+`RAFT_STEREO_TPU_PALLAS_GATES=1`) and with none, on the same seeded
+weights. For each it prints the per-iteration device ms of the lookup alone
+(`corr_sample` at the prelude's coordinates) and of the update block alone
+(motion encoder, GRUs and flow head from the same taps; the JAX bench's
+`iter_gru_ms`), medians of CUDA-event timed calls, then the traced chunk's
+breakdown as above.
+
 Every conv is timed three ways: forward, the backward to its input
 (dgrad) and the backward to its weight (wgrad), each alone
 (`torch.nn.grad`, which calls the same convolution backward as autograd),
@@ -42,6 +59,9 @@ and for each the kernel that takes most of cuDNN's device time is named.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import os
+import statistics
 import subprocess
 import sys
 import time
@@ -54,6 +74,8 @@ from torch.profiler import ProfilerActivity, profile
 from raft_stereo_tpu_torch.config import RAFTStereoConfig, TrainConfig
 from raft_stereo_tpu_torch.models import anytime
 from raft_stereo_tpu_torch.models.init import build_model
+from raft_stereo_tpu_torch.models.raft_stereo import corr_sample
+from raft_stereo_tpu_torch.ops import gates
 from raft_stereo_tpu_torch.train.loss import sequence_loss
 from raft_stereo_tpu_torch.train.trainer import Trainer
 
@@ -64,12 +86,24 @@ CONFIGS = {
     "evaluate": RAFTStereoConfig(corr_implementation="pallas", fused_gru_tail=True, prefetch_lookup=True),
     "mixed": RAFTStereoConfig(corr_implementation="pallas", mixed_precision=True, corr_dtype="bfloat16",
                               fused_encoder=True),
+    "realtime": RAFTStereoConfig(shared_backbone=True, n_downsample=3, n_gru_layers=2, slow_fast_gru=True,
+                                 corr_implementation="pallas", mixed_precision=True, corr_dtype="bfloat16",
+                                 fused_encoder=True, fused_gru_tail=True),
     "train": RAFTStereoConfig(corr_implementation="pallas"),
     "mixed-train": RAFTStereoConfig(corr_implementation="pallas", mixed_precision=True, corr_dtype="bfloat16"),
 }
 # The training configurations' default case and iterations: the train CLI's
 # recipe, and the JAX bench's training setup (bench.py `_train_step_seconds`).
 TRAIN_SETUPS = {"train": ("320x720/6", 16), "mixed-train": ("320x720/4", 22)}
+# Iterations of a traced chunk, and the default cases, per forward config.
+CONFIG_CHUNK_ITERS = {"realtime": 7}
+DEFAULT_CASES = {"realtime": "384x1248/1", "mixed-levers": "1984x2880/1"}
+# The JAX bench's test-mode levers (bench.py `per_iter.levers`): per lever,
+# the mixed config's flags and whether the gate pair's variable is on.
+# `--config mixed-levers`, chip_smoke.py's `[mixed-levers]` and the CPU
+# tests of the bf16 levers all read this table.
+LEVERS = {"off": ({}, False), "prefetch_lookup": ({"prefetch_lookup": True}, False),
+          "fused_gru_tail": ({"fused_gru_tail": True}, False), "gates": ({}, True)}
 FAMILIES = (
     ("port kernels", ("corr_lookup_kernel", "corr_scatter_kernel", "gru_tail_", "motion_tail_kernel",
                       "corr_pyramid_kernel", "encoder_conv_kernel", "encoder_stats_kernel", "join_kernel",
@@ -243,12 +277,57 @@ def time_convs(model, data, mask_batch, test_mode=True) -> None:
         del x, w
 
 
+def event_ms(fn, reps=20) -> float:
+    """Median device time of one call by CUDA events, after two warm calls."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in times)
+
+
+@torch.inference_mode()
+def profile_levers(case: str, top: int) -> None:
+    """The mixed configuration with each test-mode lever on and off: the
+    lookup's and the update block's per-iteration device ms, and a traced
+    chunk."""
+    hw, batch = case.split("/")
+    h, w = map(int, hw.split("x"))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    img1 = torch.rand((int(batch), h, w, 3), generator=gen, device="cuda") * 255
+    img2 = torch.roll(img1, 8, dims=2)
+    for lever, (flags, gates_on) in LEVERS.items():
+        cfg = dataclasses.replace(CONFIGS["mixed"], **flags)
+        model = build_model(cfg, seed=0, device="cuda")
+        if gates_on:
+            os.environ[gates.ENV_VAR] = "1"
+        try:
+            state = anytime.prelude(model, img1, img2)
+            coords = state["coords1"]
+            taps = corr_sample(cfg, state["corr"], coords, prefetch=cfg.prefetch_lookup)
+            lookup_ms = event_ms(lambda: corr_sample(cfg, state["corr"], coords, prefetch=cfg.prefetch_lookup))
+            gru_ms = event_ms(lambda: model._update(state, state["net"], coords, taps, test_mode=True))
+            print(f"[mixed-levers {lever}, {h}x{w} b{batch}] per iteration: lookup {lookup_ms:.4f} ms, "
+                  f"update block {gru_ms:.4f} ms (device, medians of 20 calls)")
+            run_stage(f"chunk of {CHUNK_ITERS}", lambda: anytime.chunk(model, state, CHUNK_ITERS), top)
+        finally:
+            os.environ.pop(gates.ENV_VAR, None)
+        del model, state, taps
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--config", choices=sorted(CONFIGS), default="kernel")
+    ap.add_argument("--config", choices=sorted([*CONFIGS, "mixed-levers"]), default="kernel")
     ap.add_argument("--cases", default=None,
                     help="comma list of HxW/batch (default 384x512/1,512x768/1,512x768/4; train: 320x720/6; "
-                         "mixed-train: 320x720/4)")
+                         "mixed-train: 320x720/4; realtime: 384x1248/1; mixed-levers: 1984x2880/1)")
     ap.add_argument("--cudnn-benchmark", default="off", help="comma list of off/on")
     ap.add_argument("--top", type=int, default=8)
     args = ap.parse_args(argv)
@@ -267,10 +346,15 @@ def main(argv=None) -> int:
                 profile_train(args.config, case, args.top)
                 torch.cuda.empty_cache()
         return 0
+    if args.config == "mixed-levers":
+        for case in (args.cases or DEFAULT_CASES[args.config]).split(","):
+            profile_levers(case, args.top)
+        return 0
     model = build_model(CONFIGS[args.config], seed=0, device="cuda")
+    chunk_iters = CONFIG_CHUNK_ITERS.get(args.config, CHUNK_ITERS)
     for mode in args.cudnn_benchmark.split(","):
         torch.backends.cudnn.benchmark = mode == "on"
-        for case in (args.cases or "384x512/1,512x768/1,512x768/4").split(","):
+        for case in (args.cases or DEFAULT_CASES.get(args.config, "384x512/1,512x768/1,512x768/4")).split(","):
             hw, batch = case.split("/")
             h, w = map(int, hw.split("x"))
             img = torch.zeros((int(batch), h, w, 3), device="cuda")
@@ -278,8 +362,8 @@ def main(argv=None) -> int:
             with torch.inference_mode():
                 state = anytime.prelude(model, img, img)
                 run_stage("prelude", lambda: anytime.prelude(model, img, img), args.top)
-                run_stage(f"chunk of {CHUNK_ITERS}",
-                          lambda: anytime.chunk(model, state, CHUNK_ITERS), args.top)
+                run_stage(f"chunk of {chunk_iters}",
+                          lambda: anytime.chunk(model, state, chunk_iters), args.top)
             time_convs(model, {"image1": img, "image2": img}, int(batch))
             del img, state
             torch.cuda.empty_cache()

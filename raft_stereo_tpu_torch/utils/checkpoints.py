@@ -207,9 +207,13 @@ def convert_state_dict(
         _residual_block(b, sd, "cnet.layer5.0", ("cnet", "layer5_0"), "batch", has_down=True)
         _residual_block(b, sd, "cnet.layer5.1", ("cnet", "layer5_1"), "batch", has_down=False)
 
-    # --- feature encoder (the port has no shared_backbone) ---
-    _trunk(b, sd, "fnet.", ("fnet", "trunk"), "instance", config.n_downsample)
-    b.conv(sd, "fnet.conv2", "fnet", "conv2")
+    # --- feature encoder ---
+    if config.shared_backbone:
+        _residual_block(b, sd, "conv2.0", ("conv2_res",), "instance", has_down=False)
+        b.conv(sd, "conv2.1", "conv2_out")
+    else:
+        _trunk(b, sd, "fnet.", ("fnet", "trunk"), "instance", config.n_downsample)
+        b.conv(sd, "fnet.conv2", "fnet", "conv2")
 
     # --- context zqr convs ---
     for i in range(config.n_gru_layers):

@@ -16,8 +16,9 @@ their plain versions.
   `SyntheticEvalDataset()` (90x158: padding and cropping run) against the
   JAX ones, 2 iterations, with and without `pad_bucket`: metrics within
   1e-4 relative.
-- `python -m raft_stereo_tpu_torch evaluate --dry_run` on the CPU, and the
-  flags the port does not have.
+- `python -m raft_stereo_tpu_torch evaluate --dry_run` on the CPU, the
+  flags the port does not have, and the ones that raised before their
+  slice, which now run.
 - `--restore_ckpt`: the port's `convert_state_dict` against the JAX one on a
   reference-keyed state dict, and a `.pth` restored into a model whose
   forward matches the JAX model's.
@@ -46,7 +47,14 @@ from raft_stereo_tpu_torch.utils.checkpoints import (
     load_jax_variables,
     load_reference_checkpoint,
 )
-from torch_parity import flat_leaves, halve_kernels, jax_apply, jax_init, torch_single_thread  # noqa: F401
+from torch_parity import (  # noqa: F401 (autouse fixture)
+    flat_leaves,
+    halve_kernels,
+    jax_apply,
+    jax_init,
+    reference_state_dict,
+    torch_single_thread,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W, ITERS = 48, 64, 3
@@ -197,53 +205,33 @@ def test_cli_dry_run_on_cpu():
     assert "Validation ETH3D: EPE" in out.stdout
 
 
-@pytest.mark.parametrize("flags", [["--mixed_precision", "--fused_gru_tail"],
-                                   ["--corr_dtype", "bfloat16", "--prefetch_lookup"], ["--shared_backbone"],
-                                   ["--corr_implementation", "alt"], ["--corr_implementation", "alt_cuda"]])
+@pytest.mark.parametrize("flags", [["--corr_implementation", "alt"], ["--corr_implementation", "alt_cuda"]])
 def test_cli_unported_flags_raise(flags):
     with pytest.raises(ValueError, match="not ported yet"):
         cli.main(["evaluate", "--dataset", "eth3d", "--dry_run", "--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("flags", [["--mixed_precision", "--fused_gru_tail"],
+                                   ["--corr_dtype", "bfloat16", "--corr_implementation", "reg_cuda",
+                                    "--prefetch_lookup"],
+                                   ["--shared_backbone", "--n_downsample", "3", "--n_gru_layers", "2",
+                                    "--slow_fast_gru"]],
+                         ids=["mixed+fused_gru_tail", "bf16+prefetch_lookup", "shared_backbone"])
+def test_cli_formerly_unported_flags_run(flags, capsys):
+    """The three combinations that raised "not ported yet" before their
+    slice (the bf16 levers and the shared backbone) run the dry-run evaluate
+    path on the CPU to its validation line. (The windowed lookup is
+    "pallas" only, so its case names reg_cuda, which the refusal did not
+    need.)"""
+    argv = ["evaluate", "--dataset", "eth3d", "--dry_run", "--device", "cpu", "--valid_iters", "2", *flags]
+    assert cli.main(argv) == 0
+    assert "Validation ETH3D: EPE" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("command", ["train", "demo", "serve", "frontier", "bogus"])
 def test_cli_other_subcommands_exit_2(command, capsys):
     assert cli.main([command]) == 2
     assert "not yet ported" in capsys.readouterr().err or command == "bogus"
-
-
-def reference_state_dict(variables, jcfg, rng):
-    """A state dict with the reference's keys that the JAX converter maps
-    onto `variables`: the converter is run once on a probe whose every
-    tensor holds its own key's index, which names the key behind each flax
-    leaf; then each leaf is laid out as the reference stores it (OIHW
-    kernels), with a random second channel in `convf1` and a random second
-    row in `flow_head.conv2`, which both converters drop."""
-    keys = []
-
-    class Probe(dict):
-        def __getitem__(self, key):
-            if key not in keys:
-                keys.append(key)
-            return np.full((2, 2, 2, 2), float(keys.index(key)), np.float32)
-
-        def __contains__(self, key):
-            return True
-
-    leaves = flat_leaves(variables)
-    sd = {}
-    for path, probe in flat_leaves(jax_convert_state_dict(Probe(), jcfg)).items():
-        if path not in leaves:  # a bias the probe offered that the model lacks
-            continue
-        key = keys[int(probe.flat[0])]
-        value = leaves[path]
-        if path[-1] == "kernel":
-            value = value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
-        if key == "update_block.encoder.convf1.weight":
-            value = np.concatenate([value, rng.standard_normal(value.shape).astype(np.float32)], axis=1)
-        if key.startswith("update_block.flow_head.conv2."):
-            value = np.concatenate([value, rng.standard_normal(value.shape).astype(np.float32)], axis=0)
-        sd[key] = np.ascontiguousarray(value)
-    return sd
 
 
 def test_convert_state_dict_matches_jax(weights):

@@ -20,6 +20,12 @@ or fp32 staging), and 8 elements per 16-byte store: every level's span of
 a block splits into an element-by-element head up to its first 16-byte
 boundary, whole vectors and an element-by-element tail.
 
+Streaming grid (ops/_build.py `stream_blocks`, the GRU tail, motion
+tail and gate pair kernels): one thread per unit of work, at most 32
+blocks of 256 per multiprocessor of the card, at least one block; on an
+H100's 132 the grid the kernels computed for themselves before the count
+was read from the device, and every unit covered by the grid-stride loop.
+
 `block_tile`, `block_queries` and `span_split` below restate how the kernels
 map a block to its work; that the .cu files derive the same mapping is shown only on the
 card (chip_smoke.py PYRAMID_CASES and SCATTER_CASES, and the gpu-marked
@@ -28,8 +34,9 @@ tests in test_torch_encoder.py and test_torch_corr.py).
 
 import numpy as np
 import pytest
+import torch
 
-from raft_stereo_tpu_torch.ops import corr_cuda
+from raft_stereo_tpu_torch.ops import _build, corr_cuda
 from torch_parity import torch_single_thread  # noqa: F401 (autouse fixture)
 
 WIDTHS = [1, 5, 32, 37, 96, 128, 150, 192, 720, 800]
@@ -308,3 +315,23 @@ def test_bf16_scatter_plan_limits_count_elements():
     assert corr_cuda.scatter_plan(57600, widths, 4, 2).shared_bytes == 4 * 64 * (36 + 40 + 4 + 1)
     with pytest.raises(ValueError, match="fp32 or bf16"):
         corr_cuda.scatter_plan(10, [8], 4, 8)
+
+
+def fixed_grid_blocks(n, vec):
+    """The grid csrc/gru_gates.cuh computed in C for an H100 before the
+    multiprocessor count was read from the device: (n + 3) / 4 fp32 units
+    on the vector path, capped at 132 x 32 blocks of 256."""
+    units = (n + 3) // 4 if vec else n
+    return max(1, min((units + 255) // 256, 132 * 32))
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 255, 256, 257, 4096, 128 * 96 * 128, 128 * 496 * 720, 2**31 + 5])
+def test_stream_blocks(n):
+    for vec in (0, 1):
+        units = -(-n // 4) if vec else n
+        blocks = _build.stream_blocks(units, SMS)
+        assert blocks == fixed_grid_blocks(n, vec)
+        # The grid-stride loop covers every unit; the cap scales with the card.
+        assert blocks * _build.STREAM_THREADS * -(-max(units, 1) // (blocks * _build.STREAM_THREADS)) >= units
+        assert _build.stream_blocks(units, 66) == max(1, min(-(-units // 256), 66 * 32))
+    assert _build.vector_width(torch.float32) == 4 and _build.vector_width(torch.bfloat16) == 8

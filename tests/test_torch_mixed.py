@@ -6,8 +6,8 @@ its pieces, each on the same numpy inputs made from a seed:
 
 - config and CLI: the JAX defaults and validation of `mixed_precision` and
   `corr_dtype`, the CLI's rule that `reg_cuda` with `--mixed_precision`
-  stores a bf16 pyramid, and the combinations that are not ported yet,
-  which raise with "not ported yet" in the config or the CLI;
+  stores a bf16 pyramid, and the bf16 combinations that raised "not
+  ported yet" before their kernels, which now run;
 - the plain bf16 volume and pyramid (`ops/corr.py`, and `fused_pyramid_state`
   on CPU tensors) against `corr_volume`/`corr_pyramid` and against the
   Pallas `fused_pyramid_state` in interpret mode;
@@ -127,8 +127,18 @@ def test_config_defaults_and_validation_match_jax():
     dict(corr_dtype="bfloat16", corr_implementation="pallas", prefetch_lookup=True),
 ], ids=["mixed+fused_gru_tail", "mixed+prefetch_lookup", "bf16_corr+prefetch_lookup"])
 def test_config_refuses_unported_bf16_combinations(flags):
-    with pytest.raises(ValueError, match="not ported yet"):
-        RAFTStereoConfig(**flags)
+    """Since the bf16 levers' kernels (tests/test_torch_bf16_levers.py) these
+    combinations are ported: the name is kept, the refusal is gone. Each is
+    accepted by the config, and a CPU test-mode forward runs with finite
+    fp32 flows and, under mixed precision, a bf16 hidden state."""
+    cfg = RAFTStereoConfig(hidden_dims=(16, 16, 16), **flags)
+    model = build_model(cfg, seed=0, device="cpu")
+    img = torch.from_numpy(np.random.default_rng(2).uniform(0, 255, (1, 32, 64, 3)).astype(np.float32))
+    with torch.inference_mode():
+        state = anytime.chunk(model, anytime.prelude(model, img, img), 2)
+        lo, up = anytime.finalize(model, state)
+    assert state["net"][0].dtype == (BF16 if cfg.mixed_precision else torch.float32)
+    assert up.dtype == torch.float32 and up.shape == (1, 32, 64, 1) and torch.isfinite(up).all()
 
 
 @pytest.mark.parametrize("flags", [dict(mixed_precision=True), dict(corr_dtype="bfloat16")],
@@ -156,14 +166,28 @@ def test_training_refuses_bf16(flags):
     assert levels[0].grad.dtype == BF16 and levels[0].grad.shape == (1, 2, 8, 8)
 
 
-def test_gate_switch_refused_under_mixed_precision(monkeypatch):
+def test_gate_switch_refused_under_mixed_precision(monkeypatch, capsys):
+    """Since the gate pair's bf16 kernels the switch runs under mixed
+    precision: the name is kept, the refusal is gone. The model's test-mode
+    forward goes through the gate wrappers in bf16 (their plain versions on
+    the CPU) and the CLI's dry run reaches its validation line."""
     monkeypatch.setenv(gates.ENV_VAR, "1")
     model = build_model(RAFTStereoConfig(hidden_dims=(16, 16, 16), mixed_precision=True), seed=0, device="cpu")
     img = torch.zeros((1, 32, 64, 3))
-    with torch.inference_mode(), pytest.raises(ValueError, match="not ported yet"):
-        model(img, img, iters=1, test_mode=True)
-    with pytest.raises(ValueError, match="not ported yet"):
-        cli.main(["evaluate", "--dataset", "eth3d", "--dry_run", "--device", "cpu", "--mixed_precision"])
+    seen = []
+    real_rh = gates.fused_rh
+
+    def spy(*ops):
+        seen.append({t.dtype for t in ops})
+        return real_rh(*ops)
+
+    monkeypatch.setattr(gates, "fused_rh", spy)
+    with torch.inference_mode():
+        lo, up = model(img, img, iters=1, test_mode=True)
+    assert seen and all(d == {BF16} for d in seen) and torch.isfinite(up).all()
+    argv = ["evaluate", "--dataset", "eth3d", "--dry_run", "--device", "cpu", "--mixed_precision", "--valid_iters", "1"]
+    assert cli.main(argv) == 0
+    assert "Validation ETH3D: EPE" in capsys.readouterr().out
 
 
 def parse_model_args(add_model_args, argv):
@@ -179,23 +203,32 @@ def parse_model_args(add_model_args, argv):
     ["--corr_implementation", "pallas", "--mixed_precision"],
     ["--corr_dtype", "bfloat16"],
     ["--corr_implementation", "reg_cuda", "--mixed_precision", "--fused_encoder"],
+    ["--shared_backbone", "--n_downsample", "3", "--n_gru_layers", "2", "--slow_fast_gru", "--corr_implementation",
+     "reg_cuda", "--mixed_precision", "--fused_encoder", "--fused_gru_tail"],
 ], ids=["default", "mixed", "reg_cuda", "reg_cuda+mixed", "reg_cuda+mixed+fp32", "pallas+mixed", "bf16",
-        "bench"])
+        "bench", "realtime"])
 def test_cli_dtype_rule_matches_jax(argv):
     """The JAX CLI's default rule: a bf16 pyramid only for `reg_cuda` with
-    `--mixed_precision`, unless `--corr_dtype` says otherwise."""
+    `--mixed_precision`, unless `--corr_dtype` says otherwise; and the
+    realtime model's architecture flags reach the config as in JAX."""
     port = cli._model_config(parse_model_args(cli._add_model_args, argv))
     ref = jcli._model_config(parse_model_args(jcli._add_model_args, argv))
-    for field in ("corr_implementation", "mixed_precision", "corr_dtype", "fused_encoder"):
+    for field in ("corr_implementation", "mixed_precision", "corr_dtype", "fused_encoder", "fused_gru_tail",
+                  "shared_backbone", "n_downsample", "n_gru_layers", "slow_fast_gru"):
         assert getattr(port, field) == getattr(ref, field), field
 
 
 @pytest.mark.parametrize("flags", [["--mixed_precision", "--fused_gru_tail"],
                                    ["--corr_dtype", "bfloat16", "--prefetch_lookup"]],
                          ids=["mixed+fused_gru_tail", "bf16+prefetch_lookup"])
-def test_cli_refuses_unported_bf16(flags):
-    with pytest.raises(ValueError, match="not ported yet"):
-        cli.main(["evaluate", "--dataset", "eth3d", "--dry_run", "--device", "cpu", *flags])
+def test_cli_refuses_unported_bf16(flags, capsys):
+    """The name is kept, the refusal is gone: both combinations run the
+    CLI's dry run on the CPU to its validation line (with "pallas", which
+    the windowed lookup needs)."""
+    argv = ["evaluate", "--dataset", "eth3d", "--dry_run", "--device", "cpu", "--valid_iters", "1",
+            "--corr_implementation", "pallas", *flags]
+    assert cli.main(argv) == 0
+    assert "Validation ETH3D: EPE" in capsys.readouterr().out
 
 
 # -- correlation ------------------------------------------------------------------

@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+from raft_stereo_tpu.utils.checkpoints import convert_state_dict as jax_convert_state_dict
+
 
 @pytest.fixture(autouse=True, scope="module")
 def torch_single_thread():
@@ -166,3 +168,38 @@ def scatter_case(rng, b, h, w1, w2, levels, radius):
     x.reshape(-1)[: len(special)] = special[: x.size]
     g = rng.standard_normal((b, h, w1, levels * (2 * radius + 1))).astype(np.float32)
     return x, g, [w2 >> l for l in range(levels)]
+
+
+def reference_state_dict(variables, jcfg, rng):
+    """A state dict with the reference's keys that the JAX converter maps
+    onto `variables`: the converter is run once on a probe whose every
+    tensor holds its own key's index, which names the key behind each flax
+    leaf; then each leaf is laid out as the reference stores it (OIHW
+    kernels), with a random second channel in `convf1` and a random second
+    row in `flow_head.conv2`, which both converters drop."""
+    keys = []
+
+    class Probe(dict):
+        def __getitem__(self, key):
+            if key not in keys:
+                keys.append(key)
+            return np.full((2, 2, 2, 2), float(keys.index(key)), np.float32)
+
+        def __contains__(self, key):
+            return True
+
+    leaves = flat_leaves(variables)
+    sd = {}
+    for path, probe in flat_leaves(jax_convert_state_dict(Probe(), jcfg)).items():
+        if path not in leaves:  # a bias the probe offered that the model lacks
+            continue
+        key = keys[int(probe.flat[0])]
+        value = leaves[path]
+        if path[-1] == "kernel":
+            value = value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        if key == "update_block.encoder.convf1.weight":
+            value = np.concatenate([value, rng.standard_normal(value.shape).astype(np.float32)], axis=1)
+        if key.startswith("update_block.flow_head.conv2."):
+            value = np.concatenate([value, rng.standard_normal(value.shape).astype(np.float32)], axis=0)
+        sd[key] = np.ascontiguousarray(value)
+    return sd
