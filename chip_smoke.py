@@ -145,16 +145,22 @@ MIXED_REQUESTS = [
     ("padded 500x700", (500, 700), None),
     ("tight deadline", (512, 768), 1.0),
 ]
-# The bf16 pyramid's checks, as PYRAMID_CASES: the 512x768 bucket's and
-# Middlebury-F's shapes in the model's layout (16-byte copies of 8
-# elements), and the element-by-element copies (W 150: H*W not a multiple
-# of 8; the contiguous (B, H, W, D) layout), W 37, and 7 levels.
+# The bf16 pyramid's checks, as PYRAMID_CASES, one or more per plan branch
+# (ops/corr_cuda.py `pyramid_plan`): the wgmma kernel at every instantiated
+# W2 width (the buckets' and Middlebury-F's 1/4: 192, 128 and 240 with a ring
+# of 3 slots; the realtime buckets' 1/8: 64 and 96; W 160 and 256) and the
+# mma.sync kernel for what its tensor maps do not take: the realtime KITTI
+# bucket's 1/8 (W 156) and W 150 and 37 (rows not 16-byte aligned: element
+# by element copies), the contiguous (B, H, W, D) layout, 7 levels.
 PYRAMID_BF16_CASES = (
     ("512x768", (128, 192, "nchw", 4)),
+    ("384x512", (96, 128, "nchw", 4)),
     ("realtime 384x512 1/8", (48, 64, "nchw", 4)),
     ("realtime 384x1248 1/8", (48, 156, "nchw", 4)),
     ("realtime 512x768 1/8", (64, 96, "nchw", 4)),
     ("1984x2880", (496, 720, "nchw", 4)),
+    ("W 160", (3, 160, "nchw", 4)),
+    ("W 256", (3, 256, "nchw", 4)),
     ("W 150", (3, 150, "nchw", 4)),
     ("512x768 contiguous (B, H, W, D)", (128, 192, "bhwd", 4)),
     ("W 37", (3, 37, "nchw", 4)),
@@ -162,10 +168,10 @@ PYRAMID_BF16_CASES = (
 )
 # The bf16 conv's and join's shapes: full resolution of the 512x768 bucket
 # (every skip form of the join there) and of Middlebury-F, 13x70, where
-# tiles end inside the image and rows are not 16-byte aligned (the
-# element-by-element stores), and the realtime model's layer1 at half
-# resolution (its stem has stride 2) of the 384x512 and 512x768 buckets
-# and of the KITTI bucket 384x1248.
+# tiles end inside the image and rows are not 16-byte aligned (the conv's
+# element-by-element path: no TMA raw tile, element stores), and the
+# realtime model's layer1 at half resolution (its stem has stride 2) of
+# the 384x512 and 512x768 buckets and of the KITTI bucket 384x1248.
 BF16_CONV_SHAPES = ((512, 768), (1984, 2880), (13, 70), (192, 256), (256, 384), (192, 624))
 # The trunks that run the bf16 conv and join, as (batch, conv forms, trunk
 # norm, statistics emitted): the default model's feature trunk (2 images,
@@ -520,6 +526,23 @@ def time_ms(fn, reps=30, flush=None) -> float:
         events.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def kernel_ms(fn, names, flush, reps=20) -> float:
+    """Mean device time of the kernels whose name contains one of `names`
+    in one call of `fn`, by torch.profiler (L2 flushed before each call):
+    the wrapper's kernels alone, without the host's launch gaps that
+    `time_ms` also sees."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages() if any(n in e.key for n in names)) / 1e3 / reps
 
 
 # -- phases --------------------------------------------------------------------
@@ -1487,8 +1510,13 @@ def phase_bf16_kernels(gen) -> dict:
     bucket's and Middlebury-F's shapes: the lookup at its four (level, tap)
     dtype pairs and the join exactly, the pyramid (every PYRAMID_BF16_CASES
     entry) and the conv (every form, with statistics) by BF16_SUM_FLOOR's
-    allowance. Returns each variant's max abs diff."""
+    allowance. Logs the plan branch each pyramid and conv shape took and
+    the worst share of the allowance per kernel and branch, and fails
+    unless every branch the plans can take ran: both pyramid kernels, every
+    wgmma width, both conv input paths. Returns each variant's max abs
+    diff."""
     errs = {"corr_lookup_bf16": 0.0, "corr_pyramid_bf16": 0.0, "encoder_conv_bf16": 0.0, "encoder_join_bf16": 0.0}
+    worst_by_branch = {}
     for label, (h, w, layout, levels) in PYRAMID_BF16_CASES:
         f1, f2 = (f.to(BF16) for f in fmap_inputs(gen, 1, h, w, layout=layout))
         plan = corr_cuda.pyramid_plan_for(f1, f2, levels)
@@ -1496,10 +1524,14 @@ def phase_bf16_kernels(gen) -> dict:
         torch.cuda.synchronize()
         want = corr_cuda.corr_state(f1, f2, levels, BF16)
         worst, err, shares = pyramid_bf16_check(got, want)
-        log(f"[bf16-kernels] corr_pyramid_bf16 {label} (rows {h}, W {w}, D 256, {levels} levels; tile "
-            f"{plan.tile[0]}x{plan.tile[1]} on the tensor cores, {2 * plan.vec}-byte copies, {plan.blocks} blocks): "
-            f"max abs diff {err:.3e}, worst element at {worst:.3f} of its allowance (tol 1); share of elements that "
-            f"differ per level {', '.join(f'{x:.2e}' for x in shares)}")
+        branch = (f"wgmma {plan.tile[0]}x{plan.tile[1]}, {plan.stages} ring slots, {plan.blocks} persistent blocks"
+                  if plan.path == "wgmma" else
+                  f"mma.sync {plan.tile[0]}x{plan.tile[1]}, {2 * plan.vec}-byte copies, {plan.blocks} blocks")
+        key = ("corr_pyramid_bf16", plan.path if plan.path == "mma" else f"wgmma N={plan.tile[1]}")
+        worst_by_branch[key] = max(worst_by_branch.get(key, 0.0), worst)
+        log(f"[bf16-kernels] corr_pyramid_bf16 {label} (rows {h}, W {w}, D 256, {levels} levels; plan branch "
+            f"{branch}): max abs diff {err:.3e}, worst element at {worst:.3f} of its allowance (tol 1); share of "
+            f"elements that differ per level {', '.join(f'{x:.2e}' for x in shares)}")
         if not (len(got) == levels and all(g.dtype == BF16 for g in got) and worst <= 1.0):
             raise AssertionError(f"corr_pyramid_bf16 disagrees with its plain version at {label}: {worst}")
         errs["corr_pyramid_bf16"] = max(errs["corr_pyramid_bf16"], err)
@@ -1531,11 +1563,16 @@ def phase_bf16_kernels(gen) -> dict:
                 x = x.to(BF16)
                 y, stats = encoder_cuda.fused_conv(x, weight, bias, aff, form, emit_stats=emit)
                 torch.cuda.synchronize()
+                plan = encoder_cuda.conv_plan(b, hh, ww, _build.multiprocessors(0), _build.aligned((x, y)))
+                path = "TMA raw tile, 16-byte stores" if plan.vec else "element by element"
                 want, _ = encoder_cuda.plain_conv(x, weight, bias, aff, form, False)
                 worst, share = conv_bf16_check(y, want, bias)
+                key = ("encoder_conv_bf16", f"{path}, form {form}")
+                worst_by_branch[key] = max(worst_by_branch.get(key, 0.0), worst)
                 rel = stats_rel_err(stats, y) if emit else 0.0
                 err = max_err(y.float(), want.float())
-                log(f"[bf16-kernels] encoder_conv_bf16 b{b} {hh}x{ww} form {form} ({y_form} trunk): max abs diff "
+                log(f"[bf16-kernels] encoder_conv_bf16 b{b} {hh}x{ww} form {form} ({y_form} trunk; plan branch {path}, "
+                    f"{plan.blocks} persistent blocks): max abs diff "
                     f"{err:.3e}, worst element at {worst:.3f} of its allowance (tol 1), share differing "
                     f"{share:.2e}; " + (f"statistics against the stored bf16 outputs rel diff {rel:.3e} (tol "
                                         f"{STATS_REL_TOL:g})" if emit else "no statistics"))
@@ -1555,6 +1592,15 @@ def phase_bf16_kernels(gen) -> dict:
                         raise AssertionError(f"encoder_join_bf16 disagrees at b{b} {hh}x{ww} {y_form}/{skip_form}")
                     del got
                 del x, y
+    for (name, branch), worst in sorted(worst_by_branch.items()):
+        log(f"[bf16-kernels] {name} plan branch {branch}: worst element at {worst:.3f} of its allowance (tol 1)")
+    branches = set(worst_by_branch)
+    need = {("corr_pyramid_bf16", "mma")} | {("corr_pyramid_bf16", f"wgmma N={n}")
+                                              for n in corr_cuda.PYRAMID_WGMMA_WIDTHS}
+    need |= {("encoder_conv_bf16", f"{p}, form {f}") for p in ("TMA raw tile, 16-byte stores", "element by element")
+             for f in encoder_cuda.FORMS}
+    if not need <= branches:
+        raise AssertionError(f"[bf16-kernels] plan branches never exercised: {sorted(need - branches)}")
     return errs
 
 
@@ -2139,7 +2185,7 @@ def phase_timing(gen, errs, counts) -> list:
                  "corr_prefetch_lookup_bf16": f"one {EVAL_ITERS}-iteration mixed forward with prefetch_lookup",
                  }.get(name, f"{len(REQUESTS)} requests")
         log(f"[timing] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {e['bound_ms']:.4f} ms "
-            f"({e['bound_by']}, {nbytes} B, {flops} ops), library {lib}, "
+            f"({e['bound_by']}, {nbytes} B, {flops} ops; {e['bound_ms'] / ms:.0%} of it), library {lib}, "
             f"launches {counts[name]} over {where}")
         out.append(e)
 
@@ -2309,7 +2355,9 @@ def phase_timing(gen, errs, counts) -> list:
 
 def bf16_timing(gen, flush, entry) -> list:
     """The bf16 variants (the mixed configuration's kernels) at the 512x768
-    bucket's shapes, the pyramid and the lookup also at Middlebury-F's. The
+    bucket's shapes, the pyramid and the lookup also at Middlebury-F's, the
+    conv also at Middlebury-F's full resolution and the realtime model's
+    192x624; the pyramid and the conv also alone on the device. The
     library calls: bf16 torch.matmul for the volume alone, F.grid_sample on
     the bf16 levels (its grid in bf16 too, as it takes one dtype: the
     positions rounded, so the closest call rather than the same function),
@@ -2320,6 +2368,7 @@ def bf16_timing(gen, flush, entry) -> list:
         b, h, w, d = f1.shape
         plan = corr_cuda.pyramid_plan_for(f1, f2, 4)
         ms = time_ms(lambda: corr_cuda.fused_pyramid_state(f1, f2, 4, BF16), flush=flush)
+        dev = kernel_ms(lambda: corr_cuda.fused_pyramid_state(f1, f2, 4, BF16), ("corr_pyramid",), flush)
         plain_ms = time_ms(lambda: corr_cuda.corr_state(f1, f2, 4, BF16), flush=flush)
         lib_ms = time_ms(lambda: torch.matmul(f1, f2.transpose(-1, -2)), flush=flush)
         widths = [w >> l for l in range(4)]
@@ -2328,8 +2377,9 @@ def bf16_timing(gen, flush, entry) -> list:
         rest = b * h * w * (w + 2 * sum(widths[1:]))
         bound = max(nbytes / HBM_BYTES_PER_S, gemm / BF16_TENSOR_FLOPS_PER_S + rest / FP32_FLOPS_PER_S) * 1e3
         log(f"[timing] corr_pyramid_bf16 {label}: kernel {ms:.4f} ms = {gemm / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
-            f"{bound / ms:.0%} of its {bound:.4f} ms bound ({nbytes} B; tile {plan.tile[0]}x{plan.tile[1]}, "
-            f"{plan.blocks} blocks); plain {plain_ms:.4f} ms; bf16 torch.matmul of the volume alone {lib_ms:.4f} ms")
+            f"{bound / ms:.0%} of its {bound:.4f} ms bound ({nbytes} B; plan {plan.path} {plan.tile[0]}x{plan.tile[1]}, "
+            f"{plan.blocks} blocks); the kernel alone on the device (profiler) {dev:.4f} ms, {bound / dev:.0%} of "
+            f"the bound; plain {plain_ms:.4f} ms; bf16 torch.matmul of the volume alone {lib_ms:.4f} ms")
         if label == "512x768":
             entry("corr_pyramid_bf16", ms, plain_ms, nbytes, rest, lib_ms, tensor_flops=gemm)
         del f1, f2
@@ -2352,22 +2402,42 @@ def bf16_timing(gen, flush, entry) -> list:
             entry("corr_lookup_bf16", times[BF16], plain_ms, nbytes, 3 * coords.numel() * 36, lib_ms)
             del rows, grid
         del pyramid, coords
-    hh, ww, b = 512, 768, 1
-    x, weight, bias, aff = conv_inputs(gen, b, hh, ww, "in")
-    x = x.to(BF16)
-    ms = time_ms(lambda: encoder_cuda.fused_conv(x, weight, bias, aff, "in", True), flush=flush)
-    plain_ms = time_ms(lambda: encoder_cuda.plain_conv(x, weight, bias, aff, "in", True), flush=flush)
-    z = encoder_cuda.apply_affine(x, aff, "in")
-    wb, bb = weight.to(BF16), bias.to(BF16)
-    lib_ms = time_ms(lambda: F.conv2d(z, wb, bb, padding=1), flush=flush)
+    # The conv at the 512x768 bucket's full resolution (the JSON row), at
+    # Middlebury-F's (the feature trunk: 2 images, instance norm and
+    # statistics) and at the realtime model's KITTI bucket (half resolution:
+    # 2 images, frozen BN, no statistics). Library: cuDNN's bf16 F.conv2d of
+    # the normalized operand, without affine or statistics.
+    for label, (b, hh, ww, form, emit) in (("512x768", (1, 512, 768, "in", True)),
+                                           ("1984x2880", (2, 1984, 2880, "in", True)),
+                                           ("realtime 192x624", (2, 192, 624, "bn", False))):
+        x, weight, bias, aff = conv_inputs(gen, b, hh, ww, form)
+        x = x.to(BF16)
+        ms = time_ms(lambda: encoder_cuda.fused_conv(x, weight, bias, aff, form, emit), flush=flush)
+        # The conv and, with statistics, the pass that sums its partials.
+        dev = kernel_ms(lambda: encoder_cuda.fused_conv(x, weight, bias, aff, form, emit),
+                        ("encoder_conv_wgmma", "encoder_stats"), flush)
+        plain_ms = time_ms(lambda: encoder_cuda.plain_conv(x, weight, bias, aff, form, emit), flush=flush)
+        z = encoder_cuda.apply_affine(x, aff, form)
+        wb, bb = weight.to(BF16), bias.to(BF16)
+        lib_ms = time_ms(lambda: F.conv2d(z, wb, bb, padding=1), flush=flush)
+        hw = hh * ww
+        # bf16 operand and output; fp32 weights, bias, affine rows and statistics.
+        nbytes = 2 * (2 * b * 64 * hw) + 4 * (64 * 64 * 9 + 64 + (2 * b * 64 if form != "none" else 0)
+                                              + (2 * b * 64 if emit else 0))
+        tensor = 2 * 9 * 64 * 64 * b * hw
+        # Per output element: the affine and relu (3 ops), the bias (1), the statistics (2).
+        ops = ((3 if form != "none" else 0) + 1 + (2 if emit else 0)) * b * 64 * hw
+        bound = max(nbytes / HBM_BYTES_PER_S, tensor / BF16_TENSOR_FLOPS_PER_S + ops / FP32_FLOPS_PER_S) * 1e3
+        log(f"[timing] encoder_conv_bf16 b{b} {label} form {form}{' + stats' if emit else ''}: kernel {ms:.4f} ms, "
+            f"{bound / ms:.0%} of its {bound:.4f} ms bound; its kernels alone on the device (profiler: the conv"
+            f"{' and the statistics pass' if emit else ''}) {dev:.4f} ms, "
+            f"{bound / dev:.0%} of the bound; plain {plain_ms:.4f} ms; cuDNN's bf16 F.conv2d of the normalized "
+            f"operand {lib_ms:.4f} ms")
+        if label == "512x768":
+            entry("encoder_conv_bf16", ms, plain_ms, nbytes, ops, lib_ms, tensor_flops=tensor)
+        del x, z
+    hh, ww = 512, 768
     hw = hh * ww
-    log(f"[timing] encoder_conv_bf16 b{b} {hh}x{ww} form in + stats: library is cuDNN's bf16 F.conv2d of the "
-        f"normalized operand, without affine or statistics")
-    # bf16 operand and output; fp32 weights, bias, affine rows and statistics.
-    nbytes = 2 * (2 * b * 64 * hw) + 4 * (64 * 64 * 9 + 64 + 2 * b * 64 * 2)
-    entry("encoder_conv_bf16", ms, plain_ms, nbytes, 3 * b * 64 * hw * 2, lib_ms,
-          tensor_flops=2 * 9 * 64 * 64 * b * hw)
-    del x, z
     skip = torch.randn((1, 64, hh, ww), generator=gen, device=DEVICE).to(BF16)
     y = torch.randn((1, 64, hh, ww), generator=gen, device=DEVICE).to(BF16)
     aff_y, aff_s = affine_rows(gen, 1, "in"), affine_rows(gen, 1, "in")

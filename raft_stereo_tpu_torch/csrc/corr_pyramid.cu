@@ -15,10 +15,10 @@
 // the JAX kernel takes them: bf16 operands, their products (exact in fp32)
 // summed in fp32, the division by sqrt(D) in fp32 and one rounding to bf16;
 // each level pooled from the previous level's stored bf16 values with an
-// fp32 sum and rounded once. Each dtype has its own kernel: the fp32 one
-// below, and the bf16 one (`corr_pyramid_mma_kernel`, after it), whose
-// products are exactly the JAX kernel's, bf16 x bf16 on the tensor cores
-// with fp32 sums.
+// fp32 sum and rounded once. Each dtype has its own kernels: the fp32 one
+// below, and two bf16 ones after it (`corr_pyramid_wgmma_kernel` and
+// `corr_pyramid_mma_kernel`), whose products are exactly the JAX kernel's,
+// bf16 x bf16 on the tensor cores with fp32 sums.
 //
 // What bounds it on the H100: operations. At the 512x768 bucket (128 rows,
 // W1 = W2 = 192, D = 256) the GEMM is 2.42 GFLOP of fp32 (0.036 ms at
@@ -60,20 +60,57 @@
 // aliases the drained ring, and each level is written once from it with
 // consecutive threads on consecutive columns.
 //
-// The bf16 kernel: in bf16 the bytes halve (365.6 MB of operands and 964
-// MB of levels at Middlebury-F) and the bound becomes the bytes, against
-// the 989 TFLOP/s of dense bf16 tensor cores: about 0.40 ms there. It keeps
-// the fp32 kernel's ring (bf16 rows, 16-byte copies of 8 elements), tiles
-// of 128 x 128 with mma.sync m16n8k16 (bf16 in, fp32 sums), ldmatrix.trans
-// fragments from the k-major rows, and the shared-memory epilogue with
-// bf16 stores. wgmma and TMA would be the next step.
-//
-// Measured (chip_smoke.py [timing], H100 80GB HBM3 at 700 W; PERF.md
+// Measured (chip_smoke.py [timing], H100 80GB HBM3, 700.00 W; PERF.md
 // section 6, row 4): 31.2 TFLOP/s at 512x768 (47% of the bound) and 36.7
 // at Middlebury-F (55%), against torch.matmul's volume alone at 32.7 and
 // 42.3. What is left is the epilogue's 35 MB of stores at 512x768, which
 // one wave of blocks issues only after its GEMM, and at Middlebury-F the
 // padding of W = 720 to 768, which no tile of float4 runs divides.
+//
+// The bf16 build: in bf16 the bytes halve (365.6 MB of operands and 964
+// MB of levels at Middlebury-F: 1.33 GB) and the bound becomes the bytes,
+// against the 989 TFLOP/s of dense bf16 tensor cores: 0.397 ms there (131.6
+// GFLOP take 0.133 ms), 0.0128 ms at 512x768. 964 MB of it are the levels'
+// stores, so the design keeps the tensor cores fed while a tile's stores
+// drain, and stores in wide units.
+//
+// `corr_pyramid_wgmma_kernel` (the plan's "wgmma" path): persistent blocks,
+// one per SM (384 threads, 117-216 KB of shared memory by tile width),
+// walk the (row, W1 tile, W2 tile) list in a fixed order, the tiles of a
+// row consecutive so concurrent blocks share its operands in L2. A tile is
+// 128 W1 rows by N W2 columns, N an instantiated wgmma width (64, 96, 128,
+// 160, 192, 240, 256) that divides W2 where one does: 240 at Middlebury-F's
+// 720, which the 128-wide tile padded to 768. Warpgroup 2's one producer
+// thread loads the D loop's k64 stages by TMA from (W, H, D, B) tensor maps
+// of the model's permuted NCHW views (64 x 64 boxes, 128-byte swizzle,
+// zeros outside) into a ring of 3-4 slots, full barriers counting the
+// bytes in and empty barriers the 8 consumer warps out. Warpgroups 0 and 1
+// each issue four wgmma m64nNk16 per stage on their 64 rows, both operands
+// MN-major straight from the slot (transpose flags set). At the tile's end
+// each scales its accumulators, rounds them to bf16 pairs and stores them
+// with stmatrix into its own staging tile (rows of N + 8 elements, so a
+// matrix's eight rows fall in eight bank groups); then a thread per 8-column
+// chunk of level 0 writes 16 bytes of level 0, pools them into 8 bytes of
+// level 1, 4 of level 2 and 2 of level 3 (fp32 sums of the rounded values,
+// one rounding, two values per conversion), consecutive threads on
+// consecutive chunks. The producer meanwhile fills the freed slots with the
+// next tile's stages. ptxas -v: 168 registers at launch (setmaxnreg moves
+// the producer to 40 and the consumers to 232), no spills. Measured
+// (chip_smoke.py [timing] and kernel_compare.py, H100 80GB HBM3, 700.00 W):
+// at Middlebury-F 0.5603-0.5765 ms alone on the device, 69-71% of the bound
+// (the mma.sync kernel at the same shape: 1.5937-1.6211 ms; bf16
+// torch.matmul of the volume alone 0.3422-0.3443 ms); at 512x768
+// 0.0202-0.0206 ms, 62-63% (mma.sync: 0.0497-0.0505). The rest at Middlebury-F: the operands' 192 KB per tile from L2
+// (the fmap2 boxes cover 256 of a 240-wide tile) and the epilogue, which
+// the block's own tensor cores do not overlap.
+//
+// `corr_pyramid_mma_kernel` (the "mma" path) takes what the tensor maps and
+// vector stores do not: rows not 16-byte aligned (the realtime model's
+// KITTI bucket at 1/8, W 156), the contiguous (B, H, W, D) layout, more than
+// 4 levels. It keeps the fp32 kernel's ring (bf16 rows, 16-byte copies of 8
+// elements where the strides allow), tiles of 128 x 128 with mma.sync
+// m16n8k16 (bf16 in, fp32 sums), ldmatrix.trans fragments from the k-major
+// rows, and the shared-memory epilogue with bf16 stores.
 //
 // Rounding: each entry is one FFMA chain (__fmaf_rn) over d = 0 .. D-1 in
 // order, from 0, with no split of D; the division by sqrtf(D) is IEEE
@@ -91,6 +128,7 @@
 #include <stdint.h>
 
 #include "dtype.cuh"
+#include "hopper.cuh"
 
 #define TK 16        // D chunk
 #define STAGES 4     // chunks in the ring
@@ -586,6 +624,192 @@ corr_pyramid_mma_kernel(const __nv_bfloat16* __restrict__ f1, const __nv_bfloat1
                                                            num_levels, tid);
 }
 
+// ---- The bf16 build on Hopper: TMA, wgmma, persistent blocks --------------
+//
+// The design is in the note at the top. Roles: warpgroups 0 and 1 consume
+// (64 of the tile's rows each), warpgroup 2 produces (its first thread
+// issues every TMA load). Barriers: full[s] (1 arrival + the slot's bytes)
+// and empty[s] (the 8 consumer warps) per ring slot s, phases counted over
+// the block's whole (tile, k64 stage) sequence.
+
+constexpr int WG_BM = 128;                          // W1 rows of a tile: two consumer warpgroups of 64
+constexpr int WG_BK = 64;                           // D per stage
+constexpr int WG_BOX = 64;                          // W extent of a TMA box: 128 bytes, the swizzle span
+constexpr int WG_BOX_BYTES = WG_BOX * WG_BK * 2;    // 8192
+constexpr int WG_THREADS = 384;                     // consumer warpgroups 0-1, producer warpgroup 2
+constexpr int WG_LEVELS = 4;                        // levels one 8-column chunk of level 0 pools into
+constexpr int WG_PAD = 8;                           // staging row padding (elements)
+constexpr int WG_K_STEP_BYTES = 16 * WG_BOX * 2;    // one k16 step: 16 rows of a box
+
+template <int N>
+struct WgTile {
+    static constexpr int BOXES = (N + WG_BOX - 1) / WG_BOX;
+    static constexpr int STAGE_BYTES = (WG_BM / WG_BOX + BOXES) * WG_BOX_BYTES;
+    static constexpr int LDS = N + WG_PAD;
+    static constexpr int STAGING_BYTES = WG_BM * LDS * 2;
+    // The slack to align the ring to a 1024-byte swizzle atom, the ring, the
+    // two staging tiles, a full and an empty barrier per slot.
+    static constexpr int shared_bytes(int stages) { return 1024 + stages * STAGE_BYTES + STAGING_BYTES + 16 * stages; }
+};
+
+template <int N>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+corr_pyramid_wgmma_kernel(const __grid_constant__ CUtensorMap map1, const __grid_constant__ CUtensorMap map2,
+                          int height, int w1, int w2, int dim, int num_levels, int m_tiles, int n_tiles, int tiles,
+                          int stages, Levels<__nv_bfloat16> levels) {
+    using bf16 = __nv_bfloat16;
+    using T = WgTile<N>;
+    extern __shared__ __align__(1024) unsigned char smem_raw[];
+    unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+    bf16* staging = reinterpret_cast<bf16*>(ring + stages * T::STAGE_BYTES);
+    uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * T::STAGE_BYTES + T::STAGING_BYTES);
+    uint64_t* empty = full + stages;
+
+    const int tid = threadIdx.x;
+    const int wg = tid >> 7;
+    if (tid == 0) {
+        for (int s = 0; s < stages; ++s) {
+            mbar_init(full + s, 1);
+            mbar_init(empty + s, 8);
+        }
+        mbar_init_fence();
+    }
+    __syncthreads();
+    const int chunks = (dim + WG_BK - 1) / WG_BK;
+    const int per_row = m_tiles * n_tiles;
+
+    if (wg == 2) {
+        // Producer: one thread issues every load.
+        setmaxnreg_dec<40>();
+        if (tid == 256) {
+            uint32_t it = 0;
+            for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+                const int row = t / per_row;
+                const int rem = t - row * per_row;
+                const int m0 = (rem / n_tiles) * WG_BM;
+                const int n0 = (rem - (rem / n_tiles) * n_tiles) * N;
+                const int b = row / height;
+                const int h = row - b * height;
+                for (int kc = 0; kc < chunks; ++kc, ++it) {
+                    const uint32_t s = it % stages;
+                    mbar_wait(empty + s, ((it / stages) & 1) ^ 1);
+                    unsigned char* slot = ring + s * T::STAGE_BYTES;
+                    mbar_arrive_expect_tx(full + s, T::STAGE_BYTES);
+#pragma unroll
+                    for (int i = 0; i < WG_BM / WG_BOX; ++i)
+                        tma_load_4d(slot + i * WG_BOX_BYTES, &map1, full + s, m0 + i * WG_BOX, h, kc * WG_BK, b);
+#pragma unroll
+                    for (int i = 0; i < T::BOXES; ++i)
+                        tma_load_4d(slot + (WG_BM / WG_BOX + i) * WG_BOX_BYTES, &map2, full + s, n0 + i * WG_BOX, h,
+                                    kc * WG_BK, b);
+                }
+            }
+        }
+    } else {
+        setmaxnreg_inc<232>();
+        const int t128 = tid & 127;
+        const int warp = t128 >> 5, lane = tid & 31;
+        const float scale = sqrtf((float)dim);
+        const bool pow2 = (__float_as_uint(scale) & 0x7fffffu) == 0 && scale >= 1.0f;
+        const float inv = __frcp_rn(scale);
+        bf16* stg = staging + wg * 64 * T::LDS;
+        // stmatrix addresses: lane l gives row l % 8 of matrix l / 8, which
+        // is (rows 8 (l / 8 % 2) .., columns 8 (l / 16) ..) of a 16 x 16 block.
+        const int st_row = 16 * warp + 8 * ((lane >> 3) & 1) + (lane & 7);
+        const int st_col = 8 * (lane >> 4);
+        float acc[N / 2];
+        uint32_t it = 0;
+        for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+            const int row = t / per_row;
+            const int rem = t - row * per_row;
+            const int m0 = (rem / n_tiles) * WG_BM;
+            const int n0 = (rem - (rem / n_tiles) * n_tiles) * N;
+            for (int kc = 0; kc < chunks; ++kc, ++it) {
+                const uint32_t s = it % stages;
+                mbar_wait(full + s, (it / stages) & 1);
+                const uint32_t slot = smem_u32(ring + s * T::STAGE_BYTES);
+                const uint32_t a_addr = slot + wg * WG_BOX_BYTES;
+                const uint32_t b_addr = slot + (WG_BM / WG_BOX) * WG_BOX_BYTES;
+                wgmma_fence();
+#pragma unroll
+                for (int k = 0; k < WG_BK / 16; ++k)
+                    WgmmaSS<N>::mma(acc, sw128_desc(a_addr + k * WG_K_STEP_BYTES, WG_BOX_BYTES, 1024),
+                                    sw128_desc(b_addr + k * WG_K_STEP_BYTES, WG_BOX_BYTES, 1024), kc > 0 || k > 0);
+                wgmma_commit();
+                wgmma_wait<0>();
+                fence_operands(acc);
+                __syncwarp();
+                if (lane == 0) mbar_arrive(empty + s);
+            }
+
+            // Epilogue: the rounded level 0 into the staging tile ...
+            named_barrier(1 + wg, 128);  // this warpgroup's reads of the previous tile are done
+#pragma unroll
+            for (int j = 0; j < N / 8; j += 2) {
+                float v[8];
+#pragma unroll
+                for (int e = 0; e < 8; ++e) v[e] = pow2 ? __fmul_rn(acc[4 * j + e], inv) : __fdiv_rn(acc[4 * j + e], scale);
+                const uint32_t r[4] = {bf16x2_rn(v[0], v[1]), bf16x2_rn(v[2], v[3]), bf16x2_rn(v[4], v[5]),
+                                       bf16x2_rn(v[6], v[7])};
+                stmatrix_x4(stg + st_row * T::LDS + 8 * j + st_col, r);
+            }
+            named_barrier(1 + wg, 128);
+            // ... then every level out of it, one 8-column chunk per thread.
+            const long long row_w1 = (long long)row * w1;
+            constexpr int CPR = N / 8;  // chunks per row
+            for (int e = t128; e < 64 * CPR; e += 128) {
+                const int r = e / CPR;
+                const int c = e - r * CPR;
+                const int gm = m0 + 64 * wg + r;
+                const int gn = n0 + 8 * c;
+                if (gm >= w1 || gn >= w2) continue;
+                const long long orow = row_w1 + gm;
+                const uint4 u = *reinterpret_cast<const uint4*>(stg + r * T::LDS + 8 * c);
+                *reinterpret_cast<uint4*>(levels.ptr[0] + orow * w2 + gn) = u;
+                if (num_levels < 2) continue;
+                // Each level pooled from the previous level's rounded values:
+                // an fp32 sum and halving, one rounding (two values at a time).
+                auto pool = [](float a, float b) { return __fmul_rn(__fadd_rn(a, b), 0.5f); };
+                const uint2 p1 = make_uint2(bf16x2_rn(pool(bf16_lo(u.x), bf16_hi(u.x)), pool(bf16_lo(u.y), bf16_hi(u.y))),
+                                            bf16x2_rn(pool(bf16_lo(u.z), bf16_hi(u.z)), pool(bf16_lo(u.w), bf16_hi(u.w))));
+                *reinterpret_cast<uint2*>(levels.ptr[1] + orow * (w2 >> 1) + (gn >> 1)) = p1;
+                if (num_levels < 3) continue;
+                const uint32_t p2 = bf16x2_rn(pool(bf16_lo(p1.x), bf16_hi(p1.x)), pool(bf16_lo(p1.y), bf16_hi(p1.y)));
+                *reinterpret_cast<uint32_t*>(levels.ptr[2] + orow * (w2 >> 2) + (gn >> 2)) = p2;
+                if (num_levels < 4) continue;
+                Elem<bf16>::store(levels.ptr[3] + orow * (w2 >> 3) + (gn >> 3), pool(bf16_lo(p2), bf16_hi(p2)));
+            }
+        }
+    }
+}
+
+// A (W, H, D, B) tensor map of one feature map (element strides s[0..3] of
+// b, h, w, d; w unit-stride): 64 x 64 (W x D) boxes, 128-byte swizzling,
+// zeros outside. A dimension of size 1 never moves, so its stride is
+// replaced by a packed one (TMA takes only multiples of 16 bytes).
+static int encode_fmap(CUtensorMap* map, const void* base, int batch, int height, int w, int dim,
+                       const long long* s) {
+    TensorMapEncodeTiled encode = tensor_map_encoder();
+    if (encode == nullptr) return (int)cudaErrorNotSupported;
+    if (s[2] != 1 || ((uintptr_t)base & 15) != 0) return (int)cudaErrorInvalidValue;
+    const cuuint64_t dims[4] = {(cuuint64_t)w, (cuuint64_t)height, (cuuint64_t)dim, (cuuint64_t)batch};
+    const long long want[3] = {s[1], s[3], s[0]};  // h, d, b
+    cuuint64_t strides[3];
+    cuuint64_t packed = (cuuint64_t)w * 2;
+    for (int i = 0; i < 3; ++i) {
+        packed = (packed + 15) / 16 * 16;
+        strides[i] = dims[i + 1] == 1 ? packed : (cuuint64_t)want[i] * 2;
+        if (strides[i] % 16 != 0) return (int)cudaErrorInvalidValue;
+        packed = strides[i] * dims[i + 1];
+    }
+    const cuuint32_t box[4] = {WG_BOX, 1, WG_BK, 1};
+    const cuuint32_t unit[4] = {1, 1, 1, 1};
+    const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+                                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 // The shared bytes a kernel of element E with a BM x BN tile needs: its ring
 // or the fp32 epilogue tile that aliases it, whichever is larger.
 template <typename E, int BM, int BN>
@@ -641,25 +865,67 @@ static int launch_mma(const void* f1, const void* f2, const long long* s, int he
     return (int)cudaGetLastError();
 }
 
-// f1, f2 and the levels are fp32 (bf16 = 0: the FFMA kernel) or bf16
-// (bf16 = 1: the tensor-core kernel, 128 x 128 tiles, the shared-memory
-// epilogue); strides: the 8 element strides (b, h, w, d) of f1 then f2. The
-// launch plan (tile, copy width, tiles per row, blocks, shared bytes,
-// register epilogue) comes from ops/corr_cuda.py `pyramid_plan`; a plan no
-// instantiation takes is refused.
+template <int N>
+static int launch_wgmma(const void* f1, const void* f2, const long long* s, int batch, int height, int w1, int w2,
+                        int dim, int num_levels, void* const* level_ptrs, int m_tiles, int n_tiles, long long blocks,
+                        int shared_bytes, int stages, cudaStream_t stream) {
+    const long long tiles = (long long)batch * height * m_tiles * n_tiles;
+    if (shared_bytes != WgTile<N>::shared_bytes(stages) || stages < 2 || dim < 1 || num_levels > WG_LEVELS ||
+        (w2 & 7) != 0 || tiles > 0x7fffffffLL || blocks < 1 || blocks > tiles)
+        return (int)cudaErrorInvalidValue;
+    Levels<__nv_bfloat16> levels;
+    level_table(levels, level_ptrs, num_levels, false);
+    for (int l = 0; l < num_levels; ++l)  // 16-byte level-0 chunks, 8- and 4-byte pooled runs
+        if (((uintptr_t)levels.ptr[l] & 15) != 0) return (int)cudaErrorInvalidValue;
+    CUtensorMap map1, map2;
+    int status = encode_fmap(&map1, f1, batch, height, w1, dim, s);
+    if (status == 0) status = encode_fmap(&map2, f2, batch, height, w2, dim, s + 4);
+    if (status != 0) return status;
+    auto kernel = corr_pyramid_wgmma_kernel<N>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<(unsigned)blocks, WG_THREADS, shared_bytes, stream>>>(map1, map2, height, w1, w2, dim, num_levels,
+                                                                   m_tiles, n_tiles, (int)tiles, stages, levels);
+    return (int)cudaGetLastError();
+}
+
+// Kernels by `path`: 0 the fp32 FFMA build, 1 the bf16 mma.sync build (128
+// x 128 tiles, one block per tile, the shared-memory epilogue), 2 the bf16
+// wgmma build (persistent blocks, tile 128 x tile_n, `stages` ring slots).
+// f1, f2 and the levels are fp32 for path 0, bf16 otherwise; strides: the
+// 8 element strides (b, h, w, d) of f1 then f2. The launch plan (path,
+// tile, copy width, tiles per row, blocks, shared bytes, register
+// epilogue, ring depth) comes from ops/corr_cuda.py `pyramid_plan`; a plan
+// no instantiation takes is refused.
 extern "C" int raft_corr_pyramid(const void* f1, const void* f2, const long long* strides, int batch,
                                  int height, int w1, int w2, int dim, int num_levels, void* const* level_ptrs,
                                  int tile_m, int tile_n, int vec, int m_tiles, int n_tiles, long long blocks,
-                                 int shared_bytes, int direct, int bf16, void* stream) {
+                                 int shared_bytes, int direct, int path, int stages, void* stream) {
     if (num_levels < 1 || num_levels > MAX_LEVELS) return (int)cudaErrorInvalidValue;
     if (tile_n % (1 << (num_levels - 1)) != 0) return (int)cudaErrorInvalidValue;
-    if (blocks != (long long)batch * height * m_tiles * n_tiles || blocks > 0x7fffffffLL)
-        return (int)cudaErrorInvalidValue;
     if ((long long)m_tiles * tile_m < w1 || (long long)n_tiles * tile_n < w2) return (int)cudaErrorInvalidValue;
-    if (direct && ((w2 & 3) != 0 || num_levels > REG_LEVELS || bf16)) return (int)cudaErrorInvalidValue;
-    if (blocks == 0) return 0;
+    if (path != 2 && (blocks != (long long)batch * height * m_tiles * n_tiles || blocks > 0x7fffffffLL))
+        return (int)cudaErrorInvalidValue;
+    if (direct && ((w2 & 3) != 0 || num_levels > REG_LEVELS || path != 0)) return (int)cudaErrorInvalidValue;
+    if ((long long)batch * height * m_tiles * n_tiles == 0) return 0;
     cudaStream_t s = (cudaStream_t)stream;
-    if (bf16) {
+    if (path == 2) {
+        if (tile_m != WG_BM || vec != 8) return (int)cudaErrorInvalidValue;
+#define RAFT_PYRAMID_WGMMA_CASE(N)                                                                          \
+        if (tile_n == N)                                                                                    \
+            return launch_wgmma<N>(f1, f2, strides, batch, height, w1, w2, dim, num_levels, level_ptrs, m_tiles, \
+                                   n_tiles, blocks, shared_bytes, stages, s);
+        RAFT_PYRAMID_WGMMA_CASE(64)
+        RAFT_PYRAMID_WGMMA_CASE(96)
+        RAFT_PYRAMID_WGMMA_CASE(128)
+        RAFT_PYRAMID_WGMMA_CASE(160)
+        RAFT_PYRAMID_WGMMA_CASE(192)
+        RAFT_PYRAMID_WGMMA_CASE(240)
+        RAFT_PYRAMID_WGMMA_CASE(256)
+#undef RAFT_PYRAMID_WGMMA_CASE
+        return (int)cudaErrorInvalidValue;
+    }
+    if (path == 1) {
         if (tile_m != MMA_BM || tile_n != MMA_BN) return (int)cudaErrorInvalidValue;
         if (vec == 8)
             return launch_mma<8>(f1, f2, strides, height, w1, w2, dim, num_levels, level_ptrs, m_tiles, n_tiles,
@@ -669,6 +935,7 @@ extern "C" int raft_corr_pyramid(const void* f1, const void* f2, const long long
                                  blocks, shared_bytes, s);
         return (int)cudaErrorInvalidValue;
     }
+    if (path != 0) return (int)cudaErrorInvalidValue;
 #define RAFT_PYRAMID_CASE(BM, BN, TM, TN, VEC)                                                          \
     if (tile_m == BM && tile_n == BN && vec == VEC)                                                     \
         return launch<BM, BN, TM, TN, VEC>(f1, f2, strides, height, w1, w2, dim, num_levels, level_ptrs,   \

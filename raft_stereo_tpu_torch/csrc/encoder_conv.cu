@@ -26,9 +26,27 @@
 // 201 MB of traffic (0.060 ms at 3.35 TB/s).
 //
 // In bf16 the products go to the tensor cores (989 TFLOP/s dense): the
-// bound falls to about 0.03 ms at 512x768, set by the bytes (100.8 MB: half
-// the fp32 traffic) and the operations alike. The bf16 kernel is described
-// after the fp32 one.
+// bound falls to 0.0316 ms at 512x768, set by the operations (29.0 GFLOP)
+// and the bytes (100.8 MB: half the fp32 traffic) alike; 0.917 ms for
+// Middlebury-F's two images. The bf16 kernel (`encoder_conv_wgmma_kernel`)
+// is described after the fp32 one: persistent blocks with the weights
+// resident in shared memory, a producer warpgroup that stages each tile's
+// normalized halo patch (a TMA raw tile where W is a multiple of 8) into one
+// of two slots, and two consumer warpgroups on wgmma. ptxas -v: 168
+// registers, no spills, 227,368 bytes of dynamic shared memory. Measured
+// (kernel_compare.py and chip_smoke.py [timing], H100 80GB HBM3, 700.00 W),
+// the conv kernel alone on the device, without the pass that sums its
+// statistics partials: 0.0880-0.0906 ms at 512x768 (1 image, instance
+// form and statistics: 35-36% of the bound; the first mma.sync version of
+// this kernel 0.3396-0.3397, cuDNN's bf16 F.conv2d of the normalized
+// operand 0.2575-0.2593), 2.140-2.268 ms for Middlebury-F's two images
+// (40-43%; mma.sync 9.425-9.438, cuDNN 6.88-6.95), 0.0654-0.0673 ms at the
+// realtime model's 192x624 (frozen BN, no statistics: 28-29% of its
+// 0.0188 ms bound; mma.sync 0.2231-0.2266, cuDNN 0.1717-0.1723). What is
+// left, not yet split by a measurement: the producer's staging of a tile
+// (its 61 KB raw tile, the transpose into the patch) and the consumers'
+// 144 wgmma m64n64k16 per tile, which read A and B from shared memory
+// (about 590 KB per tile).
 //
 // The fp32 kernel: an FFMA implicit GEMM. A block of 256 threads computes a tile of
 // 8 x 32 output pixels for all 64 output channels. It loops over the input
@@ -57,8 +75,10 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "dtype.cuh"
+#include "hopper.cuh"
 
 #define C 64
 #define TILE_H 8
@@ -201,195 +221,427 @@ encoder_conv_kernel(const float* __restrict__ x, const float* __restrict__ w_t,
     }
 }
 
-// ---- The bf16 build: tensor cores ------------------------------------------
+// ---- The bf16 build on Hopper: resident weights, wgmma, persistent blocks ----
 //
-// The same tile of 8 x 32 output pixels x 64 output channels per block of
-// 256 threads, as an implicit GEMM on mma.sync m16n8k16 (bf16 products, fp32
-// sums): warp w computes output row w of the tile, 32 pixels (two m16 tiles)
-// x 64 channels (eight n8 tiles). The input channels go in chunks of 16, one
-// k-step per kernel tap: the chunk's halo patch is staged pixel-major
-// ([row][col][16 channels], rows of 48 bytes so that ldmatrix's eight rows
-// fall in eight different bank groups) with the affine, relu and zero
-// padding applied, and its 9 x 64 x 16 weights channel-minor
-// ([tap][out channel][16 channels]); a tap's A fragment is then the
-// patch shifted by the tap, read by ldmatrix straight from the staged rows.
-// The epilogue rounds as the FFMA kernel does, reduces the statistics over
-// the warp's pixels by shuffles and over the 8 warps in a fixed order in
-// shared memory, and stages the bf16 output tile there for 16-byte stores.
+// One block per multiprocessor walks the (batch, 8 x 32 tile) list in a
+// fixed order (tile t, t + grid, ...). The block first loads all nine
+// taps' 64 x 64 bf16 weights into shared memory once (73,728 bytes), as
+// wgmma's K-major B operand: a row of 64 input channels (128 bytes) per
+// (tap, output channel), 128-byte swizzled. Warpgroup 2 is the producer:
+// it stages each tile's (8+2) x (32+2) halo patch of z = form(x) into one
+// of two patch slots, pixel-major (a pixel's 64 channels in 128 bytes, its
+// eight 16-byte chunks XOR-swizzled by the pixel's column), with the
+// affine, relu and zero padding applied in registers on bf16 pairs: a lane
+// takes 8 pixels of one channel (16 bytes along W), and stmatrix.trans
+// turns 8 channels x 32 pixels of a warp into 32 pixel rows of 16 bytes.
+// Where W is a multiple of 8 (`vec`) the raw tile, 48 x 10 pixels of 64
+// channels around it, arrives by one TMA load into a staging buffer,
+// issued as soon as the previous tile is staged; otherwise the producer
+// loads the tile element by element. Warpgroups 0 and 1 compute rows 0-3
+// and 4-7 of the tile: two m64 blocks each (2 rows x 32 pixels), per tap
+// and per 16 input channels one wgmma m64n64k16 with A from registers
+// (ldmatrix of the patch shifted by the tap; the next tap's fragments load
+// while this tap's wgmmas run) and B from the resident weights. The
+// producer stages the next tile into the other slot meanwhile. After the
+// last tap the two consumer warpgroups meet once, and the consumed slot
+// takes the output tile: each warpgroup rounds the sum and adds the bias
+// on bf16 pairs, stores its rows there channel-major (stmatrix.trans),
+// writes them out in 16-byte rows and reduces the statistics in a fixed
+// order into one partial per (batch, tile, warpgroup); then it releases
+// the slot.
 
-#define MMA_CK 16  // input channels per chunk: one mma k-step per tap
-#define MMA_LD 24  // a staged pixel's (or output channel's) 16 channels, padded to 48 bytes
-#define OUT_LD 40  // a staged output row of 32 pixels, padded to 80 bytes
+constexpr int WC_THREADS = 384;                          // consumer warpgroups 0-1, producer warpgroup 2
+constexpr int WC_PIX = C * 2;                            // a staged pixel: 64 bf16 channels, eight 16-byte chunks
+constexpr int WC_PATCH_BYTES = PATCH_H * PATCH_W * WC_PIX;  // 43,520
+constexpr int WC_TAP_BYTES = C * C * 2;                  // one tap's weights: 8,192
+constexpr int WC_W_BYTES = 9 * WC_TAP_BYTES;             // 73,728
+constexpr int WC_RAW_W = TILE_W + 16;                    // the raw tile's columns x0 - 8 .. x0 + 39
+constexpr int WC_RAW_BYTES = C * PATCH_H * WC_RAW_W * 2; // 61,440: [channel][patch row][48 pixels]
+constexpr int WC_OUT_LD = TILE_H * TILE_W * 2 + 16;      // a staged output channel: 8 x 32 pixels + 16 bytes
+constexpr int WC_OUT_BYTES = C * WC_OUT_LD;              // 33,792
+constexpr int WC_RED_BYTES = 8 * 2 * C * 4;              // the 8 consumer warps' [sum, sumsq] x 64
+// The slack to align the weights to a 1024-byte swizzle atom, the weights,
+// two patches (the output tile takes the place of the one just consumed),
+// the raw tile, the reduction and five barriers (each patch full and
+// empty, the raw tile in).
+static_assert(WC_OUT_BYTES <= WC_PATCH_BYTES, "the output tile fits in a patch slot");
+constexpr int WC_SMEM_BYTES = 1024 + WC_W_BYTES + 2 * WC_PATCH_BYTES + WC_RAW_BYTES + WC_RED_BYTES + 5 * 8;
 
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const __nv_bfloat16* p) {
-    const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(a));
+// Byte offset of (pixel row pr, column pc, 16-byte channel chunk ck) in a patch.
+__device__ __forceinline__ int patch_off(int pr, int pc, int ck) {
+    return (pr * PATCH_W + pc) * WC_PIX + ((ck ^ (pc & 7)) << 4);
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
-    asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-                 "{%8, %9}, {%0, %1, %2, %3};\n"
-                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// z = form(x) of one bf16 value, rounded after each op as the plain
+// version rounds it.
+template <int FORM>
+__device__ __forceinline__ float form_bf16(float x, float a, float s) {
+    using E = Elem<__nv_bfloat16>;
+    if (FORM == FORM_NONE) return x;
+    const float z = FORM == FORM_IN ? E::round(__fmul_rn(E::round(__fsub_rn(x, a)), s))
+                                    : E::round(__fadd_rn(E::round(__fmul_rn(x, a)), s));
+    return fmaxf(z, 0.0f);
 }
 
-constexpr int MMA_PATCH_BYTES = PATCH_H * PATCH_W * MMA_LD * 2;
-constexpr int MMA_W_BYTES = 9 * C * MMA_LD * 2;
-constexpr int MMA_OUT_BYTES = C * TILE_H * OUT_LD * 2;
-constexpr int MMA_SMEM_BYTES =
-    MMA_PATCH_BYTES + MMA_W_BYTES > MMA_OUT_BYTES ? MMA_PATCH_BYTES + MMA_W_BYTES : MMA_OUT_BYTES;
+// The same on a pair of bf16 values in one word (a2, s2: the affine
+// values of its channel in both halves).
+template <int FORM>
+__device__ __forceinline__ uint32_t form_bf16x2(uint32_t x, uint32_t a2, uint32_t s2) {
+    if (FORM == FORM_NONE) return x;
+    return bf16x2_relu(FORM == FORM_IN ? bf16x2_mul(bf16x2_sub(x, a2), s2) : bf16x2_add(bf16x2_mul(x, a2), s2));
+}
 
-// w_mma: the bf16 weights as (3, 3, Co, Ci).
-__global__ void __launch_bounds__(THREADS, 2)
-encoder_conv_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w_mma,
-                        const float* __restrict__ bias, const float* __restrict__ aff, int form,
-                        int height, int width, int tiles_x, __nv_bfloat16* __restrict__ y,
-                        float* __restrict__ partial) {
+// w_mma: the bf16 weights as (3, 3, Co, Ci); `vec`: W is a multiple of 8
+// and x and y start 16-byte aligned (the TMA raw tile, 16-byte stores);
+// xmap: x as (W, H, 64 B) with 48 x 10 x 64 boxes (unused without vec).
+template <int FORM>
+__global__ void __launch_bounds__(WC_THREADS, 1)
+encoder_conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __nv_bfloat16* __restrict__ x,
+                          const __nv_bfloat16* __restrict__ w_mma, const float* __restrict__ bias,
+                          const float* __restrict__ aff, int height, int width, int tiles_x, int tiles, int total,
+                          int vec, __nv_bfloat16* __restrict__ y, float* __restrict__ partial) {
     using bf16 = __nv_bfloat16;
-    using E = Elem<bf16>;
-    __shared__ __align__(16) unsigned char smem[MMA_SMEM_BYTES];
-    __shared__ float red[THREADS / 32][2][C];
-    bf16* patch = reinterpret_cast<bf16*>(smem);                    // [PATCH_H][PATCH_W][MMA_LD]
-    bf16* wsm = reinterpret_cast<bf16*>(smem + MMA_PATCH_BYTES);    // [9][C][MMA_LD]
-    bf16* out_s = reinterpret_cast<bf16*>(smem);                    // [C][TILE_H][OUT_LD], after the loop
+    extern __shared__ __align__(1024) unsigned char smem_raw[];
+    unsigned char* wsm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+    unsigned char* patches = wsm + WC_W_BYTES;
+    unsigned char* raw = patches + 2 * WC_PATCH_BYTES;
+    float* red = reinterpret_cast<float*>(raw + WC_RAW_BYTES);  // [8 warps][2][64]
+    uint64_t* patch_full = reinterpret_cast<uint64_t*>(raw + WC_RAW_BYTES + WC_RED_BYTES);  // [2]
+    uint64_t* patch_empty = patch_full + 2;                                                  // [2]
+    uint64_t* raw_full = patch_full + 4;
 
     const int tid = threadIdx.x;
-    const int warp = tid >> 5, lane = tid & 31;
-    const int q = lane >> 3, r = lane & 7;
-    const int tile = blockIdx.x;
-    const int b = blockIdx.y;
-    const int y0 = (tile / tiles_x) * TILE_H;
-    const int x0 = (tile % tiles_x) * TILE_W;
+    const int wg = tid >> 7;
+    const int lane = tid & 31;
+    const int t128 = tid & 127;
+    // The weights, once: chunk (tap, co, 8 input channels) at its swizzled place.
+    for (int e = tid; e < 9 * C * 8; e += WC_THREADS) {
+        const int row = e >> 3, ck = e & 7;  // row = tap * 64 + co
+        *reinterpret_cast<uint4*>(wsm + row * WC_PIX + ((ck ^ (row & 7)) << 4)) =
+            *reinterpret_cast<const uint4*>(w_mma + (long long)row * C + 8 * ck);
+    }
+    if (tid == 0) {
+        for (int i = 0; i < 2; ++i) {
+            mbar_init(patch_full + i, 128);
+            mbar_init(patch_empty + i, 8);
+        }
+        mbar_init(raw_full, 1);
+        mbar_init_fence();
+    }
+    fence_proxy_async();  // the weights are read by wgmma
+    __syncthreads();
     const long long plane = (long long)height * width;
-    const bf16* xb = x + (long long)b * C * plane;
 
-    float acc[2][8][4];
+    if (wg == 2) {
+        // Producer. Warp w stages the interior of channel groups w and w + 4
+        // (a lane: channel rho of the group, pixels 8q .. 8q+7 of the tile's
+        // row), task i being patch row i / 2 of group w + 4 (i % 2); thread
+        // t128 stages the halo column (t128 < 64: left) of channel t128 % 64.
+        const int warp = t128 >> 5;
+        const int rho = lane >> 2, q = lane & 3;
+        const int mi = lane >> 3, mj = lane & 7;  // the stmatrix row this lane addresses
+        // Pixel of that row: column mj of matrix mi, whose registers hold
+        // pixel pair (mi + q') % 4 of run q' (the rotation keeps the eight
+        // rows of a matrix in eight bank groups).
+        const int st_px = 8 * (mj >> 1) + 2 * ((mi + (mj >> 1)) & 3) + (mj & 1);
+        const int hc = t128 & (C - 1);
+        const int hpc = t128 >> 6 ? PATCH_W - 1 : 0;
+        constexpr int TASKS = PATCH_H * 2;  // per warp
+        auto load_raw = [&](int t) {  // one thread: the raw tile of tile t
+            const int b = t / tiles;
+            const int tile = t - b * tiles;
+            mbar_arrive_expect_tx(raw_full, WC_RAW_BYTES);
+            tma_load_3d(raw, &xmap, raw_full, (tile - (tile / tiles_x) * tiles_x) * TILE_W - 8,
+                        (tile / tiles_x) * TILE_H - 1, b * C);
+        };
+        if (vec && t128 == 0 && (int)blockIdx.x < total) load_raw(blockIdx.x);
+        // The affine values of this thread's channels, for batch cur_b.
+        int cur_b = -1;
+        float fa[2] = {0.0f, 0.0f}, fs[2] = {0.0f, 0.0f}, ha = 0.0f, hs = 0.0f;
+        uint32_t a2[2] = {0u, 0u}, s2[2] = {0u, 0u};
+        int k = 0;
+        for (int t = blockIdx.x; t < total; t += gridDim.x, ++k) {
+            const int s = k & 1;  // the patch slot
+            const int b = t / tiles;
+            const int tile = t - b * tiles;
+            const int y0 = (tile / tiles_x) * TILE_H;
+            const int x0 = (tile - (tile / tiles_x) * tiles_x) * TILE_W;
+            const bf16* xb = x + (long long)b * C * plane;
+            unsigned char* patch = patches + s * WC_PATCH_BYTES;
+            const int gx = x0 + 8 * q;
+            if (FORM != FORM_NONE && b != cur_b) {
+                cur_b = b;
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+                for (int g2 = 0; g2 < 2; ++g2) {
+                    fa[g2] = aff[(b * 2) * C + 8 * (warp + 4 * g2) + rho];
+                    fs[g2] = aff[(b * 2 + 1) * C + 8 * (warp + 4 * g2) + rho];
+                    a2[g2] = bf16x2_splat(fa[g2]);
+                    s2[g2] = bf16x2_splat(fs[g2]);
+                }
+                ha = aff[(b * 2) * C + hc];
+                hs = aff[(b * 2 + 1) * C + hc];
+            }
+            const int hgx = x0 - 1 + hpc;
+            float hv[PATCH_H];
+            uint4 in[TASKS];
+            if (vec) {
+                mbar_wait(raw_full, k & 1);
+#pragma unroll
+                for (int task = 0; task < TASKS; ++task) {
+                    const int c = 8 * (warp + 4 * (task & 1)) + rho;
+                    in[task] = *reinterpret_cast<const uint4*>(raw + ((c * PATCH_H + (task >> 1)) * WC_RAW_W + 8 + 8 * q) * 2);
+                }
+#pragma unroll
+                for (int pr = 0; pr < PATCH_H; ++pr)
+                    hv[pr] = bf16_lo(*reinterpret_cast<const uint16_t*>(raw + ((hc * PATCH_H + pr) * WC_RAW_W + (hpc ? WC_RAW_W - 8 : 7)) * 2));
+                named_barrier(3, 128);  // every producer thread has read the raw tile
+                if (t128 == 0 && t + (int)gridDim.x < total) {
+                    fence_proxy_async();
+                    load_raw(t + gridDim.x);
+                }
+            } else {
+                // Element by element: W is not a multiple of 8 (or x is not
+                // 16-byte aligned).
+#pragma unroll
+                for (int task = 0; task < TASKS; ++task) {
+                    const int c = 8 * (warp + 4 * (task & 1)) + rho;
+                    const int gy = y0 - 1 + (task >> 1);
+                    const bf16* src = xb + c * plane + (long long)gy * width + gx;
+                    uint32_t w4[4] = {0u, 0u, 0u, 0u};
+                    if (gy >= 0 && gy < height) {
+#pragma unroll
+                        for (int e = 0; e < 8; e += 2) {
+                            const uint32_t lo = gx + e < width ? __bfloat16_as_ushort(src[e]) : 0u;
+                            const uint32_t hi = gx + e + 1 < width ? __bfloat16_as_ushort(src[e + 1]) : 0u;
+                            w4[e >> 1] = lo | (hi << 16);
+                        }
+                    }
+                    in[task] = make_uint4(w4[0], w4[1], w4[2], w4[3]);
+                }
+#pragma unroll
+                for (int pr = 0; pr < PATCH_H; ++pr) {
+                    const int gy = y0 - 1 + pr;
+                    hv[pr] = gy >= 0 && gy < height && hgx >= 0 && hgx < width
+                                 ? Elem<bf16>::load(xb + hc * plane + (long long)gy * width + hgx)
+                                 : 0.0f;
+                }
+            }
+            mbar_wait(patch_empty + s, ((k >> 1) & 1) ^ 1);  // the consumers are done with this slot's last tile
+#pragma unroll
+            for (int task = 0; task < TASKS; ++task) {
+                const int g2 = task & 1;
+                const int pr = task >> 1;
+                const int gy = y0 - 1 + pr;
+                const uint32_t w4[4] = {in[task].x, in[task].y, in[task].z, in[task].w};
+                uint32_t pk[4];
+                // Zero padding pads z, not x: a pixel outside the image is 0.
+                if (gy >= 0 && gy < height && gx + 8 <= width) {
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) pk[e] = form_bf16x2<FORM>(w4[e], a2[g2], s2[g2]);
+                } else {
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const bool row_in = gy >= 0 && gy < height;
+                        const float lo = row_in && gx + 2 * e < width ? form_bf16<FORM>(bf16_lo(w4[e]), fa[g2], fs[g2]) : 0.0f;
+                        const float hi =
+                            row_in && gx + 2 * e + 1 < width ? form_bf16<FORM>(bf16_hi(w4[e]), fa[g2], fs[g2]) : 0.0f;
+                        pk[e] = bf16_pack(lo, hi);  // exact: bf16 values
+                    }
+                }
+                // Register e holds pair (e + q) % 4: rotate by q's bits.
+                if (q & 1) {
+                    const uint32_t t0 = pk[0];
+                    pk[0] = pk[1]; pk[1] = pk[2]; pk[2] = pk[3]; pk[3] = t0;
+                }
+                if (q & 2) {
+                    const uint32_t t0 = pk[0], t1 = pk[1];
+                    pk[0] = pk[2]; pk[1] = pk[3]; pk[2] = t0; pk[3] = t1;
+                }
+                stmatrix_x4_trans(patch + patch_off(pr, 1 + st_px, warp + 4 * g2), pk);
+            }
+            // The halo columns 0 and 33, one element each.
+#pragma unroll
+            for (int pr = 0; pr < PATCH_H; ++pr) {
+                const int gy = y0 - 1 + pr;
+                const bool in_image = gy >= 0 && gy < height && hgx >= 0 && hgx < width;
+                *reinterpret_cast<bf16*>(patch + patch_off(pr, hpc, hc >> 3) + 2 * (hc & 7)) =
+                    __float2bfloat16_rn(in_image ? form_bf16<FORM>(hv[pr], ha, hs) : 0.0f);
+            }
+            mbar_arrive(patch_full + s);
+        }
+    } else {
+        // Consumers: warpgroup wg computes tile rows 4 wg .. 4 wg + 3.
+        const int warp = tid >> 5;  // 0-7
+        const int wq = warp & 3;    // warp within the warpgroup
+        const int g = lane >> 2, t2 = 2 * (lane & 3);
+        // ldmatrix: lane l gives row l % 8 of matrix l / 8: pixel l % 8 (+8
+        // for odd l / 8), channel chunk +1 for l / 8 >= 2.
+        const int ld_px = 16 * (wq & 1) + (lane & 7) + 8 * ((lane >> 3) & 1);
+        const int ld_ck = lane >> 4;
+        // stmatrix.trans of the output: lane l gives output channel row l % 8
+        // of matrix l / 8 (channel block +1 for l / 8 >= 2, pixels +8 for odd).
+        const int so_co = (lane & 7) + 8 * (lane >> 4);
+        const int so_px = 16 * (wq & 1) + 8 * ((lane >> 3) & 1);
+        // The bias of the thread's channels 8j + t2, +1, as bf16 pairs.
+        uint32_t bias2[8];
 #pragma unroll
         for (int j = 0; j < 8; ++j)
+            bias2[j] = (__float_as_uint(bias[8 * j + t2]) >> 16) | (__float_as_uint(bias[8 * j + t2 + 1]) & 0xffff0000u);
+        const uint32_t w_base = smem_u32(wsm);
+        float acc[2][32];
+        int k = 0;
+        for (int t = blockIdx.x; t < total; t += gridDim.x, ++k) {
+            const int s = k & 1;  // the patch slot; the output tile after the wgmmas
+            const int b = t / tiles;
+            const int tile = t - b * tiles;
+            const int y0 = (tile / tiles_x) * TILE_H;
+            const int x0 = (tile - (tile / tiles_x) * tiles_x) * TILE_W;
+            unsigned char* patch = patches + s * WC_PATCH_BYTES;
+            unsigned char* out_s = patch;
 #pragma unroll
-            for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.0f;
-
-    for (int ci0 = 0; ci0 < C; ci0 += MMA_CK) {
-        // The chunk's halo patch, normalized and zero padded, pixel-major.
-        for (int e = tid; e < MMA_CK * PATCH_H * PATCH_W; e += THREADS) {
-            const int c = e / (PATCH_H * PATCH_W);
-            const int rem = e - c * (PATCH_H * PATCH_W);
-            const int pr = rem / PATCH_W;
-            const int pc = rem - pr * PATCH_W;
-            const int gy = y0 - 1 + pr;
-            const int gx = x0 - 1 + pc;
-            float z = 0.0f;
-            if (gy >= 0 && gy < height && gx >= 0 && gx < width) {
-                z = E::load(xb + (long long)(ci0 + c) * plane + (long long)gy * width + gx);
-                if (form != FORM_NONE) {
-                    const float a = aff[(b * 2) * C + ci0 + c];
-                    const float s = aff[(b * 2 + 1) * C + ci0 + c];
-                    z = form == FORM_IN ? E::round(__fmul_rn(E::round(__fsub_rn(z, a)), s))
-                                        : E::round(__fadd_rn(E::round(__fmul_rn(z, a)), s));
-                    z = fmaxf(z, 0.0f);
+            for (int m = 0; m < 2; ++m)
+#pragma unroll
+                for (int i = 0; i < 32; ++i) acc[m][i] = 0.0f;
+            mbar_wait(patch_full + s, (k >> 1) & 1);
+            // A fragments of a tap: ldmatrix of the patch shifted by the tap,
+            // two buffers, so that tap t + 1's are loaded while tap t's
+            // wgmmas run.
+            uint32_t a[2][2][4][4];
+            auto load_tap = [&](int tap, uint32_t(&dst)[2][4][4]) {
+#pragma unroll
+                for (int m = 0; m < 2; ++m) {
+                    const int pr = 4 * wg + 2 * m + (wq >> 1) + tap / 3;
+#pragma unroll
+                    for (int kk = 0; kk < 4; ++kk)
+                        ldmatrix_x4(dst[m][kk], patch + patch_off(pr, ld_px + tap % 3, 2 * kk + ld_ck));
+                }
+            };
+            load_tap(0, a[0]);
+#pragma unroll
+            for (int tap = 0; tap < 9; ++tap) {
+                wgmma_fence();
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk) {
+                    const uint64_t db = sw128_desc(w_base + tap * WC_TAP_BYTES + kk * 32, 16, 1024);
+#pragma unroll
+                    for (int m = 0; m < 2; ++m) wgmma_rs_m64n64(acc[m], a[tap & 1][m][kk], db);
+                }
+                wgmma_commit();
+                if (tap < 8) {
+                    wgmma_wait<1>();  // tap t - 1's wgmmas are done: its buffer is free
+                    load_tap(tap + 1, a[(tap + 1) & 1]);
                 }
             }
-            patch[(pr * PATCH_W + pc) * MMA_LD + c] = __float2bfloat16_rn(z);  // exact: z is a bf16 value
-        }
-        // The chunk's weights: row (tap, co) holds channels ci0 .. ci0 + 15,
-        // two 16-byte copies.
-        for (int e = tid; e < 9 * C * 2; e += THREADS) {
-            const int row = e >> 1, half = e & 1;
-            *reinterpret_cast<uint4*>(wsm + row * MMA_LD + 8 * half) =
-                *reinterpret_cast<const uint4*>(w_mma + (long long)row * C + ci0 + 8 * half);
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kh = 0; kh < 3; ++kh) {
-#pragma unroll
-            for (int kw = 0; kw < 3; ++kw) {
-                // A: pixels (rows) x channels, matrices (pixel, channel) blocks
-                // (0, 0), (8, 0), (0, 8), (8, 8); B: (out channel, channel)
-                // blocks (0, 0), (0, 8), (8, 0), (8, 8) of two n8 tiles.
-                unsigned a[2][4], bq[8][2];
-#pragma unroll
-                for (int mt = 0; mt < 2; ++mt)
-                    ldmatrix_x4(a[mt], patch + ((warp + kh) * PATCH_W + mt * 16 + r + 8 * (q & 1) + kw) * MMA_LD
-                                           + 8 * (q >> 1));
-#pragma unroll
-                for (int nt = 0; nt < 8; nt += 2) {
-                    unsigned t[4];
-                    ldmatrix_x4(t, wsm + ((kh * 3 + kw) * C + nt * 8 + r + 8 * (q >> 1)) * MMA_LD + 8 * (q & 1));
-                    bq[nt][0] = t[0]; bq[nt][1] = t[1]; bq[nt + 1][0] = t[2]; bq[nt + 1][1] = t[3];
-                }
-#pragma unroll
-                for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-                    for (int nt = 0; nt < 8; ++nt) mma_bf16(acc[mt][nt], a[mt], bq[nt][0], bq[nt][1]);
-            }
-        }
-        __syncthreads();
-    }
+            named_barrier(4, 256);  // both warpgroups have read the patch: its slot takes the output tile
+            wgmma_wait<0>();
+            fence_operands(acc[0]);
+            fence_operands(acc[1]);
 
-    // Epilogue. Accumulator c of tile (mt, nt): pixel mt * 16 + g (+8 for
-    // c >= 2) of row `warp`, channels nt * 8 + 2t (+1 for odd c).
-    const int g = lane >> 2, t2 = 2 * (lane & 3);
-    const int gy = y0 + warp;
+            // Epilogue, per warpgroup. Accumulator 4j + e of block m: pixel g
+            // (+8 for e >= 2) of the warp's 16, channel 8j + t2 (+1 for odd e).
+            named_barrier(1 + wg, 128);  // the previous tile's reduction is read
+            const int orow = 4 * wg + (wq >> 1);  // + 2m
+            float st[16], sq[16];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+            for (int i = 0; i < 16; ++i) st[i] = sq[i] = 0.0f;
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-            const int co = nt * 8 + t2 + j;
-            const float bk = bias[co];
-            float s = 0.0f, sq = 0.0f;
+            for (int m = 0; m < 2; ++m) {
+                const int gy = y0 + orow + 2 * m;
 #pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
+                for (int j = 0; j < 8; j += 2) {
+                    uint32_t r[4];
 #pragma unroll
-                for (int hf = 0; hf < 2; ++hf) {
-                    const int px = mt * 16 + g + 8 * hf;
-                    const float v = E::round(__fadd_rn(E::round(acc[mt][nt][2 * hf + j]), bk));
-                    if (gy < height && x0 + px < width) {
-                        s += v;
-                        sq += v * v;
+                    for (int h = 0; h < 4; ++h) {  // matrix h: channel block j + h / 2, pixels +8 for odd h
+                        const int jj = j + (h >> 1), hf = h & 1;
+                        // The sum rounded to bf16, then the bf16 bias added: one
+                        // rounding each.
+                        r[h] = bf16x2_add(bf16x2_rn(acc[m][4 * jj + 2 * hf], acc[m][4 * jj + 2 * hf + 1]), bias2[jj]);
+                        if (gy < height && x0 + 16 * (wq & 1) + g + 8 * hf < width) {
+                            const float v0 = bf16_lo(r[h]), v1 = bf16_hi(r[h]);
+                            st[2 * jj] += v0;
+                            sq[2 * jj] += v0 * v0;
+                            st[2 * jj + 1] += v1;
+                            sq[2 * jj + 1] += v1 * v1;
+                        }
                     }
-                    out_s[(co * TILE_H + warp) * OUT_LD + px] = __float2bfloat16_rn(v);
+                    stmatrix_x4_trans(out_s + (8 * j + so_co) * WC_OUT_LD + (orow + 2 * m) * (TILE_W * 2) + so_px * 2,
+                                      r);
                 }
             }
             // Over the warp's 8 pixel groups (lane bits 2-4): a fixed order.
 #pragma unroll
-            for (int off = 4; off < 32; off <<= 1) {
-                s += __shfl_xor_sync(0xffffffffu, s, off);
-                sq += __shfl_xor_sync(0xffffffffu, sq, off);
+            for (int i = 0; i < 16; ++i) {
+#pragma unroll
+                for (int off = 4; off < 32; off <<= 1) {
+                    st[i] += __shfl_xor_sync(0xffffffffu, st[i], off);
+                    sq[i] += __shfl_xor_sync(0xffffffffu, sq[i], off);
+                }
             }
             if (g == 0) {
-                red[warp][0][co] = s;
-                red[warp][1][co] = sq;
-            }
-        }
-    }
-    __syncthreads();
-    if (partial != nullptr && tid < 2 * C) {
-        float total = 0.0f;
 #pragma unroll
-        for (int w = 0; w < THREADS / 32; ++w) total += red[w][tid / C][tid % C];
-        partial[((long long)b * gridDim.x + tile) * 2 * C + tid] = total;
-    }
-    // The bf16 tile out, 8 pixels (16 bytes) per store where they are all
-    // in the image and rows start 16-byte aligned.
-    for (int e = tid; e < C * TILE_H * (TILE_W / 8); e += THREADS) {
-        const int co = e / (TILE_H * (TILE_W / 8));
-        const int rem = e - co * (TILE_H * (TILE_W / 8));
-        const int row = rem / (TILE_W / 8);
-        const int seg = rem - row * (TILE_W / 8);
-        const int oy = y0 + row, ox = x0 + seg * 8;
-        if (oy >= height || ox >= width) continue;
-        const bf16* src = out_s + (co * TILE_H + row) * OUT_LD + seg * 8;
-        bf16* dst = y + ((long long)b * C + co) * plane + (long long)oy * width + ox;
-        if (ox + 8 <= width && (width & 7) == 0) {
-            *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-        } else {
-            for (int k = 0; k < 8 && ox + k < width; ++k) dst[k] = src[k];
+                for (int j = 0; j < 8; ++j)
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        red[(warp * 2 + 0) * C + 8 * j + t2 + e] = st[2 * j + e];
+                        red[(warp * 2 + 1) * C + 8 * j + t2 + e] = sq[2 * j + e];
+                    }
+            }
+            named_barrier(1 + wg, 128);
+            // One partial per (batch, tile, warpgroup): its 4 warps in order.
+            if (partial != nullptr) {
+                float sum = 0.0f;
+#pragma unroll
+                for (int w = 0; w < 4; ++w) sum += red[((4 * wg + w) * 2 + (t128 >> 6)) * C + (t128 & (C - 1))];
+                partial[(((long long)b * tiles + tile) * 2 + wg) * 2 * C + t128] = sum;
+            }
+            // The warpgroup's 4 rows out, 8 pixels (16 bytes) per store where
+            // they lie in the image and rows start 16-byte aligned.
+            for (int e = t128; e < C * 4 * (TILE_W / 8); e += 128) {
+                const int co = e >> 4;
+                const int row = 4 * wg + ((e >> 2) & 3);
+                const int seg = e & 3;
+                const int oy = y0 + row, ox = x0 + 8 * seg;
+                if (oy >= height || ox >= width) continue;
+                const unsigned char* src = out_s + co * WC_OUT_LD + row * (TILE_W * 2) + seg * 16;
+                bf16* dst = y + ((long long)b * C + co) * plane + (long long)oy * width + ox;
+                if (vec) {
+                    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+                } else {
+                    const bf16* sv = reinterpret_cast<const bf16*>(src);
+                    for (int i = 0; i < 8 && ox + i < width; ++i) dst[i] = sv[i];
+                }
+            }
+            __syncwarp();
+            if (lane == 0) mbar_arrive(patch_empty + s);  // the slot is read out; the producer may restage it
         }
     }
+}
+
+// x as a (W, H, 64 B) tensor map for the raw tiles: 48 x 10 x 64 boxes, zeros outside.
+static int encode_x_map(CUtensorMap* map, const void* x, int batch, int height, int width) {
+    TensorMapEncodeTiled encode = tensor_map_encoder();
+    if (encode == nullptr) return (int)cudaErrorNotSupported;
+    const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)height, (cuuint64_t)C * batch};
+    const cuuint64_t strides[2] = {(cuuint64_t)width * 2, (cuuint64_t)height * width * 2};
+    const cuuint32_t box[3] = {WC_RAW_W, PATCH_H, C};
+    const cuuint32_t unit[3] = {1, 1, 1};
+    const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims, strides, box,
+                                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int FORM>
+static int launch_conv_wgmma(const CUtensorMap& xmap, const void* x, const void* w_t, const void* bias,
+                             const void* aff, int height, int width, int tiles_x, int tiles, int total, int vec,
+                             void* y, void* partial, int blocks, cudaStream_t s) {
+    auto kernel = encoder_conv_wgmma_kernel<FORM>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WC_SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<blocks, WC_THREADS, WC_SMEM_BYTES, s>>>(xmap, (const __nv_bfloat16*)x, (const __nv_bfloat16*)w_t,
+                                                     (const float*)bias, (const float*)aff, height, width, tiles_x,
+                                                     tiles, total, vec, (__nv_bfloat16*)y, (float*)partial);
+    return (int)cudaGetLastError();
 }
 
 // stats[b, t] = sum over tiles of partial[b, tile, t] (t indexes [sum | sumsq] x 64),
@@ -414,12 +666,15 @@ encoder_stats_kernel(const float* __restrict__ partial, int tiles, float* __rest
 }
 
 // x and y are fp32 (bf16 = 0: the FFMA kernel, w_t the fp32 weights as
-// (Ci, 3, 3, Co)) or bf16 (bf16 = 1: the tensor-core kernel, w_t the bf16
-// weights as (3, 3, Co, Ci)); bias and the affine rows are fp32 in either
-// case (in bf16, values the wrapper has rounded to bf16).
+// (Ci, 3, 3, Co), one block per (tile, batch)) or bf16 (bf16 = 1: the
+// wgmma kernel, w_t the bf16 weights as (3, 3, Co, Ci), `blocks`
+// persistent blocks of `shared_bytes`, `vec` its 16-byte accesses; the
+// plan is ops/encoder_cuda.py `conv_plan`); bias and the affine rows are
+// fp32 in either case (in bf16, values the wrapper has rounded to bf16).
 extern "C" int raft_encoder_conv(const void* x, const void* w_t, const void* bias, const void* aff,
                                  int form, int batch, int height, int width, void* y,
-                                 void* partial, void* stats, int bf16, void* stream) {
+                                 void* partial, void* stats, int bf16, int blocks, int shared_bytes, int vec,
+                                 void* stream) {
     if (form < FORM_NONE || form > FORM_BN) return (int)cudaErrorInvalidValue;
     if ((form != FORM_NONE) != (aff != nullptr)) return (int)cudaErrorInvalidValue;
     if ((partial == nullptr) != (stats == nullptr)) return (int)cudaErrorInvalidValue;
@@ -428,17 +683,39 @@ extern "C" int raft_encoder_conv(const void* x, const void* w_t, const void* bia
     const int tiles_x = (width + TILE_W - 1) / TILE_W;
     const int tiles = tiles_x * ((height + TILE_H - 1) / TILE_H);
     cudaStream_t s = (cudaStream_t)stream;
-    if (bf16)
-        encoder_conv_mma_kernel<<<dim3(tiles, batch), THREADS, 0, s>>>(
-            (const __nv_bfloat16*)x, (const __nv_bfloat16*)w_t, (const float*)bias, (const float*)aff, form,
-            height, width, tiles_x, (__nv_bfloat16*)y, (float*)partial);
-    else
+    if (bf16) {
+        const long long total = (long long)batch * tiles;
+        if (shared_bytes != WC_SMEM_BYTES || blocks < 1 || blocks > total || total > 0x7fffffffLL)
+            return (int)cudaErrorInvalidValue;
+        if (vec && ((width & 7) != 0 || ((uintptr_t)x & 15) != 0 || ((uintptr_t)y & 15) != 0))
+            return (int)cudaErrorInvalidValue;
+        CUtensorMap xmap;
+        memset(&xmap, 0, sizeof(xmap));
+        if (vec) {
+            const int status = encode_x_map(&xmap, x, batch, height, width);
+            if (status != 0) return status;
+        }
+        int status;
+        if (form == FORM_IN)
+            status = launch_conv_wgmma<FORM_IN>(xmap, x, w_t, bias, aff, height, width, tiles_x, tiles, (int)total, vec,
+                                                y, partial, blocks, s);
+        else if (form == FORM_BN)
+            status = launch_conv_wgmma<FORM_BN>(xmap, x, w_t, bias, aff, height, width, tiles_x, tiles, (int)total, vec,
+                                                y, partial, blocks, s);
+        else
+            status = launch_conv_wgmma<FORM_NONE>(xmap, x, w_t, bias, aff, height, width, tiles_x, tiles, (int)total,
+                                                  vec, y, partial, blocks, s);
+        if (status != 0) return status;
+    } else {
         encoder_conv_kernel<<<dim3(tiles, batch), THREADS, 0, s>>>(
             (const float*)x, (const float*)w_t, (const float*)bias, (const float*)aff, form, height, width,
             tiles_x, (float*)y, (float*)partial);
+    }
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess || stats == nullptr) return (int)err;
-    encoder_stats_kernel<<<dim3(2 * C, batch), STATS_THREADS, 0, s>>>((const float*)partial, tiles, (float*)stats);
+    // The bf16 kernel writes one partial per (tile, warpgroup).
+    encoder_stats_kernel<<<dim3(2 * C, batch), STATS_THREADS, 0, s>>>((const float*)partial, bf16 ? 2 * tiles : tiles,
+                                                                      (float*)stats);
     return (int)cudaGetLastError();
 }
 

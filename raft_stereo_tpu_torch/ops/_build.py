@@ -70,6 +70,10 @@ SOURCE_FLAGS = {
 # 0 fp32, 1 bf16.
 DTYPE_FLAGS = {torch.float32: 0, torch.bfloat16: 1}
 
+# The H100's dynamic shared memory of a block (227 KB), the bound every
+# kernel plan checks its shared bytes against.
+MAX_SHARED_BYTES = 232448
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 

@@ -31,9 +31,12 @@ taps (bf16 training: the scatter reads a bf16 cotangent in place and
 stores bf16 levels).
 
 The pyramid and scatter kernels launch what a plain function here plans
-(`pyramid_plan`: tile, copy width, grid, shared bytes; `scatter_plan`:
-queries per block, grid, shared bytes, 64-bit indexing); a shape or stride
-no plan takes raises.
+(`pyramid_plan`: kernel, tile, copy width, grid, shared bytes, ring depth;
+`scatter_plan`: queries per block, grid, shared bytes, 64-bit indexing); a
+shape or stride no plan takes raises. The bf16 pyramid has two kernels in
+`csrc/corr_pyramid.cu`, and the plan names the one that takes the shape:
+the wgmma kernel (TMA tensor maps, persistent blocks) where W is a multiple
+of 8 along the unit-stride axis of both maps, else the mma.sync kernel.
 
 Not ported: the "alt" strategy's on-the-fly lookup.
 """
@@ -65,26 +68,46 @@ PYRAMID_MAX_LEVELS = 7
 # its D chunk, ring depth and operand-row padding. Two blocks of either are
 # resident on an SM (its __launch_bounds__).
 PYRAMID_TILES = {(128, 128): (8, 8), (96, 192): (6, 12)}
-# The bf16 build, its tensor-core kernel: one tile of 256 threads (8 warps
-# of 64 x 32, mma.sync m16n8k16), the shared-memory epilogue only.
+# The kernels of the build, by the C entry point's `path`: the fp32 FFMA
+# kernel, the bf16 mma.sync kernel (one tile of 256 threads, 8 warps of 64
+# x 32, mma.sync m16n8k16, the shared-memory epilogue; it takes every
+# shape and layout), and the bf16 wgmma kernel (persistent blocks of 384
+# threads, TMA loads, the 8-column chunk epilogue; it takes what its
+# tensor maps and stores take, `pyramid_plan` says what).
+PYRAMID_PATHS = {"ffma": 0, "mma": 1, "wgmma": 2}
 PYRAMID_MMA_TILE, PYRAMID_MMA_THREADS = (128, 128), 256
 PYRAMID_TK, PYRAMID_STAGES, PYRAMID_PAD = 16, 4, 4
 PYRAMID_BLOCKS_PER_SM = 2
 PYRAMID_REG_LEVELS = 6  # REG_LEVELS of csrc/corr_pyramid.cu: levels its register epilogue reaches
+# The wgmma kernel (WG_* of csrc/corr_pyramid.cu): 128 W1 rows (two
+# consumer warpgroups of 64) by one of its instantiated W2 widths (the
+# wgmma N: a multiple of 8 up to 256), k64 stages of 64 x 64 TMA boxes
+# (8192 bytes each), at most 4 levels (an 8-column chunk of level 0 pools
+# into levels 1-3), one block per multiprocessor.
+PYRAMID_WGMMA_BM = 128
+PYRAMID_WGMMA_WIDTHS = (64, 96, 128, 160, 192, 240, 256)
+PYRAMID_WGMMA_THREADS = 384
+PYRAMID_WGMMA_BOX, PYRAMID_WGMMA_BOX_BYTES = 64, 8192
+PYRAMID_WGMMA_MIN_STAGES, PYRAMID_WGMMA_MAX_STAGES = 2, 4
+PYRAMID_WGMMA_LEVELS = 4
+PYRAMID_WGMMA_BLOCKS_PER_SM = 1
 # csrc/corr_scatter.cu: the run of queries a block of 256 threads owns
 # (32-128 time within 2% of each other on the H100, PERF.md row 2).
 SCATTER_RUN = 64
-# H100 limits: dynamic shared memory of a block (227 KB) and the grid's x.
-MAX_SHARED_BYTES = 232448
+# H100 limit: the grid's x.
 MAX_GRID_X = 2**31 - 1
 INT32_MAX = 2**31 - 1
 
 
 class PyramidPlan(NamedTuple):
-    """A launch of `csrc/corr_pyramid.cu`: one block of `threads` per (row,
-    tile of W1 x W2), the tiles of a row consecutive; `vec` elements per
-    asynchronous copy (16 bytes along W: 4 fp32 or 8 bf16; 1: one element);
-    `direct`: the epilogue pools and stores from the registers."""
+    """A launch of `csrc/corr_pyramid.cu`'s kernel `path` ("ffma", "mma" or
+    "wgmma"): tiles of W1 x W2 (`tile`), `m_tiles` x `n_tiles` per row, the
+    tiles of a row consecutive; "ffma" and "mma" launch one block of
+    `threads` per tile, "wgmma" `blocks` persistent blocks that walk the
+    tile list (tile t, t + blocks, ...) with a ring of `stages` k64 slots;
+    `vec` elements per copy (16 bytes along W: 4 fp32 or 8 bf16; 1: one
+    element); `direct`: the fp32 epilogue pools and stores from the
+    registers."""
 
     tile: Tuple[int, int]
     threads: int
@@ -94,16 +117,39 @@ class PyramidPlan(NamedTuple):
     blocks: int
     shared_bytes: int
     direct: bool
+    path: str = "ffma"
+    stages: int = 0
 
 
 def pyramid_shared_bytes(tile: Tuple[int, int], elem_bytes: int = 4) -> int:
     """The ring of D chunks of both operands (elements of `elem_bytes`,
     each staged row padded by 16 bytes) or the epilogue's padded fp32 volume
-    tile, which aliases it: whichever is larger."""
+    tile, which aliases it: whichever is larger (the "ffma" and "mma"
+    kernels)."""
     bm, bn = tile
     pad = PYRAMID_PAD * 4 // elem_bytes
     ring = PYRAMID_STAGES * PYRAMID_TK * (bm + bn + 2 * pad) * elem_bytes
     return max(ring, 4 * bm * (bn + 1))
+
+
+def pyramid_wgmma_shared_bytes(width: int, stages: int) -> int:
+    """The wgmma kernel's shared bytes (`WgTile<N>::shared_bytes`): 1024 to
+    align the ring to a swizzle atom; `stages` slots of two fmap1 boxes and
+    ceil(width / 64) fmap2 boxes; the two consumer warpgroups' bf16 staging
+    tiles of 64 rows by width + 8; a full and an empty barrier per slot."""
+    boxes = -(-width // PYRAMID_WGMMA_BOX)
+    slot = (PYRAMID_WGMMA_BM // PYRAMID_WGMMA_BOX + boxes) * PYRAMID_WGMMA_BOX_BYTES
+    return 1024 + stages * slot + PYRAMID_WGMMA_BM * (width + 8) * 2 + 16 * stages
+
+
+def pyramid_wgmma_width(w2: int, levels: int) -> int:
+    """The wgmma tile's W2 width for rows of `w2`: among the instantiated
+    widths that are multiples of 2**(L-1), the one of least tiles x (width
+    + 64) (the MMA columns plus a tile's fixed cost), the wider on a tie:
+    a width that divides W2 where one does (720 -> 240, 192 -> 192)."""
+    step = 1 << (levels - 1)
+    admissible = [n for n in PYRAMID_WGMMA_WIDTHS if n % step == 0]
+    return min(admissible, key=lambda n: (-(-w2 // n) * (n + 64), -n))
 
 
 def _pyramid_cost(tile: Tuple[int, int], rows: int, w1: int, w2: int, sms: int) -> int:
@@ -123,46 +169,64 @@ def pyramid_plan(b: int, h: int, w1: int, w2: int, d: int, levels: int, strides:
     addresses are 16-byte aligned; `elem_bytes`: 4 for fp32 operands and
     levels, 2 for bf16.
 
-    Tile: in fp32, among the tiles whose W2 extent is a multiple of
-    2**(L-1) (the pooling stays inside a block), the one of least
-    `_pyramid_cost`, the larger on a tie; in bf16 the tensor-core kernel's
-    128 x 128. Copies move 16 bytes (4 fp32 or 8 bf16 elements) only where
-    W is the unit-stride axis of both maps and every other stride that
-    moves is a multiple of that many elements. The fp32 epilogue pools in
-    the registers (`direct`) where every level row starts 16-byte aligned
-    (W2 a multiple of 4: it stores float4 runs) and there are at most 6
-    levels; the bf16 kernel always pools in shared memory. Raises for what
-    no instantiation takes."""
+    Copies move 16 bytes (4 fp32 or 8 bf16 elements) only where W is the
+    unit-stride axis of both maps and every other stride that moves is a
+    multiple of that many elements. fp32: the "ffma" kernel; among the
+    tiles whose W2 extent is a multiple of 2**(L-1) (the pooling stays
+    inside a block), the one of least `_pyramid_cost`, the larger on a tie;
+    its epilogue pools in the registers (`direct`) where every level row
+    starts 16-byte aligned (W2 a multiple of 4: it stores float4 runs) and
+    there are at most 6 levels. bf16: the "wgmma" kernel where its tensor
+    maps and stores take the shape (16-byte copies, so every moving stride
+    is a multiple of 16 bytes; W2 a multiple of 8, so every level row and
+    8-column chunk starts aligned for its vector stores; at most 4 levels),
+    with `pyramid_wgmma_width`'s W2 width, the deepest ring of 2-4 slots
+    that fits and one block per multiprocessor up to the tile count;
+    otherwise the "mma" kernel's 128 x 128 tile (the realtime model's
+    KITTI bucket, W 156, and other widths, the contiguous (B, H, W, D)
+    layout, more levels). Raises for what no instantiation takes."""
     if elem_bytes not in (2, 4):
         raise ValueError(f"corr_pyramid kernel takes fp32 or bf16 (2 or 4 bytes), got {elem_bytes}")
     if not 1 <= levels <= PYRAMID_MAX_LEVELS:
         raise ValueError(f"corr_pyramid kernel takes 1..{PYRAMID_MAX_LEVELS} levels, got {levels}")
     if len(strides) != 8 or min(b, h, w1, w2, d) < 0:
         raise ValueError(f"corr_pyramid kernel: bad shape {(b, h, w1, w2, d)} or strides {tuple(strides)}")
-    if elem_bytes == 2:
-        tile = PYRAMID_MMA_TILE
-    else:
-        admissible = [t for t in PYRAMID_TILES if t[1] % (1 << (levels - 1)) == 0]
-        tile = min(admissible, key=lambda t: (_pyramid_cost(t, b * h, w1, w2, sms), -t[0] * t[1]))
     sizes = (b, h, w1, d, b, h, w2, d)
     moving = [s for i, (s, n) in enumerate(zip(strides, sizes)) if n > 1 and i not in (2, 6)]
     unit_w = all(n <= 1 or strides[i] == 1 for i, n in ((2, w1), (6, w2)))
     run = 16 // elem_bytes
     vec = run if aligned and unit_w and all(s % run == 0 for s in moving) else 1
+    if elem_bytes == 2 and vec == run and w2 % 8 == 0 and levels <= PYRAMID_WGMMA_LEVELS and d >= 1:
+        width = pyramid_wgmma_width(w2, levels)
+        stages = max((s for s in range(PYRAMID_WGMMA_MIN_STAGES, PYRAMID_WGMMA_MAX_STAGES + 1)
+                      if pyramid_wgmma_shared_bytes(width, s) <= _build.MAX_SHARED_BYTES), default=0)
+        if not stages:
+            raise ValueError(f"corr_pyramid kernel: no ring of a {width}-wide tile fits "
+                             f"{_build.MAX_SHARED_BYTES} bytes")
+        m_tiles, n_tiles = -(-w1 // PYRAMID_WGMMA_BM), -(-w2 // width)
+        tiles = b * h * m_tiles * n_tiles
+        if tiles > INT32_MAX:
+            raise ValueError(f"corr_pyramid kernel: {tiles} tiles exceed int32")
+        return PyramidPlan((PYRAMID_WGMMA_BM, width), PYRAMID_WGMMA_THREADS, vec, m_tiles, n_tiles,
+                           min(tiles, sms * PYRAMID_WGMMA_BLOCKS_PER_SM), pyramid_wgmma_shared_bytes(width, stages),
+                           False, "wgmma", stages)
+    if elem_bytes == 2:
+        tile = PYRAMID_MMA_TILE
+    else:
+        admissible = [t for t in PYRAMID_TILES if t[1] % (1 << (levels - 1)) == 0]
+        tile = min(admissible, key=lambda t: (_pyramid_cost(t, b * h, w1, w2, sms), -t[0] * t[1]))
     m_tiles, n_tiles = -(-w1 // tile[0]), -(-w2 // tile[1])
     blocks = b * h * m_tiles * n_tiles
     if blocks > MAX_GRID_X:
         raise ValueError(f"corr_pyramid kernel: {blocks} blocks exceed the grid's {MAX_GRID_X}")
     shared = pyramid_shared_bytes(tile, elem_bytes)
-    if shared > MAX_SHARED_BYTES:
-        raise ValueError(f"corr_pyramid kernel: {shared} shared bytes exceed {MAX_SHARED_BYTES}")
+    if shared > _build.MAX_SHARED_BYTES:
+        raise ValueError(f"corr_pyramid kernel: {shared} shared bytes exceed {_build.MAX_SHARED_BYTES}")
     if elem_bytes == 2:
-        threads, direct = PYRAMID_MMA_THREADS, False
-    else:
-        tm, tn = PYRAMID_TILES[tile]
-        threads = (tile[0] // tm) * (tile[1] // tn)
-        direct = w2 % 4 == 0 and levels <= PYRAMID_REG_LEVELS
-    return PyramidPlan(tile, threads, vec, m_tiles, n_tiles, blocks, shared, direct)
+        return PyramidPlan(tile, PYRAMID_MMA_THREADS, vec, m_tiles, n_tiles, blocks, shared, False, "mma")
+    tm, tn = PYRAMID_TILES[tile]
+    direct = w2 % 4 == 0 and levels <= PYRAMID_REG_LEVELS
+    return PyramidPlan(tile, (tile[0] // tm) * (tile[1] // tn), vec, m_tiles, n_tiles, blocks, shared, direct)
 
 
 class ScatterPlan(NamedTuple):
@@ -202,10 +266,10 @@ def scatter_plan(n_queries: int, widths: Sequence[int], radius: int, elem_bytes:
     if radius < 0 or n_queries < 0 or any(not 0 <= w < 2**24 for w in widths):
         raise ValueError(f"corr_scatter kernel: bad radius {radius}, queries {n_queries} or widths {tuple(widths)}")
     run = SCATTER_RUN
-    while run > 1 and scatter_shared_bytes(run, levels, radius) > MAX_SHARED_BYTES:
+    while run > 1 and scatter_shared_bytes(run, levels, radius) > _build.MAX_SHARED_BYTES:
         run //= 2
     shared = scatter_shared_bytes(run, levels, radius)
-    if shared > MAX_SHARED_BYTES:
+    if shared > _build.MAX_SHARED_BYTES:
         raise ValueError(f"corr_scatter kernel: a run of {run} queries needs {shared} shared bytes")
     if run * max(max(widths), levels * (2 * radius + 1)) > INT32_MAX:
         raise ValueError(f"corr_scatter kernel: a run's span of {run} x {max(widths)} exceeds int32")
@@ -257,7 +321,7 @@ def fused_pyramid_state(fmap1: torch.Tensor, fmap2: torch.Tensor, levels: int,
         fmap1.data_ptr(), fmap2.data_ptr(), ctypes.cast(strides, ctypes.c_void_p),
         b, h, w1, w2, d, levels, ctypes.cast(ptrs, ctypes.c_void_p),
         *plan.tile, plan.vec, plan.m_tiles, plan.n_tiles, plan.blocks, plan.shared_bytes,
-        int(plan.direct), _build.DTYPE_FLAGS[corr_dtype],
+        int(plan.direct), PYRAMID_PATHS[plan.path], plan.stages,
         torch.cuda.current_stream(fmap1.device).cuda_stream,
     )
     _build.check(status, "corr_pyramid kernel", lib.raft_corr_pyramid_error_string)
@@ -270,9 +334,8 @@ def pyramid_plan_for(fmap1: torch.Tensor, fmap2: torch.Tensor, levels: int) -> P
     dtype): their shapes, strides, element size, base-address alignment and
     their card's multiprocessors."""
     b, h, w1, d = fmap1.shape
-    aligned = fmap1.data_ptr() % 16 == 0 and fmap2.data_ptr() % 16 == 0
-    sms = torch.cuda.get_device_properties(fmap1.device).multi_processor_count
-    return pyramid_plan(b, h, w1, fmap2.shape[2], d, levels, (*fmap1.stride(), *fmap2.stride()), sms, aligned,
+    return pyramid_plan(b, h, w1, fmap2.shape[2], d, levels, (*fmap1.stride(), *fmap2.stride()),
+                        _build.multiprocessors(fmap1.device.index), _build.aligned((fmap1, fmap2)),
                         fmap1.element_size())
 
 
@@ -286,7 +349,7 @@ def _pyramid_lib():
             + [ctypes.c_void_p]  # host array of level pointers
             + [ctypes.c_int] * 5  # plan: tile (W1, W2 extent), vec, m_tiles, n_tiles
             + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]  # plan: blocks, shared bytes, direct
-            + [ctypes.c_int, ctypes.c_void_p]  # bf16, stream
+            + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]  # plan: path, ring slots; stream
         )
         fn.restype = ctypes.c_int
         lib.raft_corr_pyramid_error_string.argtypes = [ctypes.c_int]

@@ -27,7 +27,9 @@ the stored outputs. The join runs in the operand dtype.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version (`plain_conv`, `plain_join`) for CPU tensors; a CUDA tensor the
-kernel cannot take raises. Test-mode only, as in JAX: there is no backward,
+kernel cannot take raises. The bf16 conv launches what `conv_plan` says:
+persistent blocks (one per multiprocessor of the card) and whether the
+tile comes by TMA with 16-byte stores or element by element. Test-mode only, as in JAX: there is no backward,
 so the wrappers refuse to run where autograd would record them. The TPU
 kernels' W-space-to-depth layout is not carried over, only their values.
 """
@@ -35,7 +37,7 @@ kernels' W-space-to-depth layout is not carried over, only their values.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -50,6 +52,48 @@ LAUNCHES = {"encoder_conv": 0, "encoder_join": 0, "encoder_conv_bf16": 0, "encod
 FORMS = {"none": 0, "in": 1, "bn": 2}
 CHANNELS = 64  # layer1's width at every hidden_dims; the conv kernel is built for it
 TILE_H, TILE_W = 8, 32  # csrc/encoder_conv.cu TILE_H, TILE_W
+# The bf16 kernel (WC_* of csrc/encoder_conv.cu): persistent blocks of 384
+# threads, one per multiprocessor; shared memory: 1024 bytes of alignment
+# slack, the nine taps' 64 x 64 bf16 weights, two (8+2) x (32+2) halo
+# patches of 64 bf16 channels (a consumed one holds the channel-major output
+# tile), the raw tile (64 channels x 10 rows x 48 pixels of bf16, its TMA
+# box), the 8 consumer warps' statistics and five barriers.
+CONV_THREADS = 384
+CONV_BLOCKS_PER_SM = 1
+CONV_SHARED_BYTES = (1024 + 9 * CHANNELS * CHANNELS * 2 + 2 * (TILE_H + 2) * (TILE_W + 2) * CHANNELS * 2
+                     + CHANNELS * (TILE_H + 2) * (TILE_W + 16) * 2 + 8 * 2 * CHANNELS * 4 + 5 * 8)
+
+
+class ConvPlan(NamedTuple):
+    """A launch of the bf16 conv kernel: `blocks` persistent blocks walk the
+    (batch, tile) list, tile t = (b, ty, tx) with t = b * tiles + ty *
+    tiles_x + tx, blocks taking t, t + blocks, ...; `vec`: the raw tile by
+    TMA and 16-byte stores along W."""
+
+    tiles_x: int
+    tiles: int
+    blocks: int
+    shared_bytes: int
+    vec: bool
+
+
+def conv_plan(b: int, h: int, w: int, sms: int, aligned: bool = True) -> ConvPlan:
+    """The bf16 conv kernel's plan for x (b, 64, h, w) on a card of `sms`
+    multiprocessors: 8 x 32 tiles per image, one block per multiprocessor
+    up to the tile count, the raw tile by TMA and 16-byte stores where W is
+    a multiple of 8 and x and y start 16-byte aligned (`aligned`; a tensor
+    map's strides and base must be multiples of 16 bytes), element by
+    element otherwise. Raises for what the kernel does not take."""
+    if min(b, h, w) < 0 or b > 65535:
+        raise ValueError(f"encoder_conv kernel: bad shape {(b, h, w)}")
+    tiles_x = -(-w // TILE_W)
+    tiles = tiles_x * -(-h // TILE_H)
+    if b * tiles > 2**31 - 1:
+        raise ValueError(f"encoder_conv kernel: {b * tiles} tiles exceed int32")
+    if CONV_SHARED_BYTES > _build.MAX_SHARED_BYTES:
+        raise ValueError(f"encoder_conv kernel: {CONV_SHARED_BYTES} shared bytes exceed {_build.MAX_SHARED_BYTES}")
+    return ConvPlan(tiles_x, tiles, min(b * tiles, sms * CONV_BLOCKS_PER_SM), CONV_SHARED_BYTES,
+                    aligned and w % 8 == 0)
 
 
 def apply_affine(x: torch.Tensor, aff: Optional[torch.Tensor], form: str) -> torch.Tensor:
@@ -108,7 +152,8 @@ def _conv_lib():
             [ctypes.c_void_p] * 4  # x, weight (Ci, 3, 3, Co), bias, aff or NULL
             + [ctypes.c_int] * 4  # form, batch, H, W
             + [ctypes.c_void_p] * 3  # y, partial sums or NULL, stats or NULL
-            + [ctypes.c_int, ctypes.c_void_p]  # bf16, stream
+            + [ctypes.c_int] * 4  # bf16; plan (bf16): blocks, shared bytes, vec
+            + [ctypes.c_void_p]  # stream
         )
         lib.raft_encoder_conv.restype = ctypes.c_int
         lib.raft_encoder_conv_error_string.argtypes = [ctypes.c_int]
@@ -172,8 +217,8 @@ def fused_conv(x, weight, bias, aff: Optional[torch.Tensor], form: str = "none",
     _check_operands("encoder_conv", (x,), [t for t in (weight, bias, aff) if t is not None], x.device)
     # fp32: (Ci, 3, 3, Co), each input channel's 9 x 64 weights contiguous,
     # the layout the FFMA kernel stages with 16-byte loads; bf16: (3, 3, Co,
-    # Ci), each (tap, output channel)'s input channels contiguous, the
-    # tensor-core kernel's B operand rows.
+    # Ci), each (tap, output channel)'s input channels contiguous, the wgmma
+    # kernel's B operand rows.
     if x.dtype == torch.bfloat16:
         w_t = weight.to(torch.bfloat16).permute(2, 3, 0, 1).contiguous()
     else:
@@ -181,17 +226,22 @@ def fused_conv(x, weight, bias, aff: Optional[torch.Tensor], form: str = "none",
     bias = _rounded(bias, x.dtype)
     aff = None if aff is None else _rounded(aff, x.dtype)
     y = torch.empty_like(x)
+    plan = ConvPlan(0, 0, 0, 0, False)
+    if x.dtype == torch.bfloat16:
+        plan = conv_plan(b, h, w, _build.multiprocessors(x.device.index), _build.aligned((x, y)))
     stats = partial = None
     if emit_stats:
-        tiles = -(-h // TILE_H) * -(-w // TILE_W)
-        partial = torch.empty((b, tiles, 2, CHANNELS), dtype=torch.float32, device=x.device)
+        # One partial per tile, or (bf16) per tile and consumer warpgroup.
+        parts = -(-h // TILE_H) * -(-w // TILE_W) * (2 if x.dtype == torch.bfloat16 else 1)
+        partial = torch.empty((b, parts, 2, CHANNELS), dtype=torch.float32, device=x.device)
         stats = torch.empty((b, 2, CHANNELS), dtype=torch.float32, device=x.device)
     lib = _conv_lib()
     status = lib.raft_encoder_conv(
         x.data_ptr(), w_t.data_ptr(), bias.data_ptr(), 0 if aff is None else aff.data_ptr(),
         FORMS[form], b, h, w, y.data_ptr(),
         0 if partial is None else partial.data_ptr(), 0 if stats is None else stats.data_ptr(),
-        _build.DTYPE_FLAGS[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
+        _build.DTYPE_FLAGS[x.dtype], plan.blocks, plan.shared_bytes, int(plan.vec),
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(status, "encoder_conv kernel", lib.raft_encoder_conv_error_string)
     LAUNCHES["encoder_conv_bf16" if x.dtype == torch.bfloat16 else "encoder_conv"] += 1

@@ -10,8 +10,15 @@ only where W is the unit-stride axis and every other moving stride and both
 base addresses are 16-byte aligned, the register epilogue only where level
 rows start aligned for its 4-element runs (W2 a multiple of 4) and L <= 6,
 and an input no instantiation takes raises. The bf16 build (elem_bytes 2)
-is the tensor-core kernel: one 128 x 128 tile, its own copy width and
-shared bytes, the shared-memory epilogue.
+takes a tensor-core kernel: the wgmma kernel where its TMA tensor maps and
+vector stores take the shape (128 x N tiles, N dividing W2 where an
+instantiated width does, a multiple of 2**(L-1) and at most 256; persistent
+blocks, at most one per multiprocessor, that walk every tile once; a ring
+of 2-4 slots within the shared memory), else the mma.sync kernel's 128 x
+128 tile with its own copy width and shared bytes.
+Conv (ops/encoder_cuda.py `conv_plan`, the bf16 kernel): persistent blocks
+that walk every (batch, tile) once, the shared bytes, and the TMA raw tile
+only where W is a multiple of 8 and the tensors are 16-byte aligned.
 Scatter: the runs of queries cover every query exactly once (also where the
 count is not a multiple of the run), the shared bytes fit, and 64-bit
 indexing is chosen past 2**31 - 1 outputs. The bf16 levels (elem_bytes 2)
@@ -28,8 +35,9 @@ was read from the device, and every unit covered by the grid-stride loop.
 
 `block_tile`, `block_queries` and `span_split` below restate how the kernels
 map a block to its work; that the .cu files derive the same mapping is shown only on the
-card (chip_smoke.py PYRAMID_CASES and SCATTER_CASES, and the gpu-marked
-tests in test_torch_encoder.py and test_torch_corr.py).
+card (chip_smoke.py PYRAMID_CASES, PYRAMID_BF16_CASES, BF16_CONV_SHAPES and
+SCATTER_CASES, and the gpu-marked tests in test_torch_encoder.py,
+test_torch_corr.py and test_torch_mixed.py).
 """
 
 import numpy as np
@@ -93,7 +101,7 @@ def test_pyramid_plan_tiles_cover_once_and_keep_pooling_in_a_block(w):
             assert_covered_once(plan, b * h, w, w)
             assert 1 <= plan.blocks <= corr_cuda.MAX_GRID_X
             assert plan.threads <= 1024 and plan.threads % 32 == 0
-            assert plan.shared_bytes == corr_cuda.pyramid_shared_bytes(plan.tile) <= corr_cuda.MAX_SHARED_BYTES
+            assert plan.shared_bytes == corr_cuda.pyramid_shared_bytes(plan.tile) <= _build.MAX_SHARED_BYTES
     if w in (150, 192, 720):
         # 6 rows take 128 x 128 (one wave either way); 128 rows fit in
         # fewer waves of 96 x 192, so both tiles' mappings are covered.
@@ -142,26 +150,142 @@ def test_pyramid_plan_copy_width():
     assert corr_cuda.pyramid_plan(1, 128, 192, 192, 256, 4, strides, SMS).vec == 4
 
 
+def assert_walk_covers_once(plan, rows, w1, w2):
+    """Every (row, w1, w2) cell is covered by exactly one tile of exactly one
+    persistent block; the grid has at most one block per multiprocessor."""
+    bm, bn = plan.tile
+    per_row = plan.m_tiles * plan.n_tiles
+    tiles = rows * per_row
+    assert plan.blocks == min(tiles, SMS * corr_cuda.PYRAMID_WGMMA_BLOCKS_PER_SM)
+    owner = np.full(tiles, -1)
+    for block in range(plan.blocks):
+        for t in range(block, tiles, plan.blocks):
+            assert owner[t] == -1
+            owner[t] = block
+    assert (owner >= 0).all()
+    for r in range(min(rows, 3)):
+        count = np.zeros((w1, w2), np.int32)
+        for t in range(r * per_row, (r + 1) * per_row):
+            row, m0, n0 = block_tile(plan, t)
+            assert row == r and 0 <= m0 < w1 and 0 <= n0 < w2
+            count[m0:m0 + bm, n0:n0 + bn] += 1
+        assert (count == 1).all()
+
+
 @pytest.mark.parametrize("w", WIDTHS)
 def test_bf16_pyramid_plan_takes_the_tensor_core_tile(w):
-    """The bf16 plan launches the tensor-core kernel: 128 x 128 tiles of 256
-    threads covering every row once, the shared-memory epilogue, a ring of
-    bf16 rows padded by 16 bytes (or the fp32 epilogue tile, which aliases
-    it, if larger), and 8-element copies where every moving stride allows."""
+    """The bf16 plan launches a tensor-core kernel: the wgmma kernel where
+    its tensor maps and vector stores take the shape (W a multiple of 8, so
+    every moving stride of the model's views is 16 bytes; at most 4
+    levels): 128 x N tiles of 384 threads, N from `pyramid_wgmma_width`,
+    persistent blocks walking every tile once, a ring of 2-4 k64 slots that
+    fits (at most 4: the D loop of 256 is 4 slots); otherwise the mma.sync kernel's 128 x 128 tiles of 256 threads
+    covering every row once, with a ring of bf16 rows padded by 16 bytes (or
+    the fp32 epilogue tile, which aliases it, if larger), 8-element copies
+    where every moving stride allows. Never the fp32 register epilogue."""
     for b, h in ((2, 3), (1, 128)):
         for levels in (1, 4, corr_cuda.PYRAMID_MAX_LEVELS):
             strides = model_strides(b, h, w)
             plan = corr_cuda.pyramid_plan(b, h, w, w, 256, levels, strides, SMS, elem_bytes=2)
-            assert (plan.tile, plan.threads, plan.direct) == (corr_cuda.PYRAMID_MMA_TILE, 256, False)
-            assert plan.tile[1] % (1 << (levels - 1)) == 0
+            assert plan.tile[1] % (1 << (levels - 1)) == 0 and not plan.direct
+            assert plan.shared_bytes <= _build.MAX_SHARED_BYTES
+            if w % 8 == 0 and levels <= corr_cuda.PYRAMID_WGMMA_LEVELS:
+                width = corr_cuda.pyramid_wgmma_width(w, levels)
+                assert (plan.path, plan.tile, plan.threads, plan.vec) == ("wgmma", (128, width), 384, 8)
+                assert plan.shared_bytes == corr_cuda.pyramid_wgmma_shared_bytes(width, plan.stages)
+                assert 2 <= plan.stages <= 4
+                assert plan.stages == 4 or corr_cuda.pyramid_wgmma_shared_bytes(width, plan.stages + 1) > \
+                    _build.MAX_SHARED_BYTES
+                assert_walk_covers_once(plan, b * h, w, w)
+                continue
+            assert (plan.path, plan.tile, plan.threads, plan.stages) == ("mma", corr_cuda.PYRAMID_MMA_TILE, 256, 0)
             assert_covered_once(plan, b * h, w, w)
             bm, bn = plan.tile
             ring = corr_cuda.PYRAMID_STAGES * corr_cuda.PYRAMID_TK * (bm + bn + 2 * 8) * 2
             assert plan.shared_bytes == max(ring, 4 * bm * (bn + 1)) == corr_cuda.pyramid_shared_bytes(plan.tile, 2)
-            assert plan.shared_bytes <= corr_cuda.MAX_SHARED_BYTES
             # The strides that move: D's (H*W), H's (W) for h > 1, B's for b > 1.
             moving = [h * w] + [w] * (h > 1) + [256 * h * w] * (b > 1)
             assert plan.vec == (8 if all(s % 8 == 0 for s in moving) else 1)
+
+
+@pytest.mark.parametrize("w2, levels, width", [
+    (720, 4, 240), (192, 4, 192), (96, 4, 96), (64, 4, 64), (128, 4, 128), (800, 4, 160), (32, 4, 64),
+    (720, 1, 240), (256, 4, 256), (1024, 4, 256), (480, 4, 240), (184, 2, 192),
+])
+def test_bf16_pyramid_wgmma_width(w2, levels, width):
+    """The wgmma tile's W2 width divides W2 where an instantiated width does
+    (Middlebury-F's 720 -> 240, the 512x768 bucket's 192, the realtime
+    buckets' 64 and 96), is a multiple of 8 and of 2**(L-1), at most 256,
+    and otherwise pads least (800 -> 5 x 160, 32 -> one 64)."""
+    got = corr_cuda.pyramid_wgmma_width(w2, levels)
+    assert got == width
+    assert got in corr_cuda.PYRAMID_WGMMA_WIDTHS and got % 8 == 0 and got % (1 << (levels - 1)) == 0
+    assert got <= 256
+    divisors = [n for n in corr_cuda.PYRAMID_WGMMA_WIDTHS if w2 % n == 0 and n % (1 << (levels - 1)) == 0]
+    if divisors and w2 >= min(divisors):
+        assert w2 % got == 0
+
+
+@pytest.mark.parametrize("w, layout, aligned, levels, path", [
+    (720, "nchw", True, 4, "wgmma"), (192, "nchw", True, 4, "wgmma"), (96, "nchw", True, 4, "wgmma"),
+    (64, "nchw", True, 4, "wgmma"), (156, "nchw", True, 4, "mma"), (150, "nchw", True, 4, "mma"),
+    (37, "nchw", True, 4, "mma"), (192, "bhwd", True, 4, "mma"), (192, "nchw", False, 4, "mma"),
+    (192, "nchw", True, 5, "mma"), (192, "nchw", True, 7, "mma"), (720, "nchw", True, 1, "wgmma"),
+])
+def test_bf16_pyramid_plan_path(w, layout, aligned, levels, path):
+    """Which shapes take the tensor-map (wgmma) path: the model's permuted
+    NCHW views at W 720, 192, 96 and 64 do; W 156 (the realtime model's
+    KITTI bucket at 1/8), 150 and 37 (rows not 16-byte aligned), the
+    contiguous (B, H, W, D) layout (W is not the unit-stride axis), an
+    unaligned base and more than 4 levels take the mma.sync kernel. The fp32
+    build is the FFMA kernel whatever the shape."""
+    h = 48
+    strides = model_strides(1, h, w) if layout == "nchw" else contiguous_strides(1, h, w)
+    plan = corr_cuda.pyramid_plan(1, h, w, w, 256, levels, strides, SMS, aligned=aligned, elem_bytes=2)
+    assert plan.path == path
+    assert corr_cuda.pyramid_plan(1, h, w, w, 256, levels, strides, SMS, aligned=aligned).path == "ffma"
+
+
+@pytest.mark.parametrize("width", corr_cuda.PYRAMID_WGMMA_WIDTHS)
+def test_bf16_pyramid_wgmma_shared_bytes(width):
+    """Every instantiated width fits at least two ring slots in the H100's
+    232,448 bytes, and the plan takes the deepest ring that fits: 3 slots
+    of a 128 x 240 or 128 x 256 tile (a k64 slot of 16 + 32 KB; 4 do not
+    fit beside the staging tiles), 4 of the narrower ones. A slot is two
+    fmap1 boxes and ceil(width / 64) fmap2 boxes of 8192 bytes."""
+    assert corr_cuda.pyramid_wgmma_shared_bytes(width, 2) <= _build.MAX_SHARED_BYTES
+    slot = (2 + -(-width // 64)) * 8192
+    assert corr_cuda.pyramid_wgmma_shared_bytes(width, 3) - corr_cuda.pyramid_wgmma_shared_bytes(width, 2) == slot + 16
+    plan = corr_cuda.pyramid_plan(1, 8, width, width, 256, 4, model_strides(1, 8, width), SMS, elem_bytes=2)
+    assert plan.tile == (128, width)
+    assert plan.stages == (3 if width >= 240 else 4)
+    assert plan.shared_bytes == corr_cuda.pyramid_wgmma_shared_bytes(width, plan.stages) <= _build.MAX_SHARED_BYTES
+
+
+@pytest.mark.parametrize("rows, w", [(496, 720), (128, 192), (48, 64), (64, 96), (3, 720), (1, 64), (0, 64)])
+def test_bf16_pyramid_persistent_grid(rows, w):
+    """At most one block per multiprocessor (one fits: its shared memory),
+    at most one per tile, and the blocks' walks cover every tile exactly
+    once; on a smaller card the same tiles spread over fewer blocks."""
+    for sms in (SMS, 114, 7):
+        plan = corr_cuda.pyramid_plan(1, rows, w, w, 256, 4, model_strides(1, max(rows, 1), w), sms, elem_bytes=2)
+        tiles = rows * plan.m_tiles * plan.n_tiles
+        assert plan.path == "wgmma" and plan.blocks == min(tiles, sms)
+        seen = np.zeros(tiles, np.int32)
+        for block in range(plan.blocks):
+            seen[block::plan.blocks] += 1
+        assert (seen == 1).all()
+
+
+def test_bf16_pyramid_plan_raises_for_what_no_instantiation_takes():
+    strides = model_strides(1, 4, 64)
+    for levels in (0, corr_cuda.PYRAMID_MAX_LEVELS + 1):
+        with pytest.raises(ValueError, match="levels"):
+            corr_cuda.pyramid_plan(1, 4, 64, 64, 256, levels, strides, SMS, elem_bytes=2)
+    with pytest.raises(ValueError, match="int32"):
+        corr_cuda.pyramid_plan(2**16, 2**16, 720, 720, 256, 4, model_strides(1, 1, 720), SMS, elem_bytes=2)
+    with pytest.raises(ValueError, match="grid"):
+        corr_cuda.pyramid_plan(2**16, 2**16, 150, 150, 256, 4, model_strides(1, 1, 150), SMS, elem_bytes=2)
 
 
 def test_bf16_pyramid_plan_copy_width():
@@ -225,12 +349,12 @@ def test_scatter_plan_runs_cover_every_query_once(n_queries):
 def test_scatter_plan_shared_bytes_fit():
     plan = corr_cuda.scatter_plan(86400, [180, 90, 45, 22], 4)
     # Cotangents, weights (2r+2), window starts and coordinates of a run.
-    assert plan.shared_bytes == 4 * plan.run * (36 + 4 * 10 + 4 + 1) <= corr_cuda.MAX_SHARED_BYTES
+    assert plan.shared_bytes == 4 * plan.run * (36 + 4 * 10 + 4 + 1) <= _build.MAX_SHARED_BYTES
     # A wide window: the run shrinks until a block's shared memory fits.
     plan = corr_cuda.scatter_plan(1000, [4096] * 8, 200)
     assert plan.run < corr_cuda.SCATTER_RUN
-    assert plan.shared_bytes == corr_cuda.scatter_shared_bytes(plan.run, 8, 200) <= corr_cuda.MAX_SHARED_BYTES
-    assert corr_cuda.scatter_shared_bytes(2 * plan.run, 8, 200) > corr_cuda.MAX_SHARED_BYTES
+    assert plan.shared_bytes == corr_cuda.scatter_shared_bytes(plan.run, 8, 200) <= _build.MAX_SHARED_BYTES
+    assert corr_cuda.scatter_shared_bytes(2 * plan.run, 8, 200) > _build.MAX_SHARED_BYTES
 
 
 def test_scatter_plan_chooses_64_bit_indexing_past_int32():
@@ -335,3 +459,52 @@ def test_stream_blocks(n):
         assert blocks * _build.STREAM_THREADS * -(-max(units, 1) // (blocks * _build.STREAM_THREADS)) >= units
         assert _build.stream_blocks(units, 66) == max(1, min(-(-units // 256), 66 * 32))
     assert _build.vector_width(torch.float32) == 4 and _build.vector_width(torch.bfloat16) == 8
+
+
+@pytest.mark.parametrize("b, h, w", [(1, 512, 768), (2, 512, 768), (2, 1984, 2880), (2, 13, 70), (2, 192, 624),
+                                     (1, 8, 32), (3, 9, 33), (0, 8, 32)])
+def test_bf16_conv_plan_walks_every_tile_once(b, h, w):
+    """The bf16 conv's persistent blocks (ops/encoder_cuda.py `conv_plan`):
+    at most one per multiprocessor (its 227,368 shared bytes leave room for
+    one) and per tile; walking t, t + blocks, ... they cover every (batch,
+    8 x 32 tile) exactly once, and the tiles cover the image."""
+    from raft_stereo_tpu_torch.ops import encoder_cuda
+    for sms in (SMS, 114, 5):
+        plan = encoder_cuda.conv_plan(b, h, w, sms)
+        assert plan.tiles_x == -(-w // 32) and plan.tiles == plan.tiles_x * -(-h // 8)
+        total = b * plan.tiles
+        assert plan.blocks == min(total, sms * encoder_cuda.CONV_BLOCKS_PER_SM)
+        seen = np.zeros(total, np.int32)
+        for block in range(plan.blocks):
+            seen[block::plan.blocks] += 1
+        assert (seen == 1).all()
+        if b and h and w:
+            cover = np.zeros((h, w), np.int32)
+            for tile in range(plan.tiles):
+                y0, x0 = (tile // plan.tiles_x) * 8, (tile % plan.tiles_x) * 32
+                cover[y0:y0 + 8, x0:x0 + 32] += 1
+            assert (cover == 1).all()
+
+
+def test_bf16_conv_plan_shared_bytes_and_vector_width():
+    """Shared memory: the resident weights (9 x 64 x 64 bf16), two halo
+    patches ((8+2) x (32+2) pixels of 64 bf16 channels; the output tile, 64
+    channels x 8 x 32 pixels each padded by 16 bytes, takes a consumed
+    one's place), the raw tile's TMA box (48 x 10 pixels x 64 channels), the
+    statistics of 8 warps, 5 barriers and 1024 bytes to align the weights
+    to a swizzle atom: within the H100's 232,448. The TMA raw tile and
+    16-byte stores only where W is a multiple of 8 and both tensors start
+    16-byte aligned; a bad shape raises."""
+    from raft_stereo_tpu_torch.ops import encoder_cuda
+    want = 1024 + 9 * 64 * 64 * 2 + 2 * 10 * 34 * 128 + 64 * 10 * 48 * 2 + 8 * 2 * 64 * 4 + 40
+    assert 64 * (8 * 32 * 2 + 16) <= 10 * 34 * 128
+    assert encoder_cuda.CONV_SHARED_BYTES == want == 227368 <= _build.MAX_SHARED_BYTES
+    assert encoder_cuda.conv_plan(1, 512, 768, SMS).shared_bytes == want
+    assert encoder_cuda.conv_plan(1, 512, 768, SMS).vec
+    assert not encoder_cuda.conv_plan(1, 512, 768, SMS, aligned=False).vec
+    assert not encoder_cuda.conv_plan(2, 13, 70, SMS).vec
+    assert encoder_cuda.conv_plan(2, 192, 624, SMS).vec
+    with pytest.raises(ValueError, match="shape"):
+        encoder_cuda.conv_plan(-1, 8, 8, SMS)
+    with pytest.raises(ValueError, match="shape"):
+        encoder_cuda.conv_plan(65536, 8, 8, SMS)

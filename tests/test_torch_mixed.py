@@ -517,42 +517,51 @@ def ulp(x: torch.Tensor) -> torch.Tensor:
 @pytest.mark.gpu
 def test_bf16_kernels_match_plain_on_cuda(rng):
     """Lookup (four dtype pairs) and join exactly; pyramid and conv by the
-    allowance of the module docstring."""
+    allowance of the module docstring, at one shape per plan branch: the
+    pyramid's wgmma kernel (W 192; W 720, a 240-wide tile with a ring of 3
+    slots) and its mma.sync kernel (W 156: rows not 16-byte aligned), the
+    conv's TMA raw tile (W 72) and its element-by-element path (W 70)."""
     cuda_or_skip()
     dev = "cuda"
-    maps = [torch.from_numpy(rng.standard_normal((1, 256, 16, 192)).astype(np.float32)).to(dev).to(BF16)
-            .permute(0, 2, 3, 1) for _ in range(2)]
-    got = corr_cuda.fused_pyramid_state(*maps, 4, BF16)
-    want = corr_cuda.corr_state(*maps, 4, BF16)
-    allow = None
-    for g, wl in zip(got, want):
-        g, wl = g.float(), wl.float()
-        own = ulp(torch.maximum(g.abs(), wl.abs()))
-        if allow is None:
-            allow = own + 2.0**-15 * float(wl.abs().max())
-        else:
-            n = g.shape[-1]
-            allow = (allow[..., 0:2 * n:2] + allow[..., 1:2 * n:2]) * 0.5 + own
-        assert ((g - wl).abs() <= allow).all()
-    coords = (torch.arange(192.0, device=dev) - 20.0 * torch.rand((1, 16, 192), device=dev)).contiguous()
+    for rows, w, path in ((16, 192, "wgmma"), (8, 156, "mma"), (4, 720, "wgmma")):
+        maps = [torch.from_numpy(rng.standard_normal((1, 256, rows, w)).astype(np.float32)).to(dev).to(BF16)
+                .permute(0, 2, 3, 1) for _ in range(2)]
+        assert corr_cuda.pyramid_plan_for(*maps, 4).path == path
+        got = corr_cuda.fused_pyramid_state(*maps, 4, BF16)
+        want = corr_cuda.corr_state(*maps, 4, BF16)
+        allow = None
+        for g, wl in zip(got, want):
+            g, wl = g.float(), wl.float()
+            own = ulp(torch.maximum(g.abs(), wl.abs()))
+            if allow is None:
+                allow = own + 2.0**-15 * float(wl.abs().max())
+            else:
+                n = g.shape[-1]
+                allow = (allow[..., 0:2 * n:2] + allow[..., 1:2 * n:2]) * 0.5 + own
+            assert ((g - wl).abs() <= allow).all()
+    coords = (torch.arange(w, dtype=torch.float32, device=dev) - 20.0 * torch.rand((1, rows, w), device=dev))
+    coords = coords.contiguous()
     for level_dtype in (torch.float32, BF16):
         levels = [lvl.to(level_dtype) for lvl in want]
         for out_dtype in (torch.float32, BF16):
             taps = corr_cuda.corr_lookup(levels, coords, 4, out_dtype)
             plain = corr.corr_lookup(levels, coords, 4).to(out_dtype)
             assert taps.dtype == out_dtype and torch.equal(taps, plain)
-    x = torch.from_numpy(rng.standard_normal((2, C, 20, 72)).astype(np.float32)).to(dev).to(BF16)
     k, bias = conv_params(rng)
     wt, bt = torch.from_numpy(k.transpose(3, 2, 0, 1).copy()).to(dev), torch.from_numpy(bias).to(dev)
-    aff = torch.from_numpy(affine_rows(rng, 2, "in")).to(dev)
-    y, stats = encoder_cuda.fused_conv(x, wt, bt, aff, "in", True)
-    want_y, _ = encoder_cuda.plain_conv(x, wt, bt, aff, "in", False)
-    b16 = bt.to(BF16).float()[None, :, None, None]
-    g, wy = y.float(), want_y.float()
-    pre = torch.maximum((g - b16).abs() + ulp(g), (wy - b16).abs() + ulp(wy))
-    allow = ulp(pre) + ulp(torch.maximum(g.abs(), wy.abs())) + 2.0**-15 * float(wy.abs().max())
-    assert y.dtype == BF16 and ((g - wy).abs() <= allow).all()
-    np.testing.assert_allclose(stats.cpu().numpy(), encoder_cuda.channel_stats(y).cpu().numpy(), rtol=1e-5, atol=1e-4)
-    aff_s = torch.from_numpy(affine_rows(rng, 2, "bn")).to(dev)
-    joined = encoder_cuda.fused_join(x, y, aff, "in", aff_s, "bn")
-    assert torch.equal(joined, encoder_cuda.plain_join(x, y, aff, "in", aff_s, "bn"))
+    for h, w, vec in ((20, 72, True), (13, 70, False)):
+        x = torch.from_numpy(rng.standard_normal((2, C, h, w)).astype(np.float32)).to(dev).to(BF16)
+        assert encoder_cuda.conv_plan(2, h, w, 132).vec == vec
+        aff = torch.from_numpy(affine_rows(rng, 2, "in")).to(dev)
+        y, stats = encoder_cuda.fused_conv(x, wt, bt, aff, "in", True)
+        want_y, _ = encoder_cuda.plain_conv(x, wt, bt, aff, "in", False)
+        b16 = bt.to(BF16).float()[None, :, None, None]
+        g, wy = y.float(), want_y.float()
+        pre = torch.maximum((g - b16).abs() + ulp(g), (wy - b16).abs() + ulp(wy))
+        allow = ulp(pre) + ulp(torch.maximum(g.abs(), wy.abs())) + 2.0**-15 * float(wy.abs().max())
+        assert y.dtype == BF16 and ((g - wy).abs() <= allow).all()
+        np.testing.assert_allclose(stats.cpu().numpy(), encoder_cuda.channel_stats(y).cpu().numpy(), rtol=1e-5,
+                                   atol=1e-4)
+        aff_s = torch.from_numpy(affine_rows(rng, 2, "bn")).to(dev)
+        joined = encoder_cuda.fused_join(x, y, aff, "in", aff_s, "bn")
+        assert torch.equal(joined, encoder_cuda.plain_join(x, y, aff, "in", aff_s, "bn"))
