@@ -227,6 +227,26 @@ REALTIME_PER_REQUEST = dict(corr_pyramid_bf16=1, corr_lookup_bf16=REALTIME_ITERS
 LEVER_GRU_SHAPES = [(128, 512 // d, 768 // d) for d in (4, 8, 16)] + [
     (128, 1984 // d, 2880 // d) for d in (4, 8, 16)] + [(128, 48, 156), (128, 24, 78), (3, 5, 7)]
 LEVER_PREFETCH_CASES = PREFETCH_CASES + (("384x1248 1/8", (48, 156)),)
+# The windowed lookup's plan branches on the card (`[prefetch-paths]`):
+# label -> (batch, rows, W1, W2, levels, radius, levels as views 2 or 4
+# bytes past a 16-byte boundary). W2 37 with 63 queries leaves each level's
+# last 16-byte chunk partial.
+PREFETCH_PATH_CASES = (
+    ("512x768 1/4, batch 2", (2, 128, 192, 192, 4, 4, False)),
+    ("realtime 1/8", (1, 48, 156, 156, 4, 4, False)),
+    ("63 queries, W2 37", (1, 7, 9, 37, 4, 4, False)),
+    ("radius 2, 2 levels", (1, 128, 192, 192, 2, 2, False)),
+    ("radius 2, 2 levels, batch 2, W2 37", (2, 7, 9, 37, 2, 2, False)),
+    ("offset views", (1, 128, 192, 192, 4, 4, True)),
+    ("offset views, radius 2, 2 levels, batch 2", (2, 48, 156, 156, 2, 2, True)),
+)
+# The fp32 conv's shapes on the card (`[kernels]`): ((H, W), input as a view
+# 4 bytes past a 16-byte boundary). Both buckets' full resolution, ragged
+# tiles (H % 8 != 0, W % 64 != 0), rows that no TMA box takes (W % 4 != 0)
+# and an unaligned input take the plan's two branches.
+FP32_CONV_SHAPES = (((384, 512), False), ((512, 768), False), ((13, 70), False), ((192, 624), False),
+                    ((20, 68), False), ((20, 66), False), ((64, 128), True))
+FP32_CONV_BRANCHES = {True: "TMA raw box, 16-byte stores", False: "element by element"}
 MIXED_TRAIN_PLAIN_CONFIG = RAFTStereoConfig(corr_implementation="reg", mixed_precision=True, corr_dtype="bfloat16")
 MIXED_TRAIN_BATCH = 4
 MIXED_TRAIN_ITERS = 22
@@ -438,6 +458,41 @@ def lookup_bytes(pyramid, coords, radius, out_bytes=4) -> int:
     return total
 
 
+def lookup_sector_bytes(pyramid, coords, radius, out_bytes=4) -> int:
+    """The same bytes at 32-byte-sector granularity: the distinct sectors
+    that the in-range samples of the windows occupy in each level (counted
+    from the level's address), plus the coordinates and outputs rounded up
+    to whole sectors. A window of 2r+2 samples spans 2 or 3 sectors even
+    where it needs 40 bytes, so no kernel reaches the counted bound."""
+    n_q = coords.numel()
+    k = 2 * radius + 1
+    total = 32 * -(-4 * n_q // 32) + 32 * -(-out_bytes * n_q * len(pyramid) * k // 32)
+    rows = torch.arange(n_q, device=coords.device, dtype=torch.int64)
+    for lvl, vol in enumerate(pyramid):
+        w2, eb = vol.shape[-1], vol.element_size()
+        lo = torch.floor(coords.reshape(-1) / (2**lvl) - radius)
+        lo_c = torch.clamp(lo, min=0.0)
+        hi_c = torch.clamp(lo + 2 * radius + 1, max=w2 - 1.0)
+        ok = torch.isfinite(lo) & (hi_c >= lo_c)
+        base = vol.data_ptr() % 32
+        first = (base + (rows[ok] * w2 + lo_c[ok].long()) * eb) // 32
+        last = (base + (rows[ok] * w2 + hi_c[ok].long() + 1) * eb - 1) // 32
+        seen = torch.zeros((base + vol.numel() * eb) // 32 + 1, dtype=torch.bool, device=coords.device)
+        for d in range(int((last - first).max().item()) + 1 if first.numel() else 0):
+            seen[(first + d)[first + d <= last]] = True
+        total += 32 * int(seen.sum().item())
+    return total
+
+
+def lookup_bounds(pyramid, coords, radius, out_bytes=4) -> str:
+    """The lookup's counted bound and its bound at sector granularity, as
+    `[timing]` prints them beside a lookup's time."""
+    counted = lookup_bytes(pyramid, coords, radius, out_bytes)
+    sectors = lookup_sector_bytes(pyramid, coords, radius, out_bytes)
+    return (f"bound {counted / HBM_BYTES_PER_S * 1e3:.4f} ms ({counted} B counted), at 32-byte sectors "
+            f"{sectors / HBM_BYTES_PER_S * 1e3:.4f} ms ({sectors} B)")
+
+
 def grid_sample_lookup_inputs(pyramid, coords, radius):
     """The same lookup as one F.grid_sample call: levels zero-padded to W2
     and stacked on the batch axis, one height-1 row per query."""
@@ -601,9 +656,12 @@ def phase_kernels(gen) -> dict:
 
 def phase_fused_kernels(gen) -> dict:
     """The fused encoder's three kernels against their plain versions at the
-    main path's shapes: the conv at full resolution of both buckets (batch 1
-    is the context trunk, batch 2 the feature trunk), every form, with
-    statistics; the join over every form pair; the pyramid (D = 256) at
+    main path's shapes: the conv at every FP32_CONV_SHAPES entry (full
+    resolution of both buckets: batch 1 is the context trunk, batch 2 the
+    feature trunk; ragged tiles; rows that no TMA box takes; an input 4
+    bytes past a 16-byte boundary), every form, with statistics, logging
+    the plan branch each shape took and failing unless both branches ran
+    in every form; the join over every form pair; the pyramid (D = 256) at
     every PYRAMID_CASES entry."""
     errs = {}
 
@@ -613,19 +671,30 @@ def phase_fused_kernels(gen) -> dict:
             raise AssertionError(f"{name} disagrees with its plain version at {label}: {err}")
         errs[name] = max(errs.get(name, 0.0), err)
 
-    for hh, ww in ((384, 512), (512, 768)):
+    branches = set()
+    for (hh, ww), offset in FP32_CONV_SHAPES:
         for b in (1, 2):
             for form in ("none", "in", "bn"):
                 x, weight, bias, aff = conv_inputs(gen, b, hh, ww, form)
+                if offset:
+                    x = offset_view(gen, x.shape, torch.float32)
                 y, stats = encoder_cuda.fused_conv(x, weight, bias, aff, form, emit_stats=True)
                 torch.cuda.synchronize()
+                plan = encoder_cuda.conv_plan_for(x, y)
+                path = FP32_CONV_BRANCHES[plan.vec]
+                branches.add((path, form))
                 want_y, _ = encoder_cuda.plain_conv(x, weight, bias, aff, form, False)
                 rel = stats_rel_err(stats, want_y)
-                check("encoder_conv", max_err(y, want_y), f"b{b} {hh}x{ww} form {form}",
+                check("encoder_conv", max_err(y, want_y),
+                      f"b{b} {hh}x{ww}{' (input 4 bytes past a 16-byte boundary)' if offset else ''} form {form} "
+                      f"(plan branch {path}, {plan.blocks} persistent blocks)",
                       f"; stats rel diff {rel:.3e} (tol {STATS_REL_TOL:g})")
                 if not rel <= STATS_REL_TOL:
                     raise AssertionError(f"encoder_conv statistics disagree at b{b} {hh}x{ww} {form}: {rel}")
                 del x, y, want_y
+    need = {(path, form) for path in FP32_CONV_BRANCHES.values() for form in encoder_cuda.FORMS}
+    if not need <= branches:
+        raise AssertionError(f"[kernels] encoder_conv plan branches never exercised: {sorted(need - branches)}")
     hh, ww = 512, 768
     for y_form in ("in", "bn"):
         for skip_form in ("none", "in", "bn"):
@@ -649,6 +718,51 @@ def phase_fused_kernels(gen) -> dict:
               f"{label} (rows {h}, W1 = W2 = {w}, D 256, {levels} levels; tile {p.tile[0]}x{p.tile[1]}, "
               f"{4 * p.vec}-byte copies, {epilogue} epilogue, {p.blocks} blocks)")
         del f1, f2, want, got
+    return errs
+
+
+def phase_prefetch_paths(gen) -> dict:
+    """Every plan branch of the windowed lookup (ops/corr_cuda.py
+    `prefetch_plan`: the compile-time r = 4, 4-level instantiation, the
+    generic one, the element path for unaligned levels) bit for bit against
+    the dense kernel and exactly (NaN in the same places) against the plain
+    version, at every PREFETCH_PATH_CASES entry, every coordinate family
+    and all four (level, tap) dtype pairs; the last query's coordinate is
+    W2 - 1.5, so its window reaches the end of the level's allocation.
+    Logs the branch each case took and fails unless every branch ran with
+    fp32 and with bf16 levels. Returns the max abs diff of the fp32 pair
+    and of the pairs with a bf16 side."""
+    errs = {"corr_prefetch_lookup": 0.0, "corr_prefetch_lookup_bf16": 0.0}
+    branches = set()
+    for label, (b, h, w1, w2, levels, radius, offset) in PREFETCH_PATH_CASES:
+        base = tuple(torch.randn((b, h, w1, w2 >> l), generator=gen, device=DEVICE) for l in range(levels))
+        for family in ("smooth", "edge", "special", "uniform"):
+            coords = prefetch_coords(gen, family, b, h, w1, w2)
+            coords.view(-1)[-1] = w2 - 1.5
+            for level_dtype in (torch.float32, BF16):
+                lvls = tuple((offset_view(gen, lvl.shape, level_dtype) if offset else lvl.to(level_dtype))
+                             for lvl in base)
+                for out_dtype in (torch.float32, BF16):
+                    plan = corr_cuda.prefetch_plan_for(lvls, coords, radius, out_dtype)
+                    got = corr_cuda.prefetch_corr_lookup(lvls, coords, radius, out_dtype)
+                    dense = corr_cuda.corr_lookup(lvls, coords, radius, out_dtype)
+                    torch.cuda.synchronize()
+                    bitwise = bf16_bitwise(got, dense)
+                    e = exact_err(got.float(), corr.corr_lookup(lvls, coords, radius).to(out_dtype).float())
+                    key = "corr_prefetch_lookup_bf16" if BF16 in (level_dtype, out_dtype) else "corr_prefetch_lookup"
+                    errs[key] = max(errs[key], e)
+                    branches.add((plan.path, str(level_dtype)[6:]))
+                    if not bitwise or not e <= TOL["corr_prefetch_lookup"]:
+                        raise AssertionError(f"the windowed lookup disagrees at {label} {family} ({level_dtype}, "
+                                             f"{out_dtype}; plan {plan}): bitwise {bitwise}, {e}")
+        log(f"[prefetch-paths] {label} (batch {b}, {h}x{w1} queries, W2 {w2}, {levels} levels, radius {radius}; "
+            f"plan branch {plan.path}, runs of {plan.run}, {plan.stages} stages, {plan.blocks} blocks): every "
+            f"coordinate family, levels and taps fp32/bf16 (four pairs), bitwise equal to the dense kernel and exact "
+            f"against the plain version (tol {TOL['corr_prefetch_lookup']:g})")
+        del base
+    need = {(path, dt) for path in corr_cuda.PREFETCH_PATHS for dt in ("float32", "bfloat16")}
+    if not need <= branches:
+        raise AssertionError(f"[prefetch-paths] plan branches never exercised: {sorted(need - branches)}")
     return errs
 
 
@@ -1833,8 +1947,9 @@ def bf16_bitwise(a, b) -> bool:
 
 
 def offset_view(gen, shape, dtype):
-    """A contiguous tensor of `shape` whose data starts 2 bytes past a
-    16-byte boundary (the kernels then take their scalar loops)."""
+    """A contiguous tensor of `shape` whose data starts one element (2
+    bytes in bf16, 4 in fp32) past a 16-byte boundary (the kernels then
+    take their scalar loops)."""
     n = int(np.prod(shape))
     base = (torch.randn((n + 8,), generator=gen, device=DEVICE) * 2).to(dtype)
     return base[1:n + 1].view(shape)
@@ -2193,8 +2308,14 @@ def phase_timing(gen, errs, counts) -> list:
         pyramid, coords = lookup_inputs(gen, 1, hh // 4, ww // 4, ww // 4)
         ms = time_ms(lambda: corr_cuda.corr_lookup(pyramid, coords, 4), flush=flush)
         pf_ms = time_ms(lambda: corr_cuda.prefetch_corr_lookup(pyramid, coords, 4), flush=flush)
+        dev = kernel_ms(lambda: corr_cuda.corr_lookup(pyramid, coords, 4), ("corr_lookup_kernel",), flush)
+        pf_dev = kernel_ms(lambda: corr_cuda.prefetch_corr_lookup(pyramid, coords, 4), ("corr_prefetch",), flush)
         plain_ms = time_ms(lambda: corr.corr_lookup(pyramid, coords, 4), flush=flush)
         nbytes = lookup_bytes(pyramid, coords, 4)
+        plan = corr_cuda.prefetch_plan_for(pyramid, coords, 4)
+        log(f"[timing] corr_lookup {label} fp32: dense kernel {ms:.4f} ms (alone on the device {dev:.4f}), windowed "
+            f"kernel {pf_ms:.4f} ms (alone {pf_dev:.4f}; plan {plan.path}, runs of {plan.run}, {plan.stages} stages, "
+            f"{plan.blocks} blocks), plain {plain_ms:.4f} ms; {lookup_bounds(pyramid, coords, 4)}")
         if label == "512x768":
             rows, grid = grid_sample_lookup_inputs(pyramid, coords, 4)
 
@@ -2212,9 +2333,7 @@ def phase_timing(gen, errs, counts) -> list:
         else:
             # cuDNN's grid sampler refuses a batch of one row per query at
             # this size, so no library time here.
-            log(f"[timing] corr_lookup {label}: kernel {ms:.4f} ms, windowed kernel (corr_prefetch_lookup) "
-                f"{pf_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes), library not measured")
+            log(f"[timing] corr_lookup {label}: library not measured")
         del pyramid, coords
 
     # The tails and gates at the GRU's three scales of the 512x768 bucket
@@ -2287,6 +2406,9 @@ def phase_timing(gen, errs, counts) -> list:
         for b, form, stats in ((1, "in", True), (2, "in", True), (1, "bn", False)):
             x, weight, bias, aff = conv_inputs(gen, b, hh, ww, form)
             ms = time_ms(lambda: encoder_cuda.fused_conv(x, weight, bias, aff, form, stats), flush=flush)
+            # The conv and, with statistics, the two launches that sum its partials.
+            dev = kernel_ms(lambda: encoder_cuda.fused_conv(x, weight, bias, aff, form, stats),
+                            ("encoder_conv_kernel", "encoder_stats"), flush)
             plain_ms = time_ms(lambda: encoder_cuda.plain_conv(x, weight, bias, aff, form, stats), flush=flush)
             z = encoder_cuda.apply_affine(x, aff, form)
             lib_ms = time_ms(lambda: F.conv2d(z, weight, bias, padding=1), flush=flush)
@@ -2295,14 +2417,14 @@ def phase_timing(gen, errs, counts) -> list:
             # The GEMM, the operand affine and relu (3 per input), bias and statistics (3 per output).
             flops = 2 * 9 * 64 * 64 * b * hw + 3 * b * 64 * hw * (1 + stats)
             label = f"b{b} {hh}x{ww} form {form}{' + stats' if stats else ''}"
+            bound = flops / FP32_FLOPS_PER_S * 1e3
+            log(f"[timing] encoder_conv {label}: kernel {ms:.4f} ms, its kernels alone on the device {dev:.4f} ms "
+                f"({bound / dev:.0%} of its bound), plain {plain_ms:.4f} ms, bound {bound:.4f} ms (operations), "
+                f"F.conv2d {lib_ms:.4f} ms, {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
             if (hh, b, form) == (512, 1, "in"):
                 log(f"[timing] encoder_conv {label}: library is F.conv2d of the normalized operand "
                     f"(cuDNN, TF32 off), without affine or statistics")
                 entry("encoder_conv", ms, plain_ms, nbytes, flops, lib_ms)
-            else:
-                log(f"[timing] encoder_conv {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                    f"bound {flops / FP32_FLOPS_PER_S * 1e3:.4f} ms (operations), F.conv2d {lib_ms:.4f} ms, "
-                    f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
             del x, z
 
     # The scatter at the training recipe's 1/4 resolution. Its library
@@ -2392,8 +2514,7 @@ def bf16_timing(gen, flush, entry) -> list:
         plain_ms = time_ms(lambda: corr.corr_lookup(pyramid, coords, 4).to(BF16), flush=flush)
         nbytes = lookup_bytes(pyramid, coords, 4, out_bytes=2)
         log(f"[timing] corr_lookup_bf16 {label}: bf16 levels, bf16 taps {times[BF16]:.4f} ms, fp32 taps "
-            f"{times[torch.float32]:.4f} ms; plain {plain_ms:.4f} ms; bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
-            f"(bytes)")
+            f"{times[torch.float32]:.4f} ms; plain {plain_ms:.4f} ms; {lookup_bounds(pyramid, coords, 4, 2)}")
         if label == "512x768":
             rows, grid = grid_sample_lookup_inputs(pyramid, coords, 4)
             rows, grid = rows.to(BF16), grid.to(BF16)
@@ -2518,10 +2639,13 @@ def lever_bf16_timing(gen, flush, entry) -> list:
         pyramid = tuple(lvl.to(BF16) for lvl in pyramid)
         ms = time_ms(lambda: corr_cuda.prefetch_corr_lookup(pyramid, coords, 4, BF16), flush=flush)
         dense_ms = time_ms(lambda: corr_cuda.corr_lookup(pyramid, coords, 4, BF16), flush=flush)
+        dev = kernel_ms(lambda: corr_cuda.prefetch_corr_lookup(pyramid, coords, 4, BF16), ("corr_prefetch",), flush)
+        dense_dev = kernel_ms(lambda: corr_cuda.corr_lookup(pyramid, coords, 4, BF16), ("corr_lookup_kernel",), flush)
         plain_ms = time_ms(lambda: corr.corr_lookup(pyramid, coords, 4).to(BF16), flush=flush)
         nbytes = lookup_bytes(pyramid, coords, 4, out_bytes=2)
-        log(f"[timing] corr_prefetch_lookup_bf16 {label}: windowed {ms:.4f} ms, dense bf16 kernel {dense_ms:.4f} ms "
-            f"(same call), plain {plain_ms:.4f} ms, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes)")
+        log(f"[timing] corr_prefetch_lookup_bf16 {label}: windowed {ms:.4f} ms (alone on the device {dev:.4f}), dense "
+            f"bf16 kernel {dense_ms:.4f} ms (alone {dense_dev:.4f}), plain {plain_ms:.4f} ms, "
+            f"{lookup_bounds(pyramid, coords, 4, 2)}")
         if label == "512x768":
             rows, grid = grid_sample_lookup_inputs(pyramid, coords, 4)
             rows, grid = rows.to(BF16), grid.to(BF16)
@@ -2553,6 +2677,8 @@ def main() -> int:
     errs.update(phase_gates_kernels(gen))
     errs.update(phase_bf16_kernels(gen))
     errs.update(phase_bf16_lever_kernels(gen))
+    for name, err in phase_prefetch_paths(gen).items():
+        errs[name] = max(errs[name], err)
     torch.cuda.empty_cache()
     service, counts = phase_serving(rng)
     phase_stage_times(service)

@@ -48,30 +48,67 @@
 // 144 wgmma m64n64k16 per tile, which read A and B from shared memory
 // (about 590 KB per tile).
 //
-// The fp32 kernel: an FFMA implicit GEMM. A block of 256 threads computes a tile of
-// 8 x 32 output pixels for all 64 output channels. It loops over the input
-// channels in chunks of 8: the chunk's (8+2) x (32+2) halo patch is staged
-// into shared memory with the affine, the relu and the zero padding applied
-// as it is loaded (so the normalized operand never exists in device memory),
-// and the chunk's 8 x 9 x 64 weights beside it (the wrapper hands them over as
-// (Ci, 3, 3, Co), so this is a contiguous 16-byte copy). Each thread then
-// accumulates 8 consecutive pixels of one row x 8 output channels in
-// registers: per input channel and kernel row it reads 10 patch values and
-// 24 weights for 192 FMAs. A warp shares its 8 output channels, so weight
-// reads are broadcasts, and the patch row stride (41) makes the warp's 32
-// patch reads fall in 32 different banks. The epilogue adds the bias, stores
-// y, and, when statistics are asked for, reduces each warp's per-channel sums
-// over its 32 lanes with shuffles and writes one partial per (block, channel)
-// to a (B, tiles, 2, 64) buffer; a second small launch sums the partials of
-// each (batch, channel) in a fixed order, in double, one block per sum. No
-// float atomics: the statistics are the same on every run.
+// The fp32 kernel (`encoder_conv_kernel`): an FFMA implicit GEMM on
+// persistent blocks, one per multiprocessor, that walk the (batch, 8 x 64
+// tile) list in a fixed order (tile t, t + grid, ...). A block of 256
+// threads loads the (Ci, 3, 3, Co) fp32 weights into shared memory once
+// (147,456 bytes; the wrapper hands them over in that layout) and keeps
+// them there. It walks each tile's input channels in chunks of 8. Where W
+// is a multiple of 4 and x and y are 16-byte aligned (`vec`, the plan's
+// choice), a chunk's raw halo box, 72 x 10 pixels x 8 channels from column
+// x0 - 4 (a TMA box must start on a 16-byte boundary along W), arrives by
+// one TMA load (x as an fp32 (W, H, 64 B) tensor map, zeros outside),
+// issued by one thread as soon as the previous chunk's box has been read,
+// so it lands while the block computes; otherwise the threads load the
+// chunk element by element. The block then applies the affine and relu
+// once per staged element (each warp 10 patch rows, their loads all in
+// flight), writing z into one of two (8+2) x (64+2) patch slots, and sets
+// every element outside the image to 0: the conv pads z, not x, and TMA's
+// zero fill would otherwise turn into relu(-a b) or relu(b). One barrier
+// per chunk: the slot is complete, the raw box is free for the next load,
+// and the other slot is no longer read. Each thread accumulates 8
+// consecutive pixels of one row x 16 output channels in registers (128
+// accumulators under the 255 registers one block per multiprocessor
+// leaves): per input channel and kernel row it reads its 10 patch values
+// as three float4 (patch row stride 68: 16-byte reads without bank
+// conflicts) and 12 float4 weights (broadcast: a warp shares its 16
+// channels) for 384 FFMAs. The epilogue adds the bias, stores y with
+// 16-byte stores where the thread's 8 pixels are whole, and, when
+// statistics are asked for, reduces each warp's per-channel sums over its
+// 32 lanes with shuffles into one partial per (batch, tile, column half),
+// the layout the bf16 kernel writes.
+//
+// Measured (chip_smoke.py [timing] and kernel_compare.py, H100 80GB HBM3,
+// 700.00 W), one 512x768 image, instance form with statistics: 0.7004-
+// 0.7143 ms by CUDA events, its kernels alone on the device 0.6894-0.7250
+// (60-63% of the 0.435 ms bound), against the first version of this
+// kernel's 0.9094-0.9180 (one block per tile, synchronous staging, the
+// weights reloaded per tile) and cuDNN's fp32 F.conv2d of the normalized
+// operand, 0.7853-0.7920; two images 1.3710-1.3898 (first version
+// 1.7788-1.7932, cuDNN 1.5695-1.5831); at 384x512 0.3636-0.3724 (0.4640-
+// 0.4680, cuDNN 0.3952-0.3995). ptxas: 246 registers, no spills, 214,160
+// bytes of dynamic shared memory. What is left, not split by a committed
+// measurement: the staging pass between chunks, which a barrier keeps
+// apart from the FFMAs (a variant that staged each next chunk in place,
+// warps staggered against the ones computing, with three TMA slots, was
+// slower and was dropped), and the last of 768 tiles' 5.8 rounds over 132
+// blocks.
+//
+// The statistics pass, shared by both kernels: the first launch sums runs
+// of 256 partials per (batch, run) in double, the second the runs per
+// batch, each in a fixed order with 8 loads in flight per thread (a warp
+// reads 32 consecutive entries of one partial, 128 bytes; see
+// `stats_sum`). No float atomics: the statistics are the same on every
+// run.
 //
 // Rounding: built with contraction on (the inner loop is FFMAs); the
 // operand affine uses __fsub_rn / __fmul_rn / __fadd_rn, so z is rounded
 // exactly as the plain version rounds it. Each output sums its 576 products
-// in (ci, kh, kw) order with one FFMA chain; cuDNN's fp32 implicit GEMM on
-// the H100 was measured to do the same and the two agree bit for bit, but
-// that is cuDNN's choice of algorithm, so the checks keep a tolerance.
+// in (ci, kh, kw) order with one FFMA chain, then adds the bias; no split
+// of the sum, no tensor cores (the model runs fp32 with TF32 off). cuDNN's
+// fp32 implicit GEMM on the H100 was measured to sum in the same order and
+// the two agree bit for bit, but that is cuDNN's choice of algorithm, so
+// the checks keep a tolerance.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -82,140 +119,221 @@
 
 #define C 64
 #define TILE_H 8
-#define TILE_W 32
-#define PX 8          // consecutive output pixels (along W) per thread
-#define CO 8          // output channels per thread
-#define CK 8          // input channels per shared-memory chunk
+#define TILE_W 32     // the bf16 kernel's tile width
 #define THREADS 256
 #define PATCH_H (TILE_H + 2)
 #define PATCH_W (TILE_W + 2)
-#define PATCH_STRIDE 41  // > PATCH_W; odd, so a warp's patch reads hit 32 banks
 
 #define FORM_NONE 0
 #define FORM_IN 1
 #define FORM_BN 2
 
-__global__ void __launch_bounds__(THREADS, 2)
-encoder_conv_kernel(const float* __restrict__ x, const float* __restrict__ w_t,
-                    const float* __restrict__ bias, const float* __restrict__ aff, int form,
-                    int height, int width, int tiles_x, float* __restrict__ y,
-                    float* __restrict__ partial) {
-    __shared__ float patch[CK][PATCH_H][PATCH_STRIDE];
-    __shared__ __align__(16) float wsm[CK][9][C];
+// The fp32 kernel's geometry and shared memory (ops/encoder_cuda.py
+// CONV_F32_SHARED_BYTES mirrors F_SMEM_BYTES).
+constexpr int F_TILE_W = 64;                                // an fp32 tile: 8 x 64 output pixels
+constexpr int F_PX = 8;                                     // consecutive pixels (along W) per thread
+constexpr int F_CO = 16;                                    // output channels per thread
+constexpr int F_CK = 8;                                     // input channels per chunk
+constexpr int F_PATCH_W = F_TILE_W + 2;                     // 66
+// Patch row stride: 68 = 4 mod 32, so the rows start 16-byte aligned and
+// the 8 lanes of a quarter warp (2 rows x 4 column groups) read 8 distinct
+// 16-byte bank groups; a thread's 12 floats (10 used) end at column 67.
+constexpr int F_STRIDE = 68;
+constexpr int F_PATCH_FLOATS = F_CK * PATCH_H * F_STRIDE;   // 5,440
+constexpr int F_RAW_W = F_TILE_W + 8;                       // raw box columns x0 - 4 .. x0 + 67 (288 bytes)
+constexpr int F_RAW_FLOATS = F_CK * PATCH_H * F_RAW_W;      // 5,760: the TMA box
+constexpr int F_W_FLOATS = C * 9 * C;                       // 36,864: the resident weights
+// 128 bytes of slack to align the raw box, the raw box, the weights, two
+// patch slots and the raw box's barrier (16 bytes).
+constexpr int F_SMEM_BYTES = 128 + 4 * (F_RAW_FLOATS + F_W_FLOATS + 2 * F_PATCH_FLOATS) + 16;
+
+__device__ __forceinline__ float form_fp32(float z, float a, float s, int form) {
+    if (form == FORM_NONE) return z;
+    z = form == FORM_IN ? __fmul_rn(__fsub_rn(z, a), s) : __fadd_rn(__fmul_rn(z, a), s);
+    return fmaxf(z, 0.0f);
+}
+
+// xmap: x as (W, H, 64 B) with 72 x 10 x 8 boxes (unused without vec);
+// w_t: the fp32 weights as (Ci, 3, 3, Co); `tiles` per image, `total` =
+// batch x tiles.
+__global__ void __launch_bounds__(THREADS, 1)
+encoder_conv_kernel(const __grid_constant__ CUtensorMap xmap, const float* __restrict__ x,
+                    const float* __restrict__ w_t, const float* __restrict__ bias, const float* __restrict__ aff,
+                    int form, int height, int width, int tiles_x, int tiles, int total, int vec,
+                    float* __restrict__ y, float* __restrict__ partial) {
+    extern __shared__ __align__(128) unsigned char smem_f32[];
+    float* raw = reinterpret_cast<float*>(smem_f32 + ((128 - (smem_u32(smem_f32) & 127)) & 127));
+    float* wsm = raw + F_RAW_FLOATS;
+    float* patches = wsm + F_W_FLOATS;
+    uint64_t* raw_full = reinterpret_cast<uint64_t*>(patches + 2 * F_PATCH_FLOATS);
 
     const int tid = threadIdx.x;
-    const int lane = tid & 31;        // pixel group: row lane >> 2, columns (lane & 3) * PX ...
-    const int cgrp = tid >> 5;        // output channels cgrp * CO ...
-    const int prow = lane >> 2;
-    const int pcol = (lane & 3) * PX;
-    const int tile = blockIdx.x;
-    const int b = blockIdx.y;
-    const int y0 = (tile / tiles_x) * TILE_H;
-    const int x0 = (tile % tiles_x) * TILE_W;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    const int cg = warp >> 1;                            // output channels 16 cg ..
+    const int half = warp & 1;                           // tile columns 32 half ..
+    const int prow = lane >> 2;                          // the thread's tile row
+    const int pcol = 32 * half + F_PX * (lane & 3);      // its first tile column
     const long long plane = (long long)height * width;
-    const float* xb = x + (long long)b * C * plane;
+    constexpr int CHUNKS = C / F_CK;
 
-    float acc[PX][CO];
-#pragma unroll
-    for (int j = 0; j < PX; ++j)
-#pragma unroll
-        for (int k = 0; k < CO; ++k) acc[j][k] = 0.0f;
+    // One thread: the raw box of chunk k of tile t.
+    auto load_raw = [&](int t, int k) {
+        const int b = t / tiles;
+        const int tile = t - b * tiles;
+        const int ty = tile / tiles_x;
+        mbar_arrive_expect_tx(raw_full, F_RAW_FLOATS * 4);
+        tma_load_3d(raw, &xmap, raw_full, (tile - ty * tiles_x) * F_TILE_W - 4, ty * TILE_H - 1, b * C + k * F_CK);
+    };
+    if (tid == 0) {
+        mbar_init(raw_full, 1);
+        mbar_init_fence();
+    }
+    __syncthreads();
+    if (vec && tid == 0 && (int)blockIdx.x < total) load_raw(blockIdx.x, 0);
+    // The weights, once (visible after the first chunk's barrier).
+    for (int e = tid; e < F_W_FLOATS / 4; e += THREADS)
+        reinterpret_cast<float4*>(wsm)[e] = __ldg(reinterpret_cast<const float4*>(w_t) + e);
 
-    for (int ci0 = 0; ci0 < C; ci0 += CK) {
-        // Stage the chunk's halo patch, normalized and zero padded.
-        for (int e = tid; e < CK * PATCH_H * PATCH_W; e += THREADS) {
-            const int c = e / (PATCH_H * PATCH_W);
-            const int rem = e - c * (PATCH_H * PATCH_W);
-            const int pr = rem / PATCH_W;
-            const int pc = rem - pr * PATCH_W;
-            const int gy = y0 - 1 + pr;
-            const int gx = x0 - 1 + pc;
-            float z = 0.0f;
-            if (gy >= 0 && gy < height && gx >= 0 && gx < width) {
-                z = xb[(long long)(ci0 + c) * plane + (long long)gy * width + gx];
-                if (form != FORM_NONE) {
-                    const float a = aff[(b * 2) * C + ci0 + c];
-                    const float s = aff[(b * 2 + 1) * C + ci0 + c];
-                    z = form == FORM_IN ? __fmul_rn(__fsub_rn(z, a), s) : __fadd_rn(__fmul_rn(z, a), s);
-                    z = fmaxf(z, 0.0f);
+    int n = 0;  // chunks staged so far: chunk n uses patch slot n % 2 and raw phase n % 2
+    for (int t = blockIdx.x; t < total; t += gridDim.x) {
+        const int b = t / tiles;
+        const int tile = t - b * tiles;
+        const int ty = tile / tiles_x;
+        const int y0 = ty * TILE_H;
+        const int x0 = (tile - ty * tiles_x) * F_TILE_W;
+        const float* xb = x + (long long)b * C * plane;
+        float acc[F_PX][F_CO];
+#pragma unroll
+        for (int j = 0; j < F_PX; ++j)
+#pragma unroll
+            for (int k = 0; k < F_CO; ++k) acc[j][k] = 0.0f;
+
+        for (int k = 0; k < CHUNKS; ++k, ++n) {
+            float* patch = patches + (n & 1) * F_PATCH_FLOATS;
+            // Stage chunk k as z = form(x), 0 outside the image: warp w takes
+            // patch rows (channel, row) w, w + 8, ..., lane l columns l + 1 and
+            // l + 33 of each; the 80 rows' halo columns 0 and 65 go to 160
+            // threads after. The affine values are read once per row.
+            if (vec) mbar_wait(raw_full, n & 1);
+            // Unrolled, so that every row's loads are in flight at once.
+#pragma unroll
+            for (int i = 0; i < F_CK * PATCH_H / (THREADS / 32); ++i) {
+                const int row = warp + (THREADS / 32) * i;
+                const int c = row / PATCH_H;
+                const int gy = y0 - 1 + (row - c * PATCH_H);
+                const int ci = k * F_CK + c;
+                const bool row_in = gy >= 0 && gy < height;
+                const float a = form != FORM_NONE ? aff[(b * 2) * C + ci] : 0.0f;
+                const float sc = form != FORM_NONE ? aff[(b * 2 + 1) * C + ci] : 0.0f;
+                const float* src = vec ? raw + row * F_RAW_W + 3 : xb + (long long)ci * plane + (long long)gy * width + x0 - 1;
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const int pc = 1 + lane + 32 * h;
+                    const int gx = x0 - 1 + pc;
+                    patch[row * F_STRIDE + pc] = row_in && gx < width ? form_fp32(src[pc], a, sc, form) : 0.0f;
                 }
             }
-            patch[c][pr][pc] = z;
-        }
-        // Stage the chunk's weights: w_t is (Ci, 3, 3, Co), so the chunk is
-        // CK * 9 * 64 contiguous floats.
-        const float4* wsrc = reinterpret_cast<const float4*>(w_t + (long long)ci0 * 9 * C);
-        float4* wdst = reinterpret_cast<float4*>(&wsm[0][0][0]);
-        for (int e = tid; e < CK * 9 * C / 4; e += THREADS) wdst[e] = wsrc[e];
-        __syncthreads();
-
+            if (tid < 2 * F_CK * PATCH_H) {
+                const int row = tid >> 1;
+                const int pc = tid & 1 ? F_PATCH_W - 1 : 0;
+                const int c = row / PATCH_H;
+                const int gy = y0 - 1 + (row - c * PATCH_H);
+                const int gx = x0 - 1 + pc;
+                const int ci = k * F_CK + c;
+                float z = 0.0f;
+                if (gy >= 0 && gy < height && gx >= 0 && gx < width) {
+                    z = vec ? raw[row * F_RAW_W + pc + 3] : xb[(long long)ci * plane + (long long)gy * width + gx];
+                    if (form != FORM_NONE) z = form_fp32(z, aff[(b * 2) * C + ci], aff[(b * 2 + 1) * C + ci], form);
+                }
+                patch[row * F_STRIDE + pc] = z;
+            }
+            __syncthreads();  // the slot is staged, the raw box read, the other slot's reads done
+            if (vec && tid == 0) {
+                const int nt = k + 1 < CHUNKS ? t : t + (int)gridDim.x;
+                if (nt < total) {
+                    fence_proxy_async();
+                    load_raw(nt, k + 1 < CHUNKS ? k + 1 : 0);
+                }
+            }
+            const float* pb = patch + prow * F_STRIDE + pcol;
+            const float* wb = wsm + k * F_CK * 9 * C + F_CO * cg;
 #pragma unroll 1
-        for (int c = 0; c < CK; ++c) {
+            for (int c = 0; c < F_CK; ++c) {
 #pragma unroll
-            for (int kh = 0; kh < 3; ++kh) {
-                float in[PX + 2];
+                for (int kh = 0; kh < 3; ++kh) {
+                    float in[F_PX + 2];
+                    {
+                        // Three 16-byte reads: the 10 values and 2 unused.
+                        const float4* pv = reinterpret_cast<const float4*>(pb + (c * PATCH_H + kh) * F_STRIDE);
+                        const float4 a4 = pv[0], b4 = pv[1], c4 = pv[2];
+                        in[0] = a4.x; in[1] = a4.y; in[2] = a4.z; in[3] = a4.w; in[4] = b4.x; in[5] = b4.y;
+                        in[6] = b4.z; in[7] = b4.w; in[8] = c4.x; in[9] = c4.y;
+                    }
 #pragma unroll
-                for (int j = 0; j < PX + 2; ++j) in[j] = patch[c][prow + kh][pcol + j];
+                    for (int kw = 0; kw < 3; ++kw) {
+                        const float4* wp = reinterpret_cast<const float4*>(wb + (c * 9 + kh * 3 + kw) * C);
+                        float wv[F_CO];
 #pragma unroll
-                for (int kw = 0; kw < 3; ++kw) {
-                    const float4 wa = *reinterpret_cast<const float4*>(&wsm[c][kh * 3 + kw][cgrp * CO]);
-                    const float4 wb = *reinterpret_cast<const float4*>(&wsm[c][kh * 3 + kw][cgrp * CO + 4]);
-                    const float wv[CO] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+                        for (int i = 0; i < F_CO / 4; ++i) {
+                            const float4 w4 = wp[i];
+                            wv[4 * i] = w4.x; wv[4 * i + 1] = w4.y; wv[4 * i + 2] = w4.z; wv[4 * i + 3] = w4.w;
+                        }
 #pragma unroll
-                    for (int j = 0; j < PX; ++j)
+                        for (int o = 0; o < F_CO; ++o)
 #pragma unroll
-                        for (int k = 0; k < CO; ++k) acc[j][k] += in[j + kw] * wv[k];
+                            for (int j = 0; j < F_PX; ++j) acc[j][o] = fmaf(in[j + kw], wv[o], acc[j][o]);
+                    }
                 }
             }
         }
-        __syncthreads();
-    }
 
-    // Epilogue: bias, store, per-channel partial statistics.
-    const int gy = y0 + prow;
-    const int gx0 = x0 + pcol;
-    // Two 16-byte stores per channel where the thread's 8 pixels are all in
-    // the image and rows start 16-byte aligned.
-    const bool whole = gy < height && gx0 + PX <= width && (width & 3) == 0;
-    float s[CO], q[CO];
+        // Epilogue: bias, store, per-channel partial statistics.
+        const int gy = y0 + prow;
+        const int gx0 = x0 + pcol;
+        // Two 16-byte stores per channel where the thread's 8 pixels are all
+        // in the image (vec: rows start 16-byte aligned).
+        const bool whole = vec && gy < height && gx0 + F_PX <= width;
+        float s[F_CO], q[F_CO];
 #pragma unroll
-    for (int k = 0; k < CO; ++k) {
-        const int co = cgrp * CO + k;
-        const float bk = bias[co];
-        float* yrow = y + ((long long)b * C + co) * plane + (long long)gy * width + gx0;
-        float v[PX];
-        s[k] = 0.0f;
-        q[k] = 0.0f;
+        for (int o = 0; o < F_CO; ++o) {
+            const int co = F_CO * cg + o;
+            const float bk = bias[co];
+            float* yrow = y + ((long long)b * C + co) * plane + (long long)gy * width + gx0;
+            float v[F_PX];
+            s[o] = 0.0f;
+            q[o] = 0.0f;
 #pragma unroll
-        for (int j = 0; j < PX; ++j) {
-            v[j] = acc[j][k] + bk;
-            if (gy < height && gx0 + j < width) {
-                s[k] += v[j];
-                q[k] += v[j] * v[j];
-                if (!whole) yrow[j] = v[j];
+            for (int j = 0; j < F_PX; ++j) {
+                v[j] = acc[j][o] + bk;
+                if (gy < height && gx0 + j < width) {
+                    s[o] += v[j];
+                    q[o] += v[j] * v[j];
+                    if (!whole) yrow[j] = v[j];
+                }
+            }
+            if (whole) {
+                reinterpret_cast<float4*>(yrow)[0] = make_float4(v[0], v[1], v[2], v[3]);
+                reinterpret_cast<float4*>(yrow)[1] = make_float4(v[4], v[5], v[6], v[7]);
             }
         }
-        if (whole) {
-            reinterpret_cast<float4*>(yrow)[0] = make_float4(v[0], v[1], v[2], v[3]);
-            reinterpret_cast<float4*>(yrow)[1] = make_float4(v[4], v[5], v[6], v[7]);
-        }
-    }
-    if (partial != nullptr) {
-        // Butterfly over the warp's 32 pixel groups: a fixed order.
+        if (partial != nullptr) {
+            // Butterfly over the warp's 32 pixel groups: a fixed order.
 #pragma unroll
-        for (int k = 0; k < CO; ++k) {
+            for (int o = 0; o < F_CO; ++o) {
 #pragma unroll
-            for (int off = 16; off > 0; off >>= 1) {
-                s[k] += __shfl_xor_sync(0xffffffffu, s[k], off);
-                q[k] += __shfl_xor_sync(0xffffffffu, q[k], off);
+                for (int off = 16; off > 0; off >>= 1) {
+                    s[o] += __shfl_xor_sync(0xffffffffu, s[o], off);
+                    q[o] += __shfl_xor_sync(0xffffffffu, q[o], off);
+                }
             }
-        }
-        if (lane == 0) {
-            float* dst = partial + ((long long)b * gridDim.x + tile) * 2 * C + cgrp * CO;
+            if (lane == 0) {
+                float* dst = partial + (((long long)b * tiles + tile) * 2 + half) * 2 * C + F_CO * cg;
 #pragma unroll
-            for (int k = 0; k < CO; ++k) {
-                dst[k] = s[k];
-                dst[C + k] = q[k];
+                for (int o = 0; o < F_CO; ++o) {
+                    dst[o] = s[o];
+                    dst[C + o] = q[o];
+                }
             }
         }
     }
@@ -617,16 +735,18 @@ encoder_conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __nv_b
     }
 }
 
-// x as a (W, H, 64 B) tensor map for the raw tiles: 48 x 10 x 64 boxes, zeros outside.
-static int encode_x_map(CUtensorMap* map, const void* x, int batch, int height, int width) {
+// x as a (W, H, 64 B) tensor map of `elem` (BFLOAT16 or FLOAT32) elements
+// for the raw tiles, boxes of box_w x 10 x box_c, zeros outside.
+static int encode_x_map(CUtensorMap* map, const void* x, int batch, int height, int width, CUtensorMapDataType elem,
+                        int elem_bytes, int box_w, int box_c) {
     TensorMapEncodeTiled encode = tensor_map_encoder();
     if (encode == nullptr) return (int)cudaErrorNotSupported;
     const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)height, (cuuint64_t)C * batch};
-    const cuuint64_t strides[2] = {(cuuint64_t)width * 2, (cuuint64_t)height * width * 2};
-    const cuuint32_t box[3] = {WC_RAW_W, PATCH_H, C};
+    const cuuint64_t strides[2] = {(cuuint64_t)width * elem_bytes, (cuuint64_t)height * width * elem_bytes};
+    const cuuint32_t box[3] = {(cuuint32_t)box_w, PATCH_H, (cuuint32_t)box_c};
     const cuuint32_t unit[3] = {1, 1, 1};
-    const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims, strides, box,
-                                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+    const CUresult res = encode(map, elem, 3, const_cast<void*>(x), dims, strides, box, unit,
+                                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
@@ -644,57 +764,103 @@ static int launch_conv_wgmma(const CUtensorMap& xmap, const void* x, const void*
     return (int)cudaGetLastError();
 }
 
-// stats[b, t] = sum over tiles of partial[b, tile, t] (t indexes [sum | sumsq] x 64),
-// in double: one block per (t, b); each thread sums a fixed stride of tiles,
-// then a fixed tree over the block. The same order on every run.
-#define STATS_THREADS 128
-__global__ void __launch_bounds__(STATS_THREADS)
-encoder_stats_kernel(const float* __restrict__ partial, int tiles, float* __restrict__ stats) {
-    __shared__ double red[STATS_THREADS];
-    const int t = blockIdx.x;
-    const int b = blockIdx.y;
-    const float* src = partial + (long long)b * tiles * 2 * C + t;
+// The statistics: stats[b, t] = the sum over parts of partial[b, part, t]
+// (t indexes [sum | sumsq] x 64; both kernels write two parts per tile),
+// in double, in two launches of blocks of STATS_GROUPS x 128 threads: the
+// first sums runs of STATS_RUN parts per (run, batch) into sums[b, run, t],
+// the second sums the runs per batch into stats. In a block, thread t of
+// group g sums entry t of its contiguous share of the rows in order, 8
+// loads in flight (a warp reads 32 consecutive entries of a row, 128
+// bytes), and thread t of group 0 adds the groups' sums in order: the
+// same order on every run. The wrapper hands over `runs` = ceil(parts /
+// STATS_RUN) and the (B, runs, 128) double buffer.
+#define STATS_ENTRIES (2 * C)
+#define STATS_GROUPS 8
+#define STATS_THREADS (STATS_GROUPS * STATS_ENTRIES)
+#define STATS_RUN 256
+
+// The sum of rows [begin, end) of src (rows of STATS_ENTRIES), entry t of
+// thread t of group 0's result; every thread of the block calls it.
+template <typename T>
+__device__ __forceinline__ double stats_sum(const T* __restrict__ src, int begin, int end, double* red) {
+    const int t = threadIdx.x % STATS_ENTRIES;
+    const int g = threadIdx.x / STATS_ENTRIES;
+    const int share = (end - begin + STATS_GROUPS - 1) / STATS_GROUPS;
+    const int lo = begin + g * share;
+    const int hi = lo + share < end ? lo + share : end;
     double total = 0.0;
-    for (int i = threadIdx.x; i < tiles; i += STATS_THREADS) total += (double)src[(long long)i * 2 * C];
+    for (int i0 = lo; i0 < hi; i0 += 8) {
+        T v[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[j] = i0 + j < hi ? src[(long long)(i0 + j) * STATS_ENTRIES + t] : T(0);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+            if (i0 + j < hi) total += (double)v[j];
+    }
     red[threadIdx.x] = total;
     __syncthreads();
-    for (int half = STATS_THREADS / 2; half > 0; half >>= 1) {
-        if (threadIdx.x < half) red[threadIdx.x] += red[threadIdx.x + half];
-        __syncthreads();
-    }
-    if (threadIdx.x == 0) stats[b * 2 * C + t] = (float)red[0];
+    double sum = 0.0;
+#pragma unroll
+    for (int k = 0; k < STATS_GROUPS; ++k) sum += red[k * STATS_ENTRIES + t];
+    return sum;
+}
+
+__global__ void __launch_bounds__(STATS_THREADS)
+encoder_stats_runs_kernel(const float* __restrict__ partial, int parts, int runs, double* __restrict__ sums) {
+    __shared__ double red[STATS_THREADS];
+    const int r = blockIdx.x;
+    const int b = blockIdx.y;
+    const int end = (r + 1) * STATS_RUN < parts ? (r + 1) * STATS_RUN : parts;
+    const double sum = stats_sum(partial + (long long)b * parts * STATS_ENTRIES, r * STATS_RUN, end, red);
+    if (threadIdx.x < STATS_ENTRIES) sums[((long long)b * runs + r) * STATS_ENTRIES + threadIdx.x] = sum;
+}
+
+__global__ void __launch_bounds__(STATS_THREADS)
+encoder_stats_kernel(const double* __restrict__ sums, int runs, float* __restrict__ stats) {
+    __shared__ double red[STATS_THREADS];
+    const int b = blockIdx.x;
+    const double sum = stats_sum(sums + (long long)b * runs * STATS_ENTRIES, 0, runs, red);
+    if (threadIdx.x < STATS_ENTRIES) stats[b * STATS_ENTRIES + threadIdx.x] = (float)sum;
 }
 
 // x and y are fp32 (bf16 = 0: the FFMA kernel, w_t the fp32 weights as
-// (Ci, 3, 3, Co), one block per (tile, batch)) or bf16 (bf16 = 1: the
-// wgmma kernel, w_t the bf16 weights as (3, 3, Co, Ci), `blocks`
-// persistent blocks of `shared_bytes`, `vec` its 16-byte accesses; the
-// plan is ops/encoder_cuda.py `conv_plan`); bias and the affine rows are
-// fp32 in either case (in bf16, values the wrapper has rounded to bf16).
+// (Ci, 3, 3, Co), 8 x 64 tiles) or bf16 (bf16 = 1: the wgmma kernel, w_t
+// the bf16 weights as (3, 3, Co, Ci), 8 x 32 tiles); either kernel runs
+// `blocks` persistent blocks of `shared_bytes`, `vec` its TMA raw tile and
+// 16-byte stores (the plan is ops/encoder_cuda.py `conv_plan`); bias and
+// the affine rows are fp32 in either case (in bf16, values the wrapper has
+// rounded to bf16). With statistics: `partial` (B, 2 tiles, 2, 64) fp32 and
+// `sums` (B, stat_runs, 2, 64) double run sums, `stats` (B, 2, 64).
 extern "C" int raft_encoder_conv(const void* x, const void* w_t, const void* bias, const void* aff,
                                  int form, int batch, int height, int width, void* y,
-                                 void* partial, void* stats, int bf16, int blocks, int shared_bytes, int vec,
-                                 void* stream) {
+                                 void* partial, void* sums, void* stats, int bf16, int blocks, int shared_bytes,
+                                 int vec, int stat_runs, void* stream) {
     if (form < FORM_NONE || form > FORM_BN) return (int)cudaErrorInvalidValue;
     if ((form != FORM_NONE) != (aff != nullptr)) return (int)cudaErrorInvalidValue;
-    if ((partial == nullptr) != (stats == nullptr)) return (int)cudaErrorInvalidValue;
+    if ((partial == nullptr) != (stats == nullptr) || (partial == nullptr) != (sums == nullptr))
+        return (int)cudaErrorInvalidValue;
     if (batch == 0 || height == 0 || width == 0) return 0;
     if (batch > 65535) return (int)cudaErrorInvalidValue;
-    const int tiles_x = (width + TILE_W - 1) / TILE_W;
+    const int tile_w = bf16 ? TILE_W : F_TILE_W;
+    const int tiles_x = (width + tile_w - 1) / tile_w;
     const int tiles = tiles_x * ((height + TILE_H - 1) / TILE_H);
+    const long long total = (long long)batch * tiles;
+    if (blocks < 1 || blocks > total || total > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    if (vec && ((width & (bf16 ? 7 : 3)) != 0 || ((uintptr_t)x & 15) != 0 || ((uintptr_t)y & 15) != 0))
+        return (int)cudaErrorInvalidValue;
+    if (stats != nullptr && stat_runs != (2 * tiles + STATS_RUN - 1) / STATS_RUN) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
+    CUtensorMap xmap;
+    memset(&xmap, 0, sizeof(xmap));
+    if (vec) {
+        const int status = bf16 ? encode_x_map(&xmap, x, batch, height, width, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                                               WC_RAW_W, C)
+                                : encode_x_map(&xmap, x, batch, height, width, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                                               F_RAW_W, F_CK);
+        if (status != 0) return status;
+    }
     if (bf16) {
-        const long long total = (long long)batch * tiles;
-        if (shared_bytes != WC_SMEM_BYTES || blocks < 1 || blocks > total || total > 0x7fffffffLL)
-            return (int)cudaErrorInvalidValue;
-        if (vec && ((width & 7) != 0 || ((uintptr_t)x & 15) != 0 || ((uintptr_t)y & 15) != 0))
-            return (int)cudaErrorInvalidValue;
-        CUtensorMap xmap;
-        memset(&xmap, 0, sizeof(xmap));
-        if (vec) {
-            const int status = encode_x_map(&xmap, x, batch, height, width);
-            if (status != 0) return status;
-        }
+        if (shared_bytes != WC_SMEM_BYTES) return (int)cudaErrorInvalidValue;
         int status;
         if (form == FORM_IN)
             status = launch_conv_wgmma<FORM_IN>(xmap, x, w_t, bias, aff, height, width, tiles_x, tiles, (int)total, vec,
@@ -707,15 +873,21 @@ extern "C" int raft_encoder_conv(const void* x, const void* w_t, const void* bia
                                                   vec, y, partial, blocks, s);
         if (status != 0) return status;
     } else {
-        encoder_conv_kernel<<<dim3(tiles, batch), THREADS, 0, s>>>(
-            (const float*)x, (const float*)w_t, (const float*)bias, (const float*)aff, form, height, width,
-            tiles_x, (float*)y, (float*)partial);
+        if (shared_bytes != F_SMEM_BYTES) return (int)cudaErrorInvalidValue;
+        cudaError_t err = cudaFuncSetAttribute(encoder_conv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               F_SMEM_BYTES);
+        if (err != cudaSuccess) return (int)err;
+        encoder_conv_kernel<<<blocks, THREADS, F_SMEM_BYTES, s>>>(
+            xmap, (const float*)x, (const float*)w_t, (const float*)bias, (const float*)aff, form, height, width,
+            tiles_x, tiles, (int)total, vec, (float*)y, (float*)partial);
     }
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess || stats == nullptr) return (int)err;
-    // The bf16 kernel writes one partial per (tile, warpgroup).
-    encoder_stats_kernel<<<dim3(2 * C, batch), STATS_THREADS, 0, s>>>((const float*)partial, bf16 ? 2 * tiles : tiles,
-                                                                      (float*)stats);
+    encoder_stats_runs_kernel<<<dim3(stat_runs, batch), STATS_THREADS, 0, s>>>((const float*)partial, 2 * tiles,
+                                                                                stat_runs, (double*)sums);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    encoder_stats_kernel<<<batch, STATS_THREADS, 0, s>>>((const double*)sums, stat_runs, (float*)stats);
     return (int)cudaGetLastError();
 }
 

@@ -16,10 +16,13 @@ tensor the kernel cannot take raises.
 
 `prefetch_corr_lookup` (config.prefetch_lookup, test mode) computes the
 lookup's function with the windowed kernel `csrc/corr_prefetch.cu`: each
-query's window of every level staged in shared memory, bit for bit the
-dense kernel's taps on every input, in the same four (level, tap) dtype
-pairs. It has no backward, as in JAX: it raises where autograd would
-record.
+query's window of every level fetched as 16-byte chunks into a per-warp
+ring in shared memory, runs of queries in flight while the previous run's
+taps are formed, bit for bit the dense kernel's taps on every input, in
+the same four (level, tap) dtype pairs. `prefetch_plan` chooses its path
+(the compile-time r = 4, 4-level instantiation, the generic one, or the
+element path for unaligned levels), run length, ring depth and grid. It
+has no backward, as in JAX: it raises where autograd would record.
 
 The lookup's gradient is `CorrLookup`, the counterpart of the JAX package's
 custom VJP of `pallas_corr_lookup_padded`: d(pyramid) from the tap cotangent
@@ -44,6 +47,7 @@ Not ported: the "alt" strategy's on-the-fly lookup.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -94,6 +98,15 @@ PYRAMID_WGMMA_BLOCKS_PER_SM = 1
 # csrc/corr_scatter.cu: the run of queries a block of 256 threads owns
 # (32-128 time within 2% of each other on the H100, PERF.md row 2).
 SCATTER_RUN = 64
+# csrc/corr_prefetch.cu: blocks of 8 warps (its __launch_bounds__ asks for
+# 3 per multiprocessor), a warp per run of queries; the compile-time
+# instantiation's radius and level count; a stage's coordinate bytes.
+PREFETCH_WARPS = 8
+PREFETCH_BLOCKS_PER_SM = 3
+PREFETCH_USUAL = (4, 4)
+PREFETCH_COORD_BYTES = 128
+PREFETCH_MAX_STAGES = 3
+PREFETCH_PATHS = {"usual": 0, "generic": 1, "element": 2}
 # H100 limit: the grid's x.
 MAX_GRID_X = 2**31 - 1
 INT32_MAX = 2**31 - 1
@@ -280,6 +293,96 @@ def scatter_plan(n_queries: int, widths: Sequence[int], radius: int, elem_bytes:
     return ScatterPlan(run, blocks, shared, wide, 16 // elem_bytes)
 
 
+class PrefetchPlan(NamedTuple):
+    """A launch of `csrc/corr_prefetch.cu`: kernel `path` ("usual": radius
+    4 and 4 levels at compile time; "generic": any radius and level count;
+    both stage each window's 16-byte chunks in a ring of `stages` per warp;
+    "element": each sample loaded by its tap, for levels whose base is not
+    16-byte aligned), `run` queries per warp run (run i covers queries
+    [i * run, min((i + 1) * run, n_queries))), window slots of `slot_bytes`,
+    `blocks` persistent blocks of PREFETCH_WARPS warps, warp w of the grid
+    taking runs w, w + warps, ..., and `shared_bytes` per block."""
+
+    path: str
+    run: int
+    stages: int
+    slot_bytes: int
+    blocks: int
+    shared_bytes: int
+
+
+def prefetch_chunks(radius: int, level_bytes: int) -> int:
+    """16-byte chunks that a window of 2r+3 samples of `level_bytes` can
+    span, at any of its alignments."""
+    v = 16 // level_bytes
+    return (2 * radius + 3 + v - 2) // v + 1
+
+
+def prefetch_run(levels: int, radius: int, out_bytes: int) -> int:
+    """Queries per warp run: the most whose (query, level) pairs fit a warp
+    and whose output span (run x L x (2r+1) taps of `out_bytes`) is a
+    multiple of 16 bytes, so every run's span starts 16-byte aligned; the
+    most that fit a warp if none is (the kernel then writes each span's
+    partial first and last chunks element by element)."""
+    most = 32 // levels
+    return next((q for q in range(most, 0, -1) if q * levels * (2 * radius + 1) * out_bytes % 16 == 0), most)
+
+
+def prefetch_shared_bytes(path: str, run: int, levels: int, radius: int, out_bytes: int, stages: int,
+                          slot_bytes: int) -> int:
+    """A block's shared bytes (`warp_bytes` of csrc/corr_prefetch.cu, times
+    its warps): per warp, `stages` stages of the run's coordinates and 32
+    window slots (none on the element path), then the output staging (the
+    run's taps and 16 bytes of room for the span's phase, rounded up to 16)."""
+    stage = PREFETCH_COORD_BYTES + (0 if path == "element" else 32 * slot_bytes)
+    ostage = -(-(run * levels * (2 * radius + 1) * out_bytes + 16) // 16) * 16
+    return PREFETCH_WARPS * (stages * stage + ostage)
+
+
+@functools.lru_cache(maxsize=256)
+def prefetch_plan(n_queries: int, widths: Sequence[int], radius: int, level_bytes: int, out_bytes: int,
+                  sms: int, aligned: bool = True) -> PrefetchPlan:
+    """The launch plan of the windowed lookup for `n_queries` queries of
+    levels `widths` (elements of `level_bytes`, 4 fp32 or 2 bf16) and taps
+    of `out_bytes` on a card of `sms` multiprocessors; `aligned`: every
+    level's base is 16-byte aligned. The staged paths need aligned levels
+    (their chunks count from the level's base): "usual" at radius 4 with 4
+    levels, "generic" otherwise, each with the deepest ring of 3 or 2
+    stages whose block fits the shared memory; the element path takes
+    unaligned levels and windows too large to stage. Row and output offsets
+    are 64-bit on every path, so levels past 2**31 elements need no other
+    one. Grid: one warp per run up to PREFETCH_BLOCKS_PER_SM blocks per
+    multiprocessor (fewer where the shared memory holds fewer). Raises for
+    what no instantiation takes."""
+    if level_bytes not in (2, 4) or out_bytes not in (2, 4):
+        raise ValueError(f"corr_prefetch kernel takes fp32 or bf16 levels and taps, got {level_bytes} and "
+                         f"{out_bytes} bytes")
+    levels = len(widths)
+    if not 1 <= levels <= MAX_LEVELS:
+        raise ValueError(f"corr_prefetch kernel takes 1..{MAX_LEVELS} levels, got {levels}")
+    if radius < 0 or n_queries < 0 or any(not 0 <= w < 2**24 for w in widths):
+        raise ValueError(f"corr_prefetch kernel: bad radius {radius}, queries {n_queries} or widths {tuple(widths)}")
+    run = prefetch_run(levels, radius, out_bytes)
+    path, stages, slot = "element", 1, 0
+    if aligned:
+        ch = prefetch_chunks(radius, level_bytes)
+        slot_bytes = 16 * (ch | 1)  # an odd count of chunks: 8 lanes' 16-byte reads hit distinct banks
+        staged = "usual" if (radius, levels) == PREFETCH_USUAL else "generic"
+        fits = [s for s in range(PREFETCH_MAX_STAGES, 1, -1)
+                if prefetch_shared_bytes(staged, run, levels, radius, out_bytes, s, slot_bytes)
+                <= _build.MAX_SHARED_BYTES]
+        if fits:
+            path, stages, slot = staged, fits[0], slot_bytes
+    shared = prefetch_shared_bytes(path, run, levels, radius, out_bytes, stages, slot)
+    if shared > _build.MAX_SHARED_BYTES:
+        raise ValueError(f"corr_prefetch kernel: a block of runs of {run} queries with {levels} levels at radius "
+                         f"{radius} needs {shared} shared bytes")
+    per_sm = min(PREFETCH_BLOCKS_PER_SM, _build.MAX_SHARED_BYTES // (shared + 1024))
+    runs = -(-n_queries // run)
+    blocks = min(-(-runs // PREFETCH_WARPS), sms * per_sm)
+    return PrefetchPlan(path, run, stages, slot, blocks, shared)
+
+
 def corr_state(fmap1: torch.Tensor, fmap2: torch.Tensor, levels: int,
                corr_dtype: torch.dtype = torch.float32) -> Tuple[torch.Tensor, ...]:
     """fmap1 (B, H, W1, D), fmap2 (B, H, W2, D) -> the L contiguous pyramid
@@ -357,7 +460,8 @@ def _pyramid_lib():
     return lib
 
 
-# The C signature of both lookup kernels, dense and windowed.
+# The C signature of the dense lookup kernel; the windowed one's adds its
+# plan (`_PREFETCH_ARGTYPES`).
 _LOOKUP_ARGTYPES = [
     ctypes.c_void_p,  # coords
     ctypes.c_void_p,  # host array of level pointers
@@ -372,11 +476,22 @@ _LOOKUP_ARGTYPES = [
 ]
 
 
-def _lookup_lib(source: str, entry: str, error_string: str):
+_PREFETCH_ARGTYPES = _LOOKUP_ARGTYPES[:-1] + [
+    ctypes.c_int,  # plan: path
+    ctypes.c_int,  # plan: queries per run
+    ctypes.c_int,  # plan: ring stages
+    ctypes.c_int,  # plan: window slot bytes
+    ctypes.c_int,  # plan: blocks
+    ctypes.c_int,  # plan: shared bytes
+    ctypes.c_void_p,  # stream
+]
+
+
+def _lookup_lib(source: str, entry: str, error_string: str, argtypes=_LOOKUP_ARGTYPES):
     lib = _build.load(source)
     fn = getattr(lib, entry)
     if fn.argtypes is None:
-        fn.argtypes = _LOOKUP_ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         getattr(lib, error_string).argtypes = [ctypes.c_int]
         getattr(lib, error_string).restype = ctypes.c_char_p
@@ -415,13 +530,13 @@ def _plain_lookup(levels, coords, radius, out_dtype):
     return taps if out_dtype is None else taps.to(out_dtype)
 
 
-def _launch_lookup(name, lib_names, levels, coords, radius, out_dtype=None) -> torch.Tensor:
-    """Check the operands of a lookup kernel (dense or windowed: one C
-    signature; `lib_names` = source, entry point, error-string function),
-    launch it on the current stream, count the launch under `name` (or
-    `name`_bf16 for bf16 levels or taps) and return its taps: fp32
-    coordinates, levels all of the first one's dtype (fp32 or bf16), output
-    in `out_dtype` (fp32 or bf16; None: fp32)."""
+def _launch_lookup(name, lib_names, levels, coords, radius, out_dtype=None, plan=None) -> torch.Tensor:
+    """Check the operands of a lookup kernel (dense, or windowed with its
+    `PrefetchPlan` `plan`; `lib_names` = source, entry point, error-string
+    function), launch it on the current stream, count the launch under
+    `name` (or `name`_bf16 for bf16 levels or taps) and return its taps:
+    fp32 coordinates, levels all of the first one's dtype (fp32 or bf16),
+    output in `out_dtype` (fp32 or bf16; None: fp32)."""
     out_dtype = torch.float32 if out_dtype is None else out_dtype
     if out_dtype not in _build.DTYPE_FLAGS or levels[0].dtype not in _build.DTYPE_FLAGS:
         raise ValueError(f"{name} kernel takes fp32 or bf16 levels and taps, got {levels[0].dtype} "
@@ -440,7 +555,9 @@ def _launch_lookup(name, lib_names, levels, coords, radius, out_dtype=None) -> t
     out = torch.empty((b, h, w1, len(levels) * (2 * radius + 1)), dtype=out_dtype, device=coords.device)
     ptrs = (ctypes.c_void_p * len(levels))(*[lvl.data_ptr() for lvl in levels])
     widths = (ctypes.c_int * len(levels))(*[lvl.shape[-1] for lvl in levels])
-    fn, error_string = _lookup_lib(*lib_names)
+    plan_args = () if plan is None else (PREFETCH_PATHS[plan.path], plan.run, plan.stages, plan.slot_bytes,
+                                         plan.blocks, plan.shared_bytes)
+    fn, error_string = _lookup_lib(*lib_names, argtypes=_LOOKUP_ARGTYPES if plan is None else _PREFETCH_ARGTYPES)
     status = fn(
         coords.data_ptr(),
         ctypes.cast(ptrs, ctypes.c_void_p),
@@ -451,11 +568,24 @@ def _launch_lookup(name, lib_names, levels, coords, radius, out_dtype=None) -> t
         out.data_ptr(),
         _build.DTYPE_FLAGS[levels[0].dtype],
         _build.DTYPE_FLAGS[out_dtype],
+        *plan_args,
         torch.cuda.current_stream(coords.device).cuda_stream,
     )
     _build.check(status, f"{name} kernel", error_string)
     LAUNCHES[f"{name}_bf16" if torch.bfloat16 in (levels[0].dtype, out_dtype) else name] += 1
     return out
+
+
+def prefetch_plan_for(levels: Sequence[torch.Tensor], coords: torch.Tensor, radius: int,
+                      out_dtype: Optional[torch.dtype] = None) -> PrefetchPlan:
+    """`prefetch_plan` for these CUDA levels and coordinates: the query
+    count, the levels' widths, element size and base alignment, the taps'
+    dtype (None: fp32) and the card's multiprocessors."""
+    out_dtype = torch.float32 if out_dtype is None else out_dtype
+    level_bytes = levels[0].element_size() if levels else 4  # no levels: prefetch_plan raises
+    return prefetch_plan(coords.numel(), tuple(lvl.shape[-1] for lvl in levels), radius, level_bytes,
+                         torch.finfo(out_dtype).bits // 8, _build.multiprocessors(coords.device.index),
+                         _build.aligned(levels))
 
 
 def prefetch_corr_lookup(state: Sequence[torch.Tensor], coords: torch.Tensor, radius: int,
@@ -475,7 +605,7 @@ def prefetch_corr_lookup(state: Sequence[torch.Tensor], coords: torch.Tensor, ra
         return _plain_lookup(levels, coords, radius, out_dtype)
     return _launch_lookup("corr_prefetch_lookup",
                           ("corr_prefetch", "raft_corr_prefetch", "raft_corr_prefetch_error_string"),
-                          levels, coords, radius, out_dtype)
+                          levels, coords, radius, out_dtype, prefetch_plan_for(levels, coords, radius, out_dtype))
 
 
 class CorrLookup(torch.autograd.Function):

@@ -27,9 +27,10 @@ the stored outputs. The join runs in the operand dtype.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version (`plain_conv`, `plain_join`) for CPU tensors; a CUDA tensor the
-kernel cannot take raises. The bf16 conv launches what `conv_plan` says:
-persistent blocks (one per multiprocessor of the card) and whether the
-tile comes by TMA with 16-byte stores or element by element. Test-mode only, as in JAX: there is no backward,
+kernel cannot take raises. Both conv kernels (fp32 FFMA, bf16 wgmma)
+launch what `conv_plan` says: persistent blocks (one per multiprocessor of
+the card) with the weights resident, and whether the raw tile comes by TMA
+with 16-byte stores or element by element. Test-mode only, as in JAX: there is no backward,
 so the wrappers refuse to run where autograd would record them. The TPU
 kernels' W-space-to-depth layout is not carried over, only their values.
 """
@@ -51,7 +52,18 @@ from raft_stereo_tpu_torch.ops import _build
 LAUNCHES = {"encoder_conv": 0, "encoder_join": 0, "encoder_conv_bf16": 0, "encoder_join_bf16": 0}
 FORMS = {"none": 0, "in": 1, "bn": 2}
 CHANNELS = 64  # layer1's width at every hidden_dims; the conv kernel is built for it
-TILE_H, TILE_W = 8, 32  # csrc/encoder_conv.cu TILE_H, TILE_W
+TILE_H, TILE_W = 8, 32  # csrc/encoder_conv.cu TILE_H, TILE_W: the bf16 kernel's tile
+# The fp32 kernel (F_* of csrc/encoder_conv.cu): 8 x 64 tiles, persistent
+# blocks of 256 threads, one per multiprocessor; shared memory: 128 bytes of
+# alignment slack, the raw TMA box (8 channels x 10 rows x 72 pixels), the
+# resident (Ci, 3, 3, Co) weights, two (8+2) x (64+2) patch slots of 8
+# channels (row stride 68) and the box's barrier (16 bytes).
+CONV_F32_TILE_W = 64
+CONV_F32_SHARED_BYTES = 128 + 4 * (8 * (TILE_H + 2) * (CONV_F32_TILE_W + 8) + CHANNELS * 9 * CHANNELS
+                                   + 2 * 8 * (TILE_H + 2) * 68) + 16
+# The statistics pass (STATS_RUN of csrc/encoder_conv.cu): its first launch
+# sums runs of this many partials (two per tile) per image.
+CONV_STATS_RUN = 256
 # The bf16 kernel (WC_* of csrc/encoder_conv.cu): persistent blocks of 384
 # threads, one per multiprocessor; shared memory: 1024 bytes of alignment
 # slack, the nine taps' 64 x 64 bf16 weights, two (8+2) x (32+2) halo
@@ -65,35 +77,42 @@ CONV_SHARED_BYTES = (1024 + 9 * CHANNELS * CHANNELS * 2 + 2 * (TILE_H + 2) * (TI
 
 
 class ConvPlan(NamedTuple):
-    """A launch of the bf16 conv kernel: `blocks` persistent blocks walk the
+    """A launch of a conv kernel: `blocks` persistent blocks walk the
     (batch, tile) list, tile t = (b, ty, tx) with t = b * tiles + ty *
     tiles_x + tx, blocks taking t, t + blocks, ...; `vec`: the raw tile by
-    TMA and 16-byte stores along W."""
+    TMA and 16-byte stores along W; `stat_runs`: the statistics pass's runs
+    of CONV_STATS_RUN partials per image."""
 
     tiles_x: int
     tiles: int
     blocks: int
     shared_bytes: int
     vec: bool
+    stat_runs: int
 
 
-def conv_plan(b: int, h: int, w: int, sms: int, aligned: bool = True) -> ConvPlan:
-    """The bf16 conv kernel's plan for x (b, 64, h, w) on a card of `sms`
-    multiprocessors: 8 x 32 tiles per image, one block per multiprocessor
-    up to the tile count, the raw tile by TMA and 16-byte stores where W is
-    a multiple of 8 and x and y start 16-byte aligned (`aligned`; a tensor
-    map's strides and base must be multiples of 16 bytes), element by
-    element otherwise. Raises for what the kernel does not take."""
+def conv_plan(b: int, h: int, w: int, sms: int, aligned: bool = True, elem_bytes: int = 2) -> ConvPlan:
+    """The conv kernel's plan for x (b, 64, h, w) of `elem_bytes` (2: the
+    bf16 wgmma kernel, 8 x 32 tiles; 4: the fp32 FFMA kernel, 8 x 64 tiles)
+    on a card of `sms` multiprocessors: one block per multiprocessor up to
+    the tile count, the raw tile by TMA and 16-byte stores where a row is a
+    multiple of 16 bytes (W a multiple of 8 in bf16, of 4 in fp32) and x
+    and y start 16-byte aligned (`aligned`; a tensor map's strides and base
+    must be multiples of 16 bytes), element by element otherwise. Raises
+    for what the kernels do not take."""
+    if elem_bytes not in (2, 4):
+        raise ValueError(f"encoder_conv kernel takes fp32 or bf16 (4 or 2 bytes), got {elem_bytes}")
     if min(b, h, w) < 0 or b > 65535:
         raise ValueError(f"encoder_conv kernel: bad shape {(b, h, w)}")
-    tiles_x = -(-w // TILE_W)
+    tiles_x = -(-w // (TILE_W if elem_bytes == 2 else CONV_F32_TILE_W))
     tiles = tiles_x * -(-h // TILE_H)
     if b * tiles > 2**31 - 1:
         raise ValueError(f"encoder_conv kernel: {b * tiles} tiles exceed int32")
-    if CONV_SHARED_BYTES > _build.MAX_SHARED_BYTES:
-        raise ValueError(f"encoder_conv kernel: {CONV_SHARED_BYTES} shared bytes exceed {_build.MAX_SHARED_BYTES}")
-    return ConvPlan(tiles_x, tiles, min(b * tiles, sms * CONV_BLOCKS_PER_SM), CONV_SHARED_BYTES,
-                    aligned and w % 8 == 0)
+    shared = CONV_SHARED_BYTES if elem_bytes == 2 else CONV_F32_SHARED_BYTES
+    if shared > _build.MAX_SHARED_BYTES:
+        raise ValueError(f"encoder_conv kernel: {shared} shared bytes exceed {_build.MAX_SHARED_BYTES}")
+    return ConvPlan(tiles_x, tiles, min(b * tiles, sms * CONV_BLOCKS_PER_SM), shared,
+                    aligned and w % (16 // elem_bytes) == 0, -(-2 * tiles // CONV_STATS_RUN))
 
 
 def apply_affine(x: torch.Tensor, aff: Optional[torch.Tensor], form: str) -> torch.Tensor:
@@ -151,8 +170,8 @@ def _conv_lib():
         lib.raft_encoder_conv.argtypes = (
             [ctypes.c_void_p] * 4  # x, weight (Ci, 3, 3, Co), bias, aff or NULL
             + [ctypes.c_int] * 4  # form, batch, H, W
-            + [ctypes.c_void_p] * 3  # y, partial sums or NULL, stats or NULL
-            + [ctypes.c_int] * 4  # bf16; plan (bf16): blocks, shared bytes, vec
+            + [ctypes.c_void_p] * 4  # y, partial sums, their double runs, stats (the last three or NULL)
+            + [ctypes.c_int] * 5  # bf16; plan: blocks, shared bytes, vec, statistics runs
             + [ctypes.c_void_p]  # stream
         )
         lib.raft_encoder_conv.restype = ctypes.c_int
@@ -226,26 +245,32 @@ def fused_conv(x, weight, bias, aff: Optional[torch.Tensor], form: str = "none",
     bias = _rounded(bias, x.dtype)
     aff = None if aff is None else _rounded(aff, x.dtype)
     y = torch.empty_like(x)
-    plan = ConvPlan(0, 0, 0, 0, False)
-    if x.dtype == torch.bfloat16:
-        plan = conv_plan(b, h, w, _build.multiprocessors(x.device.index), _build.aligned((x, y)))
-    stats = partial = None
+    plan = conv_plan_for(x, y)
+    stats = partial = sums = None
     if emit_stats:
-        # One partial per tile, or (bf16) per tile and consumer warpgroup.
-        parts = -(-h // TILE_H) * -(-w // TILE_W) * (2 if x.dtype == torch.bfloat16 else 1)
-        partial = torch.empty((b, parts, 2, CHANNELS), dtype=torch.float32, device=x.device)
+        # Two partials per tile (bf16: one per consumer warpgroup; fp32: one
+        # per column half), summed in runs in double, then per image.
+        partial = torch.empty((b, 2 * plan.tiles, 2, CHANNELS), dtype=torch.float32, device=x.device)
+        sums = torch.empty((b, plan.stat_runs, 2, CHANNELS), dtype=torch.float64, device=x.device)
         stats = torch.empty((b, 2, CHANNELS), dtype=torch.float32, device=x.device)
     lib = _conv_lib()
     status = lib.raft_encoder_conv(
         x.data_ptr(), w_t.data_ptr(), bias.data_ptr(), 0 if aff is None else aff.data_ptr(),
         FORMS[form], b, h, w, y.data_ptr(),
-        0 if partial is None else partial.data_ptr(), 0 if stats is None else stats.data_ptr(),
-        _build.DTYPE_FLAGS[x.dtype], plan.blocks, plan.shared_bytes, int(plan.vec),
+        *(0 if t is None else t.data_ptr() for t in (partial, sums, stats)),
+        _build.DTYPE_FLAGS[x.dtype], plan.blocks, plan.shared_bytes, int(plan.vec), plan.stat_runs,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(status, "encoder_conv kernel", lib.raft_encoder_conv_error_string)
     LAUNCHES["encoder_conv_bf16" if x.dtype == torch.bfloat16 else "encoder_conv"] += 1
     return y, stats
+
+
+def conv_plan_for(x: torch.Tensor, y: torch.Tensor) -> ConvPlan:
+    """`conv_plan` for CUDA x and y (B, 64, H, W) of one dtype: their shape,
+    element size and alignment and their card's multiprocessors."""
+    b, _, h, w = x.shape
+    return conv_plan(b, h, w, _build.multiprocessors(x.device.index), _build.aligned((x, y)), x.element_size())
 
 
 def fused_join(skip, y, aff_y, y_form: str, aff_skip: Optional[torch.Tensor] = None,

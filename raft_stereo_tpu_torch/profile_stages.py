@@ -106,9 +106,8 @@ LEVERS = {"off": ({}, False), "prefetch_lookup": ({"prefetch_lookup": True}, Fal
           "fused_gru_tail": ({"fused_gru_tail": True}, False), "gates": ({}, True)}
 FAMILIES = (
     ("port kernels", ("corr_lookup_kernel", "corr_scatter_kernel", "gru_tail_", "motion_tail_kernel",
-                      "corr_pyramid_kernel", "encoder_conv_kernel", "encoder_stats_kernel", "join_kernel",
-                      "corr_prefetch_kernel", "gates_rh_kernel", "gates_combine_kernel", "corr_pyramid_mma_kernel",
-                      "encoder_conv_mma_kernel")),
+                      "corr_pyramid_", "encoder_conv_", "encoder_stats_", "join_kernel", "corr_prefetch_kernel",
+                      "gates_rh_kernel", "gates_combine_kernel")),
     ("convolution", ("conv", "xmma", "cutlass", "implicit", "winograd", "gemm", "sm90", "fft")),
     ("copy / layout", ("copy", "transpose", "nchw", "nhwc", "cat", "memcpy", "memset", "fill")),
 )

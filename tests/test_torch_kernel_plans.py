@@ -508,3 +508,204 @@ def test_bf16_conv_plan_shared_bytes_and_vector_width():
         encoder_cuda.conv_plan(-1, 8, 8, SMS)
     with pytest.raises(ValueError, match="shape"):
         encoder_cuda.conv_plan(65536, 8, 8, SMS)
+
+
+# -- the windowed lookup (ops/corr_cuda.py `prefetch_plan`) --------------------
+
+MIDDLEBURY_WIDTHS = (720, 360, 180, 90)
+
+
+def warp_runs(plan, n_queries):
+    """The runs each warp of the grid takes, as csrc/corr_prefetch.cu walks
+    them: warp w of blocks x PREFETCH_WARPS takes runs w, w + warps, ..."""
+    warps = plan.blocks * corr_cuda.PREFETCH_WARPS
+    n_runs = -(-n_queries // plan.run)
+    return [list(range(w, n_runs, warps)) for w in range(warps)]
+
+
+@pytest.mark.parametrize("n_queries, widths, radius", [
+    (128 * 192, [192, 96, 48, 24], 4), (496 * 720, MIDDLEBURY_WIDTHS, 4), (48 * 156, [156, 78, 39, 19], 4),
+    (63, [37, 18, 9, 4], 4), (128 * 192, [192, 96], 2), (1, [5], 0), (1000, [64] * 7, 0), (0, [8, 4], 4)])
+@pytest.mark.parametrize("level_bytes", [4, 2])
+def test_prefetch_plan_runs_cover_every_query_once_in_order(n_queries, widths, radius, level_bytes):
+    """Every query lies in exactly one run of one warp, a run's queries are
+    consecutive, and each warp takes its runs in increasing order; the grid
+    holds at most PREFETCH_BLOCKS_PER_SM blocks per multiprocessor."""
+    for sms in (SMS, 7):
+        plan = corr_cuda.prefetch_plan(n_queries, tuple(widths), radius, level_bytes, 4, sms)
+        assert plan.run * len(widths) <= 32
+        assert plan.blocks <= sms * corr_cuda.PREFETCH_BLOCKS_PER_SM
+        seen = np.zeros(n_queries, np.int32)
+        for runs in warp_runs(plan, n_queries):
+            assert runs == sorted(runs)
+            for r in runs:
+                seen[r * plan.run:min((r + 1) * plan.run, n_queries)] += 1
+        assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("radius, levels", [(4, 4), (2, 2), (4, 1), (0, 8), (12, 3), (40, 2)])
+@pytest.mark.parametrize("level_bytes, out_bytes", [(4, 4), (4, 2), (2, 4), (2, 2)])
+def test_prefetch_plan_shared_bytes_and_slots(radius, levels, level_bytes, out_bytes):
+    """A block's shared bytes fit the H100's 227 KB with the ring the plan
+    names: per warp `stages` stages of the run's coordinates and 32 window
+    slots, then the output staging (the run's taps plus 16 bytes of room,
+    rounded to 16). A slot holds the chunks a window of 2r+3 samples can
+    span at any alignment (brute force), as an odd count of 16-byte
+    chunks; the usual (r = 4, 4 levels) fp32 slot is 80 bytes, bf16 48."""
+    plan = corr_cuda.prefetch_plan(496 * 720, tuple(720 >> l for l in range(levels)), radius, level_bytes, out_bytes,
+                                   SMS)
+    assert plan.shared_bytes <= _build.MAX_SHARED_BYTES
+    n, v = 2 * radius + 3, 16 // level_bytes
+    spans = max((phase + n - 1) // v + 1 for phase in range(v))
+    assert corr_cuda.prefetch_chunks(radius, level_bytes) == spans
+    if plan.path != "element":
+        assert plan.slot_bytes == 16 * (spans | 1) and plan.stages in (2, 3)
+        stage = corr_cuda.PREFETCH_COORD_BYTES + 32 * plan.slot_bytes
+    else:
+        assert plan.stages == 1 and plan.slot_bytes == 0
+        stage = corr_cuda.PREFETCH_COORD_BYTES
+    taps_bytes = plan.run * levels * (2 * radius + 1) * out_bytes
+    assert plan.shared_bytes == corr_cuda.PREFETCH_WARPS * (plan.stages * stage + -(-(taps_bytes + 16) // 16) * 16)
+    if (radius, levels) == (4, 4):
+        assert (plan.path, plan.run, plan.stages, plan.slot_bytes) == ("usual", 8, 3, 80 if level_bytes == 4 else 48)
+
+
+def span_chunks(start_bytes: int, n: int, elem_bytes: int):
+    """How csrc/corr_prefetch.cu's `copy_out` writes a run's span of n
+    elements starting `start_bytes` into the output: ph elements of room,
+    then whole 16-byte chunks as vectors and the partial first and last
+    chunks element by element. Returns (element writes, vector writes) as
+    lists of element indices of the span."""
+    v = 16 // elem_bytes
+    ph = (start_bytes % 16) // elem_bytes
+    scalar, vector = [], []
+    for c in range(-(-(ph + n) // v)):
+        e0 = c * v
+        if e0 >= ph and e0 + v <= ph + n:
+            vector.extend(range(e0 - ph, e0 - ph + v))
+        else:
+            scalar.extend(range(max(e0, ph) - ph, min(e0 + v, ph + n) - ph))
+    return scalar, vector
+
+
+@pytest.mark.parametrize("levels, radius, out_bytes", [(4, 4, 4), (4, 4, 2), (2, 2, 4), (2, 2, 2), (3, 4, 4),
+                                                       (7, 0, 2), (5, 1, 2)])
+def test_prefetch_plan_output_spans(levels, radius, out_bytes):
+    """Every run's output span starts 16-byte aligned where a run length
+    makes the span a multiple of 16 bytes (then only the last, partial run
+    has a scalar tail); where none does (7 levels of 1 bf16 tap: 14 bytes a
+    query, at most 4 queries a run; 5 levels of 3 bf16 taps: 30 bytes, at
+    most 6), the spans take a scalar head and tail. Either way every output
+    element is written exactly once."""
+    n_queries = 1001
+    plan = corr_cuda.prefetch_plan(n_queries, tuple(64 >> l for l in range(levels)), radius, 4, out_bytes, SMS)
+    per_query = levels * (2 * radius + 1)
+    aligned_runs = plan.run * per_query * out_bytes % 16 == 0
+    assert aligned_runs == ((levels, radius, out_bytes) not in ((7, 0, 2), (5, 1, 2)))
+    if (levels, radius) == (4, 4):
+        assert plan.run == 8
+    written = np.zeros(n_queries * per_query, np.int32)
+    for r in range(-(-n_queries // plan.run)):
+        q0 = r * plan.run
+        n = min(plan.run, n_queries - q0) * per_query
+        scalar, vector = span_chunks(q0 * per_query * out_bytes, n, out_bytes)
+        if aligned_runs and q0 + plan.run <= n_queries:
+            assert scalar == []
+        for e in scalar + vector:
+            written[q0 * per_query + e] += 1
+    assert (written == 1).all()
+
+
+def test_prefetch_plan_paths():
+    """The plan's path: the compile-time instantiation for radius 4 with 4
+    levels, the generic one for other radii and level counts (the model's
+    configuration at radius 2 with 2 levels; 4 levels at radius 3), both
+    only for 16-byte-aligned levels; an unaligned level (a view at an odd
+    offset) takes the element path; levels past 2**31 elements (9
+    Middlebury-F images) take the usual path, whose offsets are 64-bit, with
+    the full persistent grid; a window too large to stage takes the element
+    path."""
+    n = 496 * 720
+    assert corr_cuda.prefetch_plan(n, MIDDLEBURY_WIDTHS, 4, 4, 4, SMS).path == "usual"
+    assert corr_cuda.prefetch_plan(n, MIDDLEBURY_WIDTHS, 4, 2, 2, SMS).path == "usual"
+    assert corr_cuda.prefetch_plan(n, (720, 360), 2, 4, 4, SMS).path == "generic"
+    assert corr_cuda.prefetch_plan(n, MIDDLEBURY_WIDTHS, 3, 4, 4, SMS).path == "generic"
+    assert corr_cuda.prefetch_plan(n, MIDDLEBURY_WIDTHS[:3], 4, 2, 4, SMS).path == "generic"
+    for level_bytes in (4, 2):
+        plan = corr_cuda.prefetch_plan(n, MIDDLEBURY_WIDTHS, 4, level_bytes, 4, SMS, aligned=False)
+        assert (plan.path, plan.stages, plan.slot_bytes) == ("element", 1, 0)
+    big = 9 * n
+    assert big * 720 > 2**31
+    plan = corr_cuda.prefetch_plan(big, MIDDLEBURY_WIDTHS, 4, 4, 4, SMS)
+    assert plan.path == "usual" and plan.blocks == SMS * corr_cuda.PREFETCH_BLOCKS_PER_SM
+    assert corr_cuda.prefetch_plan(100, (4096,) * 4, 60, 4, 4, SMS).path == "element"
+
+
+def test_prefetch_plan_raises_for_what_no_instantiation_takes():
+    with pytest.raises(ValueError, match="levels"):
+        corr_cuda.prefetch_plan(10, (), 4, 4, 4, SMS)
+    with pytest.raises(ValueError, match="levels"):
+        corr_cuda.prefetch_plan(10, (8,) * (corr_cuda.MAX_LEVELS + 1), 4, 4, 4, SMS)
+    with pytest.raises(ValueError, match="radius"):
+        corr_cuda.prefetch_plan(10, (8, 4), -1, 4, 4, SMS)
+    with pytest.raises(ValueError, match="widths"):
+        corr_cuda.prefetch_plan(10, (2**24,), 4, 4, 4, SMS)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        corr_cuda.prefetch_plan(10, (8,), 4, 8, 4, SMS)
+    with pytest.raises(ValueError, match="shared bytes"):
+        corr_cuda.prefetch_plan(10, (8000,), 4000, 4, 4, SMS)
+
+
+# -- the fp32 conv (ops/encoder_cuda.py `conv_plan`, elem_bytes 4) -------------
+
+@pytest.mark.parametrize("b, h, w", [(1, 512, 768), (2, 512, 768), (1, 384, 512), (2, 13, 70), (2, 192, 624),
+                                     (1, 20, 66), (3, 9, 65), (0, 8, 64)])
+def test_fp32_conv_plan_walks_every_tile_once(b, h, w):
+    """The fp32 conv's persistent blocks: one per multiprocessor up to the
+    tile count; walking t, t + blocks, ... they cover every (batch, 8 x 64
+    tile) exactly once, and the tiles cover the image; the statistics pass
+    sums two partials per tile in runs of CONV_STATS_RUN."""
+    from raft_stereo_tpu_torch.ops import encoder_cuda
+    for sms in (SMS, 114, 5):
+        plan = encoder_cuda.conv_plan(b, h, w, sms, elem_bytes=4)
+        assert plan.tiles_x == -(-w // 64) and plan.tiles == plan.tiles_x * -(-h // 8)
+        total = b * plan.tiles
+        assert plan.blocks == min(total, sms * encoder_cuda.CONV_BLOCKS_PER_SM)
+        assert plan.stat_runs == -(-2 * plan.tiles // encoder_cuda.CONV_STATS_RUN)
+        seen = np.zeros(total, np.int32)
+        for block in range(plan.blocks):
+            seen[block::plan.blocks] += 1
+        assert (seen == 1).all()
+        if b and h and w:
+            cover = np.zeros((h, w), np.int32)
+            for tile in range(plan.tiles):
+                y0, x0 = (tile // plan.tiles_x) * 8, (tile % plan.tiles_x) * 64
+                cover[y0:y0 + 8, x0:x0 + 64] += 1
+            assert (cover == 1).all()
+
+
+def test_fp32_conv_plan_shared_bytes_and_path():
+    """Shared memory: 128 bytes of alignment slack, the raw TMA box (8
+    channels x 10 rows x 72 pixels), the resident (64, 3, 3, 64) weights,
+    two (8+2) x (64+2) patch slots of 8 channels at row stride 68 (4 mod
+    32: rows 16-byte aligned, and a quarter warp's 16-byte reads, 2 rows x
+    4 column groups of 8, hit 8 distinct bank groups) and a 16-byte
+    barrier: within the H100's 232,448. The TMA raw box and 16-byte stores only where W is
+    a multiple of 4 (a tensor map's row stride is a multiple of 16 bytes)
+    and x and y start 16-byte aligned; the element path otherwise."""
+    from raft_stereo_tpu_torch.ops import encoder_cuda
+    want = 128 + 4 * (8 * 10 * 72 + 64 * 9 * 64 + 2 * 8 * 10 * 68) + 16
+    assert 72 * 4 % 16 == 0 and 68 % 4 == 0
+    assert len({(68 * row + 8 * q) // 4 % 8 for row in (0, 1) for q in range(4)}) == 8
+    assert encoder_cuda.CONV_F32_SHARED_BYTES == want == 214160 <= _build.MAX_SHARED_BYTES
+    plan = encoder_cuda.conv_plan(1, 512, 768, SMS, elem_bytes=4)
+    assert plan.shared_bytes == want and plan.vec
+    assert encoder_cuda.conv_plan(2, 192, 624, SMS, elem_bytes=4).vec
+    assert encoder_cuda.conv_plan(1, 20, 68, SMS, elem_bytes=4).vec
+    assert not encoder_cuda.conv_plan(1, 512, 768, SMS, aligned=False, elem_bytes=4).vec
+    assert not encoder_cuda.conv_plan(2, 13, 70, SMS, elem_bytes=4).vec
+    assert not encoder_cuda.conv_plan(2, 20, 66, SMS, elem_bytes=4).vec
+    # The bf16 kernel's plan is the default and unchanged by the fp32 one.
+    assert encoder_cuda.conv_plan(2, 20, 68, SMS) == encoder_cuda.conv_plan(2, 20, 68, SMS, elem_bytes=2)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        encoder_cuda.conv_plan(1, 8, 8, SMS, elem_bytes=8)
