@@ -244,6 +244,12 @@ PREFETCH_PATH_CASES = (
 # 4 bytes past a 16-byte boundary). Both buckets' full resolution, ragged
 # tiles (H % 8 != 0, W % 64 != 0), rows that no TMA box takes (W % 4 != 0)
 # and an unaligned input take the plan's two branches.
+# The dense lookup's plan branches on the card (`[kernels]`,
+# `[bf16-kernels]`, `[bf16-lever-kernels]`): the windowed kernel's cases,
+# since both entry points launch the one kernel of csrc/corr_window.cuh,
+# and the bf16 training step's 1/4 (4 x 80 x 180, W2 180).
+DENSE_PATH_CASES = PREFETCH_PATH_CASES + (("bf16 training step 1/4, batch 4", (4, 80, 180, 180, 4, 4, False)),)
+COORD_FAMILIES = ("smooth", "edge", "special", "uniform")
 FP32_CONV_SHAPES = (((384, 512), False), ((512, 768), False), ((13, 70), False), ((192, 624), False),
                     ((20, 68), False), ((20, 66), False), ((64, 128), True))
 FP32_CONV_BRANCHES = {True: "TMA raw box, 16-byte stores", False: "element by element"}
@@ -273,15 +279,17 @@ FP32_FLOPS_PER_S = 67e12
 BF16_TENSOR_FLOPS_PER_S = 989e12  # dense
 
 # Tolerances. The kernels are compiled with -fmad=false and round where the
-# plain versions round, so the lookup and motion tail are expected to agree
-# exactly; the GRU tail may differ in the last ulp of expf/tanhf.
+# plain versions round, so the lookups and the motion tail agree exactly
+# (the lookups by value: a zero tap out of range is +0 in the kernel and
+# may be -0 in the plain version; the motion tail bit for bit); the GRU
+# tail may differ in the last ulp of expf/tanhf.
 # The join is built the same way and must agree exactly. The conv and the
 # pyramid build need not sum in cuDNN's and cuBLAS's order (they may pick
 # other algorithms on another card or version), so their tolerances are
 # stated for unit-scale inputs (weights scaled by 1/sqrt(9*64), so y is
 # unit-scale too; the volume's dot products are divided by sqrt(D)).
 # The conv statistics are held relative to sum|y| and sum y^2 per channel.
-TOL = {"corr_lookup": 1e-5, "gru_tail": 1e-6, "motion_tail": 0.0,
+TOL = {"corr_lookup": 0.0, "gru_tail": 1e-6, "motion_tail": 0.0,
        "corr_pyramid": 2e-5, "encoder_conv": 1e-4, "encoder_join": 0.0, "corr_scatter": 0.0,
        "corr_prefetch_lookup": 0.0, "gates_rh": 1e-6, "gates_combine": 1e-6}
 STATS_REL_TOL = 1e-5
@@ -484,13 +492,16 @@ def lookup_sector_bytes(pyramid, coords, radius, out_bytes=4) -> int:
     return total
 
 
-def lookup_bounds(pyramid, coords, radius, out_bytes=4) -> str:
+def lookup_bounds(pyramid, coords, radius, out_bytes=4, alone=None) -> str:
     """The lookup's counted bound and its bound at sector granularity, as
-    `[timing]` prints them beside a lookup's time."""
+    `[timing]` prints them beside a lookup's time; with `alone` (a kernel's
+    device time, ms), that time's share of each."""
     counted = lookup_bytes(pyramid, coords, radius, out_bytes)
     sectors = lookup_sector_bytes(pyramid, coords, radius, out_bytes)
-    return (f"bound {counted / HBM_BYTES_PER_S * 1e3:.4f} ms ({counted} B counted), at 32-byte sectors "
-            f"{sectors / HBM_BYTES_PER_S * 1e3:.4f} ms ({sectors} B)")
+    t_counted, t_sectors = counted / HBM_BYTES_PER_S * 1e3, sectors / HBM_BYTES_PER_S * 1e3
+    shares = "" if alone is None else f"; alone at {t_counted / alone:.0%} and {t_sectors / alone:.0%} of them"
+    return (f"bound {t_counted:.4f} ms ({counted} B counted), at 32-byte sectors {t_sectors:.4f} ms ({sectors} B)"
+            f"{shares}")
 
 
 def grid_sample_lookup_inputs(pyramid, coords, radius):
@@ -583,21 +594,39 @@ def time_ms(fn, reps=30, flush=None) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def kernel_ms(fn, names, flush, reps=20) -> float:
+def kernel_ms(fn, names, flush, reps=20, tries=3):
     """Mean device time of the kernels whose name contains one of `names`
     in one call of `fn`, by torch.profiler (L2 flushed before each call):
     the wrapper's kernels alone, without the host's launch gaps that
-    `time_ms` also sees."""
+    `time_ms` also sees. A trace can come back without them (seen once on
+    the card late in a long run): it is taken again, up to `tries` times,
+    and None means not measured."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.device_time_total for e in prof.key_averages() if any(n in e.key for n in names)) / 1e3 / reps
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        total = sum(e.device_time_total for e in events if any(n in e.key for n in names))
+        if total > 0:
+            return total / 1e3 / reps
+    log(f"[timing] no device time for {names} in {tries} traces; they held {[e.key[:60] for e in events][:6]}")
+    return None
+
+
+def alone_text(t) -> str:
+    """A `kernel_ms` time as printed: ms, or "not measured"."""
+    return "not measured" if t is None else f"{t:.4f}"
+
+
+def share_text(bound, t) -> str:
+    """`bound` over a `kernel_ms` time, as a percentage, or "not measured"."""
+    return "not measured" if t is None else f"{bound / t:.0%}"
 
 
 # -- phases --------------------------------------------------------------------
@@ -621,12 +650,15 @@ def phase_kernels(gen) -> dict:
         pyramid, coords = lookup_inputs(gen, 1, hh // 4, ww // 4, ww // 4)
         got = corr_cuda.corr_lookup(pyramid, coords, 4)
         torch.cuda.synchronize()
-        err = max_err(got, corr.corr_lookup(pyramid, coords, 4))
+        want = corr.corr_lookup(pyramid, coords, 4)
+        err = max_err(got, want)
         log(f"[kernels] corr_lookup {hh}x{ww} (queries {hh // 4}x{ww // 4}, W2 {ww // 4}): "
             f"max abs diff {err:.3e} (tol {TOL['corr_lookup']:g})")
-        if not err <= TOL["corr_lookup"]:
+        if not taps_exact(got, want):
             raise AssertionError(f"corr_lookup disagrees with its plain version at {hh}x{ww}: {err}")
         errs["corr_lookup"] = max(errs.get("corr_lookup", 0.0), err)
+    errs["corr_lookup"] = max(errs["corr_lookup"],
+                              dense_lookup_paths(gen, "kernels", ((torch.float32, torch.float32),))["corr_lookup"])
     # The tails at the GRU's three scales of the 512x768 bucket and of
     # Middlebury-F (where each thread of the capped grid strides ~11 times).
     for hh, ww in cases[1:]:
@@ -645,12 +677,26 @@ def phase_kernels(gen) -> dict:
         pre, flow = motion_inputs(gen, hh // 4, ww // 4)
         got = gru_tail.fused_motion_tail(pre, flow)
         torch.cuda.synchronize()
-        err = max_err(got, gru_tail.plain_motion_tail(pre, flow))
+        want = gru_tail.plain_motion_tail(pre, flow)
+        err = max_err(got, want)
+        bitwise = bitwise_equal(got, want)
         log(f"[kernels] motion_tail 126x{hh // 4}x{ww // 4}: max abs diff {err:.3e} "
-            f"(tol {TOL['motion_tail']:g})")
-        if not err <= TOL["motion_tail"]:
+            f"(tol {TOL['motion_tail']:g}), bitwise {bitwise}")
+        if not err <= TOL["motion_tail"] or not bitwise:
             raise AssertionError(f"motion_tail disagrees with its plain version at {hh}x{ww}: {err}")
         errs["motion_tail"] = max(errs.get("motion_tail", 0.0), err)
+    # The plane grid's scalar path (odd H*W) and a batch of 2.
+    for b, h, w in ((2, 7, 9), (2, 48, 156), (2, 63, 1)):
+        pre = torch.randn((b, 126, h, w), generator=gen, device=DEVICE)
+        flow = torch.randn((b, 1, h, w), generator=gen, device=DEVICE)
+        got = gru_tail.fused_motion_tail(pre, flow)
+        torch.cuda.synchronize()
+        plan = gru_tail.motion_tail_plan(b, 126, h * w, 4, _build.multiprocessors(0), (h * w) % 4 == 0)
+        bitwise = bitwise_equal(got, gru_tail.plain_motion_tail(pre, flow))
+        log(f"[kernels] motion_tail b{b} 126x{h}x{w} (plan: {plan.unit}-element units, {plan.per_thread} per "
+            f"thread, grid {plan.grid}): bitwise {bitwise}")
+        if not bitwise:
+            raise AssertionError(f"motion_tail disagrees with its plain version at b{b} {h}x{w}")
     return errs
 
 
@@ -1338,6 +1384,53 @@ def exact_err(a, b) -> float:
     return max_err(a.masked_fill(nan_a, 0.0), b.masked_fill(nan_b, 0.0))
 
 
+def taps_exact(got, want) -> bool:
+    """The lookup's check against its plain version: the same dtype and
+    shape, NaN in the same places and equal values elsewhere."""
+    return got.dtype == want.dtype and got.shape == want.shape and exact_err(got.float(), want.float()) == 0.0
+
+
+def dense_lookup_paths(gen, tag, pairs) -> dict:
+    """The dense lookup (`corr_cuda.corr_lookup`, csrc/corr_lookup.cu) on
+    every plan branch of `prefetch_plan` (usual, generic, element) at every
+    DENSE_PATH_CASES entry and coordinate family, in the (level, tap) dtype
+    `pairs`: exact against the plain version followed by one cast (NaN in
+    the same places); the last query's coordinate is W2 - 1.5, so its
+    window reaches the end of the level's allocation. Logs each case's
+    branch under `tag` and fails unless every branch ran. Returns the max
+    abs diff of the fp32 pair and of the pairs with a bf16 side."""
+    errs = {"corr_lookup": 0.0, "corr_lookup_bf16": 0.0}
+    branches = set()
+    for label, (b, h, w1, w2, levels, radius, offset) in DENSE_PATH_CASES:
+        base = tuple(torch.randn((b, h, w1, w2 >> l), generator=gen, device=DEVICE) for l in range(levels))
+        for family in COORD_FAMILIES:
+            coords = prefetch_coords(gen, family, b, h, w1, w2)
+            coords.view(-1)[-1] = w2 - 1.5
+            for level_dtype, out_dtype in pairs:
+                lvls = tuple((offset_view(gen, lvl.shape, level_dtype) if offset else lvl.to(level_dtype))
+                             for lvl in base)
+                plan = corr_cuda.prefetch_plan_for(lvls, coords, radius, out_dtype)
+                got = corr_cuda.corr_lookup(lvls, coords, radius, out_dtype)
+                torch.cuda.synchronize()
+                want = corr.corr_lookup(lvls, coords, radius).to(out_dtype)
+                e = exact_err(got.float(), want.float())
+                key = "corr_lookup_bf16" if BF16 in (level_dtype, out_dtype) else "corr_lookup"
+                errs[key] = max(errs[key], e)
+                branches.add(plan.path)
+                if not taps_exact(got, want):
+                    raise AssertionError(f"the dense lookup disagrees with its plain version at {label} {family} "
+                                         f"({level_dtype}, {out_dtype}; plan {plan}): {e}")
+        log(f"[{tag}] corr_lookup {label} (batch {b}, {h}x{w1} queries, W2 {w2}, {levels} levels, radius {radius}; "
+            f"plan branch {plan.path}, runs of {plan.run}, {plan.stages} stages, {plan.blocks} blocks): every "
+            f"coordinate family, (levels, taps) {', '.join(f'{str(a)[6:]}/{str(o)[6:]}' for a, o in pairs)}, exact "
+            f"against the plain version (tol {TOL['corr_lookup']:g})")
+        del base
+    missing = set(corr_cuda.PREFETCH_PATHS) - branches
+    if missing:
+        raise AssertionError(f"[{tag}] dense lookup plan branches never exercised: {sorted(missing)}")
+    return errs
+
+
 def prefetch_coords(gen, family, b, h, w1, w2):
     """Lookup coordinates of one family: "smooth" (the model's regime: the
     grid minus a smooth disparity of up to W2 / 4), "edge" (a ramp past
@@ -1658,7 +1751,7 @@ def phase_bf16_kernels(gen) -> dict:
                 got = corr_cuda.corr_lookup(levels, coords, 4, out_dtype)
                 torch.cuda.synchronize()
                 want = corr.corr_lookup(levels, coords, 4).to(out_dtype)
-                exact = got.dtype == out_dtype and torch.equal(got, want)
+                exact = taps_exact(got, want)
                 err = max_err(got.float(), want.float())
                 log(f"[bf16-kernels] corr_lookup {label} (queries {h}x{w}), levels {str(level_dtype)[6:]}, taps "
                     f"{str(out_dtype)[6:]}: exact {exact}, max abs diff {err:.3e} (tol 0)")
@@ -1668,6 +1761,8 @@ def phase_bf16_kernels(gen) -> dict:
                 if torch.bfloat16 in (level_dtype, out_dtype):
                     errs["corr_lookup_bf16"] = max(errs["corr_lookup_bf16"], err)
         del pyramid, coords
+    errs["corr_lookup_bf16"] = max(errs["corr_lookup_bf16"], dense_lookup_paths(
+        gen, "bf16-kernels", ((BF16, BF16), (BF16, torch.float32), (torch.float32, BF16)))["corr_lookup_bf16"])
     # The conv and the join at every BF16_CONV_SHAPES entry, in every
     # BF16_CONV_TRUNKS trunk.
     for hh, ww in BF16_CONV_SHAPES:
@@ -1963,7 +2058,9 @@ def phase_bf16_lever_kernels(gen) -> dict:
     tail exactly, at LEVER_GRU_SHAPES and on 2-byte-offset views; the
     windowed lookup bit for bit against the dense kernel and exactly (NaN
     in the same places) against its plain version, at LEVER_PREFETCH_CASES,
-    every coordinate family, all four (level, tap) dtype pairs."""
+    every coordinate family, all four (level, tap) dtype pairs; the dense
+    lookup with bf16 levels and taps (the mixed path's) on every plan
+    branch (`dense_lookup_paths`)."""
     errs = {k: 0.0 for k in ("gru_tail_bf16", "motion_tail_bf16", "gates_rh_bf16", "gates_combine_bf16",
                              "corr_prefetch_lookup_bf16")}
     for c, h, w in LEVER_GRU_SHAPES:
@@ -2028,6 +2125,7 @@ def phase_bf16_lever_kernels(gen) -> dict:
                 f"taps fp32/bf16 (four pairs): bitwise equal to the dense kernel and exact against the plain "
                 f"version (tol 0)")
         del pyramid
+    errs["corr_lookup_bf16"] = dense_lookup_paths(gen, "bf16-lever-kernels", ((BF16, BF16),))["corr_lookup_bf16"]
     return errs
 
 
@@ -2308,14 +2406,15 @@ def phase_timing(gen, errs, counts) -> list:
         pyramid, coords = lookup_inputs(gen, 1, hh // 4, ww // 4, ww // 4)
         ms = time_ms(lambda: corr_cuda.corr_lookup(pyramid, coords, 4), flush=flush)
         pf_ms = time_ms(lambda: corr_cuda.prefetch_corr_lookup(pyramid, coords, 4), flush=flush)
-        dev = kernel_ms(lambda: corr_cuda.corr_lookup(pyramid, coords, 4), ("corr_lookup_kernel",), flush)
-        pf_dev = kernel_ms(lambda: corr_cuda.prefetch_corr_lookup(pyramid, coords, 4), ("corr_prefetch",), flush)
+        # Both entry points launch csrc/corr_window.cuh's kernel.
+        dev = kernel_ms(lambda: corr_cuda.corr_lookup(pyramid, coords, 4), ("corr_window",), flush)
+        pf_dev = kernel_ms(lambda: corr_cuda.prefetch_corr_lookup(pyramid, coords, 4), ("corr_window",), flush)
         plain_ms = time_ms(lambda: corr.corr_lookup(pyramid, coords, 4), flush=flush)
         nbytes = lookup_bytes(pyramid, coords, 4)
         plan = corr_cuda.prefetch_plan_for(pyramid, coords, 4)
-        log(f"[timing] corr_lookup {label} fp32: dense kernel {ms:.4f} ms (alone on the device {dev:.4f}), windowed "
-            f"kernel {pf_ms:.4f} ms (alone {pf_dev:.4f}; plan {plan.path}, runs of {plan.run}, {plan.stages} stages, "
-            f"{plan.blocks} blocks), plain {plain_ms:.4f} ms; {lookup_bounds(pyramid, coords, 4)}")
+        log(f"[timing] corr_lookup {label} fp32: dense kernel {ms:.4f} ms (alone on the device {alone_text(dev)}), windowed "
+            f"kernel {pf_ms:.4f} ms (alone {alone_text(pf_dev)}; plan {plan.path}, runs of {plan.run}, {plan.stages} stages, "
+            f"{plan.blocks} blocks), plain {plain_ms:.4f} ms; {lookup_bounds(pyramid, coords, 4, alone=dev)}")
         if label == "512x768":
             rows, grid = grid_sample_lookup_inputs(pyramid, coords, 4)
 
@@ -2372,8 +2471,14 @@ def phase_timing(gen, errs, counts) -> list:
 
     pre, flow = motion_inputs(gen, 128, 192)
     ms = time_ms(lambda: gru_tail.fused_motion_tail(pre, flow), flush=flush)
+    dev = kernel_ms(lambda: gru_tail.fused_motion_tail(pre, flow), ("motion_tail",), flush)
     plain_ms = time_ms(lambda: gru_tail.plain_motion_tail(pre, flow), flush=flush)
     hw = 128 * 192
+    bound = 4 * hw * (126 + 1 + 128) / HBM_BYTES_PER_S * 1e3
+    plan = gru_tail.motion_tail_plan(1, 126, hw, 4, _build.multiprocessors(0))
+    log(f"[timing] motion_tail 126x128x192 fp32: kernel {ms:.4f} ms by events ({bound / ms:.0%} of its "
+        f"{bound:.4f} ms bound), alone on the device {alone_text(dev)} ({share_text(bound, dev)}); plan {plan.per_thread} units "
+        f"per thread, grid {plan.grid}")
     entry("motion_tail", ms, plain_ms, 4 * hw * (126 + 1 + 128), 126 * hw, None)
     del pre, flow
 
@@ -2418,8 +2523,8 @@ def phase_timing(gen, errs, counts) -> list:
             flops = 2 * 9 * 64 * 64 * b * hw + 3 * b * 64 * hw * (1 + stats)
             label = f"b{b} {hh}x{ww} form {form}{' + stats' if stats else ''}"
             bound = flops / FP32_FLOPS_PER_S * 1e3
-            log(f"[timing] encoder_conv {label}: kernel {ms:.4f} ms, its kernels alone on the device {dev:.4f} ms "
-                f"({bound / dev:.0%} of its bound), plain {plain_ms:.4f} ms, bound {bound:.4f} ms (operations), "
+            log(f"[timing] encoder_conv {label}: kernel {ms:.4f} ms, its kernels alone on the device {alone_text(dev)} ms "
+                f"({share_text(bound, dev)} of its bound), plain {plain_ms:.4f} ms, bound {bound:.4f} ms (operations), "
                 f"F.conv2d {lib_ms:.4f} ms, {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
             if (hh, b, form) == (512, 1, "in"):
                 log(f"[timing] encoder_conv {label}: library is F.conv2d of the normalized operand "
@@ -2500,21 +2605,26 @@ def bf16_timing(gen, flush, entry) -> list:
         bound = max(nbytes / HBM_BYTES_PER_S, gemm / BF16_TENSOR_FLOPS_PER_S + rest / FP32_FLOPS_PER_S) * 1e3
         log(f"[timing] corr_pyramid_bf16 {label}: kernel {ms:.4f} ms = {gemm / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
             f"{bound / ms:.0%} of its {bound:.4f} ms bound ({nbytes} B; plan {plan.path} {plan.tile[0]}x{plan.tile[1]}, "
-            f"{plan.blocks} blocks); the kernel alone on the device (profiler) {dev:.4f} ms, {bound / dev:.0%} of "
+            f"{plan.blocks} blocks); the kernel alone on the device (profiler) {alone_text(dev)} ms, {share_text(bound, dev)} of "
             f"the bound; plain {plain_ms:.4f} ms; bf16 torch.matmul of the volume alone {lib_ms:.4f} ms")
         if label == "512x768":
             entry("corr_pyramid_bf16", ms, plain_ms, nbytes, rest, lib_ms, tensor_flops=gemm)
         del f1, f2
-    for label, (hh, ww) in (("512x768", (512, 768)), ("1984x2880", (1984, 2880))):
-        pyramid, coords = lookup_inputs(gen, 1, hh // 4, ww // 4, ww // 4)
+    # The dense bf16 lookup at both buckets' shapes and at the bf16
+    # training step's 1/4 (4 x 80 x 180 queries, W2 180).
+    for label, (b, h, w) in (("512x768", (1, 128, 192)), ("1984x2880", (1, 496, 720)),
+                             ("bf16 training step 4x80x180", (4, 80, 180))):
+        pyramid, coords = lookup_inputs(gen, b, h, w, w)
         pyramid = tuple(lvl.to(BF16) for lvl in pyramid)
         times = {}
         for out_dtype in (torch.float32, BF16):
             times[out_dtype] = time_ms(lambda: corr_cuda.corr_lookup(pyramid, coords, 4, out_dtype), flush=flush)
+        dev = kernel_ms(lambda: corr_cuda.corr_lookup(pyramid, coords, 4, BF16), ("corr_window",), flush)
         plain_ms = time_ms(lambda: corr.corr_lookup(pyramid, coords, 4).to(BF16), flush=flush)
         nbytes = lookup_bytes(pyramid, coords, 4, out_bytes=2)
-        log(f"[timing] corr_lookup_bf16 {label}: bf16 levels, bf16 taps {times[BF16]:.4f} ms, fp32 taps "
-            f"{times[torch.float32]:.4f} ms; plain {plain_ms:.4f} ms; {lookup_bounds(pyramid, coords, 4, 2)}")
+        log(f"[timing] corr_lookup_bf16 {label}: bf16 levels, bf16 taps {times[BF16]:.4f} ms (alone on the device "
+            f"{alone_text(dev)}), fp32 taps {times[torch.float32]:.4f} ms; plain {plain_ms:.4f} ms; "
+            f"{lookup_bounds(pyramid, coords, 4, 2, alone=dev)}")
         if label == "512x768":
             rows, grid = grid_sample_lookup_inputs(pyramid, coords, 4)
             rows, grid = rows.to(BF16), grid.to(BF16)
@@ -2551,8 +2661,8 @@ def bf16_timing(gen, flush, entry) -> list:
         bound = max(nbytes / HBM_BYTES_PER_S, tensor / BF16_TENSOR_FLOPS_PER_S + ops / FP32_FLOPS_PER_S) * 1e3
         log(f"[timing] encoder_conv_bf16 b{b} {label} form {form}{' + stats' if emit else ''}: kernel {ms:.4f} ms, "
             f"{bound / ms:.0%} of its {bound:.4f} ms bound; its kernels alone on the device (profiler: the conv"
-            f"{' and the statistics pass' if emit else ''}) {dev:.4f} ms, "
-            f"{bound / dev:.0%} of the bound; plain {plain_ms:.4f} ms; cuDNN's bf16 F.conv2d of the normalized "
+            f"{' and the statistics pass' if emit else ''}) {alone_text(dev)} ms, "
+            f"{share_text(bound, dev)} of the bound; plain {plain_ms:.4f} ms; cuDNN's bf16 F.conv2d of the normalized "
             f"operand {lib_ms:.4f} ms")
         if label == "512x768":
             entry("encoder_conv_bf16", ms, plain_ms, nbytes, ops, lib_ms, tensor_flops=tensor)
@@ -2626,25 +2736,29 @@ def lever_bf16_timing(gen, flush, entry) -> list:
         pre = torch.randn((1, 126, h, w), generator=gen, device=DEVICE).to(BF16)
         flow = torch.randn((1, 1, h, w), generator=gen, device=DEVICE).to(BF16)
         ms = time_ms(lambda: gru_tail.fused_motion_tail(pre, flow), flush=flush)
+        dev = kernel_ms(lambda: gru_tail.fused_motion_tail(pre, flow), ("motion_tail",), flush)
         plain_ms = time_ms(lambda: gru_tail.plain_motion_tail(pre, flow), flush=flush)
         hw = h * w
+        bound = 2 * hw * 255 / HBM_BYTES_PER_S * 1e3
+        plan = gru_tail.motion_tail_plan(1, 126, hw, 2, _build.multiprocessors(0))
+        where = "512x768 bucket" if (h, w) == (128, 192) else "realtime, KITTI bucket"
+        log(f"[timing] motion_tail_bf16 126x{h}x{w} ({where}): kernel {ms:.4f} ms by events ({bound / ms:.0%} of "
+            f"its {bound:.4f} ms bound), alone on the device {alone_text(dev)} ({share_text(bound, dev)}); plain {plain_ms:.4f} ms; "
+            f"plan {plan.per_thread} units per thread, grid {plan.grid}")
         if (h, w) == (128, 192):
             entry("motion_tail_bf16", ms, plain_ms, 2 * hw * (126 + 1 + 128), 126 * hw, None)
-        else:
-            log(f"[timing] motion_tail_bf16 126x{h}x{w} (realtime, KITTI bucket): kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, bound {2 * hw * 255 / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes)")
         del pre, flow
     for label, (h, w) in (("512x768", (128, 192)), ("1984x2880", (496, 720))):
         pyramid, coords = lookup_inputs(gen, 1, h, w, w)
         pyramid = tuple(lvl.to(BF16) for lvl in pyramid)
         ms = time_ms(lambda: corr_cuda.prefetch_corr_lookup(pyramid, coords, 4, BF16), flush=flush)
         dense_ms = time_ms(lambda: corr_cuda.corr_lookup(pyramid, coords, 4, BF16), flush=flush)
-        dev = kernel_ms(lambda: corr_cuda.prefetch_corr_lookup(pyramid, coords, 4, BF16), ("corr_prefetch",), flush)
-        dense_dev = kernel_ms(lambda: corr_cuda.corr_lookup(pyramid, coords, 4, BF16), ("corr_lookup_kernel",), flush)
+        dev = kernel_ms(lambda: corr_cuda.prefetch_corr_lookup(pyramid, coords, 4, BF16), ("corr_window",), flush)
+        dense_dev = kernel_ms(lambda: corr_cuda.corr_lookup(pyramid, coords, 4, BF16), ("corr_window",), flush)
         plain_ms = time_ms(lambda: corr.corr_lookup(pyramid, coords, 4).to(BF16), flush=flush)
         nbytes = lookup_bytes(pyramid, coords, 4, out_bytes=2)
-        log(f"[timing] corr_prefetch_lookup_bf16 {label}: windowed {ms:.4f} ms (alone on the device {dev:.4f}), dense "
-            f"bf16 kernel {dense_ms:.4f} ms (alone {dense_dev:.4f}), plain {plain_ms:.4f} ms, "
+        log(f"[timing] corr_prefetch_lookup_bf16 {label}: windowed {ms:.4f} ms (alone on the device {alone_text(dev)}), dense "
+            f"bf16 kernel {dense_ms:.4f} ms (alone {alone_text(dense_dev)}), plain {plain_ms:.4f} ms, "
             f"{lookup_bounds(pyramid, coords, 4, 2)}")
         if label == "512x768":
             rows, grid = grid_sample_lookup_inputs(pyramid, coords, 4)
@@ -2676,7 +2790,8 @@ def main() -> int:
     errs.update(phase_prefetch_kernels(gen))
     errs.update(phase_gates_kernels(gen))
     errs.update(phase_bf16_kernels(gen))
-    errs.update(phase_bf16_lever_kernels(gen))
+    for name, err in phase_bf16_lever_kernels(gen).items():
+        errs[name] = max(errs.get(name, 0.0), err)
     for name, err in phase_prefetch_paths(gen).items():
         errs[name] = max(errs[name], err)
     torch.cuda.empty_cache()

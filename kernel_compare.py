@@ -14,11 +14,17 @@ adds rows, not a harness:
   CUDA events and the call's kernels alone by torch.profiler, the L2
   flushed before each call, beside the library call that computes the same
   function (where one does) and the row's other yardsticks. Rows: the
-  windowed lookup with fp32 and with bf16 levels and taps at the 512x768
-  bucket's and Middlebury-F's 1/4, beside the dense kernel and
+  dense lookup (the main path's) with fp32 and with bf16 levels and taps at
+  the 512x768 bucket's and Middlebury-F's 1/4 and the bf16 training step's
+  4 x 80 x 180 (W2 180), beside the windowed entry point; the windowed
+  lookup at the first two shapes, beside the dense kernel and
   F.grid_sample (cuDNN's grid sampler refuses Middlebury-F's batch of one
-  row per query); the fp32 layer1 conv at 512x768 (1 and 2 images) and
-  384x512 (1 image), instance form with statistics, beside cuDNN's fp32
+  row per query); the motion tail at 512x768 in fp32 and bf16 and at the
+  realtime model's 1/8 of the KITTI bucket (48 x 156) in bf16; the GRU
+  tail, the gate pair and the encoder join in fp32 and bf16 at the 512x768
+  bucket's shapes (their device time alone); the fp32 layer1 conv at
+  512x768 (1 and 2 images) and 384x512 (1 image), instance form with
+  statistics, beside cuDNN's fp32
   F.conv2d of the normalized operand; the bf16 pyramid at both 1/4 shapes
   beside bf16 torch.matmul of the volume; the bf16 conv at 512x768,
   Middlebury-F and the realtime 192x624, its statistics pass included,
@@ -35,8 +41,9 @@ adds rows, not a harness:
   `profile_levers` (the mixed configuration's per-iteration lookup and
   update block with each test-mode lever at Middlebury-F).
 
-It prints JSON lines, one per row and turn. Needs a CUDA card; uses only
-entry points both checkouts have.
+It prints JSON lines, one per row and turn; `--parts rows` (or any of
+rows, evaluate, walls, profiles) limits each turn to those tables. Needs a
+CUDA card; uses only entry points both checkouts have.
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ torch, F, BF16, F32 = smoke.torch, smoke.F, smoke.BF16, smoke.torch.float32
 corr_cuda, encoder_cuda = smoke.corr_cuda, smoke.encoder_cuda
 
 TAG = sys.argv[1]
+PARTS = sys.argv[3].split(",")
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 smoke._build.build(sorted(smoke._build.SOURCE_FLAGS))
@@ -64,19 +72,54 @@ gen = torch.Generator(device=smoke.DEVICE).manual_seed(0)
 flush = torch.empty(64 * 2**20, dtype=torch.float32, device=smoke.DEVICE)
 
 
-def lookup(h, w, dtype):
-    """The windowed lookup at (h, w) queries with W2 = w, levels and taps in
-    `dtype`; beside it the dense kernel and, at the bucket's shape,
-    F.grid_sample on the same levels (its grid in the same dtype)."""
-    pyramid, coords = smoke.lookup_inputs(gen, 1, h, w, w)
+# Kernel names by checkout: the lookup's kernel was corr_lookup_kernel
+# (dense) and corr_prefetch_kernel (windowed) before both entry points
+# launched csrc/corr_window.cuh's corr_window_kernel.
+DENSE_NAMES = ("corr_lookup_kernel", "corr_window")
+WINDOWED_NAMES = ("corr_prefetch", "corr_window")
+
+
+def lookup(h, w, dtype, b=1, dense_first=False):
+    """The windowed lookup at (b, h, w) queries with W2 = w, levels and taps
+    in `dtype`; beside it the dense kernel and, at the bucket's shape,
+    F.grid_sample on the same levels (its grid in the same dtype). With
+    `dense_first`: the dense kernel's row, the windowed one beside it."""
+    pyramid, coords = smoke.lookup_inputs(gen, b, h, w, w)
     levels = tuple(lvl.to(dtype) for lvl in pyramid)
-    others = {"dense": ((lambda: corr_cuda.corr_lookup(levels, coords, 4, dtype)), ("corr_lookup_kernel",))}
+    dense = (lambda: corr_cuda.corr_lookup(levels, coords, 4, dtype)), DENSE_NAMES
+    windowed = (lambda: corr_cuda.prefetch_corr_lookup(levels, coords, 4, dtype)), WINDOWED_NAMES
     lib = None
     if h == 128:
         rows, grid = smoke.grid_sample_lookup_inputs(pyramid, coords, 4)
         rows, grid = rows.to(dtype), grid.to(dtype)
         lib = lambda: F.grid_sample(rows, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
-    return (lambda: corr_cuda.prefetch_corr_lookup(levels, coords, 4, dtype)), ("corr_prefetch",), lib, others
+    if dense_first:
+        return (*dense, lib, {"windowed": windowed})
+    return (*windowed, lib, {"dense": dense})
+
+
+def motion(h, w, dtype):
+    pre = torch.randn((1, 126, h, w), generator=gen, device=smoke.DEVICE).to(dtype)
+    flow = torch.randn((1, 1, h, w), generator=gen, device=smoke.DEVICE).to(dtype)
+    return (lambda: smoke.gru_tail.fused_motion_tail(pre, flow)), ("motion_tail",), None, {}
+
+
+def streams(dtype):
+    """The GRU tail, rh and combine at the 512x768 bucket's finest GRU
+    scale (128 x 128 x 192) in `dtype`: the tail's row, rh and combine
+    beside it."""
+    zx, cz, qx, cq, hh = ((torch.randn((1, 128, 128, 192), generator=gen, device=smoke.DEVICE) * 2).to(dtype)
+                          for _ in range(5))
+    gates = smoke.gates
+    return ((lambda: smoke.gru_tail.fused_gru_tail(zx, cz, qx, cq, hh)), ("gru_tail_kernel",), None,
+            {"rh": ((lambda: gates.fused_rh(zx, cz, hh)), ("gates_rh",)),
+             "combine": ((lambda: gates.fused_combine(zx, cz, qx, cq, hh)), ("gates_combine",))})
+
+
+def join(dtype):
+    skip, y = (torch.randn((1, 64, 512, 768), generator=gen, device=smoke.DEVICE).to(dtype) for _ in range(2))
+    aff_y, aff_s = smoke.affine_rows(gen, 1, "in"), smoke.affine_rows(gen, 1, "in")
+    return (lambda: encoder_cuda.fused_join(skip, y, aff_y, "in", aff_s, "in")), ("join_kernel",), None, {}
 
 
 def conv(b, h, w, form, stats, dtype, names=None):
@@ -102,6 +145,19 @@ def pyramid(h, w):
 
 # (kernel, shape, setup): setup() -> (call, its kernels' names, library call or None, {name: (call, names)}).
 ROWS = [
+    ("corr_lookup", "512x768 1/4 (128 x 192, W2 192)", lambda: lookup(128, 192, F32, dense_first=True)),
+    ("corr_lookup", "1984x2880 1/4 (496 x 720, W2 720)", lambda: lookup(496, 720, F32, dense_first=True)),
+    ("corr_lookup", "4 x 80 x 180 (W2 180)", lambda: lookup(80, 180, F32, b=4, dense_first=True)),
+    ("corr_lookup_bf16", "512x768 1/4 (128 x 192, W2 192)", lambda: lookup(128, 192, BF16, dense_first=True)),
+    ("corr_lookup_bf16", "1984x2880 1/4 (496 x 720, W2 720)", lambda: lookup(496, 720, BF16, dense_first=True)),
+    ("corr_lookup_bf16", "4 x 80 x 180 (W2 180)", lambda: lookup(80, 180, BF16, b=4, dense_first=True)),
+    ("motion_tail", "512x768 1/4 (126 x 128 x 192)", lambda: motion(128, 192, F32)),
+    ("motion_tail_bf16", "512x768 1/4 (126 x 128 x 192)", lambda: motion(128, 192, BF16)),
+    ("motion_tail_bf16", "realtime 1/8 (126 x 48 x 156)", lambda: motion(48, 156, BF16)),
+    ("gru_tail (rh, combine beside)", "128 x 128 x 192", lambda: streams(F32)),
+    ("gru_tail_bf16 (rh, combine beside)", "128 x 128 x 192", lambda: streams(BF16)),
+    ("encoder_join", "512x768 in/in", lambda: join(F32)),
+    ("encoder_join_bf16", "512x768 in/in", lambda: join(BF16)),
     ("corr_prefetch_lookup", "512x768 1/4 (128 x 192, W2 192)", lambda: lookup(128, 192, F32)),
     ("corr_prefetch_lookup", "1984x2880 1/4 (496 x 720, W2 720)", lambda: lookup(496, 720, F32)),
     ("corr_prefetch_lookup_bf16", "512x768 1/4 (128 x 192, W2 192)", lambda: lookup(128, 192, BF16)),
@@ -131,7 +187,7 @@ def times(fn, names):
     return {"ms": smoke.time_ms(fn, flush=flush), "device_ms": smoke.kernel_ms(fn, names, flush)}
 
 
-for kernel, shape, setup in ROWS:
+for kernel, shape, setup in (ROWS if "rows" in PARTS else []):
     call, names, lib, others = setup()
     row = times(call, names)
     row["library_ms"] = None if lib is None else smoke.time_ms(lib, flush=flush)
@@ -140,12 +196,14 @@ for kernel, shape, setup in ROWS:
     emit(kernel=kernel, shape=shape, **row)
     del call, lib, others
     torch.cuda.empty_cache()
-evaluator = smoke.Evaluator(smoke.build_model(smoke.MIXED_CONFIG, seed=0, device=smoke.DEVICE), iters=smoke.EVAL_ITERS)
-item = smoke.SyntheticEvalDataset(n=1, shape=smoke.EVAL_SHAPE).get_item(0, None)
-secs = [evaluator(item["image1"], item["image2"])[1] for _ in range(6)]
-emit(kernel="mixed evaluate 1980x2870, 32 iters", seconds=secs, median_after_first=statistics.median(secs[1:]))
-del evaluator
-torch.cuda.empty_cache()
+if "evaluate" in PARTS:
+    evaluator = smoke.Evaluator(smoke.build_model(smoke.MIXED_CONFIG, seed=0, device=smoke.DEVICE),
+                                iters=smoke.EVAL_ITERS)
+    item = smoke.SyntheticEvalDataset(n=1, shape=smoke.EVAL_SHAPE).get_item(0, None)
+    secs = [evaluator(item["image1"], item["image2"])[1] for _ in range(6)]
+    emit(kernel="mixed evaluate 1980x2870, 32 iters", seconds=secs, median_after_first=statistics.median(secs[1:]))
+    del evaluator
+    torch.cuda.empty_cache()
 
 import contextlib, io, time
 from raft_stereo_tpu_torch import profile_stages
@@ -179,7 +237,7 @@ WALLS = [
     ("fused fp32 chunk of 4, 512x768/1", "fused", "512x768/1", "chunk"),
 ]
 models = {}
-for label, config, case, stage in WALLS:
+for label, config, case, stage in (WALLS if "walls" in PARTS else []):
     if config not in models:
         models[config] = smoke.build_model(profile_stages.CONFIGS[config], seed=0, device=smoke.DEVICE)
     model = models[config]
@@ -210,7 +268,7 @@ PROFILES = [
     ("profile_stages mixed-levers 1984x2880/1", lambda: profile_stages.profile_levers("1984x2880/1", 0),
      ("per iteration",)),
 ]
-for label, call, keep in PROFILES:
+for label, call, keep in (PROFILES if "profiles" in PARTS else []):
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         call()
@@ -221,8 +279,8 @@ for label, call, keep in PROFILES:
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-def run_turn(root: str, tag: str, timeout: int = 1200) -> None:
-    r = subprocess.run([sys.executable, "-c", CHILD, tag, os.path.join(HERE, "chip_smoke.py")], cwd=root,
+def run_turn(root: str, tag: str, parts: str, timeout: int = 1200) -> None:
+    r = subprocess.run([sys.executable, "-c", CHILD, tag, os.path.join(HERE, "chip_smoke.py"), parts], cwd=root,
                        capture_output=True, text=True, timeout=timeout)
     print(r.stdout.strip(), flush=True)
     if r.returncode:
@@ -233,12 +291,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True, help="root of the other checkout")
     ap.add_argument("--turns", default="other,this,this,other")
+    ap.add_argument("--parts", default="rows,evaluate,walls,profiles",
+                    help="which tables each turn runs (comma-separated; default: all)")
     args = ap.parse_args(argv)
     roots = {"this": HERE, "other": os.path.abspath(args.other)}
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
     for turn in args.turns.split(","):
-        run_turn(roots[turn], turn)
+        run_turn(roots[turn], turn, args.parts)
     return 0
 
 

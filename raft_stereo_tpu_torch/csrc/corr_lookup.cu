@@ -1,126 +1,48 @@
-// Fused all-level correlation-pyramid lookup for Hopper (sm_90a).
+// Fused all-level correlation-pyramid lookup for Hopper (sm_90a): the dense
+// entry point, the main path's lookup (every "pallas" / reg_cuda forward
+// and, through ops/corr_cuda.py `CorrLookup`, every training forward).
 //
 // Replaces the TPU kernel raft_stereo_tpu/ops/corr_pallas.py `_lookup_kernel`
 // (launched by `_lookup_pallas_padded`, the forward of
 // `pallas_corr_lookup_padded`). Same function: for every query q = (b, h, w1)
 // and level l, with x = coords[q] / 2**l, the 2r+1 taps t = x - r .. x + r
 // are each the linear interpolation between samples floor(t) and floor(t)+1
-// of the query's own row of level l. A sample outside [0, W2_l) is zero,
-// where W2_l = W2 // 2**l is the level's true width. Out (B, H, W1, L*(2r+1)),
-// level-major. The levels are fp32 or bf16 (`corr_dtype`) and the taps fp32
-// or bf16 (the compute dtype), in any of the four pairs, as the JAX kernel
-// takes them: samples are widened to fp32, the interpolation is fp32, and
-// a tap is rounded once to the output dtype (round to nearest even).
+// of the query's own row of level l; a sample outside [0, W2_l) is zero.
+// Out (B, H, W1, L*(2r+1)), level-major, fp32 or bf16 levels and taps in
+// any of the four pairs, as the JAX kernel takes them. The TPU kernel
+// needed the levels padded to 128 lanes for its zero rule; here the levels
+// are unpadded and the rule is a bounds test done in float before any
+// address is formed.
 //
-// What bounds it on the H100: bytes. Per query and level the taps read at
-// most 2r+2 contiguous samples (40 bytes at r = 4 in fp32, 20 in bf16) and
-// write 2r+1 outputs (36 or 18 bytes); there is one multiply-add per
-// output, so the kernel sits far below the card's operations-per-byte
-// balance point.
+// What bounds it on the H100: bytes, in 32-byte sectors, and the launch
+// runs the windowed kernel of corr_window.cuh, which says why and how: per
+// query and level a window of 2r+3 samples fetched as 16-byte chunks into a
+// per-warp cp.async ring, runs of consecutive queries in flight while the
+// previous run's taps are formed from registers, each run's outputs
+// written as 16-byte stores, persistent blocks sized from the card's
+// multiprocessor count (ops/corr_cuda.py `prefetch_plan`, passed in by the
+// wrapper). The windowed entry point (csrc/corr_prefetch.cu) launches the
+// same kernel; this file keeps its own entry point, library and launch
+// counter ("corr_lookup[_bf16]"), and the PERF.md table keeps its own row.
+// What the design cannot fix, and what would: corr_window.cuh's header.
 //
-// Design: one thread per OUTPUT element (query, level, tap). Neighbouring
-// threads write neighbouring outputs, so stores are fully coalesced, and the
-// 2r+1 threads of one (query, level) read neighbouring samples of one row,
-// so loads of a window share sectors. All L levels run in the one launch
-// (the TPU kernel fuses them too): the level pointers and widths travel in a
-// by-value table, selected with static indices. The pyramid is the unpadded
-// (B, H, W1, W2_l) levels; the 128-lane padding the TPU kernel needed for its zero rule is replaced by an
-// explicit bounds test, done in float before any integer conversion so that
-// coordinates far outside the row can neither read out of bounds nor
-// overflow the index.
-//
-// Rounding: x / 2**l is an exact IEEE division, floorf matches torch.floor,
-// and the library is compiled with -fmad=false, so tap0*(1-f) + tap1*f is
-// rounded exactly as the plain PyTorch version rounds it (and then once to
-// the output dtype, as the plain version's cast does).
+// Measured (kernel_compare.py, H100 80GB HBM3, 700.00 W), alone on the
+// device (torch.profiler, L2 flushed before each call): at Middlebury-F's
+// 1/4 (496 x 720 queries, W2 720) 0.0780-0.0792 ms in fp32 and
+// 0.0668-0.0676 with bf16 levels and taps, against 0.0395 and 0.0257 at
+// 32-byte sectors (50% and 38% of them); at the 512x768 bucket's 1/4
+// 0.0090-0.0091 and 0.0079; at the bf16 training step's 4 x 80 x 180
+// (W2 180) 0.0171-0.0175 and 0.0149-0.0155. ptxas: 47-67 registers, no
+// stack frame.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "corr_window.cuh"
 
-#include "dtype.cuh"
-
-#define MAX_LEVELS 8
-
-template <typename TL>
-struct LevelTable {
-    const TL* ptr[MAX_LEVELS];
-    int width[MAX_LEVELS];
-};
-
-template <typename TL, typename TO, typename Index>
-__global__ void corr_lookup_kernel(const float* __restrict__ coords, LevelTable<TL> levels,
-                                   int num_levels, int radius, Index total,
-                                   TO* __restrict__ out) {
-    const int taps = 2 * radius + 1;
-    const int per_query = num_levels * taps;
-    for (Index i = blockIdx.x * (Index)blockDim.x + threadIdx.x; i < total;
-         i += (Index)gridDim.x * blockDim.x) {
-        const Index q = i / per_query;
-        const int rem = (int)(i - q * per_query);
-        const int l = rem / taps;
-        const int k = rem - l * taps;
-        // Select the level with static indices: indexing the by-value table
-        // with the runtime `l` would copy it to local memory in every thread.
-        const TL* base = levels.ptr[0];
-        int w2 = levels.width[0];
-#pragma unroll
-        for (int j = 1; j < MAX_LEVELS; ++j) {
-            if (j == l) {
-                base = levels.ptr[j];
-                w2 = levels.width[j];
-            }
-        }
-        const float x = coords[q] / (float)(1 << l);
-        const float t = x + (float)(k - radius);
-        const float x0f = floorf(t);
-        const float frac = t - x0f;
-        const TL* row = base + (long long)q * w2;
-        float v0 = 0.0f, v1 = 0.0f;
-        if (x0f >= 0.0f && x0f <= (float)(w2 - 1)) v0 = Elem<TL>::load(row + (int)x0f);
-        if (x0f + 1.0f >= 0.0f && x0f + 1.0f <= (float)(w2 - 1)) v1 = Elem<TL>::load(row + (int)x0f + 1);
-        Elem<TO>::store(out + i, v0 * (1.0f - frac) + v1 * frac);
-    }
-}
-
-template <typename TL, typename TO>
-static int launch(const void* coords, const void* const* level_ptrs, const int* level_widths, int num_levels,
-                  long long n_queries, int radius, void* out, void* stream) {
-    LevelTable<TL> table;
-    for (int l = 0; l < MAX_LEVELS; ++l) {
-        table.ptr[l] = l < num_levels ? (const TL*)level_ptrs[l] : nullptr;
-        table.width[l] = l < num_levels ? level_widths[l] : 0;
-    }
-    const long long total = n_queries * num_levels * (2 * radius + 1);
-    if (total == 0) return 0;
-    const int threads = 256;
-    long long blocks = (total + threads - 1) / threads;
-    if (blocks > 132LL * 64) blocks = 132LL * 64;  // grid-stride beyond 64 blocks per SM
-    // 32-bit index arithmetic whenever the output fits it (the common case);
-    // 64-bit division costs several times more per thread.
-    if (total <= 0x7fffffffLL - (long long)blocks * threads) {
-        corr_lookup_kernel<TL, TO, int><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-            (const float*)coords, table, num_levels, radius, (int)total, (TO*)out);
-    } else {
-        corr_lookup_kernel<TL, TO, long long><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-            (const float*)coords, table, num_levels, radius, total, (TO*)out);
-    }
-    return (int)cudaGetLastError();
-}
-
-// coords fp32; the levels fp32 (level_bf16 = 0) or bf16 (1); the taps fp32
-// (out_bf16 = 0) or bf16 (1).
 extern "C" int raft_corr_lookup(const void* coords, const void* const* level_ptrs, const int* level_widths,
                                 int num_levels, long long n_queries, int radius, void* out, int level_bf16,
-                                int out_bf16, void* stream) {
-    if (num_levels < 1 || num_levels > MAX_LEVELS) return (int)cudaErrorInvalidValue;
-    using bf16 = __nv_bfloat16;
-    if (level_bf16 && out_bf16)
-        return launch<bf16, bf16>(coords, level_ptrs, level_widths, num_levels, n_queries, radius, out, stream);
-    if (level_bf16)
-        return launch<bf16, float>(coords, level_ptrs, level_widths, num_levels, n_queries, radius, out, stream);
-    if (out_bf16)
-        return launch<float, bf16>(coords, level_ptrs, level_widths, num_levels, n_queries, radius, out, stream);
-    return launch<float, float>(coords, level_ptrs, level_widths, num_levels, n_queries, radius, out, stream);
+                                int out_bf16, int path, int run, int stages, int slot_bytes, int blocks,
+                                int shared_bytes, void* stream) {
+    return corr_window_entry(coords, level_ptrs, level_widths, num_levels, n_queries, radius, out, level_bf16,
+                             out_bf16, path, run, stages, slot_bytes, blocks, shared_bytes, stream);
 }
 
 extern "C" const char* raft_corr_error_string(int status) {

@@ -1,7 +1,7 @@
 // Element types of the kernels that take fp32 or bf16 tensors
-// (csrc/corr_lookup.cu, corr_prefetch.cu, corr_pyramid.cu, encoder_conv.cu,
-// encoder_join.cu, corr_scatter.cu, and through gru_gates.cuh gru_tail.cu
-// and gates.cu).
+// (csrc/corr_window.cuh, the lookup of corr_lookup.cu and corr_prefetch.cu;
+// corr_pyramid.cu, encoder_conv.cu, encoder_join.cu, corr_scatter.cu, and
+// through gru_gates.cuh gru_tail.cu and gates.cu).
 //
 // Arithmetic is fp32 in both: an element is widened to float on load, and
 // `Elem<T>::round` rounds a float result to T's precision (round to nearest

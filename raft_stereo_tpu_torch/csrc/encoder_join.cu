@@ -22,7 +22,9 @@
 // vector loads and stores (16 bytes in fp32, 8 in bf16) where every pointer
 // is 16-byte aligned and H*W divides by four (then a 4-wide group never straddles a channel plane), a
 // scalar loop otherwise; the wrapper (ops/encoder_cuda.py) passes the `vec`
-// flag after checking both. Each group reads its channel's two affine rows,
+// flag after checking both, and the grid (`join_blocks`: one unit per
+// thread up to 32 blocks of 256 per multiprocessor of the card, read from
+// the device). Each group reads its channel's two affine rows,
 // which stay in L1.
 //
 // Rounding: built with -fmad=false and written with explicit _rn
@@ -88,7 +90,8 @@ __global__ void join_kernel(const T* __restrict__ skip, const T* __restrict__ y,
 
 template <typename T>
 static int launch(const void* skip, const void* y, const void* aff_y, const void* aff_skip, void* out,
-                  long long batch, int channels, long long hw, int y_form, int skip_form, int vec, void* stream) {
+                  long long batch, int channels, long long hw, int y_form, int skip_form, int vec, int blocks,
+                  void* stream) {
     if (y_form != FORM_IN && y_form != FORM_BN) return (int)cudaErrorInvalidValue;
     if (skip_form < FORM_NONE || skip_form > FORM_BN) return (int)cudaErrorInvalidValue;
     if (skip_form != FORM_NONE && aff_skip == nullptr) return (int)cudaErrorInvalidValue;
@@ -96,11 +99,10 @@ static int launch(const void* skip, const void* y, const void* aff_y, const void
     const long long hw_units = vec ? hw / 4 : hw;
     const long long units = batch * channels * hw_units;
     if (units == 0) return 0;
+    if (blocks < 1) return (int)cudaErrorInvalidValue;
     const int threads = 256;
-    long long blocks = (units + threads - 1) / threads;
-    if (blocks > 132LL * 32) blocks = 132LL * 32;  // grid-stride beyond 32 blocks per SM
     // 32-bit index arithmetic whenever the tensors fit it.
-    if (units * (vec ? 4 : 1) <= 0x7fffffffLL - blocks * threads) {
+    if (units * (vec ? 4 : 1) <= 0x7fffffffLL - (long long)blocks * threads) {
         join_kernel<T, int><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
             (const T*)skip, (const T*)y, (const float*)aff_y, (const float*)aff_skip,
             (T*)out, (int)units, (int)hw_units, channels, y_form, skip_form, vec);
@@ -113,14 +115,15 @@ static int launch(const void* skip, const void* y, const void* aff_y, const void
 }
 
 // skip, y and out are fp32 (bf16 = 0) or bf16 (bf16 = 1); the affine rows
-// (B, 2, C) are fp32 in either case.
+// (B, 2, C) are fp32 in either case; `blocks` of 256 threads.
 extern "C" int raft_encoder_join(const void* skip, const void* y, const void* aff_y, const void* aff_skip,
                                  void* out, long long batch, int channels, long long hw, int y_form,
-                                 int skip_form, int vec, int bf16, void* stream) {
+                                 int skip_form, int vec, int bf16, int blocks, void* stream) {
     if (bf16)
         return launch<__nv_bfloat16>(skip, y, aff_y, aff_skip, out, batch, channels, hw, y_form, skip_form, vec,
-                                     stream);
-    return launch<float>(skip, y, aff_y, aff_skip, out, batch, channels, hw, y_form, skip_form, vec, stream);
+                                     blocks, stream);
+    return launch<float>(skip, y, aff_y, aff_skip, out, batch, channels, hw, y_form, skip_form, vec, blocks,
+                         stream);
 }
 
 extern "C" const char* raft_encoder_join_error_string(int status) {

@@ -93,7 +93,7 @@ def _epe_1d(flow_pred: np.ndarray, flow_gt: np.ndarray) -> np.ndarray:
 def _require(dataset, name: str):
     if dataset is None:
         raise NotImplementedError(
-            f"the {name} dataset reader is not ported yet (ROADMAP Queue A item 11): pass dataset=, "
+            f"the {name} dataset reader is not ported yet (ROADMAP Queue A item 5): pass dataset=, "
             "e.g. SyntheticEvalDataset()"
         )
     return dataset

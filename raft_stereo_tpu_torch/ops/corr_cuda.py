@@ -9,20 +9,23 @@ the pooling chain in its epilogue — and runs `corr_state`, its plain
 version, for CPU tensors. Both store the levels in fp32 or bf16
 (`corr_dtype`) by `ops/corr.py`'s contract.
 `corr_lookup` samples every level in one launch of the hand-written kernel
-`csrc/corr_lookup.cu` for CUDA tensors, and runs the plain version
+behind `csrc/corr_lookup.cu` for CUDA tensors, and runs the plain version
 (`ops/corr.py` `corr_lookup`) for CPU tensors; it takes fp32 or bf16
 levels and stores fp32 or bf16 taps. There is no other route: a CUDA
 tensor the kernel cannot take raises.
 
 `prefetch_corr_lookup` (config.prefetch_lookup, test mode) computes the
-lookup's function with the windowed kernel `csrc/corr_prefetch.cu`: each
-query's window of every level fetched as 16-byte chunks into a per-warp
-ring in shared memory, runs of queries in flight while the previous run's
-taps are formed, bit for bit the dense kernel's taps on every input, in
-the same four (level, tap) dtype pairs. `prefetch_plan` chooses its path
-(the compile-time r = 4, 4-level instantiation, the generic one, or the
-element path for unaligned levels), run length, ring depth and grid. It
-has no backward, as in JAX: it raises where autograd would record.
+same function through `csrc/corr_prefetch.cu`. Both entry points launch
+the one windowed kernel of `csrc/corr_window.cuh`: each query's window of
+every level fetched as 16-byte chunks into a per-warp ring in shared
+memory, runs of queries in flight while the previous run's taps are
+formed, in the four (level, tap) dtype pairs. So the two give the same
+taps bit for bit; they keep their own libraries and launch counters.
+`prefetch_plan` chooses the launch of both (the compile-time r = 4,
+4-level instantiation, the generic one, or the element path for unaligned
+levels; run length, ring depth, and a grid from the card's multiprocessor
+count). `prefetch_corr_lookup` has no backward, as in JAX: it raises where
+autograd would record.
 
 The lookup's gradient is `CorrLookup`, the counterpart of the JAX package's
 custom VJP of `pallas_corr_lookup_padded`: d(pyramid) from the tap cotangent
@@ -63,7 +66,7 @@ from raft_stereo_tpu_torch.ops import _build, corr
 LAUNCHES = {"corr_lookup": 0, "corr_pyramid": 0, "corr_scatter": 0, "corr_prefetch_lookup": 0,
             "corr_lookup_bf16": 0, "corr_pyramid_bf16": 0, "corr_scatter_bf16": 0,
             "corr_prefetch_lookup_bf16": 0}
-MAX_LEVELS = 8  # MAX_LEVELS of csrc/corr_lookup.cu, corr_prefetch.cu and corr_scatter.cu
+MAX_LEVELS = 8  # MAX_LEVELS of csrc/corr_window.cuh (both lookups) and corr_scatter.cu
 # csrc/corr_pyramid.cu: a volume tile pools into every level, so its
 # columns must align to 2**(L-1); its level table holds 7.
 PYRAMID_MAX_LEVELS = 7
@@ -98,9 +101,10 @@ PYRAMID_WGMMA_BLOCKS_PER_SM = 1
 # csrc/corr_scatter.cu: the run of queries a block of 256 threads owns
 # (32-128 time within 2% of each other on the H100, PERF.md row 2).
 SCATTER_RUN = 64
-# csrc/corr_prefetch.cu: blocks of 8 warps (its __launch_bounds__ asks for
-# 3 per multiprocessor), a warp per run of queries; the compile-time
-# instantiation's radius and level count; a stage's coordinate bytes.
+# csrc/corr_window.cuh, the kernel of both lookups: blocks of 8 warps (its
+# __launch_bounds__ asks for 3 per multiprocessor), a warp per run of
+# queries; the compile-time instantiation's radius and level count; a
+# stage's coordinate bytes.
 PREFETCH_WARPS = 8
 PREFETCH_BLOCKS_PER_SM = 3
 PREFETCH_USUAL = (4, 4)
@@ -294,8 +298,10 @@ def scatter_plan(n_queries: int, widths: Sequence[int], radius: int, elem_bytes:
 
 
 class PrefetchPlan(NamedTuple):
-    """A launch of `csrc/corr_prefetch.cu`: kernel `path` ("usual": radius
-    4 and 4 levels at compile time; "generic": any radius and level count;
+    """A launch of the lookup kernel of `csrc/corr_window.cuh` (through
+    either entry point, `csrc/corr_lookup.cu` or `csrc/corr_prefetch.cu`):
+    kernel `path` ("usual": radius 4 and 4 levels at compile time;
+    "generic": any radius and level count;
     both stage each window's 16-byte chunks in a ring of `stages` per warp;
     "element": each sample loaded by its tap, for levels whose base is not
     16-byte aligned), `run` queries per warp run (run i covers queries
@@ -330,7 +336,7 @@ def prefetch_run(levels: int, radius: int, out_bytes: int) -> int:
 
 def prefetch_shared_bytes(path: str, run: int, levels: int, radius: int, out_bytes: int, stages: int,
                           slot_bytes: int) -> int:
-    """A block's shared bytes (`warp_bytes` of csrc/corr_prefetch.cu, times
+    """A block's shared bytes (`warp_bytes` of csrc/corr_window.cuh, times
     its warps): per warp, `stages` stages of the run's coordinates and 32
     window slots (none on the element path), then the output staging (the
     run's taps and 16 bytes of room for the span's phase, rounded up to 16)."""
@@ -342,26 +348,27 @@ def prefetch_shared_bytes(path: str, run: int, levels: int, radius: int, out_byt
 @functools.lru_cache(maxsize=256)
 def prefetch_plan(n_queries: int, widths: Sequence[int], radius: int, level_bytes: int, out_bytes: int,
                   sms: int, aligned: bool = True) -> PrefetchPlan:
-    """The launch plan of the windowed lookup for `n_queries` queries of
+    """The launch plan of the lookup kernel for `n_queries` queries of
     levels `widths` (elements of `level_bytes`, 4 fp32 or 2 bf16) and taps
     of `out_bytes` on a card of `sms` multiprocessors; `aligned`: every
     level's base is 16-byte aligned. The staged paths need aligned levels
     (their chunks count from the level's base): "usual" at radius 4 with 4
     levels, "generic" otherwise, each with the deepest ring of 3 or 2
     stages whose block fits the shared memory; the element path takes
-    unaligned levels and windows too large to stage. Row and output offsets
-    are 64-bit on every path, so levels past 2**31 elements need no other
-    one. Grid: one warp per run up to PREFETCH_BLOCKS_PER_SM blocks per
-    multiprocessor (fewer where the shared memory holds fewer). Raises for
-    what no instantiation takes."""
+    unaligned levels and windows too large to stage, with fewer queries
+    per run where a run's taps would not fit its output staging. Row and
+    output offsets are 64-bit on every path, so levels past 2**31 elements
+    need no other one. Grid: one warp per run up to PREFETCH_BLOCKS_PER_SM
+    blocks per multiprocessor (fewer where the shared memory holds fewer).
+    Raises for what no instantiation takes."""
     if level_bytes not in (2, 4) or out_bytes not in (2, 4):
-        raise ValueError(f"corr_prefetch kernel takes fp32 or bf16 levels and taps, got {level_bytes} and "
+        raise ValueError(f"corr lookup kernel takes fp32 or bf16 levels and taps, got {level_bytes} and "
                          f"{out_bytes} bytes")
     levels = len(widths)
     if not 1 <= levels <= MAX_LEVELS:
-        raise ValueError(f"corr_prefetch kernel takes 1..{MAX_LEVELS} levels, got {levels}")
+        raise ValueError(f"corr lookup kernel takes 1..{MAX_LEVELS} levels, got {levels}")
     if radius < 0 or n_queries < 0 or any(not 0 <= w < 2**24 for w in widths):
-        raise ValueError(f"corr_prefetch kernel: bad radius {radius}, queries {n_queries} or widths {tuple(widths)}")
+        raise ValueError(f"corr lookup kernel: bad radius {radius}, queries {n_queries} or widths {tuple(widths)}")
     run = prefetch_run(levels, radius, out_bytes)
     path, stages, slot = "element", 1, 0
     if aligned:
@@ -373,9 +380,12 @@ def prefetch_plan(n_queries: int, widths: Sequence[int], radius: int, level_byte
                 <= _build.MAX_SHARED_BYTES]
         if fits:
             path, stages, slot = staged, fits[0], slot_bytes
+    if path == "element":
+        run = next((q for q in range(run, 0, -1)
+                    if prefetch_shared_bytes(path, q, levels, radius, out_bytes, 1, 0) <= _build.MAX_SHARED_BYTES), run)
     shared = prefetch_shared_bytes(path, run, levels, radius, out_bytes, stages, slot)
     if shared > _build.MAX_SHARED_BYTES:
-        raise ValueError(f"corr_prefetch kernel: a block of runs of {run} queries with {levels} levels at radius "
+        raise ValueError(f"corr lookup kernel: a block of runs of {run} queries with {levels} levels at radius "
                          f"{radius} needs {shared} shared bytes")
     per_sm = min(PREFETCH_BLOCKS_PER_SM, _build.MAX_SHARED_BYTES // (shared + 1024))
     runs = -(-n_queries // run)
@@ -460,8 +470,7 @@ def _pyramid_lib():
     return lib
 
 
-# The C signature of the dense lookup kernel; the windowed one's adds its
-# plan (`_PREFETCH_ARGTYPES`).
+# The C signature of both lookup entry points.
 _LOOKUP_ARGTYPES = [
     ctypes.c_void_p,  # coords
     ctypes.c_void_p,  # host array of level pointers
@@ -472,11 +481,6 @@ _LOOKUP_ARGTYPES = [
     ctypes.c_void_p,  # out
     ctypes.c_int,  # the levels are bf16
     ctypes.c_int,  # the taps are bf16
-    ctypes.c_void_p,  # stream
-]
-
-
-_PREFETCH_ARGTYPES = _LOOKUP_ARGTYPES[:-1] + [
     ctypes.c_int,  # plan: path
     ctypes.c_int,  # plan: queries per run
     ctypes.c_int,  # plan: ring stages
@@ -487,11 +491,11 @@ _PREFETCH_ARGTYPES = _LOOKUP_ARGTYPES[:-1] + [
 ]
 
 
-def _lookup_lib(source: str, entry: str, error_string: str, argtypes=_LOOKUP_ARGTYPES):
+def _lookup_lib(source: str, entry: str, error_string: str):
     lib = _build.load(source)
     fn = getattr(lib, entry)
     if fn.argtypes is None:
-        fn.argtypes = argtypes
+        fn.argtypes = _LOOKUP_ARGTYPES
         fn.restype = ctypes.c_int
         getattr(lib, error_string).argtypes = [ctypes.c_int]
         getattr(lib, error_string).restype = ctypes.c_char_p
@@ -515,8 +519,9 @@ def corr_lookup(state: Sequence[torch.Tensor], coords: torch.Tensor, radius: int
 
 def _lookup(levels: Tuple[torch.Tensor, ...], coords: torch.Tensor, radius: int,
             out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """The lookup without autograd: the kernel for CUDA tensors, the plain
-    version (`ops/corr.py` `corr_lookup`, then one cast) for CPU tensors."""
+    """The lookup without autograd: the kernel (through `csrc/corr_lookup.cu`,
+    planned by `prefetch_plan`) for CUDA tensors, the plain version
+    (`ops/corr.py` `corr_lookup`, then one cast) for CPU tensors."""
     if not coords.is_cuda:
         return _plain_lookup(levels, coords, radius, out_dtype)
     return _launch_lookup("corr_lookup", ("corr_lookup", "raft_corr_lookup", "raft_corr_error_string"),
@@ -530,13 +535,13 @@ def _plain_lookup(levels, coords, radius, out_dtype):
     return taps if out_dtype is None else taps.to(out_dtype)
 
 
-def _launch_lookup(name, lib_names, levels, coords, radius, out_dtype=None, plan=None) -> torch.Tensor:
-    """Check the operands of a lookup kernel (dense, or windowed with its
-    `PrefetchPlan` `plan`; `lib_names` = source, entry point, error-string
-    function), launch it on the current stream, count the launch under
-    `name` (or `name`_bf16 for bf16 levels or taps) and return its taps:
-    fp32 coordinates, levels all of the first one's dtype (fp32 or bf16),
-    output in `out_dtype` (fp32 or bf16; None: fp32)."""
+def _launch_lookup(name, lib_names, levels, coords, radius, out_dtype=None) -> torch.Tensor:
+    """Check the operands of the lookup kernel, launch it through one entry
+    point (`lib_names` = source, entry point, error-string function) on the
+    current stream with its `prefetch_plan`, count the launch under `name`
+    (or `name`_bf16 for bf16 levels or taps) and return its taps: fp32
+    coordinates, levels all of the first one's dtype (fp32 or bf16), output
+    in `out_dtype` (fp32 or bf16; None: fp32)."""
     out_dtype = torch.float32 if out_dtype is None else out_dtype
     if out_dtype not in _build.DTYPE_FLAGS or levels[0].dtype not in _build.DTYPE_FLAGS:
         raise ValueError(f"{name} kernel takes fp32 or bf16 levels and taps, got {levels[0].dtype} "
@@ -552,12 +557,11 @@ def _launch_lookup(name, lib_names, levels, coords, radius, out_dtype=None, plan
     for lvl in levels:
         if lvl.dim() != 4 or tuple(lvl.shape[:3]) != (b, h, w1):
             raise ValueError(f"level shape {tuple(lvl.shape)} does not match coords {(b, h, w1)}")
+    plan = prefetch_plan_for(levels, coords, radius, out_dtype)
     out = torch.empty((b, h, w1, len(levels) * (2 * radius + 1)), dtype=out_dtype, device=coords.device)
     ptrs = (ctypes.c_void_p * len(levels))(*[lvl.data_ptr() for lvl in levels])
     widths = (ctypes.c_int * len(levels))(*[lvl.shape[-1] for lvl in levels])
-    plan_args = () if plan is None else (PREFETCH_PATHS[plan.path], plan.run, plan.stages, plan.slot_bytes,
-                                         plan.blocks, plan.shared_bytes)
-    fn, error_string = _lookup_lib(*lib_names, argtypes=_LOOKUP_ARGTYPES if plan is None else _PREFETCH_ARGTYPES)
+    fn, error_string = _lookup_lib(*lib_names)
     status = fn(
         coords.data_ptr(),
         ctypes.cast(ptrs, ctypes.c_void_p),
@@ -568,7 +572,7 @@ def _launch_lookup(name, lib_names, levels, coords, radius, out_dtype=None, plan
         out.data_ptr(),
         _build.DTYPE_FLAGS[levels[0].dtype],
         _build.DTYPE_FLAGS[out_dtype],
-        *plan_args,
+        PREFETCH_PATHS[plan.path], plan.run, plan.stages, plan.slot_bytes, plan.blocks, plan.shared_bytes,
         torch.cuda.current_stream(coords.device).cuda_stream,
     )
     _build.check(status, f"{name} kernel", error_string)
@@ -590,11 +594,12 @@ def prefetch_plan_for(levels: Sequence[torch.Tensor], coords: torch.Tensor, radi
 
 def prefetch_corr_lookup(state: Sequence[torch.Tensor], coords: torch.Tensor, radius: int,
                          out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """`corr_lookup`'s taps by the windowed kernel `csrc/corr_prefetch.cu`
-    for CUDA tensors (the counterpart of the JAX package's
-    `prefetch_corr_lookup_padded`, bit for bit the dense kernel's output on
-    every input, fp32 or bf16 levels and taps in `out_dtype` as
-    `corr_lookup` takes them), by the plain lookup (`ops/corr.py`
+    """`corr_lookup`'s taps through the windowed entry point
+    `csrc/corr_prefetch.cu` for CUDA tensors (the counterpart of the JAX
+    package's `prefetch_corr_lookup_padded`; the same kernel as
+    `corr_lookup`'s, so bit for bit its output on every input, fp32 or bf16
+    levels and taps in `out_dtype` as `corr_lookup` takes them), counted
+    under "corr_prefetch_lookup[_bf16]"; by the plain lookup (`ops/corr.py`
     `corr_lookup`, then one cast) for CPU tensors. No backward: raises where
     autograd would record."""
     levels = tuple(state)
@@ -605,7 +610,7 @@ def prefetch_corr_lookup(state: Sequence[torch.Tensor], coords: torch.Tensor, ra
         return _plain_lookup(levels, coords, radius, out_dtype)
     return _launch_lookup("corr_prefetch_lookup",
                           ("corr_prefetch", "raft_corr_prefetch", "raft_corr_prefetch_error_string"),
-                          levels, coords, radius, out_dtype, prefetch_plan_for(levels, coords, radius, out_dtype))
+                          levels, coords, radius, out_dtype)
 
 
 class CorrLookup(torch.autograd.Function):

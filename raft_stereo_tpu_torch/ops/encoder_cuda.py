@@ -186,7 +186,7 @@ def _join_lib():
         lib.raft_encoder_join.argtypes = (
             [ctypes.c_void_p] * 5  # skip, y, aff_y, aff_skip or NULL, out
             + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]  # batch, channels, H*W
-            + [ctypes.c_int] * 4  # y_form, skip_form, vec, bf16
+            + [ctypes.c_int] * 5  # y_form, skip_form, vec, bf16, blocks
             + [ctypes.c_void_p]  # stream
         )
         lib.raft_encoder_join.restype = ctypes.c_int
@@ -273,6 +273,14 @@ def conv_plan_for(x: torch.Tensor, y: torch.Tensor) -> ConvPlan:
     return conv_plan(b, h, w, _build.multiprocessors(x.device.index), _build.aligned((x, y)), x.element_size())
 
 
+def join_blocks(b: int, c: int, hw: int, vec: bool, sms: int) -> int:
+    """The join kernel's grid on a card of `sms` multiprocessors: its
+    grid-stride loop's units (4-element groups on the vector path, else
+    elements) over `_build.stream_blocks`, one unit per thread up to 32
+    blocks of 256 per multiprocessor."""
+    return _build.stream_blocks(b * c * (hw // 4 if vec else hw), sms)
+
+
 def fused_join(skip, y, aff_y, y_form: str, aff_skip: Optional[torch.Tensor] = None,
                skip_form: str = "none") -> torch.Tensor:
     """relu(skip' + relu(y_form(y))) over NCHW (B, C, H, W), fp32 or bf16
@@ -303,6 +311,7 @@ def fused_join(skip, y, aff_y, y_form: str, aff_skip: Optional[torch.Tensor] = N
         skip.data_ptr(), y.data_ptr(), aff_y.data_ptr(),
         aff_skip.data_ptr() if skip_form != "none" else 0, out.data_ptr(),
         b, c, hw, FORMS[y_form], FORMS[skip_form], vec, _build.DTYPE_FLAGS[skip.dtype],
+        join_blocks(b, c, hw, vec, _build.multiprocessors(skip.device.index)),
         torch.cuda.current_stream(skip.device).cuda_stream,
     )
     _build.check(status, "encoder_join kernel", lib.raft_encoder_join_error_string)

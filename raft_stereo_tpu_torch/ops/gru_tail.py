@@ -24,13 +24,16 @@ motion tail is exact in any dtype.
 Layout: `fused_gru_tail` is elementwise over five tensors of one shape;
 `fused_motion_tail` takes NCHW `pre` (B, 126, H, W) and `flow` (B, 1, H, W).
 
-The operand check and the grid (`stream_blocks`) are ops/_build.py's,
-shared with the gate pair (ops/gates.py).
+The operand check and the tail's grid (`stream_blocks`) are
+ops/_build.py's, shared with the gate pair (ops/gates.py). The motion
+tail's launch is `motion_tail_plan`: a grid over output planes that covers
+every unit once.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -39,6 +42,47 @@ from raft_stereo_tpu_torch.ops import _build
 # Kernel launches since the last reset; chip_smoke.py reads them to prove
 # the serving path went through the kernels. The bf16 forms count apart.
 LAUNCHES = {"gru_tail": 0, "motion_tail": 0, "gru_tail_bf16": 0, "motion_tail_bf16": 0}
+
+# csrc/gru_tail.cu's motion tail: threads per block, the units a thread
+# may move (largest first), the grid's y and z limits (channels, batch).
+MOTION_THREADS = 256
+MOTION_UNITS_PER_THREAD = (4, 2, 1)
+MAX_GRID_YZ = 65535
+
+
+class MotionTailPlan(NamedTuple):
+    """A launch of the motion tail: units of `unit` elements (16 bytes'
+    worth on the vector path, else 1), `per_thread` of them per thread,
+    grid (`tiles`, C + 2, B) of MOTION_THREADS threads: block (x, c, b)
+    covers units [x * MOTION_THREADS * per_thread, (x + 1) * ...) of output
+    plane (b, c), thread t units t, t + MOTION_THREADS, ..."""
+
+    unit: int
+    per_thread: int
+    tiles: int
+    grid: tuple
+
+
+def motion_tail_plan(b: int, c: int, hw: int, elem_bytes: int, sms: int, vec: bool = True) -> MotionTailPlan:
+    """The motion tail's launch for pre (B, C, H*W = hw) of `elem_bytes`
+    elements (4 fp32, 2 bf16) on a card of `sms` multiprocessors; `vec`:
+    16-byte units (the wrapper's test: hw divides by the unit and the bases
+    are aligned). A thread moves 4 units, or 2 or 1 where fewer would leave
+    the grid under two blocks per multiprocessor (a small plane). Raises
+    for a shape the grid cannot hold."""
+    if elem_bytes not in (2, 4):
+        raise ValueError(f"motion tail kernel takes fp32 or bf16, got {elem_bytes}-byte elements")
+    unit = 16 // elem_bytes if vec else 1
+    if min(b, c, hw) < 0 or hw % unit:
+        raise ValueError(f"motion tail kernel: bad shape B {b}, C {c}, H*W {hw} for {unit}-element units")
+    if b > MAX_GRID_YZ or c + 2 > MAX_GRID_YZ or hw // unit > 2**31 - 1:
+        raise ValueError(f"motion tail kernel: B {b}, C + 2 = {c + 2} or H*W {hw} exceed its grid")
+    units = hw // unit
+    for per_thread in MOTION_UNITS_PER_THREAD:
+        tiles = -(-units // (MOTION_THREADS * per_thread))
+        if b * (c + 2) * tiles >= 2 * sms:
+            break
+    return MotionTailPlan(unit, per_thread, tiles, (tiles, c + 2, b))
 
 
 def plain_gru_tail(zx, cz, qx, cq, h):
@@ -71,7 +115,10 @@ def _lib():
         lib.raft_gru_tail.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + tail
         lib.raft_gru_tail.restype = ctypes.c_int
         lib.raft_motion_tail.argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong] + tail
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,  # batch, C, H*W
+            ctypes.c_int, ctypes.c_int,  # vec, bf16
+            ctypes.c_int, ctypes.c_longlong,  # plan: units per thread, tiles
+            ctypes.c_void_p]  # stream
         lib.raft_motion_tail.restype = ctypes.c_int
         lib.raft_gru_tail_error_string.argtypes = [ctypes.c_int]
         lib.raft_gru_tail_error_string.restype = ctypes.c_char_p
@@ -115,14 +162,13 @@ def fused_motion_tail(pre, flow):
     _build.check_operands("fused_motion_tail", (pre, flow), pre.device)
     out = torch.empty((b, c + 2, h, w), dtype=pre.dtype, device=pre.device)
     hw = h * w
-    width = _build.vector_width(pre.dtype)
-    vec = int(hw % width == 0 and _build.aligned((pre, flow, out)))
+    vec = hw % _build.vector_width(pre.dtype) == 0 and _build.aligned((pre, flow, out))
     bf16 = pre.dtype == torch.bfloat16
+    plan = motion_tail_plan(b, c, hw, pre.element_size(), _build.multiprocessors(pre.device.index), vec)
     lib = _lib()
     status = lib.raft_motion_tail(
-        pre.data_ptr(), flow.data_ptr(), out.data_ptr(), b, c, hw, vec, int(bf16),
-        _build.device_blocks(b * (c + 2) * (hw // width if vec else hw), pre.device),
-        torch.cuda.current_stream(pre.device).cuda_stream,
+        pre.data_ptr(), flow.data_ptr(), out.data_ptr(), b, c, hw, int(vec), int(bf16), plan.per_thread,
+        plan.tiles, torch.cuda.current_stream(pre.device).cuda_stream,
     )
     _build.check(status, "fused_motion_tail kernel", lib.raft_gru_tail_error_string)
     LAUNCHES["motion_tail_bf16" if bf16 else "motion_tail"] += 1

@@ -327,3 +327,61 @@ def test_prefetch_kernel_equals_dense_kernel_on_cuda(rng, family):
     plain = corr.corr_lookup(state, coords, RADIUS)
     np.testing.assert_array_equal(got.cpu().numpy(), dense.cpu().numpy())
     np.testing.assert_array_equal(got.cpu().numpy(), plain.cpu().numpy())
+
+
+def same_taps(a, b, bits=True) -> bool:
+    """Equal with NaN in the same places: bit for bit (`bits`, the sign of
+    zero included) or by value (-0 == +0)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    nan = torch.isnan(a)
+    if not torch.equal(nan, torch.isnan(b)):
+        return False
+    a, b = a.masked_fill(nan, 0), b.masked_fill(nan, 0)
+    if not bits:
+        return torch.equal(a, b)
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return torch.equal(a.view(view), b.view(view))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path, radius, levels, offset", [
+    ("usual", 4, 4, False), ("generic", 2, 2, False), ("generic", 3, 4, False), ("element", 4, 4, True),
+    ("element", 2, 2, True)])
+def test_dense_lookup_kernel_bitwise_on_every_plan_path_on_cuda(rng, path, radius, levels, offset):
+    """The dense entry point (`corr_lookup`, csrc/corr_lookup.cu) on each
+    plan path (levels as views 4 bytes past a 16-byte boundary take the
+    element path) and in the four (level, tap) dtype pairs: exact against
+    the plain version followed by one cast (equal values, NaN in the same
+    places; the plain version's zero taps out of range may carry the sign
+    of the clamped sample it multiplies by 0) and bit for bit the windowed
+    entry point, with far-out, infinite and NaN coordinates; one launch
+    counted under its own key, none under the windowed key."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the lookup kernel has no CPU form")
+    b, h, w1, w2 = 2, 3, 40, 150
+    base = [rng.standard_normal((b, h, w1, w2 >> l)).astype(np.float32) for l in range(levels)]
+    x = make_case(rng, w1, w2, b, h)[2]
+    x.reshape(-1)[4:9] = [np.nan, np.inf, -np.inf, 1e6, -1e6]
+    coords = torch.from_numpy(x).cuda()
+    for level_dtype in (torch.float32, torch.bfloat16):
+        lvls = []
+        for a in base:
+            t = torch.from_numpy(a).cuda().to(level_dtype)
+            if offset:
+                buf = torch.empty(t.numel() + 8, dtype=level_dtype, device="cuda")
+                t = buf[4 // t.element_size():][:t.numel()].view(t.shape).copy_(t)
+            lvls.append(t)
+        for out_dtype in (torch.float32, torch.bfloat16):
+            assert corr_cuda.prefetch_plan_for(lvls, coords, radius, out_dtype).path == path
+            key = "corr_lookup_bf16" if torch.bfloat16 in (level_dtype, out_dtype) else "corr_lookup"
+            before = dict(corr_cuda.LAUNCHES)
+            got = corr_cuda.corr_lookup(lvls, coords, radius, out_dtype)
+            torch.cuda.synchronize()
+            assert corr_cuda.LAUNCHES[key] == before[key] + 1
+            assert corr_cuda.LAUNCHES[key.replace("corr_lookup", "corr_prefetch_lookup")] == before[
+                key.replace("corr_lookup", "corr_prefetch_lookup")]
+            windowed = corr_cuda.prefetch_corr_lookup(lvls, coords, radius, out_dtype)
+            plain = corr.corr_lookup(lvls, coords, radius).to(out_dtype)
+            assert same_taps(got, plain, bits=False), (level_dtype, out_dtype)
+            assert same_taps(got, windowed), (level_dtype, out_dtype)

@@ -191,7 +191,7 @@ def test_validation_fn_and_missing_dataset(weights):
         validate(port_model(weights, **PALLAS))
     ev = evaluate.Evaluator(model, iters=1)
     for name in evaluate.VALIDATORS:
-        with pytest.raises(NotImplementedError, match="Queue A item 11"):
+        with pytest.raises(NotImplementedError, match="Queue A item 5"):
             evaluate.VALIDATORS[name](ev)
 
 

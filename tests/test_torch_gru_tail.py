@@ -56,3 +56,24 @@ def test_kernels_match_plain_on_cuda(rng, hw):
     np.testing.assert_array_equal(got.cpu().numpy(), gru_tail.plain_motion_tail(pre, flow).cpu().numpy())
     with pytest.raises(ValueError, match="contiguous"):
         gru_tail.fused_gru_tail(*[o.transpose(2, 3) for o in ops])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw", [(12, 16), (7, 9), (48, 156), (1, 1)])  # vector, scalar (odd H*W), realtime 1/8
+def test_motion_tail_kernel_bitwise_on_cuda(rng, dtype, hw):
+    """The motion tail at batch 2, fp32 and bf16: bit for bit
+    `plain_motion_tail` (the sign of zero included) on the vector path and
+    on the scalar one (odd H*W), one launch counted per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the motion tail kernel has no CPU form")
+    pre = torch.from_numpy(rng.standard_normal((2, 126, *hw)).astype(np.float32)).cuda().to(dtype)
+    flow = torch.from_numpy(rng.standard_normal((2, 1, *hw)).astype(np.float32)).cuda().to(dtype)
+    key = "motion_tail_bf16" if dtype == torch.bfloat16 else "motion_tail"
+    before = gru_tail.LAUNCHES[key]
+    got = gru_tail.fused_motion_tail(pre, flow)
+    torch.cuda.synchronize()
+    assert gru_tail.LAUNCHES[key] == before + 1
+    want = gru_tail.plain_motion_tail(pre, flow)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert got.dtype == dtype and torch.equal(got.view(bits), want.view(bits))

@@ -27,11 +27,14 @@ or fp32 staging), and 8 elements per 16-byte store: every level's span of
 a block splits into an element-by-element head up to its first 16-byte
 boundary, whole vectors and an element-by-element tail.
 
-Streaming grid (ops/_build.py `stream_blocks`, the GRU tail, motion
-tail and gate pair kernels): one thread per unit of work, at most 32
+Streaming grid (ops/_build.py `stream_blocks`, the GRU tail, gate pair
+and encoder join kernels): one thread per unit of work, at most 32
 blocks of 256 per multiprocessor of the card, at least one block; on an
 H100's 132 the grid the kernels computed for themselves before the count
 was read from the device, and every unit covered by the grid-stride loop.
+Motion tail (ops/gru_tail.py `motion_tail_plan`): a grid over output
+planes whose tiles cover every output element once. Dense lookup: the
+windowed kernel's plan (`prefetch_plan`) at the main path's shapes.
 
 `block_tile`, `block_queries` and `span_split` below restate how the kernels
 map a block to its work; that the .cu files derive the same mapping is shown only on the
@@ -655,6 +658,137 @@ def test_prefetch_plan_raises_for_what_no_instantiation_takes():
     with pytest.raises(ValueError, match="shared bytes"):
         corr_cuda.prefetch_plan(10, (8000,), 4000, 4, 4, SMS)
 
+
+
+# -- the dense lookup (ops/corr_cuda.py `corr_lookup`): the same kernel and plan --
+
+def run_spans(plan, n_queries):
+    """(first query, past-the-last query) of every run, in run order, and
+    the warp of the grid that takes each run (run i: warp i % warps, its
+    i // warps-th run), as the kernel of csrc/corr_window.cuh walks them."""
+    warps = plan.blocks * corr_cuda.PREFETCH_WARPS
+    runs = np.arange(-(-n_queries // plan.run), dtype=np.int64)
+    starts = runs * plan.run
+    return starts, np.minimum(starts + plan.run, n_queries), runs % warps, runs // warps
+
+
+@pytest.mark.parametrize("label, b, h, w", [
+    ("training recipe", 6, 80, 180), ("bf16 training step", 4, 80, 180), ("512x768", 1, 128, 192),
+    ("Middlebury-F", 1, 496, 720), ("9 Middlebury-F images", 9, 496, 720)])
+@pytest.mark.parametrize("level_bytes, out_bytes", [(4, 4), (4, 2), (2, 4), (2, 2)])
+def test_dense_lookup_plan_covers_every_query_once_in_order(label, b, h, w, level_bytes, out_bytes):
+    """The dense entry point (`_lookup`, csrc/corr_lookup.cu) launches the
+    windowed kernel with `prefetch_plan` for its queries and the card's
+    multiprocessors: at the main path's shapes (the training recipe's and
+    the bf16 step's 1/4, the 512x768 bucket's, Middlebury-F's and a batch
+    of 9 Middlebury-F images, whose first level passes 2**31 elements) the
+    runs tile [0, n) in order, each run is taken by exactly one warp, each
+    warp takes its runs in increasing order, and the grid is persistent
+    (at most PREFETCH_BLOCKS_PER_SM blocks per multiprocessor, and
+    proportional to the card's count where the work fills it)."""
+    n = b * h * w
+    widths = tuple(w >> l for l in range(4))
+    assert (n * w > 2**31) == (label == "9 Middlebury-F images")
+    for sms in (SMS, 114):
+        plan = corr_cuda.prefetch_plan(n, widths, 4, level_bytes, out_bytes, sms)
+        assert plan.path == "usual" and plan.run == 8 and plan.stages == 3
+        runs = -(-n // plan.run)
+        assert plan.blocks == min(-(-runs // corr_cuda.PREFETCH_WARPS), sms * corr_cuda.PREFETCH_BLOCKS_PER_SM)
+        starts, ends, warp, turn = run_spans(plan, n)
+        assert starts[0] == 0 and ends[-1] == n and (starts[1:] == ends[:-1]).all() and (ends > starts).all()
+        assert warp.max() < plan.blocks * corr_cuda.PREFETCH_WARPS
+        # A warp's k-th run is run warp + k * warps: one owner per run, in order.
+        assert (turn * plan.blocks * corr_cuda.PREFETCH_WARPS + warp == np.arange(runs)).all()
+    # The grid follows the card: no fixed multiprocessor count.
+    big = corr_cuda.prefetch_plan(n, widths, 4, level_bytes, out_bytes, 66)
+    if -(-n // 8) >= 2 * 132 * corr_cuda.PREFETCH_BLOCKS_PER_SM * corr_cuda.PREFETCH_WARPS:
+        assert big.blocks == 66 * corr_cuda.PREFETCH_BLOCKS_PER_SM
+
+
+def test_dense_lookup_plan_paths_and_huge_radii():
+    """The dense entry takes the plan's three paths as the windowed one
+    does (usual at r = 4 with 4 levels, generic otherwise, element for
+    levels that are views at unaligned offsets), and a window too wide for
+    a run's output staging takes fewer queries per run instead of raising:
+    1 level at radius 1000 (2001 taps of 4 bytes) fits 3 queries a run."""
+    n = 6 * 80 * 180
+    widths = (180, 90, 45, 22)
+    assert corr_cuda.prefetch_plan(n, widths, 4, 2, 2, SMS).path == "usual"
+    assert corr_cuda.prefetch_plan(n, widths[:2], 2, 4, 4, SMS).path == "generic"
+    assert corr_cuda.prefetch_plan(n, widths, 4, 2, 4, SMS, aligned=False).path == "element"
+    plan = corr_cuda.prefetch_plan(100, (4096,), 1000, 4, 4, SMS)
+    assert plan.path == "element" and plan.shared_bytes <= _build.MAX_SHARED_BYTES
+    assert plan.run == max(q for q in range(1, 33) if corr_cuda.prefetch_shared_bytes(
+        "element", q, 1, 1000, 4, 1, 0) <= _build.MAX_SHARED_BYTES) == 3
+
+
+# -- the motion tail (ops/gru_tail.py `motion_tail_plan`) ------------------------
+
+@pytest.mark.parametrize("b, c, h, w", [(1, 126, 128, 192), (1, 126, 48, 156), (1, 126, 496, 720), (2, 126, 7, 9),
+                                        (2, 126, 12, 16), (3, 5, 1, 1), (1, 126, 24, 78), (2, 126, 375, 1242)])
+@pytest.mark.parametrize("elem_bytes", [4, 2])
+@pytest.mark.parametrize("vec", [True, False])
+def test_motion_tail_plan_covers_every_output_element_once(b, c, h, w, elem_bytes, vec):
+    """Grid (tiles, C + 2, B): every output plane is one (y, z) pair, and
+    within a plane block x's thread t covers units x * 256 * per_thread + t
+    + k * 256 (k < per_thread) below the plane's unit count, each unit 16
+    bytes' worth on the vector path (taken only where H*W divides by it)
+    and one element on the scalar one: every output element of every plane
+    exactly once. A thread moves 4 units unless the grid would then have
+    fewer than two blocks per multiprocessor."""
+    from raft_stereo_tpu_torch.ops import gru_tail
+    hw = h * w
+    unit = 16 // elem_bytes
+    vec = vec and hw % unit == 0
+    plan = gru_tail.motion_tail_plan(b, c, hw, elem_bytes, SMS, vec)
+    assert plan.unit == (unit if vec else 1) and plan.grid == (plan.tiles, c + 2, b)
+    threads = gru_tail.MOTION_THREADS
+    planes = {(y, z) for y in range(plan.grid[1]) for z in range(plan.grid[2])}
+    assert len(planes) == b * (c + 2)
+    units = hw // plan.unit
+    seen = np.zeros(hw, np.int32)
+    for x in range(plan.tiles):
+        for k in range(plan.per_thread):
+            u = x * threads * plan.per_thread + k * threads + np.arange(threads)
+            for e in range(plan.unit):
+                np.add.at(seen, u[u < units] * plan.unit + e, 1)
+    assert (seen == 1).all()
+    blocks = b * (c + 2) * plan.tiles
+    if plan.per_thread < 4:
+        assert b * (c + 2) * -(-units // (threads * 2 * plan.per_thread)) < 2 * SMS
+    assert plan.per_thread == 1 or blocks >= 2 * SMS
+
+
+def test_motion_tail_plan_raises_for_what_the_grid_cannot_hold():
+    from raft_stereo_tpu_torch.ops import gru_tail
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        gru_tail.motion_tail_plan(1, 126, 64, 8, SMS)
+    with pytest.raises(ValueError, match="units"):
+        gru_tail.motion_tail_plan(1, 126, 63, 4, SMS, vec=True)
+    with pytest.raises(ValueError, match="grid"):
+        gru_tail.motion_tail_plan(65536, 126, 64, 4, SMS)
+    assert gru_tail.motion_tail_plan(65535, 126, 64, 4, SMS).grid == (1, 128, 65535)
+
+
+# -- the encoder join (ops/encoder_cuda.py `join_blocks`) --------------------------
+
+@pytest.mark.parametrize("b, c, h, w", [(1, 64, 512, 768), (2, 64, 1984, 2880), (2, 64, 192, 624), (1, 64, 13, 70),
+                                        (1, 64, 1, 1), (0, 64, 8, 8)])
+def test_join_grid_comes_from_the_multiprocessor_count(b, c, h, w):
+    """The join's grid-stride grid is one unit per thread (a 4-element group
+    where H*W divides by 4, else an element), at most 32 blocks of 256 per
+    multiprocessor of the card the wrapper reads: on an H100's 132 the grid
+    the kernel computed for itself before, on other cards its own."""
+    from raft_stereo_tpu_torch.ops import encoder_cuda
+    hw = h * w
+    for vec in (hw % 4 == 0, False):
+        units = b * c * (hw // 4 if vec else hw)
+        assert encoder_cuda.join_blocks(b, c, hw, vec, SMS) == max(1, min(-(-units // 256), 132 * 32))
+        for sms in (66, 114, 7):
+            blocks = encoder_cuda.join_blocks(b, c, hw, vec, sms)
+            assert blocks == max(1, min(-(-units // 256), sms * 32))
+            # The grid-stride loop covers every unit.
+            assert blocks * 256 * -(-max(units, 1) // (blocks * 256)) >= units
 
 # -- the fp32 conv (ops/encoder_cuda.py `conv_plan`, elem_bytes 4) -------------
 
