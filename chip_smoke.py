@@ -26,7 +26,13 @@ architecture against plain code, evaluates it on KITTI-shaped pairs and
 through its command line, runs the JAX bench's mixed configuration with
 each test-mode lever (the windowed lookup, the fused GRU tail, the gate
 pair) at Middlebury-F size with their bf16 kernels held against their plain
-versions, and times every kernel.
+versions, serves the kernel configuration behind the HTTP front to eight
+client threads (every response held bit for bit against its batch replayed
+through the engine, each batch against its pairs' batch-1 forwards, the
+kernels launched once per batch, a stream's warm starts and reset, a hot
+swap refused and then accepted), boots the `serve` command line in the
+kernel and the mixed configurations as a process and stops it with
+SIGTERM, and times every kernel.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -46,9 +52,13 @@ import io
 import json
 import os
 import re
+import signal
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -57,15 +67,19 @@ import torch.nn.functional as F
 
 from raft_stereo_tpu_torch import cli, evaluate
 from raft_stereo_tpu_torch.profile_stages import LEVERS
-from raft_stereo_tpu_torch.config import RAFTStereoConfig, ServeConfig, TrainConfig
+from raft_stereo_tpu_torch.config import RAFTStereoConfig, ServeConfig, TrainConfig, VideoConfig
 from raft_stereo_tpu_torch.evaluate import Evaluator, SyntheticEvalDataset, validate_kitti, validate_middlebury
-from raft_stereo_tpu_torch.models import anytime
+from raft_stereo_tpu_torch.models import anytime, layers
 from raft_stereo_tpu_torch.models.init import build_model
 from raft_stereo_tpu_torch.models.raft_stereo import RAFTStereo
 from raft_stereo_tpu_torch.ops import _build, corr, corr_cuda, encoder_cuda, gates, gru_tail
-from raft_stereo_tpu_torch.serving.service import StereoService
+from raft_stereo_tpu_torch.serving.service import StereoService, make_http_server
 from raft_stereo_tpu_torch.train import synthetic
 from raft_stereo_tpu_torch.train.trainer import Trainer
+from raft_stereo_tpu_torch.utils.checkpoints import export_reference_state_dict, load_reference_checkpoint
+from raft_stereo_tpu_torch.utils.http import request, request_json
+from raft_stereo_tpu_torch.utils.run_report import validate_run_report
+from serve_compare import FRONT_BURST, FRONT_CLIENTS
 
 # The slice's model: the default architecture with the CUDA lookup and the
 # fused GRU tails, fp32 throughout.
@@ -1213,6 +1227,8 @@ def phase_serving(rng) -> tuple:
             raise AssertionError(f"{label}: disparity shape {disp.shape} or non-finite values")
         iters_total += res["iters_completed"]
         responses.append((label, res))
+    # The runner thread launches the kernels: let the batcher go idle.
+    drain_service(service, "[serving]")
     counts = launches()
     log(f"[serving] launches over {len(requests)} requests ({iters_total} iterations): {counts}")
     if responses[-1][1]["iters_completed"] != cfg.chunk_iters or not responses[-1][1]["early_exit"]:
@@ -1223,6 +1239,14 @@ def phase_serving(rng) -> tuple:
     if counts != want:
         raise AssertionError(f"kernel launches {counts} != expected {want}")
     return service, counts
+
+
+def drain_service(service, tag: str) -> None:
+    """Wait until the batcher is idle (every admitted request answered:
+    the runner thread has made its launches) and close the service, whose
+    threads would otherwise keep its model alive."""
+    if not service.drain(timeout_s=120):
+        raise AssertionError(f"{tag}: the service did not drain within 120 s")
 
 
 def phase_stage_times(service) -> None:
@@ -1304,6 +1328,7 @@ def phase_serving_fused(rng, weights) -> tuple:
             raise AssertionError("fused: the tight-deadline request did not exit after one chunk")
         if deadline_ms is None and it != cfg.max_iters:
             raise AssertionError("fused: a request without a deadline stopped short of max_iters")
+    drain_service(service, "[fused]")
     counts = launches()
     log(f"[fused] launches over {len(REQUESTS)} requests: {counts}")
     if any(counts[k] == 0 for k in ("corr_lookup", "gru_tail", "motion_tail", "corr_pyramid", "encoder_conv",
@@ -1851,6 +1876,7 @@ def phase_mixed_serving(rng, weights) -> tuple:
             raise AssertionError("mixed: the tight-deadline request did not exit after one chunk")
         if deadline_ms is None and it != cfg.max_iters:
             raise AssertionError("mixed: a request without a deadline stopped short of max_iters")
+    drain_service(service, "[mixed]")
     counts = launches()
     log(f"[mixed] launches over {len(MIXED_REQUESTS)} requests: {counts}")
     return service, counts
@@ -2009,6 +2035,445 @@ def phase_mixed_cli() -> None:
         raise AssertionError(f"mixed evaluate CLI metrics {got} differ from validate_middlebury's {want_metrics}")
 
 
+# -- the twelfth slice: the serving front ------------------------------------------
+
+# [serving-front]: the kernel configuration at the default buckets, max
+# batch 4, chunk 4, 32 iterations, streams on, the hang watchdog armed,
+# behind the HTTP front. FRONT_CLIENTS client threads send FRONT_BURST
+# (serve_compare.py; each image new, so every response maps back to its
+# batch row by its padded pixels); then one tight-deadline request alone
+# (a queue would shed it).
+FRONT_TIGHT_MS = 1.0
+# Iterations at which each batch is replayed against its pairs' batch-1
+# direct forwards, where the serving bound is held (as in [e2e]).
+FRONT_DRIFT_ITERS = (E2E_ITERS,)
+FRONT_WARM_ITERS = 8
+FRONT_HANG_S = 60.0
+FRONT_STREAM_HW = (300, 400)
+FRONT_WAIT_S = 300
+# [serve-cli]: `python -m raft_stereo_tpu_torch serve` as a user starts it
+# (no --device: the card), in the kernel configuration and in the JAX
+# bench's mixed one.
+SERVE_CLI_CONFIGS = (
+    ("kernel", ["--corr_implementation", "pallas", "--fused_gru_tail"]),
+    ("mixed", ["--corr_implementation", "reg_cuda", "--mixed_precision", "--fused_encoder", "--fused_gru_tail"]),
+)
+SERVE_CLI_REQUESTS = ((384, 512), (512, 768), (300, 500))
+SERVE_CLI_BOOT_S = 300
+
+
+def int_pair(rng, h, w, shift=12):
+    """A stereo pair of integer intensities: a JSON body carries them
+    exactly, and they encode faster than floats."""
+    return tuple(np.floor(x) for x in stereo_pair(rng, h, w, shift))
+
+
+def json_image(x: np.ndarray) -> list:
+    return x.astype(np.int32).tolist()
+
+
+class StagedRecorder:
+    """Keeps every batch the runner ran (its padded host images and its
+    results) by wrapping the engine's `run_staged`; launches nothing."""
+
+    def __init__(self, engine):
+        self.engine, self.batches = engine, []
+        self._run = engine.run_staged
+        engine.run_staged = self.run
+
+    def run(self, staged):
+        results = self._run(staged)
+        self.batches.append((staged.bucket, staged.i1_host, staged.i2_host, results))
+        return results
+
+    def close(self) -> None:
+        self.engine.run_staged = self._run
+
+
+def wait_idle(service, timeout_s: float = 120.0) -> None:
+    """Until every admitted request is answered; the service stays open."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        with service.batcher._cond:
+            if service.batcher._pending == 0:
+                return
+        if time.monotonic() > deadline:
+            raise AssertionError("the batcher did not go idle")
+        time.sleep(0.01)
+
+
+def post_predict(url, a, b, **extra):
+    resp = request_json(f"{url}/v1/predict", method="POST", timeout_s=FRONT_WAIT_S,
+                        payload={"image1": json_image(a), "image2": json_image(b), **extra})
+    return resp.status, resp.json()
+
+
+def low_contrast(x):
+    """The stream's scene: 10% contrast, so the untrained model's flow warps
+    each frame about as well as the one before (the reset gate's ratio near
+    1), while a cut to full-contrast noise raises the warp error tenfold."""
+    return np.floor(120.0 + 0.1 * (x - 127.5))
+
+
+def mild_model(config: RAFTStereoConfig) -> RAFTStereo:
+    """The seed's weights with every conv kernel halved, as the CPU parity
+    tests' models (tests/test_torch_model.py `weights`): at the full
+    fan-out He scale the untrained GRU amplifies fp32 rounding chaotically,
+    so over 32 iterations two correct fp32 runs that round differently
+    (a batch of 4 against a batch of 1) drift apart by far more than the
+    serving bound; halved kernels keep that drift near rounding while the
+    flows still move by pixels."""
+    model = build_model(config, seed=SEED, device="cpu")
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.weight.mul_(0.5)
+    return model.to(DEVICE)
+
+
+@contextlib.contextmanager
+def batch_invariant(norm_per_image: bool = True):
+    """Pin the two reductions whose order depends on the batch: cuDNN off
+    (PyTorch's own convolution runs one image at a time) and, with
+    `norm_per_image`, the instance norm's sums over H x W taken one image
+    at a time (PyTorch's reduction splits them by the number of rows). On
+    an H100 the two together make a batched row equal its batch-1 forward
+    bit for bit; cuDNN off alone does not."""
+    forward = layers.InstanceNorm.forward
+
+    def per_image(self, x):
+        return torch.cat([forward(self, x[k:k + 1]) for k in range(x.shape[0])])
+
+    with torch.backends.cudnn.flags(enabled=False):
+        if not norm_per_image:
+            yield
+            return
+        with swapped(layers.InstanceNorm, forward=per_image):
+            yield
+
+
+def phase_serving_front(rng, card: str) -> None:
+    video = VideoConfig(chunk_iters=4, cold_iters=32, warm_iters=FRONT_WARM_ITERS)
+    cfg = ServeConfig(model=KERNEL_CONFIG, video=video, hang_timeout_s=FRONT_HANG_S)
+    t0 = time.perf_counter()
+    service = StereoService(cfg, mild_model(KERNEL_CONFIG), device=DEVICE).start()
+    log(f"[serving-front] boot + warm of {service.warm_summary['combos']} (bucket, batch) combos with the "
+        f"flow_init prelude: {time.perf_counter() - t0:.2f} s")
+    server = make_http_server(service, port=0)
+    thread = threading.Thread(target=server.serve_forever, name="http-front", daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    recorder = StagedRecorder(service.engine)
+    try:
+        front_traffic(service, url, recorder, rng, card)
+        front_streams(service, url, rng)
+        front_reload(service, url, rng)
+    finally:
+        recorder.close()
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        drain_service(service, "[serving-front]")
+
+
+def front_traffic(service, url, recorder, rng, card) -> None:
+    engine, cfg = service.engine, service.config
+    jobs = [(label, *int_pair(rng, h, w)) for label, (h, w), n in FRONT_BURST for _ in range(n)]
+    jobs = [jobs[i] for i in rng.permutation(len(jobs))]
+    answers = [None] * len(jobs)
+    errors = []
+
+    def client(k):
+        try:
+            for i in range(k, len(jobs), FRONT_CLIENTS):
+                t = time.perf_counter()
+                status, body = post_predict(url, jobs[i][1], jobs[i][2])
+                answers[i] = (status, body, (time.perf_counter() - t) * 1e3)
+        except Exception as exc:  # noqa: BLE001 - reported below, fails the phase
+            errors.append(repr(exc))
+
+    reset_launches()
+    before_log = len(service.batcher.metrics.batch_log)
+    t_burst = time.perf_counter()
+    clients = [threading.Thread(target=client, args=(k,), name=f"client-{k}") for k in range(FRONT_CLIENTS)]
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join(timeout=FRONT_WAIT_S)
+    burst_s = time.perf_counter() - t_burst
+    if errors or any(c.is_alive() for c in clients) or any(a is None for a in answers):
+        raise AssertionError(f"[serving-front] clients failed: {errors}")
+    tight = int_pair(rng, *cfg.buckets[-1])
+    status, tight_body = post_predict(url, *tight, deadline_ms=FRONT_TIGHT_MS)
+    jobs.append(("tight deadline", *tight))
+    answers.append((status, tight_body, tight_body.get("latency_ms", 0.0)))
+    wait_idle(service)
+    counts = launches()
+    batches = list(recorder.batches)
+    log_entries = list(service.batcher.metrics.batch_log)[before_log:]
+
+    # Status codes, shapes, finite values.
+    for (label, a, _), (status, body, _) in zip(jobs, answers):
+        want = 413 if label.startswith("oversize") else 200
+        if status != want:
+            raise AssertionError(f"[serving-front] {label}: HTTP {status} != {want}: {str(body)[:300]}")
+        if status == 200:
+            d = np.asarray(body["disparity"], np.float32)
+            if d.shape != a.shape[:2] or not np.isfinite(d).all():
+                raise AssertionError(f"[serving-front] {label}: disparity {d.shape} or non-finite values")
+    if not (tight_body["early_exit"] and tight_body["iters_completed"] == cfg.chunk_iters):
+        raise AssertionError(f"[serving-front] the tight-deadline request did not exit after one chunk: "
+                             f"{tight_body['iters_completed']}")
+
+    # Batches: no bucket mixed, at least one coalesced, launches per batch.
+    if not any(real > 1 for _, real, _ in log_entries):
+        raise AssertionError(f"[serving-front] no batch held more than one request: {log_entries}")
+    if [(tuple(b), len(res), i1.shape[0]) for b, i1, _, res in batches] != [
+            (tuple(b), real, padded) for b, real, padded in log_entries]:
+        raise AssertionError("[serving-front] the recorded batches disagree with the batch log")
+    if any(tuple(i1.shape[1:3]) != tuple(b) for b, i1, _, _ in batches):
+        raise AssertionError("[serving-front] a batch mixed shapes")
+    batch_iters = sum(max(r.iters_completed for r in res) for _, _, _, res in batches)
+    request_iters = sum(body["iters_completed"] for (_, body, _) in answers if "iters_completed" in body)
+    want = expect(corr_lookup=batch_iters, gru_tail=3 * batch_iters, motion_tail=batch_iters)
+    log(f"[serving-front] {len(jobs)} requests over HTTP from {FRONT_CLIENTS} clients in {len(batches)} batches "
+        f"(bucket, real, padded): {[(f'{b[0]}x{b[1]}', r, p) for b, r, p in log_entries]}")
+    log(f"[serving-front] launches {counts}: {batch_iters} iterations summed over batches, {request_iters} over "
+        f"requests")
+    if counts != want:
+        raise AssertionError(f"[serving-front] launches {counts} != per-batch expectation {want}")
+    if not batch_iters < request_iters:
+        raise AssertionError("[serving-front] the kernels ran once per request, not once per batch")
+
+    # Each response: bit for bit the engine's own batch replayed; and the
+    # batch, replayed at E2E_ITERS iterations, within the serving bound of
+    # each pair's batch-1 direct forward, as [e2e] holds it. As served (32
+    # iterations) a coalesced row drifts from its batch-1 forward past the
+    # bound: the untrained GRU amplifies the rounding by which two correct
+    # fp32 runs differ. The witness for the cause: every coalesced batch
+    # replayed as served and each of its pairs' batch-1 forwards, both
+    # under `batch_invariant` (below), are held to the bound at the served
+    # iterations; the drift with cuDNN off alone and as served is printed.
+    rows = {}
+    for bi, (bucket, i1, _, _) in enumerate(batches):
+        for r in range(len(batches[bi][3])):
+            rows.setdefault((tuple(bucket), i1[r, :4, :4].tobytes()), []).append((bi, r))
+    replays = {}
+
+    def replay(bi, iters):
+        """Batch `bi` through engine.run_batch, each row to its own
+        iteration count (an int: all rows alike)."""
+        bucket, i1, i2, res = batches[bi]
+        iters = tuple(iters) if isinstance(iters, list) else (iters,) * len(res)
+        if (bi, iters) not in replays:
+            replays[(bi, iters)] = engine.run_batch(
+                tuple(bucket), torch.from_numpy(i1).to(DEVICE), torch.from_numpy(i2).to(DEVICE),
+                deadlines_s=[None] * len(res), max_iters=list(iters))
+        return replays[(bi, iters)]
+
+    ladder = [k for k in FRONT_DRIFT_ITERS if k <= cfg.max_iters]
+    drift = {k: 0.0 for k in (*ladder, "served", "coalesced", "cudnn off", "pinned")}
+    pinned_s = 0.0
+    with torch.inference_mode():
+        for bi, (_, _, _, res) in enumerate(batches):
+            again = replay(bi, [r.iters_completed for r in res])
+            if not all(np.array_equal(x.flow_up, y.flow_up) for x, y in zip(res, again)):
+                raise AssertionError(f"[serving-front] batch {bi} replayed through engine.run_batch differs")
+        for (label, a, b), (status, body, _) in zip(jobs, answers):
+            if status != 200:
+                continue
+            bucket, padder, p1, p2 = service._admit(a, b)
+            hits = [(bi, r) for bi, r in rows.get((tuple(bucket), p1[:4, :4].tobytes()), [])
+                    if np.array_equal(batches[bi][1][r], p1) and np.array_equal(batches[bi][2][r], p2)]
+            if len(hits) != 1:
+                raise AssertionError(f"[serving-front] {label}: {len(hits)} batch rows hold its padded pair")
+            bi, r = hits[0]
+            got = np.asarray(body["disparity"], np.float32)
+            served = [x.iters_completed for x in batches[bi][3]]
+            if not np.array_equal(got, padder.unpad(replay(bi, served)[r].flow_up[None])[0, :, :, 0]):
+                raise AssertionError(f"[serving-front] {label}: the response differs from its batch's replay")
+            x1, x2 = (torch.from_numpy(p[None]).to(DEVICE) for p in (p1, p2))
+            for k in (*ladder, "served"):
+                iters = body["iters_completed"] if k == "served" else k
+                _, up = engine.model(x1, x2, iters=iters, test_mode=True)
+                direct = padder.unpad(up.float().cpu().numpy())[0, :, :, 0]
+                row = got if k == "served" else padder.unpad(replay(bi, k)[r].flow_up[None])[0, :, :, 0]
+                drift[k] = max(drift[k], float(np.abs(row - direct).max()))
+                if k == "served" and len(batches[bi][3]) > 1:
+                    drift["coalesced"] = max(drift["coalesced"], drift[k])
+            if len(batches[bi][3]) < 2:
+                continue
+            for setting, norm_per_image in (("cudnn off", False), ("pinned", True)):
+                t = time.perf_counter()
+                with batch_invariant(norm_per_image):
+                    _, up = engine.model(x1, x2, iters=body["iters_completed"], test_mode=True)
+                    if (bi, setting) not in replays:
+                        bucket_, i1, i2, res = batches[bi]
+                        replays[(bi, setting)] = engine.run_batch(
+                            tuple(bucket_), torch.from_numpy(i1).to(DEVICE), torch.from_numpy(i2).to(DEVICE),
+                            deadlines_s=[None] * len(res), max_iters=served)
+                pinned_s += time.perf_counter() - t
+                row = padder.unpad(replays[(bi, setting)][r].flow_up[None])[0, :, :, 0]
+                direct = padder.unpad(up.float().cpu().numpy())[0, :, :, 0]
+                drift[setting] = max(drift[setting], float(np.abs(row - direct).max()))
+    log(f"[serving-front] every response equals its batch replayed through engine.run_batch bit for bit; "
+        f"batched against the batch-1 direct forward of the same padded pair, worst "
+        + ", ".join(f"{drift[k]:.3e} px at {k} iterations" for k in ladder)
+        + f", {drift['served']:.3e} px as served ({drift['coalesced']:.3e} over coalesced batches); the coalesced "
+        f"batches as served {drift['cudnn off']:.3e} px with cuDNN off, {drift['pinned']:.3e} px with cuDNN off "
+        f"and the instance norm one image at a time ({pinned_s:.1f} s) (tol {E2E_TOL_PX:g} px at {E2E_ITERS} "
+        f"iterations, and at the served iterations in the last setting)")
+    if not drift[E2E_ITERS] <= E2E_TOL_PX:
+        raise AssertionError(f"[serving-front] a batch is {drift[E2E_ITERS]} px from its pairs' batch-1 forwards")
+    if not drift["pinned"] <= E2E_TOL_PX:
+        raise AssertionError(f"[serving-front] with the batch-dependent reductions pinned a coalesced batch as "
+                             f"served is {drift['pinned']} px from its pairs' batch-1 forwards")
+
+    # Health, metrics, and the numbers of this run.
+    health = request_json(f"{url}/healthz").json()
+    problems = validate_run_report(health)
+    prom = request(f"{url}/metrics?format=prom")
+    if problems or health["serving"]["state"] != "healthy" or not health["serving"]["memory"]["available"]:
+        raise AssertionError(f"[serving-front] /healthz: {problems}, {health['serving']['state']}")
+    if prom.headers.get("Content-Type") != "text/plain; version=0.0.4" or \
+            "raft_serving_batches_total" not in prom.body.decode():
+        raise AssertionError("[serving-front] /metrics?format=prom")
+    snap = service.metrics()
+    attr = service.batcher.metrics.attribution_summary()
+    burst_answers = answers[:-1]
+    log(card)
+    log(f"[serving-front] burst of {len(burst_answers)} requests in {burst_s:.3f} s: "
+        f"{len(burst_answers) / burst_s:.3f} requests/s; service latency p50 {snap['latency_p50_ms']:.3f} ms, "
+        f"p99 {snap['latency_p99_ms']:.3f} ms; client round trip p50 "
+        f"{statistics.median(t for _, _, t in burst_answers):.3f} ms; batch fill mean {snap['batch_fill_mean']:.4f}; "
+        f"queue wait p50 {attr['queue_wait_ms']['p50']:.3f} ms, device p50 {attr['device_ms']['p50']:.3f} ms, "
+        f"host gap p50 {attr['host_gap_ms']['p50']:.3f} ms; rejected {snap['rejected_total']}, shed "
+        f"{snap['shed_total']}; device memory in use {health['serving']['memory']['bytes_in_use']} B")
+
+
+def front_streams(service, url, rng) -> None:
+    """Six frames of one stream over HTTP: five of a slowly panning
+    low-contrast scene (frame 0 cold, then warm starts), then a cut."""
+    h, w = FRONT_STREAM_HW
+    base = rng.uniform(0, 255, (h, w + 24, 3)).astype(np.float32)
+    frames = [(low_contrast(base[:, 12 + t: 12 + t + w]), low_contrast(base[:, t: t + w])) for t in range(5)]
+    frames.append(tuple(np.floor(rng.uniform(0, 255, (h, w, 3))) for _ in range(2)))
+    out = []
+    for a, b in frames:
+        status, body = post_predict(url, a, b, stream_id="cam0")
+        if status != 200:
+            raise AssertionError(f"[serving-front] stream frame: HTTP {status}: {str(body)[:300]}")
+        out.append(body)
+    seen = [(o["stream_frame"], o["warm_started"], o["reset"], o["iters_completed"]) for o in out]
+    cold = service.config.max_iters
+    want = [(0, False, False, cold)] + [(t, True, False, FRONT_WARM_ITERS) for t in range(1, 5)] + [(0, False, True, cold)]
+    log(f"[serving-front] stream of {len(frames)} frames (frame, warm_started, reset, iters): {seen}")
+    if seen != want:
+        raise AssertionError(f"[serving-front] stream {seen} != {want}")
+
+
+def front_reload(service, url, rng) -> None:
+    """POST /reload: a .pth of another width answers 409 and serving goes
+    on unchanged; a good one swaps in and changes the outputs to those of a
+    model built fresh from it."""
+    a, b = int_pair(rng, *service.config.buckets[0])
+    _, before = post_predict(url, a, b)
+    with tempfile.TemporaryDirectory() as tmp:
+        wrong = os.path.join(tmp, "wrong.pth")
+        torch.save(export_reference_state_dict(build_model(RAFTStereoConfig(hidden_dims=(96, 96, 96)), seed=SEED,
+                                                           device="cpu")), wrong)
+        resp = request_json(f"{url}/reload", method="POST", payload={"checkpoint": wrong}, timeout_s=FRONT_WAIT_S)
+        _, still = post_predict(url, a, b)
+        if resp.status != 409 or still["swap_generation"] != 0 or still["disparity"] != before["disparity"]:
+            raise AssertionError(f"[serving-front] mismatched reload: HTTP {resp.status}, generation "
+                                 f"{still['swap_generation']}")
+        good = os.path.join(tmp, "good.pth")
+        torch.save(export_reference_state_dict(build_model(KERNEL_CONFIG, seed=SEED + 1, device="cpu")), good)
+        resp = request_json(f"{url}/reload", method="POST", payload={"checkpoint": good}, timeout_s=FRONT_WAIT_S)
+        _, after = post_predict(url, a, b)
+        fresh = load_reference_checkpoint(build_model(KERNEL_CONFIG, seed=SEED + 2, device="cpu"), good).to(DEVICE)
+    _, padder, p1, p2 = service._admit(a, b)
+    with torch.inference_mode():
+        _, up = fresh(torch.from_numpy(p1[None]).to(DEVICE), torch.from_numpy(p2[None]).to(DEVICE),
+                      iters=after["iters_completed"], test_mode=True)
+    direct = padder.unpad(up.float().cpu().numpy())[0, :, :, 0]
+    err = float(np.abs(np.asarray(after["disparity"], np.float32) - direct).max())
+    log(f"[serving-front] reload: another width answered 409 and serving went on unchanged; a good .pth "
+        f"swapped in (generation {after['swap_generation']}), outputs changed, {err:.3e} px from a fresh model's "
+        f"forward (tol {E2E_TOL_PX:g})")
+    if resp.status != 200 or after["swap_generation"] != 1 or after["disparity"] == before["disparity"]:
+        raise AssertionError(f"[serving-front] good reload: HTTP {resp.status}: {resp.body[:300]!r}")
+    if not err <= E2E_TOL_PX:
+        raise AssertionError(f"[serving-front] the swapped service is {err} px from a fresh model")
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_serve_cli(rng) -> None:
+    """`python -m raft_stereo_tpu_torch serve` as a process in each of
+    SERVE_CLI_CONFIGS: /healthz turns healthy within SERVE_CLI_BOOT_S, both
+    buckets answer, /metrics answers in JSON and Prometheus text, SIGTERM
+    drains and exits 0. Any failure kills the process."""
+    for name, flags in SERVE_CLI_CONFIGS:
+        serve_cli(rng, name, flags)
+
+
+def serve_cli(rng, name: str, flags) -> None:
+    tag = f"[serve-cli] {name}"
+    port = free_port()
+    url = f"http://127.0.0.1:{port}"
+    cmd = [sys.executable, "-m", "raft_stereo_tpu_torch", "serve", "--port", str(port), *flags]
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path, err_path = os.path.join(tmp, "stdout"), os.path.join(tmp, "stderr")
+        with open(out_path, "w") as out, open(err_path, "w") as err:
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(cmd, stdout=out, stderr=err, text=True)
+        try:
+            state = None
+            while time.perf_counter() - t0 < SERVE_CLI_BOOT_S and proc.poll() is None:
+                try:
+                    state = request_json(f"{url}/healthz", timeout_s=10).json()["serving"]["state"]
+                    break
+                except OSError:
+                    time.sleep(0.5)
+            boot_s = time.perf_counter() - t0
+            if state != "healthy":
+                raise AssertionError(f"{tag}: not healthy after {boot_s:.1f} s (exit {proc.poll()})")
+            for h, w in SERVE_CLI_REQUESTS:
+                a, b = int_pair(rng, h, w)
+                t = time.perf_counter()
+                status, body = post_predict(url, a, b)
+                ms = (time.perf_counter() - t) * 1e3
+                d = np.asarray(body.get("disparity", []), np.float32)
+                log(f"{tag} {h}x{w}: HTTP {status}, bucket {body.get('bucket')}, iters "
+                    f"{body.get('iters_completed')}, round trip {ms:.3f} ms")
+                if status != 200 or d.shape != (h, w) or not np.isfinite(d).all():
+                    raise AssertionError(f"{tag} {h}x{w}: HTTP {status}, disparity {d.shape}")
+            health = request_json(f"{url}/healthz").json()
+            metrics = request_json(f"{url}/metrics").json()
+            prom = request(f"{url}/metrics?format=prom")
+            if validate_run_report(health) or health["serving"]["device"] != DEVICE or \
+                    metrics["responses_total"] != len(SERVE_CLI_REQUESTS) or \
+                    f"raft_serving_responses_total {len(SERVE_CLI_REQUESTS)}" not in prom.body.decode():
+                raise AssertionError(f"{tag}: /healthz {health['serving']}, /metrics {metrics}")
+            proc.send_signal(signal.SIGTERM)
+            code = proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        stdout, stderr = open(out_path).read(), open(err_path).read()
+    boot_line = next((ln for ln in stdout.splitlines() if ln.startswith("{")), "{}")
+    log(f"{tag}: {' '.join(cmd[1:])}: healthy after {boot_s:.2f} s (warm-up "
+        f"{json.loads(boot_line).get('boot', {}).get('warmup_seconds')} s); SIGTERM -> exit {code}")
+    if code != 0 or "backlog drained" not in stderr:
+        raise AssertionError(f"{tag}: exit {code} after SIGTERM: {stderr[-2000:]}")
+
+
 # -- the eighth slice: the realtime model and the bf16 levers --------------------
 
 @contextlib.contextmanager
@@ -2162,6 +2627,7 @@ def phase_realtime(rng) -> dict:
         if res["iters_completed"] != REALTIME_ITERS or delta != realtime_expect():
             raise AssertionError(f"realtime {label}: iters {res['iters_completed']}, launches {delta} != "
                                  f"expected {realtime_expect()}")
+    drain_service(service, "[realtime]")
     counts = launches()
     log(f"[realtime] launches over {len(REALTIME_REQUESTS)} requests: {counts}")
     return counts
@@ -2804,6 +3270,10 @@ def main() -> int:
     mixed_service_, mixed_counts = phase_mixed_serving(rng, service.engine.model.state_dict())
     phase_mixed_e2e(mixed_service_, rng)
     del service, fused_service, mixed_service_
+    torch.cuda.empty_cache()
+    phase_serving_front(rng, card)
+    torch.cuda.empty_cache()
+    phase_serve_cli(rng)
     torch.cuda.empty_cache()
     eval_counts, gates_counts, eval_flow = phase_evaluate()
     torch.cuda.empty_cache()

@@ -21,8 +21,9 @@ reference's realtime model, with `n_downsample=3`, `n_gru_layers=2`,
 Not yet ported, so not present: the `"alt"` correlation
 strategy, `sequential_encoder` (and the JAX package's
 `sequential_batch_forward`), `encoder_s2d` (a TPU
-layout; the port computes its values with the direct convs), every serving
-option beyond the anytime engine's (batcher, fleet, AOT cache, streams),
+layout; the port computes its values with the direct convs), the serving
+fleet and its options (`replicas`, `auto_respawn`, `sharding_rules`), the
+AOT executable cache (`aot_cache_dir`) and the HLO audit (`hlo_audit`),
 every training option beyond one process's optimizer step (data,
 augmentation, mesh, checkpoints, resilience beyond `nan_policy`
 "raise"/"skip", logging sinks), the dataset readers (evaluation runs on
@@ -33,7 +34,7 @@ the demo.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 # Data modalities of the gated-stereo fork: "RGB" and "1 Passive Gated" are
 # 3-channel, "All Gated" stacks 5 gated slices.
@@ -160,12 +161,64 @@ class RAFTStereoConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class VideoConfig:
+    """Stream session policy (video/session.py; `ServeConfig.video`).
+
+    A stream carries the previous frame's low-res flow and warm-starts the
+    next frame through the prelude's `flow_init`, so warm frames reach the
+    cold-start error in fewer GRU iterations. A host-side proxy, the
+    photometric warp error of the candidate flow on the new pair at 1/4
+    resolution, gates the warm start: a scene cut resets the stream to a
+    cold start instead of refining from a wrong prior.
+    """
+
+    # Warm-start at all. False degrades every frame to a cold start.
+    warm_start: bool = True
+    # Also carry the ConvGRU hidden state across frames (StreamSession
+    # only: it swaps state["net"] between prelude and first chunk).
+    carry_hidden: bool = False
+    # GRU iterations per chunk for the standalone StreamSession; serving
+    # streams use ServeConfig.chunk_iters, which must agree.
+    chunk_iters: int = 4
+    # Refinement budget for cold frames (frame 0, frames after a reset).
+    cold_iters: int = 32
+    # Refinement budget for warm-started frames.
+    warm_iters: int = 8
+    # Reset when the candidate flow's warp error on the new pair exceeds
+    # `reset_error_ratio` x the error the same flow reached on its own
+    # frame AND `reset_error_floor` (mean |I1 - warp(I2)| in [0, 255]
+    # intensity units; the floor keeps near-perfect warps from tripping the
+    # ratio on noise).
+    reset_error_ratio: float = 2.5
+    reset_error_floor: float = 4.0
+
+    def __post_init__(self):
+        if self.chunk_iters < 1:
+            raise ValueError(f"chunk_iters must be >= 1, got {self.chunk_iters}")
+        if self.cold_iters < 1:
+            raise ValueError(f"cold_iters must be >= 1, got {self.cold_iters}")
+        if self.warm_iters < 1:
+            raise ValueError(f"warm_iters must be >= 1, got {self.warm_iters}")
+        if self.warm_iters > self.cold_iters:
+            raise ValueError(
+                f"warm_iters ({self.warm_iters}) must be <= cold_iters ({self.cold_iters}) — warm "
+                "start exists to spend FEWER iterations"
+            )
+        if self.reset_error_ratio <= 0:
+            raise ValueError(f"reset_error_ratio must be > 0, got {self.reset_error_ratio}")
+        if self.reset_error_floor < 0:
+            raise ValueError(f"reset_error_floor must be >= 0, got {self.reset_error_floor}")
+
+
+@dataclasses.dataclass(frozen=True)
 class ServeConfig:
-    """The anytime engine's part of the serving config.
+    """The serving config (serving/ package).
 
     Every (bucket, batch) combination is warmed at boot; admission maps a
     request onto the smallest bucket that fits. Refinement runs in chunks
-    of `chunk_iters`; `max_iters` is rounded up to whole chunks.
+    of `chunk_iters`; `max_iters` is rounded up to whole chunks. The JAX
+    package's fleet, sharding, AOT-cache and HLO-audit fields are not
+    ported (the `serve` flags for them exit 2).
     """
 
     model: RAFTStereoConfig = dataclasses.field(default_factory=RAFTStereoConfig)
@@ -175,8 +228,42 @@ class ServeConfig:
     max_iters: int = 32
     # Default per-request deadline; requests may override. 0 disables.
     deadline_ms: float = 0.0
+    # How long the batcher waits for a partial batch to fill before
+    # dispatching it anyway.
+    batch_window_ms: float = 2.0
     # 1/4-res disparity plus three 1/8..1/32 context scales below it.
     divis_by: int = 32
+    host: str = "127.0.0.1"
+    port: int = 8080
+    # The reference's .pth the served weights come from (None: seeded
+    # random weights).
+    restore_ckpt: Optional[str] = None
+    # Stream sessions. None = plain per-request serving; a VideoConfig
+    # admits `submit_stream` / HTTP "stream_id" and makes warm() also run
+    # the flow_init prelude per (bucket, batch).
+    video: Optional[VideoConfig] = None
+    # Live stream sessions kept; the least recently used beyond this are
+    # evicted (their next frame cold-starts).
+    max_streams: int = 1024
+    # Breaker (serving/lifecycle.py): consecutive batch failures that mark
+    # the service degraded (still admitting) and failed (shedding with 503
+    # until a checkpoint swap or a restart); consecutive successes that take
+    # a degraded service back to healthy.
+    breaker_degrade_after: int = 2
+    breaker_fail_after: int = 5
+    breaker_probation: int = 2
+    # Per-batch hang watchdog: a chunk with no heartbeat for this long
+    # dumps every thread's stack and fails the service (the process stays
+    # up to answer /healthz). 0 disables.
+    hang_timeout_s: float = 0.0
+    # Budget of service.drain(): how long a graceful shutdown waits for
+    # queued and running requests before closing anyway.
+    drain_timeout_s: float = 30.0
+    # Where the flight recorder dumps flight_recorder.json (breaker moves,
+    # watchdog fires, close). None disables dumps.
+    log_dir: Optional[str] = None
+    # Flight-recorder ring capacity (spans and events); 0 disables it.
+    flight_recorder_events: int = 512
 
     def __post_init__(self):
         if not self.buckets:
@@ -197,6 +284,35 @@ class ServeConfig:
             raise ValueError(f"max_iters must be >= 1, got {self.max_iters}")
         if self.deadline_ms < 0:
             raise ValueError(f"deadline_ms must be >= 0, got {self.deadline_ms}")
+        if self.batch_window_ms < 0:
+            raise ValueError(f"batch_window_ms must be >= 0, got {self.batch_window_ms}")
+        if self.max_streams < 1:
+            raise ValueError(f"max_streams must be >= 1, got {self.max_streams}")
+        if not 1 <= self.breaker_degrade_after <= self.breaker_fail_after:
+            raise ValueError(
+                f"need 1 <= breaker_degrade_after ({self.breaker_degrade_after}) <= "
+                f"breaker_fail_after ({self.breaker_fail_after})"
+            )
+        if self.breaker_probation < 1:
+            raise ValueError(f"breaker_probation must be >= 1, got {self.breaker_probation}")
+        if self.hang_timeout_s < 0:
+            raise ValueError(f"hang_timeout_s must be >= 0, got {self.hang_timeout_s}")
+        if self.drain_timeout_s < 0:
+            raise ValueError(f"drain_timeout_s must be >= 0, got {self.drain_timeout_s}")
+        if self.flight_recorder_events < 0:
+            raise ValueError(
+                f"flight_recorder_events must be >= 0, got {self.flight_recorder_events}"
+            )
+        if self.video is not None:
+            if self.video.chunk_iters != self.chunk_iters:
+                raise ValueError(
+                    f"video.chunk_iters ({self.video.chunk_iters}) must match serving "
+                    f"chunk_iters ({self.chunk_iters}): stream frames run through the same chunks"
+                )
+            if self.video.warm_iters > self.max_iters:
+                raise ValueError(
+                    f"video.warm_iters ({self.video.warm_iters}) must be <= max_iters ({self.max_iters})"
+                )
 
     @property
     def batch_sizes(self) -> Tuple[int, ...]:

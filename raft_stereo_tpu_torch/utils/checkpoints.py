@@ -281,3 +281,49 @@ def load_reference_checkpoint(model: nn.Module, path: str) -> nn.Module:
     """Restore a reference `.pth` into a port `RAFTStereo` in place:
     `convert_state_dict`, then `load_jax_variables`."""
     return load_jax_variables(model, convert_state_dict(load_reference_state_dict(path), model.config))
+
+
+def port_state_dict_from_reference(sd: Mapping[str, np.ndarray], config: RAFTStereoConfig) -> Dict[str, torch.Tensor]:
+    """A reference state dict as the port's `RAFTStereo(config)` state dict
+    (CPU tensors), without touching any served model: the hot-swap
+    candidate of `StereoService.reload_checkpoint`. Raises KeyError or
+    ValueError where the reference's keys or shapes do not fit `config`."""
+    from raft_stereo_tpu_torch.models.raft_stereo import RAFTStereo
+
+    with torch.device("meta"):
+        model = RAFTStereo(config)
+    model = model.to_empty(device="cpu")
+    load_jax_variables(model, convert_state_dict(sd, config))
+    return model.state_dict()
+
+
+def export_reference_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """A port `RAFTStereo`'s weights as the reference's state dict, the
+    layout `load_reference_state_dict` reads (`torch.save` it as a .pth):
+    the inverse of `convert_state_dict`. The flow-y input channel of the
+    motion encoder's flow conv and the flow-y output row of the flow head,
+    which the port drops, are written as zeros (flow-y is identically zero
+    in the reference). Each reference key is found by running the
+    converter once on a probe whose every tensor holds its own key's index."""
+    keys = []
+
+    class _Probe(dict):
+        def __getitem__(self, key):
+            if key not in keys:
+                keys.append(key)
+            return np.full((2, 2, 2, 2), float(keys.index(key)), np.float32)
+
+        def __contains__(self, key):
+            return True
+
+    origin = {path: keys[int(v.flat[0])] for path, v in _flatten(convert_state_dict(_Probe(), model.config)).items()}
+    sd = {}
+    for name, tensor in model.state_dict().items():
+        key = origin[_flax_key(model, name)[0]]
+        value = tensor.detach().float().cpu()
+        if key == "update_block.encoder.convf1.weight":
+            value = torch.cat([value, torch.zeros_like(value)], dim=1)
+        elif key.startswith("update_block.flow_head.conv2."):
+            value = torch.cat([value, torch.zeros_like(value)], dim=0)
+        sd[key] = value.contiguous()
+    return sd

@@ -153,17 +153,22 @@ def test_engine_tight_deadline_exits_after_one_chunk(weights):
 def test_service_submit_unpads_and_rejects_oversize(weights):
     rng = np.random.default_rng(5)
     service = StereoService(serve_config(), port_model(weights, **KERNEL), device="cpu").start()
-    assert service.pick_bucket(50, 70) == (64, 96) and service.pick_bucket(65, 70) == (96, 128)
-    i1 = rng.uniform(0, 255, (50, 70, 3)).astype(np.float32)
-    i2 = rng.uniform(0, 255, (50, 70, 3)).astype(np.float32)
-    out = service.submit(i1, i2).result(timeout=0)
-    assert out["disparity"].shape == (50, 70) and out["bucket"] == [64, 96]
-    assert out["iters_completed"] == 4 and not out["early_exit"] and out["latency_ms"] > 0
-    bucket, padder, p1, p2 = service._admit(i1, i2)
-    with torch.inference_mode():
-        _, up = service.engine.model(torch.from_numpy(p1[None]), torch.from_numpy(p2[None]), iters=4, test_mode=True)
-    np.testing.assert_array_equal(out["disparity"], padder.unpad(up.numpy())[0, :, :, 0])
-    with pytest.raises(BucketOverflowError):
-        service.submit(np.zeros((97, 70, 3)), np.zeros((97, 70, 3)))
-    with pytest.raises(ValueError, match="equal"):
-        service.submit(np.zeros((50, 70, 3)), np.zeros((50, 71, 3)))
+    try:
+        assert service.pick_bucket(50, 70) == (64, 96) and service.pick_bucket(65, 70) == (96, 128)
+        i1 = rng.uniform(0, 255, (50, 70, 3)).astype(np.float32)
+        i2 = rng.uniform(0, 255, (50, 70, 3)).astype(np.float32)
+        # The Future is live: the batcher's runner thread resolves it.
+        out = service.submit(i1, i2).result(timeout=120)
+        assert out["disparity"].shape == (50, 70) and out["bucket"] == [64, 96]
+        assert out["iters_completed"] == 4 and not out["early_exit"] and out["latency_ms"] > 0
+        bucket, padder, p1, p2 = service._admit(i1, i2)
+        with torch.inference_mode():
+            _, up = service.engine.model(torch.from_numpy(p1[None]), torch.from_numpy(p2[None]), iters=4,
+                                         test_mode=True)
+        np.testing.assert_array_equal(out["disparity"], padder.unpad(up.numpy())[0, :, :, 0])
+        with pytest.raises(BucketOverflowError):
+            service.submit(np.zeros((97, 70, 3)), np.zeros((97, 70, 3)))
+        with pytest.raises(ValueError, match="equal"):
+            service.submit(np.zeros((50, 70, 3)), np.zeros((50, 71, 3)))
+    finally:
+        service.close()

@@ -124,7 +124,9 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "walked = {k for k in sys.modules if k.startswith('raft_stereo_tpu_torch')}\n"
         "for m in ('train.loss', 'train.optimizer', 'train.trainer', 'train.synthetic', 'ops.corr_cuda',\n"
-        "          'serving.service', 'evaluate', 'cli', '__main__', 'ops.gates'):\n"
+        "          'serving.service', 'evaluate', 'cli', '__main__', 'ops.gates', 'serving.batcher',\n"
+        "          'serving.lifecycle', 'video.session', 'obs.trace', 'obs.prom', 'obs.memory',\n"
+        "          'utils.run_report', 'utils.http', 'utils.resilience'):\n"
         "    assert 'raft_stereo_tpu_torch.' + m in walked, m\n"
         "print('ok', len(walked))\n"
     )
