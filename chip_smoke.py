@@ -32,7 +32,12 @@ through the engine, each batch against its pairs' batch-1 forwards, the
 kernels launched once per batch, a stream's warm starts and reset, a hot
 swap refused and then accepted), boots the `serve` command line in the
 kernel and the mixed configurations as a process and stops it with
-SIGTERM, and times every kernel.
+SIGTERM, runs the training command line at the JAX bench's setup on a
+FlyingThings3D tree written from the seed (a control run, a run stopped by
+SIGTERM and resumed, the resumed loader cursor and losses against the
+control's, `evaluate` and `demo` on the trained model.pth, the device
+prefetcher's batches and step against plain copies), and times every
+kernel (the scatter also alone on the device).
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -48,10 +53,12 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import glob
 import io
 import json
 import os
 import re
+import shutil
 import signal
 import socket
 import statistics
@@ -3007,6 +3014,7 @@ def phase_timing(gen, errs, counts) -> list:
     widths = [lvl.shape[-1] for lvl in pyramid]
     grad = torch.randn((b, h, w, 36), generator=gen, device=DEVICE)
     ms = time_ms(lambda: corr_cuda.corr_scatter(coords, grad, widths, 4), flush=flush)
+    dev = kernel_ms(lambda: corr_cuda.corr_scatter(coords, grad, widths, 4), ("corr_scatter_kernel",), flush)
     plain_ms = time_ms(lambda: corr_cuda.plain_corr_scatter(coords, grad, widths, 4), flush=flush)
     rows, grid = grid_sample_lookup_inputs(pyramid, coords, 4)
     rows.requires_grad_()
@@ -3028,6 +3036,7 @@ def phase_timing(gen, errs, counts) -> list:
     plan = corr_cuda.scatter_plan(n_q, widths, 4)
     log(f"[timing] corr_scatter b{b} {h}x{w}: kernel {ms:.4f} ms = {nbytes / (ms * 1e-3) / 1e12:.3f} TB/s, "
         f"{bound / ms:.0%} of its {bound:.4f} ms bound ({plan.run} queries per block, {plan.blocks} blocks); "
+        f"alone on the device {alone_text(dev)} ms ({share_text(bound, dev)} of the bound); "
         f"grid_sample backward {lib_ms:.4f} ms = {nbytes / (lib_ms * 1e-3) / 1e12:.3f} TB/s")
     entry("corr_scatter", ms, plain_ms, nbytes, 3 * n_q * 4 * 10, lib_ms)
     del pyramid, coords, grad, rows, grid, sampled, gout, d_rows
@@ -3153,6 +3162,8 @@ def bf16_timing(gen, flush, entry) -> list:
         grad = torch.randn((b, h, w, 36), generator=gen, device=DEVICE).to(BF16)
         dtypes = [BF16] * 4
         ms = time_ms(lambda: corr_cuda.corr_scatter(coords, grad, widths, 4, dtypes), flush=flush)
+        dev = kernel_ms(lambda: corr_cuda.corr_scatter(coords, grad, widths, 4, dtypes), ("corr_scatter_kernel",),
+                        flush)
         plain_ms = time_ms(lambda: corr_cuda.plain_corr_scatter(coords, grad, widths, 4, dtypes), flush=flush)
         rows, grid = grid_sample_lookup_inputs(pyramid, coords, 4)
         rows = rows.to(BF16).requires_grad_()
@@ -3165,8 +3176,9 @@ def bf16_timing(gen, flush, entry) -> list:
         nbytes = 4 * n_q + 2 * n_q * 36 + 2 * n_q * sum(widths)
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         log(f"[timing] corr_scatter_bf16 b{b} {h}x{w}: kernel {ms:.4f} ms = {nbytes / (ms * 1e-3) / 1e12:.3f} TB/s, "
-            f"{bound / ms:.0%} of its {bound:.4f} ms bound ({nbytes} B); plain {plain_ms:.4f} ms; bf16 grid_sample "
-            f"backward {lib_ms:.4f} ms")
+            f"{bound / ms:.0%} of its {bound:.4f} ms bound ({nbytes} B); alone on the device {alone_text(dev)} ms "
+            f"({share_text(bound, dev)} of the bound); plain {plain_ms:.4f} ms; bf16 grid_sample backward "
+            f"{lib_ms:.4f} ms")
         if b == MIXED_TRAIN_BATCH:
             entry("corr_scatter_bf16", ms, plain_ms, nbytes, 3 * n_q * 4 * 10, lib_ms)
         del pyramid, coords, grad, rows, grid, sampled, gout
@@ -3237,6 +3249,331 @@ def lever_bf16_timing(gen, flush, entry) -> list:
     return out
 
 
+# -- the thirteenth slice: the train, evaluate and demo command lines ----------
+
+# `python -m raft_stereo_tpu_torch train` in the JAX bench's training setup
+# (the default architecture, reg_cuda with mixed precision and a bf16
+# pyramid, batch 4 at 320x720, 22 iterations) with the reference's SceneFlow
+# recipe's augmentation, over a FlyingThings3D tree at SceneFlow's 540x960
+# written from the seed, with process workers and the device prefetcher.
+TRAIN_CLI_STEPS = 12
+TRAIN_CLI_PREEMPT_AFTER = 4
+TRAIN_CLI_HW = (540, 960)
+TRAIN_CLI_PAIRS = (8, 2)
+TRAIN_CLI_FLAGS = ("--corr_implementation", "reg_cuda", "--mixed_precision", "--batch_size", "4",
+                   "--image_size", "320", "720", "--train_iters", "22", "--spatial_scale", "-0.2", "0.4",
+                   "--saturation_range", "0", "1.4", "--train_datasets", "sceneflow", "--root_dataset", "datasets",
+                   "--worker_type", "process", "--num_workers", "4", "--device_prefetch",
+                   "--num_steps", str(TRAIN_CLI_STEPS),
+                   "--valid_datasets", "things", "--validate_every", str(TRAIN_CLI_STEPS))
+TRAIN_CLI_VALID_ITERS = 32
+TRAIN_CLI_LOSS_RTOL = 1e-3
+TRAIN_CLI_TIMEOUT_S = 600
+GATED_DAY = "2024-03-05_11-20-00"
+STEP_LINE = re.compile(r"^(\S+ \S+) INFO .* step (\d+): live_loss (\S+),", re.M)
+
+
+def log_time(stamp: str) -> float:
+    """A logging timestamp ("2026-01-02 03:04:05,678") in seconds since the
+    epoch (local time, as logging writes it)."""
+    day, ms = stamp.split(",")
+    return time.mktime(time.strptime(day, "%Y-%m-%d %H:%M:%S")) + int(ms) / 1e3
+
+
+def cli_env() -> dict:
+    """The command lines' environment: the checkout on the import path, the
+    rest inherited."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p))
+
+
+class CliRun:
+    """One command-line process in its own process group, its output in
+    files under `workdir`; `kill()` ends the whole group."""
+
+    def __init__(self, workdir: str, tag: str, argv):
+        self.tag = tag
+        self.out_path = os.path.join(workdir, f"{tag}.out")
+        self.err_path = os.path.join(workdir, f"{tag}.err")
+        self.argv = [sys.executable, "-m", "raft_stereo_tpu_torch", *argv]
+        self.t0 = time.time()
+        with open(self.out_path, "w") as out, open(self.err_path, "w") as err:
+            self.proc = subprocess.Popen(self.argv, cwd=workdir, env=cli_env(), stdout=out, stderr=err, text=True,
+                                         start_new_session=True)
+
+    def err(self) -> str:
+        with open(self.err_path) as f:
+            return f.read()
+
+    def out(self) -> str:
+        with open(self.out_path) as f:
+            return f.read()
+
+    def wait(self, timeout=TRAIN_CLI_TIMEOUT_S) -> int:
+        return self.proc.wait(timeout=timeout)
+
+    def signal_group(self, sig) -> None:
+        os.killpg(self.proc.pid, sig)
+
+    def kill(self) -> None:
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        self.proc.wait(timeout=60)
+
+    def steps(self) -> dict:
+        """{step: (log time, live loss)} from the run's step lines."""
+        return {int(n): (log_time(t), float(v)) for t, n, v in STEP_LINE.findall(self.err())}
+
+    def launches(self) -> dict:
+        found = re.findall(r"kernel launches: (\{.*\})", self.err())
+        if not found:
+            raise AssertionError(f"[train-cli] {self.tag}: no launch counts logged")
+        return json.loads(found[-1])
+
+    def fail(self, what: str):
+        raise AssertionError(f"[train-cli] {self.tag}: {what}\n{' '.join(self.argv)}\n{self.err()[-3000:]}")
+
+
+def read_json(path: str) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def train_numbers(run: CliRun, workdir: str, tag: str) -> dict:
+    """s/step (median after the warm step), data wait per step and
+    checkpoint save s from the run's flight recorder; boot to the first
+    step from its log; peak memory and the PNG decoder from its log."""
+    recorder = read_json(os.path.join(workdir, "runs", "flight_recorder.json"))
+    spans = [r for r in recorder["records"] if r.get("kind") == "span"]
+    steps = [r["ms"] / 1e3 for r in spans if r["name"] == "step"]
+    waits = [r["ms"] / 1e3 for r in spans if r["name"] == "data-wait"]
+    saves = [r["ms"] / 1e3 for r in spans if r["name"] == "checkpoint-save"]
+    first = min(run.steps().items())[1][0]
+    peak = re.search(r"peak device memory: (\d+) bytes allocated, (\d+) bytes reserved", run.err())
+    png = re.search(r"PNG decoder: (.*)", run.err())
+    nums = {
+        "s_per_step_median": statistics.median(steps[1:]) if len(steps) > 1 else None,
+        "warm_step_s": steps[0] if steps else None,
+        "data_wait_s_median": statistics.median(waits[1:]) if len(waits) > 1 else None,
+        "data_wait_s_max": max(waits[1:]) if len(waits) > 1 else None,
+        "checkpoint_save_s": saves,
+        "boot_to_first_step_s": first - run.t0,
+        "peak_allocated_bytes": int(peak.group(1)) if peak else None,
+        "peak_reserved_bytes": int(peak.group(2)) if peak else None,
+        "png_decoder": png.group(1).strip() if png else None,
+    }
+    log(f"[train-cli] {tag} numbers: {json.dumps(nums)}")
+    return nums
+
+
+def check_committed(workdir: str, name: str, step: int, tag: str) -> str:
+    from raft_stereo_tpu_torch.utils import checkpoints as ck
+
+    step_dir = os.path.join(workdir, "checkpoints", name, str(step))
+    problems = ck.validate_checkpoint(step_dir)
+    if problems:
+        raise AssertionError(f"[train-cli] {tag}: step {step} is not committed: {problems}")
+    return step_dir
+
+
+def prefetch_check(workdir: str) -> None:
+    """In process, on the written tree: the DevicePrefetcher hands the card
+    the loader's batches value for value, and a mixed training step in the
+    [train-cli] configuration on a prefetched batch equals the step on the
+    same batch copied plainly, bit for bit (two trainers from one seed)."""
+    from raft_stereo_tpu_torch.config import AugmentConfig
+    from raft_stereo_tpu_torch.data.datasets import build_training_dataset
+    from raft_stereo_tpu_torch.data.loader import DataLoader
+    from raft_stereo_tpu_torch.data.prefetch import DevicePrefetcher
+
+    cfg = TrainConfig(model=MIXED_TRAIN_CONFIG, augment=AugmentConfig(crop_size=TRAIN_HW, min_scale=-0.2,
+                                                                      max_scale=0.4, saturation_range=(0.0, 1.4)),
+                      batch_size=MIXED_TRAIN_BATCH, train_iters=MIXED_TRAIN_ITERS,
+                      root_dataset=os.path.join(workdir, "datasets"))
+    dataset = build_training_dataset(cfg)
+    plain_loader = DataLoader(dataset, cfg.batch_size, seed=cfg.seed, num_workers=2)
+    staged_loader = DataLoader(dataset, cfg.batch_size, seed=cfg.seed, num_workers=2)
+    try:
+        host = [b for _, b in zip(range(2), plain_loader)]
+        staged = [b for _, b in zip(range(2), DevicePrefetcher(staged_loader, DEVICE))]
+        same = all(torch.equal(s[k].cpu(), torch.from_numpy(h[k])) for h, s in zip(host, staged) for k in s)
+        a, b = Trainer(cfg, (*TRAIN_HW, 3), device=DEVICE), Trainer(cfg, (*TRAIN_HW, 3), device=DEVICE)
+        ma, mb = a.train_step(host[1]), b.train_step(staged[1])
+        torch.cuda.synchronize()
+        params = all(torch.equal(x, y) for x, y in zip(a.model.parameters(), b.model.parameters()))
+    finally:
+        plain_loader.close()
+        staged_loader.close()
+    log(f"[train-cli] prefetch: 2 batches staged on the card equal the loader's: {same}; a mixed step on the "
+        f"staged batch vs the plain copy: loss {mb['live_loss']!r} vs {ma['live_loss']!r}, parameters bit for bit "
+        f"equal: {params}")
+    if not (same and ma == mb and params):
+        raise AssertionError(f"[train-cli] prefetched batches or step differ: {same}, {ma} vs {mb}, {params}")
+    del a, b
+    torch.cuda.empty_cache()
+
+
+def phase_train_cli(card: str) -> dict:
+    """The train, evaluate and demo command lines as a user runs them, each
+    as a process on a dataset written from the seed: a control run of
+    TRAIN_CLI_STEPS steps (exit 0, a valid run report, a committed last
+    step, the lookup and scatter kernels launched every step); the same
+    command with --auto_resume under another name, stopped with SIGTERM to
+    its process group after TRAIN_CLI_PREEMPT_AFTER steps (exit 13, a
+    committed checkpoint at the stopped step), then rerun (resumed from that
+    step, exit 0 at the last step, the loader cursor at the last step equal
+    to the control's, every later step's loss within TRAIN_CLI_LOSS_RTOL of
+    the control's); then `evaluate --dataset things` and `demo` (the JAX
+    bench's test-mode levers) on the control's model.pth: exit 0, finite
+    EPE and MAE, one depth output per frame. Any failure kills every
+    process and fails the phase."""
+    from raft_stereo_tpu_torch.data import trees
+    from raft_stereo_tpu_torch.utils.run_report import validate_run_report
+
+    rng = np.random.default_rng(SEED)
+    workdir = tempfile.mkdtemp(prefix="train-cli-")
+    runs = []
+    numbers = {}
+    try:
+        t0 = time.perf_counter()
+        trees.write_sceneflow(os.path.join(workdir, "datasets"), rng, *TRAIN_CLI_PAIRS, *TRAIN_CLI_HW)
+        trees.write_gated(os.path.join(workdir, "gated"), rng, [GATED_DAY], 2, modalities=("RGB",))
+        log(f"[train-cli] dataset: FlyingThings3D {TRAIN_CLI_PAIRS[0]} TRAIN + {TRAIN_CLI_PAIRS[1]} TEST pairs at "
+            f"{TRAIN_CLI_HW[0]}x{TRAIN_CLI_HW[1]}, a 2-frame gated RGB tree at 720x1280, written in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        prefetch_check(workdir)
+
+        def start(tag, argv):
+            run = CliRun(workdir, tag, argv)
+            runs.append(run)
+            return run
+
+        def finish(run, want_code):
+            try:
+                code = run.wait()
+            except subprocess.TimeoutExpired:
+                run.fail(f"no exit within {TRAIN_CLI_TIMEOUT_S} s")
+            if code != want_code:
+                run.fail(f"exit {code}, expected {want_code}")
+            report = read_json(os.path.join(workdir, "runs", "run_report.json"))
+            problems = validate_run_report(report)
+            if problems:
+                run.fail(f"run report invalid: {problems}")
+            return report
+
+        # 1. Control.
+        control = start("control", ["train", "--name", "control", *TRAIN_CLI_FLAGS])
+        report = finish(control, 0)
+        if report["final_step"] != TRAIN_CLI_STEPS or report["last_good_step"] != TRAIN_CLI_STEPS:
+            control.fail(f"report {report}")
+        control_dir = check_committed(workdir, "control", TRAIN_CLI_STEPS, "control")
+        control_steps = control.steps()
+        if sorted(control_steps) != list(range(1, TRAIN_CLI_STEPS + 1)):
+            control.fail(f"step lines {sorted(control_steps)}")
+        n_valid = TRAIN_CLI_PAIRS[1]
+        want = expect(corr_lookup_bf16=MIXED_TRAIN_ITERS * TRAIN_CLI_STEPS + n_valid * TRAIN_CLI_VALID_ITERS,
+                      corr_scatter_bf16=MIXED_TRAIN_ITERS * TRAIN_CLI_STEPS)
+        counts = control.launches()
+        log(f"[train-cli] control: exit 0, {TRAIN_CLI_STEPS} steps, step {TRAIN_CLI_STEPS} committed, "
+            f"validation {re.findall(r'validation .*', control.err())[-1:]}, launches {counts}")
+        if counts != want:
+            control.fail(f"launches {counts} != expected {want}")
+        numbers["control"] = train_numbers(control, workdir, "control")
+
+        # 2. Preemption: SIGTERM to the process group once the run has taken
+        # TRAIN_CLI_PREEMPT_AFTER steps, read from its step lines.
+        resume_flags = ["train", "--name", "preempt", "--auto_resume", *TRAIN_CLI_FLAGS]
+        first = start("preempt", resume_flags)
+        deadline = time.time() + TRAIN_CLI_TIMEOUT_S
+        while first.proc.poll() is None and max(first.steps(), default=0) < TRAIN_CLI_PREEMPT_AFTER:
+            if time.time() > deadline:
+                first.fail("no progress")
+            time.sleep(0.05)
+        seen = max(first.steps(), default=0)
+        first.signal_group(signal.SIGTERM)
+        t_sig = time.time()
+        report = finish(first, 13)
+        stopped = report["last_good_step"]
+        if report["stop_cause"] != "preempted" or report["preempt_signal"] != "SIGTERM" or stopped < seen or \
+                stopped >= TRAIN_CLI_STEPS or report["final_step"] != stopped:
+            first.fail(f"report {report}")
+        check_committed(workdir, "preempt", stopped, "preempt")
+        log(f"[train-cli] preempt: SIGTERM after step {seen}, exit 13 {time.time() - t_sig:.2f} s later with "
+            f"stop_cause preempted and step {stopped} committed")
+        numbers["preempt"] = train_numbers(first, workdir, "preempt")
+
+        # 3. Resume: the same command again.
+        second = start("resume", resume_flags)
+        report = finish(second, 0)
+        if report["resumed_from_step"] != stopped or report["final_step"] != TRAIN_CLI_STEPS or \
+                report["resume_count"] != 1:
+            second.fail(f"report {report}")
+        resume_dir = check_committed(workdir, "preempt", TRAIN_CLI_STEPS, "resume")
+        cursor = {k: read_json(os.path.join(d, "run_state.json"))["loader"] for k, d in
+                  (("control", control_dir), ("resume", resume_dir))}
+        if cursor["control"] != cursor["resume"]:
+            second.fail(f"loader cursor {cursor['resume']} != the control's {cursor['control']}")
+        resumed_steps = second.steps()
+        if sorted(resumed_steps) != list(range(stopped + 1, TRAIN_CLI_STEPS + 1)):
+            second.fail(f"step lines {sorted(resumed_steps)}")
+        gaps = {n: abs(resumed_steps[n][1] - control_steps[n][1]) / abs(control_steps[n][1]) for n in resumed_steps}
+        worst = max(gaps.values())
+        log(f"[train-cli] resume: from step {stopped}, exit 0 at step {TRAIN_CLI_STEPS}; loader cursor "
+            f"{cursor['resume']} equals the control's; largest relative loss gap to the control over steps "
+            f"{stopped + 1}-{TRAIN_CLI_STEPS} {worst:.3e} (tol {TRAIN_CLI_LOSS_RTOL:g}); per step "
+            f"{ {n: f'{g:.2e}' for n, g in sorted(gaps.items())} }")
+        if not worst <= TRAIN_CLI_LOSS_RTOL:
+            second.fail(f"losses differ from the control's by {worst:.3e} relative")
+        numbers["resume"] = train_numbers(second, workdir, "resume")
+        numbers["resume"]["resume_to_first_step_s"] = min(resumed_steps.items())[1][0] - second.t0
+
+        # 4. Evaluate and demo on the control's model.pth, side by side.
+        model_pth = os.path.join(control_dir, "model.pth")
+        demo_out = os.path.join(workdir, "demo-out")
+        ev = start("evaluate", ["evaluate", "--dataset", "things", "--restore_ckpt", model_pth, "--root_dataset",
+                                "datasets", "--corr_implementation", "reg_cuda", "--mixed_precision"])
+        dm = start("demo", ["demo", "--restore_ckpt", model_pth, "--root_dataset", "gated", "--output_path", demo_out,
+                            "--save_numpy", "--corr_implementation", "reg_cuda", "--mixed_precision",
+                            "--fused_encoder", "--fused_gru_tail"])
+        for run in (ev, dm):
+            if run.wait() != 0:
+                run.fail("exit non-zero")
+        found = re.search(r"Validation FlyingThings: (\S+), (\S+)", ev.out())
+        if found is None or not all(np.isfinite(float(v)) for v in found.groups()):
+            ev.fail(f"no finite validation line: {ev.out()[-500:]}")
+        ev_counts = ev.launches()
+        if ev_counts != expect(corr_lookup_bf16=n_valid * TRAIN_CLI_VALID_ITERS):
+            ev.fail(f"launches {ev_counts}")
+        log(f"[train-cli] evaluate --dataset things on control/{TRAIN_CLI_STEPS}/model.pth: exit 0, EPE, D1 "
+            f"{[float(v) for v in found.groups()]}, launches {ev_counts}")
+        found = re.search(r"AVG MAE: (\S+)", dm.out())
+        depths = sorted(glob.glob(os.path.join(demo_out, GATED_DAY, "cam_stereo", "left", "model", "npy", "*.npy")))
+        if found is None or not np.isfinite(float(found.group(1))) or len(depths) != 2 or \
+                not all(np.isfinite(np.load(d)).all() and np.load(d).shape == (720, 1280) for d in depths):
+            dm.fail(f"MAE line {found and found.group(0)}, depth outputs {depths}")
+        dm_counts = dm.launches()
+        n_frames = 2
+        want_demo = expect(corr_pyramid_bf16=n_frames, encoder_conv_bf16=8 * n_frames, encoder_join_bf16=4 * n_frames,
+                           corr_lookup_bf16=TRAIN_CLI_VALID_ITERS * n_frames,
+                           gru_tail_bf16=3 * TRAIN_CLI_VALID_ITERS * n_frames,
+                           motion_tail_bf16=TRAIN_CLI_VALID_ITERS * n_frames)
+        log(f"[train-cli] demo (--fused_encoder --fused_gru_tail) on the gated RGB tree: exit 0, {found.group(0)}, "
+            f"{len(depths)} depth outputs, launches {dm_counts}; evaluate and demo together "
+            f"{time.time() - ev.t0:.1f} s")
+        if dm_counts != want_demo:
+            dm.fail(f"launches {dm_counts} != expected {want_demo}")
+        log(f"[train-cli] {card}: {json.dumps(numbers)}")
+        return {"control": counts, "evaluate": ev_counts, "demo": dm_counts}
+    finally:
+        for run in runs:
+            if run.proc.poll() is None:
+                run.kill()
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3303,6 +3640,8 @@ def main() -> int:
     phase_realtime_evaluate(card)
     torch.cuda.empty_cache()
     lever_counts = phase_mixed_levers()
+    torch.cuda.empty_cache()
+    phase_train_cli(card)
     torch.cuda.empty_cache()
     # Each kernel's launches come from the main-path run of the slice that
     # added it: serving for the forward kernels, training for the scatter,

@@ -1,43 +1,60 @@
 """Command-line entry point of the port: counterpart of `raft_stereo_tpu/cli.py`.
 
+    python -m raft_stereo_tpu_torch train --train_datasets sceneflow --root_dataset datasets --auto_resume
     python -m raft_stereo_tpu_torch evaluate --dataset middlebury_F --restore_ckpt raftstereo.pth
     python -m raft_stereo_tpu_torch evaluate --dataset eth3d --dry_run --device cpu
+    python -m raft_stereo_tpu_torch demo --restore_ckpt checkpoints/raft-stereo/12/model.pth --root_dataset gated
     python -m raft_stereo_tpu_torch serve --corr_implementation pallas --fused_gru_tail --port 8080
     python -m raft_stereo_tpu_torch serve --reload_ckpt new.pth --port 8080
 
-`evaluate` takes the JAX CLI's flags, names and defaults, plus `--device`
-(default "cuda"; "cpu" runs the kernels' plain versions). As in the JAX
+Every subcommand takes the JAX CLI's flags, names and defaults, plus
+`--device` (default "cuda"; "cpu" runs the kernels' plain versions, and only
+when asked: nothing moves to the CPU when no card is found). As in the JAX
 CLI, `--corr_dtype` defaults to bfloat16 only for `reg_cuda` with
-`--mixed_precision` (the reference's fp16 reg_cuda volume under AMP), and to
-float32 otherwise. The model flags that the port does not have yet raise
-instead of being ignored: `--corr_implementation alt`/`alt_cuda`. The
-reference's realtime model runs as `evaluate --dataset kitti --dry_run
---shared_backbone --n_downsample 3 --n_gru_layers 2 --slow_fast_gru
---valid_iters 7 --corr_implementation reg_cuda --mixed_precision
---fused_encoder --fused_gru_tail` (a bf16 pyramid by the rule above).
+`--mixed_precision`, and to float32 otherwise. The model flags that the
+port does not have yet raise instead of being ignored: `--corr_implementation
+alt`/`alt_cuda`.
 
-`serve` takes the JAX CLI's flags and defaults, plus `--device` (default
-"cuda"): it boots a `StereoService`, warms every (bucket, batch) and serves
-the HTTP front until SIGTERM or Ctrl-C, which drain the backlog and exit 0.
+`train` reads a dataset in one of the reference's layouts
+(`--train_datasets`, `--root_dataset`), trains with checkpoints under
+checkpoints/<name>/<step>/ and writes metrics.jsonl, run_report.json and
+flight_recorder.json under runs/, and exits 0 completed, 1 error, 2 usage,
+13 preempted, 14 non-finite, 15 failure budget, 16 watchdog
+(utils/run_report.py). The JAX flags of what the port does not run yet exit
+2: `--mesh_shape` other than 1 1, `--sharding_rules` other than dp,
+`--coord_interval`, `--strict_mode`, `--recompile_grace` other than 2,
+`--async_checkpoint`, `--metrics_port` other than 0,
+`--compilation_cache_dir` and `--explain_sharding`.
+
+`serve` boots a `StereoService`, warms every (bucket, batch) and serves the
+HTTP front until SIGTERM or Ctrl-C, which drain the backlog and exit 0;
 `--warmup_only` boots, warms, prints the boot block and exits 0;
-`--reload_ckpt PATH` is the client of a running server's POST /reload.
-The JAX CLI's fleet, sharding, AOT-cache and audit flags (`--replicas`
-other than 1, `--sharding_rules` other than dp, `--aot_cache_dir`,
-`--require_cache_hit`, `--audit`, `--auto_respawn`) are not ported yet and
-exit 2.
+`--reload_ckpt PATH` is the client of a running server's POST /reload. Its
+fleet, sharding, AOT-cache and audit flags (`--replicas` other than 1,
+`--sharding_rules` other than dp, `--aot_cache_dir`, `--require_cache_hit`,
+`--audit`, `--auto_respawn`) are not ported yet and exit 2.
 
-The other subcommands (`train`, `demo`, `frontier`) are not ported yet and
-exit with code 2.
+`frontier` is not ported yet and exits 2. `train`, `evaluate` and `demo`
+log the kernels' launch counts of the process when they finish.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
+import os
 import sys
 from typing import List, Optional
 
-from raft_stereo_tpu_torch.config import MODALITIES, RAFTStereoConfig
+from raft_stereo_tpu_torch.config import (
+    MODALITIES,
+    SHARDING_PRESETS,
+    UNPORTED_TRAIN_DEFAULTS,
+    AugmentConfig,
+    RAFTStereoConfig,
+    TrainConfig,
+)
 
 SUBCOMMANDS = ("train", "evaluate", "demo", "serve", "frontier")
 
@@ -87,6 +104,42 @@ def _add_model_args(p: argparse.ArgumentParser):
 # pallas (the hand-written lookup kernel); alt_cuda -> alt (not ported).
 _CORR_ALIASES = {"reg_cuda": "pallas", "alt_cuda": "alt"}
 
+# Dataset-specific subdir under a parent --root_dataset dir, mirroring the
+# validators' own defaults ("datasets/ETH3D" etc., evaluate.py) so train and
+# evaluate share one --root_dataset meaning.
+_DATASET_SUBDIR = {
+    "eth3d": "ETH3D",
+    "kitti": "KITTI",
+    "things": "",
+    "middlebury_F": "Middlebury",
+    "middlebury_H": "Middlebury",
+    "middlebury_Q": "Middlebury",
+}
+
+
+def _dataset_root(parent: str, dataset: str) -> str:
+    return os.path.join(parent, _DATASET_SUBDIR.get(dataset, ""))
+
+
+def _cuda_flags(device: str) -> None:
+    """Process-wide numerics on the card, set once: no TF32."""
+    if device.startswith("cuda"):
+        import torch
+
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count in this process."""
+    from raft_stereo_tpu_torch.ops import corr_cuda, encoder_cuda, gates, gru_tail
+
+    return {**corr_cuda.LAUNCHES, **gru_tail.LAUNCHES, **encoder_cuda.LAUNCHES, **gates.LAUNCHES}
+
+
+def _log_launches(command: str) -> None:
+    logging.getLogger(__name__).info("%s kernel launches: %s", command, json.dumps(launch_counts(), sort_keys=True))
+
 
 def _model_config(args) -> RAFTStereoConfig:
     """The port's config from the model flags; raises on flags the port
@@ -128,8 +181,8 @@ def cmd_evaluate(argv: List[str]) -> int:
     p.add_argument("--valid_iters", type=int, default=32)
     p.add_argument(
         "--root_dataset", default=None,
-        help="parent datasets directory; the dataset readers are not ported yet, so only "
-        "--dry_run evaluates",
+        help="parent datasets directory (same semantics as train: the dataset-specific subdir, e.g. "
+        "ETH3D/, is appended)",
     )
     p.add_argument(
         "--pad_bucket", type=int, default=0,
@@ -146,15 +199,11 @@ def cmd_evaluate(argv: List[str]) -> int:
     args = p.parse_args(argv)
     config = _model_config(args)
 
-    import torch
-
     from raft_stereo_tpu_torch.evaluate import VALIDATORS, Evaluator, SyntheticEvalDataset
     from raft_stereo_tpu_torch.models.init import build_model
     from raft_stereo_tpu_torch.utils.checkpoints import load_reference_checkpoint
 
-    if args.device.startswith("cuda"):
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+    _cuda_flags(args.device)
     model = build_model(config, seed=0, device="cpu")
     if args.restore_ckpt is not None:
         load_reference_checkpoint(model, args.restore_ckpt)
@@ -166,8 +215,295 @@ def cmd_evaluate(argv: List[str]) -> int:
     kwargs = {}
     if args.dry_run:
         kwargs["dataset"] = SyntheticEvalDataset(channels=config.in_channels)
+    elif args.root_dataset:
+        kwargs["root"] = _dataset_root(args.root_dataset, args.dataset)
     VALIDATORS[args.dataset](evaluator, **kwargs)
+    _log_launches("evaluate")
     return 0
+
+
+# --- train ---------------------------------------------------------------------
+
+def _train_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="train")
+    p.add_argument("--name", default="raft-stereo")
+    p.add_argument("--restore_ckpt", default=None,
+                   help="warm start: a reference .pth (weights only), or a checkpoint root or step directory")
+    p.add_argument("--auto_resume", action="store_true",
+                   help="at startup, restore the newest checkpoint of this run (checkpoints/<name>) whose "
+                   "integrity manifest verifies, walking past and quarantining torn steps, with the full run "
+                   "state; with no checkpoints the run starts fresh, so rerunning the same command is always "
+                   "the recovery")
+    p.add_argument("--max_to_keep", type=int, default=5, help="checkpoint retention: keep the newest N steps")
+    p.add_argument("--keep_period", type=int, default=None,
+                   help="additionally keep every checkpoint whose step is divisible by this")
+    p.add_argument("--batch_size", type=int, default=6)
+    p.add_argument("--train_datasets", nargs="+", default=["sceneflow"])
+    p.add_argument("--root_dataset", default=None)
+    p.add_argument("--lr", type=float, default=2e-4)
+    p.add_argument("--num_steps", type=int, default=100_000)
+    p.add_argument("--image_size", type=int, nargs="+", default=[320, 720])
+    p.add_argument("--train_iters", type=int, default=16)
+    p.add_argument("--valid_iters", type=int, default=32)
+    p.add_argument("--valid_datasets", nargs="+", default=[],
+                   choices=["eth3d", "kitti", "things", "middlebury_F", "middlebury_H", "middlebury_Q"],
+                   help="run these validators every --validate_every steps during training")
+    p.add_argument("--validate_every", type=int, default=500, help="in-training validation cadence")
+    p.add_argument("--valid_pad_bucket", type=int, default=64,
+                   help="shape-bucket padding for in-training validation (multiple of 32; 0 = exact "
+                   "reference padding)")
+    p.add_argument("--wdecay", type=float, default=1e-5)
+    p.add_argument("--mesh_shape", type=int, nargs=2, default=[1, 1],
+                   help="not ported yet: one card (values other than 1 1 exit 2)")
+    p.add_argument("--sharding_rules", choices=list(SHARDING_PRESETS), default="dp",
+                   help="not ported yet: values other than dp exit 2")
+    p.add_argument("--explain_sharding", action="store_true", help="not ported yet (exits 2)")
+    p.add_argument("--num_workers", type=int, default=int(os.environ.get("SLURM_CPUS_PER_TASK", 6)) - 2)
+    p.add_argument("--worker_type", choices=["thread", "process"], default="thread",
+                   help="'process' scales augmentation past the GIL on many-core hosts")
+    # augmentation (reference train_stereo.py:267-271)
+    p.add_argument("--img_gamma", type=float, nargs="+", default=None)
+    p.add_argument("--saturation_range", type=float, nargs="+", default=None)
+    p.add_argument("--do_flip", default=None, choices=["h", "hf", "v"])
+    p.add_argument("--spatial_scale", type=float, nargs="+", default=[0, 0])
+    p.add_argument("--noyjitter", action="store_true")
+    p.add_argument("--profile_steps", type=int, default=0,
+                   help="write a torch.profiler Chrome trace of N steps after warm-up to runs/profile")
+    # resilience (utils/resilience.py)
+    p.add_argument("--nan_policy", choices=["raise", "skip", "rollback"], default="raise",
+                   help="non-finite loss/grad policy: fail fast, skip the poisoned update, or roll back to the "
+                   "last good checkpoint after --nan_patience consecutive bad steps")
+    p.add_argument("--nan_patience", type=int, default=10,
+                   help="consecutive non-finite steps before skip escalates / rollback restores")
+    p.add_argument("--nan_check_every", type=int, default=None,
+                   help="host-side non-finite detection cadence in steps (default 1)")
+    p.add_argument("--coord_interval", type=int, default=None, help="not ported yet (exits 2)")
+    p.add_argument("--step_timeout_s", type=float, default=0.0,
+                   help="step watchdog: a step boundary stalled this long dumps all stacks, writes "
+                   "run_report.json and exits 16 (0 disables)")
+    p.add_argument("--watchdog_grace_s", type=float, default=300.0,
+                   help="extra watchdog allowance for the first step (kernel builds)")
+    p.add_argument("--io_retries", type=int, default=3,
+                   help="retry attempts for transient checkpoint/dataset I/O failures")
+    p.add_argument("--sample_policy", choices=["raise", "quarantine"], default="quarantine",
+                   help="loader reaction to a sample that keeps failing decode")
+    p.add_argument("--sample_retries", type=int, default=2, help="decode retries per sample before quarantine")
+    p.add_argument("--failure_budget", type=float, default=0.05,
+                   help="hard-fail once this fraction of attempted samples has been dropped")
+    p.add_argument("--no_signal_handlers", action="store_true",
+                   help="disable graceful SIGTERM/SIGINT preemption handling")
+    p.add_argument("--strict_mode", action="store_true", help="not ported yet (exits 2)")
+    p.add_argument("--recompile_grace", type=int, default=2, help="not ported yet: values other than 2 exit 2")
+    p.add_argument("--async_checkpoint", action="store_true", help="not ported yet (exits 2)")
+    p.add_argument("--device_prefetch", action="store_true",
+                   help="copy batch N+1 to the card on a side stream while step N runs")
+    p.add_argument("--metrics_port", type=int, default=0, help="not ported yet: values other than 0 exit 2")
+    p.add_argument("--flight_recorder_events", type=int, default=256,
+                   help="flight-recorder ring capacity (runs/flight_recorder.json on every exit; 0 disables)")
+    p.add_argument("--compilation_cache_dir", default=None, metavar="DIR", help="not ported yet (exits 2)")
+    p.add_argument("--device", default="cuda", help="torch device of the model (default: the card)")
+    _add_model_args(p)
+    return p
+
+
+def maybe_resume(trainer, config) -> Optional[int]:
+    """Startup restore policy: `--auto_resume` first (this run's own newest
+    valid checkpoint), then `--restore_ckpt` (a warm start: a reference
+    `.pth` gives weights only; a checkpoint path gives the full train state,
+    with the run state only when it lies in this run's own root). A fresh
+    auto-resume falls through to restore_ckpt. Returns the restored step,
+    or None when starting from scratch."""
+    if config.auto_resume:
+        step = trainer.auto_resume()
+        if step is not None:
+            return step
+    if config.restore_ckpt:
+        if config.restore_ckpt.endswith(".pth"):
+            trainer.restore_torch(config.restore_ckpt)
+            return None  # weights only; the step counter starts at 0
+        return trainer.restore(path=config.restore_ckpt)
+    return None
+
+
+def run_training(trainer, loader, metrics_logger=None, validate_fn=None) -> int:
+    """Drive trainer.fit and translate its outcome into the documented exit
+    code (utils/run_report.py EXIT_CODES). The trainer writes
+    run_report.json on every exit path before this mapping runs; a
+    watchdog timeout never reaches here (the monitor thread exits 16)."""
+    import traceback
+
+    from raft_stereo_tpu_torch.utils import run_report as rr
+    from raft_stereo_tpu_torch.utils.resilience import FailureBudgetExceeded, NonFiniteLossError
+
+    try:
+        trainer.fit(loader, metrics_logger=metrics_logger, validate_fn=validate_fn)
+    except (NonFiniteLossError, FailureBudgetExceeded, KeyboardInterrupt) as e:
+        logging.getLogger(__name__).error("training aborted: %r\n%s", e, traceback.format_exc())
+        report = getattr(trainer, "last_run_report", None) or {}
+        return int(report.get("exit_code", rr.EXIT_ERROR))
+    report = trainer.last_run_report
+    return rr.EXIT_PREEMPTED if report.get("preempted") else rr.EXIT_OK
+
+
+def _unported_train_flags(args) -> List[str]:
+    given = {"mesh_shape": tuple(args.mesh_shape), "sharding_rules": args.sharding_rules,
+             "coord_interval": args.coord_interval, "strict_mode": args.strict_mode,
+             "recompile_grace": args.recompile_grace, "async_checkpoint": args.async_checkpoint,
+             "metrics_port": args.metrics_port, "compilation_cache_dir": args.compilation_cache_dir}
+    bad = [f"--{k} {v}" for k, v in given.items() if v != UNPORTED_TRAIN_DEFAULTS[k]]
+    if args.explain_sharding:
+        bad.append("--explain_sharding")
+    return bad
+
+
+def cmd_train(argv: List[str]) -> int:
+    args = _train_parser().parse_args(argv)
+
+    from raft_stereo_tpu_torch.utils import run_report as rr
+
+    unported = _unported_train_flags(args)
+    if unported:
+        print(f"train: not ported yet: {', '.join(unported)}", file=sys.stderr)
+        return rr.EXIT_USAGE
+    try:
+        config = _train_config_from_args(args)
+    except Exception as e:
+        # A config that fails validation still leaves a run_report.json, in
+        # the default log dir (the config never materialized).
+        logging.getLogger(__name__).exception("invalid training configuration")
+        default_log_dir = TrainConfig.__dataclass_fields__["log_dir"].default
+        rr.write_run_report(rr.build_run_report(stop_cause="error", final_step=-1, error=repr(e)), default_log_dir)
+        return rr.EXIT_ERROR
+    code = _run_train(args, config)
+    _log_launches("train")
+    return code
+
+
+def _train_config_from_args(args) -> TrainConfig:
+    return TrainConfig(
+        model=_model_config(args),
+        augment=AugmentConfig(
+            crop_size=tuple(args.image_size),
+            min_scale=args.spatial_scale[0],
+            max_scale=args.spatial_scale[1],
+            do_flip=args.do_flip,
+            yjitter=not args.noyjitter,
+            saturation_range=tuple(args.saturation_range) if args.saturation_range else None,
+            img_gamma=tuple(args.img_gamma) if args.img_gamma else None,
+        ),
+        name=args.name,
+        batch_size=args.batch_size,
+        train_datasets=tuple(args.train_datasets),
+        lr=args.lr,
+        num_steps=args.num_steps,
+        train_iters=args.train_iters,
+        valid_iters=args.valid_iters,
+        wdecay=args.wdecay,
+        restore_ckpt=args.restore_ckpt,
+        auto_resume=args.auto_resume,
+        max_to_keep=args.max_to_keep,
+        keep_period=args.keep_period,
+        root_dataset=args.root_dataset,
+        mesh_shape=tuple(args.mesh_shape),
+        sharding_rules=args.sharding_rules,
+        num_workers=args.num_workers,
+        worker_type=args.worker_type,
+        profile_steps=args.profile_steps,
+        validate_every=args.validate_every,
+        nan_policy=args.nan_policy,
+        nan_patience=args.nan_patience,
+        nan_check_every=args.nan_check_every,
+        coord_interval=args.coord_interval,
+        step_timeout_s=args.step_timeout_s,
+        watchdog_grace_s=args.watchdog_grace_s,
+        io_retries=args.io_retries,
+        sample_policy=args.sample_policy,
+        sample_retries=args.sample_retries,
+        failure_budget=args.failure_budget,
+        handle_signals=not args.no_signal_handlers,
+        strict_mode=args.strict_mode,
+        recompile_grace=args.recompile_grace,
+        async_checkpoint=args.async_checkpoint,
+        device_prefetch=args.device_prefetch,
+        metrics_port=args.metrics_port,
+        flight_recorder_events=args.flight_recorder_events,
+        compilation_cache_dir=args.compilation_cache_dir,
+    )
+
+
+def _run_train(args, config: TrainConfig) -> int:
+    from raft_stereo_tpu_torch.utils import run_report as rr
+
+    log = logging.getLogger(__name__)
+    try:
+        from raft_stereo_tpu_torch.data import native_io
+        from raft_stereo_tpu_torch.data.datasets import build_training_dataset
+        from raft_stereo_tpu_torch.data.loader import DataLoader
+        from raft_stereo_tpu_torch.train.trainer import Trainer
+        from raft_stereo_tpu_torch.utils.metrics import MetricsLogger
+
+        _cuda_flags(args.device)
+        log.info("PNG decoder: %s", "native" if native_io.available()
+                 else f"stdlib codec (native IO core unavailable: {native_io.unavailable_reason})")
+        dataset = build_training_dataset(config, config.model.data_modality)
+        loader = DataLoader(
+            dataset,
+            config.batch_size,
+            seed=config.seed,
+            num_workers=config.num_workers,
+            worker_type=config.worker_type,
+            sample_policy=config.sample_policy,
+            sample_retries=config.sample_retries,
+            failure_budget=config.failure_budget,
+        )
+        h, w = config.augment.crop_size
+        trainer = Trainer(config, sample_shape=(h, w, config.model.in_channels), device=args.device)
+        maybe_resume(trainer, config)
+        validate_fn = None
+        if args.valid_datasets:
+            from raft_stereo_tpu_torch.evaluate import make_validation_fn
+
+            vkw = ({name: {"root": _dataset_root(args.root_dataset, name)} for name in args.valid_datasets}
+                   if args.root_dataset else None)
+            validate_fn = make_validation_fn(config.model, args.valid_datasets, iters=config.valid_iters,
+                                             validator_kwargs=vkw, pad_bucket=args.valid_pad_bucket)
+    except Exception as e:
+        # A failure before the trainer exists (bad dataset path, checkpoint
+        # mismatch) still leaves a run report for the orchestrator.
+        log.exception("training setup failed")
+        rr.write_run_report(rr.build_run_report(stop_cause="error", final_step=-1, error=repr(e)), config.log_dir)
+        return rr.EXIT_ERROR
+    try:
+        return run_training(trainer, loader,
+                            metrics_logger=MetricsLogger(log_every=config.log_every, log_dir=config.log_dir),
+                            validate_fn=validate_fn)
+    except Exception:
+        log.exception("training failed")
+        return rr.EXIT_ERROR
+    finally:
+        loader.close()
+
+
+# --- demo ----------------------------------------------------------------------
+
+def cmd_demo(argv: List[str]) -> int:
+    from raft_stereo_tpu_torch.demo import add_demo_args, run_demo
+
+    p = argparse.ArgumentParser(prog="demo")
+    add_demo_args(p)
+    _add_model_args(p)
+    args = p.parse_args(argv)
+    config = _model_config(args)
+
+    from raft_stereo_tpu_torch.models.init import build_model
+    from raft_stereo_tpu_torch.utils.checkpoints import load_reference_checkpoint
+
+    _cuda_flags(args.device)
+    model = build_model(config, seed=0, device="cpu")
+    load_reference_checkpoint(model, args.restore_ckpt)
+    code = run_demo(args, model.to(args.device))
+    _log_launches("demo")
+    return code
 
 
 # Exit codes of the admin client (`serve --reload_ckpt`), as in the JAX CLI.
@@ -181,8 +517,6 @@ EXIT_ADMIN_BAD_BODY = 6
 def _admin_post_client(url: str, payload: dict, what: str, timeout_s: float) -> int:
     """POST to a running server's admin endpoint and report the outcome:
     every failure mode has its own exit code and a one-line message."""
-    import json
-
     from raft_stereo_tpu_torch.utils.http import request_json
 
     try:
@@ -297,10 +631,6 @@ def cmd_serve(argv: List[str]) -> int:
         print(f"--buckets must look like 384x512, got {args.buckets}", file=sys.stderr)
         return 2
 
-    import json
-
-    import torch
-
     from raft_stereo_tpu_torch.config import ServeConfig, VideoConfig
     from raft_stereo_tpu_torch.serving.service import StereoService, serve_http
 
@@ -334,10 +664,7 @@ def cmd_serve(argv: List[str]) -> int:
         log_dir=args.log_dir,
         flight_recorder_events=args.flight_recorder_events,
     )
-    if args.device.startswith("cuda"):
-        # Process-wide flags, set once at boot, never per request.
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+    _cuda_flags(args.device)  # process-wide, set once at boot, never per request
     service = StereoService(config, device=args.device).start()
     print(json.dumps({"warmup": service.warm_summary, "boot": service.boot_block(),
                       "device": str(service.engine.device)}, default=str), flush=True)
@@ -357,9 +684,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     if not argv or argv[0] not in SUBCOMMANDS:
         print(f"usage: python -m raft_stereo_tpu_torch {{{','.join(SUBCOMMANDS)}}} [args]", file=sys.stderr)
         return 2
-    if argv[0] == "evaluate":
-        return cmd_evaluate(argv[1:])
-    if argv[0] == "serve":
-        return cmd_serve(argv[1:])
-    print(f"raft_stereo_tpu_torch: {argv[0]} is not yet ported (evaluate and serve are)", file=sys.stderr)
-    return 2
+    commands = {"train": cmd_train, "evaluate": cmd_evaluate, "demo": cmd_demo, "serve": cmd_serve}
+    if argv[0] not in commands:
+        print(f"raft_stereo_tpu_torch: {argv[0]} is not yet ported (train, evaluate, demo and serve are)",
+              file=sys.stderr)
+        return 2
+    return commands[argv[0]](argv[1:])

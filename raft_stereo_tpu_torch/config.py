@@ -18,17 +18,21 @@ block and a conv on its output give the correlation features (the
 reference's realtime model, with `n_downsample=3`, `n_gru_layers=2`,
 `slow_fast_gru`).
 
+`TrainConfig` is the JAX package's whole training config (with
+`CameraConfig` and `AugmentConfig`), defaults and validation included. The
+training loop runs one process on one card; the fields it does not act on
+yet keep their JAX names and defaults, and the `train` command line refuses
+any other value with exit 2 (`UNPORTED_TRAIN_DEFAULTS`): `mesh_shape` other
+than (1, 1), `sharding_rules` other than "dp", `coord_interval`,
+`strict_mode`, `recompile_grace`, `async_checkpoint`, `metrics_port` and
+`compilation_cache_dir`.
+
 Not yet ported, so not present: the `"alt"` correlation
 strategy, `sequential_encoder` (and the JAX package's
 `sequential_batch_forward`), `encoder_s2d` (a TPU
 layout; the port computes its values with the direct convs), the serving
 fleet and its options (`replicas`, `auto_respawn`, `sharding_rules`), the
-AOT executable cache (`aot_cache_dir`) and the HLO audit (`hlo_audit`),
-every training option beyond one process's optimizer step (data,
-augmentation, mesh, checkpoints, resilience beyond `nan_policy`
-"raise"/"skip", logging sinks), the dataset readers (evaluation runs on
-`evaluate.SyntheticEvalDataset` or a dataset object the caller passes) and
-the demo.
+AOT executable cache (`aot_cache_dir`) and the HLO audit (`hlo_audit`).
 """
 
 from __future__ import annotations
@@ -50,9 +54,15 @@ MODALITIES = (MODALITY_RGB, MODALITY_PASSIVE_GATED, MODALITY_ALL_GATED)
 CORR_IMPLEMENTATIONS = ("reg", "pallas")
 CORR_DTYPES = ("float32", "bfloat16")
 # Non-finite loss or gradient norm: "raise" fails the step; "skip" drops
-# the update (params and optimizer state untouched) and goes on. The JAX
-# package's third policy, "rollback", needs checkpoints and is not ported.
-NAN_POLICIES = ("raise", "skip")
+# the update (params and optimizer state untouched) and goes on;
+# "rollback" also restores the last good checkpoint after `nan_patience`
+# consecutive bad steps (utils/resilience.py NonFiniteGuard).
+NAN_POLICIES = ("raise", "skip", "rollback")
+# Loader reaction to a sample that keeps failing decode (data/loader.py).
+SAMPLE_POLICIES = ("raise", "quarantine")
+# The JAX package's sharding rule presets; the port trains on one card, so
+# only "dp" (replicated state, the batch on the one card) runs.
+SHARDING_PRESETS = ("dp", "spatial", "dp+spatial", "fsdp")
 
 
 def input_channels(data_modality: str) -> int:
@@ -327,29 +337,187 @@ class ServeConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class CameraConfig:
+    """Gated-stereo rig intrinsics, hardcoded in the reference
+    (core/utils/frame_utils.py:127-128, demo.py:21-22)."""
+
+    focal_px: float = 2840.562197
+    baseline_m: float = 658.280549 / 2840.562197
+    # Lidar-MAE valid depth range in meters (demo.py:28-29).
+    min_depth_m: float = 3.0
+    max_depth_m: float = 200.0
+
+
+@dataclasses.dataclass(frozen=True)
+class AugmentConfig:
+    """Data-augmentation knobs (reference train_stereo.py:267-271 plus the
+    aug-params assembly in core/stereo_datasets.py:500-514)."""
+
+    crop_size: Tuple[int, int] = (320, 720)
+    # Reference argparse default is --spatial_scale 0 0 (train_stereo.py:270);
+    # the README training recipe uses `--spatial_scale -0.2 0.4`.
+    min_scale: float = 0.0
+    max_scale: float = 0.0
+    do_flip: Optional[str] = None  # None | "h" (stereo swap) | "hf" | "v"
+    yjitter: bool = True
+    saturation_range: Optional[Tuple[float, float]] = None
+    img_gamma: Optional[Tuple[float, float]] = None
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The training step's part of the training config (the JAX package's
-    `TrainConfig`, reference train_stereo.py:234-272): model, batch,
-    optimizer, schedule, loss and the non-finite policy. Every model
-    configuration trains, fp32 or bf16: `RAFTStereoConfig(corr_implementation=
-    "pallas", mixed_precision=True, corr_dtype="bfloat16")` is the JAX
-    package's shipping training numerics."""
+    """Training-loop config (reference train_stereo.py:234-272), the JAX
+    package's field for field. Every model configuration trains, fp32 or
+    bf16: `RAFTStereoConfig(corr_implementation="pallas",
+    mixed_precision=True, corr_dtype="bfloat16")` is the JAX package's
+    shipping training numerics."""
 
     model: RAFTStereoConfig = dataclasses.field(default_factory=RAFTStereoConfig)
+    augment: AugmentConfig = dataclasses.field(default_factory=AugmentConfig)
+    camera: CameraConfig = dataclasses.field(default_factory=CameraConfig)
+
+    name: str = "raft-stereo"
     batch_size: int = 6
+    train_datasets: Tuple[str, ...] = ("sceneflow",)
     lr: float = 2e-4
     num_steps: int = 100_000
     train_iters: int = 16
+    valid_iters: int = 32
     wdecay: float = 1e-5
     # Loss (train_stereo.py:35-70).
     loss_gamma: float = 0.9
     max_flow: float = 700.0
     grad_clip_norm: float = 1.0
     seed: int = 1234
-    nan_policy: str = "raise"
-    # Steps between metric lines that `Trainer.fit` logs.
+    # Checkpoint cadence (train_stereo.py:172).
+    checkpoint_every: int = 500
+    # Retention, as orbax's CheckpointManager prunes: keep the newest
+    # `max_to_keep` steps and, with `keep_period`, also every step divisible
+    # by it.
+    max_to_keep: int = 5
+    keep_period: Optional[int] = None
+    # Crash-consistent auto-resume (utils/checkpoints.py): restore the newest
+    # step of this run whose integrity manifest verifies, walking past (and
+    # quarantining) torn steps, with the full run state; none starts fresh.
+    auto_resume: bool = False
+    # In-training validation cadence (train_stereo.py:172,208-210), active
+    # when the trainer is given a validate_fn.
+    validate_every: int = 500
+    checkpoint_dir: str = "checkpoints"
+    restore_ckpt: Optional[str] = None
+    root_dataset: Optional[str] = None
     log_every: int = 100
+    # (data, spatial) device mesh and the sharding rule preset: not ported
+    # (one card); the CLI refuses other values.
+    mesh_shape: Tuple[int, int] = (1, 1)
+    sharding_rules: str = "dp"
+    num_workers: int = 4
+    # "thread" shares memory; "process" is the reference's worker model and
+    # scales the numpy augment path past the GIL.
+    worker_type: str = "thread"
+    # Metrics (JSONL) land in log_dir with run_report.json; profile_steps > 0
+    # writes a torch.profiler Chrome trace of that many steps after warm-up
+    # into <log_dir>/profile (utils/profiling.py).
+    log_dir: str = "runs"
+    profile_steps: int = 0
+
+    # --- resilience (utils/resilience.py) ---
+    nan_policy: str = "raise"
+    # Consecutive non-finite steps before skip escalates to an error or
+    # rollback restores the last good checkpoint.
+    nan_patience: int = 10
+    # Host-side detection cadence in steps; None resolves to 1 (the port's
+    # step reads its loss and norm on the host every step anyway).
+    nan_check_every: Optional[int] = None
+    # Multi-host coordination cadence: not ported (one process).
+    coord_interval: Optional[int] = None
+    # Step watchdog: a step boundary that takes longer dumps every thread's
+    # stack, writes run_report.json (stop_cause "watchdog") and exits 16.
+    # 0 disables.
+    step_timeout_s: float = 0.0
+    # Extra allowance on the first interval (kernel builds, cuDNN autotune).
+    watchdog_grace_s: float = 300.0
+    # Retry with backoff (utils/retry.py) on checkpoint and frame I/O.
+    io_retries: int = 3
+    io_backoff: float = 0.5
+    # Loader per-sample failure policy and budget (data/loader.py).
+    sample_policy: str = "quarantine"
+    sample_retries: int = 2
+    failure_budget: float = 0.05
+    # SIGTERM/SIGINT stop the run at the next step boundary with a final
+    # checkpoint.
+    handle_signals: bool = True
+
+    # --- the JAX package's jit hygiene: not ported (no XLA compiles) ---
+    strict_mode: bool = False
+    recompile_grace: int = 2
+
+    # --- training I/O spine ---
+    # Background checkpoint commit: not ported.
+    async_checkpoint: bool = False
+    # Copy batch N+1 to the card on a side stream while step N runs
+    # (data/prefetch.py).
+    device_prefetch: bool = False
+
+    # --- observability ---
+    # Prometheus sidecar of the training loop: not ported.
+    metrics_port: int = 0
+    # Flight-recorder ring capacity (obs/trace.py): dumped as
+    # <log_dir>/flight_recorder.json on every fit() exit path.
+    flight_recorder_events: int = 256
+    # The JAX package's persistent XLA compilation cache: not ported.
+    compilation_cache_dir: Optional[str] = None
 
     def __post_init__(self):
         if self.nan_policy not in NAN_POLICIES:
             raise ValueError(f"nan_policy {self.nan_policy!r} not in {NAN_POLICIES}")
+        if self.sample_policy not in SAMPLE_POLICIES:
+            raise ValueError(f"sample_policy {self.sample_policy!r} not in {SAMPLE_POLICIES}")
+        if self.nan_patience < 1:
+            raise ValueError(f"nan_patience must be >= 1, got {self.nan_patience}")
+        if self.nan_check_every is not None and self.nan_check_every < 1:
+            raise ValueError(f"nan_check_every must be >= 1, got {self.nan_check_every}")
+        if self.coord_interval is not None and self.coord_interval < 1:
+            raise ValueError(f"coord_interval must be >= 1, got {self.coord_interval}")
+        if self.step_timeout_s < 0:
+            raise ValueError(f"step_timeout_s must be >= 0, got {self.step_timeout_s}")
+        if self.max_to_keep < 1:
+            raise ValueError(f"max_to_keep must be >= 1, got {self.max_to_keep}")
+        if self.keep_period is not None and self.keep_period < 1:
+            raise ValueError(f"keep_period must be >= 1, got {self.keep_period}")
+        if self.io_retries < 1:
+            raise ValueError(f"io_retries must be >= 1, got {self.io_retries}")
+        if self.recompile_grace < 0:
+            raise ValueError(f"recompile_grace must be >= 0, got {self.recompile_grace}")
+        if not 0.0 <= self.failure_budget <= 1.0:
+            raise ValueError(f"failure_budget must be in [0, 1], got {self.failure_budget}")
+        if self.sharding_rules not in SHARDING_PRESETS:
+            raise ValueError(f"sharding_rules {self.sharding_rules!r} not in {SHARDING_PRESETS}")
+        if not 0 <= self.metrics_port <= 65535:
+            raise ValueError(f"metrics_port must be in [0, 65535], got {self.metrics_port}")
+        if self.flight_recorder_events < 0:
+            raise ValueError(f"flight_recorder_events must be >= 0, got {self.flight_recorder_events}")
+
+
+# The fields the port's training loop does not act on yet, with the one
+# value it runs (the JAX default, or (1, 1) for the mesh): the `train`
+# command line refuses any other with exit 2.
+UNPORTED_TRAIN_DEFAULTS = {
+    "mesh_shape": (1, 1),
+    "sharding_rules": "dp",
+    "coord_interval": None,
+    "strict_mode": False,
+    "recompile_grace": 2,
+    "async_checkpoint": False,
+    "metrics_port": 0,
+    "compilation_cache_dir": None,
+}
+
+
+def finalize_train_config(config: TrainConfig) -> TrainConfig:
+    """Resolve `nan_check_every` None to 1 (the JAX package resolves it per
+    backend; the port's step already reads its loss on the host every
+    step). Idempotent."""
+    if config.nan_check_every is not None:
+        return config
+    return dataclasses.replace(config, nan_check_every=1)

@@ -15,10 +15,11 @@ The forward runs on the model's device (the card unless the caller built
 the model on the CPU); images are padded there, and the forward is timed
 between two `torch.cuda.synchronize` calls, so the KITTI FPS figure is
 synchronized wall time: the device's work plus the host's launch gaps
-between kernels (`profile_stages` separates device time). The dataset
-readers are not ported yet: a validator takes a dataset object
-(`SyntheticEvalDataset`, or any object with `__len__` and
-`get_item(index, rng)` returning the item dict) and raises without one.
+between kernels (`profile_stages` separates device time). A validator
+reads its dataset from `root` (data/datasets.py, the JAX package's
+defaults), or takes a dataset object (`SyntheticEvalDataset`, or any
+object with `__len__` and `get_item(index, rng)` returning the item
+dict).
 
 The Evaluator runs the model in its own configuration: a
 `mixed_precision` model takes the fp32 images and returns fp32 flows, its
@@ -90,17 +91,10 @@ def _epe_1d(flow_pred: np.ndarray, flow_gt: np.ndarray) -> np.ndarray:
     return np.abs(flow_pred - flow_gt)
 
 
-def _require(dataset, name: str):
-    if dataset is None:
-        raise NotImplementedError(
-            f"the {name} dataset reader is not ported yet (ROADMAP Queue A item 5): pass dataset=, "
-            "e.g. SyntheticEvalDataset()"
-        )
-    return dataset
+def validate_eth3d(evaluator: Evaluator, dataset=None, root="datasets/ETH3D") -> Dict[str, float]:
+    from raft_stereo_tpu_torch.data.datasets import ETH3D
 
-
-def validate_eth3d(evaluator: Evaluator, dataset=None) -> Dict[str, float]:
-    dataset = _require(dataset, "ETH3D")
+    dataset = dataset if dataset is not None else ETH3D(None, root=root)
     epe_list, out_list = [], []
     for i in range(len(dataset)):
         item = dataset.get_item(i, np.random.default_rng(0))
@@ -115,8 +109,10 @@ def validate_eth3d(evaluator: Evaluator, dataset=None) -> Dict[str, float]:
     return result
 
 
-def validate_kitti(evaluator: Evaluator, dataset=None) -> Dict[str, float]:
-    dataset = _require(dataset, "KITTI")
+def validate_kitti(evaluator: Evaluator, dataset=None, root="datasets/KITTI") -> Dict[str, float]:
+    from raft_stereo_tpu_torch.data.datasets import KITTI
+
+    dataset = dataset if dataset is not None else KITTI(None, root=root, image_set="training")
     epe_list, out_list, elapsed = [], [], []
     for i in range(len(dataset)):
         item = dataset.get_item(i, np.random.default_rng(0))
@@ -142,8 +138,11 @@ def validate_kitti(evaluator: Evaluator, dataset=None) -> Dict[str, float]:
     return result
 
 
-def validate_things(evaluator: Evaluator, dataset=None) -> Dict[str, float]:
-    dataset = _require(dataset, "SceneFlow")
+def validate_things(evaluator: Evaluator, dataset=None, root="datasets") -> Dict[str, float]:
+    from raft_stereo_tpu_torch.data.datasets import SceneFlowDatasets
+
+    dataset = (dataset if dataset is not None
+               else SceneFlowDatasets(None, root=root, dstype="frames_finalpass", things_test=True))
     epe_list, out_list = [], []
     for i in range(len(dataset)):
         item = dataset.get_item(i, np.random.default_rng(0))
@@ -161,8 +160,10 @@ def validate_things(evaluator: Evaluator, dataset=None) -> Dict[str, float]:
     return result
 
 
-def validate_middlebury(evaluator: Evaluator, dataset=None, split="F") -> Dict[str, float]:
-    dataset = _require(dataset, "Middlebury")
+def validate_middlebury(evaluator: Evaluator, dataset=None, split="F", root="datasets/Middlebury") -> Dict[str, float]:
+    from raft_stereo_tpu_torch.data.datasets import Middlebury
+
+    dataset = dataset if dataset is not None else Middlebury(None, root=root, split=split)
     epe_list, out_list = [], []
     for i in range(len(dataset)):
         item = dataset.get_item(i, np.random.default_rng(0))
@@ -221,56 +222,14 @@ class SyntheticEvalDataset:
         }
 
 
-def _sequence_texture(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
-    """Random smooth RGB texture in [0, 255]: noise octaves bilinearly
-    upsampled (a copy of the JAX package's `data/datasets.py` helper)."""
-    img = np.zeros((h, w, 3), np.float32)
-    for scale in (4, 8, 16):
-        gh, gw = max(2, h // scale), max(2, w // scale)
-        grid = rng.uniform(-1, 1, (gh, gw, 3)).astype(np.float32)
-        yy = np.linspace(0, gh - 1, h, dtype=np.float32)
-        xx = np.linspace(0, gw - 1, w, dtype=np.float32)
-        y0 = np.floor(yy).astype(int).clip(0, gh - 2)
-        x0 = np.floor(xx).astype(int).clip(0, gw - 2)
-        fy = (yy - y0)[:, None, None]
-        fx = (xx - x0)[None, :, None]
-        g = (
-            grid[y0][:, x0] * (1 - fy) * (1 - fx)
-            + grid[y0][:, x0 + 1] * (1 - fy) * fx
-            + grid[y0 + 1][:, x0] * fy * (1 - fx)
-            + grid[y0 + 1][:, x0 + 1] * fy * fx
-        )
-        img += g * scale
-    img -= img.min()
-    img *= 255.0 / max(img.max(), 1e-6)
-    return img
-
-
 def synthetic_plane_pair(rng: np.random.Generator, h: int, w: int, max_disp: float = 8.0) -> Dict[str, np.ndarray]:
-    """A stereo pair with known disparity: the first frame of the JAX
-    package's `make_synthetic_sequence(rng, 1, h, w, max_disp)` (a copy),
-    a smooth random texture under a tilted disparity plane of 0.5 to
+    """A stereo pair with known disparity: the first frame of
+    `data.datasets.make_synthetic_sequence(rng, 1, h, w, max_disp)`, a
+    smooth random texture under a tilted disparity plane of 0.5 to
     `max_disp` px. Item dict as the validators take it; every pixel valid."""
-    margin = int(np.ceil(max_disp)) + 1
-    xs = np.arange(w, dtype=np.float32)[None, :]
-    ys = np.arange(h, dtype=np.float32)[:, None]
-    rows = np.arange(h)[:, None]
-    base = _sequence_texture(rng, h, w + margin)
-    a = rng.uniform(1.0, max_disp - 1.0)
-    bx = rng.uniform(-2.0, 2.0) / max(w, 1)
-    cy = rng.uniform(-2.0, 2.0) / max(h, 1)
-    disp = np.clip(a + bx * xs + cy * ys, 0.5, max_disp).astype(np.float32)
-    coords = xs + disp
-    x0 = np.floor(coords).astype(int)
-    fx = (coords - x0)[..., None]
-    x0 = np.clip(x0, 0, base.shape[1] - 2)
-    image2 = base[rows, x0] * (1 - fx) + base[rows, x0 + 1] * fx
-    return {
-        "image1": np.ascontiguousarray(base[:, :w], np.float32),
-        "image2": np.ascontiguousarray(image2, np.float32),
-        "flow": np.ascontiguousarray(-disp[..., None], np.float32),
-        "valid": np.ones((h, w), np.float32),
-    }
+    from raft_stereo_tpu_torch.data.datasets import make_synthetic_sequence
+
+    return make_synthetic_sequence(rng, 1, h, w, max_disp)[0]
 
 
 def corr_precision(config: RAFTStereoConfig, seed: int = 0, device="cuda", shape: Tuple[int, int] = (128, 192),

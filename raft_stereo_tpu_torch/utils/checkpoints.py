@@ -23,12 +23,31 @@ package's (`raft_stereo_tpu/utils/checkpoints.py`; numpy only), map the
 torch state dict onto the flax variables tree, which the bridge then loads.
 The JAX package's own checkpoints are orbax directories; reading them needs
 the JAX stack, so the port refuses them.
+
+The training checkpoints of the port (train/trainer.py) keep the JAX
+package's integrity protocol, whose functions are copied here unchanged
+(`write_manifest` ... `find_latest_valid_step`), around the port's own step
+format: a step directory `<checkpoint_dir>/<name>/<step>/` holds
+
+- `model.pth`: the weights in the reference's layout
+  (`export_reference_state_dict`), so `evaluate --restore_ckpt`, `serve
+  --restore_ckpt` and POST /reload read it as they read any reference
+  `.pth`;
+- `optimizer.pt`: the AdamW moments and count and the trainer's step;
+- `run_state.json`: the host-side run state (loader cursor, quarantine set,
+  non-finite counters, the numpy and torch RNG states);
+- `MANIFEST.json`: every other file's size and CRC32, written last by an
+  atomic rename. The rename is the commit point: a step without a
+  manifest that verifies is torn, and auto-resume walks past it.
 """
 
 from __future__ import annotations
 
+import json
 import os
+import re
 from typing import Any, Dict, Mapping, Tuple
+import zlib
 
 import numpy as np
 import torch
@@ -266,8 +285,11 @@ def convert_state_dict(
 
 
 def load_reference_state_dict(path: str) -> Dict[str, np.ndarray]:
-    """Read a reference `.pth` into {key: ndarray}, stripping the
-    DataParallel `module.` prefix."""
+    """Read a reference `.pth` (or the `model.pth` of a training step
+    directory) into {key: ndarray}, stripping the DataParallel `module.`
+    prefix."""
+    if os.path.isdir(path) and os.path.isfile(os.path.join(path, MODEL_NAME)):
+        path = os.path.join(path, MODEL_NAME)  # a training step directory
     if os.path.isdir(path):
         raise ValueError(
             f"{path!r} is a directory: orbax checkpoints of the JAX package need the JAX stack to "
@@ -327,3 +349,316 @@ def export_reference_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
             value = torch.cat([value, torch.zeros_like(value)], dim=0)
         sd[key] = value.contiguous()
     return sd
+
+
+# --- integrity manifest (a copy of the JAX package's protocol) -----------
+
+MANIFEST_NAME = "MANIFEST.json"
+MANIFEST_VERSION = 1
+RUN_STATE_NAME = "run_state.json"
+CORRUPT_DIR_MARKER = ".corrupt-"
+
+# Multi-host: process 0's bundle is RUN_STATE_NAME (manifest-covered, the
+# durable core); every other process writes a best-effort per-host bundle
+# `run_state.p<i>.json` carrying ITS host-local state (quarantine indices
+# are per-shard — adopting process 0's would both lose this host's known
+# corrupt samples and claim ones it never saw). Peer bundles are EXCLUDED
+# from the manifest: they are written concurrently with process 0's commit
+# and a barrier here would add a collective to every save; a torn/missing
+# peer bundle degrades to the shared bundle at restore.
+_PEER_RUN_STATE_RE = re.compile(r"run_state\.p\d+\.json")
+
+
+def run_state_name(process_index: int = 0) -> str:
+    return RUN_STATE_NAME if process_index == 0 else f"run_state.p{process_index}.json"
+
+
+def _crc32_file(path: str, chunk: int = 1 << 20) -> str:
+    crc = 0
+    with open(path, "rb") as f:
+        while True:
+            block = f.read(chunk)
+            if not block:
+                break
+            crc = zlib.crc32(block, crc)
+    return f"{crc & 0xFFFFFFFF:08x}"
+
+
+def _manifest_files(step_dir: str):
+    """Yield (relpath, abspath) for every file under `step_dir` except the
+    manifest itself, in a deterministic order. Relpaths use '/' so manifests
+    are portable across hosts/OS."""
+    for root, dirs, files in os.walk(step_dir):
+        dirs.sort()
+        for name in sorted(files):
+            full = os.path.join(root, name)
+            rel = os.path.relpath(full, step_dir).replace(os.sep, "/")
+            # Skip the manifest itself, peer run-state bundles, and
+            # in-flight atomic-write tmp files (".tmp.<pid>"): a peer
+            # process may be mid-_atomic_write_json during this walk, and
+            # capturing its transient tmp would either record a file the
+            # imminent rename deletes (permanently invalidating a good
+            # checkpoint) or vanish between stat and checksum.
+            if rel == MANIFEST_NAME or _PEER_RUN_STATE_RE.fullmatch(rel) or ".tmp." in name:
+                continue
+            yield rel, full
+
+
+def _atomic_write_json(path: str, payload: Dict[str, Any]) -> None:
+    """Durable tmp + fsync + rename, the property the whole integrity
+    scheme leans on (shared primitive: utils/run_report.py)."""
+    from raft_stereo_tpu_torch.utils.run_report import atomic_write_json
+
+    atomic_write_json(path, payload, durable=True)
+
+
+def write_manifest(step_dir: str, step: int | None = None) -> Dict[str, Any]:
+    """Checksum every file currently in `step_dir` and commit the manifest
+    (atomic rename, written LAST: its presence marks the save durable).
+    Call only after every file of the step is written."""
+    files = {
+        rel: {"size": os.path.getsize(full), "crc32": _crc32_file(full)}
+        for rel, full in _manifest_files(step_dir)
+    }
+    manifest = {
+        "manifest_version": MANIFEST_VERSION,
+        "step": step,
+        "files": files,
+    }
+    _atomic_write_json(os.path.join(step_dir, MANIFEST_NAME), manifest)
+    return manifest
+
+
+def read_manifest(step_dir: str) -> Dict[str, Any] | None:
+    """The step's committed manifest, or None when absent (pre-manifest
+    checkpoint, or a save killed before commit). Raises ValueError on an
+    unreadable/garbage manifest — that is corruption, not absence."""
+    path = os.path.join(step_dir, MANIFEST_NAME)
+    if not os.path.exists(path):
+        return None
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, json.JSONDecodeError) as e:
+        raise ValueError(f"unreadable checkpoint manifest {path!r}: {e}") from e
+
+
+def validate_checkpoint(step_dir: str) -> list:
+    """Byte-level integrity verdict for one checkpoint step dir against its
+    manifest. Returns a list of human-readable problems; empty == valid.
+
+    A missing manifest is a problem (the save never committed — or predates
+    integrity manifests; either way the step cannot be trusted as a resume
+    anchor). Files present on disk but absent from the manifest are ignored:
+    the restore only reads manifested files, so extras cannot corrupt it."""
+    if not os.path.isdir(step_dir):
+        return [f"not a directory: {step_dir!r}"]
+    try:
+        manifest = read_manifest(step_dir)
+    except ValueError as e:
+        return [str(e)]
+    if manifest is None:
+        return [
+            f"no {MANIFEST_NAME} in {step_dir!r} (save never committed, or a "
+            "pre-manifest checkpoint)"
+        ]
+    if manifest.get("manifest_version") != MANIFEST_VERSION:
+        return [
+            f"manifest_version {manifest.get('manifest_version')!r} != "
+            f"{MANIFEST_VERSION} in {step_dir!r}"
+        ]
+    files = manifest.get("files")
+    if not isinstance(files, dict):
+        return [f"manifest in {step_dir!r} has no file table"]
+    problems = []
+    for rel, meta in sorted(files.items()):
+        full = os.path.join(step_dir, *rel.split("/"))
+        try:
+            if not os.path.isfile(full):
+                problems.append(f"missing file {rel!r}")
+                continue
+            size = os.path.getsize(full)
+            if size != meta.get("size"):
+                problems.append(
+                    f"size mismatch for {rel!r}: manifest {meta.get('size')}, disk {size}"
+                )
+                continue
+            crc = _crc32_file(full)
+        except OSError as e:
+            # The file vanished or became unreadable MID-validation — e.g.
+            # a peer process quarantine-renaming the step dir this process
+            # is still walking (multi-host auto-resume). That is a verdict
+            # ("not a trustworthy anchor"), never a crash.
+            problems.append(f"unreadable file {rel!r}: {e}")
+            continue
+        if crc != meta.get("crc32"):
+            problems.append(
+                f"checksum mismatch for {rel!r}: manifest {meta.get('crc32')}, "
+                f"disk {crc}"
+            )
+    return problems
+
+
+def write_run_state(
+    step_dir: str, run_state: Dict[str, Any], process_index: int = 0
+) -> str:
+    """Persist a host's run-state bundle next to the step's files. Process
+    0's bundle must be written BEFORE write_manifest (the manifest covers
+    it); peer bundles (process_index > 0) are manifest-exempt best-effort
+    sidecars (see the naming notes above)."""
+    path = os.path.join(step_dir, run_state_name(process_index))
+    _atomic_write_json(path, run_state)
+    return path
+
+
+def read_run_state(step_dir: str, process_index: int = 0) -> Dict[str, Any] | None:
+    """This host's run-state bundle — its own per-host sidecar when present
+    and readable, else the shared (process-0) bundle — or None when the
+    step predates run-state bundles entirely. A torn peer bundle silently
+    degrades to the shared one: it is best-effort by design."""
+    candidates = [run_state_name(process_index)]
+    if process_index != 0:
+        candidates.append(RUN_STATE_NAME)
+    for name in candidates:
+        path = os.path.join(step_dir, name)
+        if not os.path.exists(path):
+            continue
+        try:
+            with open(path) as f:
+                return json.load(f)
+        except (OSError, json.JSONDecodeError):
+            continue  # torn/unreadable: fall back (or report absent)
+    return None
+
+
+def commit_step_sidecars(
+    step_dir: str, step: int, run_state: Dict[str, Any] | None = None
+) -> None:
+    """The durability commit for one checkpoint step: write the run-state
+    bundle (when given), then checksum everything and write the manifest
+    last. Until this returns, the step reads as invalid to
+    `validate_checkpoint` — which is exactly the crash-consistency contract
+    (a kill at any byte before the manifest rename discards the step; after
+    it, the step is fully verifiable)."""
+    if run_state is not None:
+        write_run_state(step_dir, run_state)
+    write_manifest(step_dir, step)
+
+
+def list_checkpoint_steps(root: str) -> list:
+    """Sorted step numbers present as (non-quarantined) dirs under a run's
+    checkpoint root."""
+    if not os.path.isdir(root):
+        return []
+    return sorted(
+        int(d) for d in os.listdir(root)
+        if d.isdigit() and os.path.isdir(os.path.join(root, d))
+    )
+
+
+def quarantine_step_dir(step_dir: str, reason: str = "invalid") -> str:
+    """Move a torn/corrupt step dir out of the step scan's sight: `<step>`
+    -> `<step>.corrupt-<reason>[-N]`. Digit-prefixed-but-not-all-digit
+    names are invisible to the scan, so nothing lists, restores, or
+    collides a future re-save with the dead timeline. Returns the new
+    path."""
+    base = f"{step_dir}{CORRUPT_DIR_MARKER}{reason}"
+    target = base
+    n = 0
+    while os.path.exists(target):
+        n += 1
+        target = f"{base}-{n}"
+    os.rename(step_dir, target)
+    return target
+
+
+def find_latest_valid_step(root: str, quarantine: bool = False):
+    """Walk the manager root's steps newest-first to the first one whose
+    manifest verifies. Returns (step | None, skipped) where `skipped` is
+    [(step, problems), ...] for every newer step that failed validation.
+
+    With `quarantine=True`, each failed step is renamed aside
+    (`quarantine_step_dir`) — but ONLY once a valid anchor has been found
+    below it: those steps are then provably dead timelines a resumed run
+    will overwrite. When NO step validates (e.g. a legacy root saved before
+    integrity manifests existed), nothing is renamed and (None, skipped) is
+    returned — destroying every checkpoint on a schema technicality is an
+    operator decision (`quarantine_step_dir`), not an auto-resume side
+    effect."""
+    import logging
+
+    logger = logging.getLogger(__name__)
+    skipped = []
+    found = None
+    for step in reversed(list_checkpoint_steps(root)):
+        step_dir = os.path.join(root, str(step))
+        problems = validate_checkpoint(step_dir)
+        if not problems:
+            found = step
+            break
+        logger.warning(
+            "checkpoint step %d at %s failed validation: %s",
+            step, step_dir, "; ".join(problems),
+        )
+        skipped.append((step, problems))
+    if found is not None and quarantine:
+        for step, problems in skipped:
+            new_path = quarantine_step_dir(os.path.join(root, str(step)))
+            logger.warning(
+                "quarantined invalid checkpoint step %d -> %s", step, new_path
+            )
+    return found, skipped
+
+
+# --- the port's training step format -------------------------------------
+
+MODEL_NAME = "model.pth"
+OPTIMIZER_NAME = "optimizer.pt"
+
+
+def _atomic_torch_save(obj, path: str) -> None:
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "wb") as f:
+        torch.save(obj, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+def write_step_files(step_dir: str, model: nn.Module, optimizer_state: Dict[str, Any]) -> None:
+    """The step's payload, before its run state and manifest: `model.pth`
+    (the reference's layout) and `optimizer.pt`."""
+    os.makedirs(step_dir, exist_ok=True)
+    _atomic_torch_save(export_reference_state_dict(model), os.path.join(step_dir, MODEL_NAME))
+    _atomic_torch_save(optimizer_state, os.path.join(step_dir, OPTIMIZER_NAME))
+
+
+def read_optimizer_state(step_dir: str) -> Dict[str, Any]:
+    return torch.load(os.path.join(step_dir, OPTIMIZER_NAME), map_location="cpu", weights_only=False)
+
+
+def resolve_step_dir(path: str, step: int | None = None) -> str:
+    """A step directory from a run's checkpoint root (the newest step, or
+    `step`) or from a step directory itself."""
+    if os.path.isfile(os.path.join(path, MODEL_NAME)) and step is None:
+        return path
+    steps = list_checkpoint_steps(path)
+    if step is None:
+        if not steps:
+            raise FileNotFoundError(f"no checkpoint step under {path!r}")
+        step = steps[-1]
+    step_dir = os.path.join(path, str(step))
+    if not os.path.isdir(step_dir):
+        raise FileNotFoundError(f"no checkpoint step {step} under {path!r}")
+    return step_dir
+
+
+def steps_to_prune(steps, max_to_keep: int, keep_period: int | None = None) -> list:
+    """Steps a save leaves behind for deletion, as orbax's CheckpointManager
+    prunes: the newest `max_to_keep` stay, and with `keep_period` every step
+    divisible by it stays too."""
+    steps = sorted(steps)
+    keep = set(steps[-max_to_keep:])
+    if keep_period:
+        keep |= {s for s in steps if s % keep_period == 0}
+    return [s for s in steps if s not in keep]

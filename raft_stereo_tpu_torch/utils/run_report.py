@@ -1,9 +1,11 @@
 """Machine-readable run health: the `run_report.json` schema, a copy of
 `raft_stereo_tpu/utils/run_report.py` (`build_run_report`,
-`validate_run_report`, `atomic_write_json`). The port builds it for the
-serving front's /healthz, whose payload is a run report plus an additive
-`serving` block, so one validator covers both packages' servers.
-`validate_run_report` is the schema authority.
+`validate_run_report`, `atomic_write_json`, `write_run_report`). The
+trainer writes it to <log_dir>/run_report.json on every exit path of
+`fit`, and the train command line for failures before the trainer exists;
+the serving front's /healthz payload is a run report plus an additive
+`serving` block, so one validator covers both. `validate_run_report` is the
+schema authority.
 
 Schema (version 2) — keys marked * are required:
 
@@ -257,15 +259,46 @@ def build_run_report(
     return report
 
 
-def atomic_write_json(path: str, payload: Dict[str, Any]) -> None:
+def atomic_write_json(path: str, payload: Dict[str, Any], durable: bool = False) -> None:
     """Crash-atomic JSON write (tmp + rename): a crash at any byte, or a
     concurrent reader, sees either the old file or the new one, never a
-    torn mix. Not fsync'd: the flight recorder's dumps are advisory."""
+    torn mix. With `durable=True` the file and its directory are fsync'd
+    around the rename, surviving power loss as well as process death (the
+    checkpoint manifest's commit marker); run reports and flight-recorder
+    dumps are advisory and skip the sync cost."""
     tmp = f"{path}.tmp.{os.getpid()}"
     with open(tmp, "w") as f:
         json.dump(payload, f, indent=2, sort_keys=True)
         f.write("\n")
+        if durable:
+            f.flush()
+            os.fsync(f.fileno())
     os.replace(tmp, path)
+    if durable:
+        # Persist the rename itself (a failure here degrades to
+        # rename-without-dir-sync, still atomic).
+        try:
+            dfd = os.open(os.path.dirname(path) or ".", os.O_RDONLY)
+            try:
+                os.fsync(dfd)
+            finally:
+                os.close(dfd)
+        except OSError:
+            pass
+
+
+def write_run_report(report: Dict[str, Any], log_dir: str) -> str:
+    """Atomically write `report` as <log_dir>/run_report.json; returns the
+    path. Never raises into an exiting trainer (callers sit in finally
+    blocks): filesystem failures are swallowed after a best-effort attempt,
+    and the exit code still carries the verdict."""
+    path = os.path.join(log_dir, RUN_REPORT_NAME)
+    try:
+        os.makedirs(log_dir, exist_ok=True)
+        atomic_write_json(path, report)
+    except OSError:
+        pass
+    return path
 
 
 def validate_run_report(report: Any) -> List[str]:

@@ -348,10 +348,11 @@ def test_nonfinite_step_is_skipped_or_raises(batch):
     with pytest.raises(NonFiniteLossError):
         small_trainer("raise").train_step(bad)
     with pytest.raises(ValueError, match="nan_policy"):
-        TrainConfig(nan_policy="rollback")
+        TrainConfig(nan_policy="sometimes")
 
 
-def test_fit_reiterates_its_data(batch):
+def test_fit_reiterates_its_data(batch, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)  # fit writes its final checkpoint and run report
     trainer = small_trainer(num_steps=3)
     seen = []
 

@@ -126,7 +126,9 @@ def test_port_imports_no_jax():
         "for m in ('train.loss', 'train.optimizer', 'train.trainer', 'train.synthetic', 'ops.corr_cuda',\n"
         "          'serving.service', 'evaluate', 'cli', '__main__', 'ops.gates', 'serving.batcher',\n"
         "          'serving.lifecycle', 'video.session', 'obs.trace', 'obs.prom', 'obs.memory',\n"
-        "          'utils.run_report', 'utils.http', 'utils.resilience'):\n"
+        "          'utils.run_report', 'utils.http', 'utils.resilience', 'utils.retry', 'utils.metrics',\n"
+        "          'utils.profiling', 'utils.checkpoints', 'data.native_io', 'data.png', 'data.frame_io',\n"
+        "          'data.augment', 'data.datasets', 'data.loader', 'data.prefetch', 'data.trees', 'demo'):\n"
         "    assert 'raft_stereo_tpu_torch.' + m in walked, m\n"
         "print('ok', len(walked))\n"
     )
