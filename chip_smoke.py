@@ -36,8 +36,14 @@ SIGTERM, runs the training command line at the JAX bench's setup on a
 FlyingThings3D tree written from the seed (a control run, a run stopped by
 SIGTERM and resumed, the resumed loader cursor and losses against the
 control's, `evaluate` and `demo` on the trained model.pth, the device
-prefetcher's batches and step against plain copies), and times every
-kernel (the scatter also alone on the device).
+prefetcher's batches and step against plain copies), runs the model
+options of the fourteenth slice (the "alt" correlation against "reg" and
+"pallas"; the JAX bench's model with the sequential encoder and
+`sequential_batch_forward`), a fleet of two replicas on the one card (a
+burst, an injected raise, a host-side hang, auto-respawn, a rolling swap
+and its rollback, drain) and the front tier (two `serve` processes and a
+`frontier` process: routing, a backend killed and restarted, a rollout,
+SIGTERM), and times every kernel (the scatter also alone on the device).
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -53,6 +59,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import glob
 import io
 import json
@@ -78,7 +85,7 @@ from raft_stereo_tpu_torch.config import RAFTStereoConfig, ServeConfig, TrainCon
 from raft_stereo_tpu_torch.evaluate import Evaluator, SyntheticEvalDataset, validate_kitti, validate_middlebury
 from raft_stereo_tpu_torch.models import anytime, layers
 from raft_stereo_tpu_torch.models.init import build_model
-from raft_stereo_tpu_torch.models.raft_stereo import RAFTStereo
+from raft_stereo_tpu_torch.models.raft_stereo import RAFTStereo, sequential_batch_forward
 from raft_stereo_tpu_torch.ops import _build, corr, corr_cuda, encoder_cuda, gates, gru_tail
 from raft_stereo_tpu_torch.serving.service import StereoService, make_http_server
 from raft_stereo_tpu_torch.train import synthetic
@@ -104,10 +111,13 @@ TRAIN_PLAIN_CONFIG = RAFTStereoConfig(corr_implementation="reg")
 TRAIN_BATCH = 6
 TRAIN_HW = (320, 720)
 TRAIN_ITERS = 16
-TRAIN_TIMED_STEPS = 3
+TRAIN_TIMED_STEPS = 1
+# The kernels-against-plain-autograd step takes the first rows of the batch
+# (cuDNN's fp32 FFT makes a recipe step about 30 s on the card).
+TRAIN_E2E_BATCH = 2
 # The fourth slice's: the evaluate entry point's configuration, the kernel
-# one with the windowed lookup, at 32 iterations on a synthetic set of two
-# Middlebury-F-sized pairs (1980x2870 pads to 1984x2880: the padding and
+# one with the windowed lookup, at 32 iterations on a synthetic set of one
+# Middlebury-F-sized pair (1980x2870 pads to 1984x2880: the padding and
 # the crop run on the card); and the gates configuration, which needs the
 # fused tail off (it takes precedence over the gates, as in JAX), run with
 # the gates' environment variable set against its twin without it.
@@ -424,7 +434,19 @@ REQUESTS = [
 ]
 
 
+# Seconds between log lines, summed under the phase tag of the line that
+# ends each interval (the work before a phase's line is that phase's):
+# printed at the end, so the script's time limit can be kept phase by phase.
+PHASE_SECONDS: dict = {}
+_LAST_LOG = [time.perf_counter()]
+
+
 def log(msg: str) -> None:
+    now = time.perf_counter()
+    tag = re.match(r"\[([a-z0-9-]+)", msg)
+    if tag is not None:
+        PHASE_SECONDS[tag.group(1)] = PHASE_SECONDS.get(tag.group(1), 0.0) + now - _LAST_LOG[0]
+    _LAST_LOG[0] = now
     print(msg, flush=True)
 
 
@@ -1031,9 +1053,11 @@ def phase_train_e2e(batch) -> None:
     """One step of the kernel configuration against the plain one (the
     "reg" lookup, autograd through its gather) from the same seeded weights
     and batch: loss, global gradient norm, each parameter's gradient."""
-    mk, gk = step_grads(TRAIN_CONFIG, batch)
-    mp, gp = step_grads(TRAIN_PLAIN_CONFIG, batch)
-    log(f"[train-e2e] b{TRAIN_BATCH} {TRAIN_HW[0]}x{TRAIN_HW[1]}, {TRAIN_ITERS} iters, kernels vs plain autograd")
+    batch = {k: v[:TRAIN_E2E_BATCH] for k, v in batch.items()}
+    mk, gk = step_grads(TRAIN_CONFIG, batch, batch_size=TRAIN_E2E_BATCH)
+    mp, gp = step_grads(TRAIN_PLAIN_CONFIG, batch, batch_size=TRAIN_E2E_BATCH)
+    log(f"[train-e2e] b{TRAIN_E2E_BATCH} {TRAIN_HW[0]}x{TRAIN_HW[1]}, {TRAIN_ITERS} iters, kernels vs plain "
+        f"autograd")
     report_steps("train-e2e", mk, mp, compare_steps(mk, gk, mp, gp),
                  {"loss": TRAIN_LOSS_RTOL, "norm": TRAIN_NORM_RTOL, "grad": TRAIN_GRAD_TOL,
                   "fnet": TRAIN_FNET_GRAD_TOL, "zero": 1e-6})
@@ -1541,15 +1565,14 @@ def phase_gates_kernels(gen) -> dict:
 
 def phase_evaluate() -> tuple:
     """The evaluate entry point at Middlebury-F size: `validate_middlebury`
-    over two synthetic 1980x2870 pairs in the evaluate configuration, 32
-    iterations, with each image's forward seconds and launches; the first
-    image again in the kernel configuration (the dense lookup): flow_up
-    equal bit for bit; the evaluate configuration against the plain one
-    at 4 iterations; the gates configuration at 32 iterations (launches)
+    over one synthetic 1980x2870 pair in the evaluate configuration, 32
+    iterations, with each image's forward seconds and launches; at 4
+    iterations the evaluate configuration against the plain one, and the
+    kernel configuration (the dense lookup) equal to it bit for bit; the gates configuration at 32 iterations (launches)
     and against its twin without the variable at 4. Returns the launch
     counts of the evaluate run and of the 32-iteration gates forward, and
     the first image's flow."""
-    dataset = SyntheticEvalDataset(n=2, shape=EVAL_SHAPE)
+    dataset = SyntheticEvalDataset(n=1, shape=EVAL_SHAPE)
     model = build_model(EVAL_CONFIG, seed=SEED, device=DEVICE)
     evaluator = Evaluator(model, iters=EVAL_ITERS)
     record = []
@@ -1584,25 +1607,6 @@ def phase_evaluate() -> tuple:
 
     item = dataset.get_item(0, None)
     pair = (item["image1"], item["image2"])
-    dense = build_model(KERNEL_CONFIG, seed=SEED, device=DEVICE)
-    dense.load_state_dict(model.state_dict())
-    dense_ev = Evaluator(dense, iters=EVAL_ITERS)
-    times = {"evaluate": [record[0][1]], "kernel": []}
-    for name, ev in (("kernel", dense_ev), ("kernel", dense_ev), ("evaluate", evaluator)):
-        flow, seconds = ev(*pair)
-        times[name].append(seconds)
-        if ev is dense_ev:
-            dense_flow = flow
-    equal = np.array_equal(dense_flow, record[0][0])
-    log(f"[evaluate] first image, {EVAL_ITERS} iters, kernel configuration (dense lookup) vs evaluate "
-        f"configuration (windowed lookup): flow_up bitwise equal {equal}, max abs diff "
-        f"{np.abs(dense_flow - record[0][0]).max():.3e}; forward s, in turns (evaluate, kernel, kernel, "
-        f"evaluate): evaluate {', '.join(f'{t:.3f}' for t in times['evaluate'])}; kernel "
-        f"{', '.join(f'{t:.3f}' for t in times['kernel'])}")
-    if not equal:
-        raise AssertionError("the evaluate configuration's flow differs from the dense kernel configuration's")
-    del dense
-
     # The evaluate configuration against the plain one ("reg", no fused
     # tail: every kernel's plain version) at a few iterations: the windowed
     # lookup and both tails held against plain code at Middlebury-F's shapes.
@@ -1614,6 +1618,20 @@ def phase_evaluate() -> tuple:
     reset_launches()
     flow_eval, _ = Evaluator(model, iters=E2E_ITERS)(*pair)
     short_counts = launches()
+
+    # The kernel configuration (the dense lookup) at the same iterations:
+    # both lookups agree bit for bit in every call, so E2E_ITERS iterations
+    # show it as 32 would.
+    dense = build_model(KERNEL_CONFIG, seed=SEED, device=DEVICE)
+    dense.load_state_dict(model.state_dict())
+    dense_flow, _ = Evaluator(dense, iters=E2E_ITERS)(*pair)
+    equal = np.array_equal(dense_flow, flow_eval)
+    log(f"[evaluate] first image, {E2E_ITERS} iters, kernel configuration (dense lookup) vs evaluate "
+        f"configuration (windowed lookup): flow_up bitwise equal {equal}, max abs diff "
+        f"{np.abs(dense_flow - flow_eval).max():.3e}")
+    if not equal:
+        raise AssertionError("the evaluate configuration's flow differs from the dense kernel configuration's")
+    del dense
     err = float(np.abs(flow_eval - flow_plain).max())
     log(f"[evaluate] first image, {E2E_ITERS} iters, evaluate configuration vs plain configuration: flow_up max "
         f"abs diff {err:.3e} px (tol {E2E_TOL_PX:g} px); |flow_up| max {np.abs(flow_plain).max():.3f}; launches "
@@ -2422,11 +2440,26 @@ def free_port() -> int:
 
 def phase_serve_cli(rng) -> None:
     """`python -m raft_stereo_tpu_torch serve` as a process in each of
-    SERVE_CLI_CONFIGS: /healthz turns healthy within SERVE_CLI_BOOT_S, both
-    buckets answer, /metrics answers in JSON and Prometheus text, SIGTERM
-    drains and exits 0. Any failure kills the process."""
-    for name, flags in SERVE_CLI_CONFIGS:
-        serve_cli(rng, name, flags)
+    SERVE_CLI_CONFIGS, the processes side by side on the card: /healthz
+    turns healthy within SERVE_CLI_BOOT_S, both buckets answer, /metrics
+    answers in JSON and Prometheus text, SIGTERM drains and exits 0. Any
+    failure kills the process."""
+    errors = []
+
+    def run(gen, name, flags):
+        try:
+            serve_cli(gen, name, flags)
+        except Exception as exc:  # noqa: BLE001 - re-raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=run, args=(gen, name, flags))
+               for gen, (name, flags) in zip(rng.spawn(len(SERVE_CLI_CONFIGS)), SERVE_CLI_CONFIGS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
 
 
 def serve_cli(rng, name: str, flags) -> None:
@@ -3574,6 +3607,682 @@ def phase_train_cli(card: str) -> dict:
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+# -- the fourteenth slice: the model options, the fleet, the front tier ---------
+
+# [model-options]. "alt" has no kernel of its own (the JAX package's is plain
+# XLA): its lookup runs in plain ops beside the fused GRU tail, against
+# "reg" and "pallas" with the same flags and weights.
+ALT_CONFIG = RAFTStereoConfig(corr_implementation="alt", fused_gru_tail=True)
+REG_TAIL_CONFIG = RAFTStereoConfig(corr_implementation="reg", fused_gru_tail=True)
+ALT_MIXED_CONFIG = dataclasses.replace(MIXED_CONFIG, corr_implementation="alt")
+# The JAX bench's model (bench.py): the mixed configuration with the
+# sequential encoder.
+BENCH_CONFIG = dataclasses.replace(MIXED_CONFIG, sequential_encoder=True)
+OPTIONS_BUCKET = (512, 768)
+MIDDLEBURY_F = (1984, 2880)
+# alt against reg taps: the same sums over D in another order (an
+# elementwise multiply and a sum against an fp32 matmul, TF32 off), to this
+# share of the largest |tap|.
+ALT_TAPS_REL_TOL = 1e-5
+# Conv and join launches of the fused encoder's layer 1 per encoder call
+# (the stem norm and two residual blocks: four convs, two joins).
+LAYER1_CONVS, LAYER1_JOINS = 4, 2
+
+
+def timed_forward(model, i1, i2, iters) -> tuple:
+    """One test-mode forward on the card: (flow_lowres, flow_up, seconds,
+    peak bytes allocated during it)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with torch.inference_mode():
+        lo, up = model(i1, i2, iters=iters, test_mode=True)
+    torch.cuda.synchronize()
+    return lo, up, time.perf_counter() - t, torch.cuda.max_memory_allocated()
+
+
+def card_pair(rng, h, w, b=1):
+    pairs = [stereo_pair(rng, h, w) for _ in range(b)]
+    return tuple(torch.from_numpy(np.stack([p[k] for p in pairs])).to(DEVICE) for k in (0, 1))
+
+
+def phase_model_options(rng, card: str) -> None:
+    tag = "[model-options]"
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 14)
+    h, w = OPTIONS_BUCKET[0] // 4, OPTIONS_BUCKET[1] // 4
+    f1, f2 = (torch.randn((1, h, w, 256), generator=gen, device=DEVICE) for _ in range(2))
+    x = torch.arange(w, device=DEVICE, dtype=torch.float32) - 48.0 * torch.rand((1, h, w), generator=gen,
+                                                                                 device=DEVICE)
+    reg = corr.corr_lookup(corr.corr_pyramid(corr.corr_volume(f1, f2), 4), x, 4)
+    levels = corr.pool_fmap_levels(f2, 4)
+    alt = corr.corr_lookup_alt(f1, levels, x, 4)
+    rel = float((alt - reg).abs().max() / reg.abs().max())
+    alt_ms = time_ms(lambda: corr.corr_lookup_alt(f1, levels, x, 4), reps=10)
+    log(f"{tag} alt taps at the {OPTIONS_BUCKET[0]}x{OPTIONS_BUCKET[1]} bucket (1 x {h} x {w} x 256, 4 levels, "
+        f"radius 4, fp32, TF32 off) against the reg taps: max |diff| / max |tap| {rel:.3e} (tol {ALT_TAPS_REL_TOL:g}); "
+        f"the alt lookup {alt_ms:.4f} ms an iteration")
+    if not rel <= ALT_TAPS_REL_TOL:
+        raise AssertionError(f"{tag} alt taps are {rel} of max |tap| from reg")
+    del f1, f2, x, reg, levels, alt
+
+    # Four iterations on the same (mild) weights: alt against reg.
+    i1, i2 = card_pair(rng, *OPTIONS_BUCKET)
+    models = {name: mild_model(cfg) for name, cfg in (("alt", ALT_CONFIG), ("reg", REG_TAIL_CONFIG),
+                                                      ("pallas", KERNEL_CONFIG))}
+    reset_launches()
+    _, up_alt, _, _ = timed_forward(models["alt"], i1, i2, E2E_ITERS)
+    counts = launches()
+    _, up_reg, _, _ = timed_forward(models["reg"], i1, i2, E2E_ITERS)
+    err = float((up_alt - up_reg).abs().max())
+    log(f"{tag} {E2E_ITERS} iterations at {OPTIONS_BUCKET[0]}x{OPTIONS_BUCKET[1]}, alt against reg: flow_up max "
+        f"|diff| {err:.3e} px (tol {E2E_TOL_PX:g} px), |flow_up| max {up_reg.abs().max().item():.3f}; alt launches "
+        f"{counts}")
+    if counts != expect(gru_tail=3 * E2E_ITERS, motion_tail=E2E_ITERS):
+        raise AssertionError(f"{tag} alt launches {counts}")
+    if not (torch.isfinite(up_alt).all() and err <= E2E_TOL_PX):
+        raise AssertionError(f"{tag} alt is {err} px from reg after {E2E_ITERS} iterations")
+
+    # 32 iterations, fp32, batch 1: seconds and peak memory per strategy.
+    rows = []
+    for name in ("alt", "reg", "pallas", "pallas", "reg", "alt"):
+        _, up, seconds, peak = timed_forward(models[name], i1, i2, EVAL_ITERS)
+        rows.append((name, seconds, peak))
+    del models, up, up_alt, up_reg
+    torch.cuda.empty_cache()
+    log(card)
+    log(f"{tag} {OPTIONS_BUCKET[0]}x{OPTIONS_BUCKET[1]}, fp32, {EVAL_ITERS} iterations, batch 1, in turns: "
+        + "; ".join(f"{n} {s:.4f} s, peak {p / 2**30:.3f} GiB" for n, s, p in rows))
+
+    # Mixed Middlebury-F through the Evaluator: alt against pallas.
+    item = SyntheticEvalDataset(n=1, shape=EVAL_SHAPE).get_item(0, None)
+    per = {}
+    for name, cfg in (("pallas", MIXED_CONFIG), ("alt", ALT_MIXED_CONFIG)):
+        evaluator = Evaluator(mild_model(cfg), iters=EVAL_ITERS)
+        evaluator(item["image1"], item["image2"])  # first use of the shapes
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        flow, seconds = evaluator(item["image1"], item["image2"])
+        per[name] = (flow, seconds, torch.cuda.max_memory_allocated(), launches())
+        del evaluator
+        torch.cuda.empty_cache()
+    gap = np.abs(per["alt"][0] - per["pallas"][0])
+    log(f"{tag} mixed, {EVAL_SHAPE[0]}x{EVAL_SHAPE[1]} padded to {MIDDLEBURY_F[0]}x{MIDDLEBURY_F[1]}, {EVAL_ITERS} "
+        f"iterations, batch 1, through the Evaluator: "
+        + "; ".join(f"{n} {s:.4f} s, peak {p / 2**30:.3f} GiB ({p} B), launches {c}"
+                    for n, (_, s, p, c) in per.items())
+        + f"; flow alt against pallas: mean |diff| {gap.mean():.4f} px, max {gap.max():.4f} px")
+    want = {"pallas": expect(corr_lookup_bf16=EVAL_ITERS, corr_pyramid_bf16=1, encoder_conv_bf16=2 * LAYER1_CONVS,
+                             encoder_join_bf16=2 * LAYER1_JOINS),
+            "alt": expect(encoder_conv_bf16=2 * LAYER1_CONVS, encoder_join_bf16=2 * LAYER1_JOINS)}
+    for name, (flow, _, _, c) in per.items():
+        if c != want[name] or flow.shape != EVAL_SHAPE or not np.isfinite(flow).all():
+            raise AssertionError(f"{tag} mixed {name}: launches {c} != {want[name]}, or flow {flow.shape} not finite")
+    del per, item
+    torch.cuda.empty_cache()
+    phase_sequential(rng, card)
+
+
+def bench_launches(b: int, sequential: bool) -> dict:
+    """One bench-model forward's launches: the layer-1 kernels once per
+    encoder call (the context encoder's over the batch; the feature
+    encoder's over the pair, or per image when sequential)."""
+    fnet_calls = 2 * b if sequential else 1
+    return expect(corr_lookup_bf16=EVAL_ITERS, corr_pyramid_bf16=1,
+                  encoder_conv_bf16=(1 + fnet_calls) * LAYER1_CONVS,
+                  encoder_join_bf16=(1 + fnet_calls) * LAYER1_JOINS)
+
+
+def phase_sequential(rng, card: str) -> None:
+    """The JAX bench's model at Middlebury-F: sequential_encoder on and off
+    at batch 1 and 2 (seconds, peak memory, launches), the flows on
+    against off with the batch-dependent reductions pinned in the encoders
+    (held to the serving bound) and without (printed), and
+    sequential_batch_forward at batch 2 against batch-1 forwards."""
+    tag = "[model-options]"
+    on, off = mild_model(BENCH_CONFIG), mild_model(MIXED_CONFIG)
+    i1, i2 = card_pair(rng, *MIDDLEBURY_F, b=2)
+    runs = {}
+    for b in (1, 2):
+        for name, model in (("on", on), ("off", off)):
+            timed_forward(model, i1[:b], i2[:b], 1)  # first use of the shapes
+            reset_launches()
+            lo, up, seconds, peak = timed_forward(model, i1[:b], i2[:b], EVAL_ITERS)
+            runs[(name, b)] = (up, seconds, peak, launches())
+            if runs[(name, b)][3] != bench_launches(b, name == "on"):
+                raise AssertionError(f"{tag} sequential_encoder {name} at batch {b}: launches "
+                                     f"{runs[(name, b)][3]} != {bench_launches(b, name == 'on')}")
+            torch.cuda.empty_cache()
+    free = {b: float((runs[("on", b)][0] - runs[("off", b)][0]).abs().max()) for b in (1, 2)}
+    log(card)
+    log(f"{tag} the bench model (mixed, bf16 pyramid, fused encoder, pallas) at {MIDDLEBURY_F[0]}x{MIDDLEBURY_F[1]}, "
+        f"{EVAL_ITERS} iterations: "
+        + "; ".join(f"sequential_encoder {n} batch {b}: {s:.4f} s ({s / b:.4f} s/image), peak {p / 2**30:.3f} GiB "
+                    f"({p} B), launches conv {c['encoder_conv_bf16']} join {c['encoder_join_bf16']}"
+                    for (n, b), (_, s, p, c) in runs.items())
+        + f"; flow_up on against off, cuDNN as chosen: batch 1 {free[1]:.3e} px, batch 2 {free[2]:.3e} px")
+
+    # With cuDNN off and the instance norm per image in the encoders (the
+    # reductions whose order depends on the batch), on and off compute the
+    # same per-image encoder, and the iterations run the same batch.
+    encode = RAFTStereo.encode_features
+
+    def pinned_encode(self, *args, **kwargs):
+        with batch_invariant():
+            return encode(self, *args, **kwargs)
+
+    with swapped(RAFTStereo, encode_features=pinned_encode):
+        t = time.perf_counter()
+        pinned = [float((timed_forward(on, i1[:1], i2[:1], EVAL_ITERS)[1]
+                         - timed_forward(off, i1[:1], i2[:1], EVAL_ITERS)[1]).abs().max())]
+        pinned_s = time.perf_counter() - t
+    log(f"{tag} flow_up on against off at batch 1 with the encoders' batch-dependent reductions pinned: "
+        f"{pinned[0]:.3e} px (tol {E2E_TOL_PX:g} px; {pinned_s:.1f} s)")
+    if not pinned[0] <= E2E_TOL_PX:
+        raise AssertionError(f"{tag} sequential_encoder moves the flow {pinned[0]} px with the reductions pinned")
+    if not all(torch.isfinite(r[0]).all() for r in runs.values()):
+        raise AssertionError(f"{tag} non-finite flows")
+
+    # sequential_batch_forward at batch 2: each map its batch-1 forward.
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    _, ups = sequential_batch_forward(on, i1, i2, iters=EVAL_ITERS)
+    torch.cuda.synchronize()
+    seq_s, seq_peak = time.perf_counter() - t, torch.cuda.max_memory_allocated()
+    one = [timed_forward(on, i1[k:k + 1], i2[k:k + 1], EVAL_ITERS) for k in range(2)]
+    equal = [bool(torch.equal(ups[k:k + 1], one[k][1])) for k in range(2)]
+    log(f"{tag} sequential_batch_forward, batch 2: {seq_s:.4f} s ({seq_s / 2:.4f} s/map), peak "
+        f"{seq_peak / 2**30:.3f} GiB ({seq_peak} B); batch 1: {one[0][2]:.4f} s, peak {one[0][3] / 2**30:.3f} GiB; "
+        f"each map bit for bit its batch-1 forward: {equal}")
+    if not all(equal):
+        raise AssertionError(f"{tag} sequential_batch_forward differs from the batch-1 forwards: {equal}")
+    del on, off, runs, ups, one
+    torch.cuda.empty_cache()
+
+
+# [fleet]: two replicas on one card, the mixed configuration with the fused
+# encoder at the 512x768 bucket, batches up to 4; a 3 s watchdog, the
+# injected hang sleeps 8 s on the host.
+FLEET_BUCKET = (512, 768)
+FLEET_HANG_TIMEOUT_S = 3.0
+FLEET_HANG_S = 8.0
+FLEET_CLIENTS = 6
+FLEET_BURST = 24
+FLEET_WAIT_S = 300
+
+
+def fleet_config(replicas: int) -> ServeConfig:
+    return ServeConfig(model=MIXED_CONFIG, buckets=(FLEET_BUCKET,), max_batch=4, replicas=replicas,
+                       auto_respawn=replicas > 1, hang_timeout_s=FLEET_HANG_TIMEOUT_S, breaker_degrade_after=1,
+                       breaker_fail_after=3, breaker_probation=2, drain_timeout_s=120.0)
+
+
+def mixed_batch_launches(batches) -> dict:
+    """Launches of the mixed configuration over `batches` (their results):
+    the prelude's kernels once a batch, the lookup once an iteration."""
+    n = len(batches)
+    return expect(corr_pyramid_bf16=n, encoder_conv_bf16=2 * LAYER1_CONVS * n, encoder_join_bf16=2 * LAYER1_JOINS * n,
+                  corr_lookup_bf16=sum(max(r.iters_completed for r in res) for res in batches))
+
+
+def fleet_burst(service, jobs) -> tuple:
+    """`jobs` submitted in process from FLEET_CLIENTS threads: (answers,
+    seconds, client latencies in ms)."""
+    answers, lat, errors = [None] * len(jobs), [None] * len(jobs), []
+
+    def client(k):
+        try:
+            for i in range(k, len(jobs), FLEET_CLIENTS):
+                t = time.perf_counter()
+                answers[i] = service.submit(*jobs[i]).result(timeout=FLEET_WAIT_S)
+                lat[i] = (time.perf_counter() - t) * 1e3
+        except Exception as exc:  # noqa: BLE001 - reported below, fails the phase
+            errors.append(repr(exc))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(FLEET_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=FLEET_WAIT_S)
+    if errors or any(a is None for a in answers):
+        raise AssertionError(f"[fleet] clients failed: {errors}")
+    return answers, time.perf_counter() - t0, lat
+
+
+def replay_equal(single, batches) -> bool:
+    """Every recorded batch replayed through one single engine equals what
+    the fleet answered, bit for bit."""
+    for bucket, i1, i2, res in batches:
+        again = single.run_batch(tuple(bucket), torch.from_numpy(i1).to(DEVICE), torch.from_numpy(i2).to(DEVICE),
+                                 deadlines_s=[None] * len(res), max_iters=[r.iters_completed for r in res])
+        if not all(np.array_equal(x.flow_up, y.flow_up) for x, y in zip(res, again)):
+            return False
+    return True
+
+
+def percentiles(vals) -> str:
+    v = np.asarray(vals, np.float64)
+    return f"p50 {np.percentile(v, 50):.3f} ms, p99 {np.percentile(v, 99):.3f} ms"
+
+
+def phase_fleet(rng, card: str) -> None:
+    from raft_stereo_tpu_torch.serving.engine import AnytimeEngine
+    from raft_stereo_tpu_torch.serving.lifecycle import CheckpointMismatchError
+
+    tag = "[fleet]"
+    bh, bw = FLEET_BUCKET
+    sizes = [(bh, bw), (bh * 15 // 16, bw * 15 // 16), (bh * 3 // 4, bw * 5 // 6), (bh * 125 // 128, bw * 175 // 192)]
+    jobs = [int_pair(rng, *sizes[i % len(sizes)]) for i in range(FLEET_BURST)]
+    numbers = {}
+    # One replica: the single engine, the same burst.
+    single_service = StereoService(fleet_config(1), mild_model(MIXED_CONFIG), device=DEVICE).start()
+    try:
+        _, seconds, lat = fleet_burst(single_service, jobs)
+        numbers[1] = (seconds, lat, [real for _, real, _ in single_service.batcher.metrics.batch_log])
+    finally:
+        drain_service(single_service, tag)
+    t0 = time.perf_counter()
+    service = StereoService(fleet_config(2), mild_model(MIXED_CONFIG), devices=["cuda:0", "cuda:0"]).start()
+    fleet = service.engine
+    log(f"{tag} two replicas on {[str(r.device) for r in fleet.replicas]}: boot + warm "
+        f"{time.perf_counter() - t0:.2f} s ({service.warm_summary['combos']} combos each)")
+    single = AnytimeEngine(fleet_config(1), mild_model(MIXED_CONFIG), device=DEVICE)
+    recorder = StagedRecorder(fleet)
+    try:
+        # A burst from several clients: each batch bit for bit the single
+        # engine's, the kernels once per batch.
+        reset_launches()
+        answers, seconds, lat = fleet_burst(service, jobs)
+        numbers[2] = (seconds, lat, [real for _, real, _ in service.batcher.metrics.batch_log])
+        wait_idle(service)
+        counts = launches()
+        batches = [res for _, _, _, res in recorder.batches]
+        by_replica = dict(service.metrics()["batches_by_replica"])
+        if counts != mixed_batch_launches(batches):
+            raise AssertionError(f"{tag} launches {counts} != once per batch {mixed_batch_launches(batches)}")
+        if not replay_equal(single, recorder.batches):
+            raise AssertionError(f"{tag} a batch differs from the single engine's replay")
+        for (a, _), ans in zip(jobs, answers):
+            if ans["disparity"].shape != a.shape[:2] or not np.isfinite(ans["disparity"]).all():
+                raise AssertionError(f"{tag} a response has shape {ans['disparity'].shape} or non-finite values")
+        log(f"{tag} burst of {len(jobs)} requests from {FLEET_CLIENTS} clients in {len(batches)} batches "
+            f"(sizes {[len(r) for r in batches]}), batches by replica {by_replica}: every batch equals the single "
+            f"engine's replay bit for bit; launches once per batch {counts}")
+        if len(by_replica) != 2:
+            raise AssertionError(f"{tag} the burst did not use both replicas: {by_replica}")
+        log(card)
+        for n, (s, lt, sizes_run) in sorted(numbers.items()):
+            log(f"{tag} {n} replica(s) on one card: {len(jobs)} requests in {s:.3f} s, {len(jobs) / s:.3f} "
+                f"requests/s, client latency {percentiles(lt)}, {len(sizes_run)} batches of {sizes_run}")
+
+        one_job = int_pair(rng, *FLEET_BUCKET)
+
+        def one_request():
+            _quiesce(fleet)
+            before = len(recorder.batches)
+            reset_launches()
+            out = service.submit(*one_job).result(timeout=FLEET_WAIT_S)
+            wait_idle(service)
+            return out, recorder.batches[before:], launches()
+
+        # An injected raise on replica 0 after its batch ran: requeued once
+        # onto replica 1, nothing shed, the fleet degraded.
+        eng0 = fleet.replicas[0].engine
+        real_run = eng0.run_batch
+        raised = []
+
+        def raise_after(*args, **kwargs):
+            out = real_run(*args, **kwargs)
+            if not raised:
+                raised.append(True)
+                raise RuntimeError("injected fault after the batch ran on replica 0")
+            return out
+
+        eng0.run_batch = raise_after
+        before = service.metrics()
+        try:
+            out, recs, counts = one_request()
+        finally:
+            del eng0.run_batch
+        snap = service.metrics()
+        states = [r.lifecycle.state for r in fleet.replicas]
+        log(f"{tag} injected raise on replica 0: requeues +{snap['requeues_total'] - before['requeues_total']}, shed "
+            f"+{snap['shed_total'] - before['shed_total']}, failed +{snap['failed_requests_total'] - before['failed_requests_total']}; "
+            f"replicas {states}, fleet {service.lifecycle.state}; launches {counts} (the batch twice)")
+        if (snap["requeues_total"] - before["requeues_total"] != 1 or snap["shed_total"] != before["shed_total"]
+                or snap["failed_requests_total"] != before["failed_requests_total"]
+                or states != ["degraded", "healthy"] or service.lifecycle.state != "degraded"):
+            raise AssertionError(f"{tag} the raise was not failed over once")
+        if counts != mixed_batch_launches([r for *_, r in recs] * 2) or not replay_equal(single, recs):
+            raise AssertionError(f"{tag} the requeued batch: launches {counts} or its answer differs")
+
+        # A host-side hang past the watchdog on replica 0: abandoned and
+        # requeued; the sticky failure starts the auto-respawn.
+        model0 = eng0.model
+        real_step = model0.iteration_step
+        slept = []
+
+        def sleepy(state):
+            if not slept:
+                slept.append(True)
+                time.sleep(FLEET_HANG_S)
+            return real_step(state)
+
+        model0.iteration_step = sleepy
+        before = service.metrics()
+        t = time.perf_counter()
+        try:
+            out, recs, _ = one_request()
+            answered_s = time.perf_counter() - t
+        finally:
+            del model0.iteration_step
+        snap = service.metrics()
+        if (snap["requeues_total"] - before["requeues_total"] != 1 or snap["shed_total"] != before["shed_total"]
+                or not replay_equal(single, recs[-1:])):
+            raise AssertionError(f"{tag} the hung batch was not abandoned and requeued")
+        deadline = time.monotonic() + FLEET_WAIT_S
+        while fleet.respawns_total < 1:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{tag} no respawn after the sticky failure")
+            time.sleep(0.05)
+        summary = dict(fleet.last_respawn)
+        if not eng0._lock.acquire(timeout=FLEET_WAIT_S):
+            raise AssertionError(f"{tag} the wedged call never ended")
+        eng0._lock.release()
+        del eng0, model0, real_run, real_step
+        gc.collect()
+        settled = torch.cuda.memory_allocated()
+        states_after_respawn = [r.lifecycle.state for r in fleet.replicas]
+        for _ in range(6):
+            one_request()
+            if [r.lifecycle.state for r in fleet.replicas] == ["healthy", "healthy"]:
+                break
+        states = [r.lifecycle.state for r in fleet.replicas]
+        log(f"{tag} host-side hang of {FLEET_HANG_S:g} s on replica 0 (watchdog {FLEET_HANG_TIMEOUT_S:g} s): answered "
+            f"by replica 1 in {answered_s:.2f} s, requeues +1; auto-respawn of replica 0 in "
+            f"{summary['warm_seconds']:.2f} s, allocated {summary['memory_allocated_before']} B before, "
+            f"{summary['memory_allocated_after']} B after (the wedged call still running), {settled} B after it "
+            f"ended; replicas {states_after_respawn} -> {states} with traffic")
+        if states != ["healthy", "healthy"] or service.lifecycle.state != "healthy":
+            raise AssertionError(f"{tag} the respawned replica did not heal: {states}")
+
+        # A rolling swap under traffic to a second .pth; then a mid-roll
+        # refusal rolls back.
+        with tempfile.TemporaryDirectory() as tmp:
+            new_pth = os.path.join(tmp, "new.pth")
+            torch.save(export_reference_state_dict(build_model(MIXED_CONFIG, seed=SEED + 1, device="cpu")), new_pth)
+            before = service.metrics()
+            results, errors = [], []
+
+            def roll_client():
+                for _ in range(3):
+                    try:
+                        results.append(service.submit(*one_job).result(timeout=FLEET_WAIT_S))
+                    except Exception as exc:  # noqa: BLE001 - reported below
+                        errors.append(repr(exc))
+
+            clients = [threading.Thread(target=roll_client) for _ in range(4)]
+            for c in clients:
+                c.start()
+            t = time.perf_counter()
+            reload = service.reload_checkpoint(new_pth)
+            roll_s = time.perf_counter() - t
+            for c in clients:
+                c.join(timeout=FLEET_WAIT_S)
+            snap = service.metrics()
+            if errors or len(results) != 12 or snap["shed_total"] != before["shed_total"] or \
+                    reload["swap_generation"] != 1:
+                raise AssertionError(f"{tag} the rolling swap dropped requests: {errors}, {reload}")
+            fresh = load_reference_checkpoint(build_model(MIXED_CONFIG, seed=SEED + 2, device="cpu"), new_pth)
+            single_new = AnytimeEngine(fleet_config(1), fresh.to(DEVICE), device=DEVICE)
+            out, recs, _ = one_request()
+            same = replay_equal(single_new, recs)
+            real_swap = fleet.replicas[1].engine.swap_variables
+
+            def refuse(state):
+                raise CheckpointMismatchError("injected mid-roll refusal on replica 1")
+
+            fleet.replicas[1].engine.swap_variables = refuse
+            try:
+                service.reload_checkpoint(new_pth)
+                raise AssertionError(f"{tag} the mid-roll refusal did not raise")
+            except CheckpointMismatchError:
+                pass
+            finally:
+                fleet.replicas[1].engine.swap_variables = real_swap
+            sd = [r.engine.model.state_dict() for r in fleet.replicas]
+            rolled_back = all(torch.equal(sd[0][k], sd[1][k]) for k in sd[0])
+            out2, recs2, _ = one_request()
+            log(f"{tag} rolling swap to a second .pth under traffic from 4 clients: {roll_s:.2f} s, 12 answered, "
+                f"shed +0, generation {reload['swap_generation']}; a fresh single engine on the new weights answers "
+                f"bit for bit {same}; a mid-roll refusal on replica 1 rolled replica 0 back ({rolled_back}), "
+                f"generation {fleet.swap_generation}")
+            if not (same and rolled_back and fleet.swap_generation == 1 and replay_equal(single_new, recs2)):
+                raise AssertionError(f"{tag} the rolling swap or its rollback")
+            del single_new, fresh
+    finally:
+        recorder.close()
+        del single
+        drained = service.drain(timeout_s=120)
+    alive = [t.name for t in service.batcher._runners if t.is_alive()]
+    log(f"{tag} drain: backlog drained {drained}, runner threads alive {alive}")
+    if not drained or alive:
+        raise AssertionError(f"{tag} drain: {drained}, {alive}")
+    torch.cuda.empty_cache()
+
+
+def _quiesce(fleet, timeout_s: float = 60.0) -> None:
+    deadline = time.monotonic() + timeout_s
+    while any(r.in_flight for r in fleet.replicas):
+        if time.monotonic() > deadline:
+            raise AssertionError("[fleet] the fleet never went idle")
+        time.sleep(0.005)
+
+
+# [frontier]: two `serve` processes on the card (the mixed configuration,
+# one bucket, batches of one so every answer is a batch-1 forward) and one
+# `frontier` process, all as a user starts them (no --device).
+FRONTIER_BUCKET = (192, 256)
+FRONTIER_SERVE_FLAGS = ("--buckets", f"{FRONTIER_BUCKET[0]}x{FRONTIER_BUCKET[1]}", "--max_batch", "1", "--stream",
+                        *SERVE_CLI_CONFIGS[1][1])
+FRONTIER_CLIENTS = 4
+FRONTIER_REQUESTS = 8
+FRONTIER_BOOT_S = 300
+
+
+class ServeProcess(CliRun):
+    """A `serve` or `frontier` process (CliRun: its own process group, its
+    output in files)."""
+
+    def wait_healthy(self, url: str, timeout_s: float = FRONTIER_BOOT_S) -> float:
+        """Seconds from the process's start until its /healthz says healthy."""
+        while time.time() - self.t0 < timeout_s and self.proc.poll() is None:
+            try:
+                resp = request_json(f"{url}/healthz", timeout_s=10)
+                body = resp.json() if resp.ok else {}
+                if (body.get("serving") or body.get("frontier") or {}).get("state") == "healthy":
+                    return time.time() - self.t0
+            except OSError:
+                pass
+            time.sleep(0.05)
+        raise AssertionError(f"[frontier] {self.tag} not healthy (exit {self.proc.poll()}): {self.err()[-2000:]}")
+
+    def stop(self) -> int:
+        """SIGTERM, then the exit code (SIGKILL after 120 s)."""
+        self.signal_group(signal.SIGTERM)
+        try:
+            return self.proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            return -9
+
+
+def frontier_post(url, a, b, path="/predict", **extra) -> tuple:
+    t = time.perf_counter()
+    resp = request_json(f"{url}{path}", method="POST", timeout_s=FRONT_WAIT_S,
+                        payload={"image1": json_image(a), "image2": json_image(b), **extra})
+    return resp.status, resp.json(), (time.perf_counter() - t) * 1e3
+
+
+def frontier_burst(url, jobs, path="/predict", during=None) -> tuple:
+    """`jobs` from FRONTIER_CLIENTS threads; `during()` runs once the first
+    answer is in. Returns (answers, seconds, latencies ms)."""
+    answers, errors = [None] * len(jobs), []
+    first = threading.Event()
+
+    def client(k):
+        try:
+            for i in range(k, len(jobs), FRONTIER_CLIENTS):
+                answers[i] = frontier_post(url, *jobs[i], path=path)
+                first.set()
+        except Exception as exc:  # noqa: BLE001 - reported below
+            errors.append(repr(exc))
+            first.set()
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(FRONTIER_CLIENTS)]
+    for t in threads:
+        t.start()
+    if during is not None:
+        first.wait(timeout=FRONT_WAIT_S)
+        during()
+    for t in threads:
+        t.join(timeout=FRONT_WAIT_S)
+    if errors or any(a is None for a in answers):
+        raise AssertionError(f"[frontier] clients failed: {errors}")
+    return answers, time.perf_counter() - t0, [ms for _, _, ms in answers]
+
+
+def phase_frontier(rng, card: str) -> None:
+    tag = "[frontier]"
+    procs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        base, new = os.path.join(tmp, "base.pth"), os.path.join(tmp, "new.pth")
+        torch.save(export_reference_state_dict(mild_model(MIXED_CONFIG).cpu()), base)
+        torch.save(export_reference_state_dict(build_model(MIXED_CONFIG, seed=SEED + 1, device="cpu")), new)
+        ports = [free_port() for _ in range(3)]
+        backends = [f"127.0.0.1:{p}" for p in ports[:2]]
+        furl = f"http://127.0.0.1:{ports[2]}"
+
+        def serve(k):
+            p = ServeProcess(tmp, f"serve{k}-{len(procs)}", ["serve", "--port", str(ports[k]), "--restore_ckpt", base,
+                                                             *FRONTIER_SERVE_FLAGS])
+            procs.append(p)
+            return p
+
+        try:
+            servers = [serve(0), serve(1)]
+            boot_s = [p.wait_healthy(f"http://{b}") for p, b in zip(servers, backends)]
+            front = ServeProcess(tmp, "frontier", ["frontier", "--backends", *backends, "--port", str(ports[2]),
+                                                   "--health_interval_s", "0.5", "--breaker_fail_after", "2"])
+            procs.append(front)
+            front_ms = front.wait_healthy(furl, timeout_s=60) * 1e3
+            log(f"{tag} two serve processes healthy after {boot_s[0]:.2f} s and {boot_s[1]:.2f} s; the frontier "
+                f"answered /healthz {front_ms:.1f} ms after its process started")
+
+            # Mixed plain and stream traffic; each answer equal to the same
+            # request posted to its backend directly.
+            jobs = [int_pair(rng, *FRONTIER_BUCKET) for _ in range(FRONTIER_REQUESTS)]
+            h, w = FRONTIER_BUCKET
+            scene = rng.uniform(0, 255, (h, w + 24, 3)).astype(np.float32)
+            frames = [(low_contrast(scene[:, 12 + t: 12 + t + w]), low_contrast(scene[:, t: t + w]))
+                      for t in range(4)]
+            stream = [frontier_post(furl, *frames[t], stream_id="cam0") for t in range(2)]
+            answers, front_s, front_lat = frontier_burst(furl, jobs)
+            direct_answers, direct_s, direct_lat = frontier_burst(f"http://{backends[0]}", jobs, path="/v1/predict")
+            used = {body["backend"] for _, body, _ in answers}
+            mismatch = 0
+            for (a, b), (status, body, _) in zip(jobs, answers):
+                d_status, d_body, _ = frontier_post(f"http://{body['backend']}", a, b, path="/v1/predict")
+                mismatch += status != 200 or d_status != 200 or d_body["disparity"] != body["disparity"]
+            pinned = stream[0][1]["backend"]
+            log(f"{tag} {len(jobs)} plain requests through the frontier from {FRONTIER_CLIENTS} clients, answered by "
+                f"{sorted(used)}; {mismatch} differ from the same request posted to their backend directly; stream "
+                f"cam0 pinned to {pinned}, frame 1 warm_started {stream[1][1]['warm_started']}")
+            if mismatch or len(used) != 2 or stream[1][1]["backend"] != pinned or not stream[1][1]["warm_started"]:
+                raise AssertionError(f"{tag} routing: mismatches {mismatch}, backends {used}, stream {stream}")
+            log(card)
+            log(f"{tag} {len(jobs)} requests at {h}x{w}: through the frontier {len(jobs) / front_s:.3f} requests/s, "
+                f"{percentiles(front_lat)}; direct to one backend {len(jobs) / direct_s:.3f} requests/s, "
+                f"{percentiles(direct_lat)}")
+
+            # kill -9 the stream-pinned backend mid-traffic.
+            victim = servers[backends.index(pinned)]
+            survivor = backends[1 - backends.index(pinned)]
+            before = request_json(f"{furl}/metrics").json()
+            answers, _, _ = frontier_burst(furl, jobs, during=lambda: victim.signal_group(signal.SIGKILL))
+            victim.proc.wait(timeout=60)
+            lost = sum(status != 200 for status, _, _ in answers)
+            differ = 0
+            for (a, b), (status, body, _) in zip(jobs, answers):
+                _, d_body, _ = frontier_post(f"http://{survivor}", a, b, path="/v1/predict")
+                differ += body.get("disparity") != d_body["disparity"]
+            after = request_json(f"{furl}/metrics").json()
+            moved = frontier_post(furl, *frames[2], stream_id="cam0")[1]
+            log(f"{tag} kill -9 of {pinned} mid-traffic: {lost} of {len(jobs)} plain requests lost, {differ} differ "
+                f"from the survivor's direct answer; retries +{after['retries_total'] - before['retries_total']}; the "
+                f"stream moved to {moved['backend']}: migrated {moved['migrated']}, warm_started "
+                f"{moved['warm_started']}")
+            if lost or differ or after["retries_total"] <= before["retries_total"] or not moved["migrated"] or \
+                    moved["warm_started"] or moved["backend"] != survivor:
+                raise AssertionError(f"{tag} the kill: lost {lost}, differ {differ}, stream {moved}")
+
+            # The backend restarted on its port: failed -> probation -> healthy.
+            walk = [request_json(f"{furl}/metrics").json()["per_backend"][pinned]["state"]]
+            t = time.perf_counter()
+            reborn = serve(backends.index(pinned))
+            servers[backends.index(pinned)] = reborn
+            reborn_s = reborn.wait_healthy(f"http://{pinned}")
+            deadline = time.monotonic() + 120
+            while walk[-1] != "healthy":
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"{tag} the restarted backend never turned healthy: {walk}")
+                state = request_json(f"{furl}/metrics").json()["per_backend"][pinned]["state"]
+                if state != walk[-1]:
+                    walk.append(state)
+                if state == "degraded":
+                    frontier_post(furl, *jobs[0])
+                time.sleep(0.05)
+            log(f"{tag} {pinned} restarted on its port: healthy after {reborn_s:.2f} s; the frontier walked it "
+                f"{' -> '.join(walk)} in {time.perf_counter() - t:.2f} s")
+            if walk[0] != "failed" or "degraded" not in walk:
+                raise AssertionError(f"{tag} breaker walk {walk}")
+
+            # frontier --rollout to the second .pth.
+            t = time.perf_counter()
+            roll = subprocess.run([sys.executable, "-m", "raft_stereo_tpu_torch", "frontier", "--rollout", new,
+                                   "--port", str(ports[2])], env=cli_env(), capture_output=True, text=True,
+                                  timeout=600)
+            roll_s = time.perf_counter() - t
+            record = json.loads(roll.stdout) if roll.returncode == 0 else {}
+            gens = [request_json(f"http://{b}/healthz").json()["serving"] for b in backends]
+            block = record.get("rollout", {})
+            log(f"{tag} frontier --rollout new.pth: exit {roll.returncode} in {roll_s:.2f} s, phase "
+                f"{record.get('phase')}, canary changed {record.get('canary_changed')}, mixed_generation_seconds "
+                f"{block.get('mixed_generation_seconds')}; backends on generations "
+                f"{[g['swap_generation'] for g in gens]}, checkpoints {[os.path.basename(str(g['checkpoint'])) for g in gens]}")
+            if roll.returncode != 0 or record.get("phase") != "completed" or \
+                    block.get("mixed_generation_seconds") != 0 or \
+                    any(g["swap_generation"] != 1 or g["checkpoint"] != new for g in gens):
+                raise AssertionError(f"{tag} rollout: {roll.returncode} {roll.stdout[-2000:]} {roll.stderr[-2000:]}")
+
+            # SIGTERM drains the frontier to exit 0.
+            code = front.stop()
+            log(f"{tag} SIGTERM -> frontier exit {code}")
+            if code != 0 or "in-flight forwards drained" not in front.err():
+                raise AssertionError(f"{tag} the frontier exited {code}: {front.err()[-2000:]}")
+            codes = [p.stop() for p in servers]
+            if codes != [0, 0]:
+                raise AssertionError(f"{tag} the backends exited {codes}")
+        finally:
+            for p in procs:
+                if p.proc.poll() is None:
+                    p.kill()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3643,6 +4352,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_cli(card)
     torch.cuda.empty_cache()
+    phase_model_options(rng, card)
+    torch.cuda.empty_cache()
+    phase_fleet(rng, card)
+    torch.cuda.empty_cache()
+    phase_frontier(rng, card)
+    torch.cuda.empty_cache()
     # Each kernel's launches come from the main-path run of the slice that
     # added it: serving for the forward kernels, training for the scatter,
     # evaluation for the windowed lookup, the gates configuration's forward
@@ -3666,6 +4381,8 @@ def main() -> int:
     counts["corr_prefetch_lookup_bf16"] = lever_counts["prefetch_lookup"]["corr_prefetch_lookup_bf16"]
     kernels = phase_timing(gen, errs, counts)
 
+    log("[phase-seconds] " + ", ".join(f"{k} {v:.1f}" for k, v in sorted(PHASE_SECONDS.items(),
+                                                                       key=lambda kv: -kv[1])))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)

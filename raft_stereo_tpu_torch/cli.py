@@ -6,14 +6,16 @@
     python -m raft_stereo_tpu_torch demo --restore_ckpt checkpoints/raft-stereo/12/model.pth --root_dataset gated
     python -m raft_stereo_tpu_torch serve --corr_implementation pallas --fused_gru_tail --port 8080
     python -m raft_stereo_tpu_torch serve --reload_ckpt new.pth --port 8080
+    python -m raft_stereo_tpu_torch serve --replicas 0 --auto_respawn --hang_timeout_s 30 --port 8080
+    python -m raft_stereo_tpu_torch frontier --backends 127.0.0.1:8080 127.0.0.1:8090 --port 8081
+    python -m raft_stereo_tpu_torch frontier --rollout new.pth --port 8081
 
 Every subcommand takes the JAX CLI's flags, names and defaults, plus
 `--device` (default "cuda"; "cpu" runs the kernels' plain versions, and only
 when asked: nothing moves to the CPU when no card is found). As in the JAX
 CLI, `--corr_dtype` defaults to bfloat16 only for `reg_cuda` with
-`--mixed_precision`, and to float32 otherwise. The model flags that the
-port does not have yet raise instead of being ignored: `--corr_implementation
-alt`/`alt_cuda`.
+`--mixed_precision`, and to float32 otherwise. `--corr_implementation alt`
+(and `alt_cuda`, its alias) is the on-the-fly correlation in plain ops.
 
 `train` reads a dataset in one of the reference's layouts
 (`--train_datasets`, `--root_dataset`), trains with checkpoints under
@@ -29,13 +31,19 @@ flight_recorder.json under runs/, and exits 0 completed, 1 error, 2 usage,
 `serve` boots a `StereoService`, warms every (bucket, batch) and serves the
 HTTP front until SIGTERM or Ctrl-C, which drain the backlog and exit 0;
 `--warmup_only` boots, warms, prints the boot block and exits 0;
-`--reload_ckpt PATH` is the client of a running server's POST /reload. Its
-fleet, sharding, AOT-cache and audit flags (`--replicas` other than 1,
-`--sharding_rules` other than dp, `--aot_cache_dir`, `--require_cache_hit`,
-`--audit`, `--auto_respawn`) are not ported yet and exit 2.
+`--reload_ckpt PATH` is the client of a running server's POST /reload.
+`--replicas N` serves a fleet of N engines, one per card (0: every card;
+more than the cards, or any fleet off the card, exits 2), and
+`--auto_respawn` replaces a replica whose breaker sticks failed (it needs
+two replicas or more). The sharding, AOT-cache and audit flags
+(`--sharding_rules` other than dp, `--aot_cache_dir`,
+`--require_cache_hit`, `--audit`) are not ported yet and exit 2.
 
-`frontier` is not ported yet and exits 2. `train`, `evaluate` and `demo`
-log the kernels' launch counts of the process when they finish.
+`frontier` routes POST /v1/predict across `serve` backends
+(serving/frontier.py; it imports no torch); `frontier --rollout CKPT` is
+the client of a running frontier's POST /rollout, with the admin exit
+codes below. `train`, `evaluate` and `demo` log the kernels' launch counts
+of the process when they finish.
 """
 
 from __future__ import annotations
@@ -67,7 +75,8 @@ def _add_model_args(p: argparse.ArgumentParser):
         choices=["reg", "alt", "pallas", "reg_cuda", "alt_cuda"],
         default="reg",
         help="'pallas' is the hand-written CUDA lookup (the reference's reg_cuda role; "
-        "reg_cuda is accepted as its alias); 'alt' is not ported",
+        "reg_cuda is accepted as its alias); 'alt' samples features on the fly with plain ops "
+        "(alt_cuda is its alias)",
     )
     p.add_argument("--corr_levels", type=int, default=4)
     p.add_argument("--corr_radius", type=int, default=4)
@@ -101,7 +110,8 @@ def _add_model_args(p: argparse.ArgumentParser):
 
 
 # The reference's CUDA corr implementations map onto the port's: reg_cuda ->
-# pallas (the hand-written lookup kernel); alt_cuda -> alt (not ported).
+# pallas (the hand-written lookup kernel); alt_cuda -> alt (plain ops, as
+# the JAX package maps it).
 _CORR_ALIASES = {"reg_cuda": "pallas", "alt_cuda": "alt"}
 
 # Dataset-specific subdir under a parent --root_dataset dir, mirroring the
@@ -142,16 +152,13 @@ def _log_launches(command: str) -> None:
 
 
 def _model_config(args) -> RAFTStereoConfig:
-    """The port's config from the model flags; raises on flags the port
-    does not have yet."""
+    """The port's config from the model flags."""
     corr = _CORR_ALIASES.get(args.corr_implementation, args.corr_implementation)
     corr_dtype = args.corr_dtype
     if corr_dtype is None:
         # The JAX CLI's rule: reg_cuda's role is the reference's fp16 volume
         # under AMP, so a bf16 pyramid only for reg_cuda with mixed precision.
         corr_dtype = "bfloat16" if args.corr_implementation == "reg_cuda" and args.mixed_precision else "float32"
-    if corr == "alt":
-        raise ValueError(f"not ported yet: --corr_implementation {args.corr_implementation}")
     return RAFTStereoConfig(
         hidden_dims=tuple(args.hidden_dims),
         corr_implementation=corr,
@@ -506,7 +513,10 @@ def cmd_demo(argv: List[str]) -> int:
     return code
 
 
-# Exit codes of the admin client (`serve --reload_ckpt`), as in the JAX CLI.
+# Exit codes of the admin clients (`serve --reload_ckpt`, `frontier
+# --rollout`), as in the JAX CLI: 0 done; 1 the server answered an error;
+# 3 refused (409: checkpoint mismatch, a rollout already running, a mixed
+# fleet); 4 unreachable; 5 no response within the timeout; 6 not JSON.
 EXIT_ADMIN_HTTP_ERROR = 1
 EXIT_ADMIN_REFUSED = 3
 EXIT_ADMIN_UNREACHABLE = 4
@@ -544,6 +554,45 @@ def _admin_post_client(url: str, payload: dict, what: str, timeout_s: float) -> 
     print(f"{what}: {url} answered {resp.status}", file=sys.stderr)
     print(rendered, file=sys.stderr)
     return EXIT_ADMIN_REFUSED if resp.status == 409 else EXIT_ADMIN_HTTP_ERROR
+
+
+def _reload_checkpoint_client(host: str, port: int, ckpt: str, timeout_s: float = 600.0) -> int:
+    """`serve --reload_ckpt PATH`: ask a running server to hot-swap its
+    weights through POST /reload (the path is read by the server)."""
+    return _admin_post_client(f"http://{host}:{port}/reload", {"checkpoint": ckpt}, "reload", timeout_s)
+
+
+def _resolve_replicas(replicas: int, device: str):
+    """(replicas, None), or (replicas, the reason to exit 2): 0 means every
+    card; a fleet (more than one replica) needs that many cards and runs
+    only on them."""
+    if replicas < 0:
+        return replicas, f"--replicas must be >= 0, got {replicas}"
+    if replicas == 1:
+        return 1, None
+    if not device.startswith("cuda"):
+        return replicas, f"--replicas {replicas} counts cards; a fleet does not run on --device {device}"
+    import torch
+
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if replicas == 0:
+        return cards, None if cards else "--replicas 0 found no card"
+    if replicas > cards:
+        return replicas, f"--replicas {replicas} exceeds the {cards} visible card(s): a replica is one card"
+    return replicas, None
+
+
+def _rollout_client(host: str, port: int, ckpt: str, rollback_ckpt: Optional[str], force: bool,
+                    timeout_s: float = 3600.0) -> int:
+    """`frontier --rollout PATH`: drive a running frontier's POST /rollout
+    and report the rollout record. The call returns when the whole walk
+    (or its rollback) ends, hence the long timeout."""
+    payload: dict = {"checkpoint": ckpt}
+    if rollback_ckpt is not None:
+        payload["rollback_checkpoint"] = rollback_ckpt
+    if force:
+        payload["force"] = True
+    return _admin_post_client(f"http://{host}:{port}/rollout", payload, "rollout", timeout_s)
 
 
 def cmd_serve(argv: List[str]) -> int:
@@ -600,35 +649,43 @@ def cmd_serve(argv: List[str]) -> int:
     p.add_argument("--reload_ckpt", default=None, metavar="PATH",
                    help="client mode: POST {\"checkpoint\": PATH} to http://HOST:PORT/reload on a running "
                    "server, print the response, and exit — no service is booted")
+    p.add_argument("--replicas", type=int, default=1,
+                   help="engine replicas, one per card: each holds its own weights, breaker and watchdog (a "
+                   "failed or hung replica's batch is requeued onto another, and POST /reload rolls the replicas "
+                   "one at a time); 0 = every card; 1 keeps the single engine")
+    p.add_argument("--auto_respawn", action="store_true",
+                   help="fleet self-healing: replace a replica whose breaker sticks 'failed' with a fresh engine "
+                   "on the same card, validated and in probation (requires --replicas >= 2)")
     # The JAX CLI's flags the port does not have yet: refused, never ignored.
-    p.add_argument("--replicas", type=int, default=1, help="not ported yet: values other than 1 exit 2")
     p.add_argument("--sharding_rules", choices=["dp", "spatial", "dp+spatial"], default="dp",
                    help="not ported yet: values other than dp exit 2")
     p.add_argument("--aot_cache_dir", default=None, help="not ported yet (exits 2)")
     p.add_argument("--require_cache_hit", action="store_true", help="not ported yet (exits 2)")
     p.add_argument("--audit", action="store_true", help="not ported yet (exits 2)")
-    p.add_argument("--auto_respawn", action="store_true", help="not ported yet (exits 2)")
     _add_model_args(p)
     args = p.parse_args(argv)
 
     unported = [flag for flag, given in (
-        (f"--replicas {args.replicas}", args.replicas != 1),
         (f"--sharding_rules {args.sharding_rules}", args.sharding_rules != "dp"),
         ("--aot_cache_dir", args.aot_cache_dir is not None),
         ("--require_cache_hit", args.require_cache_hit),
         ("--audit", args.audit),
-        ("--auto_respawn", args.auto_respawn),
     ) if given]
     if unported:
         print(f"serve: not ported yet: {', '.join(unported)}", file=sys.stderr)
         return 2
     if args.reload_ckpt is not None:
-        return _admin_post_client(f"http://{args.host}:{args.port}/reload", {"checkpoint": args.reload_ckpt},
-                                  "reload", 600.0)
+        return _reload_checkpoint_client(args.host, args.port, args.reload_ckpt)
     try:
         buckets = tuple(tuple(int(d) for d in b.lower().split("x")) for b in args.buckets)
     except ValueError:
         print(f"--buckets must look like 384x512, got {args.buckets}", file=sys.stderr)
+        return 2
+    replicas, problem = _resolve_replicas(args.replicas, args.device)
+    if problem is None and args.auto_respawn and replicas < 2:
+        problem = "--auto_respawn requires replicas >= 2 (it replaces one replica while the others serve)"
+    if problem is not None:
+        print(f"serve: {problem}", file=sys.stderr)
         return 2
 
     from raft_stereo_tpu_torch.config import ServeConfig, VideoConfig
@@ -660,6 +717,8 @@ def cmd_serve(argv: List[str]) -> int:
         breaker_fail_after=args.breaker_fail_after,
         breaker_probation=args.breaker_probation,
         hang_timeout_s=args.hang_timeout_s,
+        replicas=replicas,
+        auto_respawn=args.auto_respawn,
         drain_timeout_s=args.drain_timeout_s,
         log_dir=args.log_dir,
         flight_recorder_events=args.flight_recorder_events,
@@ -675,6 +734,112 @@ def cmd_serve(argv: List[str]) -> int:
     return 0
 
 
+def cmd_frontier(argv: List[str]) -> int:
+    """The front tier (serving/frontier.py): route /v1/predict across N
+    backend `serve` hosts with health-checked breakers, retry and hedging,
+    stream affinity and overload brownout. It holds no model and imports
+    no torch. The JAX CLI's flags and defaults."""
+    p = argparse.ArgumentParser(prog="frontier")
+    p.add_argument("--backends", nargs="+", default=None, metavar="HOST:PORT",
+                   help="backend serve addresses; routing prefers healthy backends with the fewest in-flight "
+                   "forwards (required in server mode; unused with --rollout)")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8081)
+    p.add_argument("--health_interval_s", type=float, default=2.0,
+                   help="active /healthz probe interval; probe failures feed the per-backend breaker, and a probe "
+                   "success is the only way a sticky-failed backend re-enters (probation)")
+    p.add_argument("--health_timeout_s", type=float, default=5.0)
+    p.add_argument("--request_timeout_s", type=float, default=600.0,
+                   help="per-forward read timeout (bounds a wedged connection; deadline_ms stays the latency "
+                   "authority)")
+    p.add_argument("--retry_attempts", type=int, default=3,
+                   help="total tries per plain request; retries prefer a DIFFERENT backend, with jittered "
+                   "exponential backoff")
+    p.add_argument("--retry_budget_percent", type=float, default=20.0,
+                   help="retries allowed while retries_total < retry_budget_min + this%% of requests_total")
+    p.add_argument("--retry_budget_min", type=int, default=10)
+    p.add_argument("--hedge", action="store_true",
+                   help="duplicate a pending plain request onto a second backend after max(live queue-wait p95, "
+                   "--hedge_floor_ms) and take the first answer")
+    p.add_argument("--hedge_floor_ms", type=float, default=50.0)
+    p.add_argument("--brownout_queue_p95_ms", type=float, default=0.0,
+                   help="overload brownout threshold on the worst backend queue-wait p95 (0 disables): above it "
+                   "forwarded deadlines and iterations tighten so the engines exit early")
+    p.add_argument("--brownout_deadline_ms", type=float, default=0.0, help="deadline_ms clamp while browned out")
+    p.add_argument("--brownout_max_iters", type=int, default=0, help="max_iters cap while browned out")
+    p.add_argument("--brownout_recover_ratio", type=float, default=0.5,
+                   help="hysteresis: disengage only below threshold x this")
+    p.add_argument("--breaker_degrade_after", type=int, default=1)
+    p.add_argument("--breaker_fail_after", type=int, default=3)
+    p.add_argument("--breaker_probation", type=int, default=2)
+    p.add_argument("--drain_timeout_s", type=float, default=30.0)
+    p.add_argument("--max_sessions", type=int, default=4096, help="stream-session pinning table ceiling (LRU)")
+    p.add_argument("--log_dir", default=None,
+                   help="flight-recorder dumps land here as frontier_flight_recorder.json")
+    p.add_argument("--flight_recorder_events", type=int, default=512)
+    p.add_argument("--rollout", default=None, metavar="CKPT",
+                   help="client mode: POST {\"checkpoint\": CKPT} to http://HOST:PORT/rollout on a running "
+                   "frontier (a rolling reload of every backend with canary checks and rollback on abort), print "
+                   "the rollout record and exit")
+    p.add_argument("--rollback_ckpt", default=None, metavar="CKPT",
+                   help="with --rollout: rollback target for backends that never reported a prior checkpoint")
+    p.add_argument("--force", action="store_true",
+                   help="with --rollout: roll even when the backends' swap generations already differ")
+    p.add_argument("--rollout_stream_policy", choices=("migrate", "hold"), default="migrate",
+                   help="pinned streams on a quiesced backend: 'migrate' cold-restarts them elsewhere; 'hold' "
+                   "parks their frames until the host is back (bounded by --rollout_hold_timeout_s)")
+    p.add_argument("--rollout_probation", type=int, default=2,
+                   help="consecutive successful probes a swapped backend must pass before the roll proceeds")
+    p.add_argument("--rollout_drain_timeout_s", type=float, default=30.0,
+                   help="per-backend budget for in-flight forwards to drain before its reload")
+    p.add_argument("--rollout_verify_timeout_s", type=float, default=30.0,
+                   help="per-backend budget for the /healthz swap_generation advance to show")
+    p.add_argument("--rollout_hold_timeout_s", type=float, default=60.0,
+                   help="how long requests park when the rollout leaves no admissible backend, before shedding")
+    args = p.parse_args(argv)
+
+    if args.rollout is not None:
+        return _rollout_client(args.host, args.port, args.rollout, args.rollback_ckpt, args.force)
+    if not args.backends:
+        p.error("--backends is required (except with --rollout)")
+
+    from raft_stereo_tpu_torch.config import FrontierConfig
+    from raft_stereo_tpu_torch.serving.frontier import Frontier, serve_frontier_http
+
+    config = FrontierConfig(
+        backends=tuple(args.backends),
+        host=args.host,
+        port=args.port,
+        health_interval_s=args.health_interval_s,
+        health_timeout_s=args.health_timeout_s,
+        request_timeout_s=args.request_timeout_s,
+        retry_attempts=args.retry_attempts,
+        retry_budget_percent=args.retry_budget_percent,
+        retry_budget_min=args.retry_budget_min,
+        hedge=args.hedge,
+        hedge_floor_ms=args.hedge_floor_ms,
+        brownout_queue_p95_ms=args.brownout_queue_p95_ms,
+        brownout_deadline_ms=args.brownout_deadline_ms,
+        brownout_max_iters=args.brownout_max_iters,
+        brownout_recover_ratio=args.brownout_recover_ratio,
+        breaker_degrade_after=args.breaker_degrade_after,
+        breaker_fail_after=args.breaker_fail_after,
+        breaker_probation=args.breaker_probation,
+        drain_timeout_s=args.drain_timeout_s,
+        max_sessions=args.max_sessions,
+        rollout_stream_policy=args.rollout_stream_policy,
+        rollout_probation=args.rollout_probation,
+        rollout_drain_timeout_s=args.rollout_drain_timeout_s,
+        rollout_verify_timeout_s=args.rollout_verify_timeout_s,
+        rollout_hold_timeout_s=args.rollout_hold_timeout_s,
+        log_dir=args.log_dir,
+        flight_recorder_events=args.flight_recorder_events,
+    )
+    frontier = Frontier(config).start()
+    serve_frontier_http(frontier, config.host, config.port)
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     logging.basicConfig(
         level=logging.INFO,
@@ -684,9 +849,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     if not argv or argv[0] not in SUBCOMMANDS:
         print(f"usage: python -m raft_stereo_tpu_torch {{{','.join(SUBCOMMANDS)}}} [args]", file=sys.stderr)
         return 2
-    commands = {"train": cmd_train, "evaluate": cmd_evaluate, "demo": cmd_demo, "serve": cmd_serve}
-    if argv[0] not in commands:
-        print(f"raft_stereo_tpu_torch: {argv[0]} is not yet ported (train, evaluate, demo and serve are)",
-              file=sys.stderr)
-        return 2
+    commands = {"train": cmd_train, "evaluate": cmd_evaluate, "demo": cmd_demo, "serve": cmd_serve,
+                "frontier": cmd_frontier}
     return commands[argv[0]](argv[1:])

@@ -27,12 +27,15 @@ than (1, 1), `sharding_rules` other than "dp", `coord_interval`,
 `strict_mode`, `recompile_grace`, `async_checkpoint`, `metrics_port` and
 `compilation_cache_dir`.
 
-Not yet ported, so not present: the `"alt"` correlation
-strategy, `sequential_encoder` (and the JAX package's
-`sequential_batch_forward`), `encoder_s2d` (a TPU
-layout; the port computes its values with the direct convs), the serving
-fleet and its options (`replicas`, `auto_respawn`, `sharding_rules`), the
-AOT executable cache (`aot_cache_dir`) and the HLO audit (`hlo_audit`).
+The `"alt"` correlation strategy and `sequential_encoder` (with
+`models.raft_stereo.sequential_batch_forward`) are ported; `ServeConfig`
+has the fleet's `replicas` and `auto_respawn`, and `FrontierConfig` is the
+JAX package's, field for field (the front tier, serving/frontier.py).
+
+Not yet ported, so not present: `encoder_s2d` (a TPU layout; the port
+computes its values with the direct convs), the serving `sharding_rules`,
+the AOT executable cache (`aot_cache_dir`) and the HLO audit
+(`hlo_audit`).
 """
 
 from __future__ import annotations
@@ -48,10 +51,12 @@ MODALITY_ALL_GATED = "All Gated"
 MODALITIES = (MODALITY_RGB, MODALITY_PASSIVE_GATED, MODALITY_ALL_GATED)
 
 # "reg" precomputes the pyramid and samples it with plain torch ops;
-# "pallas" keeps the name of the JAX package's fused-lookup strategy and
-# samples the same pyramid with the hand-written CUDA kernel
-# (ops/corr_cuda.py).
-CORR_IMPLEMENTATIONS = ("reg", "pallas")
+# "alt" never builds the volume: it samples the pooled right-image features
+# at the taps and dots them with the left ones (plain torch ops, as the JAX
+# package's is plain XLA; `corr_dtype` does not apply); "pallas" keeps the
+# name of the JAX package's fused-lookup strategy and samples the "reg"
+# pyramid with the hand-written CUDA kernel (ops/corr_cuda.py).
+CORR_IMPLEMENTATIONS = ("reg", "alt", "pallas")
 CORR_DTYPES = ("float32", "bfloat16")
 # Non-finite loss or gradient norm: "raise" fails the step; "skip" drops
 # the update (params and optimizer state untouched) and goes on;
@@ -89,6 +94,13 @@ class RAFTStereoConfig:
     # image1's half, and `conv2_res` + `conv2_out` turn the whole trunk
     # output into the correlation features; no `fnet` is built.
     shared_backbone: bool = False
+    # Run the feature encoder one image at a time (ignored under
+    # `shared_backbone`, as in JAX): at B=1 on image1 and then on image2
+    # plus a 1e-30-scaled element of image1's features (the JAX package's
+    # data dependency that frees image1's trunk first; kept so the values
+    # are JAX's), at B >= 2 over [image1, image2] row by row. Peak memory
+    # is one image's trunk whatever the batch; the parameters are fnet's.
+    sequential_encoder: bool = False
     data_modality: str = MODALITY_RGB
     # bf16 compute in the encoders and the update block, the JAX package's
     # dtype policy standing in for the reference's AMP autocast: parameters
@@ -227,8 +239,8 @@ class ServeConfig:
     Every (bucket, batch) combination is warmed at boot; admission maps a
     request onto the smallest bucket that fits. Refinement runs in chunks
     of `chunk_iters`; `max_iters` is rounded up to whole chunks. The JAX
-    package's fleet, sharding, AOT-cache and HLO-audit fields are not
-    ported (the `serve` flags for them exit 2).
+    package's sharding, AOT-cache and HLO-audit fields are not ported (the
+    `serve` flags for them exit 2).
     """
 
     model: RAFTStereoConfig = dataclasses.field(default_factory=RAFTStereoConfig)
@@ -266,6 +278,16 @@ class ServeConfig:
     # dumps every thread's stack and fails the service (the process stays
     # up to answer /healthz). 0 disables.
     hang_timeout_s: float = 0.0
+    # Engine replicas (serving/fleet.EngineFleet), one per card by default:
+    # each holds its own copy of the weights, its own breaker and watchdog,
+    # so one hung or failing replica is one fault domain and its batch is
+    # requeued onto another. 1 keeps the single-engine path.
+    replicas: int = 1
+    # Fleet self-healing: a replica whose breaker sticks `failed` is
+    # replaced in the background by a fresh engine on the same device,
+    # validated against the serving weights and entered in probation.
+    # Requires replicas >= 2.
+    auto_respawn: bool = False
     # Budget of service.drain(): how long a graceful shutdown waits for
     # queued and running requests before closing anyway.
     drain_timeout_s: float = 30.0
@@ -309,6 +331,13 @@ class ServeConfig:
             raise ValueError(f"hang_timeout_s must be >= 0, got {self.hang_timeout_s}")
         if self.drain_timeout_s < 0:
             raise ValueError(f"drain_timeout_s must be >= 0, got {self.drain_timeout_s}")
+        if self.replicas < 1:
+            raise ValueError(f"replicas must be >= 1, got {self.replicas}")
+        if self.auto_respawn and self.replicas < 2:
+            raise ValueError(
+                "auto_respawn requires replicas >= 2: respawn replaces one fleet replica while the others "
+                "keep serving — a single engine has nothing to fail over to (restart it instead)"
+            )
         if self.flight_recorder_events < 0:
             raise ValueError(
                 f"flight_recorder_events must be >= 0, got {self.flight_recorder_events}"
@@ -334,6 +363,213 @@ class ServeConfig:
             b *= 2
         sizes.append(self.max_batch)
         return tuple(sizes)
+
+
+@dataclasses.dataclass(frozen=True)
+class FrontierConfig:
+    """Front-tier router config (serving/frontier.py), a field-for-field
+    copy of the JAX package's.
+
+    The frontier is a stdlib HTTP process routing /predict across N
+    backend `StereoService` hosts. It holds no model, no device and no
+    carry state — only routing tables, per-backend breakers (the same
+    `ServingLifecycle` machine the backends run) and counters — so a
+    frontier restart loses nothing but stream pinnings (streams simply
+    cold-start on their next frame).
+    """
+
+    # Backend addresses as "host:port" strings. Order is only a tiebreak:
+    # routing prefers admissible backends with the fewest in-flight
+    # requests.
+    backends: Tuple[str, ...] = ()
+    host: str = "127.0.0.1"
+    port: int = 8081
+    # Active health probing: every backend's /healthz is polled at this
+    # interval; probe failures feed the same per-backend breaker as
+    # forwarding failures, and probe successes are the ONLY thing that can
+    # move a sticky-`failed` backend to probation (real traffic then earns
+    # it back to healthy).
+    health_interval_s: float = 2.0
+    health_timeout_s: float = 5.0
+    # Per-forward read timeout. Generous by default: a backend may be
+    # queueing behind a large bucket; the deadline_ms inside the request
+    # is the latency authority, this only bounds a wedged connection.
+    request_timeout_s: float = 600.0
+    # Retry policy for idempotent plain requests (streams never retry
+    # blindly — they migrate, see frontier.py): attempts counts the total
+    # tries, backoff is utils/retry.py's jittered exponential schedule.
+    retry_attempts: int = 3
+    retry_base_delay_s: float = 0.05
+    retry_max_delay_s: float = 2.0
+    retry_jitter: float = 0.5
+    # Retry budget: retries are allowed while
+    #   retries_total < retry_budget_min + retry_budget_percent% * requests
+    # so a sick fleet can't melt itself with retry amplification, while a
+    # cold frontier (zero requests yet) can still retry its first failure.
+    retry_budget_percent: float = 20.0
+    retry_budget_min: int = 10
+    # Opt-in tail-latency hedging: after a plain request has been pending
+    # for max(live queue-wait p95, hedge_floor_ms), dispatch a duplicate to
+    # a DIFFERENT backend and take the first answer. Off by default —
+    # hedging doubles work under exactly the load that makes tails long.
+    hedge: bool = False
+    hedge_floor_ms: float = 50.0
+    # Overload brownout: when the worst backend queue-wait p95 crosses
+    # brownout_queue_p95_ms (0 disables), the frontier tightens forwarded
+    # requests — deadline_ms clamped to brownout_deadline_ms (if > 0) and
+    # max_iters capped at brownout_max_iters (if > 0) — so the anytime
+    # engines early-exit: quality degrades before ANY request is shed.
+    # Hysteresis: brownout disengages only once the p95 falls below
+    # threshold * brownout_recover_ratio.
+    brownout_queue_p95_ms: float = 0.0
+    brownout_deadline_ms: float = 0.0
+    brownout_max_iters: int = 0
+    brownout_recover_ratio: float = 0.5
+    # Per-backend breaker thresholds (ServingLifecycle): forwarding/probe
+    # failures degrade after N, fail after M; probation successes heal.
+    breaker_degrade_after: int = 1
+    breaker_fail_after: int = 3
+    breaker_probation: int = 2
+    # Graceful-shutdown budget: how long drain() waits for in-flight
+    # forwards before closing anyway.
+    drain_timeout_s: float = 30.0
+    # Stream-session table ceiling (LRU eviction beyond it; an evicted
+    # stream's next frame is routed fresh and cold-starts on its backend).
+    max_sessions: int = 4096
+    # Checkpoint rollout orchestration (POST /rollout, `frontier --rollout`):
+    # the frontier rolls /reload across its backends one at a time —
+    # quiesce, reload, verify (healthz generation advance + bit-wise canary
+    # against the new-generation reference), probation — and aborts +
+    # rolls already-swapped backends back on any failure.
+    #
+    # What happens to stream sessions pinned to the backend being swapped:
+    #   "migrate" — the session moves to another backend immediately via
+    #               the generation-aliased affinity path (guaranteed cold
+    #               restart there);
+    #   "hold"    — frames park until their host swaps back into rotation
+    #               (carry survives; bounded by rollout_hold_timeout_s,
+    #               after which the frame migrates anyway).
+    rollout_stream_policy: str = "migrate"
+    # Consecutive successful orchestrator probes (healthz on the NEW
+    # generation) a swapped backend must pass before the roll proceeds.
+    rollout_probation: int = 2
+    # Per-backend budget for in-flight forwards to drain after quiesce.
+    rollout_drain_timeout_s: float = 30.0
+    # Budget for a swapped backend's /healthz to report the new generation.
+    rollout_verify_timeout_s: float = 30.0
+    # Ceiling on how long a request parks during the rollout flip window
+    # (and a "hold"-policy stream frame waits for its host) before the
+    # frontier gives up and sheds/migrates.
+    rollout_hold_timeout_s: float = 60.0
+    # Orchestrator probe cadence while verifying/probating one backend.
+    rollout_probe_interval_s: float = 0.1
+    # Flight recorder (obs/trace.py), same semantics as ServeConfig.
+    log_dir: Optional[str] = None
+    flight_recorder_events: int = 512
+
+    def __post_init__(self):
+        if not self.backends:
+            raise ValueError("backends must be non-empty")
+        if len(set(self.backends)) != len(self.backends):
+            raise ValueError(f"duplicate backends in {self.backends}")
+        for addr in self.backends:
+            host, sep, port = str(addr).rpartition(":")
+            if not sep or not host or not port.isdigit():
+                raise ValueError(
+                    f"backend {addr!r} must look like host:port"
+                )
+        if self.health_interval_s <= 0:
+            raise ValueError(
+                f"health_interval_s must be > 0, got {self.health_interval_s}"
+            )
+        if self.health_timeout_s <= 0:
+            raise ValueError(
+                f"health_timeout_s must be > 0, got {self.health_timeout_s}"
+            )
+        if self.request_timeout_s <= 0:
+            raise ValueError(
+                f"request_timeout_s must be > 0, got {self.request_timeout_s}"
+            )
+        if self.retry_attempts < 1:
+            raise ValueError(
+                f"retry_attempts must be >= 1, got {self.retry_attempts}"
+            )
+        if self.retry_base_delay_s < 0 or self.retry_max_delay_s < 0:
+            raise ValueError("retry delays must be >= 0")
+        if self.retry_budget_percent < 0:
+            raise ValueError(
+                f"retry_budget_percent must be >= 0, "
+                f"got {self.retry_budget_percent}"
+            )
+        if self.retry_budget_min < 0:
+            raise ValueError(
+                f"retry_budget_min must be >= 0, got {self.retry_budget_min}"
+            )
+        if self.hedge_floor_ms < 0:
+            raise ValueError(
+                f"hedge_floor_ms must be >= 0, got {self.hedge_floor_ms}"
+            )
+        if self.brownout_queue_p95_ms < 0:
+            raise ValueError(
+                f"brownout_queue_p95_ms must be >= 0, "
+                f"got {self.brownout_queue_p95_ms}"
+            )
+        if self.brownout_queue_p95_ms > 0 and not (
+            self.brownout_deadline_ms > 0 or self.brownout_max_iters > 0
+        ):
+            raise ValueError(
+                "brownout enabled (brownout_queue_p95_ms > 0) but no action "
+                "knob set: need brownout_deadline_ms > 0 or "
+                "brownout_max_iters > 0 — a brownout that tightens nothing "
+                "is a no-op pretending to shed load"
+            )
+        if not 0 < self.brownout_recover_ratio <= 1:
+            raise ValueError(
+                f"brownout_recover_ratio must be in (0, 1], "
+                f"got {self.brownout_recover_ratio}"
+            )
+        if not 1 <= self.breaker_degrade_after <= self.breaker_fail_after:
+            raise ValueError(
+                f"need 1 <= breaker_degrade_after "
+                f"({self.breaker_degrade_after}) <= breaker_fail_after "
+                f"({self.breaker_fail_after})"
+            )
+        if self.breaker_probation < 1:
+            raise ValueError(
+                f"breaker_probation must be >= 1, got {self.breaker_probation}"
+            )
+        if self.drain_timeout_s < 0:
+            raise ValueError(
+                f"drain_timeout_s must be >= 0, got {self.drain_timeout_s}"
+            )
+        if self.max_sessions < 1:
+            raise ValueError(
+                f"max_sessions must be >= 1, got {self.max_sessions}"
+            )
+        if self.rollout_stream_policy not in ("migrate", "hold"):
+            raise ValueError(
+                f"rollout_stream_policy must be 'migrate' or 'hold', "
+                f"got {self.rollout_stream_policy!r}"
+            )
+        if self.rollout_probation < 1:
+            raise ValueError(
+                f"rollout_probation must be >= 1, got {self.rollout_probation}"
+            )
+        for knob in (
+            "rollout_drain_timeout_s",
+            "rollout_verify_timeout_s",
+            "rollout_hold_timeout_s",
+            "rollout_probe_interval_s",
+        ):
+            if getattr(self, knob) <= 0:
+                raise ValueError(
+                    f"{knob} must be > 0, got {getattr(self, knob)}"
+                )
+        if self.flight_recorder_events < 0:
+            raise ValueError(
+                "flight_recorder_events must be >= 0, "
+                f"got {self.flight_recorder_events}"
+            )
 
 
 @dataclasses.dataclass(frozen=True)

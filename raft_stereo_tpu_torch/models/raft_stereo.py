@@ -1,6 +1,6 @@
 """RAFT-Stereo forward on PyTorch, test and train mode: counterpart of
 `raft_stereo_tpu/models/raft_stereo.py` (`encode_features`, `_corr_state`,
-`_corr_sample`, `_IterationBody`, `RAFTStereo`).
+`_corr_sample`, `_IterationBody`, `RAFTStereo`, `sequential_batch_forward`).
 
 Modules compute in NCHW; the public edges keep the JAX package's shapes:
 images (B, H, W, C) in [0, 255]; in test mode `flow_lowres` (B, H/f, W/f)
@@ -47,10 +47,12 @@ from raft_stereo_tpu_torch.utils.geometry import convex_upsample, convex_upsampl
 
 
 def corr_state(cfg: RAFTStereoConfig, fmap1: torch.Tensor, fmap2: torch.Tensor, test_mode: bool):
-    """Loop-invariant correlation state from NCHW feature maps: the pooled
-    pyramid, (B, H, W1, W2 // 2**l) per level in `corr_dtype`, for both
-    strategies; with "pallas" and `fused_encoder` in test mode built by one
-    kernel (as in JAX, the flag leaves the "reg" pyramid to the plain ops).
+    """Loop-invariant correlation state from NCHW feature maps. "alt":
+    (fmap1 (B, H, W1, D), (level_0, ..., level_{L-1})), the left features
+    and the pooled right ones (B, H, W2 // 2**l, D), fp32 whatever
+    `corr_dtype` says, as in JAX. "reg" and "pallas": the pooled
+    pyramid, (B, H, W1, W2 // 2**l) per level in `corr_dtype`; with
+    "pallas" and `fused_encoder` in test mode built by one kernel (as in JAX, the flag leaves the "reg" pyramid to the plain ops).
     In train mode the "pallas" pyramid is the plain volume and pooling, so
     autograd reaches the feature maps through them, as JAX's autodiff does
     through `pallas_corr_state`. bf16 maps are taken as fp32 values, as the
@@ -59,6 +61,9 @@ def corr_state(cfg: RAFTStereoConfig, fmap1: torch.Tensor, fmap2: torch.Tensor, 
     f1 = fmap1.permute(0, 2, 3, 1)
     f2 = fmap2.permute(0, 2, 3, 1)
     corr_dtype = torch.bfloat16 if cfg.corr_dtype == "bfloat16" else torch.float32
+    if cfg.corr_implementation == "alt":
+        f1 = (f1.float() if f1.dtype == torch.bfloat16 else f1).contiguous()
+        return f1, tuple(corr_ops.pool_fmap_levels(f2, cfg.corr_levels))
     if cfg.corr_implementation == "pallas":
         if cfg.fused_encoder and test_mode:
             return corr_cuda.fused_pyramid_state(f1, f2, cfg.corr_levels, corr_dtype)
@@ -79,6 +84,9 @@ def corr_sample(cfg: RAFTStereoConfig, state, coords: torch.Tensor, prefetch: bo
             taps = corr_cuda.prefetch_corr_lookup(state, coords, cfg.corr_radius, out_dtype)
         else:
             taps = corr_cuda.corr_lookup(state, coords, cfg.corr_radius, out_dtype)
+    elif cfg.corr_implementation == "alt":
+        f1, levels = state
+        taps = corr_ops.corr_lookup_alt(f1, levels, coords, cfg.corr_radius)
     else:
         taps = corr_ops.corr_lookup(state, coords, cfg.corr_radius)
     if out_dtype is not None:
@@ -144,7 +152,19 @@ class RAFTStereo(nn.Module):
             fmaps = self.conv2_out(self.conv2_res(trunk))
         else:
             scales = self.cnet(image1, test_mode)
-            fmaps = self.fnet(torch.cat([image1, image2], dim=0), test_mode)
+            if cfg.sequential_encoder and image1.shape[0] > 1:
+                # One image at a time over [image1, image2], in that order
+                # (the JAX package's scan over the stacked batch).
+                fmaps = torch.cat([self.fnet(img[None], test_mode) for img in torch.cat([image1, image2])])
+            elif cfg.sequential_encoder:
+                # The JAX package's B=1 form: its scalar anchor orders the
+                # two passes there; eager PyTorch runs them in order anyway,
+                # and the anchor keeps the values JAX's.
+                fmap1 = self.fnet(image1, test_mode)
+                anchor = (fmap1.reshape(-1)[0] * 1e-30).to(image2.dtype)
+                fmaps = torch.cat([fmap1, self.fnet(image2 + anchor, test_mode)])
+            else:
+                fmaps = self.fnet(torch.cat([image1, image2], dim=0), test_mode)
         fmap1, fmap2 = torch.chunk(fmaps, 2, dim=0)
 
         net = tuple(torch.tanh(s[0]) for s in scales)
@@ -253,3 +273,18 @@ class RAFTStereo(nn.Module):
         mask = self.mask_head(torch.cat(net0s, dim=0)).to(coords1.dtype)
         up = convex_upsample_blocked(torch.cat(flows, dim=0)[:, None], mask, f)
         return up.reshape(iters, b, h, f, w, f)
+
+
+def sequential_batch_forward(model: RAFTStereo, image1: torch.Tensor, image2: torch.Tensor, iters: int = 32):
+    """Test-mode inference over a batch as a loop of single-pair forwards
+    (the JAX package's `sequential_batch_forward`): each map is its batch-1
+    forward's, bit for bit, and peak memory stays at one pair's whatever
+    the batch. Images (B, H, W, C); returns (flow_lowres (B, h, w),
+    flow_up (B, H, W, 1))."""
+    lows, ups = [], []
+    with torch.inference_mode():
+        for i in range(image1.shape[0]):
+            lo, up = model(image1[i : i + 1], image2[i : i + 1], iters=iters, test_mode=True)
+            lows.append(lo)
+            ups.append(up)
+    return torch.cat(lows), torch.cat(ups)

@@ -78,6 +78,19 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
+
+# Launch counters are shared by every thread that launches: a fleet's
+# replicas run their batches on threads of their own, and `+=` on a dict
+# entry is not atomic across threads.
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(counts: Dict[str, int], name: str) -> None:
+    """Add one launch of `name` to a wrapper's LAUNCHES."""
+    with _LAUNCH_LOCK:
+        counts[name] += 1
+
+
 def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found:

@@ -81,3 +81,56 @@ def corr_lookup(pyramid: Sequence[torch.Tensor], coords: torch.Tensor, radius: i
         x = coords[..., None] / (2**i) + offsets
         out.append(linear_sample_1d(vol, x))
     return torch.cat(out, dim=-1)
+
+
+def pool_fmap_levels(fmap2: torch.Tensor, num_levels: int) -> List[torch.Tensor]:
+    """Right-image features of the on-the-fly ("alt") strategy: fmap2
+    (B, H, W2, D) widened to fp32 (other dtypes kept), then each level
+    averages pairs along W (a trailing odd sample dropped), as the JAX
+    package's `pool_fmap_levels`. Every level is contiguous."""
+    if fmap2.dtype == torch.bfloat16:
+        fmap2 = fmap2.float()
+    levels = [fmap2.contiguous()]
+    for _ in range(num_levels - 1):
+        prev = levels[-1]
+        w2 = prev.shape[2] // 2
+        levels.append(((prev[:, :, 0 : 2 * w2 : 2] + prev[:, :, 1 : 2 * w2 : 2]) * 0.5).contiguous())
+    return levels
+
+
+def corr_lookup_alt(fmap1: torch.Tensor, fmap2_levels: Sequence[torch.Tensor], coords: torch.Tensor,
+                    radius: int) -> torch.Tensor:
+    """On-the-fly correlation taps (the "alt" strategy): sample each level's
+    features at the (2r+1) tap positions around coords / 2**l with
+    `linear_sample_1d`'s zero-outside weights, dot with fmap1 over D and
+    divide by sqrt(D). fmap1 (B, H, W1, D), levels (B, H, W2_l, D),
+    coords (B, H, W1); returns (B, H, W1, L*(2r+1)), level-major.
+
+    The values are the JAX package's `corr_lookup_alt`: each sampled
+    feature is g0 * (w0 * valid0) + g1 * (w1 * valid1), and its product with
+    fmap1 is summed over D as an elementwise multiply and a sum (never a
+    matmul, so TF32 cannot reach it whatever the process-wide flags say).
+    Memory: one tap position at a time, so a level costs three
+    (B, H, W1, D) tensors (the two gathers and their blend) and not the
+    (B, H, D, W1 * (2r+1)) block that JAX's broadcast form materializes;
+    the gather's index is a view expanded over D."""
+    if fmap1.dtype == torch.bfloat16:
+        fmap1 = fmap1.float()
+    b, h, w1, dim = fmap1.shape
+    scale = math.sqrt(dim)
+    out = []
+    for i, f2 in enumerate(fmap2_levels):
+        w2 = f2.shape[2]
+        for off in range(-radius, radius + 1):
+            x = coords / (2**i) + off
+            x0f = torch.floor(x)
+            frac = x - x0f
+            x0 = x0f.long()
+            sampled = None
+            for idx, weight in ((x0, 1.0 - frac), (x0 + 1, frac)):
+                valid = (idx >= 0) & (idx <= w2 - 1)
+                index = idx.clamp(0, w2 - 1)[..., None].expand(b, h, w1, dim)
+                tap = torch.gather(f2, 2, index) * (weight * valid.to(weight.dtype))[..., None]
+                sampled = tap if sampled is None else sampled + tap
+            out.append((sampled * fmap1).sum(dim=-1) / scale)
+    return torch.stack(out, dim=-1)

@@ -438,7 +438,7 @@ def fused_pyramid_state(fmap1: torch.Tensor, fmap2: torch.Tensor, levels: int,
         torch.cuda.current_stream(fmap1.device).cuda_stream,
     )
     _build.check(status, "corr_pyramid kernel", lib.raft_corr_pyramid_error_string)
-    LAUNCHES["corr_pyramid_bf16" if corr_dtype == torch.bfloat16 else "corr_pyramid"] += 1
+    _build.count_launch(LAUNCHES, "corr_pyramid_bf16" if corr_dtype == torch.bfloat16 else "corr_pyramid")
     return out
 
 
@@ -576,7 +576,7 @@ def _launch_lookup(name, lib_names, levels, coords, radius, out_dtype=None) -> t
         torch.cuda.current_stream(coords.device).cuda_stream,
     )
     _build.check(status, f"{name} kernel", error_string)
-    LAUNCHES[f"{name}_bf16" if torch.bfloat16 in (levels[0].dtype, out_dtype) else name] += 1
+    _build.count_launch(LAUNCHES, f"{name}_bf16" if torch.bfloat16 in (levels[0].dtype, out_dtype) else name)
     return out
 
 
@@ -712,7 +712,7 @@ def corr_scatter(coords: torch.Tensor, grad: torch.Tensor, widths: Sequence[int]
         torch.cuda.current_stream(coords.device).cuda_stream,
     )
     _build.check(status, "corr_scatter kernel", lib.raft_corr_scatter_error_string)
-    LAUNCHES["corr_scatter_bf16" if torch.bfloat16 in (grad.dtype, out_dtype) else "corr_scatter"] += 1
+    _build.count_launch(LAUNCHES, "corr_scatter_bf16" if torch.bfloat16 in (grad.dtype, out_dtype) else "corr_scatter")
     return out
 
 

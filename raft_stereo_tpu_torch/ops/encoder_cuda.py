@@ -262,7 +262,7 @@ def fused_conv(x, weight, bias, aff: Optional[torch.Tensor], form: str = "none",
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(status, "encoder_conv kernel", lib.raft_encoder_conv_error_string)
-    LAUNCHES["encoder_conv_bf16" if x.dtype == torch.bfloat16 else "encoder_conv"] += 1
+    _build.count_launch(LAUNCHES, "encoder_conv_bf16" if x.dtype == torch.bfloat16 else "encoder_conv")
     return y, stats
 
 
@@ -315,7 +315,7 @@ def fused_join(skip, y, aff_y, y_form: str, aff_skip: Optional[torch.Tensor] = N
         torch.cuda.current_stream(skip.device).cuda_stream,
     )
     _build.check(status, "encoder_join kernel", lib.raft_encoder_join_error_string)
-    LAUNCHES["encoder_join_bf16" if skip.dtype == torch.bfloat16 else "encoder_join"] += 1
+    _build.count_launch(LAUNCHES, "encoder_join_bf16" if skip.dtype == torch.bfloat16 else "encoder_join")
     return out
 
 

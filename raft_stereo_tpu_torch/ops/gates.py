@@ -105,7 +105,7 @@ def fused_rh(rx, cr, h):
     if not h.is_cuda:
         return plain_rh(rx, cr, h)
     out, bf16 = _launch("gates_rh", _lib().raft_gates_rh, (rx, cr, h))
-    LAUNCHES["gates_rh_bf16" if bf16 else "gates_rh"] += 1
+    _build.count_launch(LAUNCHES, "gates_rh_bf16" if bf16 else "gates_rh")
     return out
 
 
@@ -115,5 +115,5 @@ def fused_combine(zx, cz, qx, cq, h):
     if not h.is_cuda:
         return plain_combine(zx, cz, qx, cq, h)
     out, bf16 = _launch("gates_combine", _lib().raft_gates_combine, (zx, cz, qx, cq, h))
-    LAUNCHES["gates_combine_bf16" if bf16 else "gates_combine"] += 1
+    _build.count_launch(LAUNCHES, "gates_combine_bf16" if bf16 else "gates_combine")
     return out

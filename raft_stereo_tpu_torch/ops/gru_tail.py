@@ -146,7 +146,7 @@ def fused_gru_tail(zx, cz, qx, cq, h):
         torch.cuda.current_stream(h.device).cuda_stream,
     )
     _build.check(status, "fused_gru_tail kernel", lib.raft_gru_tail_error_string)
-    LAUNCHES["gru_tail_bf16" if bf16 else "gru_tail"] += 1
+    _build.count_launch(LAUNCHES, "gru_tail_bf16" if bf16 else "gru_tail")
     return out
 
 
@@ -171,5 +171,5 @@ def fused_motion_tail(pre, flow):
         plan.tiles, torch.cuda.current_stream(pre.device).cuda_stream,
     )
     _build.check(status, "fused_motion_tail kernel", lib.raft_gru_tail_error_string)
-    LAUNCHES["motion_tail_bf16" if bf16 else "motion_tail"] += 1
+    _build.count_launch(LAUNCHES, "motion_tail_bf16" if bf16 else "motion_tail")
     return out

@@ -5,21 +5,26 @@ counterpart of `raft_stereo_tpu/serving/batcher.py` (`_Request`,
 Threads cooperate around two queues:
 
     client threads  --submit()--> per-bucket deques
-    stager thread   ------------> staging queue (maxsize 1, on the device)
-    runner thread   ------------> engine.run_staged -> futures
+    stager thread   ------------> staging queue (maxsize = n_replicas, on
+                                  the device)
+    runner thread(s) -----------> engine.run_staged -> futures
 
 The stager picks the bucket whose HEAD request has waited longest (oldest
 first — no bucket starves), waits up to `batch_window_ms` for that bucket to
 fill toward `max_batch`, pads the batch up to the nearest warmed batch size
 by repeating the last row (`_split` may take fewer rows, see there), and
 hands it to `engine.stage()`, which starts its copy to the card
-(serving/engine.py) BEFORE enqueueing. Because the
-staging queue holds at most one ready batch, batch N+1's copy overlaps
-batch N's refinement. A batch is drawn from exactly one deque, so buckets
-never mix (`ServingMetrics.batch_log` records each batch's bucket).
+(serving/engine.py; a fleet, serving/fleet.py, first picks the
+least-loaded healthy replica) BEFORE enqueueing. Because the staging queue
+holds at most one ready batch per runner, batch N+1's copy overlaps batch
+N's refinement. One runner thread exists per engine replica (one for the
+single engine), so a fleet refines n_replicas batches at once. A batch is
+drawn from exactly one deque, so buckets never mix
+(`ServingMetrics.batch_log` records each batch's bucket).
 
 A batch that raises fails exactly that batch's futures with the exception
-and the breaker records it; nothing re-runs it elsewhere.
+and the breaker records it; a fleet has already requeued it once onto
+another replica before that.
 
 `ServingMetrics` is the counter authority /metrics reads: queue depth,
 batch fill, latency percentiles, deadline-miss / early-exit totals,
@@ -85,6 +90,11 @@ class _StagedBatch:
     image2: object = None
     flow_init: object = None
     ready: object = None
+    # Fleet routing: the replica the batch is staged on, and the replicas
+    # that already failed it (the exactly-once requeue's exclusion set).
+    # The host arrays are kept for that requeue.
+    replica: Optional[int] = None
+    excluded: set = dataclasses.field(default_factory=set)
     # Observability: the requests' trace IDs (aligned with `reqs`) and the
     # stager-pop timestamp that closes their queue spans (queue wait =
     # popped_t - enqueue_t; what remains of latency after queue + device
@@ -110,6 +120,13 @@ class ServingMetrics:
         self.stream_requests_total = 0
         self.warm_start_total = 0
         self.stream_resets_total = 0
+        # Fleet accounting (serving/fleet.py): batches requeued onto another
+        # replica, replicas respawned, and per-replica dispatch and
+        # in-flight counts.
+        self.requeues_total = 0
+        self.respawns_total = 0
+        self.batches_by_replica: Dict[str, int] = {}
+        self.in_flight_by_replica: Dict[str, int] = {}
         self.requests_by_bucket: Dict[str, int] = {}
         self._latencies_ms: collections.deque = collections.deque(
             maxlen=latency_window
@@ -157,6 +174,25 @@ class ServingMetrics:
         with the exception (they are neither responses nor rejections)."""
         with self._lock:
             self.failed_requests_total += n_requests
+
+    def record_requeue(self) -> None:
+        with self._lock:
+            self.requeues_total += 1
+
+    def record_respawn(self) -> None:
+        with self._lock:
+            self.respawns_total += 1
+
+    def record_replica_dispatch(self, idx: int) -> None:
+        with self._lock:
+            key = str(idx)
+            self.in_flight_by_replica[key] = self.in_flight_by_replica.get(key, 0) + 1
+
+    def record_replica_done(self, idx: int) -> None:
+        with self._lock:
+            key = str(idx)
+            self.in_flight_by_replica[key] = self.in_flight_by_replica.get(key, 0) - 1
+            self.batches_by_replica[key] = self.batches_by_replica.get(key, 0) + 1
 
     def record_stream(self, warm_started: bool, reset: bool) -> None:
         with self._lock:
@@ -252,13 +288,10 @@ class ServingMetrics:
                 "stream_requests_total": self.stream_requests_total,
                 "warm_start_total": self.warm_start_total,
                 "stream_resets_total": self.stream_resets_total,
-                # The JAX package's fleet counters: the port serves one
-                # engine, so they stay 0 and empty (the /metrics JSON keeps
-                # the JAX key set).
-                "requeues_total": 0,
-                "respawns_total": 0,
-                "batches_by_replica": {},
-                "in_flight_by_replica": {},
+                "requeues_total": self.requeues_total,
+                "respawns_total": self.respawns_total,
+                "batches_by_replica": dict(self.batches_by_replica),
+                "in_flight_by_replica": dict(self.in_flight_by_replica),
                 "streams_active": streams_active,
                 "queue_depth": queue_depth,
                 "batch_fill_mean": fill,
@@ -291,12 +324,17 @@ class MicroBatcher:
         self.engine = engine
         self.lifecycle = lifecycle if lifecycle is not None else engine.lifecycle
         self.metrics = ServingMetrics()
+        # A fleet mirrors its routing into these metrics.
+        if hasattr(engine, "bind_metrics"):
+            engine.bind_metrics(self.metrics)
         self._deques: Dict[Bucket, collections.deque] = {
             tuple(b): collections.deque() for b in config.buckets
         }
         self._cond = threading.Condition()
-        # One staged batch on the device while one runs: the double buffer.
-        self._staged: "queue.Queue" = queue.Queue(maxsize=1)
+        # One staged batch on the device per runner while each runs: the
+        # double buffer. One runner per engine replica.
+        self._n_runners = max(1, int(getattr(engine, "n_replicas", 1)))
+        self._staged: "queue.Queue" = queue.Queue(maxsize=self._n_runners)
         self._stop = False
         self._draining = False
         # Requests admitted but not yet answered (result OR exception) —
@@ -305,9 +343,10 @@ class MicroBatcher:
         self._stager = threading.Thread(
             target=self._stage_loop, name="serving-stager", daemon=True
         )
-        self._runner = threading.Thread(
-            target=self._runner_main, name="serving-runner", daemon=True
-        )
+        self._runners = [threading.Thread(target=self._runner_main, name="serving-runner", daemon=True)]
+        self._runners += [threading.Thread(target=self._run_loop, name=f"serving-runner-{i}", daemon=True)
+                          for i in range(1, self._n_runners)]
+        self._runner = self._runners[0]
         self._warm: Optional[Callable[[], object]] = None
         self._warmed = threading.Event()
         self._warm_outcome: Dict[str, object] = {}
@@ -325,6 +364,8 @@ class MicroBatcher:
         if "error" in self._warm_outcome:
             self._runner.join()
             raise self._warm_outcome["error"]
+        for runner in self._runners[1:]:
+            runner.start()
         self._stager.start()
         return self._warm_outcome.get("result")
 
@@ -348,12 +389,15 @@ class MicroBatcher:
         # still hold the queue's one slot, so keep offering it until the
         # runner ends, bounded so a wedged runner can't hang close() either.
         sentinel_deadline = time.monotonic() + 10.0
-        while self._runner.is_alive() and time.monotonic() < sentinel_deadline:
+        while any(r.is_alive() for r in self._runners) and time.monotonic() < sentinel_deadline:
             try:
                 self._staged.put(None, timeout=0.1)
             except queue.Full:
                 continue
-        self._runner.join(timeout=30.0)
+        join_deadline = time.monotonic() + 30.0
+        for r in self._runners:
+            if r.ident is not None:
+                r.join(timeout=max(0.0, join_deadline - time.monotonic()))
         self._fail_leftovers()
 
     def _fail_leftovers(self) -> None:

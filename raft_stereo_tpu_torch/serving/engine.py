@@ -108,6 +108,12 @@ class AnytimeEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def on_device(self):
+        """The engine's card as the calling thread's current device (the
+        kernels launch on the current device; a fleet replica's run or
+        respawn thread is not the one that built the engine)."""
+        return torch.cuda.device(self.device) if self.device.type == "cuda" else contextlib.nullcontext()
+
     # -- boot --------------------------------------------------------------
     @torch.inference_mode()
     def warm(self) -> Dict[str, object]:
@@ -115,6 +121,10 @@ class AnytimeEngine:
         and finalize for every (bucket, batch); the faster chunk's wall
         time is that combo's estimate (the deadline check's, and the
         batcher's choice of batch size)."""
+        with self.on_device():
+            return self._warm()
+
+    def _warm(self) -> Dict[str, object]:
         cfg = self.config
         f = cfg.model.downsample_factor
         t_start = time.monotonic()
@@ -182,6 +192,10 @@ class AnytimeEngine:
     def run_staged(self, staged) -> List[BatchResult]:
         """Run one staged batch: the runner thread's entry point. Fault
         hooks patched over `run_batch` keep working."""
+        with self.on_device():
+            return self._run_staged(staged)
+
+    def _run_staged(self, staged) -> List[BatchResult]:
         ready = getattr(staged, "ready", None)
         if ready is not None:
             stream = torch.cuda.current_stream(self.device)

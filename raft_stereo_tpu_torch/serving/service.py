@@ -34,6 +34,13 @@ refining from a wrong prior. Frames of one stream are submitted in order,
 each after the previous frame's future resolves; distinct streams are
 independent, and the batcher may mix warm and cold rows in one batch.
 
+With `ServeConfig.replicas` > 1 the engine is an `EngineFleet`
+(serving/fleet.py) behind the same batcher: one engine per device (one per
+card by default, or the `devices` given, which may repeat a device), a
+breaker per replica aggregated into the service's state, failover requeue,
+and a rolling POST /reload. /healthz then carries every replica's state.
+`replicas=1` is the single engine, unchanged.
+
 The service never moves work to the CPU: on "cuda" every batch runs the
 model's kernels on the card, and a batch whose kernel fails to build or
 launch fails with the error and counts against the breaker.
@@ -53,9 +60,10 @@ import time
 import urllib.parse
 from concurrent.futures import Future
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from raft_stereo_tpu_torch.config import ServeConfig
 from raft_stereo_tpu_torch.models.raft_stereo import RAFTStereo
@@ -71,6 +79,7 @@ from raft_stereo_tpu_torch.serving.lifecycle import (
     ServiceUnavailableError,
     ServingLifecycle,
 )
+from raft_stereo_tpu_torch.utils.http import json_response, text_response
 from raft_stereo_tpu_torch.utils.padding import InputPadder
 from raft_stereo_tpu_torch.utils.run_report import build_run_report
 from raft_stereo_tpu_torch.video.session import flow_warp_error, should_reset
@@ -96,23 +105,36 @@ class _StreamEntry:
 class StereoService:
     """`model` is a `RAFTStereo` on `device`; None builds one from
     `config.restore_ckpt` (the reference's .pth) or, without one, with
-    seeded random weights."""
+    seeded random weights. A fleet (`config.replicas` > 1) copies the
+    model onto `devices`, one per replica; None is one card each, and on a
+    device other than a card the list must be given."""
 
     def __init__(self, config: ServeConfig, model: Optional[RAFTStereo] = None,
-                 device="cuda", seed: int = 0):
+                 device="cuda", seed: int = 0, devices: Optional[Sequence] = None):
         self.config = config
+        fleet = config.replicas > 1
         if model is None and config.restore_ckpt:
             from raft_stereo_tpu_torch.models.init import build_model
             from raft_stereo_tpu_torch.utils.checkpoints import load_reference_checkpoint
 
             model = load_reference_checkpoint(build_model(config.model, seed=seed, device="cpu"),
-                                              config.restore_ckpt).to(device)
-        self.lifecycle = ServingLifecycle(
-            degrade_after=config.breaker_degrade_after,
-            fail_after=config.breaker_fail_after,
-            probation=config.breaker_probation,
-        )
-        self.engine = AnytimeEngine(config, model, device=device, seed=seed, lifecycle=self.lifecycle)
+                                              config.restore_ckpt)
+            if not fleet:
+                model = model.to(device)
+        if fleet:
+            from raft_stereo_tpu_torch.serving.fleet import EngineFleet
+
+            if devices is None and torch.device(device).type != "cuda":
+                raise ValueError(f"replicas={config.replicas} on {device!r}: pass the devices list")
+            self.engine = EngineFleet(config, model, devices=devices, seed=seed)
+            self.lifecycle = self.engine.lifecycle
+        else:
+            self.lifecycle = ServingLifecycle(
+                degrade_after=config.breaker_degrade_after,
+                fail_after=config.breaker_fail_after,
+                probation=config.breaker_probation,
+            )
+            self.engine = AnytimeEngine(config, model, device=device, seed=seed, lifecycle=self.lifecycle)
         self.batcher = MicroBatcher(config, self.engine, lifecycle=self.lifecycle)
         self.warm_summary: Optional[Dict[str, object]] = None
         self._started = False
@@ -135,6 +157,9 @@ class StereoService:
         self.batcher.registry = self.registry
         self.batcher.memory_sampler = self._sample_memory
         self.lifecycle.on_transition = self._on_breaker_transition
+        # A fleet's replica breakers dump the same recorder.
+        for replica_lc in getattr(self.engine, "replica_lifecycles", lambda: [])():
+            replica_lc.on_transition = self._on_breaker_transition
 
     # -- observability plumbing -------------------------------------------
     def _on_breaker_transition(self, frm: str, to: str, reason: str) -> None:
@@ -182,7 +207,8 @@ class StereoService:
 
     def reload_checkpoint(self, path: str) -> Dict[str, object]:
         """Hot-swap the served weights from the reference's .pth on disk
-        (the POST /reload handler). A candidate whose keys or shapes do not
+        (the POST /reload handler); a fleet rolls it one replica at a time,
+        and a refusal anywhere rolls the swapped replicas back. A candidate whose keys or shapes do not
         fit the served model, and an orbax directory of the JAX package,
         raise CheckpointMismatchError (409) before anything is touched."""
         from raft_stereo_tpu_torch.utils.checkpoints import (
@@ -437,7 +463,7 @@ class StereoService:
             "entries": 0,
             "evictions": 0,
             "compiles_total": 0,
-            "respawns_total": 0,
+            "respawns_total": int(getattr(self.engine, "respawns_total", 0)),
         }
 
     # ServingMetrics counters mirrored into prom at render time (the
@@ -519,24 +545,6 @@ class StereoService:
         return report
 
 
-def _json_response(handler: BaseHTTPRequestHandler, code: int, payload) -> None:
-    body = json.dumps(payload).encode()
-    handler.send_response(code)
-    handler.send_header("Content-Type", "application/json")
-    handler.send_header("Content-Length", str(len(body)))
-    handler.end_headers()
-    handler.wfile.write(body)
-
-
-def _text_response(handler: BaseHTTPRequestHandler, code: int, body: str, content_type: str) -> None:
-    raw = body.encode("utf-8")
-    handler.send_response(code)
-    handler.send_header("Content-Type", content_type)
-    handler.send_header("Content-Length", str(len(raw)))
-    handler.end_headers()
-    handler.wfile.write(raw)
-
-
 def make_http_server(service: StereoService, host: str = "127.0.0.1", port: int = 0,
                      handler_timeout_s: float = 30.0) -> ThreadingHTTPServer:
     """Bind (but don't run) the HTTP front; port 0 picks an ephemeral port
@@ -557,24 +565,24 @@ def make_http_server(service: StereoService, host: str = "127.0.0.1", port: int 
                 length = int(self.headers.get("Content-Length", "0"))
                 return self.rfile.read(length) if length else b""
             except (socket.timeout, TimeoutError):
-                _json_response(self, 408, {"error": "request body read timed out"})
+                json_response(self, 408, {"error": "request body read timed out"})
                 self.close_connection = True
                 return None
 
         def do_GET(self):
             parsed = urllib.parse.urlparse(self.path)
             if parsed.path == "/healthz":
-                _json_response(self, 200, service.healthz())
+                json_response(self, 200, service.healthz())
             elif parsed.path == "/metrics":
                 fmt = urllib.parse.parse_qs(parsed.query).get("format", ["json"])[0]
                 if fmt == "prom":
-                    _text_response(self, 200, service.render_prom(), PROM_CONTENT_TYPE)
+                    text_response(self, 200, service.render_prom(), PROM_CONTENT_TYPE)
                 elif fmt == "json":
-                    _json_response(self, 200, service.metrics())
+                    json_response(self, 200, service.metrics())
                 else:
-                    _json_response(self, 400, {"error": f"unknown metrics format {fmt!r}"})
+                    json_response(self, 400, {"error": f"unknown metrics format {fmt!r}"})
             else:
-                _json_response(self, 404, {"error": f"no route {self.path}"})
+                json_response(self, 404, {"error": f"no route {self.path}"})
 
         def do_POST(self):
             raw = self._read_body_or_408()
@@ -585,33 +593,33 @@ def make_http_server(service: StereoService, host: str = "127.0.0.1", port: int 
                     body = json.loads(raw) if raw else {}
                     ckpt = body["checkpoint"]
                 except (KeyError, ValueError, TypeError) as exc:
-                    _json_response(self, 400, {"error": f"bad request: {exc!r}"})
+                    json_response(self, 400, {"error": f"bad request: {exc!r}"})
                     return
                 try:
                     out = service.reload_checkpoint(ckpt)
                 except CheckpointMismatchError as exc:
                     # Refused; the old weights keep serving. 409: the
                     # conflict is with server state, not request syntax.
-                    _json_response(self, 409, {"error": str(exc)})
+                    json_response(self, 409, {"error": str(exc)})
                     return
                 except (OSError, ValueError) as exc:
-                    _json_response(self, 400, {"error": repr(exc)})
+                    json_response(self, 400, {"error": repr(exc)})
                     return
                 except Exception as exc:
                     logger.exception("reload failed")
-                    _json_response(self, 500, {"error": repr(exc)})
+                    json_response(self, 500, {"error": repr(exc)})
                     return
-                _json_response(self, 200, out)
+                json_response(self, 200, out)
                 return
             if self.path != "/v1/predict":
-                _json_response(self, 404, {"error": f"no route {self.path}"})
+                json_response(self, 404, {"error": f"no route {self.path}"})
                 return
             try:
                 body = json.loads(raw)
                 i1 = np.asarray(body["image1"], np.float32)
                 i2 = np.asarray(body["image2"], np.float32)
             except (KeyError, ValueError, TypeError) as exc:
-                _json_response(self, 400, {"error": f"bad request: {exc!r}"})
+                json_response(self, 400, {"error": f"bad request: {exc!r}"})
                 return
             try:
                 if body.get("stream_id") is not None:
@@ -622,25 +630,25 @@ def make_http_server(service: StereoService, host: str = "127.0.0.1", port: int 
                                          max_iters=body.get("max_iters"))
                 out = fut.result()
             except BucketOverflowError as exc:
-                _json_response(self, 413, {"error": str(exc)})
+                json_response(self, 413, {"error": str(exc)})
                 return
             except ServiceUnavailableError as exc:
                 # Shed (draining/failed/deadline-infeasible): the service
                 # state, not the request, is at fault — 503, never 413.
-                _json_response(self, 503, {"error": str(exc), "state": service.lifecycle.state})
+                json_response(self, 503, {"error": str(exc), "state": service.lifecycle.state})
                 return
             except RuntimeError as exc:
                 # stream_id against a service without ServeConfig.video
-                _json_response(self, 400, {"error": str(exc)})
+                json_response(self, 400, {"error": str(exc)})
                 return
             except Exception as exc:
                 logger.exception("predict failed")
-                _json_response(self, 500, {"error": repr(exc)})
+                json_response(self, 500, {"error": repr(exc)})
                 return
             out = dict(out, disparity=out["disparity"].tolist())
             # Which weight generation answered.
             out["swap_generation"] = service.engine.swap_generation
-            _json_response(self, 200, out)
+            json_response(self, 200, out)
 
     return ThreadingHTTPServer((host, port), Handler)
 

@@ -82,6 +82,15 @@ def resize_bilinear_align_corners(x: torch.Tensor, out_h: int, out_w: int) -> to
     return x
 
 
+def upsample_bilinear_scaled(field: torch.Tensor, factor: int) -> torch.Tensor:
+    """Bilinear `factor`-x upsample (align corners) that also scales the
+    values by `factor`, NCHW (B, C, h, w) -> (B, C, h * factor, w *
+    factor): the JAX package's generalization of the reference's `upflow8`
+    to any downsample factor."""
+    h, w = field.shape[-2:]
+    return factor * resize_bilinear_align_corners(field, h * factor, w * factor)
+
+
 def avg_pool2x(x: torch.Tensor) -> torch.Tensor:
     """3x3 stride-2 average pool, zero padding 1, divisor always 9, NCHW."""
     return F.avg_pool2d(x, 3, stride=2, padding=1, count_include_pad=True)

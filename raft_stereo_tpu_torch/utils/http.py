@@ -1,7 +1,10 @@
 """Shared stdlib HTTP client, a copy of `request` and `request_json` from
 `raft_stereo_tpu/utils/http.py`: one timeout discipline for the
-`serve --reload_ckpt` client, the serving tests and `chip_smoke.py`'s
-HTTP phases.
+`serve --reload_ckpt` and `frontier --rollout` clients, the front tier's
+forwards and probes, the serving tests and `chip_smoke.py`'s HTTP phases.
+With the two server-side helpers the serving front and the front tier
+share (`json_response`, `text_response`), torch-free, so the front tier
+imports no model code.
 
 - every request carries an explicit timeout (urllib's default is NONE —
   a stalled server would hang the caller forever);
@@ -21,6 +24,7 @@ from __future__ import annotations
 import json as _json
 import urllib.error
 import urllib.request
+from http.server import BaseHTTPRequestHandler
 from typing import Dict, Optional
 
 DEFAULT_TIMEOUT_S = 10.0
@@ -95,9 +99,31 @@ def request_json(
     )
 
 
+def json_response(handler: BaseHTTPRequestHandler, code: int, payload) -> None:
+    """Answer a request with `payload` as JSON."""
+    body = _json.dumps(payload).encode()
+    handler.send_response(code)
+    handler.send_header("Content-Type", "application/json")
+    handler.send_header("Content-Length", str(len(body)))
+    handler.end_headers()
+    handler.wfile.write(body)
+
+
+def text_response(handler: BaseHTTPRequestHandler, code: int, body: str, content_type: str) -> None:
+    """Answer a request with `body` as UTF-8 text of `content_type`."""
+    raw = body.encode("utf-8")
+    handler.send_response(code)
+    handler.send_header("Content-Type", content_type)
+    handler.send_header("Content-Length", str(len(raw)))
+    handler.end_headers()
+    handler.wfile.write(raw)
+
+
 __all__ = [
     "DEFAULT_TIMEOUT_S",
     "HttpResponse",
+    "json_response",
     "request",
     "request_json",
+    "text_response",
 ]

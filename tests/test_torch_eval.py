@@ -209,9 +209,15 @@ def test_cli_dry_run_on_cpu():
 
 
 @pytest.mark.parametrize("flags", [["--corr_implementation", "alt"], ["--corr_implementation", "alt_cuda"]])
-def test_cli_unported_flags_raise(flags):
-    with pytest.raises(ValueError, match="not ported yet"):
-        cli.main(["evaluate", "--dataset", "eth3d", "--dry_run", "--device", "cpu", *flags])
+def test_cli_unported_flags_raise(flags, capsys):
+    """`alt` and `alt_cuda` raised "not ported yet" before their slice; now
+    both map to the port's "alt" strategy and run the dry-run evaluate
+    path to its validation line."""
+    assert cli._model_config(cli._train_parser().parse_args(flags)).corr_implementation == "alt"
+    argv = ["evaluate", "--dataset", "eth3d", "--dry_run", "--device", "cpu", "--valid_iters", "2",
+            "--hidden_dims", "16", "16", "16", *flags]
+    assert cli.main(argv) == 0
+    assert "Validation ETH3D: EPE" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("flags", [["--mixed_precision", "--fused_gru_tail"],
@@ -233,9 +239,11 @@ def test_cli_formerly_unported_flags_run(flags, capsys):
 
 @pytest.mark.parametrize("command", ["train", "demo", "serve", "frontier", "bogus"])
 def test_cli_other_subcommands_exit_2(command, capsys):
-    """`frontier` is not ported and exits 2; `train`, `demo` and `serve`
-    are, and their flags that are not (the mesh, the fleet's `--replicas`)
-    exit 2, as does a usage error (demo without its required paths)."""
+    """Every subcommand is ported; each exits 2 on what it cannot run: a
+    flag the port does not have (train's mesh), a fleet larger than the
+    visible cards (serve's `--replicas` with no card here), a usage error
+    (demo without its required paths, frontier without backends), or an
+    unknown subcommand."""
     argv = {"serve": ["serve", "--replicas", "2"], "train": ["train", "--mesh_shape", "2", "1"],
             "demo": ["demo"]}.get(command, [command])
     try:
@@ -244,10 +252,11 @@ def test_cli_other_subcommands_exit_2(command, capsys):
         code = e.code
     assert code == 2
     err = capsys.readouterr().err
-    if command == "demo":
-        assert "the following arguments are required: --restore_ckpt, --root_dataset" in err
-    else:
-        assert "not yet ported" in err or "not ported yet" in err or command == "bogus"
+    want = {"demo": "the following arguments are required: --restore_ckpt, --root_dataset",
+            "frontier": "--backends is required (except with --rollout)",
+            "serve": "--replicas 2 exceeds the 0 visible card(s)",
+            "train": "not ported yet", "bogus": "usage: python -m raft_stereo_tpu_torch"}[command]
+    assert want in err
 
 
 def test_convert_state_dict_matches_jax(weights):

@@ -5,6 +5,10 @@
   kernels in interpret mode), with that plus `fused_encoder`, and with the
   plain `reg` one: 3 iterations at 48x64, rtol = atol = 1e-4 (precedent
   tests/test_model.py).
+- ROADMAP A2's architecture options (one or two GRU levels, n_downsample
+  3, the 5-channel "All Gated" modality with "alt", slow_fast_gru, 2 levels
+  at radius 2, the realtime combination) against JAX on their own inits:
+  48x64, 3 iterations, 1e-4.
 - prelude + k chunks + finalize against a direct forward in the port, in the
   kernel and the fused-encoder configurations: exact.
 - `AnytimeEngine.run_batch` and `StereoService.submit` on the CPU against
@@ -82,6 +86,41 @@ def test_forward_matches_jax(weights, images, flags):
         got_lo, got_up = port_model(weights, **flags)(*map(torch.from_numpy, images), iters=ITERS, test_mode=True)
     assert got_lo.shape == (1, H // 4, W // 4) and got_up.shape == (1, H, W, 1)
     assert np.abs(want_up).max() > 1.0  # the flows moved: the comparison has teeth
+    np.testing.assert_allclose(got_lo.numpy(), want_lo, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got_up.numpy(), want_up, rtol=1e-4, atol=1e-4)
+
+
+# ROADMAP A2's architecture options, each on its own perturbed JAX init
+# (the options change the parameter tree), conv kernels halved as in
+# `weights`.
+ARCH_OPTIONS = {
+    "n_gru_layers=1": {"n_gru_layers": 1},
+    "n_gru_layers=2": {"n_gru_layers": 2},
+    "n_downsample=3": {"n_downsample": 3},
+    "all_gated+alt": {"data_modality": "All Gated", "corr_implementation": "alt"},
+    "slow_fast_gru": {"slow_fast_gru": True},
+    "levels=2,radius=2": {"corr_levels": 2, "corr_radius": 2},
+    "realtime": {"shared_backbone": True, "n_downsample": 3, "n_gru_layers": 2, "slow_fast_gru": True},
+}
+
+
+@pytest.mark.parametrize("option", sorted(ARCH_OPTIONS))
+def test_architecture_options_match_jax(option):
+    flags = ARCH_OPTIONS[option]
+    jcfg = JaxConfig(hidden_dims=HID, **flags)
+    rng = np.random.default_rng(29)
+    left = rng.uniform(0, 255, (1, H, W + 6, jcfg.in_channels)).astype(np.float32)
+    i1, i2 = left[:, :, 6:], left[:, :, :W]
+    img = jnp.zeros((1, H, W, jcfg.in_channels))
+    v = jax_init(JaxRAFTStereo(jcfg), img, img, iters=1)
+    v = {"params": _halve_kernels(v["params"]), "batch_stats": v["batch_stats"]}
+    want_lo, want_up = jax_apply(JaxRAFTStereo(jcfg), v, i1, i2, iters=ITERS, test_mode=True)
+    with torch.inference_mode():
+        got_lo, got_up = port_model(v, **flags)(torch.from_numpy(i1), torch.from_numpy(i2), iters=ITERS,
+                                                test_mode=True)
+    f = 2 ** jcfg.n_downsample
+    assert got_lo.shape == (1, H // f, W // f) and got_up.shape == (1, H, W, 1)
+    assert np.abs(want_up).max() > 0.5  # the flows moved: the comparison has teeth
     np.testing.assert_allclose(got_lo.numpy(), want_lo, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(got_up.numpy(), want_up, rtol=1e-4, atol=1e-4)
 

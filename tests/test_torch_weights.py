@@ -128,7 +128,8 @@ def test_port_imports_no_jax():
         "          'serving.lifecycle', 'video.session', 'obs.trace', 'obs.prom', 'obs.memory',\n"
         "          'utils.run_report', 'utils.http', 'utils.resilience', 'utils.retry', 'utils.metrics',\n"
         "          'utils.profiling', 'utils.checkpoints', 'data.native_io', 'data.png', 'data.frame_io',\n"
-        "          'data.augment', 'data.datasets', 'data.loader', 'data.prefetch', 'data.trees', 'demo'):\n"
+        "          'data.augment', 'data.datasets', 'data.loader', 'data.prefetch', 'data.trees', 'demo',\n"
+        "          'serving.fleet', 'serving.frontier', 'serving.engine', 'models.raft_stereo', 'ops.corr'):\n"
         "    assert 'raft_stereo_tpu_torch.' + m in walked, m\n"
         "print('ok', len(walked))\n"
     )
@@ -137,6 +138,26 @@ def test_port_imports_no_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_frontier_imports_neither_torch_nor_jax():
+    """The front tier holds no model: importing it, and the `frontier`
+    subcommand's parser path, in a fresh interpreter loads neither torch
+    nor JAX (a frontier process boots in milliseconds)."""
+    code = (
+        "import sys\n"
+        "import raft_stereo_tpu_torch.serving.frontier\n"
+        "from raft_stereo_tpu_torch import cli\n"
+        "assert cli.main(['frontier', '--rollout', 'x.pth', '--port', '1']) == cli.EXIT_ADMIN_UNREACHABLE\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('torch', 'jax', 'raft_stereo_tpu', 'numpy'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
 
 
 def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):
