@@ -3007,6 +3007,9 @@ def phase_timing(gen, errs, counts) -> list:
             f"{plan.blocks} blocks); torch.matmul of the volume alone {lib_ms:.4f} ms = "
             f"{2 * b * h * w * w * d / (lib_ms * 1e-3) / 1e12:.1f} TFLOP/s")
         if label == "512x768":
+            dev = kernel_ms(lambda: corr_cuda.fused_pyramid_state(f1, f2, 4), ("corr_pyramid",), flush)
+            log(f"[timing] corr_pyramid {label}: the kernel alone on the device (profiler) {alone_text(dev)} ms, "
+                f"{share_text(bound, dev)} of the bound")
             entry("corr_pyramid", ms, plain_ms, nbytes, flops, lib_ms)
         else:
             log(f"[timing] corr_pyramid {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -3322,17 +3325,19 @@ def cli_env() -> dict:
 
 class CliRun:
     """One command-line process in its own process group, its output in
-    files under `workdir`; `kill()` ends the whole group."""
+    files under `workdir`; `kill()` ends the whole group. `launcher` is
+    what runs the package's command line (torchrun's module, or a rank
+    that joins its process group first), `env` replaces `cli_env()`."""
 
-    def __init__(self, workdir: str, tag: str, argv):
+    def __init__(self, workdir: str, tag: str, argv, launcher=("-m", "raft_stereo_tpu_torch"), env=None):
         self.tag = tag
         self.out_path = os.path.join(workdir, f"{tag}.out")
         self.err_path = os.path.join(workdir, f"{tag}.err")
-        self.argv = [sys.executable, "-m", "raft_stereo_tpu_torch", *argv]
+        self.argv = [sys.executable, *launcher, *argv]
         self.t0 = time.time()
         with open(self.out_path, "w") as out, open(self.err_path, "w") as err:
-            self.proc = subprocess.Popen(self.argv, cwd=workdir, env=cli_env(), stdout=out, stderr=err, text=True,
-                                         start_new_session=True)
+            self.proc = subprocess.Popen(self.argv, cwd=workdir, env=env or cli_env(), stdout=out, stderr=err,
+                                         text=True, start_new_session=True)
 
     def err(self) -> str:
         with open(self.err_path) as f:
@@ -3374,10 +3379,11 @@ def read_json(path: str) -> dict:
         return json.load(f)
 
 
-def train_numbers(run: CliRun, workdir: str, tag: str) -> dict:
+def train_numbers(run: CliRun, workdir: str, tag: str, phase: str = "train-cli") -> dict:
     """s/step (median after the warm step), data wait per step and
-    checkpoint save s from the run's flight recorder; boot to the first
-    step from its log; peak memory and the PNG decoder from its log."""
+    checkpoint save s from the run's flight recorder (rank 0's); boot to
+    the first step from its log; peak memory and the PNG decoder from its
+    log."""
     recorder = read_json(os.path.join(workdir, "runs", "flight_recorder.json"))
     spans = [r for r in recorder["records"] if r.get("kind") == "span"]
     steps = [r["ms"] / 1e3 for r in spans if r["name"] == "step"]
@@ -3397,7 +3403,7 @@ def train_numbers(run: CliRun, workdir: str, tag: str) -> dict:
         "peak_reserved_bytes": int(peak.group(2)) if peak else None,
         "png_decoder": png.group(1).strip() if png else None,
     }
-    log(f"[train-cli] {tag} numbers: {json.dumps(nums)}")
+    log(f"[{phase}] {tag} numbers: {json.dumps(nums)}")
     return nums
 
 
@@ -3479,8 +3485,8 @@ def phase_train_cli(card: str) -> dict:
 
         prefetch_check(workdir)
 
-        def start(tag, argv):
-            run = CliRun(workdir, tag, argv)
+        def start(tag, argv, **kw):
+            run = CliRun(workdir, tag, argv, **kw)
             runs.append(run)
             return run
 
@@ -3599,12 +3605,223 @@ def phase_train_cli(card: str) -> dict:
         if dm_counts != want_demo:
             dm.fail(f"launches {dm_counts} != expected {want_demo}")
         log(f"[train-cli] {card}: {json.dumps(numbers)}")
+        phase_parallel(card, workdir, control_steps, start)
         return {"control": counts, "evaluate": ev_counts, "demo": dm_counts}
     finally:
         for run in runs:
             if run.proc.poll() is None:
                 run.kill()
         shutil.rmtree(workdir, ignore_errors=True)
+
+
+# -- the fifteenth slice: training across processes and cards -------------------
+
+# [parallel]: `train` in [train-cli]'s configuration and on its dataset,
+# launched as ranks: torchrun with one rank (NCCL) under dp, then under fsdp
+# with the async commit and the /metrics sidecar, stopped by SIGTERM and
+# resumed under dp; and two ranks sharing the one card over gloo (NCCL
+# refuses two ranks on one device), each on 2 rows of the host's batch of 4,
+# one of them stopped by SIGTERM. Every run keeps the control's
+# --num_steps (the one-cycle schedule is drawn over it), so its steps are
+# comparable to the control's.
+PARALLEL_PREEMPT_AFTER = 4
+# Two ranks of 2 rows against the control's batch of 4: the batch's
+# composition moves cuDNN's choices and the bf16 sums' order; the mixed
+# training step's tolerance (MIXED_TRAIN_GRAD_TOL).
+PARALLEL_TWO_RANK_RTOL = 2.5e-2
+TORCHRUN_ONE_RANK = ("-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+                     "-m", "raft_stereo_tpu_torch")
+GLOO_RANK = ("-c", "import sys; from raft_stereo_tpu_torch.parallel import init_multihost; "
+             "init_multihost(backend='gloo'); from raft_stereo_tpu_torch import cli; sys.exit(cli.main(sys.argv[1:]))")
+
+
+def parallel_report(run: CliRun, workdir: str, name: str = "run_report.json") -> dict:
+    from raft_stereo_tpu_torch.utils.run_report import validate_run_report
+
+    report = read_json(os.path.join(workdir, "runs", name))
+    problems = validate_run_report(report)
+    if problems:
+        run.fail(f"{name} invalid: {problems}")
+    return report
+
+
+def parallel_wait(run: CliRun) -> int:
+    try:
+        return run.wait()
+    except subprocess.TimeoutExpired:
+        run.fail(f"no exit within {TRAIN_CLI_TIMEOUT_S} s")
+
+
+def parallel_check(run: CliRun, control_steps: dict, first: int, last: int, rtol: float) -> tuple:
+    """The step losses first..last against the control's, and the lookup
+    and scatter kernels launched once an iteration of every step taken
+    (and the lookup of every validation iteration, when the run reached
+    the control's validation step)."""
+    got = run.steps()
+    if sorted(got) != list(range(first, last + 1)):
+        run.fail(f"step lines {sorted(got)}, expected {first}-{last}")
+    gap = max(abs(got[n][1] - control_steps[n][1]) / abs(control_steps[n][1]) for n in got)
+    if not gap <= rtol:
+        run.fail(f"losses differ from the control's by {gap:.3e} relative (tol {rtol:g}): "
+                 f"{gap_text(run, control_steps)}")
+    taken = last - first + 1
+    validated = TRAIN_CLI_PAIRS[1] * TRAIN_CLI_VALID_ITERS if last == TRAIN_CLI_STEPS else 0
+    counts = run.launches()
+    if counts != expect(corr_lookup_bf16=MIXED_TRAIN_ITERS * taken + validated,
+                        corr_scatter_bf16=MIXED_TRAIN_ITERS * taken):
+        run.fail(f"launches {counts} for {taken} steps")
+    backend = re.findall(r"process group joined: .*backend (\w+)", run.err())
+    return gap, counts, backend
+
+
+def gap_text(run: CliRun, control_steps: dict) -> str:
+    got = run.steps()
+    return "{" + ", ".join(f"{n}: {abs(v - control_steps[n][1]) / abs(control_steps[n][1]):.2e}"
+                           for n, (_, v) in sorted(got.items())) + "}"
+
+
+def until_step(runs, watch: CliRun, step: int) -> int:
+    """Wait for `watch` to log `step`; every run must still be going."""
+    deadline = time.time() + TRAIN_CLI_TIMEOUT_S
+    while max(watch.steps(), default=0) < step:
+        for run in runs:
+            if run.proc.poll() is not None or time.time() > deadline:
+                run.fail(f"no step {step} (exit {run.proc.poll()})")
+        time.sleep(0.05)
+    return max(watch.steps())
+
+
+def phase_parallel(card: str, workdir: str, control_steps: dict, start) -> dict:
+    """`train` across ranks on [train-cli]'s tree against its control run
+    (TRAIN_CLI_STEPS steps): (a) torchrun, one rank, NCCL, dp, the whole
+    run: losses within TRAIN_CLI_LOSS_RTOL of the control's, the kernels
+    launched every step; (b) fsdp with the async commit every 2 steps and
+    the /metrics sidecar scraped while it runs, stopped by SIGTERM to
+    torchrun after PARALLEL_PREEMPT_AFTER steps (the rank's report:
+    preempted, its checkpoints committed), then rerun with `--auto_resume`
+    under dp to the end, beside `--explain_sharding` listing every
+    parameter; (c) two ranks on the one card over gloo, 2 rows each:
+    SIGTERM to rank 1 alone, both ranks stopped at one step with exit 13
+    and preempted reports, one checkpoint committed, losses within
+    PARALLEL_TWO_RANK_RTOL of the control's batch-4 steps. Any failure
+    fails the phase (no rank moves to the CPU)."""
+    numbers = {}
+    last = TRAIN_CLI_STEPS
+
+    # (a) dp, one rank, the control's whole run.
+    dp = start("parallel-dp", ["train", "--name", "par-dp", *TRAIN_CLI_FLAGS, "--sharding_rules", "dp"],
+               launcher=TORCHRUN_ONE_RANK)
+    if parallel_wait(dp) != 0:
+        dp.fail("exit non-zero")
+    report = parallel_report(dp, workdir)
+    gap, counts, backend = parallel_check(dp, control_steps, 1, last, TRAIN_CLI_LOSS_RTOL)
+    if report["final_step"] != last or report["process_count"] != 1:
+        dp.fail(f"report {report}")
+    check_committed(workdir, "par-dp", last, "parallel dp")
+    numbers["dp"] = train_numbers(dp, workdir, "dp, world 1", phase="parallel")
+    log(f"[parallel] (a) torchrun, 1 rank, backend {backend}, dp: exit 0, {last} steps, largest relative loss gap to "
+        f"the control {gap:.3e} (tol {TRAIN_CLI_LOSS_RTOL:g}), launches {counts}")
+
+    # (b) fsdp, one rank, async commit, /metrics; SIGTERM to torchrun.
+    port = free_port()
+    fs = start("parallel-fsdp", ["train", "--name", "par-fsdp", "--auto_resume", *TRAIN_CLI_FLAGS,
+                                 "--sharding_rules", "fsdp", "--async_checkpoint", "--checkpoint_every", "2",
+                                 "--metrics_port", str(port)], launcher=TORCHRUN_ONE_RANK)
+    scraped = []
+    while max(fs.steps(), default=0) < PARALLEL_PREEMPT_AFTER:
+        if fs.proc.poll() is not None:
+            fs.fail("exited before the signal")
+        try:
+            body = request(f"http://127.0.0.1:{port}/metrics", timeout_s=2).body.decode()
+            found = re.search(r"^raft_train_steps_total (\S+)$", body, re.M)
+            if found:
+                scraped.append(float(found.group(1)))
+        except (ConnectionError, OSError):
+            pass
+        time.sleep(0.1)
+    seen = max(fs.steps())
+    fs.signal_group(signal.SIGTERM)
+    code = parallel_wait(fs)
+    report = parallel_report(fs, workdir)
+    stop = report["final_step"]
+    spine = report["io_spine"]
+    if code == 0 or report["stop_cause"] != "preempted" or stop < seen or report["last_good_step"] != stop:
+        fs.fail(f"torchrun exit {code}, report {report}")
+    gap, counts, backend = parallel_check(fs, control_steps, 1, stop, TRAIN_CLI_LOSS_RTOL)
+    if not scraped or max(scraped) < 1 or not spine["async_checkpoint"] or spine["async_commits"] < 1:
+        fs.fail(f"/metrics step counts {scraped}, io_spine {spine}")
+    committed = ck_steps(workdir, "par-fsdp")
+    for n in committed:
+        check_committed(workdir, "par-fsdp", n, "parallel fsdp")
+    if committed[-1] != stop:
+        fs.fail(f"committed steps {committed}, stopped at {stop}")
+    numbers["fsdp"] = train_numbers(fs, workdir, "fsdp, world 1", phase="parallel")
+    log(f"[parallel] (b) torchrun, 1 rank, backend {backend}, fsdp, --async_checkpoint --checkpoint_every 2: SIGTERM "
+        f"to torchrun after step {seen}, torchrun exit {code}, the rank's report preempted at step {stop}; largest "
+        f"relative loss gap to the control {gap:.3e}, launches {counts}; /metrics scraped {len(scraped)} times "
+        f"during the run, step counter {sorted(set(scraped))}; {spine['async_commits']} async commits, longest "
+        f"{spine['max_commit_latency_s']:.3f} s; steps {committed} committed")
+
+    # (b) resumed under dp, beside the fsdp placement dump.
+    resume = start("parallel-resume", ["train", "--name", "par-fsdp", "--auto_resume", *TRAIN_CLI_FLAGS,
+                                       "--sharding_rules", "dp"], launcher=TORCHRUN_ONE_RANK)
+    explain = start("parallel-explain", ["train", "--explain_sharding", "--sharding_rules", "fsdp",
+                                         *TRAIN_CLI_FLAGS])
+    if parallel_wait(resume) != 0:
+        resume.fail("exit non-zero")
+    report = parallel_report(resume, workdir)
+    if report["resumed_from_step"] != stop or report["final_step"] != last or report["resume_count"] != 1:
+        resume.fail(f"report {report}")
+    gap, counts, _ = parallel_check(resume, control_steps, stop + 1, last, TRAIN_CLI_LOSS_RTOL)
+    if parallel_wait(explain) != 0:
+        explain.fail("exit non-zero")
+    with torch.device("meta"):
+        names = [n for n, _ in RAFTStereo(MIXED_TRAIN_CONFIG).named_parameters()]
+    missing = [n for n in names if not re.search(rf"^{re.escape(n)} ", explain.out(), re.M)]
+    if missing or "sharding preset: fsdp" not in explain.out():
+        explain.fail(f"parameters missing from the dump: {missing[:5]}")
+    log(f"[parallel] (b) --auto_resume under dp from the fsdp run's step {stop}: exit 0 at step {last}, "
+        f"relative loss gaps to the control per step {gap_text(resume, control_steps)} (tol "
+        f"{TRAIN_CLI_LOSS_RTOL:g}), launches {counts}; "
+        f"--explain_sharding: {len(names)} parameters, each listed")
+
+    # (c) two ranks on the one card over gloo; SIGTERM to rank 1.
+    port = free_port()
+    ranks = [start(f"parallel-rank{r}", ["train", "--name", "par-two", *TRAIN_CLI_FLAGS, "--sharding_rules", "dp"],
+                   launcher=GLOO_RANK,
+                   env=dict(cli_env(), RANK=str(r), WORLD_SIZE="2", LOCAL_RANK="0", LOCAL_WORLD_SIZE="2",
+                            MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)))
+             for r in range(2)]
+    seen = until_step(ranks, ranks[1], PARALLEL_PREEMPT_AFTER)
+    ranks[1].proc.send_signal(signal.SIGTERM)
+    t_sig = time.time()
+    codes = [parallel_wait(run) for run in ranks]
+    if codes != [13, 13]:
+        ranks[0].fail(f"exit codes {codes}; rank 1: {ranks[1].err()[-2000:]}")
+    reports = [parallel_report(run, workdir, name) for run, name in zip(ranks, ("run_report.json",
+                                                                                  "run_report.p1.json"))]
+    stop = reports[0]["final_step"]
+    if any(r["stop_cause"] != "preempted" or r["final_step"] != stop or r["last_good_step"] != stop or
+           r["process_count"] != 2 for r in reports) or stop < seen:
+        ranks[0].fail(f"reports {reports}")
+    step_dir = check_committed(workdir, "par-two", stop, "parallel two ranks")
+    if ck_steps(workdir, "par-two") != [stop] or not os.path.exists(os.path.join(step_dir, "run_state.p1.json")):
+        ranks[0].fail(f"checkpoints {ck_steps(workdir, 'par-two')}")
+    checks = [parallel_check(run, control_steps, 1, stop, PARALLEL_TWO_RANK_RTOL) for run in ranks]
+    numbers["two ranks"] = train_numbers(ranks[0], workdir, "dp, 2 ranks on one card", phase="parallel")
+    log(f"[parallel] (c) 2 ranks on one card over gloo, dp, 2 rows each: SIGTERM to rank 1 after its "
+        f"step {seen}; both exit 13 {time.time() - t_sig:.2f} s later at step {stop} (reports: "
+        f"{reports[0]['preempt_signal']}, {reports[1]['preempt_signal']}; {reports[0]['coord_syncs']} pod syncs), "
+        f"step {stop} committed with both ranks' run states; largest relative loss gap to the control's batch-4 "
+        f"steps {max(c[0] for c in checks):.3e} (tol {PARALLEL_TWO_RANK_RTOL:g}); launches per rank {checks[0][1]}")
+    log(f"[parallel] {card}: {json.dumps(numbers)}")
+    return numbers
+
+
+def ck_steps(workdir: str, name: str) -> list:
+    from raft_stereo_tpu_torch.utils import checkpoints as ck
+
+    return ck.list_checkpoint_steps(os.path.join(workdir, "checkpoints", name))
 
 
 # -- the fourteenth slice: the model options, the fleet, the front tier ---------

@@ -1,6 +1,7 @@
 """Command-line entry point of the port: counterpart of `raft_stereo_tpu/cli.py`.
 
     python -m raft_stereo_tpu_torch train --train_datasets sceneflow --root_dataset datasets --auto_resume
+    torchrun --standalone --nproc_per_node 8 -m raft_stereo_tpu_torch train --sharding_rules fsdp --batch_size 16
     python -m raft_stereo_tpu_torch evaluate --dataset middlebury_F --restore_ckpt raftstereo.pth
     python -m raft_stereo_tpu_torch evaluate --dataset eth3d --dry_run --device cpu
     python -m raft_stereo_tpu_torch demo --restore_ckpt checkpoints/raft-stereo/12/model.pth --root_dataset gated
@@ -22,11 +23,20 @@ CLI, `--corr_dtype` defaults to bfloat16 only for `reg_cuda` with
 checkpoints/<name>/<step>/ and writes metrics.jsonl, run_report.json and
 flight_recorder.json under runs/, and exits 0 completed, 1 error, 2 usage,
 13 preempted, 14 non-finite, 15 failure budget, 16 watchdog
-(utils/run_report.py). The JAX flags of what the port does not run yet exit
-2: `--mesh_shape` other than 1 1, `--sharding_rules` other than dp,
-`--coord_interval`, `--strict_mode`, `--recompile_grace` other than 2,
-`--async_checkpoint`, `--metrics_port` other than 0,
-`--compilation_cache_dir` and `--explain_sharding`.
+(utils/run_report.py). Launched by `torchrun` (or `python -m
+torch.distributed.run`), each process is one rank of a process group
+(parallel/distributed.py: NCCL on the cards, gloo on the CPU) and
+`--sharding_rules dp|fsdp` picks how the ranks share the model; `--batch_size`
+is one host's batch, split over the host's ranks, and each rank reads its
+own stride of the data. Rank k > 0 writes run_report.p<k>.json and
+flight_recorder.p<k>.json beside rank 0's files. `torchrun` turns any
+non-zero exit of a rank into its own failure code: read each rank's run
+report (or exit code, when the ranks are started directly) for `train`'s.
+`--explain_sharding` prints every parameter's placement and exits without
+training. The JAX flags of what the port does not run yet exit 2: a
+spatial mesh axis other than 1, `--sharding_rules spatial|dp+spatial`,
+`--strict_mode`, `--recompile_grace` other than 2 and
+`--compilation_cache_dir`.
 
 `serve` boots a `StereoService`, warms every (bucket, batch) and serves the
 HTTP front until SIGTERM or Ctrl-C, which drain the backlog and exit 0;
@@ -241,10 +251,14 @@ def _train_parser() -> argparse.ArgumentParser:
                    "integrity manifest verifies, walking past and quarantining torn steps, with the full run "
                    "state; with no checkpoints the run starts fresh, so rerunning the same command is always "
                    "the recovery")
+    p.add_argument("--checkpoint_every", type=int, default=500,
+                   help="checkpoint cadence in steps (the reference saves every 500)")
     p.add_argument("--max_to_keep", type=int, default=5, help="checkpoint retention: keep the newest N steps")
     p.add_argument("--keep_period", type=int, default=None,
                    help="additionally keep every checkpoint whose step is divisible by this")
-    p.add_argument("--batch_size", type=int, default=6)
+    p.add_argument("--batch_size", type=int, default=6,
+                   help="one host's batch, as in the JAX CLI (a JAX process is a whole host): split over the "
+                   "host's ranks (LOCAL_WORLD_SIZE), so the global batch is this times the number of hosts")
     p.add_argument("--train_datasets", nargs="+", default=["sceneflow"])
     p.add_argument("--root_dataset", default=None)
     p.add_argument("--lr", type=float, default=2e-4)
@@ -260,11 +274,15 @@ def _train_parser() -> argparse.ArgumentParser:
                    help="shape-bucket padding for in-training validation (multiple of 32; 0 = exact "
                    "reference padding)")
     p.add_argument("--wdecay", type=float, default=1e-5)
-    p.add_argument("--mesh_shape", type=int, nargs=2, default=[1, 1],
-                   help="not ported yet: one card (values other than 1 1 exit 2)")
+    p.add_argument("--mesh_shape", type=int, nargs=2, default=[-1, 1],
+                   help="(data, spatial) mesh over the ranks; -1 infers the data axis from the world size. The "
+                   "mesh must cover every rank; a spatial axis other than 1 is not ported yet (exits 2)")
     p.add_argument("--sharding_rules", choices=list(SHARDING_PRESETS), default="dp",
-                   help="not ported yet: values other than dp exit 2")
-    p.add_argument("--explain_sharding", action="store_true", help="not ported yet (exits 2)")
+                   help="dp: DistributedDataParallel; fsdp: FSDP2, conv weights and their AdamW moments sharded "
+                   "over the data axis; spatial and dp+spatial are not ported yet (exit 2)")
+    p.add_argument("--explain_sharding", action="store_true",
+                   help="print every parameter's placement decision under the preset and mesh, then exit "
+                   "without training")
     p.add_argument("--num_workers", type=int, default=int(os.environ.get("SLURM_CPUS_PER_TASK", 6)) - 2)
     p.add_argument("--worker_type", choices=["thread", "process"], default="thread",
                    help="'process' scales augmentation past the GIL on many-core hosts")
@@ -284,7 +302,9 @@ def _train_parser() -> argparse.ArgumentParser:
                    help="consecutive non-finite steps before skip escalates / rollback restores")
     p.add_argument("--nan_check_every", type=int, default=None,
                    help="host-side non-finite detection cadence in steps (default 1)")
-    p.add_argument("--coord_interval", type=int, default=None, help="not ported yet (exits 2)")
+    p.add_argument("--coord_interval", type=int, default=None,
+                   help="steps between the ranks' agreements on stop, abort, rollback and the failure budget "
+                   "(default: --nan_check_every)")
     p.add_argument("--step_timeout_s", type=float, default=0.0,
                    help="step watchdog: a step boundary stalled this long dumps all stacks, writes "
                    "run_report.json and exits 16 (0 disables)")
@@ -301,10 +321,13 @@ def _train_parser() -> argparse.ArgumentParser:
                    help="disable graceful SIGTERM/SIGINT preemption handling")
     p.add_argument("--strict_mode", action="store_true", help="not ported yet (exits 2)")
     p.add_argument("--recompile_grace", type=int, default=2, help="not ported yet: values other than 2 exit 2")
-    p.add_argument("--async_checkpoint", action="store_true", help="not ported yet (exits 2)")
+    p.add_argument("--async_checkpoint", action="store_true",
+                   help="write and commit checkpoints on a background thread (the snapshot stays on the step; "
+                   "one commit in flight)")
     p.add_argument("--device_prefetch", action="store_true",
                    help="copy batch N+1 to the card on a side stream while step N runs")
-    p.add_argument("--metrics_port", type=int, default=0, help="not ported yet: values other than 0 exit 2")
+    p.add_argument("--metrics_port", type=int, default=0,
+                   help="serve Prometheus /metrics of the training loop on this port (rank 0; 0 disables)")
     p.add_argument("--flight_recorder_events", type=int, default=256,
                    help="flight-recorder ring capacity (runs/flight_recorder.json on every exit; 0 disables)")
     p.add_argument("--compilation_cache_dir", default=None, metavar="DIR", help="not ported yet (exits 2)")
@@ -353,13 +376,15 @@ def run_training(trainer, loader, metrics_logger=None, validate_fn=None) -> int:
 
 
 def _unported_train_flags(args) -> List[str]:
-    given = {"mesh_shape": tuple(args.mesh_shape), "sharding_rules": args.sharding_rules,
-             "coord_interval": args.coord_interval, "strict_mode": args.strict_mode,
-             "recompile_grace": args.recompile_grace, "async_checkpoint": args.async_checkpoint,
-             "metrics_port": args.metrics_port, "compilation_cache_dir": args.compilation_cache_dir}
+    from raft_stereo_tpu_torch.parallel.sharding import NOT_PORTED_PRESETS
+
+    given = {"strict_mode": args.strict_mode, "recompile_grace": args.recompile_grace,
+             "compilation_cache_dir": args.compilation_cache_dir}
     bad = [f"--{k} {v}" for k, v in given.items() if v != UNPORTED_TRAIN_DEFAULTS[k]]
-    if args.explain_sharding:
-        bad.append("--explain_sharding")
+    if args.mesh_shape[1] != 1:
+        bad.insert(0, f"--mesh_shape {args.mesh_shape[0]} {args.mesh_shape[1]} (a spatial axis other than 1)")
+    if args.sharding_rules in NOT_PORTED_PRESETS:
+        bad.insert(0, f"--sharding_rules {args.sharding_rules}")
     return bad
 
 
@@ -381,9 +406,26 @@ def cmd_train(argv: List[str]) -> int:
         default_log_dir = TrainConfig.__dataclass_fields__["log_dir"].default
         rr.write_run_report(rr.build_run_report(stop_cause="error", final_step=-1, error=repr(e)), default_log_dir)
         return rr.EXIT_ERROR
-    code = _run_train(args, config)
-    _log_launches("train")
-    return code
+    from raft_stereo_tpu_torch.parallel import distributed
+
+    import torch
+
+    distributed.init_multihost(device=torch.device(args.device).type)
+    try:
+        if args.explain_sharding:
+            # Dry run: build the trainer and print every parameter's
+            # placement, touching no dataset and no checkpoint.
+            from raft_stereo_tpu_torch.train.trainer import Trainer
+
+            h, w = config.augment.crop_size
+            print(Trainer(config, sample_shape=(h, w, config.model.in_channels), device=args.device)
+                  .explain_sharding())
+            return 0
+        code = _run_train(args, config)
+        _log_launches("train")
+        return code
+    finally:
+        distributed.shutdown()
 
 
 def _train_config_from_args(args) -> TrainConfig:
@@ -408,6 +450,7 @@ def _train_config_from_args(args) -> TrainConfig:
         wdecay=args.wdecay,
         restore_ckpt=args.restore_ckpt,
         auto_resume=args.auto_resume,
+        checkpoint_every=args.checkpoint_every,
         max_to_keep=args.max_to_keep,
         keep_period=args.keep_period,
         root_dataset=args.root_dataset,
@@ -446,7 +489,8 @@ def _run_train(args, config: TrainConfig) -> int:
         from raft_stereo_tpu_torch.data import native_io
         from raft_stereo_tpu_torch.data.datasets import build_training_dataset
         from raft_stereo_tpu_torch.data.loader import DataLoader
-        from raft_stereo_tpu_torch.train.trainer import Trainer
+        from raft_stereo_tpu_torch.parallel.distributed import host_shard_args, topology
+        from raft_stereo_tpu_torch.train.trainer import Trainer, rank_batch_size
         from raft_stereo_tpu_torch.utils.metrics import MetricsLogger
 
         _cuda_flags(args.device)
@@ -455,7 +499,8 @@ def _run_train(args, config: TrainConfig) -> int:
         dataset = build_training_dataset(config, config.model.data_modality)
         loader = DataLoader(
             dataset,
-            config.batch_size,
+            rank_batch_size(config.batch_size, topology()["local_world_size"]),
+            **host_shard_args(),
             seed=config.seed,
             num_workers=config.num_workers,
             worker_type=config.worker_type,
@@ -478,7 +523,13 @@ def _run_train(args, config: TrainConfig) -> int:
         # A failure before the trainer exists (bad dataset path, checkpoint
         # mismatch) still leaves a run report for the orchestrator.
         log.exception("training setup failed")
-        rr.write_run_report(rr.build_run_report(stop_cause="error", final_step=-1, error=repr(e)), config.log_dir)
+        from raft_stereo_tpu_torch.parallel.distributed import process_topology
+        from raft_stereo_tpu_torch.train.trainer import rank_file
+
+        rank, count = process_topology()
+        rr.write_run_report(rr.build_run_report(stop_cause="error", final_step=-1, error=repr(e),
+                                                process_index=rank, process_count=count),
+                            config.log_dir, rank_file(rr.RUN_REPORT_NAME, rank))
         return rr.EXIT_ERROR
     try:
         return run_training(trainer, loader,

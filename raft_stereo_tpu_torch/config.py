@@ -643,8 +643,10 @@ class TrainConfig:
     restore_ckpt: Optional[str] = None
     root_dataset: Optional[str] = None
     log_every: int = 100
-    # (data, spatial) device mesh and the sharding rule preset: not ported
-    # (one card); the CLI refuses other values.
+    # (data, spatial) mesh over the ranks of a process group (-1 infers the
+    # data axis from the world size) and the sharding rule preset
+    # (parallel/sharding.py): dp and fsdp run; a spatial axis above 1 and
+    # the spatial presets are not ported yet.
     mesh_shape: Tuple[int, int] = (1, 1)
     sharding_rules: str = "dp"
     num_workers: int = 4
@@ -665,7 +667,8 @@ class TrainConfig:
     # Host-side detection cadence in steps; None resolves to 1 (the port's
     # step reads its loss and norm on the host every step anyway).
     nan_check_every: Optional[int] = None
-    # Multi-host coordination cadence: not ported (one process).
+    # Pod coordination cadence in steps across ranks
+    # (parallel/coordination.py); None resolves to nan_check_every.
     coord_interval: Optional[int] = None
     # Step watchdog: a step boundary that takes longer dumps every thread's
     # stack, writes run_report.json (stop_cause "watchdog") and exits 16.
@@ -689,14 +692,16 @@ class TrainConfig:
     recompile_grace: int = 2
 
     # --- training I/O spine ---
-    # Background checkpoint commit: not ported.
+    # Commit checkpoints on a background thread (train/io_spine.py): the
+    # snapshot stays on the step thread, at most one commit in flight.
     async_checkpoint: bool = False
     # Copy batch N+1 to the card on a side stream while step N runs
     # (data/prefetch.py).
     device_prefetch: bool = False
 
     # --- observability ---
-    # Prometheus sidecar of the training loop: not ported.
+    # Prometheus /metrics sidecar of the training loop on this port, rank 0
+    # only (obs/prom.py serve_registry); 0 disables.
     metrics_port: int = 0
     # Flight-recorder ring capacity (obs/trace.py): dumped as
     # <log_dir>/flight_recorder.json on every fit() exit path.
@@ -717,6 +722,8 @@ class TrainConfig:
             raise ValueError(f"coord_interval must be >= 1, got {self.coord_interval}")
         if self.step_timeout_s < 0:
             raise ValueError(f"step_timeout_s must be >= 0, got {self.step_timeout_s}")
+        if self.checkpoint_every < 1:
+            raise ValueError(f"checkpoint_every must be >= 1, got {self.checkpoint_every}")
         if self.max_to_keep < 1:
             raise ValueError(f"max_to_keep must be >= 1, got {self.max_to_keep}")
         if self.keep_period is not None and self.keep_period < 1:
@@ -736,16 +743,12 @@ class TrainConfig:
 
 
 # The fields the port's training loop does not act on yet, with the one
-# value it runs (the JAX default, or (1, 1) for the mesh): the `train`
-# command line refuses any other with exit 2.
+# value it runs (the JAX default): the `train` command line refuses any
+# other with exit 2. (A spatial mesh axis above 1 and the spatial presets
+# are refused beside them.)
 UNPORTED_TRAIN_DEFAULTS = {
-    "mesh_shape": (1, 1),
-    "sharding_rules": "dp",
-    "coord_interval": None,
     "strict_mode": False,
     "recompile_grace": 2,
-    "async_checkpoint": False,
-    "metrics_port": 0,
     "compilation_cache_dir": None,
 }
 
@@ -753,7 +756,10 @@ UNPORTED_TRAIN_DEFAULTS = {
 def finalize_train_config(config: TrainConfig) -> TrainConfig:
     """Resolve `nan_check_every` None to 1 (the JAX package resolves it per
     backend; the port's step already reads its loss on the host every
-    step). Idempotent."""
-    if config.nan_check_every is not None:
+    step) and `coord_interval` None to `nan_check_every`, as JAX does.
+    Idempotent."""
+    if config.nan_check_every is not None and config.coord_interval is not None:
         return config
-    return dataclasses.replace(config, nan_check_every=1)
+    nan_check = config.nan_check_every if config.nan_check_every is not None else 1
+    coord = config.coord_interval if config.coord_interval is not None else nan_check
+    return dataclasses.replace(config, nan_check_every=nan_check, coord_interval=coord)

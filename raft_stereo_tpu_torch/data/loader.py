@@ -173,6 +173,12 @@ def _collate(items) -> Dict[str, np.ndarray]:
 class DataLoader:
     """Iterable over shuffled, augmented, fixed-shape batches.
 
+    For multi-rank training pass (host_id, num_hosts) = (rank, world size):
+    each rank walks a disjoint stride of the global shuffled order, and
+    every sample's random draws stay keyed on (seed, epoch, index), so the
+    ranks' batches together are the samples, augmented the same way, of one
+    rank's batch of their total size.
+
     Process workers return payloads via POSIX shared memory. Graceful
     teardown (close(), GC, normal interpreter exit) sweeps undrained
     segments, but a SIGKILL of the consumer process can strand ~36 MB/item
@@ -194,6 +200,8 @@ class DataLoader:
         shuffle: bool = True,
         num_workers: int = 4,
         prefetch: int = 2,
+        host_id: int = 0,
+        num_hosts: int = 1,
         worker_type: str = "thread",
         sample_policy: str = "raise",
         sample_retries: int = 2,
@@ -204,12 +212,16 @@ class DataLoader:
             raise ValueError(f"worker_type must be 'thread' or 'process', got {worker_type!r}")
         if sample_policy not in SAMPLE_POLICIES:
             raise ValueError(f"sample_policy must be one of {SAMPLE_POLICIES}, got {sample_policy!r}")
+        if not 0 <= host_id < num_hosts:
+            raise ValueError(f"host_id {host_id} out of range for num_hosts {num_hosts}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.seed = seed
         self.shuffle = shuffle
         self.num_workers = max(1, num_workers)
         self.prefetch = max(1, prefetch)
+        self.host_id = host_id
+        self.num_hosts = num_hosts
         self.worker_type = worker_type
         # Per-sample failure policy (utils/resilience.py; README
         # "Operations"): "raise" aborts the epoch on a decode failure (the
@@ -243,23 +255,27 @@ class DataLoader:
         _LIVE_LOADERS.add(self)
 
     def __len__(self) -> int:
-        return len(self.dataset) // self.batch_size
+        per_host = len(self.dataset) // self.num_hosts
+        return per_host // self.batch_size
 
     def _epoch_indices(self, epoch: int) -> np.ndarray:
         order = np.arange(len(self.dataset))
         if self.shuffle:
             order = np.random.default_rng((self.seed, epoch)).permutation(order)
+        order = order[self.host_id :: self.num_hosts]
         if self.quarantine.indices:
             # Quarantined samples never re-enter the stream (their decode
             # fails deterministically), but they are substituted IN PLACE
             # rather than filtered out, so the epoch's batch count (and the
-            # stream of every later index) stays the JAX loader's.
+            # stream of every later index) stays the JAX loader's, and every
+            # rank keeps the same batch count: a rank with a shorter epoch
+            # would leave its peers waiting in a collective step.
             mask = np.isin(order, list(self.quarantine.indices))
             if mask.any():
                 healthy = order[~mask]
                 if len(healthy) == 0:
                     # Nothing decodable is left to fill a batch with.
-                    raise FailureBudgetExceeded("every sample of the dataset is quarantined")
+                    raise FailureBudgetExceeded("every sample in this rank's shard is quarantined")
                 sub = np.random.default_rng((self.seed, 0x51AB, epoch))
                 order = order.copy()
                 order[mask] = sub.choice(healthy, size=int(mask.sum()))
@@ -316,6 +332,17 @@ class DataLoader:
         q = state.get("quarantine")
         if q:
             self.quarantine.load_state_dict(q)
+
+    def set_global_budget_mode(self) -> None:
+        """Switch the failure budget from per-rank to pod-global
+        enforcement (called by the trainer when pod coordination is
+        active): the quarantine keeps counting and substituting but stops
+        raising on the local ratio; the trainer enforces the budget on the
+        all-reduced counts, so every rank aborts at the same step."""
+        if self.quarantine.enforce:
+            self.quarantine.enforce = False
+            logger.info("loader failure budget switched to pod-global enforcement (rank %d/%d)", self.host_id,
+                        self.num_hosts)
 
     def _make_item(self, epoch: int, index: int):
         rng = np.random.default_rng((self.seed, epoch, int(index)))
@@ -526,7 +553,9 @@ class DataLoader:
         epoch = self.epoch
         self.epoch += 1
         indices = self._epoch_indices(epoch)
-        n_batches = len(indices) // self.batch_size
+        # len(self): every rank walks the same number of batches even where
+        # the dataset does not split evenly over the ranks.
+        n_batches = len(self)
         if n_batches == 0:
             return
         # Restored mid-epoch cursor (load_state_dict): skip the batches the

@@ -1,6 +1,6 @@
 """Dependency-free Prometheus text-format (0.0.4) metrics registry: a
-copy of `raft_stereo_tpu/obs/prom.py` without its training sidecar
-(`serve_registry`; the port's trainer exports no metrics).
+copy of `raft_stereo_tpu/obs/prom.py`, with its training sidecar
+(`serve_registry`, behind `train --metrics_port`).
 
 The serving tier grows no dependency for a text format this small, so
 this module implements exactly the subset the exposition format requires:
@@ -233,3 +233,34 @@ class Registry:
         for metric in self.metrics():
             lines.extend(metric.render())
         return "\n".join(lines) + "\n"
+
+
+def serve_registry(registry: Registry, port: int, host: str = "127.0.0.1"):
+    """Start a stdlib HTTP sidecar exposing `registry` at GET /metrics: the
+    trainer's exporter behind `--metrics_port` (rank 0 only). Returns the
+    running ThreadingHTTPServer (its daemon thread started); callers read
+    `server.server_address` for the bound port, call `shutdown()` and
+    `server_close()` to stop it, then join `server._serve_thread`."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    class _Handler(BaseHTTPRequestHandler):
+        def do_GET(self):  # noqa: N802 (http.server API)
+            if self.path.split("?", 1)[0] != "/metrics":
+                self.send_error(404)
+                return
+            body = registry.render().encode("utf-8")
+            self.send_response(200)
+            self.send_header("Content-Type", PROM_CONTENT_TYPE)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, fmt, *args):  # quiet: scrapes are periodic
+            pass
+
+    server = ThreadingHTTPServer((host, port), _Handler)
+    server.daemon_threads = True
+    thread = threading.Thread(target=server.serve_forever, name="prom-exporter", daemon=True)
+    server._serve_thread = thread
+    thread.start()
+    return server

@@ -1,0 +1,393 @@
+"""Rule-driven sharding engine: the port's counterpart of
+`raft_stereo_tpu/parallel/sharding.py`.
+
+The rule machinery is the JAX module's: a table of ``(regex, P)`` pairs is
+matched against the name of every leaf of a tree (a Mapping, nested or
+flat: the port's `named_parameters()` names, OIHW weights, are flat keys),
+first match wins, scalars are never partitioned, an unmatched leaf is a
+hard error, and every table ends with the ``.*`` catch-all.
+
+The four preset names are the JAX package's, and `resolve_mesh_shape` is
+its, verbatim. How a preset runs is PyTorch's:
+
+- ``dp`` wraps the model in `DistributedDataParallel`: parameters whole on
+  every rank, gradients averaged across the data axis in the backward.
+- ``fsdp`` is FSDP2 (`fully_shard`) on the root module. Placement follows
+  the rule table and JAX's divide-evenly-or-replicate demotion
+  (`_fit_spec`): a conv weight whose C_out divides the data axis is
+  sharded on dim 0, and so are its AdamW moments (they mirror the
+  parameter, train/optimizer.py); biases, norm scales and non-dividing
+  weights (the C_out=1 flow head; the 126-channel motion conv on 4-way
+  meshes) stay whole on every rank. FSDP2 shards every parameter it owns,
+  so those are `ignored_params` and `reduce_replicated_grads` all-reduces
+  their gradients. The root owns every parameter, so the fused encoder and
+  the correlation's autograd function, which read weights directly, see
+  whole tensors inside the forward and the backward.
+- ``spatial`` and ``dp+spatial`` shard image rows over cards; they need a
+  halo exchange around every 3x3 conv and cross-rank instance-norm
+  statistics, and are not ported yet: the engine refuses them.
+
+Left out: the JAX module's HLO collective audit (`collective_counts`,
+`assert_no_collectives`), which reads XLA's compiled text; the port has
+no XLA program to read. Also left out: the activation-constraint scope,
+which only the spatial presets use.
+"""
+
+from __future__ import annotations
+
+import math
+import re
+from dataclasses import dataclass
+from typing import Any, Dict, Iterator, Mapping, Optional, Sequence, Tuple
+
+import torch
+
+from raft_stereo_tpu_torch.parallel.mesh import DATA_AXIS, SPATIAL_AXIS, Mesh, P
+
+Rule = Tuple[str, P]
+
+
+# ---------------------------------------------------------------------------
+# Rule matching
+# ---------------------------------------------------------------------------
+
+
+def _leaves(tree, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[str, Any]]:
+    """(name, leaf) in order: Mapping keys and sequence indices joined by
+    '/', as JAX joins a key path."""
+    if isinstance(tree, Mapping):
+        for k, v in tree.items():
+            yield from _leaves(v, prefix + (str(k),))
+    elif isinstance(tree, (list, tuple)) and not isinstance(tree, P):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, prefix + (str(i),))
+    else:
+        yield "/".join(prefix), tree
+
+
+def _map_tree(fn, tree, prefix: Tuple[str, ...] = ()):
+    if isinstance(tree, Mapping):
+        return {k: _map_tree(fn, v, prefix + (str(k),)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, P):
+        return type(tree)(_map_tree(fn, v, prefix + (str(i),)) for i, v in enumerate(tree))
+    return fn("/".join(prefix), tree)
+
+
+def _leaf_shape(leaf) -> Tuple[int, ...]:
+    """Shape of an array-ish leaf; python scalars count as shape ()."""
+    return tuple(getattr(leaf, "shape", ()))
+
+
+def _is_scalar(leaf) -> bool:
+    shape = _leaf_shape(leaf)
+    return len(shape) == 0 or math.prod(shape) == 1
+
+
+def validate_rules(rules: Sequence[Rule]) -> Tuple[Rule, ...]:
+    """Compile-check a rule table: patterns must be valid regexes, specs
+    `P`s, and the LAST rule the literal catch-all ``.*``."""
+    rules = tuple(rules)
+    if not rules:
+        raise ValueError("empty sharding rule table")
+    for pattern, spec in rules:
+        re.compile(pattern)
+        if not isinstance(spec, P):
+            raise ValueError(f"rule {pattern!r}: spec must be a P, got {type(spec)}")
+    if rules[-1][0] != ".*":
+        raise ValueError(f"rule table must end with the catch-all ('.*', ...); last rule is {rules[-1][0]!r}")
+    return rules
+
+
+def _match_leaf(rules: Sequence[Rule], name: str, leaf) -> Tuple[Optional[str], P]:
+    """(winning pattern, spec) for one leaf. Scalars are never partitioned
+    whatever a rule says."""
+    if _is_scalar(leaf):
+        return None, P()
+    for pattern, spec in rules:
+        if re.search(pattern, name):
+            ndim = len(_leaf_shape(leaf))
+            if len(spec) > ndim:
+                raise ValueError(f"sharding rule {pattern!r} -> {spec} has rank {len(spec)} but leaf {name!r} "
+                                 f"has rank {ndim}")
+            return pattern, spec
+    raise ValueError(f"no sharding rule matched leaf {name!r} (shape {_leaf_shape(leaf)}); add an explicit "
+                     "rule or a trailing ('.*', P()) catch-all")
+
+
+def match_partition_rules(rules: Sequence[Rule], tree) -> Any:
+    """A tree of specs with the structure of `tree`: first match wins
+    (``re.search`` over the leaf name); scalars get ``P()``; an unmatched
+    leaf raises."""
+    return _map_tree(lambda name, leaf: _match_leaf(rules, name, leaf)[1], tree)
+
+
+def explain_sharding(rules: Sequence[Rule], tree, label: str = "tree") -> str:
+    """Every leaf -> spec decision: name, shape, the rule that won (or the
+    scalar exemption) and the spec (the ``--explain_sharding`` payload)."""
+    leaves = list(_leaves(tree))
+    lines = [f"# sharding decisions for {label} ({len(leaves)} leaves)"]
+    for name, leaf in leaves:
+        pattern, spec = _match_leaf(rules, name, leaf)
+        why = "scalar (never partitioned)" if pattern is None else f"rule {pattern!r}"
+        lines.append(f"{name:<60s} shape={_leaf_shape(leaf)!s:<20s} {why:<32s} -> {spec}")
+    return "\n".join(lines)
+
+
+def _sharded_dim(spec: P) -> Optional[int]:
+    """The dim a spec shards over the data axis (the only axis a ported
+    preset shards), or None."""
+    for dim, axis in enumerate(spec):
+        names = (axis,) if isinstance(axis, str) else tuple(axis or ())
+        if DATA_AXIS in names:
+            return dim
+    return None
+
+
+def make_shard_and_gather_fns(mesh: Mesh, spec_tree):
+    """From a tree of specs, trees of ``shard_fn(full tensor) -> this rank's
+    piece`` and ``gather_fn(tensor) -> the full tensor``. The piece is
+    `torch.chunk` along the sharded dim, FSDP2's layout; a gather of a
+    sharded `DTensor` is collective (every rank calls it in the same
+    order), of a whole tensor a no-op."""
+    import torch.distributed as dist
+
+    rank = dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+    def _shard_fn(spec):
+        dim = _sharded_dim(spec)
+        if dim is None or mesh.data == 1:
+            return lambda x: x
+        return lambda x: x.chunk(mesh.data, dim=dim)[rank % mesh.data]
+
+    def _gather_fn(spec):
+        return full_tensor
+
+    return (_map_tree(lambda _, s: _shard_fn(s), spec_tree), _map_tree(lambda _, s: _gather_fn(s), spec_tree))
+
+
+def full_tensor(x: torch.Tensor) -> torch.Tensor:
+    """The whole of a (possibly sharded) tensor: `DTensor.full_tensor()`,
+    collective, or the tensor itself."""
+    from torch.distributed.tensor import DTensor
+
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def local_tensor(x: torch.Tensor) -> torch.Tensor:
+    """This rank's piece of a (possibly sharded) tensor, sharing storage."""
+    from torch.distributed.tensor import DTensor
+
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def is_sharded(x: torch.Tensor) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def shard_as(full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """`full` laid out as `like`: a whole tensor on `like`'s device, or,
+    for a DTensor sharded on dim k of a 1-D mesh, this rank's `torch.chunk`
+    of it as a DTensor with `like`'s placement (no communication)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(like, DTensor):
+        return full.to(like.device)
+    (placement,) = like.placements
+    mesh = like.device_mesh
+    piece = full
+    if isinstance(placement, Shard):
+        piece = full.chunk(mesh.size(), dim=placement.dim)[mesh.get_local_rank()]
+    return DTensor.from_local(piece.contiguous().to(like.to_local().device), mesh, like.placements,
+                              run_check=False)
+
+
+# ---------------------------------------------------------------------------
+# Presets
+# ---------------------------------------------------------------------------
+
+BATCH_RULES: Tuple[Rule, ...] = (
+    (r"^(image1|image2|flow)$", P(DATA_AXIS, SPATIAL_AXIS, None, None)),
+    (r"^valid$", P(DATA_AXIS, SPATIAL_AXIS, None)),
+    (r".*", P()),
+)
+
+REPLICATE_ALL: Tuple[Rule, ...] = ((r".*", P()),)
+
+# FSDP placement: every conv weight (OIHW, C_out first) splits its output
+# channels over the data axis, as JAX's `kernel$ -> P(None, None, None,
+# data)` splits an HWIO kernel's. The port names a norm's scale `weight`
+# too (JAX: `scale`), so the norms are matched first and stay whole;
+# biases and the rest fall through to the catch-all.
+FSDP_RULES: Tuple[Rule, ...] = (
+    (r"norm\d*\.weight$", P()),
+    (r"weight$", P(DATA_AXIS, None, None, None)),
+    (r".*", P()),
+)
+
+BATCH_TEMPLATE: Dict[str, int] = {"image1": 4, "image2": 4, "flow": 4, "valid": 3}
+
+
+@dataclass(frozen=True)
+class ShardingPreset:
+    name: str
+    param_rules: Tuple[Rule, ...]
+    batch_rules: Tuple[Rule, ...]
+    description: str
+
+
+PRESETS: Dict[str, ShardingPreset] = {
+    "dp": ShardingPreset("dp", validate_rules(REPLICATE_ALL), validate_rules(BATCH_RULES),
+                         "pure data parallelism: DistributedDataParallel, gradients averaged"),
+    "spatial": ShardingPreset("spatial", validate_rules(REPLICATE_ALL), validate_rules(BATCH_RULES),
+                              "H-row sharding; corr volume + GRU state split over cards"),
+    "dp+spatial": ShardingPreset("dp+spatial", validate_rules(REPLICATE_ALL), validate_rules(BATCH_RULES),
+                                 "batch over data axis AND rows over spatial axis"),
+    "fsdp": ShardingPreset("fsdp", validate_rules(FSDP_RULES), validate_rules(BATCH_RULES),
+                           "FSDP2: conv weights + AdamW moments sharded over the data axis, batch over data"),
+}
+
+NOT_PORTED_PRESETS = ("spatial", "dp+spatial")
+
+
+def resolve_mesh_shape(preset: str, n_devices: int, batch: int) -> Tuple[int, int]:
+    """Default (data, spatial) mesh shape for a preset at a given device
+    count and global batch (the JAX package's rule): dp and fsdp use as
+    many chips as divide the batch, the spatial presets all chips."""
+    if preset not in PRESETS:
+        raise ValueError(f"unknown sharding preset {preset!r}; have {sorted(PRESETS)}")
+    d = math.gcd(max(batch, 1), n_devices)
+    if preset in ("dp", "fsdp"):
+        return (d, 1)
+    if preset == "spatial":
+        return (1, n_devices)
+    return (d, n_devices // d)
+
+
+# ---------------------------------------------------------------------------
+# Engine
+# ---------------------------------------------------------------------------
+
+
+class ShardingEngine:
+    """Binds a preset's rule tables to a mesh and wraps the model for it.
+    One engine per Trainer."""
+
+    def __init__(self, mesh: Mesh, rules: str = "dp"):
+        if rules not in PRESETS:
+            raise ValueError(f"unknown sharding preset {rules!r}; have {sorted(PRESETS)}")
+        if rules in NOT_PORTED_PRESETS or mesh.spatial > 1:
+            raise NotImplementedError(
+                f"sharding preset {rules!r} on a {mesh.data}x{mesh.spatial} mesh is not ported yet: row "
+                "sharding needs a halo exchange around every 3x3 conv and cross-rank instance-norm statistics")
+        self.mesh = mesh
+        self.preset = PRESETS[rules]
+
+    def _fit_spec(self, spec: P, shape: Tuple[int, ...]) -> P:
+        """Demote sharded dims that do not split evenly over their mesh axis
+        to replicated (JAX's divide-evenly-or-leave-alone policy)."""
+        if all(a is None for a in spec):
+            return spec
+        axes = []
+        changed = False
+        for dim, axis in zip(shape, spec):
+            if axis is None:
+                axes.append(None)
+                continue
+            names = (axis,) if isinstance(axis, str) else tuple(axis)
+            size = math.prod(self.mesh.shape[n] for n in names)
+            if dim % size == 0:
+                axes.append(axis)
+            else:
+                axes.append(None)
+                changed = True
+        return P(*axes) if changed else spec
+
+    def state_specs(self, tree):
+        """The fitted spec of every leaf of `tree` (a model's named
+        parameters, or any Mapping of tensors)."""
+        return _map_tree(lambda name, leaf: self._fit_spec(_match_leaf(self.preset.param_rules, name, leaf)[1],
+                                                            _leaf_shape(leaf)), tree)
+
+    def param_specs(self, model: torch.nn.Module) -> Dict[str, P]:
+        return self.state_specs(dict(model.named_parameters()))
+
+    def replicated_params(self, model: torch.nn.Module):
+        """The parameters the preset keeps whole on every rank."""
+        specs = self.param_specs(model)
+        return [p for name, p in model.named_parameters() if _sharded_dim(specs[name]) is None]
+
+    @property
+    def distributed(self) -> bool:
+        return self.mesh.device_mesh is not None
+
+    def wrap(self, model: torch.nn.Module) -> torch.nn.Module:
+        """The module the training step calls. Outside a process group the
+        model itself; dp: a DistributedDataParallel around it; fsdp: the
+        model, sharded in place by FSDP2 (its parameters become DTensors
+        outside the forward and backward)."""
+        if not self.distributed:
+            return model
+        data_mesh = self.mesh.device_mesh[DATA_AXIS]
+        if self.preset.name == "dp":
+            from torch.nn.parallel import DistributedDataParallel
+
+            on_card = next(model.parameters()).device.type == "cuda"
+            # The frozen batch norm's statistics are equal on every rank by
+            # construction: no per-forward broadcast.
+            return DistributedDataParallel(model, device_ids=[torch.cuda.current_device()] if on_card else None,
+                                           process_group=data_mesh.get_group(), broadcast_buffers=False)
+        from torch.distributed.fsdp import fully_shard
+        from torch.distributed.tensor import Shard
+
+        specs = self.param_specs(model)
+        placement = {id(p): _sharded_dim(specs[name]) for name, p in model.named_parameters()}
+        # One unit, the root, and the backward follows the forward at once:
+        # the whole parameters stay gathered between them.
+        fully_shard(model, mesh=data_mesh, reshard_after_forward=False,
+                    shard_placement_fn=lambda p: Shard(placement[id(p)]),
+                    ignored_params=set(self.replicated_params(model)))
+        return model
+
+    def reduce_replicated_grads(self, model: torch.nn.Module) -> None:
+        """Sum the gradients FSDP2 does not reduce (the whole parameters
+        under fsdp) across the data axis and divide by its size: the same
+        mean FSDP2's reduce-scatter takes, in one collective."""
+        if not self.distributed or self.preset.name != "fsdp" or self.mesh.data == 1:
+            return
+        import torch.distributed as dist
+
+        grads = [p.grad for p in self.replicated_params(model) if p.grad is not None]
+        if not grads:
+            return
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=self.mesh.device_mesh[DATA_AXIS].get_group())
+        flat.div_(self.mesh.data)
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+
+    def explain(self, model: Optional[torch.nn.Module] = None,
+                batch_template: Optional[Dict[str, int]] = None) -> str:
+        """The --explain_sharding dump: every parameter -> spec decision and
+        the batch template's, under the preset and mesh header. Fitted
+        specs (a non-dividing weight shows as replicated) follow each
+        rule's decision."""
+        d, s = self.mesh.data, self.mesh.spatial
+        lines = [f"sharding preset: {self.preset.name} ({self.preset.description})",
+                 f"mesh: {d}x{s} (data x spatial) over {d * s} rank(s)",
+                 "activation constraints: off"]
+        if model is not None:
+            params = dict(model.named_parameters())
+            lines.append(explain_sharding(self.preset.param_rules, params, label="parameters"))
+            fitted = self.param_specs(model)
+            demoted = [n for n, p in params.items()
+                       if _match_leaf(self.preset.param_rules, n, p)[1] != fitted[n]]
+            lines.append(f"# {len(demoted)} parameter(s) replicated because their dim does not divide the data "
+                         f"axis ({d}): {', '.join(demoted) if demoted else 'none'}")
+        template = BATCH_TEMPLATE if batch_template is None else batch_template
+        probe = {name: torch.empty((2,) * ndim, device="meta") for name, ndim in template.items()}
+        lines.append(explain_sharding(self.preset.batch_rules, probe, label="batch"))
+        return "\n".join(lines)

@@ -9,7 +9,7 @@ JAX package's shape-static form of the reference's boolean indexing).
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -20,6 +20,7 @@ def sequence_loss(
     valid: torch.Tensor,
     loss_gamma: float = 0.9,
     max_flow: float = 700.0,
+    count: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """flow_preds: (iters, B, H, W, 1) row-major, or the train-mode model's
     blocked (iters, B, H/f, f, W/f, f), in which case the ground truth and
@@ -27,7 +28,12 @@ def sequence_loss(
     (B, H, W, 1); valid (B, H, W), >= 0.5 is valid.
 
     Returns (loss, metrics) with the reference's epe/1px/3px/5px metrics
-    over the final prediction; every value is a 0-dim fp32 tensor."""
+    over the final prediction; every value is a 0-dim fp32 tensor.
+
+    `count` replaces the mask's own count in every denominator: a rank of
+    a data-parallel step passes the global batch's count
+    (`valid_count` all-reduced), so the ranks' values add up to the global
+    batch's."""
     n_predictions = flow_preds.shape[0]
     gt = flow_gt[..., 0]
     if flow_preds.dim() == 6:
@@ -39,7 +45,7 @@ def sequence_loss(
         preds = flow_preds[..., 0]
     mask = (valid >= 0.5) & (gt.abs() < max_flow)
     mask_f = mask.float()
-    denom = torch.clamp(mask_f.sum(), min=1.0)
+    denom = torch.clamp(mask_f.sum() if count is None else count, min=1.0)
 
     adjusted_gamma = loss_gamma ** (15.0 / (n_predictions - 1)) if n_predictions > 1 else loss_gamma
     # Weight of prediction i: gamma^(n-1-i), in fp32 as the JAX package takes it.
@@ -58,3 +64,9 @@ def sequence_loss(
         "5px": ((epe < 5) & mask).sum() / denom,
     }
     return flow_loss, metrics
+
+
+def valid_count(flow_gt: torch.Tensor, valid: torch.Tensor, max_flow: float = 700.0) -> torch.Tensor:
+    """The number of pixels `sequence_loss` averages over: valid and with
+    |gt| < max_flow (a 0-dim fp32 tensor)."""
+    return ((valid >= 0.5) & (flow_gt[..., 0].abs() < max_flow)).float().sum()

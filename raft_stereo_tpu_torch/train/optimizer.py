@@ -66,8 +66,27 @@ def onecycle_linear(
 
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (optax.global_norm)."""
-    return torch.sqrt(sum(torch.sum(t * t) for t in tensors))
+    """sqrt of the sum of squares of every element (optax.global_norm).
+
+    Under fsdp a gradient is a DTensor of which this rank holds one piece:
+    each piece's sum of squares is all-reduced across the mesh (one
+    collective for all of them), the whole (replicated) tensors, equal on
+    every rank, are counted once, and the per-tensor sums are added in
+    the tensors' order, as without sharding: every rank gets the norm of
+    the whole gradient and clips by it, and one rank's norm is the
+    unsharded one bit for bit."""
+    from raft_stereo_tpu_torch.parallel.sharding import is_sharded
+
+    tensors = list(tensors)
+    pieces = [t for t in tensors if is_sharded(t)]
+    if not pieces:
+        return torch.sqrt(sum(torch.sum(t * t) for t in tensors))
+    import torch.distributed as dist
+
+    reduced = torch.stack([torch.sum(t.to_local() * t.to_local()) for t in pieces])
+    dist.all_reduce(reduced, group=pieces[0].device_mesh.get_group())
+    sums = iter(reduced)
+    return torch.sqrt(sum(next(sums) if is_sharded(t) else torch.sum(t * t) for t in tensors))
 
 
 class AdamW(torch.optim.Optimizer):
@@ -79,7 +98,14 @@ class AdamW(torch.optim.Optimizer):
     value for the current count and advances the count. A caller that
     drops a step calls neither `step()` nor anything else: parameters,
     moments and count stay as they were, as optax's state does when the
-    JAX step keeps the old state."""
+    JAX step keeps the old state.
+
+    Under fsdp a parameter, its gradient and its moments are DTensors
+    sharded alike (the moments are created `zeros_like` the parameter); the
+    update runs on this rank's pieces. `full_state_dict()` gathers the
+    state whole (collective) and `load_state_dict` re-shards a whole state
+    into the parameters' layout, so a checkpoint moves between world
+    sizes and presets."""
 
     def __init__(self, params, schedule: Schedule, grad_clip_norm: float = 1.0, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 1e-5):
@@ -90,9 +116,11 @@ class AdamW(torch.optim.Optimizer):
 
     @torch.no_grad()
     def clip_grads_(self) -> torch.Tensor:
+        from raft_stereo_tpu_torch.parallel.sharding import local_tensor
+
         grads = [p.grad for group in self.param_groups for p in group["params"] if p.grad is not None]
         norm = global_norm(grads)
-        for g in grads:
+        for g in map(local_tensor, grads):
             g.copy_(torch.where(norm < self.grad_clip_norm, g, g / norm * self.grad_clip_norm))
         return norm
 
@@ -100,6 +128,8 @@ class AdamW(torch.optim.Optimizer):
     def step(self, closure=None):
         if closure is not None:
             raise ValueError("AdamW.step takes no closure")
+        from raft_stereo_tpu_torch.parallel.sharding import is_sharded, local_tensor
+
         lr = np.float32(self.schedule(self.count))
         self.count += 1
         for group in self.param_groups:
@@ -114,13 +144,41 @@ class AdamW(torch.optim.Optimizer):
                 if not state:
                     state["mu"] = torch.zeros_like(p)
                     state["nu"] = torch.zeros_like(p)
-                g = p.grad
-                mu = (1 - b1) * g + b1 * state["mu"]
-                nu = (1 - b2) * (g * g) + b2 * state["nu"]
-                state["mu"], state["nu"] = mu, nu
-                update = (mu / c1) / (torch.sqrt(nu / c2) + eps) + wd * p
-                p.add_(float(-lr) * update)
+                g, w = local_tensor(p.grad), local_tensor(p)
+                mu = (1 - b1) * g + b1 * local_tensor(state["mu"])
+                nu = (1 - b2) * (g * g) + b2 * local_tensor(state["nu"])
+                if is_sharded(p):
+                    local_tensor(state["mu"]).copy_(mu)
+                    local_tensor(state["nu"]).copy_(nu)
+                else:
+                    state["mu"], state["nu"] = mu, nu
+                update = (mu / c1) / (torch.sqrt(nu / c2) + eps) + wd * w
+                w.add_(float(-lr) * update)
         return None
+
+    def full_state_dict(self) -> dict:
+        """`state_dict()` with every moment whole, as host copies (the
+        checkpoint's layout at any world size). Collective under fsdp:
+        every rank calls it at the same step."""
+        from raft_stereo_tpu_torch.parallel.sharding import full_tensor
+
+        sd = self.state_dict()
+        sd["state"] = {i: {k: full_tensor(v).detach().to("cpu", copy=True) for k, v in st.items()}
+                       for i, st in sd["state"].items()}
+        return sd
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        """torch's load, then each moment laid out as its parameter (whole,
+        or this rank's piece under fsdp)."""
+        from raft_stereo_tpu_torch.parallel.sharding import full_tensor, shard_as
+
+        super().load_state_dict(state_dict)
+        for group in self.param_groups:
+            for p in group["params"]:
+                state = self.state.get(p)
+                for k in ("mu", "nu"):
+                    if state and k in state:
+                        state[k] = shard_as(full_tensor(state[k]), p)
 
 
 def make_optimizer(params, lr: float, num_steps: int, wdecay: float = 1e-5,

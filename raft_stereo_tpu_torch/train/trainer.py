@@ -27,13 +27,25 @@ reference `.pth`) bring a run back; the run state (loader cursor and
 quarantine set, non-finite counters, the numpy and torch RNG states) is
 applied by the next `fit`.
 
-`fit` keeps the JAX loop's contract on one process: the validation hook,
+`fit` keeps the JAX loop's contract: the validation hook,
 `NonFiniteGuard` under all three policies, `PreemptionGuard` (SIGTERM:
 final checkpoint, exit 13), `StepWatchdog` (exit 16), the device
-prefetcher, the loader's failure budget, the flight recorder, and
-run_report.json on every exit path. Not ported: the multi-host
-coordinator, the jit-hygiene monitor, the async checkpoint committer and
-the metrics sidecar (the `train` command line refuses their flags).
+prefetcher, the loader's failure budget, the flight recorder, the async
+checkpoint committer (train/io_spine.py), the `/metrics` sidecar and
+run_report.json on every exit path. Not ported: the jit-hygiene monitor
+(the port compiles no XLA programs).
+
+Across ranks (a process group, parallel/): the model is wrapped by the
+sharding preset (dp: DistributedDataParallel; fsdp: FSDP2), each rank
+steps on its own rows of the global batch, and a step's loss, metrics and
+gradients are those of the global batch: every rank divides by the global
+batch's valid-pixel count and the ranks' shares are summed. Pod
+coordination (`HostCoordinator`) makes every stop, abort and rollback
+branch the same on every rank at the same step; validation, metrics and
+the sidecar run on rank 0 while the others wait. A checkpoint is
+written by rank 0 in the single-card layout (whole tensors, gathered under
+fsdp) with every rank's run state beside it, so it restores into any world
+size and preset.
 """
 
 from __future__ import annotations
@@ -48,10 +60,15 @@ from typing import Any, Dict, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed
 
 from raft_stereo_tpu_torch.config import TrainConfig, finalize_train_config
 from raft_stereo_tpu_torch.models.init import build_model
-from raft_stereo_tpu_torch.train.loss import sequence_loss
+from raft_stereo_tpu_torch.parallel.distributed import topology
+from raft_stereo_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh, shard_batch
+from raft_stereo_tpu_torch.parallel.sharding import ShardingEngine, full_tensor
+from raft_stereo_tpu_torch.train.io_spine import AsyncCheckpointCommitter, build_io_spine_block
+from raft_stereo_tpu_torch.train.loss import sequence_loss, valid_count
 from raft_stereo_tpu_torch.train.optimizer import make_optimizer
 from raft_stereo_tpu_torch.utils.resilience import NonFiniteLossError  # noqa: F401 (re-export)
 
@@ -111,13 +128,36 @@ def _until_stopped(data: Iterable, pguard) -> Iterable:
         yield batch
 
 
+def rank_file(name: str, process_index: int) -> str:
+    """`name` for rank 0, `<stem>.p<k><ext>` for rank k: every rank's file
+    beside rank 0's in one directory (as utils/checkpoints.py names the
+    ranks' run-state bundles)."""
+    if process_index == 0:
+        return name
+    stem, ext = os.path.splitext(name)
+    return f"{stem}.p{process_index}{ext}"
+
+
+def rank_batch_size(batch_size: int, local_world_size: int) -> int:
+    """The rows each rank steps on: `batch_size` is one host's batch (as
+    JAX's is one process's, and a JAX process is a whole host), split over
+    the host's ranks."""
+    if batch_size % local_world_size:
+        raise ValueError(f"batch_size {batch_size} (one host's batch) does not split over its "
+                         f"{local_world_size} rank(s)")
+    return batch_size // local_world_size
+
+
 class Trainer:
     """Owns the model, the optimizer and schedule, the step count and the
     checkpoints.
 
     `sample_shape` is (H, W, C) of one training image; every batch must
     have it. The model's weights are drawn from `config.seed`
-    (`models/init.build_model`)."""
+    (`models/init.build_model`). Inside a process group the trainer is one
+    rank: `config.mesh_shape` must cover the world (-1 infers the data
+    axis), `config.sharding_rules` picks the preset, and each batch holds
+    this rank's `rank_batch` rows."""
 
     def __init__(self, config: TrainConfig, sample_shape: Tuple[int, int, int], device="cuda"):
         config = finalize_train_config(config)
@@ -127,10 +167,32 @@ class Trainer:
         self.config = config
         self.sample_shape = tuple(sample_shape)
         self.device = torch.device(device)
+        self.topology = topology()
+        self.process_index = self.topology["process_index"]
+        self.rank_batch = rank_batch_size(config.batch_size, self.topology["local_world_size"])
+        joined = self.topology["process_count"] > 1 or self.topology["backend"] is not None
+        self.mesh = make_mesh(config.mesh_shape, device_type=self.device.type if joined else None)
+        self.sharding = ShardingEngine(self.mesh, config.sharding_rules)
         self.model = build_model(config.model, seed=config.seed, device=self.device)
+        # The module the step calls inside a process group (DDP around the
+        # model, or the model itself, sharded in place by FSDP2).
+        self._wrapped = self.sharding.wrap(self.model) if self.sharding.distributed else None
         self.optimizer, self.schedule = make_optimizer(
             list(self.model.parameters()), config.lr, config.num_steps, config.wdecay, config.grad_clip_norm
         )
+        self._data_group = self.mesh.device_mesh[DATA_AXIS].get_group() if self.sharding.distributed else None
+        # gloo groups of the host side, one per thread that uses it (two
+        # threads' collectives on one group could interleave differently
+        # on different ranks): the main thread's (pod coordination, the
+        # barriers around validation and resume) and the commit thread's.
+        self._host_group = self._commit_group = None
+        if self.sharding.distributed:
+            import torch.distributed as dist
+
+            self._host_group = dist.new_group(backend="gloo")
+            self._commit_group = dist.new_group(backend="gloo")
+        self._eval_model = None
+        self._committer = AsyncCheckpointCommitter()
         self.step = 0
         # Step of the newest save issued through this trainer: the final
         # fit() save skips a step the periodic cadence already wrote.
@@ -144,36 +206,51 @@ class Trainer:
         # Run state read from a restored checkpoint, applied by the next fit().
         self._pending_run_state: Optional[Dict[str, Any]] = None
 
+    @property
+    def net(self) -> torch.nn.Module:
+        """The module the step calls: the preset's wrapper of the model, or
+        the model itself in one process."""
+        return self._wrapped if self._wrapped is not None else self.model
+
     # --- the step ---------------------------------------------------------
     def _device_batch(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-        """The batch's four arrays as float32 tensors on the device, after a
-        shape check. A batch already on the device (the prefetcher's)
-        passes through without a copy."""
-        b = self.config.batch_size
+        """This rank's rows as float32 tensors on the device, after a shape
+        check. A batch already on the device (the prefetcher's) passes
+        through without a copy."""
+        b = self.rank_batch
         h, w, c = self.sample_shape
         want = {"image1": (b, h, w, c), "image2": (b, h, w, c), "flow": (b, h, w, 1), "valid": (b, h, w)}
-        out = {}
         for key, shape in want.items():
-            t = torch.as_tensor(batch[key])
-            if tuple(t.shape) != shape:
-                raise ValueError(f"batch[{key!r}] has shape {tuple(t.shape)}, expected {shape}")
-            out[key] = t.to(device=self.device, dtype=torch.float32)
-        return out
+            got = tuple(np.shape(batch[key]))
+            if got != shape:
+                raise ValueError(f"batch[{key!r}] has shape {got}, expected {shape}")
+        return shard_batch(self.mesh, batch, self.device)
 
     def train_step(self, batch: Mapping[str, Any]) -> Dict[str, float]:
         """One optimizer step: image1/image2 (B, H, W, C) in [0, 255], flow
-        (B, H, W, 1), valid (B, H, W), as numpy arrays or tensors. Returns
-        epe, 1px, 3px, 5px, live_loss, grad_norm (before clipping),
-        nonfinite (1.0 when the loss or the norm was NaN/Inf) and
-        learning_rate (the schedule at this step)."""
+        (B, H, W, 1), valid (B, H, W), as numpy arrays or tensors (B: this
+        rank's rows). Returns epe, 1px, 3px, 5px, live_loss, grad_norm
+        (before clipping), nonfinite (1.0 when the loss or the norm was
+        NaN/Inf) and learning_rate (the schedule at this step), all of the
+        global batch and equal on every rank."""
         cfg = self.config
         b = self._device_batch(batch)
         self.optimizer.zero_grad(set_to_none=True)
-        flows = self.model(b["image1"], b["image2"], iters=cfg.train_iters)
-        loss, metrics = sequence_loss(flows, b["flow"], b["valid"], cfg.loss_gamma, cfg.max_flow)
-        loss.backward()
+        count = None
+        if self._data_group is not None:
+            count = valid_count(b["flow"], b["valid"], cfg.max_flow)
+            torch.distributed.all_reduce(count, group=self._data_group)
+        flows = self.net(b["image1"], b["image2"], iters=cfg.train_iters)
+        loss, metrics = sequence_loss(flows, b["flow"], b["valid"], cfg.loss_gamma, cfg.max_flow, count=count)
+        # This rank's share of the global loss; DDP and FSDP2 average the
+        # ranks' gradients, so scaling by the data axis makes them the sum.
+        (loss * self.mesh.data if self.mesh.data > 1 else loss).backward()
+        self.sharding.reduce_replicated_grads(self.model)
         grad_norm = self.optimizer.clip_grads_()
-        values = torch.stack([*metrics.values(), loss.detach(), grad_norm]).tolist()
+        shares = torch.stack([*metrics.values(), loss.detach()])
+        if self._data_group is not None:
+            torch.distributed.all_reduce(shares, group=self._data_group)
+        values = torch.cat([shares, grad_norm.reshape(1)]).tolist()
         finite = bool(np.isfinite(values[-2]) and np.isfinite(values[-1]))
         if finite:
             self.optimizer.step()
@@ -197,37 +274,78 @@ class Trainer:
         return retry_call(fn, attempts=self.config.io_retries, base_delay=self.config.io_backoff,
                           classify=is_transient_io, label=label)
 
-    def _optimizer_state(self) -> Dict[str, Any]:
-        return {"optimizer": self.optimizer.state_dict(), "count": int(self.optimizer.count), "step": int(self.step)}
+    def _host_state(self) -> Dict[str, torch.Tensor]:
+        """The model's state dict as whole host copies (gathered across the
+        ranks under fsdp: collective)."""
+        return {k: full_tensor(v).detach().to("cpu", copy=True) for k, v in self.model.state_dict().items()}
 
-    def save(self, run_state: Optional[Dict[str, Any]] = None) -> str:
-        """Write this step's directory and commit it: `model.pth` and
-        `optimizer.pt`, then `run_state.json` and the integrity manifest,
+    def _barrier(self, group) -> None:
+        if group is not None:
+            torch.distributed.barrier(group=group)
+
+    def explain_sharding(self) -> str:
+        """Every parameter -> placement decision for this run's preset and
+        mesh (the `train --explain_sharding` payload)."""
+        return self.sharding.explain(self.model)
+
+    def save(self, run_state: Optional[Dict[str, Any]] = None, wait: bool = True) -> str:
+        """Write this step's directory and commit it: rank 0 writes
+        `model.pth` and `optimizer.pt` (whole tensors, the single-card
+        layout), every other rank its `run_state.p<k>.json`, then, after a
+        barrier, rank 0 writes `run_state.json` and the integrity manifest,
         whose atomic rename is the commit point (a kill at any byte before
         it leaves a step that `validate_checkpoint` rejects and auto-resume
-        walks past). Then prune to `max_to_keep` / `keep_period`. Returns
-        the step directory."""
+        walks past). Then rank 0 prunes to `max_to_keep` / `keep_period`.
+        Every rank calls this at the same step.
+
+        The snapshot (host copies; the fsdp gather) runs here. The commit
+        runs here too, or, with `config.async_checkpoint` and not `wait`,
+        on the committer's thread; at most one commit is in flight: the
+        barrier below joins the previous one first. Returns the step
+        directory."""
         from raft_stereo_tpu_torch.utils import checkpoints as ck
 
+        self._committer.barrier()
         step = int(self.step)
         root = self.checkpoint_path()
         step_dir = os.path.join(root, str(step))
-        if os.path.exists(step_dir):
+        rank = self.process_index
+        if rank == 0 and os.path.exists(step_dir):
             raise FileExistsError(f"checkpoint step {step} already exists at {step_dir!r}")
         rs = run_state if run_state is not None else self._minimal_run_state(step)
-        opt_state = self._optimizer_state()
+        model_state = ck.export_reference_state_dict(self.model, self._host_state())
+        opt_state = {"optimizer": self.optimizer.full_state_dict(), "count": int(self.optimizer.count),
+                     "step": step}
 
-        def write() -> None:
+        def commit() -> None:
             # `ck` resolved at call time, so a test can intercept the
             # sequence between the payload and the manifest.
-            ck.write_step_files(step_dir, self.model, opt_state)
-            ck.commit_step_sidecars(step_dir, step, rs)
+            if rank == 0:
+                self._retry_io(lambda: ck.write_step_files(step_dir, model_state, opt_state),
+                               label=f"checkpoint save (step {step})")
+            if self._commit_group is not None:
+                self._barrier(self._commit_group)  # rank 0 made the directory
+                if rank:
+                    try:
+                        ck.write_run_state(step_dir, rs, process_index=rank)
+                    except OSError:
+                        # Best effort, as in JAX: restore falls back to
+                        # rank 0's bundle.
+                        logger.warning("could not write rank %d's run state for step %d", rank, step,
+                                       exc_info=True)
+                self._barrier(self._commit_group)  # every rank's files are down
+            if rank == 0:
+                self._retry_io(lambda: ck.commit_step_sidecars(step_dir, step, rs),
+                               label=f"checkpoint manifest commit (step {step})")
+                for old in ck.steps_to_prune(ck.list_checkpoint_steps(root), self.config.max_to_keep,
+                                             self.config.keep_period):
+                    shutil.rmtree(os.path.join(root, str(old)), ignore_errors=True)
 
-        self._retry_io(write, label=f"checkpoint save (step {step})")
+        if wait or not self.config.async_checkpoint:
+            commit()
+        else:
+            self._committer.submit(commit, step=step)
         self._last_saved_step = step
-        for old in ck.steps_to_prune(ck.list_checkpoint_steps(root), self.config.max_to_keep,
-                                     self.config.keep_period):
-            shutil.rmtree(os.path.join(root, str(old)), ignore_errors=True)
         return step_dir
 
     def _minimal_run_state(self, step: int) -> Dict[str, Any]:
@@ -249,7 +367,9 @@ class Trainer:
                 load_run_state: Optional[bool] = None) -> int:
         """Restore the full train state (weights, AdamW moments and count,
         step). With `path`, from any checkpoint root or step directory;
-        else from this run's own root (the newest step, or `step`).
+        else from this run's own root (the newest step, or `step`). The
+        files hold whole tensors, so any world size and preset restores
+        them: each rank reads them and keeps its own piece.
 
         `load_run_state` decides whether the step's run state is staged for
         the next fit() with resume provenance recorded. None resolves it by
@@ -280,7 +400,7 @@ class Trainer:
             self._last_saved_step = int(self.step)
         restored_step = int(self.step)
         if load_run_state:
-            run_state = ck.read_run_state(step_dir)
+            run_state = ck.read_run_state(step_dir, process_index=self.process_index)
             self._pending_run_state = run_state
             self.resumed_from_step = restored_step
             prior = int(run_state.get("resume_count", 0)) if run_state else self.resume_count
@@ -300,10 +420,16 @@ class Trainer:
         from raft_stereo_tpu_torch.utils import checkpoints as ck
 
         root = self.checkpoint_path()
+        # Every rank walks (and agrees on) the anchor; rank 0 alone
+        # quarantines torn steps, and the others walk after it has.
+        if self.process_index == 0 and os.path.isdir(root):
+            step, skipped = ck.find_latest_valid_step(root, quarantine=True)
+        self._barrier(self._host_group)
         if not os.path.isdir(root):
             logger.info("auto-resume: no checkpoint root at %s; starting fresh", root)
             return None
-        step, skipped = ck.find_latest_valid_step(root, quarantine=True)
+        if self.process_index:
+            step, skipped = ck.find_latest_valid_step(root, quarantine=False)
         self.fallback_steps_skipped = len(skipped)
         if step is None:
             if skipped:
@@ -327,6 +453,8 @@ class Trainer:
         saved state is finite)."""
         from raft_stereo_tpu_torch.utils import checkpoints as ck
 
+        # An async commit may still own the newest step: join it first.
+        self._committer.barrier()
         steps = ck.list_checkpoint_steps(self.checkpoint_path())
         if not steps:
             raise FileNotFoundError(f"rollback requested but no checkpoint exists in {self.checkpoint_path()!r}")
@@ -341,6 +469,19 @@ class Trainer:
             load_reference_checkpoint(self.model, path)
 
     # --- the loop -----------------------------------------------------------
+    def _validation_model(self):
+        """The model validation runs on, on rank 0: the model itself, or
+        under fsdp a whole copy (gathered on every rank: collective)."""
+        if not (self.sharding.distributed and self.sharding.preset.name == "fsdp"):
+            return self.model
+        state = {k: full_tensor(v).detach() for k, v in self.model.state_dict().items()}
+        if self.process_index:
+            return None
+        if self._eval_model is None:
+            self._eval_model = build_model(self.config.model, seed=self.config.seed, device=self.device)
+        self._eval_model.load_state_dict(state)
+        return self._eval_model
+
     def fit(self, data: Iterable[Mapping[str, Any]], metrics_logger=None, validate_fn=None):
         """Run up to config.num_steps steps over `data`, an iterable of host
         batches re-iterated when exhausted (the reference's epoch-wrapping
@@ -355,11 +496,22 @@ class Trainer:
         (restore/auto_resume) is applied first, so a resumed run continues
         the data stream and failure accounting where the checkpoint
         stopped. On every exit path `self.last_run_report` holds the
-        run-health report, also written to <log_dir>/run_report.json; the
-        command line maps it onto exit codes. Returns the last step's
-        metrics (the JAX `fit` returns its state; the port's model is
-        `self.model`)."""
+        run-health report, also written to <log_dir>/run_report.json
+        (run_report.p<k>.json on rank k > 0); the command line maps it onto
+        exit codes. Returns the last step's metrics (the JAX `fit` returns
+        its state; the port's model is `self.model`).
+
+        Across ranks every per-rank signal (a stop, a non-finite abort, a
+        rollback wish, the loader's drops) is reduced every
+        `coord_interval` steps and at every checkpoint, so every rank takes
+        the same branch at the same step boundary and the failure budget
+        holds for the pod's dropped fraction. Validation, the metrics
+        stream and the `/metrics` sidecar run on rank 0; the other ranks
+        wait at a barrier."""
+        from raft_stereo_tpu_torch.obs.memory import set_memory_gauges
+        from raft_stereo_tpu_torch.obs.prom import Registry, serve_registry
         from raft_stereo_tpu_torch.obs.trace import Tracer, observability_block
+        from raft_stereo_tpu_torch.parallel.coordination import HostCoordinator
         from raft_stereo_tpu_torch.utils import run_report as rr
         from raft_stereo_tpu_torch.utils.checkpoints import list_checkpoint_steps
         from raft_stereo_tpu_torch.utils.profiling import StepTimer, trace
@@ -371,6 +523,8 @@ class Trainer:
         )
 
         self.config = cfg = finalize_train_config(self.config)
+        rank = self.process_index
+        primary = rank == 0
         step = self.step
         start_step = step
         timer = StepTimer()
@@ -378,16 +532,26 @@ class Trainer:
         profile_ctx = None
         guard = NonFiniteGuard(cfg.nan_policy, patience=cfg.nan_patience)
         pguard = PreemptionGuard()
+        coord = HostCoordinator(self._host_group)
         if cfg.log_dir:
             os.makedirs(cfg.log_dir, exist_ok=True)
         tracer = Tracer(capacity=cfg.flight_recorder_events,
-                        dump_path=os.path.join(cfg.log_dir, "flight_recorder.json") if cfg.log_dir else None)
+                        dump_path=os.path.join(cfg.log_dir, rank_file("flight_recorder.json", rank))
+                        if cfg.log_dir else None)
+        registry = Registry()
+        step_hist = registry.histogram("raft_train_step_ms", "Wall-clock per-step cadence (tick-to-tick)")
+        data_wait_hist = registry.histogram("raft_train_data_wait_ms", "Host wait for the loader between steps")
+        steps_counter = registry.counter("raft_train_steps_total", "Optimizer steps taken this run")
+        metrics_server = serve_registry(registry, cfg.metrics_port) if cfg.metrics_port and primary else None
         prefetcher = None
         if cfg.device_prefetch:
             from raft_stereo_tpu_torch.data.prefetch import DevicePrefetcher
 
             data = prefetcher = DevicePrefetcher(data, self.device)
         quarantine = getattr(data, "quarantine", None)
+        if coord.active and hasattr(data, "set_global_budget_mode"):
+            data.set_global_budget_mode()
+        pod = {"peer_stop": False}
 
         pending = self._pending_run_state
         self._pending_run_state = None
@@ -398,6 +562,9 @@ class Trainer:
                 data.load_state_dict(pending["loader"])
             if pending.get("host_rng"):
                 _restore_host_rng(pending["host_rng"])
+            if coord.active and pending.get("pod"):
+                coord.load_state_dict(pending["pod"], local_dropped=quarantine.dropped if quarantine else 0,
+                                      local_served=quarantine.served if quarantine else 0)
             logger.info(
                 "resumed run state at step %d: loader %s, %d skipped steps, %d rollbacks, "
                 "%d quarantined samples (resume #%d)", step,
@@ -415,6 +582,8 @@ class Trainer:
             }
             if hasattr(data, "state_dict"):
                 rs["loader"] = data.state_dict()
+            if coord.active:
+                rs["pod"] = coord.state_dict()
             return rs
 
         def make_report(stop_cause, error=None, traces=None, final_step=None):
@@ -423,8 +592,8 @@ class Trainer:
                 final_step=self.step if final_step is None else final_step,
                 last_good_step=self._last_saved_step if self._last_saved_step is not None else -1,
                 checkpoint_path=self.checkpoint_path() if self._last_saved_step is not None else None,
-                preempted=pguard.stop_requested,
-                preempt_signal=pguard.signame,
+                preempted=pguard.stop_requested or pod["peer_stop"],
+                preempt_signal=pguard.signame or ("peer" if pod["peer_stop"] else None),
                 skipped_steps=guard.skipped_total,
                 rollbacks=guard.rollbacks,
                 dropped_samples=int(quarantine.dropped) if quarantine else 0,
@@ -432,19 +601,18 @@ class Trainer:
                 resumed_from_step=self.resumed_from_step if self.resumed_from_step is not None else -1,
                 resume_count=self.resume_count,
                 fallback_steps_skipped=self.fallback_steps_skipped,
+                process_index=coord.process_index,
+                process_count=coord.process_count,
+                coord_syncs=coord.collectives_dispatched,
                 watchdog=watchdog.state(),
-                io_spine={
-                    "async_checkpoint": False,
-                    "device_prefetch": bool(cfg.device_prefetch),
-                    "async_commits": 0,
-                    "max_commit_latency_s": 0.0,
-                    **(prefetcher.stats() if prefetcher is not None
-                       else {"prefetch_depth_watermark": 0, "device_put_overlap_fraction": 0.0}),
-                },
+                io_spine=build_io_spine_block(cfg.async_checkpoint, cfg.device_prefetch, committer=self._committer,
+                                              prefetcher=prefetcher),
                 observability=observability_block(tracer),
                 error=error,
                 traces=traces,
             )
+
+        report_name = rank_file(rr.RUN_REPORT_NAME, rank)
 
         def on_watchdog_timeout(diag):
             # Runs on the monitor thread while the main thread is wedged:
@@ -452,13 +620,17 @@ class Trainer:
             beat_step = watchdog.last_beat_step
             self.last_run_report = make_report("watchdog", traces=diag["traces"],
                                                final_step=beat_step if beat_step is not None else -1)
-            rr.write_run_report(self.last_run_report, cfg.log_dir)
+            rr.write_run_report(self.last_run_report, cfg.log_dir, report_name)
             tracer.dump("watchdog")
 
         watchdog = StepWatchdog(cfg.step_timeout_s, on_timeout=on_watchdog_timeout, exit_code=rr.EXIT_WATCHDOG,
                                 first_grace_s=cfg.watchdog_grace_s)
         watchdog.on_fire = lambda diag: tracer.event("watchdog_fire", elapsed_s=float(diag["elapsed_s"]),
                                                      step=diag.get("step"), phase=diag.get("phase"))
+        # A wedged background commit blocks the next save's barrier on this
+        # thread; the watchdog labels that join and grants it the
+        # checkpoint allowance.
+        self._committer.attach_watchdog(watchdog, cfg.watchdog_grace_s)
         if validate_fn is not None and getattr(validate_fn, "set_heartbeat", None) is not None:
             def _validation_heartbeat():
                 watchdog.beat()
@@ -468,6 +640,9 @@ class Trainer:
 
         # Non-finite flags awaiting the host check: (step, flag).
         pending_flags: list = []
+        # A fatal non-finite verdict held until the pod has heard it: a rank
+        # must not raise while its peers enter the next collective step.
+        fatal: list = []
 
         def drain_flags() -> str:
             flags = list(pending_flags)
@@ -480,20 +655,64 @@ class Trainer:
                     return "rollback"
             return "ok"
 
+        def checked_drain() -> str:
+            """drain_flags, but under coordination a fatal verdict is parked
+            for the pod instead of raised."""
+            try:
+                return drain_flags()
+            except NonFiniteLossError as e:
+                if not coord.active:
+                    raise
+                fatal.append(e)
+                return "fatal"
+
+        def pod_sync() -> bool:
+            """One pod-agreement boundary: reduce the ranks' flags, adopt the
+            pod verdict, enforce the global budget. Returns whether the pod
+            agreed to stop."""
+            nonlocal local_rollback, pod_rollback, fatal_synced
+            t_sync0 = time.perf_counter()
+            if checked_drain() == "rollback":
+                local_rollback = True
+            decision = coord.sync(stop=pguard.stop_requested, nonfinite=bool(fatal), rollback=local_rollback,
+                                  dropped=int(quarantine.dropped) if quarantine else 0,
+                                  served=int(quarantine.served) if quarantine else 0)
+            if fatal:
+                fatal_synced = True
+            tracer.span("coord-sync", t0=t_sync0, t1=time.perf_counter(), step=step)
+            watchdog.beat(step)
+            if decision.stop and not pguard.stop_requested:
+                pod["peer_stop"] = True
+            if decision.nonfinite and not fatal:
+                fatal.append(NonFiniteLossError(f"non-finite divergence on a peer rank (pod-coordinated abort at "
+                                                f"step {step})"))
+                fatal_synced = True
+            if decision.rollback:
+                pod_rollback = True
+            if quarantine is not None:
+                quarantine.check_global(decision.dropped, decision.dropped + decision.served)
+            return decision.stop
+
         def save_now(final: bool = False) -> None:
             watchdog.grant(cfg.watchdog_grace_s)
             watchdog.mark_phase("final-save" if final else "checkpoint-save")
             t_save0 = time.perf_counter()
-            self.save(run_state=make_run_state())
+            self.save(run_state=make_run_state(), wait=final)
             tracer.span("checkpoint-save", t0=t_save0, t1=time.perf_counter(), step=self.step, final=final)
+            set_memory_gauges(registry)
             watchdog.mark_phase(None)
 
+        if coord.active and not watchdog.enabled:
+            logger.warning("multi-rank run with step_timeout_s=0: a rank that dies mid-collective will hang its "
+                           "peers; set --step_timeout_s so the watchdog can end them")
         stop_cause = "completed"
         error_repr = None
         metrics: Dict[str, float] = {}
         try:
             stopping = False
-            want_rollback = False
+            local_rollback = False  # this rank's rollback wish, not yet pod-agreed
+            pod_rollback = False    # pod-agreed rollback awaiting execution
+            fatal_synced = False    # the pod has heard this rank's parked fatal
             pending_reseed = False  # a rollback is waiting on a fresh data epoch
             with pguard if cfg.handle_signals else contextlib.nullcontext(), watchdog:
                 if cfg.nan_policy == "rollback" and not list_checkpoint_steps(self.checkpoint_path()):
@@ -508,14 +727,18 @@ class Trainer:
                     for batch in _until_stopped(data, pguard):
                         epoch_batches += 1
                         t_batch = time.perf_counter()
+                        data_wait_hist.observe((t_batch - boundary_t) * 1e3)
                         tracer.span("data-wait", t0=boundary_t, t1=t_batch, step=step + 1)
                         pending_reseed = False
                         if profile_window and step == profile_window.start:
-                            profile_ctx = trace(os.path.join(cfg.log_dir, "profile"))
+                            profile_ctx = trace(os.path.join(cfg.log_dir, rank_file("profile", rank)))
                             profile_ctx.__enter__()
                         metrics = self.train_step(batch)
-                        timer.tick()
+                        tick = timer.tick()
                         tracer.span("step", t0=t_batch, t1=time.perf_counter(), step=step + 1)
+                        steps_counter.inc()
+                        if tick is not None:
+                            step_hist.observe(tick * 1e3)
                         step = self.step
                         logger.info("step %d: live_loss %.9g, grad_norm %.9g, epe %.6g, %.3f s", step,
                                     metrics["live_loss"], metrics["grad_norm"], metrics["epe"],
@@ -524,36 +747,53 @@ class Trainer:
                             profile_ctx.__exit__(None, None, None)
                             profile_ctx = None
                         pending_flags.append((step, metrics["nonfinite"] > 0.0))
-                        if len(pending_flags) >= cfg.nan_check_every and drain_flags() == "rollback":
-                            want_rollback = True
-                        if metrics_logger is not None:
+                        sync_due = coord.active and (step % cfg.coord_interval == 0
+                                                     or step % cfg.checkpoint_every == 0)
+                        if len(pending_flags) >= cfg.nan_check_every and not sync_due:
+                            if checked_drain() == "rollback":
+                                local_rollback = True
+                        if metrics_logger is not None and primary:
                             extra = guard.stats()
                             loader_stats = getattr(data, "resilience_stats", None)
                             if loader_stats is not None:
                                 extra.update(loader_stats())
                             metrics_logger.push(dict(metrics, **extra), step)
                         if step % cfg.checkpoint_every == 0:
+                            if coord.active and pod_sync():
+                                stopping = True
                             # Never checkpoint an unchecked non-finite window.
-                            if not want_rollback and drain_flags() == "rollback":
-                                want_rollback = True
-                            if not want_rollback:
+                            if not (local_rollback or pod_rollback or fatal) and checked_drain() == "rollback":
+                                local_rollback = True
+                            if not (local_rollback or pod_rollback or fatal):
                                 save_now()
                                 watchdog.beat(step)
                         if validate_fn is not None and step % cfg.validate_every == 0:
                             watchdog.grant(cfg.watchdog_grace_s)
                             watchdog.mark_phase("validation")
                             try:
-                                results = validate_fn(self.model)
+                                model = self._validation_model()
+                                if primary:
+                                    results = validate_fn(model)
+                                    logger.info("validation (%d): %s", step, results)
+                                    if metrics_logger is not None:
+                                        metrics_logger.write(results, step)
+                                self._barrier(self._host_group)
                             finally:
                                 watchdog.mark_phase(None)
                             watchdog.beat(step)
-                            logger.info("validation (%d): %s", step, results)
-                            if metrics_logger is not None:
-                                metrics_logger.write(results, step)
-                        if pguard.stop_requested:
+                        if pguard.stop_requested and not coord.active:
                             stopping = True
-                        if want_rollback:
-                            want_rollback = False
+                        synced = False
+                        if coord.active and step % cfg.coord_interval == 0:
+                            if pod_sync():
+                                stopping = True
+                            synced = True
+                        # A parked fatal raises once the pod has heard it.
+                        if fatal and (fatal_synced or not coord.active):
+                            raise fatal[0]
+                        want_rollback = pod_rollback if coord.active else local_rollback
+                        if want_rollback and (synced or not coord.active):
+                            pod_rollback = local_rollback = False
                             if profile_ctx is not None:
                                 profile_ctx.__exit__(None, None, None)
                                 profile_ctx = None
@@ -570,7 +810,7 @@ class Trainer:
                         boundary_t = time.perf_counter()
                         if stopping or step >= cfg.num_steps:
                             break
-                    if pguard.stop_requested:
+                    if pguard.stop_requested and not coord.active:
                         break
                     if epoch_batches == 0:
                         if pending_reseed:
@@ -583,6 +823,18 @@ class Trainer:
                                          "exhausted generator was passed)")
                 if profile_ctx is not None:
                     profile_ctx.__exit__(None, None, None)
+                # One final pod sync: every rank reaches this point at the
+                # same pod-agreed boundary, and it settles what happened
+                # after the last in-loop sync (a stop on one rank in the
+                # final window still gives one verdict on every rank).
+                if coord.active:
+                    pod_sync()
+                if fatal:
+                    raise fatal[0]
+                if local_rollback or pod_rollback:
+                    raise NonFiniteLossError("non-finite streak triggered a rollback in the final coordination "
+                                             "window; the run ended before it could execute — resume from the "
+                                             "last good checkpoint")
                 drain_flags()
                 stats = timer.report(self.device)
                 if stats:
@@ -593,12 +845,21 @@ class Trainer:
                                 torch.cuda.max_memory_reserved(self.device))
                 if self._last_saved_step != self.step:
                     save_now(final=True)
+                else:
+                    # The cadence saved this step already: its (possibly
+                    # async) commit must have landed, and cleanly.
+                    watchdog.grant(cfg.watchdog_grace_s)
+                    watchdog.mark_phase("final-save")
+                    try:
+                        self._committer.barrier()
+                    finally:
+                        watchdog.mark_phase(None)
                 watchdog.beat(self.step)
-            if pguard.stop_requested:
+            if pguard.stop_requested or pod["peer_stop"]:
                 stop_cause = "preempted"
                 logger.warning("training stopped by %s at step %d with a committed checkpoint; resume by rerunning "
-                               "with --auto_resume (or --restore_ckpt %s)", pguard.signame, self.step,
-                               self.checkpoint_path())
+                               "with --auto_resume (or --restore_ckpt %s)",
+                               pguard.signame or "a peer rank's stop signal", self.step, self.checkpoint_path())
         except BaseException as e:
             if isinstance(e, NonFiniteLossError):
                 stop_cause = "nonfinite"
@@ -611,8 +872,19 @@ class Trainer:
             error_repr = repr(e)
             raise
         finally:
+            try:
+                # No commit outlives fit(). On the paths that return, the
+                # final save joined it already; here an error is already
+                # on its way out, and a failed commit is only logged.
+                self._committer.barrier()
+            except Exception:  # noqa: BLE001 - secondary to the error being raised
+                logger.exception("async checkpoint commit failed")
             if not watchdog.fired:
                 self.last_run_report = make_report(stop_cause, error=error_repr)
-                rr.write_run_report(self.last_run_report, cfg.log_dir)
+                rr.write_run_report(self.last_run_report, cfg.log_dir, report_name)
                 tracer.dump(f"fit-exit:{stop_cause}")
+            if metrics_server is not None:
+                metrics_server.shutdown()
+                metrics_server.server_close()
+                metrics_server._serve_thread.join(timeout=5.0)
         return metrics

@@ -46,7 +46,7 @@ from __future__ import annotations
 import json
 import os
 import re
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 import zlib
 
 import numpy as np
@@ -55,6 +55,7 @@ from torch import nn
 
 from raft_stereo_tpu_torch.config import RAFTStereoConfig
 from raft_stereo_tpu_torch.models.layers import FrozenBatchNorm, GroupNorm
+from raft_stereo_tpu_torch.parallel.sharding import is_sharded, shard_as
 
 _NORM_CLASS = {FrozenBatchNorm: "FrozenBatchNorm", GroupNorm: "GroupNorm"}
 _NORM_LEAF = {
@@ -114,7 +115,10 @@ def load_jax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
             raise ValueError(
                 f"shape mismatch for {name!r}: JAX {tuple(value.shape)} vs port {tuple(tensor.shape)}"
             )
-        tensor.copy_(torch.from_numpy(np.array(value, dtype=np.float32)))
+        value = torch.from_numpy(np.array(value, dtype=np.float32))
+        if is_sharded(tensor):  # fsdp: this rank's piece
+            value, tensor = shard_as(value, tensor).to_local(), tensor.to_local()
+        tensor.copy_(value)
     if leaves:
         raise KeyError(f"JAX leaves left unused: {sorted('/'.join(k) for k in leaves)}")
     return module
@@ -319,14 +323,17 @@ def port_state_dict_from_reference(sd: Mapping[str, np.ndarray], config: RAFTSte
     return model.state_dict()
 
 
-def export_reference_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
+def export_reference_state_dict(model: nn.Module, state: Optional[Mapping[str, torch.Tensor]] = None
+                                ) -> Dict[str, torch.Tensor]:
     """A port `RAFTStereo`'s weights as the reference's state dict, the
     layout `load_reference_state_dict` reads (`torch.save` it as a .pth):
     the inverse of `convert_state_dict`. The flow-y input channel of the
     motion encoder's flow conv and the flow-y output row of the flow head,
     which the port drops, are written as zeros (flow-y is identically zero
     in the reference). Each reference key is found by running the
-    converter once on a probe whose every tensor holds its own key's index."""
+    converter once on a probe whose every tensor holds its own key's index.
+    `state` stands in for `model.state_dict()` (the trainer passes whole
+    host copies of a sharded model's tensors)."""
     keys = []
 
     class _Probe(dict):
@@ -340,7 +347,7 @@ def export_reference_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
 
     origin = {path: keys[int(v.flat[0])] for path, v in _flatten(convert_state_dict(_Probe(), model.config)).items()}
     sd = {}
-    for name, tensor in model.state_dict().items():
+    for name, tensor in (model.state_dict() if state is None else state).items():
         key = origin[_flax_key(model, name)[0]]
         value = tensor.detach().float().cpu()
         if key == "update_block.encoder.convf1.weight":
@@ -625,11 +632,12 @@ def _atomic_torch_save(obj, path: str) -> None:
     os.replace(tmp, path)
 
 
-def write_step_files(step_dir: str, model: nn.Module, optimizer_state: Dict[str, Any]) -> None:
+def write_step_files(step_dir: str, model_state: Dict[str, torch.Tensor], optimizer_state: Dict[str, Any]) -> None:
     """The step's payload, before its run state and manifest: `model.pth`
-    (the reference's layout) and `optimizer.pt`."""
+    (`model_state`, the reference's layout from
+    `export_reference_state_dict`) and `optimizer.pt`."""
     os.makedirs(step_dir, exist_ok=True)
-    _atomic_torch_save(export_reference_state_dict(model), os.path.join(step_dir, MODEL_NAME))
+    _atomic_torch_save(model_state, os.path.join(step_dir, MODEL_NAME))
     _atomic_torch_save(optimizer_state, os.path.join(step_dir, OPTIMIZER_NAME))
 
 

@@ -202,12 +202,19 @@ class SampleQuarantine:
     `quarantine` maintain the dropped fraction; crossing `budget` raises
     FailureBudgetExceeded — past that point the run is no longer training
     on the distribution it was asked to.
+
+    Multi-rank: with `enforce=False` the local ratio check is off (the
+    counters keep accumulating); the trainer reduces dropped/served across
+    the ranks at each coordination boundary (parallel/coordination.py) and
+    calls `check_global` on the pod's fraction, so every rank raises at
+    the same step boundary.
     """
 
-    def __init__(self, budget: float):
+    def __init__(self, budget: float, enforce: bool = True):
         if not 0.0 <= budget <= 1.0:
             raise ValueError(f"failure_budget must be in [0, 1], got {budget}")
         self.budget = budget
+        self.enforce = enforce
         self.indices: Set[int] = set()
         self.dropped = 0
         self.served = 0
@@ -226,6 +233,14 @@ class SampleQuarantine:
 
         grace = math.ceil(1.0 / self.budget) if self.budget > 0 else 1
         return attempted >= grace and dropped > 0 and dropped / attempted > self.budget
+
+    def check_global(self, dropped: int, attempted: int) -> None:
+        """Enforce the budget on pod-global counts (after a coordination
+        all-reduce): raises identically on every rank."""
+        if self.over_budget(dropped, attempted):
+            raise FailureBudgetExceeded(
+                f"{dropped}/{attempted} samples dropped across the pod ({dropped / attempted:.1%}) exceeds the "
+                f"failure budget of {self.budget:.1%}")
 
     def __contains__(self, index: int) -> bool:
         return int(index) in self.indices
@@ -263,7 +278,7 @@ class SampleQuarantine:
             quarantined,
         )
         attempted = dropped + served
-        if self.over_budget(dropped, attempted):
+        if self.enforce and self.over_budget(dropped, attempted):
             raise FailureBudgetExceeded(
                 f"{dropped}/{attempted} samples dropped "
                 f"({dropped / attempted:.1%}) exceeds the "

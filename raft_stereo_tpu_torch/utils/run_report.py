@@ -287,12 +287,13 @@ def atomic_write_json(path: str, payload: Dict[str, Any], durable: bool = False)
             pass
 
 
-def write_run_report(report: Dict[str, Any], log_dir: str) -> str:
-    """Atomically write `report` as <log_dir>/run_report.json; returns the
+def write_run_report(report: Dict[str, Any], log_dir: str, name: str = RUN_REPORT_NAME) -> str:
+    """Atomically write `report` as <log_dir>/<name> (run_report.json;
+    rank k > 0 of a multi-rank run writes run_report.p<k>.json); returns the
     path. Never raises into an exiting trainer (callers sit in finally
     blocks): filesystem failures are swallowed after a best-effort attempt,
     and the exit code still carries the verdict."""
-    path = os.path.join(log_dir, RUN_REPORT_NAME)
+    path = os.path.join(log_dir, name)
     try:
         os.makedirs(log_dir, exist_ok=True)
         atomic_write_json(path, report)

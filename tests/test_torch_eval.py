@@ -240,11 +240,11 @@ def test_cli_formerly_unported_flags_run(flags, capsys):
 @pytest.mark.parametrize("command", ["train", "demo", "serve", "frontier", "bogus"])
 def test_cli_other_subcommands_exit_2(command, capsys):
     """Every subcommand is ported; each exits 2 on what it cannot run: a
-    flag the port does not have (train's mesh), a fleet larger than the
+    flag the port does not have (train's spatial mesh axis), a fleet larger than the
     visible cards (serve's `--replicas` with no card here), a usage error
     (demo without its required paths, frontier without backends), or an
     unknown subcommand."""
-    argv = {"serve": ["serve", "--replicas", "2"], "train": ["train", "--mesh_shape", "2", "1"],
+    argv = {"serve": ["serve", "--replicas", "2"], "train": ["train", "--mesh_shape", "1", "2"],
             "demo": ["demo"]}.get(command, [command])
     try:
         code = cli.main(argv)

@@ -180,12 +180,25 @@ def test_bad_config_writes_a_report_and_exits_1(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mesh_shape", "2", "1"], ["--sharding_rules", "fsdp"], ["--coord_interval", "5"], ["--strict_mode"],
-    ["--recompile_grace", "3"], ["--async_checkpoint"], ["--metrics_port", "9100"],
-    ["--compilation_cache_dir", "cache"], ["--explain_sharding"],
+    ["--mesh_shape", "1", "2"], ["--sharding_rules", "spatial"], ["--strict_mode"], ["--recompile_grace", "3"],
+    ["--compilation_cache_dir", "cache"],
 ], ids=lambda f: f[0].lstrip("-"))
 def test_unported_train_flags_exit_2(flags, capsys, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     assert cli.main(["train", "--device", "cpu", *flags]) == 2
     assert f"not ported yet: {flags[0]}" in capsys.readouterr().err
     assert not os.path.exists(tmp_path / "runs")  # refused before anything ran
+
+
+@pytest.mark.parametrize("flags,field,value", [
+    (["--mesh_shape", "2", "1"], "mesh_shape", (2, 1)), (["--sharding_rules", "fsdp"], "sharding_rules", "fsdp"),
+    (["--coord_interval", "5"], "coord_interval", 5), (["--async_checkpoint"], "async_checkpoint", True),
+    (["--metrics_port", "9100"], "metrics_port", 9100),
+], ids=["mesh_shape", "sharding_rules", "coord_interval", "async_checkpoint", "metrics_port"])
+def test_formerly_unported_train_flags_are_taken(flags, field, value):
+    """The flags the training-across-ranks slice ported pass the refusal
+    and reach the config; `--explain_sharding` is a dry run
+    (tests/test_torch_parallel.py)."""
+    args = cli._train_parser().parse_args(flags)
+    assert cli._unported_train_flags(args) == []
+    assert getattr(cli._train_config_from_args(args), field) == value

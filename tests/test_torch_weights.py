@@ -129,7 +129,9 @@ def test_port_imports_no_jax():
         "          'utils.run_report', 'utils.http', 'utils.resilience', 'utils.retry', 'utils.metrics',\n"
         "          'utils.profiling', 'utils.checkpoints', 'data.native_io', 'data.png', 'data.frame_io',\n"
         "          'data.augment', 'data.datasets', 'data.loader', 'data.prefetch', 'data.trees', 'demo',\n"
-        "          'serving.fleet', 'serving.frontier', 'serving.engine', 'models.raft_stereo', 'ops.corr'):\n"
+        "          'serving.fleet', 'serving.frontier', 'serving.engine', 'models.raft_stereo', 'ops.corr',\n"
+        "          'parallel', 'parallel.distributed', 'parallel.mesh', 'parallel.sharding',\n"
+        "          'parallel.coordination', 'train.io_spine'):\n"
         "    assert 'raft_stereo_tpu_torch.' + m in walked, m\n"
         "print('ok', len(walked))\n"
     )

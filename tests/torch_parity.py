@@ -203,3 +203,23 @@ def reference_state_dict(variables, jcfg, rng):
             value = np.concatenate([value, rng.standard_normal(value.shape).astype(np.float32)], axis=0)
         sd[key] = np.ascontiguousarray(value)
     return sd
+
+
+def free_port() -> int:
+    """A TCP port free on localhost (for a process group's store)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rank_env(rank: int, world: int, port: int) -> dict:
+    """torchrun's environment for one rank of a one-host job on the CPU,
+    with the repository on the import path and one thread per rank."""
+    import os
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), OMP_NUM_THREADS="1",
+                PYTHONPATH=repo)
