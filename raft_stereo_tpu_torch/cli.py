@@ -10,6 +10,9 @@
     python -m raft_stereo_tpu_torch serve --replicas 0 --auto_respawn --hang_timeout_s 30 --port 8080
     python -m raft_stereo_tpu_torch frontier --backends 127.0.0.1:8080 127.0.0.1:8090 --port 8081
     python -m raft_stereo_tpu_torch frontier --rollout new.pth --port 8081
+    torchrun --standalone --nproc_per_node 2 -m raft_stereo_tpu_torch train --sharding_rules spatial --mesh_shape 1 2
+    python -m raft_stereo_tpu_torch fsck checkpoints/raft-stereo --quarantine
+    python -m raft_stereo_tpu_torch check-report runs/run_report.json
 
 Every subcommand takes the JAX CLI's flags, names and defaults, plus
 `--device` (default "cuda"; "cpu" runs the kernels' plain versions, and only
@@ -25,16 +28,21 @@ flight_recorder.json under runs/, and exits 0 completed, 1 error, 2 usage,
 13 preempted, 14 non-finite, 15 failure budget, 16 watchdog
 (utils/run_report.py). Launched by `torchrun` (or `python -m
 torch.distributed.run`), each process is one rank of a process group
-(parallel/distributed.py: NCCL on the cards, gloo on the CPU) and
-`--sharding_rules dp|fsdp` picks how the ranks share the model; `--batch_size`
-is one host's batch, split over the host's ranks, and each rank reads its
-own stride of the data. Rank k > 0 writes run_report.p<k>.json and
+(parallel/distributed.py: NCCL on the cards, gloo on the CPU),
+`--mesh_shape D S` lays them on a (data, spatial) mesh that must cover
+them all (else exit 2), and `--sharding_rules` picks how they share the
+model: dp (DDP), fsdp (FSDP2), and on a spatial axis above 1 (spatial,
+dp+spatial, or dp there) row bands of each image (parallel/spatial.py;
+the crop height must divide by S x 2**n_downsample, `--fused_encoder` and
+fsdp are refused there). `--batch_size` is one host's batch, split over
+the host's data groups; each data group reads its own stride of the
+data, and the S ranks of a spatial group read the same samples and each
+keeps its band of rows. Rank k > 0 writes run_report.p<k>.json and
 flight_recorder.p<k>.json beside rank 0's files. `torchrun` turns any
 non-zero exit of a rank into its own failure code: read each rank's run
 report (or exit code, when the ranks are started directly) for `train`'s.
 `--explain_sharding` prints every parameter's placement and exits without
-training. The JAX flags of what the port does not run yet exit 2: a
-spatial mesh axis other than 1, `--sharding_rules spatial|dp+spatial`,
+training. The JAX flags of what the port does not run yet exit 2:
 `--strict_mode`, `--recompile_grace` other than 2 and
 `--compilation_cache_dir`.
 
@@ -45,9 +53,17 @@ HTTP front until SIGTERM or Ctrl-C, which drain the backlog and exit 0;
 `--replicas N` serves a fleet of N engines, one per card (0: every card;
 more than the cards, or any fleet off the card, exits 2), and
 `--auto_respawn` replaces a replica whose breaker sticks failed (it needs
-two replicas or more). The sharding, AOT-cache and audit flags
-(`--sharding_rules` other than dp, `--aot_cache_dir`,
-`--require_cache_hit`, `--audit`) are not ported yet and exit 2.
+two replicas or more). `--sharding_rules spatial|dp+spatial` serves on
+the plain engine with one visible card (or `--device cpu`), as JAX's
+engine does on one device, and /healthz's `sharding` says so; with more
+than one visible card (or a fleet) it exits 2. The AOT-cache and audit
+flags (`--aot_cache_dir`, `--require_cache_hit`, `--audit`) are not
+ported yet and exit 2.
+
+`fsck ROOT [--quarantine]` and `check-report PATH [--selftest]` are the
+JAX package's `scripts/fsck_checkpoints.py` and
+`scripts/check_run_report.py` (utils/fsck.py, utils/check_report.py): the
+same JSON verdicts and exit codes (0 valid, 1 invalid, 2 usage or I/O).
 
 `frontier` routes POST /v1/predict across `serve` backends
 (serving/frontier.py; it imports no torch); `frontier --rollout CKPT` is
@@ -74,7 +90,7 @@ from raft_stereo_tpu_torch.config import (
     TrainConfig,
 )
 
-SUBCOMMANDS = ("train", "evaluate", "demo", "serve", "frontier")
+SUBCOMMANDS = ("train", "evaluate", "demo", "serve", "frontier", "fsck", "check-report")
 
 
 def _add_model_args(p: argparse.ArgumentParser):
@@ -276,10 +292,12 @@ def _train_parser() -> argparse.ArgumentParser:
     p.add_argument("--wdecay", type=float, default=1e-5)
     p.add_argument("--mesh_shape", type=int, nargs=2, default=[-1, 1],
                    help="(data, spatial) mesh over the ranks; -1 infers the data axis from the world size. The "
-                   "mesh must cover every rank; a spatial axis other than 1 is not ported yet (exits 2)")
+                   "mesh must cover every rank (else exit 2); a spatial axis above 1 splits image rows into bands "
+                   "(the crop height must divide by spatial x 2**n_downsample)")
     p.add_argument("--sharding_rules", choices=list(SHARDING_PRESETS), default="dp",
                    help="dp: DistributedDataParallel; fsdp: FSDP2, conv weights and their AdamW moments sharded "
-                   "over the data axis; spatial and dp+spatial are not ported yet (exit 2)")
+                   "over the data axis; spatial, dp+spatial (and dp on a spatial axis above 1): row bands over the "
+                   "spatial axis, parameters whole, halos and cross-band norm sums exchanged")
     p.add_argument("--explain_sharding", action="store_true",
                    help="print every parameter's placement decision under the preset and mesh, then exit "
                    "without training")
@@ -376,16 +394,9 @@ def run_training(trainer, loader, metrics_logger=None, validate_fn=None) -> int:
 
 
 def _unported_train_flags(args) -> List[str]:
-    from raft_stereo_tpu_torch.parallel.sharding import NOT_PORTED_PRESETS
-
     given = {"strict_mode": args.strict_mode, "recompile_grace": args.recompile_grace,
              "compilation_cache_dir": args.compilation_cache_dir}
-    bad = [f"--{k} {v}" for k, v in given.items() if v != UNPORTED_TRAIN_DEFAULTS[k]]
-    if args.mesh_shape[1] != 1:
-        bad.insert(0, f"--mesh_shape {args.mesh_shape[0]} {args.mesh_shape[1]} (a spatial axis other than 1)")
-    if args.sharding_rules in NOT_PORTED_PRESETS:
-        bad.insert(0, f"--sharding_rules {args.sharding_rules}")
-    return bad
+    return [f"--{k} {v}" for k, v in given.items() if v != UNPORTED_TRAIN_DEFAULTS[k]]
 
 
 def cmd_train(argv: List[str]) -> int:
@@ -412,6 +423,13 @@ def cmd_train(argv: List[str]) -> int:
 
     distributed.init_multihost(device=torch.device(args.device).type)
     try:
+        from raft_stereo_tpu_torch.parallel.mesh import make_mesh
+
+        try:
+            make_mesh(config.mesh_shape)
+        except ValueError as e:
+            print(f"train: {e}", file=sys.stderr)
+            return rr.EXIT_USAGE
         if args.explain_sharding:
             # Dry run: build the trainer and print every parameter's
             # placement, touching no dataset and no checkpoint.
@@ -490,6 +508,7 @@ def _run_train(args, config: TrainConfig) -> int:
         from raft_stereo_tpu_torch.data.datasets import build_training_dataset
         from raft_stereo_tpu_torch.data.loader import DataLoader
         from raft_stereo_tpu_torch.parallel.distributed import host_shard_args, topology
+        from raft_stereo_tpu_torch.parallel.mesh import make_mesh
         from raft_stereo_tpu_torch.train.trainer import Trainer, rank_batch_size
         from raft_stereo_tpu_torch.utils.metrics import MetricsLogger
 
@@ -499,8 +518,9 @@ def _run_train(args, config: TrainConfig) -> int:
         dataset = build_training_dataset(config, config.model.data_modality)
         loader = DataLoader(
             dataset,
-            rank_batch_size(config.batch_size, topology()["local_world_size"]),
-            **host_shard_args(),
+            rank_batch_size(config.batch_size, topology()["local_world_size"],
+                            make_mesh(config.mesh_shape).spatial),
+            **host_shard_args(config.mesh_shape),
             seed=config.seed,
             num_workers=config.num_workers,
             worker_type=config.worker_type,
@@ -633,6 +653,24 @@ def _resolve_replicas(replicas: int, device: str):
     return replicas, None
 
 
+def _spatial_serving_problem(rules: str, device: str, replicas: int) -> Optional[str]:
+    """None when a spatial preset can be served: JAX maps it to a (1, n)
+    row-band mesh over the n visible devices and serves unsharded on one;
+    one process driving bands on several cards is not ported (ROADMAP
+    Queue A, spatial serving across cards)."""
+    visible = 1
+    if device.startswith("cuda"):
+        import torch
+
+        visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if visible > 1 or replicas != 1:
+        cards = f"{visible} visible cards" if visible > 1 else f"--replicas {replicas}"
+        return (f"--sharding_rules {rules} with {cards}: serving row bands across cards in one process is not "
+                "ported (ROADMAP Queue A: spatial serving across cards); serve one card (CUDA_VISIBLE_DEVICES) "
+                "or --sharding_rules dp")
+    return None
+
+
 def _rollout_client(host: str, port: int, ckpt: str, rollback_ckpt: Optional[str], force: bool,
                     timeout_s: float = 3600.0) -> int:
     """`frontier --rollout PATH`: drive a running frontier's POST /rollout
@@ -707,9 +745,11 @@ def cmd_serve(argv: List[str]) -> int:
     p.add_argument("--auto_respawn", action="store_true",
                    help="fleet self-healing: replace a replica whose breaker sticks 'failed' with a fresh engine "
                    "on the same card, validated and in probation (requires --replicas >= 2)")
-    # The JAX CLI's flags the port does not have yet: refused, never ignored.
     p.add_argument("--sharding_rules", choices=["dp", "spatial", "dp+spatial"], default="dp",
-                   help="not ported yet: values other than dp exit 2")
+                   help="spatial presets split image rows over the visible cards (JAX's (1, n) mesh): with one "
+                   "visible card (or --device cpu) the plain engine serves and /healthz says so; with more than "
+                   "one, exit 2 (spatial serving across cards is not ported)")
+    # The JAX CLI's flags the port does not have yet: refused, never ignored.
     p.add_argument("--aot_cache_dir", default=None, help="not ported yet (exits 2)")
     p.add_argument("--require_cache_hit", action="store_true", help="not ported yet (exits 2)")
     p.add_argument("--audit", action="store_true", help="not ported yet (exits 2)")
@@ -717,7 +757,6 @@ def cmd_serve(argv: List[str]) -> int:
     args = p.parse_args(argv)
 
     unported = [flag for flag, given in (
-        (f"--sharding_rules {args.sharding_rules}", args.sharding_rules != "dp"),
         ("--aot_cache_dir", args.aot_cache_dir is not None),
         ("--require_cache_hit", args.require_cache_hit),
         ("--audit", args.audit),
@@ -733,6 +772,8 @@ def cmd_serve(argv: List[str]) -> int:
         print(f"--buckets must look like 384x512, got {args.buckets}", file=sys.stderr)
         return 2
     replicas, problem = _resolve_replicas(args.replicas, args.device)
+    if args.sharding_rules != "dp":
+        problem = _spatial_serving_problem(args.sharding_rules, args.device, args.replicas) or problem
     if problem is None and args.auto_respawn and replicas < 2:
         problem = "--auto_respawn requires replicas >= 2 (it replaces one replica while the others serve)"
     if problem is not None:
@@ -769,6 +810,7 @@ def cmd_serve(argv: List[str]) -> int:
         breaker_probation=args.breaker_probation,
         hang_timeout_s=args.hang_timeout_s,
         replicas=replicas,
+        sharding_rules=args.sharding_rules,
         auto_respawn=args.auto_respawn,
         drain_timeout_s=args.drain_timeout_s,
         log_dir=args.log_dir,
@@ -891,6 +933,18 @@ def cmd_frontier(argv: List[str]) -> int:
     return 0
 
 
+def cmd_fsck(argv: List[str]) -> int:
+    from raft_stereo_tpu_torch.utils import fsck
+
+    return fsck.main(argv)
+
+
+def cmd_check_report(argv: List[str]) -> int:
+    from raft_stereo_tpu_torch.utils import check_report
+
+    return check_report.main(argv)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     logging.basicConfig(
         level=logging.INFO,
@@ -901,5 +955,5 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"usage: python -m raft_stereo_tpu_torch {{{','.join(SUBCOMMANDS)}}} [args]", file=sys.stderr)
         return 2
     commands = {"train": cmd_train, "evaluate": cmd_evaluate, "demo": cmd_demo, "serve": cmd_serve,
-                "frontier": cmd_frontier}
+                "frontier": cmd_frontier, "fsck": cmd_fsck, "check-report": cmd_check_report}
     return commands[argv[0]](argv[1:])

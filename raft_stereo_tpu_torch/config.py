@@ -19,12 +19,12 @@ reference's realtime model, with `n_downsample=3`, `n_gru_layers=2`,
 `slow_fast_gru`).
 
 `TrainConfig` is the JAX package's whole training config (with
-`CameraConfig` and `AugmentConfig`), defaults and validation included. The
-training loop runs one process on one card; the fields it does not act on
-yet keep their JAX names and defaults, and the `train` command line refuses
-any other value with exit 2 (`UNPORTED_TRAIN_DEFAULTS`): `mesh_shape` other
-than (1, 1), `sharding_rules` other than "dp", `coord_interval`,
-`strict_mode`, `recompile_grace`, `async_checkpoint`, `metrics_port` and
+`CameraConfig` and `AugmentConfig`), defaults and validation included,
+plus the port's own checks of a spatial axis above 1 (the band rule,
+`band_shape_problem`; no `fused_encoder` and no fsdp on bands). The
+fields the training loop does not act on keep their JAX names and
+defaults, and the `train` command line refuses any other value with exit
+2 (`UNPORTED_TRAIN_DEFAULTS`): `strict_mode`, `recompile_grace` and
 `compilation_cache_dir`.
 
 The `"alt"` correlation strategy and `sequential_encoder` (with
@@ -33,9 +33,8 @@ has the fleet's `replicas` and `auto_respawn`, and `FrontierConfig` is the
 JAX package's, field for field (the front tier, serving/frontier.py).
 
 Not yet ported, so not present: `encoder_s2d` (a TPU layout; the port
-computes its values with the direct convs), the serving `sharding_rules`,
-the AOT executable cache (`aot_cache_dir`) and the HLO audit
-(`hlo_audit`).
+computes its values with the direct convs), the AOT executable cache
+(`aot_cache_dir`) and the HLO audit (`hlo_audit`).
 """
 
 from __future__ import annotations
@@ -65,9 +64,30 @@ CORR_DTYPES = ("float32", "bfloat16")
 NAN_POLICIES = ("raise", "skip", "rollback")
 # Loader reaction to a sample that keeps failing decode (data/loader.py).
 SAMPLE_POLICIES = ("raise", "quarantine")
-# The JAX package's sharding rule presets; the port trains on one card, so
-# only "dp" (replicated state, the batch on the one card) runs.
+# The JAX package's sharding rule presets (parallel/sharding.py); the
+# mesh's axis sizes decide what runs: a spatial preset on an (n, 1) mesh is
+# dp, as in JAX.
 SHARDING_PRESETS = ("dp", "spatial", "dp+spatial", "fsdp")
+# The presets `serve` takes (the JAX CLI's choices).
+SERVE_SHARDING = ("dp", "spatial", "dp+spatial")
+
+
+def band_shape_problem(height: int, spatial: int, n_downsample: int):
+    """The band rule of parallel/spatial.py: None when an image of `height`
+    rows splits into `spatial` row bands (it divides by spatial *
+    2**n_downsample, with at least 3 rows per band at 1/2**n_downsample,
+    the halo of the motion encoder's 7x7 conv), else what is wrong and the
+    height to use."""
+    if spatial <= 1:
+        return None
+    unit = spatial * 2**n_downsample
+    least = 3 * unit
+    if height % unit == 0 and height >= least:
+        return None
+    want = max(least, -(-height // unit) * unit)
+    return (f"image height {height} does not split into {spatial} row bands: it must divide by "
+            f"spatial x 2**n_downsample = {unit} and be at least {least} (3 rows per band at "
+            f"1/{2**n_downsample} resolution, the 7x7 motion conv's halo); use a height of {want}")
 
 
 def input_channels(data_modality: str) -> int:
@@ -239,8 +259,10 @@ class ServeConfig:
     Every (bucket, batch) combination is warmed at boot; admission maps a
     request onto the smallest bucket that fits. Refinement runs in chunks
     of `chunk_iters`; `max_iters` is rounded up to whole chunks. The JAX
-    package's sharding, AOT-cache and HLO-audit fields are not ported (the
-    `serve` flags for them exit 2).
+    package's AOT-cache and HLO-audit fields are not ported (the `serve`
+    flags for them exit 2). `sharding_rules` is JAX's: a spatial preset
+    maps to a row-band mesh over the visible devices, and with one visible
+    device the plain engine serves (as JAX's does; /healthz says so).
     """
 
     model: RAFTStereoConfig = dataclasses.field(default_factory=RAFTStereoConfig)
@@ -283,6 +305,9 @@ class ServeConfig:
     # so one hung or failing replica is one fault domain and its batch is
     # requeued onto another. 1 keeps the single-engine path.
     replicas: int = 1
+    # "dp", "spatial" or "dp+spatial" (serving/engine.py: one visible
+    # device serves unsharded whatever the preset).
+    sharding_rules: str = "dp"
     # Fleet self-healing: a replica whose breaker sticks `failed` is
     # replaced in the background by a fresh engine on the same device,
     # validated against the serving weights and entered in probation.
@@ -333,6 +358,8 @@ class ServeConfig:
             raise ValueError(f"drain_timeout_s must be >= 0, got {self.drain_timeout_s}")
         if self.replicas < 1:
             raise ValueError(f"replicas must be >= 1, got {self.replicas}")
+        if self.sharding_rules not in SERVE_SHARDING:
+            raise ValueError(f"sharding_rules {self.sharding_rules!r} not in {SERVE_SHARDING}")
         if self.auto_respawn and self.replicas < 2:
             raise ValueError(
                 "auto_respawn requires replicas >= 2: respawn replaces one fleet replica while the others "
@@ -645,8 +672,8 @@ class TrainConfig:
     log_every: int = 100
     # (data, spatial) mesh over the ranks of a process group (-1 infers the
     # data axis from the world size) and the sharding rule preset
-    # (parallel/sharding.py): dp and fsdp run; a spatial axis above 1 and
-    # the spatial presets are not ported yet.
+    # (parallel/sharding.py). A spatial axis above 1 runs row bands
+    # (parallel/spatial.py): the crop height must follow the band rule.
     mesh_shape: Tuple[int, int] = (1, 1)
     sharding_rules: str = "dp"
     num_workers: int = 4
@@ -736,6 +763,16 @@ class TrainConfig:
             raise ValueError(f"failure_budget must be in [0, 1], got {self.failure_budget}")
         if self.sharding_rules not in SHARDING_PRESETS:
             raise ValueError(f"sharding_rules {self.sharding_rules!r} not in {SHARDING_PRESETS}")
+        spatial = self.mesh_shape[1]
+        if spatial > 1:
+            if self.sharding_rules == "fsdp":
+                raise ValueError(f"fsdp with a spatial axis of {spatial} is not ported; use dp+spatial")
+            if self.model.fused_encoder:
+                raise ValueError(f"fused_encoder does not run on row bands (spatial axis {spatial}): its kernels "
+                                 "take no halo and no cross-band statistics")
+            problem = band_shape_problem(self.augment.crop_size[0], spatial, self.model.n_downsample)
+            if problem is not None:
+                raise ValueError(f"crop_size {tuple(self.augment.crop_size)}: {problem}")
         if not 0 <= self.metrics_port <= 65535:
             raise ValueError(f"metrics_port must be in [0, 65535], got {self.metrics_port}")
         if self.flight_recorder_events < 0:
@@ -744,8 +781,7 @@ class TrainConfig:
 
 # The fields the port's training loop does not act on yet, with the one
 # value it runs (the JAX default): the `train` command line refuses any
-# other with exit 2. (A spatial mesh axis above 1 and the spatial presets
-# are refused beside them.)
+# other with exit 2.
 UNPORTED_TRAIN_DEFAULTS = {
     "strict_mode": False,
     "recompile_grace": 2,

@@ -69,10 +69,17 @@ class Evaluator:
         i2 = torch.as_tensor(image2, dtype=torch.float32, device=device)[None]
         padder = InputPadder(i1.shape, divis_by=32, bucket=self.pad_bucket)
         i1, i2 = padder.pad(i1, i2)
+        # A banded model (parallel/spatial.py, validation inside a spatial
+        # run) takes this rank's band of the padded images and gathers the
+        # whole flow on every rank of its group.
+        whole = getattr(self.model, "forward_whole", None)
         with torch.no_grad():
             _sync(device)
             start = time.perf_counter()
-            _, up = self.model(i1, i2, iters=self.iters, test_mode=True)
+            if whole is not None:
+                _, up = whole(i1, i2, iters=self.iters)
+            else:
+                _, up = self.model(i1, i2, iters=self.iters, test_mode=True)
             _sync(device)
             elapsed = time.perf_counter() - start
         if self.heartbeat is not None:

@@ -14,6 +14,12 @@ resolution and instance or batch norm, and only in a test-mode forward
 `fused_layer1=cfg.fused_encoder and test_mode`: the kernels have no
 backward, so a training forward takes the direct path.
 
+On a band (parallel/spatial.py) the trunk's levels are banded and the
+context encoder's layer4/layer5 levels follow the ragged-level rule
+(`spatial.coarser`, `spatial.level`); `fused_layer1` is refused there:
+its kernels zero-pad at their tensor's edge and take the band's own
+instance statistics.
+
 Both encoders follow their input's dtype: under mixed precision the images
 arrive in bf16, the convs and norms run in bf16 on fp32 parameters, and the
 fused layer1 takes the kernels' bf16 variants.
@@ -28,6 +34,7 @@ from torch import nn
 
 from raft_stereo_tpu_torch.models.layers import Conv, ResidualBlock, make_norm
 from raft_stereo_tpu_torch.ops import encoder_cuda
+from raft_stereo_tpu_torch.parallel import spatial
 
 
 def _stride(downsample: int, threshold: int) -> int:
@@ -53,6 +60,9 @@ class EncoderTrunk(nn.Module):
         self.layer3_1 = ResidualBlock(128, 128, norm_fn, stride=1)
 
     def forward(self, x: torch.Tensor, test_mode: bool = False) -> torch.Tensor:
+        if self.fused_layer1 and test_mode and spatial.active() is not None:
+            raise ValueError("fused_encoder does not run on row bands (a spatial axis above 1): its kernels "
+                             "take no halo and no cross-band statistics")
         x = self.conv1(x)
         if (self.fused_layer1 and test_mode and x.shape[3] % 2 == 0
                 and self.norm_fn in ("instance", "batch")):
@@ -113,6 +123,7 @@ class MultiBasicEncoder(nn.Module):
         super().__init__()
         self.n_heads = len(output_dims)
         self.num_layers = num_layers
+        self.downsample = downsample
         self.trunk = EncoderTrunk(norm_fn, downsample, in_channels, fused_layer1)
         for j, dims in enumerate(output_dims):
             self.add_module(f"res08_{j}", ResidualBlock(128, 128, norm_fn, stride=1))
@@ -142,12 +153,15 @@ class MultiBasicEncoder(nn.Module):
             trunk_out = x
             x = x[: x.shape[0] // 2]
         scales = [self._heads(x, "08")]
+        lv = self.downsample
         if self.num_layers >= 2:
-            y = self.layer4_1(self.layer4_0(x))
-            scales.append(self._heads(y, "16"))
+            y = spatial.coarser(x, lv, lambda t: self.layer4_1(self.layer4_0(t)))
+            with spatial.level(lv + 1):
+                scales.append(self._heads(y, "16"))
         if self.num_layers >= 3:
-            z = self.layer5_1(self.layer5_0(y))
-            scales.append(self._heads(z, "32", with_res=False))
+            z = spatial.coarser(y, lv + 1, lambda t: self.layer5_1(self.layer5_0(t)))
+            with spatial.level(lv + 2):
+                scales.append(self._heads(z, "32", with_res=False))
         if dual_inp:
             return tuple(scales), trunk_out
         return tuple(scales)

@@ -8,6 +8,10 @@ statistics. Attribute names follow the flax module names, except that the
 norms of a block are `norm1`, `norm2`, `norm3` in call order (flax numbers
 them `<Norm>_0`, `_1`, `_2`; utils/checkpoints.py maps between the two).
 
+Inside a band scope (parallel/spatial.py) `Conv` takes its row halo from
+the neighbouring bands and the instance and group norms sum their
+statistics over the bands; outside one they are the plain layers.
+
 Compute dtype follows the input, as in the JAX package: parameters stay
 fp32 and are cast to a bf16 input's dtype at use (never the module itself,
 which the weight bridge and training keep in fp32). Under bf16 each torch
@@ -20,6 +24,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 import torch.nn.functional as F
+
+from raft_stereo_tpu_torch.parallel import spatial
 
 
 class Conv(nn.Conv2d):
@@ -37,9 +43,22 @@ class Conv(nn.Conv2d):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        scope = spatial.banded()
+        if scope is not None and self.kernel_size[0] > 1:
+            return self._banded(x, scope)
         if x.dtype == self.weight.dtype:
             return super().forward(x)
         y = self._conv_forward(x, self.weight.to(x.dtype), None)
+        return y + self.bias.to(x.dtype)[None, :, None, None]
+
+    def _banded(self, x: torch.Tensor, scope) -> torch.Tensor:
+        """This band's output rows from its rows and the halo, with no row
+        padding (the halo's zero rows at the image's edges are it)."""
+        x = scope.halo_rows(x, *spatial.conv_halo(self.kernel_size[0], self.stride[0], self.padding[0]))
+        padding = (0, self.padding[1])
+        if x.dtype == self.weight.dtype:
+            return F.conv2d(x, self.weight, self.bias, self.stride, padding, self.dilation, self.groups)
+        y = F.conv2d(x, self.weight.to(x.dtype), None, self.stride, padding, self.dilation, self.groups)
         return y + self.bias.to(x.dtype)[None, :, None, None]
 
 
@@ -81,8 +100,16 @@ class InstanceNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n = x.shape[2] * x.shape[3]
         xs = x.float() if x.dtype == torch.bfloat16 else x
-        mean = xs.sum(dim=(2, 3), keepdim=True) / n
-        var = torch.clamp((xs * xs).sum(dim=(2, 3), keepdim=True) / n - mean * mean, min=0.0)
+        scope = spatial.banded()
+        if scope is None:
+            mean = xs.sum(dim=(2, 3), keepdim=True) / n
+            var = torch.clamp((xs * xs).sum(dim=(2, 3), keepdim=True) / n - mean * mean, min=0.0)
+        else:
+            # The band's sums, summed over the bands, over the whole image.
+            n *= scope.count
+            sums = scope.band_sum(torch.stack([xs.sum(dim=(2, 3)), (xs * xs).sum(dim=(2, 3))]))
+            mean = (sums[0] / n)[..., None, None]
+            var = torch.clamp((sums[1] / n)[..., None, None] - mean * mean, min=0.0)
         inv = torch.rsqrt(var + self.epsilon)
         return (x - mean.to(x.dtype)) * inv.to(x.dtype)
 
@@ -98,10 +125,25 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """fp32 (at least) statistics and affine, cast back to x's dtype."""
+        """fp32 (at least) statistics and affine, cast back to x's dtype.
+        On a band: one-pass statistics (flax's fast variance) summed over
+        the bands."""
+        scope = spatial.banded()
+        if scope is not None:
+            return self._banded(x, scope)
         if x.dtype != torch.bfloat16:
             return F.group_norm(x, self.num_groups, self.weight, self.bias, self.epsilon)
         return F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.epsilon).to(x.dtype)
+
+    def _banded(self, x: torch.Tensor, scope) -> torch.Tensor:
+        b, c, h, w = x.shape
+        xs = (x.float() if x.dtype == torch.bfloat16 else x).reshape(b, self.num_groups, -1)
+        n = xs.shape[2] * scope.count
+        sums = scope.band_sum(torch.stack([xs.sum(dim=2), (xs * xs).sum(dim=2)]))
+        mean = (sums[0] / n)[..., None]
+        var = torch.clamp(sums[1] / n - mean[..., 0] * mean[..., 0], min=0.0)[..., None]
+        y = ((xs - mean) * torch.rsqrt(var + self.epsilon)).reshape(b, c, h, w)
+        return (y * self.weight[None, :, None, None] + self.bias[None, :, None, None]).to(x.dtype)
 
 
 def make_norm(norm_fn: str, features: int) -> nn.Module:

@@ -22,6 +22,11 @@ in bf16 and they are saved in bf16 across the remat, the flows the loss
 reads are fp32, and the lookup's backward (`ops/corr_cuda.py` `CorrLookup`)
 returns d(pyramid) in the pyramid's dtype.
 
+Inside a band scope (parallel/spatial.py `BandedModel`) the images are a
+band of rows and so is every output; the correlation state and its
+lookups are the band's own (row-local, no exchange), the context and GRU
+levels follow the ragged-level rule.
+
 The training forward detaches the coordinates at the start of every
 iteration, as JAX's `stop_gradient` does, and with `remat_iterations` runs
 each iteration body under `torch.utils.checkpoint`; with `remat_save_corr`
@@ -43,6 +48,7 @@ from raft_stereo_tpu_torch.models.layers import Conv, ResidualBlock
 from raft_stereo_tpu_torch.models.update import BasicMultiUpdateBlock, UpsampleMaskHead
 from raft_stereo_tpu_torch.ops import corr as corr_ops
 from raft_stereo_tpu_torch.ops import corr_cuda, gates
+from raft_stereo_tpu_torch.parallel import spatial
 from raft_stereo_tpu_torch.utils.geometry import convex_upsample, convex_upsample_blocked, coords_grid_x
 
 
@@ -170,7 +176,8 @@ class RAFTStereo(nn.Module):
         net = tuple(torch.tanh(s[0]) for s in scales)
         context = []
         for i, s in enumerate(scales):
-            czqr = self._modules[f"context_zqr_conv{i}"](torch.relu(s[1]))
+            with spatial.level(cfg.n_downsample + i):
+                czqr = self._modules[f"context_zqr_conv{i}"](torch.relu(s[1]))
             # Contiguous once here: the GRU tail kernel takes contiguous
             # operands, and the context is loop-invariant.
             context.append(tuple(c.contiguous() for c in torch.chunk(czqr, 3, dim=1)))
@@ -263,7 +270,7 @@ class RAFTStereo(nn.Module):
             corr = corr_sample(cfg, state["corr"], coords1) if lookup_outside else None
             if remat:
                 net, coords1 = checkpoint(self._update, state, net, coords1, corr, test_mode=False,
-                                          use_reentrant=False)
+                                          use_reentrant=False, context_fn=spatial.checkpoint_contexts)
             else:
                 net, coords1 = self._update(state, net, coords1, corr, test_mode=False)
             flows.append(coords1 - state["coords0"])

@@ -21,6 +21,11 @@ fp32 and round once to bf16, where the unfused bf16 formula
 (`gru_tail.plain_gru_tail`) rounds after every op, so the fused and unfused
 bf16 forwards differ by those roundings (fp32: bit for bit).
 
+On a band (parallel/spatial.py) each GRU runs on its level by the
+ragged-level rule: the pooling to a coarser GRU and the resize to a finer
+one cross the band edges (`_pool`, `_interp_to`), the convs take their
+halos; the gate and motion tails are per pixel and run on the band.
+
 With `pallas_gates` (the experiment of `ops/gates.py`, switched on by its
 environment variable in a test-mode forward) the ConvGRU's gating runs as
 that module's two kernels instead: rh = sigmoid(rx + cr) * h before the
@@ -37,6 +42,7 @@ from torch import nn
 
 from raft_stereo_tpu_torch.models.layers import Conv
 from raft_stereo_tpu_torch.ops import gates, gru_tail
+from raft_stereo_tpu_torch.parallel import spatial
 from raft_stereo_tpu_torch.utils.geometry import avg_pool2x, resize_bilinear_align_corners
 
 
@@ -100,8 +106,20 @@ class BasicMotionEncoder(nn.Module):
         return gru_tail.plain_motion_tail(pre, flow)
 
 
-def _interp_to(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    return resize_bilinear_align_corners(x, like.shape[2], like.shape[3])
+def _interp_to(x: torch.Tensor, like: torch.Tensor, lv_x: int, lv_like: int) -> torch.Tensor:
+    """x (level `lv_x`) resized to `like`'s finer level `lv_like`; on a
+    band, gathered whole and resized to the band's rows of that level."""
+    h, w = like.shape[2], like.shape[3]
+    scope = spatial.active()
+    out_h = h * scope.count if scope is not None and scope.banded_level(lv_like) else h
+    return spatial.interp_rows(x, lv_x, h, lv_like,
+                               lambda t, rows: resize_bilinear_align_corners(t, out_h, w, rows))
+
+
+def _pool(x: torch.Tensor, lv: int) -> torch.Tensor:
+    """avg_pool2x of x (level `lv`) to level `lv + 1`, by the ragged-level
+    rule on a band."""
+    return spatial.coarser(x, lv, avg_pool2x)
 
 
 class BasicMultiUpdateBlock(nn.Module):
@@ -117,6 +135,7 @@ class BasicMultiUpdateBlock(nn.Module):
                  n_downsample: int, fused_tail: bool = False):
         super().__init__()
         self.n_gru_layers = n = n_gru_layers
+        self.n_downsample = n_downsample
         self.encoder = BasicMotionEncoder(corr_channels, fused_tail=fused_tail)
         self.gru08 = ConvGRU(hidden_dims[2], 128 + (hidden_dims[1] if n > 1 else 0), fused_tail)
         if n >= 2:
@@ -141,19 +160,21 @@ class BasicMultiUpdateBlock(nn.Module):
     ):
         net = list(net)
         n = self.n_gru_layers
+        lv = self.n_downsample
         modes = {"test_mode": test_mode, "pallas_gates": pallas_gates}
         if iter32 and n == 3:
-            net[2] = self.gru32(net[2], *context[2], avg_pool2x(net[1]), **modes)
+            pooled = _pool(net[1], lv + 1)
+            with spatial.level(lv + 2):
+                net[2] = self.gru32(net[2], *context[2], pooled, **modes)
         if iter16 and n >= 2:
-            if n > 2:
-                net[1] = self.gru16(net[1], *context[1], avg_pool2x(net[0]), _interp_to(net[2], net[1]),
-                                    **modes)
-            else:
-                net[1] = self.gru16(net[1], *context[1], avg_pool2x(net[0]), **modes)
+            pooled = _pool(net[0], lv)
+            up = (_interp_to(net[2], net[1], lv + 2, lv + 1),) if n > 2 else ()
+            with spatial.level(lv + 1):
+                net[1] = self.gru16(net[1], *context[1], pooled, *up, **modes)
         if iter08:
             motion = self.encoder(flow, corr, test_mode=test_mode)
             if n > 1:
-                net[0] = self.gru08(net[0], *context[0], motion, _interp_to(net[1], net[0]), **modes)
+                net[0] = self.gru08(net[0], *context[0], motion, _interp_to(net[1], net[0], lv + 1, lv), **modes)
             else:
                 net[0] = self.gru08(net[0], *context[0], motion, **modes)
         if not update:

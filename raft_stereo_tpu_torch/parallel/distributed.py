@@ -92,11 +92,17 @@ def process_topology() -> tuple:
     return dist.get_rank(), dist.get_world_size()
 
 
-def host_shard_args() -> dict:
-    """(host_id, num_hosts) kwargs for the DataLoader's per-rank input
-    sharding: every rank reads its own stride of the epoch order."""
+def host_shard_args(mesh_shape=(-1, 1)) -> dict:
+    """(host_id, num_hosts) kwargs for the DataLoader's input sharding over
+    the data axis of a (data, spatial) `mesh_shape`: each data group reads
+    its own stride of the epoch order, and the ranks of one spatial group
+    read the same samples with the same augmentation (the loader's streams
+    are keyed on (seed, epoch, index)), each then keeping its row band."""
+    from raft_stereo_tpu_torch.parallel.mesh import mesh_coordinates
+
     index, count = process_topology()
-    return {"host_id": index, "num_hosts": count}
+    data_index, data, _, _ = mesh_coordinates(index, count, tuple(mesh_shape))
+    return {"host_id": data_index, "num_hosts": data}
 
 
 def shutdown() -> None:

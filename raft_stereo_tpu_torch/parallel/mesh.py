@@ -12,9 +12,11 @@ Two differences from JAX, both forced by PyTorch's execution model:
 - a JAX mesh may leave devices out (a 2x1 mesh on an 8-chip host); a torch
   rank cannot sit out of a collective step, so a mesh that does not cover
   the world is refused with the shape it would need;
-- the batch is placed by each rank reading its own rows (the loader's
-  per-rank stride, data/loader.py), so `shard_batch` only moves this rank's
-  rows to its device: the global batch is the ranks' rows together.
+- the batch is placed by each rank reading its data group's rows (the
+  loader's stride over the data axis, data/loader.py), so `shard_batch`
+  only moves them to the rank's device and, on a spatial axis above 1,
+  keeps this rank's band of image rows: the ranks of one spatial group
+  read the same samples and each keeps its band.
 """
 
 from __future__ import annotations
@@ -53,6 +55,19 @@ class Mesh:
     @property
     def shape(self) -> Dict[str, int]:
         return {DATA_AXIS: self.data, SPATIAL_AXIS: self.spatial}
+
+    def coordinate(self, axis: str) -> int:
+        """This rank's index along `axis` (0 without a DeviceMesh)."""
+        return self.device_mesh.get_local_rank(axis) if self.device_mesh is not None else 0
+
+
+def mesh_coordinates(rank: int, world: int, mesh_shape: Tuple[int, int]) -> Tuple[int, int, int, int]:
+    """(data index, data size, spatial index, spatial size) of `rank` in a
+    (data, spatial) mesh over `world` ranks laid out as `make_mesh` lays
+    them (row-major: rank = data index * spatial + spatial index), with
+    -1 resolved as there. No process group needed (the loader's shard)."""
+    d, s = make_mesh(mesh_shape, world_size=world).shape.values()
+    return rank // s, d, rank % s, s
 
 
 def make_mesh(mesh_shape: Tuple[int, int] = (-1, 1), world_size: Optional[int] = None,
@@ -94,12 +109,20 @@ def replicated(mesh: Mesh) -> P:
     return P()
 
 
-def shard_batch(mesh: Mesh, batch: Mapping[str, Any], device="cpu") -> Dict[str, torch.Tensor]:
-    """This rank's rows of the global batch on its device, as float32
-    tensors. Each rank's loader already produced exactly its rows (the
-    global batch is the ranks' rows in rank order), so nothing is sliced
-    and nothing is communicated; non-array entries (paths) are dropped."""
+def shard_batch(mesh: Mesh, batch: Mapping[str, Any], device="cpu",
+                spatial_index: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """This rank's part of the global batch on its device, as float32
+    tensors. Each rank's loader already produced its data group's rows (the
+    global batch is the data groups' rows in order); on a spatial axis
+    above 1 this rank keeps the image rows [k*H/s, (k+1)*H/s) of them, k
+    its spatial coordinate (`spatial_index`, default the DeviceMesh's).
+    Nothing is communicated; non-array entries (paths) are dropped."""
+    k = mesh.coordinate(SPATIAL_AXIS) if spatial_index is None else spatial_index
     out = {}
     for key in ("image1", "image2", "flow", "valid"):
-        out[key] = torch.as_tensor(batch[key]).to(device=device, dtype=torch.float32)
+        t = torch.as_tensor(batch[key])
+        if mesh.spatial > 1:
+            rows = t.shape[1] // mesh.spatial
+            t = t[:, k * rows:(k + 1) * rows]
+        out[key] = t.to(device=device, dtype=torch.float32)
     return out

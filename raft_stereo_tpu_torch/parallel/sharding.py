@@ -11,7 +11,9 @@ The four preset names are the JAX package's, and `resolve_mesh_shape` is
 its, verbatim. How a preset runs is PyTorch's:
 
 - ``dp`` wraps the model in `DistributedDataParallel`: parameters whole on
-  every rank, gradients averaged across the data axis in the backward.
+  every rank, gradients averaged across the data axis in the backward (so
+  do ``spatial`` and ``dp+spatial`` on a spatial axis of 1, where, as in
+  JAX, they are inert).
 - ``fsdp`` is FSDP2 (`fully_shard`) on the root module. Placement follows
   the rule table and JAX's divide-evenly-or-replicate demotion
   (`_fit_spec`): a conv weight whose C_out divides the data axis is
@@ -23,14 +25,21 @@ its, verbatim. How a preset runs is PyTorch's:
   their gradients. The root owns every parameter, so the fused encoder and
   the correlation's autograd function, which read weights directly, see
   whole tensors inside the forward and the backward.
-- ``spatial`` and ``dp+spatial`` shard image rows over cards; they need a
-  halo exchange around every 3x3 conv and cross-rank instance-norm
-  statistics, and are not ported yet: the engine refuses them.
+- a spatial axis above 1 (``spatial``, ``dp+spatial``, and ``dp`` on such
+  a mesh, whose batch rules shard rows over ``spatial`` as JAX's do) runs
+  row bands: the model runs under parallel/spatial.py's band scope (the
+  counterpart of JAX's activation scope, with every halo, cross-band norm
+  sum and ragged-level gather written out), parameters whole on every
+  rank, and after the backward every gradient is summed over all the
+  ranks in one flat all-reduce: each rank's loss is its share of the
+  global batch's (its band's valid pixels over the global count), so the
+  sum is the global batch's gradient. ``fsdp`` on a spatial axis above 1
+  and ``fused_encoder`` on bands are refused (ROADMAP).
 
 Left out: the JAX module's HLO collective audit (`collective_counts`,
 `assert_no_collectives`), which reads XLA's compiled text; the port has
-no XLA program to read. Also left out: the activation-constraint scope,
-which only the spatial presets use.
+no XLA program to read (its counterpart for the correlation chain counts
+the band scope's exchanges, tests/test_torch_spatial.py).
 """
 
 from __future__ import annotations
@@ -248,8 +257,6 @@ PRESETS: Dict[str, ShardingPreset] = {
                            "FSDP2: conv weights + AdamW moments sharded over the data axis, batch over data"),
 }
 
-NOT_PORTED_PRESETS = ("spatial", "dp+spatial")
-
 
 def resolve_mesh_shape(preset: str, n_devices: int, batch: int) -> Tuple[int, int]:
     """Default (data, spatial) mesh shape for a preset at a given device
@@ -277,10 +284,9 @@ class ShardingEngine:
     def __init__(self, mesh: Mesh, rules: str = "dp"):
         if rules not in PRESETS:
             raise ValueError(f"unknown sharding preset {rules!r}; have {sorted(PRESETS)}")
-        if rules in NOT_PORTED_PRESETS or mesh.spatial > 1:
-            raise NotImplementedError(
-                f"sharding preset {rules!r} on a {mesh.data}x{mesh.spatial} mesh is not ported yet: row "
-                "sharding needs a halo exchange around every 3x3 conv and cross-rank instance-norm statistics")
+        if rules == "fsdp" and mesh.spatial > 1:
+            raise ValueError(f"fsdp on a {mesh.data}x{mesh.spatial} mesh: fsdp with a spatial axis above 1 is not "
+                             "ported; use --sharding_rules dp+spatial (parameters whole on every rank)")
         self.mesh = mesh
         self.preset = PRESETS[rules]
 
@@ -322,15 +328,36 @@ class ShardingEngine:
     def distributed(self) -> bool:
         return self.mesh.device_mesh is not None
 
+    @property
+    def banded(self) -> bool:
+        """Image rows split over a spatial axis above 1."""
+        return self.mesh.spatial > 1
+
+    @property
+    def loss_scale(self) -> int:
+        """What a rank's share of the global loss is scaled by before its
+        backward: DDP and FSDP2 average the ranks' gradients, so the data
+        axis; the banded path sums them, so 1."""
+        return 1 if self.banded else self.mesh.data
+
     def wrap(self, model: torch.nn.Module) -> torch.nn.Module:
         """The module the training step calls. Outside a process group the
-        model itself; dp: a DistributedDataParallel around it; fsdp: the
-        model, sharded in place by FSDP2 (its parameters become DTensors
-        outside the forward and backward)."""
+        model itself; on a spatial axis above 1 a `BandedModel` (the model
+        on this rank's band of rows, parameters whole); dp (or a spatial
+        preset on a spatial axis of 1): a DistributedDataParallel around
+        it; fsdp: the model, sharded in
+        place by FSDP2 (its parameters become DTensors outside the forward
+        and backward)."""
         if not self.distributed:
             return model
+        if self.banded:
+            from raft_stereo_tpu_torch.parallel import spatial
+
+            if model.config.fused_encoder:
+                raise ValueError("fused_encoder does not run on row bands (a spatial axis above 1)")
+            return spatial.BandedModel(model, spatial.band_scope_for(self.mesh))
         data_mesh = self.mesh.device_mesh[DATA_AXIS]
-        if self.preset.name == "dp":
+        if self.preset.name != "fsdp":
             from torch.nn.parallel import DistributedDataParallel
 
             on_card = next(model.parameters()).device.type == "cuda"
@@ -351,19 +378,28 @@ class ShardingEngine:
         return model
 
     def reduce_replicated_grads(self, model: torch.nn.Module) -> None:
-        """Sum the gradients FSDP2 does not reduce (the whole parameters
-        under fsdp) across the data axis and divide by its size: the same
-        mean FSDP2's reduce-scatter takes, in one collective."""
-        if not self.distributed or self.preset.name != "fsdp" or self.mesh.data == 1:
+        """The gradients no wrapper reduces, in one collective. Under fsdp
+        the whole parameters' across the data axis, divided by its size
+        (the mean FSDP2's reduce-scatter takes); on a spatial axis above 1
+        every parameter's, summed over all the ranks (each rank's loss is
+        its share of the global batch's)."""
+        if not self.distributed:
             return
         import torch.distributed as dist
 
-        grads = [p.grad for p in self.replicated_params(model) if p.grad is not None]
+        if self.banded:
+            grads, group, divide = [p.grad for p in model.parameters() if p.grad is not None], None, 1
+        elif self.preset.name == "fsdp" and self.mesh.data > 1:
+            grads = [p.grad for p in self.replicated_params(model) if p.grad is not None]
+            group, divide = self.mesh.device_mesh[DATA_AXIS].get_group(), self.mesh.data
+        else:
+            return
         if not grads:
             return
         flat = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(flat, group=self.mesh.device_mesh[DATA_AXIS].get_group())
-        flat.div_(self.mesh.data)
+        dist.all_reduce(flat, group=group)
+        if divide > 1:
+            flat.div_(divide)
         offset = 0
         for g in grads:
             g.copy_(flat[offset:offset + g.numel()].view_as(g))
@@ -378,7 +414,9 @@ class ShardingEngine:
         d, s = self.mesh.data, self.mesh.spatial
         lines = [f"sharding preset: {self.preset.name} ({self.preset.description})",
                  f"mesh: {d}x{s} (data x spatial) over {d * s} rank(s)",
-                 "activation constraints: off"]
+                 (f"row bands: rank k of the {s} in a spatial group holds rows [k*R/{s}, (k+1)*R/{s}) of every "
+                  "level whose rows R divide by it (and every finer level's do); ragged levels whole on every rank; "
+                  "gradients summed over all ranks" if s > 1 else "row bands: off")]
         if model is not None:
             params = dict(model.named_parameters())
             lines.append(explain_sharding(self.preset.param_rules, params, label="parameters"))

@@ -25,6 +25,12 @@ The request path the batcher calls (serving/batcher.py):
   hand its memory out while the runner still reads it), and `run_batch`
   refines. `torch.inference_mode` is per thread too; `run_batch` carries it.
 
+`sharding` says how the engine serves (/healthz's `sharding` field): a
+spatial preset would split rows over the visible devices, as JAX's engine
+does; with one visible device JAX serves unsharded, and so does this
+engine, which is always one device (`serve` refuses a spatial preset with
+more than one visible card).
+
 `swap_variables` hot-swaps the weights: the candidate state dict is checked
 key by key against the served model (shape and dtype) before anything is
 touched, then copied into the served tensors in place under the run lock,
@@ -89,6 +95,8 @@ class AnytimeEngine:
         if model is None:
             model = build_model(config.model, seed=seed, device=self.device)
         self.model = model.eval()
+        self.sharding = ("dp (single-program)" if config.sharding_rules == "dp" else
+                         f"{config.sharding_rules} requested; one visible device: dp (single-program)")
         self._chunk_est_s: Dict[Tuple[Tuple[int, int], int], float] = {}
         self.prelude_s: Dict[Tuple[Tuple[int, int], int], float] = {}
         self._lock = threading.Lock()
@@ -152,6 +160,7 @@ class AnytimeEngine:
         return {
             "combos": len(cfg.buckets) * len(cfg.batch_sizes),
             "warmup_seconds": time.monotonic() - t_start,
+            "sharding": self.sharding,
             "chunk_est_ms": {f"{hw[0]}x{hw[1]}/b{b}": s * 1e3 for (hw, b), s in self._chunk_est_s.items()},
             "prelude_ms": {f"{hw[0]}x{hw[1]}/b{b}": s * 1e3 for (hw, b), s in self.prelude_s.items()},
         }

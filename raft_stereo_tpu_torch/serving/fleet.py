@@ -305,6 +305,10 @@ class EngineFleet:
         return ",".join(str(r.device) for r in self.replicas)
 
     @property
+    def sharding(self) -> str:
+        return self.replicas[0].engine.sharding
+
+    @property
     def tracer(self):
         """The replicas' flight-recorder tracer: setting it sets every
         replica's, so spans and watchdog dumps land in one recorder."""

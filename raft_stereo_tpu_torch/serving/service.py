@@ -532,6 +532,7 @@ class StereoService:
             "checkpoint": self.current_checkpoint,
             "replicas": self.engine.n_replicas,
             "device": str(self.engine.device),
+            "sharding": self.engine.sharding,
             "buckets": [list(b) for b in self.config.buckets],
             "batch_sizes": list(self.config.batch_sizes),
             "chunk_iters": self.config.chunk_iters,

@@ -36,10 +36,12 @@ run_report.json on every exit path. Not ported: the jit-hygiene monitor
 (the port compiles no XLA programs).
 
 Across ranks (a process group, parallel/): the model is wrapped by the
-sharding preset (dp: DistributedDataParallel; fsdp: FSDP2), each rank
-steps on its own rows of the global batch, and a step's loss, metrics and
-gradients are those of the global batch: every rank divides by the global
-batch's valid-pixel count and the ranks' shares are summed. Pod
+sharding preset (dp: DistributedDataParallel; fsdp: FSDP2; a spatial axis
+above 1: the band scope, parallel/spatial.py), each rank steps on its own
+part of the global batch (its data group's rows; on a spatial axis above 1
+its band of their image rows), and a step's loss, metrics and gradients
+are those of the global batch: every rank divides by the global batch's
+valid-pixel count and the ranks' shares are summed over every rank. Pod
 coordination (`HostCoordinator`) makes every stop, abort and rollback
 branch the same on every rank at the same step; validation, metrics and
 the sidecar run on rank 0 while the others wait. A checkpoint is
@@ -138,14 +140,15 @@ def rank_file(name: str, process_index: int) -> str:
     return f"{stem}.p{process_index}{ext}"
 
 
-def rank_batch_size(batch_size: int, local_world_size: int) -> int:
-    """The rows each rank steps on: `batch_size` is one host's batch (as
-    JAX's is one process's, and a JAX process is a whole host), split over
-    the host's ranks."""
-    if batch_size % local_world_size:
+def rank_batch_size(batch_size: int, local_world_size: int, spatial: int = 1) -> int:
+    """The batch rows each rank steps on: `batch_size` is one host's batch
+    (as JAX's is one process's, and a JAX process is a whole host), split
+    over the host's ranks, where the `spatial` ranks of a spatial group
+    share their rows (each keeps its band of their image rows)."""
+    if (batch_size * spatial) % local_world_size:
         raise ValueError(f"batch_size {batch_size} (one host's batch) does not split over its "
-                         f"{local_world_size} rank(s)")
-    return batch_size // local_world_size
+                         f"{local_world_size} rank(s) in spatial groups of {spatial}")
+    return batch_size * spatial // local_world_size
 
 
 class Trainer:
@@ -169,9 +172,9 @@ class Trainer:
         self.device = torch.device(device)
         self.topology = topology()
         self.process_index = self.topology["process_index"]
-        self.rank_batch = rank_batch_size(config.batch_size, self.topology["local_world_size"])
         joined = self.topology["process_count"] > 1 or self.topology["backend"] is not None
         self.mesh = make_mesh(config.mesh_shape, device_type=self.device.type if joined else None)
+        self.rank_batch = rank_batch_size(config.batch_size, self.topology["local_world_size"], self.mesh.spatial)
         self.sharding = ShardingEngine(self.mesh, config.sharding_rules)
         self.model = build_model(config.model, seed=config.seed, device=self.device)
         # The module the step calls inside a process group (DDP around the
@@ -180,7 +183,6 @@ class Trainer:
         self.optimizer, self.schedule = make_optimizer(
             list(self.model.parameters()), config.lr, config.num_steps, config.wdecay, config.grad_clip_norm
         )
-        self._data_group = self.mesh.device_mesh[DATA_AXIS].get_group() if self.sharding.distributed else None
         # gloo groups of the host side, one per thread that uses it (two
         # threads' collectives on one group could interleave differently
         # on different ranks): the main thread's (pod coordination, the
@@ -214,9 +216,10 @@ class Trainer:
 
     # --- the step ---------------------------------------------------------
     def _device_batch(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-        """This rank's rows as float32 tensors on the device, after a shape
-        check. A batch already on the device (the prefetcher's) passes
-        through without a copy."""
+        """This rank's part as float32 tensors on the device (on a spatial
+        axis above 1 its band of the image rows), after a shape check of
+        its data group's rows. A batch already on the device (the
+        prefetcher's) passes through without a copy."""
         b = self.rank_batch
         h, w, c = self.sample_shape
         want = {"image1": (b, h, w, c), "image2": (b, h, w, c), "flow": (b, h, w, 1), "valid": (b, h, w)}
@@ -237,19 +240,22 @@ class Trainer:
         b = self._device_batch(batch)
         self.optimizer.zero_grad(set_to_none=True)
         count = None
-        if self._data_group is not None:
+        distributed = self.sharding.distributed
+        if distributed:
             count = valid_count(b["flow"], b["valid"], cfg.max_flow)
-            torch.distributed.all_reduce(count, group=self._data_group)
+            torch.distributed.all_reduce(count)
         flows = self.net(b["image1"], b["image2"], iters=cfg.train_iters)
         loss, metrics = sequence_loss(flows, b["flow"], b["valid"], cfg.loss_gamma, cfg.max_flow, count=count)
         # This rank's share of the global loss; DDP and FSDP2 average the
-        # ranks' gradients, so scaling by the data axis makes them the sum.
-        (loss * self.mesh.data if self.mesh.data > 1 else loss).backward()
+        # ranks' gradients, so scaling by the data axis makes them the sum
+        # (on bands the engine sums them itself).
+        scale = self.sharding.loss_scale
+        (loss * scale if scale > 1 else loss).backward()
         self.sharding.reduce_replicated_grads(self.model)
         grad_norm = self.optimizer.clip_grads_()
         shares = torch.stack([*metrics.values(), loss.detach()])
-        if self._data_group is not None:
-            torch.distributed.all_reduce(shares, group=self._data_group)
+        if distributed:
+            torch.distributed.all_reduce(shares)
         values = torch.cat([shares, grad_norm.reshape(1)]).tolist()
         finite = bool(np.isfinite(values[-2]) and np.isfinite(values[-1]))
         if finite:
@@ -435,8 +441,9 @@ class Trainer:
             if skipped:
                 raise FileNotFoundError(
                     f"auto-resume: no valid checkpoint under {root!r} but {len(skipped)} invalid step dir(s) "
-                    f"{[s for s, _ in skipped]} are present (torn saves). Inspect them, then either "
-                    "quarantine them to start this run fresh, or point --restore_ckpt at a step you trust.")
+                    f"{[s for s, _ in skipped]} are present (torn saves). Inspect them (python -m "
+                    f"raft_stereo_tpu_torch fsck {root}), then either quarantine them to start this run fresh "
+                    f"(the same command with --quarantine), or point --restore_ckpt at a step you trust.")
             logger.info("auto-resume: no checkpoints under %s; starting fresh", root)
             return None
         if skipped:
@@ -470,8 +477,13 @@ class Trainer:
 
     # --- the loop -----------------------------------------------------------
     def _validation_model(self):
-        """The model validation runs on, on rank 0: the model itself, or
-        under fsdp a whole copy (gathered on every rank: collective)."""
+        """The model validation runs on: on rank 0 the model itself, or
+        under fsdp a whole copy (gathered on every rank: collective); on a
+        spatial axis above 1 the banded model on every rank of the first
+        data group (they validate together, band by band), None on the
+        others."""
+        if self.sharding.distributed and self.sharding.banded:
+            return self._wrapped if self.mesh.coordinate(DATA_AXIS) == 0 else None
         if not (self.sharding.distributed and self.sharding.preset.name == "fsdp"):
             return self.model
         state = {k: full_tensor(v).detach() for k, v in self.model.state_dict().items()}
@@ -506,7 +518,8 @@ class Trainer:
         `coord_interval` steps and at every checkpoint, so every rank takes
         the same branch at the same step boundary and the failure budget
         holds for the pod's dropped fraction. Validation, the metrics
-        stream and the `/metrics` sidecar run on rank 0; the other ranks
+        stream and the `/metrics` sidecar run on rank 0 (validation on
+        bands on every rank of the first data group); the other ranks
         wait at a barrier."""
         from raft_stereo_tpu_torch.obs.memory import set_memory_gauges
         from raft_stereo_tpu_torch.obs.prom import Registry, serve_registry
@@ -772,11 +785,12 @@ class Trainer:
                             watchdog.mark_phase("validation")
                             try:
                                 model = self._validation_model()
-                                if primary:
+                                if model is not None and (primary or self.sharding.banded):
                                     results = validate_fn(model)
-                                    logger.info("validation (%d): %s", step, results)
-                                    if metrics_logger is not None:
-                                        metrics_logger.write(results, step)
+                                    if primary:
+                                        logger.info("validation (%d): %s", step, results)
+                                        if metrics_logger is not None:
+                                            metrics_logger.write(results, step)
                                 self._barrier(self._host_group)
                             finally:
                                 watchdog.mark_phase(None)

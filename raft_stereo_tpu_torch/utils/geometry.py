@@ -1,6 +1,11 @@
 """Tensor utilities of the forward pass, PyTorch counterpart of
 `raft_stereo_tpu/utils/geometry.py`.
 
+Inside a band scope (parallel/spatial.py) `avg_pool2x` and
+`extract_3x3_patches` take their row halo from the neighbouring bands, and
+`resize_bilinear_align_corners(..., rows=)` computes a band of the output
+rows from a whole input.
+
 Layout: the JAX functions are NHWC; these take the NCHW tensors the port's
 modules carry (`coords_grid_x` and `linear_sample_1d` have no channel axis
 and keep the JAX shapes).
@@ -12,6 +17,8 @@ import functools
 
 import torch
 import torch.nn.functional as F
+
+from raft_stereo_tpu_torch.parallel import spatial
 
 
 def coords_grid_x(batch: int, height: int, width: int, device=None, dtype=torch.float32) -> torch.Tensor:
@@ -69,13 +76,16 @@ def _build_interp_matrix(n_in: int, n_out: int, device: torch.device) -> torch.T
     return m.to(device)
 
 
-def resize_bilinear_align_corners(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+def resize_bilinear_align_corners(x: torch.Tensor, out_h: int, out_w: int, rows: slice = None) -> torch.Tensor:
     """Bilinear resize with align_corners=True, NCHW -> (B, C, out_h, out_w),
     as separable products with 2-banded interpolation matrices (the JAX
     package's formulation; `F.interpolate` places samples differently in
-    the last bits)."""
+    the last bits). `rows` keeps only those output rows (a band's: the
+    band's rows of the row matrix, the same sums)."""
     in_h, in_w = x.shape[-2:]
-    if in_h != out_h:
+    if rows is not None:
+        x = torch.matmul(_interp_matrix(in_h, out_h, x.device)[rows].to(x.dtype), x)
+    elif in_h != out_h:
         x = torch.matmul(_interp_matrix(in_h, out_h, x.device).to(x.dtype), x)
     if in_w != out_w:
         x = torch.matmul(x, _interp_matrix(in_w, out_w, x.device).to(x.dtype).t())
@@ -92,15 +102,25 @@ def upsample_bilinear_scaled(field: torch.Tensor, factor: int) -> torch.Tensor:
 
 
 def avg_pool2x(x: torch.Tensor) -> torch.Tensor:
-    """3x3 stride-2 average pool, zero padding 1, divisor always 9, NCHW."""
-    return F.avg_pool2d(x, 3, stride=2, padding=1, count_include_pad=True)
+    """3x3 stride-2 average pool, zero padding 1, divisor always 9, NCHW.
+    On a band: 1 halo row above, the columns zero-padded, no row padding
+    (the halo's zero row at the image's top is the padding)."""
+    scope = spatial.banded()
+    if scope is None:
+        return F.avg_pool2d(x, 3, stride=2, padding=1, count_include_pad=True)
+    x = F.pad(scope.halo_rows(x, *spatial.conv_halo(3, 2, 1)), (1, 1))
+    return F.avg_pool2d(x, 3, stride=2, padding=0)
 
 
 def extract_3x3_patches(x: torch.Tensor) -> torch.Tensor:
     """Zero-padded 3x3 neighbourhoods: (B, C, H, W) -> (B, C, 9, H, W), taps
-    in (ky, kx) row-major order (the JAX function's axis 3)."""
+    in (ky, kx) row-major order (the JAX function's axis 3). On a band: a
+    halo row on each side, only the columns padded."""
     b, c, h, w = x.shape
-    return F.unfold(x, (3, 3), padding=1).view(b, c, 9, h, w)
+    scope = spatial.banded()
+    if scope is None:
+        return F.unfold(x, (3, 3), padding=1).view(b, c, 9, h, w)
+    return F.unfold(scope.halo_rows(x, 1, 1), (3, 3), padding=(0, 1)).view(b, c, 9, h, w)
 
 
 def convex_upsample_blocked(field: torch.Tensor, mask: torch.Tensor, factor: int) -> torch.Tensor:

@@ -303,7 +303,9 @@ def write_run_report(report: Dict[str, Any], log_dir: str, name: str = RUN_REPOR
 
 
 def validate_run_report(report: Any) -> List[str]:
-    """Schema check shared by the tests and scripts/check_run_report.py.
+    """Schema check shared by the tests, the trainer, `/healthz` and the
+    `check-report` command (utils/check_report.py; the JAX package's
+    `scripts/check_run_report.py` runs that package's copy of this check).
     Returns a list of human-readable problems; empty list == valid."""
     problems: List[str] = []
     if not isinstance(report, dict):

@@ -240,7 +240,7 @@ def test_cli_formerly_unported_flags_run(flags, capsys):
 @pytest.mark.parametrize("command", ["train", "demo", "serve", "frontier", "bogus"])
 def test_cli_other_subcommands_exit_2(command, capsys):
     """Every subcommand is ported; each exits 2 on what it cannot run: a
-    flag the port does not have (train's spatial mesh axis), a fleet larger than the
+    mesh that does not fit the world (train's 1x2 in one process), a fleet larger than the
     visible cards (serve's `--replicas` with no card here), a usage error
     (demo without its required paths, frontier without backends), or an
     unknown subcommand."""
@@ -255,7 +255,8 @@ def test_cli_other_subcommands_exit_2(command, capsys):
     want = {"demo": "the following arguments are required: --restore_ckpt, --root_dataset",
             "frontier": "--backends is required (except with --rollout)",
             "serve": "--replicas 2 exceeds the 0 visible card(s)",
-            "train": "not ported yet", "bogus": "usage: python -m raft_stereo_tpu_torch"}[command]
+            "train": "mesh 1x2 covers 2 rank(s) but the world has 1",
+            "bogus": "usage: python -m raft_stereo_tpu_torch"}[command]
     assert want in err
 
 

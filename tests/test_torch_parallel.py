@@ -197,8 +197,17 @@ def test_shard_and_gather_fns_round_trip():
 @pytest.mark.parametrize("rules,mesh", [("spatial", (1, 2)), ("dp+spatial", (2, 2)), ("dp", (1, 2))],
                          ids=["spatial", "dp+spatial", "spatial-axis"])
 def test_spatial_presets_and_axes_are_refused(rules, mesh):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ShardingEngine(Mesh(*mesh), rules)
+    """A spatial axis above 1 is not refused: under every preset but fsdp
+    it runs row bands (parameters whole, gradients summed over the ranks,
+    the loss unscaled), as JAX's batch rules shard rows over `spatial`
+    under every preset; `--explain_sharding` prints the band layout.
+    tests/test_torch_spatial.py runs them over gloo ranks."""
+    engine = ShardingEngine(Mesh(*mesh), rules)
+    assert engine.banded and engine.loss_scale == 1
+    model = build_model(RAFTStereoConfig(hidden_dims=(16, 16, 16)), device="cpu")
+    assert len(engine.replicated_params(model)) == len(list(model.parameters()))
+    text = engine.explain()
+    assert f"mesh: {mesh[0]}x{mesh[1]}" in text and "row bands: rank k of the 2 in a spatial group" in text
 
 
 def test_mesh_must_cover_the_world():

@@ -179,22 +179,32 @@ def test_bad_config_writes_a_report_and_exits_1(tmp_path, monkeypatch):
     assert r["stop_cause"] == "error" and r["final_step"] == -1 and "nan_patience" in r["error"]
 
 
-@pytest.mark.parametrize("flags", [
-    ["--mesh_shape", "1", "2"], ["--sharding_rules", "spatial"], ["--strict_mode"], ["--recompile_grace", "3"],
-    ["--compilation_cache_dir", "cache"],
-], ids=lambda f: f[0].lstrip("-"))
-def test_unported_train_flags_exit_2(flags, capsys, tmp_path, monkeypatch):
+UNPORTED_OR_UNFIT = [
+    # A spatial axis runs row bands; a mesh that does not fit the world
+    # (one process here) is a usage error.
+    (["--mesh_shape", "1", "2"], "mesh 1x2 covers 2 rank(s) but the world has 1"),
+    (["--sharding_rules", "spatial", "--mesh_shape", "-1", "2"], "1 ranks not divisible by spatial=2"),
+    (["--strict_mode"], "not ported yet: --strict_mode"),
+    (["--recompile_grace", "3"], "not ported yet: --recompile_grace"),
+    (["--compilation_cache_dir", "cache"], "not ported yet: --compilation_cache_dir"),
+]
+
+
+@pytest.mark.parametrize("flags,message", UNPORTED_OR_UNFIT, ids=[f[0].lstrip("-") for f, _ in UNPORTED_OR_UNFIT])
+def test_unported_train_flags_exit_2(flags, message, capsys, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     assert cli.main(["train", "--device", "cpu", *flags]) == 2
-    assert f"not ported yet: {flags[0]}" in capsys.readouterr().err
+    assert message in capsys.readouterr().err
     assert not os.path.exists(tmp_path / "runs")  # refused before anything ran
 
 
 @pytest.mark.parametrize("flags,field,value", [
     (["--mesh_shape", "2", "1"], "mesh_shape", (2, 1)), (["--sharding_rules", "fsdp"], "sharding_rules", "fsdp"),
     (["--coord_interval", "5"], "coord_interval", 5), (["--async_checkpoint"], "async_checkpoint", True),
-    (["--metrics_port", "9100"], "metrics_port", 9100),
-], ids=["mesh_shape", "sharding_rules", "coord_interval", "async_checkpoint", "metrics_port"])
+    (["--metrics_port", "9100"], "metrics_port", 9100), (["--mesh_shape", "1", "2"], "mesh_shape", (1, 2)),
+    (["--sharding_rules", "dp+spatial", "--mesh_shape", "-1", "2"], "sharding_rules", "dp+spatial"),
+], ids=["mesh_shape", "sharding_rules", "coord_interval", "async_checkpoint", "metrics_port", "spatial_mesh_shape",
+        "spatial_sharding_rules"])
 def test_formerly_unported_train_flags_are_taken(flags, field, value):
     """The flags the training-across-ranks slice ported pass the refusal
     and reach the config; `--explain_sharding` is a dry run

@@ -131,7 +131,8 @@ def test_port_imports_no_jax():
         "          'data.augment', 'data.datasets', 'data.loader', 'data.prefetch', 'data.trees', 'demo',\n"
         "          'serving.fleet', 'serving.frontier', 'serving.engine', 'models.raft_stereo', 'ops.corr',\n"
         "          'parallel', 'parallel.distributed', 'parallel.mesh', 'parallel.sharding',\n"
-        "          'parallel.coordination', 'train.io_spine'):\n"
+        "          'parallel.coordination', 'train.io_spine', 'parallel.spatial', 'utils.fsck',\n"
+        "          'utils.check_report'):\n"
         "    assert 'raft_stereo_tpu_torch.' + m in walked, m\n"
         "print('ok', len(walked))\n"
     )
