@@ -284,6 +284,19 @@ COORD_FAMILIES = ("smooth", "edge", "special", "uniform")
 FP32_CONV_SHAPES = (((384, 512), False), ((512, 768), False), ((13, 70), False), ((192, 624), False),
                     ((20, 68), False), ((20, 66), False), ((64, 128), True))
 FP32_CONV_BRANCHES = {True: "TMA raw box, 16-byte stores", False: "element by element"}
+# The seventeenth slice's halo form of the conv (a row band's layer1 conv
+# with its neighbour bands' rows, parallel/spatial.py): (label, batch,
+# output rows, W, (rows above, rows below)). A Middlebury-F band's layer1
+# shapes (the feature trunk's two images, 992 of 1984 rows at full
+# resolution, 2880 wide: the top band of two takes a row from below, the
+# bottom band one from above) and the 512x768 bucket with a row on each
+# side (a middle band). Held against the plain twin on the same operand,
+# TF32 off: fp32 bit for bit (both sum each output's 576 products in one
+# order, which cuDNN was measured to take at these shapes), bf16 by
+# `conv_bf16_check`'s allowance; the statistics to STATS_REL_TOL.
+HALO_CONV_CASES = (("Middlebury-F top band", 2, 992, 2880, (0, 1)),
+                   ("Middlebury-F bottom band", 2, 992, 2880, (1, 0)),
+                   ("512x768 middle band", 2, 512, 768, (1, 1)))
 MIXED_TRAIN_PLAIN_CONFIG = RAFTStereoConfig(corr_implementation="reg", mixed_precision=True, corr_dtype="bfloat16")
 MIXED_TRAIN_BATCH = 4
 MIXED_TRAIN_ITERS = 22
@@ -743,6 +756,38 @@ def phase_kernels(gen) -> dict:
     return errs
 
 
+def halo_conv_checks(gen, dtype, tag: str) -> float:
+    """The conv's halo form at every HALO_CONV_CASES entry and form, with
+    statistics, against its plain twin; returns the max abs diff."""
+    name = "encoder_conv_bf16" if dtype == BF16 else "encoder_conv"
+    err_max = 0.0
+    for label, b, hh, ww, halo in HALO_CONV_CASES:
+        for form in ("none", "in", "bn"):
+            x, weight, bias, aff = conv_inputs(gen, b, hh + sum(halo), ww, form)
+            x = x.to(dtype)
+            y, stats = encoder_cuda.fused_conv(x, weight, bias, aff, form, emit_stats=True, halo=halo)
+            torch.cuda.synchronize()
+            want, _ = encoder_cuda.plain_conv(x, weight, bias, aff, form, False, halo)
+            err = max_err(y.float(), want.float())
+            rel = stats_rel_err(stats, y)
+            if dtype == BF16:
+                worst, share = conv_bf16_check(y, want, bias)
+                ok = worst <= 1.0
+                verdict = f"worst element at {worst:.3f} of its allowance (tol 1), share differing {share:.2e}"
+            else:
+                ok = bitwise_equal(y, want)
+                verdict = f"bit for bit {ok} (tol: bitwise)"
+            log(f"{tag} {name} halo form, {label}: x b{b} x 64 x {hh + sum(halo)} x {ww}, {halo[0]} row(s) above "
+                f"and {halo[1]} below, y {hh} rows, form {form}: max abs diff {err:.3e}, {verdict}; statistics rel "
+                f"diff {rel:.3e} (tol {STATS_REL_TOL:g})")
+            if not (ok and rel <= STATS_REL_TOL and tuple(y.shape) == (b, 64, hh, ww)):
+                raise AssertionError(f"{name} halo form disagrees with its twin at {label} form {form}: {err}, {rel}")
+            err_max = max(err_max, err)
+            del x, y, want, stats
+    torch.cuda.empty_cache()
+    return err_max
+
+
 def phase_fused_kernels(gen) -> dict:
     """The fused encoder's three kernels against their plain versions at the
     main path's shapes: the conv at every FP32_CONV_SHAPES entry (full
@@ -784,6 +829,7 @@ def phase_fused_kernels(gen) -> dict:
     need = {(path, form) for path in FP32_CONV_BRANCHES.values() for form in encoder_cuda.FORMS}
     if not need <= branches:
         raise AssertionError(f"[kernels] encoder_conv plan branches never exercised: {sorted(need - branches)}")
+    errs["encoder_conv"] = max(errs["encoder_conv"], halo_conv_checks(gen, torch.float32, "[kernels]"))
     hh, ww = 512, 768
     for y_form in ("in", "bn"):
         for skip_form in ("none", "in", "bn"):
@@ -1851,6 +1897,7 @@ def phase_bf16_kernels(gen) -> dict:
                         raise AssertionError(f"encoder_join_bf16 disagrees at b{b} {hh}x{ww} {y_form}/{skip_form}")
                     del got
                 del x, y
+    errs["encoder_conv_bf16"] = max(errs["encoder_conv_bf16"], halo_conv_checks(gen, BF16, "[bf16-kernels]"))
     for (name, branch), worst in sorted(worst_by_branch.items()):
         log(f"[bf16-kernels] {name} plan branch {branch}: worst element at {worst:.3f} of its allowance (tol 1)")
     branches = set(worst_by_branch)
@@ -3088,7 +3135,45 @@ def phase_timing(gen, errs, counts) -> list:
     del skip, y
     out.extend(bf16_timing(gen, flush, entry))
     out.extend(lever_bf16_timing(gen, flush, entry))
+    halo_conv_timing(gen, flush)
     return out
+
+
+def halo_conv_timing(gen, flush) -> None:
+    """The conv's halo form at HALO_CONV_CASES' Middlebury-F bottom band
+    and 512x768 middle band, fp32 and bf16, instance form with statistics:
+    events, its kernels alone, the bound, the plain twin and cuDNN's
+    F.conv2d of the normalized operand at the band's shape (zero rows only
+    where the band has no neighbour)."""
+    for label, b, hh, ww, halo in HALO_CONV_CASES[1:]:
+        for dtype in (torch.float32, BF16):
+            x, weight, bias, aff = conv_inputs(gen, b, hh + sum(halo), ww, "in")
+            x = x.to(dtype)
+            call = lambda: encoder_cuda.fused_conv(x, weight, bias, aff, "in", True, halo)  # noqa: E731
+            ms = time_ms(call, reps=10, flush=flush)
+            kernel = "encoder_conv_wgmma" if dtype == BF16 else "encoder_conv_kernel"
+            dev = kernel_ms(call, (kernel, "encoder_stats"), flush, reps=5)
+            plain_ms = time_ms(lambda: encoder_cuda.plain_conv(x, weight, bias, aff, "in", True, halo), reps=5,
+                               flush=flush)
+            z = F.pad(encoder_cuda.apply_affine(x, aff, "in"), (0, 0, 1 - halo[0], 1 - halo[1]))
+            wl, bl = weight.to(dtype), bias.to(dtype)
+            lib_ms = time_ms(lambda: F.conv2d(z, wl, bl, padding=(0, 1)), reps=10, flush=flush)
+            size = 2 if dtype == BF16 else 4
+            hw = hh * ww
+            nbytes = size * (b * 64 * (hh + sum(halo)) * ww + b * 64 * hw + 64 * 64 * 9) + 4 * (64 + 2 * b * 64 * 3)
+            gemm = 2 * 9 * 64 * 64 * b * hw
+            rest = 3 * b * 64 * (hh + sum(halo)) * ww + 3 * b * 64 * hw
+            ops_s = (gemm / BF16_TENSOR_FLOPS_PER_S + rest / FP32_FLOPS_PER_S if dtype == BF16
+                     else (gemm + rest) / FP32_FLOPS_PER_S)
+            bound = max(nbytes / HBM_BYTES_PER_S, ops_s) * 1e3
+            by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops_s else "operations"
+            name = "encoder_conv_bf16" if dtype == BF16 else "encoder_conv"
+            log(f"[timing] {name} halo form, {label} (b{b}, {hh} + {sum(halo)} rows x {ww}, form in + stats): "
+                f"kernel {ms:.4f} ms, its kernels alone on the device {alone_text(dev)} ms ({share_text(bound, dev)} of "
+                f"its bound), plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), cuDNN F.conv2d of the normalized "
+                f"operand at the band's shape {lib_ms:.4f} ms")
+            del x, z
+    torch.cuda.empty_cache()
 
 
 def bf16_timing(gen, flush, entry) -> list:
@@ -3834,6 +3919,19 @@ def phase_parallel(card: str, workdir: str, control_steps: dict, start) -> dict:
 # (the bands round the bf16 sums in another order), 22 lookups and 22
 # scatters a step on each rank. (iii) `dp+spatial` on a (2, 2) mesh, four
 # ranks, 2 steps (the schedule matches the control's up to step 2).
+# The seventeenth slice adds to (i) the JAX bench's model (MIXED_CONFIG:
+# the fused encoder and the bf16 pyramid kernel) on the same two bands,
+# in the same rank processes: per rank per forward 8 bf16 conv launches
+# (the halo form), 4 joins, 1 pyramid and a lookup per iteration; the
+# prelude's outputs (both feature maps and the context) against the whole
+# image's fused prelude with every shape-dependent reduction pinned
+# (`band_pinned`, and `fused_halves` for the fused layer1's statistics),
+# held to SPATIAL_PRELUDE_ULPS bf16 ulps of each tensor's largest
+# magnitude (measured 0.0 on the CPU; the tolerance is [mixed-e2e]'s for
+# the fused against the direct prelude, MIXED_STATE_ULPS); the flow drift
+# as run at 1, 4 and 32 iterations printed, and the exchanges a forward
+# against the unfused model's.
+SPATIAL_PRELUDE_ULPS = MIXED_STATE_ULPS
 SPATIAL_ITERS = 32
 # Shorter forwards as run, for the drift's growth with the iterations.
 SPATIAL_DRIFT_ITERS = (1, 4)
@@ -3868,6 +3966,55 @@ def band_pinned(halves: bool):
             yield
 
 
+@contextlib.contextmanager
+def fused_halves():
+    """The fused layer1's statistics summed as two row bands sum theirs
+    (ops/encoder_cuda.py `fused_layer1` in a band scope): each conv's
+    [sum, sum of squares] from the kernel on each row half with its
+    neighbour row (the halo form), added in fp32, and the stem's over each
+    half, added. With `band_pinned(halves=True)` a whole image's fused
+    forward then equals its two bands' bit for bit."""
+    conv, stats = encoder_cuda.fused_conv, encoder_cuda.channel_stats
+
+    def halves_conv(x, weight, bias, aff, form="none", emit_stats=False, halo=(0, 0)):
+        y, s = conv(x, weight, bias, aff, form, emit_stats, halo)
+        if emit_stats and tuple(halo) == (0, 0):
+            h = x.shape[2] // 2
+            s = (conv(x[:, :, :h + 1].contiguous(), weight, bias, aff, form, True, (0, 1))[1]
+                 + conv(x[:, :, h - 1:].contiguous(), weight, bias, aff, form, True, (1, 0))[1])
+        return y, s
+
+    def halves_stats(y):
+        h = y.shape[2] // 2
+        return stats(y[:, :, :h].contiguous()) + stats(y[:, :, h:].contiguous())
+
+    with swapped(encoder_cuda, fused_conv=halves_conv, channel_stats=halves_stats):
+        yield
+
+
+def prelude_outputs(model: RAFTStereo, i1, i2, scope=None) -> dict:
+    """A test-mode prelude's feature maps (the feature encoder's output,
+    caught by a hook) and context, as fp32 numpy, NCHW: on `scope`'s band
+    when given."""
+    caught = []
+    hook = model.fnet.register_forward_hook(lambda mod, args, out: caught.append(out))
+    try:
+        with torch.inference_mode(), (scope.bands(i1.shape[1], model.config.n_downsample) if scope is not None
+                                      else contextlib.nullcontext()):
+            state = model.encode_features(i1, i2, test_mode=True)
+    finally:
+        hook.remove()
+    fmap1, fmap2 = torch.chunk(torch.cat(caught), 2, dim=0)
+    out = {"fmap1": fmap1, "fmap2": fmap2}
+    out.update({f"context{i}.{j}": t for i, c in enumerate(state["context"]) for j, t in enumerate(c)})
+    return {k: v.float().cpu().numpy() for k, v in out.items()}
+
+
+def bf16_ulps_of_max(x: np.ndarray) -> float:
+    """One bf16 ulp at the largest magnitude of `x`."""
+    return float(2.0 ** (np.floor(np.log2(np.abs(x).max())) - 7))
+
+
 def gloo_rank_env(rank: int, world: int, port: int) -> dict:
     """torchrun's environment for rank `rank` of `world` ranks sharing the
     one card (LOCAL_RANK 0 for all: each binds card 0)."""
@@ -3878,8 +4025,10 @@ def gloo_rank_env(rank: int, world: int, port: int) -> dict:
 def spatial_forward_rank(workdir: str) -> int:
     """One rank of [spatial] (i): its band of the pair in `workdir`, the
     short forwards (which warm the kernels), the timed one with the launch
-    counts set to 0 just before it, then the pinned one; writes
-    band<k>[-<iters>].npy, pinned<k>.npy and rank<k>.json."""
+    counts set to 0 just before it, then the pinned one; then the same for
+    the fused model and its pinned prelude; writes band<k>[-<iters>].npy,
+    pinned<k>.npy, fused<k>[-<iters>].npy, prelude<k>.npz and
+    rank<k>.json."""
     from raft_stereo_tpu_torch.parallel import init_multihost, spatial
     from raft_stereo_tpu_torch.parallel.mesh import make_mesh
 
@@ -3904,18 +4053,35 @@ def spatial_forward_rank(workdir: str) -> int:
     with band_pinned(halves=False):
         _, up, pinned_s, _ = timed_forward(model, *band, SPATIAL_ITERS)
     np.save(os.path.join(workdir, f"pinned{rank}.npy"), up.float().cpu().numpy())
+    del model
+    torch.cuda.empty_cache()
+    # The fused model (the JAX bench's) on the same band.
+    fused = spatial.BandedModel(mild_model(MIXED_CONFIG), scope)
+    for iters in SPATIAL_DRIFT_ITERS:
+        up = timed_forward(fused, *band, iters)[1]
+        np.save(os.path.join(workdir, f"fused{rank}-{iters}.npy"), up.float().cpu().numpy())
+    reset_launches()
+    before = scope.exchanges
+    _, up, fused_s, fused_peak = timed_forward(fused, *band, SPATIAL_ITERS)
+    fused_counts = launches()
+    fused_exchanges = scope.exchanges - before
+    np.save(os.path.join(workdir, f"fused{rank}.npy"), up.float().cpu().numpy())
+    with band_pinned(halves=False):
+        np.savez(os.path.join(workdir, f"prelude{rank}.npz"), **prelude_outputs(fused.model, *band, scope))
     with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
         json.dump({"seconds": seconds, "peak_bytes": peak, "launches": counts, "exchanges": exchanges,
-                   "pinned_seconds": pinned_s}, f)
+                   "pinned_seconds": pinned_s, "fused_seconds": fused_s, "fused_peak_bytes": fused_peak,
+                   "fused_launches": fused_counts, "fused_exchanges": fused_exchanges}, f)
     torch.distributed.destroy_process_group()
     return 0
 
 
 def phase_spatial_forward(card: str) -> dict:
-    """[spatial] (i): the unsharded control in this process (as run and
-    pinned), then the two ranks; each rank's flow_up band against the
-    control's rows, s/image and peak memory per rank against the
-    control's, the lookups of each rank's timed forward."""
+    """[spatial] (i): the unsharded controls in this process (as run and
+    pinned; the fused model's prelude pinned), then the two ranks; each
+    rank's flow_up band against the control's rows, s/image and peak
+    memory per rank against the control's, the launches of each rank's
+    timed forward, the fused prelude against the whole image's rows."""
     tag = "[spatial]"
     workdir = tempfile.mkdtemp(prefix="spatial-")
     runs = []
@@ -3934,7 +4100,15 @@ def phase_spatial_forward(card: str) -> dict:
         want = want.float().cpu().numpy()
         with band_pinned(halves=True):
             want_pinned = timed_forward(model, i1, i2, SPATIAL_ITERS)[1].float().cpu().numpy()
-        del model, i1, i2
+        del model
+        fused = mild_model(MIXED_CONFIG)
+        fused_at = {iters: timed_forward(fused, i1, i2, iters)[1].float().cpu().numpy()
+                    for iters in SPATIAL_DRIFT_ITERS}
+        _, fused_want, fused_control_s, fused_control_peak = timed_forward(fused, i1, i2, SPATIAL_ITERS)
+        fused_at[SPATIAL_ITERS] = fused_want.float().cpu().numpy()
+        with band_pinned(halves=True), fused_halves():
+            prelude_want = prelude_outputs(fused, i1, i2)
+        del fused, fused_want, i1, i2
         torch.cuda.empty_cache()
         if control_counts != expect(corr_lookup_bf16=SPATIAL_ITERS):
             raise AssertionError(f"{tag} control launches {control_counts}")
@@ -3945,6 +4119,7 @@ def phase_spatial_forward(card: str) -> dict:
             if run.wait(timeout=600) != 0:
                 raise AssertionError(f"{tag} forward rank {run.tag}: exit {run.proc.returncode}\n{run.err()[-3000:]}")
         ranks, drift, pinned, drift_at = [], [], [], {}
+        fused_drift, prelude_ulps = {}, {}
         rows = MIDDLEBURY_F[0] // 2
         for r in range(2):
             band, band_pin = (np.load(os.path.join(workdir, f"{name}{r}.npy")) for name in ("band", "pinned"))
@@ -3960,12 +4135,34 @@ def phase_spatial_forward(card: str) -> dict:
             pinned.append(float(np.abs(band_pin - want_pinned[:, mine]).max()))
             if ranks[r]["launches"] != expect(corr_lookup_bf16=SPATIAL_ITERS):
                 raise AssertionError(f"{tag} rank {r} launches {ranks[r]['launches']}")
+            want_fused = expect(corr_lookup_bf16=SPATIAL_ITERS, corr_pyramid_bf16=1, encoder_conv_bf16=2 * LAYER1_CONVS,
+                                encoder_join_bf16=2 * LAYER1_JOINS)
+            if ranks[r]["fused_launches"] != want_fused:
+                raise AssertionError(f"{tag} rank {r} fused launches {ranks[r]['fused_launches']} != {want_fused}")
+            for iters in (*SPATIAL_DRIFT_ITERS, SPATIAL_ITERS):
+                got = np.load(os.path.join(workdir, f"fused{r}{'' if iters == SPATIAL_ITERS else f'-{iters}'}.npy"))
+                if got.shape != (1, rows, MIDDLEBURY_F[1], 1) or not np.isfinite(got).all():
+                    raise AssertionError(f"{tag} rank {r}: fused band {got.shape}, finite {np.isfinite(got).all()}")
+                fused_drift.setdefault(iters, []).append(float(np.abs(got - fused_at[iters][:, mine]).max()))
+            with np.load(os.path.join(workdir, f"prelude{r}.npz")) as got:
+                for name, whole in prelude_want.items():
+                    part = whole[:, :, r * got[name].shape[2]:(r + 1) * got[name].shape[2]]
+                    ulps = float(np.abs(got[name] - part).max()) / bf16_ulps_of_max(whole)
+                    prelude_ulps[name] = max(prelude_ulps.get(name, 0.0), ulps)
+                    if got[name].shape != part.shape or not ulps <= SPATIAL_PRELUDE_ULPS:
+                        raise AssertionError(f"{tag} rank {r} fused prelude {name}: {got[name].shape} against "
+                                             f"{part.shape}, {ulps} bf16 ulps of max (tol {SPATIAL_PRELUDE_ULPS})")
         gib = 2.0 ** 30
         numbers = {"control_s": control_s, "control_peak_gib": control_peak / gib,
                    "rank_s": [x["seconds"] for x in ranks], "rank_peak_gib": [x["peak_bytes"] / gib for x in ranks],
                    "drift_px": drift, "drift_px_at": drift_at, "pinned_err_px": pinned,
                    "pinned_rank_s": [x["pinned_seconds"] for x in ranks],
-                   "exchanges_per_forward": [x["exchanges"] for x in ranks]}
+                   "exchanges_per_forward": [x["exchanges"] for x in ranks],
+                   "fused_control_s": fused_control_s, "fused_control_peak_gib": fused_control_peak / gib,
+                   "fused_rank_s": [x["fused_seconds"] for x in ranks],
+                   "fused_rank_peak_gib": [x["fused_peak_bytes"] / gib for x in ranks],
+                   "fused_exchanges_per_forward": [x["fused_exchanges"] for x in ranks],
+                   "fused_drift_px_at": fused_drift, "fused_prelude_ulps": prelude_ulps}
         log(f"{tag} (i) Middlebury-F {MIDDLEBURY_F[0]}x{MIDDLEBURY_F[1]}, mixed 'pallas', {SPATIAL_ITERS} iterations, "
             f"2 ranks on one card over gloo, (1, 2) mesh, {rows} rows each: flow_up bands against the unsharded "
             f"forward with the shape-dependent reductions pinned max |err| {pinned[0]:.3e}, {pinned[1]:.3e} px "
@@ -3981,6 +4178,18 @@ def phase_spatial_forward(card: str) -> dict:
             f"{ {k: v for k, v in ranks[1]['launches'].items() if v} } (the control's "
             f"{ {k: v for k, v in control_counts.items() if v} }); {ranks[0]['exchanges']} exchanges a forward per "
             f"rank")
+        log(f"{tag} (i) the fused model (mixed, bf16 pyramid kernel, fused_encoder) on the same bands: launches per "
+            f"rank per forward {[{k: v for k, v in x['fused_launches'].items() if v} for x in ranks]}; prelude "
+            f"against the whole image's, reductions pinned, in bf16 ulps of each tensor's largest magnitude "
+            + ", ".join(f"{k} {v:.1f}" for k, v in prelude_ulps.items())
+            + f" (tol {SPATIAL_PRELUDE_ULPS}); flow drift as run "
+            + ", ".join(f"{max(e):.3e} px after {n} (flows up to {np.abs(fused_at[n]).max():.2f})"
+                        for n, e in fused_drift.items())
+            + f"; s/image per rank {ranks[0]['fused_seconds']:.4f}, {ranks[1]['fused_seconds']:.4f} against the "
+            f"whole image's {fused_control_s:.4f} (unfused bands {ranks[0]['seconds']:.4f}); peak per rank "
+            f"{ranks[0]['fused_peak_bytes'] / gib:.2f}, {ranks[1]['fused_peak_bytes'] / gib:.2f} GiB against "
+            f"{fused_control_peak / gib:.2f}; exchanges a forward per rank {ranks[0]['fused_exchanges']} against the "
+            f"unfused model's {ranks[0]['exchanges']}")
         if not max(pinned) <= E2E_TOL_PX:
             raise AssertionError(f"{tag} pinned bands differ from the unsharded forward by {max(pinned):.3e} px")
         log(f"{tag} (i) {card}: {json.dumps(numbers)}")
@@ -3990,6 +4199,134 @@ def phase_spatial_forward(card: str) -> dict:
             if run.proc.poll() is None:
                 run.kill()
         shutil.rmtree(workdir, ignore_errors=True)
+
+
+# -- the seventeenth slice: spatial serving across the cards of one process -----
+
+# [spatial-serving]: the banded engine (serving/engine.py, a spatial preset
+# over `devices`), the JAX bench's model (MIXED_CONFIG, `mild_model`'s
+# weights) on the 512x768 bucket, two bands on the one card
+# (devices=[cuda:0, cuda:0]: each band its worker thread, the halos and
+# norm sums card to card through `spatial.ThreadComm`, no host copy),
+# against the unsharded engine on the same weights. It answers requests at
+# batch 1 and 2 through `run_batch` (the batcher's entry point) and
+# through the service; each response is held against the unsharded
+# engine's with the shape-dependent reductions pinned (`band_pinned`, and
+# `fused_halves` in the unsharded one) to E2E_TOL_PX (expected 0.0, as
+# [spatial] (i)'s unfused pair), and its drift as run is printed; the
+# launches of one banded request (every kernel of the path, on both bands),
+# the exchanges a request, s/request of both engines and the peak memory.
+# A band that waits at the comm's barrier runs again only once the band
+# that released it gives up the interpreter, at CPython's switch interval
+# (5 ms by default) at the latest: one more pair of turns at batch 1 with
+# the interval at SPATIAL_SWITCH_S shows how much of a request that
+# handoff is (the package leaves the process's setting alone).
+SPATIAL_SERVE_CHUNK = 8
+SPATIAL_SWITCH_S = 1e-4
+SPATIAL_SERVE_TIMED = 3
+
+
+def spatial_serve_config(rules: str) -> ServeConfig:
+    return ServeConfig(model=MIXED_CONFIG, buckets=(MIXED_BUCKET,), max_batch=2, chunk_iters=SPATIAL_SERVE_CHUNK,
+                       max_iters=EVAL_ITERS, sharding_rules=rules)
+
+
+def engine_flows(engine, i1, i2) -> np.ndarray:
+    n = i1.shape[0]
+    res = engine.run_batch(MIXED_BUCKET, i1, i2, [None] * n, [EVAL_ITERS] * n)
+    if any(r.iters_completed != EVAL_ITERS for r in res):
+        raise AssertionError(f"[spatial-serving] iterations {[r.iters_completed for r in res]}")
+    return np.stack([r.flow_up for r in res])
+
+
+def phase_spatial_serving(rng, card: str) -> dict:
+    tag = "[spatial-serving]"
+    model = mild_model(MIXED_CONFIG)
+    plain = StereoService(spatial_serve_config("dp"), model=model, device=DEVICE).start()
+    banded = StereoService(spatial_serve_config("spatial"), model=model, device=DEVICE,
+                           devices=[torch.device(DEVICE, 0)] * 2).start()
+    try:
+        eng, ref = banded.engine, plain.engine
+        if eng.sharding != "spatial over 2 device(s)" or banded.healthz()["serving"]["sharding"] != eng.sharding:
+            raise AssertionError(f"{tag} sharding {eng.sharding!r}")
+        log(f"{tag} booted: {json.dumps(banded.warm_summary)}")
+        i1, i2 = card_pair(rng, *MIXED_BUCKET, b=2)
+        # The main path's run: one banded request, every count set to 0 just before it.
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        before = eng.band_exchanges
+        engine_flows(eng, i1[:1], i2[:1])
+        counts = launches()
+        exchanges = eng.band_exchanges - before
+        peak = torch.cuda.max_memory_allocated()
+        want = expect(corr_lookup_bf16=2 * EVAL_ITERS, corr_pyramid_bf16=2, encoder_conv_bf16=2 * 2 * LAYER1_CONVS,
+                      encoder_join_bf16=2 * 2 * LAYER1_JOINS)
+        if counts != want:
+            raise AssertionError(f"{tag} launches of one banded request {counts} != {want}")
+        torch.cuda.reset_peak_memory_stats()
+        engine_flows(ref, i1[:1], i2[:1])
+        ref_peak = torch.cuda.max_memory_allocated()
+        numbers = {"launches_per_request": {k: v for k, v in counts.items() if v}, "exchanges_per_request": exchanges,
+                   "peak_gib": peak / 2**30, "unsharded_peak_gib": ref_peak / 2**30}
+        for b in (1, 2):
+            x1, x2 = i1[:b], i2[:b]
+            got, base = engine_flows(eng, x1, x2), engine_flows(ref, x1, x2)
+            with band_pinned(halves=False):
+                got_pin = engine_flows(eng, x1, x2)
+            with band_pinned(halves=True), fused_halves():
+                base_pin = engine_flows(ref, x1, x2)
+            if got.shape != (b, *MIXED_BUCKET, 1) or not np.isfinite(got).all():
+                raise AssertionError(f"{tag} batch {b}: flows {got.shape}, finite {np.isfinite(got).all()}")
+            pinned = float(np.abs(got_pin - base_pin).max())
+            walls = {}
+            for name, e in (("unsharded", ref), ("banded", eng), ("banded", eng), ("unsharded", ref)):
+                t = time.perf_counter()
+                for _ in range(SPATIAL_SERVE_TIMED):
+                    engine_flows(e, x1, x2)
+                walls.setdefault(name, []).append((time.perf_counter() - t) / (SPATIAL_SERVE_TIMED * b))
+            numbers[f"b{b}"] = {"pinned_err_px": pinned, "drift_px": float(np.abs(got - base).max()),
+                                "flow_max_px": float(np.abs(base).max()), "s_per_request": walls}
+            log(f"{tag} batch {b}, {EVAL_ITERS} iterations: banded against unsharded with the reductions pinned max "
+                f"|err| {pinned:.3e} px (tol {E2E_TOL_PX:g}); as run {numbers[f'b{b}']['drift_px']:.3e} px (flows up "
+                f"to {numbers[f'b{b}']['flow_max_px']:.2f}); s/request in turns (unsharded, banded, banded, "
+                f"unsharded) {walls['unsharded'][0]:.4f}, {walls['banded'][0]:.4f}, {walls['banded'][1]:.4f}, "
+                f"{walls['unsharded'][1]:.4f}")
+            if not pinned <= E2E_TOL_PX:
+                raise AssertionError(f"{tag} batch {b}: pinned banded responses {pinned} px from the unsharded ones")
+        default = sys.getswitchinterval()
+        sys.setswitchinterval(SPATIAL_SWITCH_S)
+        try:
+            quick = []
+            for _ in range(2):
+                t = time.perf_counter()
+                for _ in range(SPATIAL_SERVE_TIMED):
+                    engine_flows(eng, i1[:1], i2[:1])
+                quick.append((time.perf_counter() - t) / SPATIAL_SERVE_TIMED)
+        finally:
+            sys.setswitchinterval(default)
+        numbers["b1"]["s_per_request_switch"] = quick
+        log(f"{tag} batch 1 with the interpreter's switch interval at {SPATIAL_SWITCH_S * 1e3:g} ms (default "
+            f"{default * 1e3:g}): banded s/request {quick[0]:.4f}, {quick[1]:.4f}")
+        # Through the service: two requests batched, then one alone.
+        img = [(i1[k].cpu().numpy(), i2[k].cpu().numpy()) for k in range(2)]
+        futures = [banded.submit(*img[k]) for k in range(2)]
+        outs = [f.result(timeout=FRONT_WAIT_S) for f in futures] + [banded.submit(*img[0]).result(timeout=FRONT_WAIT_S)]
+        for out in outs:
+            if out["disparity"].shape != MIXED_BUCKET or not np.isfinite(out["disparity"]).all():
+                raise AssertionError(f"{tag} service response {out['disparity'].shape}")
+        health = banded.healthz()["serving"]
+        log(f"{tag} the service answered {len(outs)} requests ({banded.batcher.metrics.snapshot()['batches_total']} "
+            f"batches), state {health['state']}, sharding {health['sharding']!r}")
+        log(card)
+        log(f"{tag} {MIXED_BUCKET[0]}x{MIXED_BUCKET[1]}, 2 bands on one card: launches per request "
+            f"{numbers['launches_per_request']} (both bands), {exchanges} exchanges a request over both bands "
+            f"({exchanges // 2} per band), peak "
+            f"{peak / 2**30:.2f} GiB against the unsharded engine's {ref_peak / 2**30:.2f}; {json.dumps(numbers)}")
+        return numbers
+    finally:
+        banded.close()
+        plain.close()
 
 
 def rank_peak_gib(run: CliRun) -> float:
@@ -4795,6 +5132,8 @@ def main() -> int:
     lever_counts = phase_mixed_levers()
     torch.cuda.empty_cache()
     phase_spatial_forward(card)
+    torch.cuda.empty_cache()
+    phase_spatial_serving(rng, card)
     torch.cuda.empty_cache()
     phase_train_cli(card)
     torch.cuda.empty_cache()

@@ -33,8 +33,8 @@ torch.distributed.run`), each process is one rank of a process group
 them all (else exit 2), and `--sharding_rules` picks how they share the
 model: dp (DDP), fsdp (FSDP2), and on a spatial axis above 1 (spatial,
 dp+spatial, or dp there) row bands of each image (parallel/spatial.py;
-the crop height must divide by S x 2**n_downsample, `--fused_encoder` and
-fsdp are refused there). `--batch_size` is one host's batch, split over
+the crop height must divide by S x 2**n_downsample, fsdp is refused
+there). `--batch_size` is one host's batch, split over
 the host's data groups; each data group reads its own stride of the
 data, and the S ranks of a spatial group read the same samples and each
 keeps its band of rows. Rank k > 0 writes run_report.p<k>.json and
@@ -53,10 +53,12 @@ HTTP front until SIGTERM or Ctrl-C, which drain the backlog and exit 0;
 `--replicas N` serves a fleet of N engines, one per card (0: every card;
 more than the cards, or any fleet off the card, exits 2), and
 `--auto_respawn` replaces a replica whose breaker sticks failed (it needs
-two replicas or more). `--sharding_rules spatial|dp+spatial` serves on
-the plain engine with one visible card (or `--device cpu`), as JAX's
-engine does on one device, and /healthz's `sharding` says so; with more
-than one visible card (or a fleet) it exits 2. The AOT-cache and audit
+two replicas or more). `--sharding_rules spatial|dp+spatial` serves row
+bands across every visible card from one process (serving/engine.py, JAX's
+(1, n) mesh), and on the plain engine with one visible card (or `--device
+cpu`), as JAX's engine does on one device; /healthz's `sharding` says
+which. With `--replicas` other than 1 it exits 2 (JAX's `--replicas`
+requires dp). The AOT-cache and audit
 flags (`--aot_cache_dir`, `--require_cache_hit`, `--audit`) are not
 ported yet and exit 2.
 
@@ -653,21 +655,14 @@ def _resolve_replicas(replicas: int, device: str):
     return replicas, None
 
 
-def _spatial_serving_problem(rules: str, device: str, replicas: int) -> Optional[str]:
+def _spatial_serving_problem(rules: str, replicas: int) -> Optional[str]:
     """None when a spatial preset can be served: JAX maps it to a (1, n)
-    row-band mesh over the n visible devices and serves unsharded on one;
-    one process driving bands on several cards is not ported (ROADMAP
-    Queue A, spatial serving across cards)."""
-    visible = 1
-    if device.startswith("cuda"):
-        import torch
-
-        visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    if visible > 1 or replicas != 1:
-        cards = f"{visible} visible cards" if visible > 1 else f"--replicas {replicas}"
-        return (f"--sharding_rules {rules} with {cards}: serving row bands across cards in one process is not "
-                "ported (ROADMAP Queue A: spatial serving across cards); serve one card (CUDA_VISIBLE_DEVICES) "
-                "or --sharding_rules dp")
+    row-band mesh over the n visible devices (the banded engine,
+    serving/engine.py) and serves unsharded on one. As in JAX, `--replicas`
+    requires dp."""
+    if replicas != 1:
+        return (f"--sharding_rules {rules} with --replicas {replicas}: replicas require --sharding_rules dp "
+                "(a spatial preset serves one engine whose row bands span the visible cards)")
     return None
 
 
@@ -746,9 +741,10 @@ def cmd_serve(argv: List[str]) -> int:
                    help="fleet self-healing: replace a replica whose breaker sticks 'failed' with a fresh engine "
                    "on the same card, validated and in probation (requires --replicas >= 2)")
     p.add_argument("--sharding_rules", choices=["dp", "spatial", "dp+spatial"], default="dp",
-                   help="spatial presets split image rows over the visible cards (JAX's (1, n) mesh): with one "
-                   "visible card (or --device cpu) the plain engine serves and /healthz says so; with more than "
-                   "one, exit 2 (spatial serving across cards is not ported)")
+                   help="spatial presets split image rows over the visible cards (JAX's (1, n) mesh): one engine, "
+                   "a band of rows per card, halos and norm sums exchanged card to card; with one visible card "
+                   "(or --device cpu) the plain engine serves; /healthz's sharding says which. --replicas "
+                   "requires dp")
     # The JAX CLI's flags the port does not have yet: refused, never ignored.
     p.add_argument("--aot_cache_dir", default=None, help="not ported yet (exits 2)")
     p.add_argument("--require_cache_hit", action="store_true", help="not ported yet (exits 2)")
@@ -773,7 +769,7 @@ def cmd_serve(argv: List[str]) -> int:
         return 2
     replicas, problem = _resolve_replicas(args.replicas, args.device)
     if args.sharding_rules != "dp":
-        problem = _spatial_serving_problem(args.sharding_rules, args.device, args.replicas) or problem
+        problem = _spatial_serving_problem(args.sharding_rules, args.replicas) or problem
     if problem is None and args.auto_respawn and replicas < 2:
         problem = "--auto_respawn requires replicas >= 2 (it replaces one replica while the others serve)"
     if problem is not None:

@@ -21,7 +21,7 @@ reference's realtime model, with `n_downsample=3`, `n_gru_layers=2`,
 `TrainConfig` is the JAX package's whole training config (with
 `CameraConfig` and `AugmentConfig`), defaults and validation included,
 plus the port's own checks of a spatial axis above 1 (the band rule,
-`band_shape_problem`; no `fused_encoder` and no fsdp on bands). The
+`band_shape_problem`; no fsdp on bands). The
 fields the training loop does not act on keep their JAX names and
 defaults, and the `train` command line refuses any other value with exit
 2 (`UNPORTED_TRAIN_DEFAULTS`): `strict_mode`, `recompile_grace` and
@@ -305,8 +305,8 @@ class ServeConfig:
     # so one hung or failing replica is one fault domain and its batch is
     # requeued onto another. 1 keeps the single-engine path.
     replicas: int = 1
-    # "dp", "spatial" or "dp+spatial" (serving/engine.py: one visible
-    # device serves unsharded whatever the preset).
+    # "dp", "spatial" or "dp+spatial" (serving/engine.py: a spatial preset
+    # serves row bands across the engine's devices, and unsharded on one).
     sharding_rules: str = "dp"
     # Fleet self-healing: a replica whose breaker sticks `failed` is
     # replaced in the background by a fresh engine on the same device,
@@ -767,9 +767,6 @@ class TrainConfig:
         if spatial > 1:
             if self.sharding_rules == "fsdp":
                 raise ValueError(f"fsdp with a spatial axis of {spatial} is not ported; use dp+spatial")
-            if self.model.fused_encoder:
-                raise ValueError(f"fused_encoder does not run on row bands (spatial axis {spatial}): its kernels "
-                                 "take no halo and no cross-band statistics")
             problem = band_shape_problem(self.augment.crop_size[0], spatial, self.model.n_downsample)
             if problem is not None:
                 raise ValueError(f"crop_size {tuple(self.augment.crop_size)}: {problem}")

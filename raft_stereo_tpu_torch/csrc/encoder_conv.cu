@@ -12,6 +12,15 @@
 //     stats[b, 0, co] = sum over H x W of y, stats[b, 1, co] = sum of y^2
 //         (of the stored y), when asked for: the next instance norm's
 //         statistics without another pass over y.
+// The halo form (a row band of a larger image, parallel/spatial.py): with
+// halo_top and halo_bottom (each 0 or 1), x holds height + halo_top +
+// halo_bottom rows, the first halo_top and the last halo_bottom of them a
+// neighbour band's real rows; output row r reads x rows r + halo_top - 1 ..
+// r + halo_top + 1, z is zero only outside x's rows and columns (a halo
+// row enters with the affine and relu applied), and y and the statistics
+// cover the height output rows. The tensor map covers x's rows and a raw
+// box starts halo_top rows lower. With no halo the kernels compute what
+// they computed before the halo form, bit for bit.
 // x and y are fp32, or bf16 under mixed precision, each dtype with its own
 // kernel. In bf16, as the JAX kernel computes it: the affine rows, weights
 // and bias are rounded to bf16 (the wrapper hands the rows and the bias
@@ -159,8 +168,8 @@ __device__ __forceinline__ float form_fp32(float z, float a, float s, int form) 
 __global__ void __launch_bounds__(THREADS, 1)
 encoder_conv_kernel(const __grid_constant__ CUtensorMap xmap, const float* __restrict__ x,
                     const float* __restrict__ w_t, const float* __restrict__ bias, const float* __restrict__ aff,
-                    int form, int height, int width, int tiles_x, int tiles, int total, int vec,
-                    float* __restrict__ y, float* __restrict__ partial) {
+                    int form, int height, int width, int halo_top, int in_height, int tiles_x, int tiles,
+                    int total, int vec, float* __restrict__ y, float* __restrict__ partial) {
     extern __shared__ __align__(128) unsigned char smem_f32[];
     float* raw = reinterpret_cast<float*>(smem_f32 + ((128 - (smem_u32(smem_f32) & 127)) & 127));
     float* wsm = raw + F_RAW_FLOATS;
@@ -174,7 +183,10 @@ encoder_conv_kernel(const __grid_constant__ CUtensorMap xmap, const float* __res
     const int half = warp & 1;                           // tile columns 32 half ..
     const int prow = lane >> 2;                          // the thread's tile row
     const int pcol = 32 * half + F_PX * (lane & 3);      // its first tile column
-    const long long plane = (long long)height * width;
+    const long long plane = (long long)height * width;     // y's
+    const long long xplane = (long long)in_height * width;  // x's, halo rows included
+    // Output-row coordinates of x's rows: z is zero outside [row_lo, row_hi).
+    const int row_lo = -halo_top, row_hi = in_height - halo_top;
     constexpr int CHUNKS = C / F_CK;
 
     // One thread: the raw box of chunk k of tile t.
@@ -183,7 +195,8 @@ encoder_conv_kernel(const __grid_constant__ CUtensorMap xmap, const float* __res
         const int tile = t - b * tiles;
         const int ty = tile / tiles_x;
         mbar_arrive_expect_tx(raw_full, F_RAW_FLOATS * 4);
-        tma_load_3d(raw, &xmap, raw_full, (tile - ty * tiles_x) * F_TILE_W - 4, ty * TILE_H - 1, b * C + k * F_CK);
+        tma_load_3d(raw, &xmap, raw_full, (tile - ty * tiles_x) * F_TILE_W - 4, ty * TILE_H - 1 + halo_top,
+                    b * C + k * F_CK);
     };
     if (tid == 0) {
         mbar_init(raw_full, 1);
@@ -202,7 +215,7 @@ encoder_conv_kernel(const __grid_constant__ CUtensorMap xmap, const float* __res
         const int ty = tile / tiles_x;
         const int y0 = ty * TILE_H;
         const int x0 = (tile - ty * tiles_x) * F_TILE_W;
-        const float* xb = x + (long long)b * C * plane;
+        const float* xb = x + (long long)b * C * xplane;
         float acc[F_PX][F_CO];
 #pragma unroll
         for (int j = 0; j < F_PX; ++j)
@@ -223,10 +236,11 @@ encoder_conv_kernel(const __grid_constant__ CUtensorMap xmap, const float* __res
                 const int c = row / PATCH_H;
                 const int gy = y0 - 1 + (row - c * PATCH_H);
                 const int ci = k * F_CK + c;
-                const bool row_in = gy >= 0 && gy < height;
+                const bool row_in = gy >= row_lo && gy < row_hi;
                 const float a = form != FORM_NONE ? aff[(b * 2) * C + ci] : 0.0f;
                 const float sc = form != FORM_NONE ? aff[(b * 2 + 1) * C + ci] : 0.0f;
-                const float* src = vec ? raw + row * F_RAW_W + 3 : xb + (long long)ci * plane + (long long)gy * width + x0 - 1;
+                const float* src = vec ? raw + row * F_RAW_W + 3
+                                       : xb + (long long)ci * xplane + (long long)(gy + halo_top) * width + x0 - 1;
 #pragma unroll
                 for (int h = 0; h < 2; ++h) {
                     const int pc = 1 + lane + 32 * h;
@@ -242,8 +256,9 @@ encoder_conv_kernel(const __grid_constant__ CUtensorMap xmap, const float* __res
                 const int gx = x0 - 1 + pc;
                 const int ci = k * F_CK + c;
                 float z = 0.0f;
-                if (gy >= 0 && gy < height && gx >= 0 && gx < width) {
-                    z = vec ? raw[row * F_RAW_W + pc + 3] : xb[(long long)ci * plane + (long long)gy * width + gx];
+                if (gy >= row_lo && gy < row_hi && gx >= 0 && gx < width) {
+                    z = vec ? raw[row * F_RAW_W + pc + 3]
+                            : xb[(long long)ci * xplane + (long long)(gy + halo_top) * width + gx];
                     if (form != FORM_NONE) z = form_fp32(z, aff[(b * 2) * C + ci], aff[(b * 2 + 1) * C + ci], form);
                 }
                 patch[row * F_STRIDE + pc] = z;
@@ -416,8 +431,9 @@ template <int FORM>
 __global__ void __launch_bounds__(WC_THREADS, 1)
 encoder_conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __nv_bfloat16* __restrict__ x,
                           const __nv_bfloat16* __restrict__ w_mma, const float* __restrict__ bias,
-                          const float* __restrict__ aff, int height, int width, int tiles_x, int tiles, int total,
-                          int vec, __nv_bfloat16* __restrict__ y, float* __restrict__ partial) {
+                          const float* __restrict__ aff, int height, int width, int halo_top, int in_height,
+                          int tiles_x, int tiles, int total, int vec, __nv_bfloat16* __restrict__ y,
+                          float* __restrict__ partial) {
     using bf16 = __nv_bfloat16;
     extern __shared__ __align__(1024) unsigned char smem_raw[];
     unsigned char* wsm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -448,7 +464,10 @@ encoder_conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __nv_b
     }
     fence_proxy_async();  // the weights are read by wgmma
     __syncthreads();
-    const long long plane = (long long)height * width;
+    const long long plane = (long long)height * width;     // y's
+    const long long xplane = (long long)in_height * width;  // x's, halo rows included
+    // Output-row coordinates of x's rows: z is zero outside [row_lo, row_hi).
+    const int row_lo = -halo_top, row_hi = in_height - halo_top;
 
     if (wg == 2) {
         // Producer. Warp w stages the interior of channel groups w and w + 4
@@ -470,7 +489,7 @@ encoder_conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __nv_b
             const int tile = t - b * tiles;
             mbar_arrive_expect_tx(raw_full, WC_RAW_BYTES);
             tma_load_3d(raw, &xmap, raw_full, (tile - (tile / tiles_x) * tiles_x) * TILE_W - 8,
-                        (tile / tiles_x) * TILE_H - 1, b * C);
+                        (tile / tiles_x) * TILE_H - 1 + halo_top, b * C);
         };
         if (vec && t128 == 0 && (int)blockIdx.x < total) load_raw(blockIdx.x);
         // The affine values of this thread's channels, for batch cur_b.
@@ -484,7 +503,7 @@ encoder_conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __nv_b
             const int tile = t - b * tiles;
             const int y0 = (tile / tiles_x) * TILE_H;
             const int x0 = (tile - (tile / tiles_x) * tiles_x) * TILE_W;
-            const bf16* xb = x + (long long)b * C * plane;
+            const bf16* xb = x + (long long)b * C * xplane;
             unsigned char* patch = patches + s * WC_PATCH_BYTES;
             const int gx = x0 + 8 * q;
             if (FORM != FORM_NONE && b != cur_b) {
@@ -524,9 +543,9 @@ encoder_conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __nv_b
                 for (int task = 0; task < TASKS; ++task) {
                     const int c = 8 * (warp + 4 * (task & 1)) + rho;
                     const int gy = y0 - 1 + (task >> 1);
-                    const bf16* src = xb + c * plane + (long long)gy * width + gx;
+                    const bf16* src = xb + c * xplane + (long long)(gy + halo_top) * width + gx;
                     uint32_t w4[4] = {0u, 0u, 0u, 0u};
-                    if (gy >= 0 && gy < height) {
+                    if (gy >= row_lo && gy < row_hi) {
 #pragma unroll
                         for (int e = 0; e < 8; e += 2) {
                             const uint32_t lo = gx + e < width ? __bfloat16_as_ushort(src[e]) : 0u;
@@ -539,8 +558,8 @@ encoder_conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __nv_b
 #pragma unroll
                 for (int pr = 0; pr < PATCH_H; ++pr) {
                     const int gy = y0 - 1 + pr;
-                    hv[pr] = gy >= 0 && gy < height && hgx >= 0 && hgx < width
-                                 ? Elem<bf16>::load(xb + hc * plane + (long long)gy * width + hgx)
+                    hv[pr] = gy >= row_lo && gy < row_hi && hgx >= 0 && hgx < width
+                                 ? Elem<bf16>::load(xb + hc * xplane + (long long)(gy + halo_top) * width + hgx)
                                  : 0.0f;
                 }
             }
@@ -553,13 +572,13 @@ encoder_conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __nv_b
                 const uint32_t w4[4] = {in[task].x, in[task].y, in[task].z, in[task].w};
                 uint32_t pk[4];
                 // Zero padding pads z, not x: a pixel outside the image is 0.
-                if (gy >= 0 && gy < height && gx + 8 <= width) {
+                if (gy >= row_lo && gy < row_hi && gx + 8 <= width) {
 #pragma unroll
                     for (int e = 0; e < 4; ++e) pk[e] = form_bf16x2<FORM>(w4[e], a2[g2], s2[g2]);
                 } else {
 #pragma unroll
                     for (int e = 0; e < 4; ++e) {
-                        const bool row_in = gy >= 0 && gy < height;
+                        const bool row_in = gy >= row_lo && gy < row_hi;
                         const float lo = row_in && gx + 2 * e < width ? form_bf16<FORM>(bf16_lo(w4[e]), fa[g2], fs[g2]) : 0.0f;
                         const float hi =
                             row_in && gx + 2 * e + 1 < width ? form_bf16<FORM>(bf16_hi(w4[e]), fa[g2], fs[g2]) : 0.0f;
@@ -581,7 +600,7 @@ encoder_conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __nv_b
 #pragma unroll
             for (int pr = 0; pr < PATCH_H; ++pr) {
                 const int gy = y0 - 1 + pr;
-                const bool in_image = gy >= 0 && gy < height && hgx >= 0 && hgx < width;
+                const bool in_image = gy >= row_lo && gy < row_hi && hgx >= 0 && hgx < width;
                 *reinterpret_cast<bf16*>(patch + patch_off(pr, hpc, hc >> 3) + 2 * (hc & 7)) =
                     __float2bfloat16_rn(in_image ? form_bf16<FORM>(hv[pr], ha, hs) : 0.0f);
             }
@@ -753,14 +772,15 @@ static int encode_x_map(CUtensorMap* map, const void* x, int batch, int height, 
 
 template <int FORM>
 static int launch_conv_wgmma(const CUtensorMap& xmap, const void* x, const void* w_t, const void* bias,
-                             const void* aff, int height, int width, int tiles_x, int tiles, int total, int vec,
-                             void* y, void* partial, int blocks, cudaStream_t s) {
+                             const void* aff, int height, int width, int halo_top, int in_height, int tiles_x,
+                             int tiles, int total, int vec, void* y, void* partial, int blocks, cudaStream_t s) {
     auto kernel = encoder_conv_wgmma_kernel<FORM>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WC_SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
     kernel<<<blocks, WC_THREADS, WC_SMEM_BYTES, s>>>(xmap, (const __nv_bfloat16*)x, (const __nv_bfloat16*)w_t,
-                                                     (const float*)bias, (const float*)aff, height, width, tiles_x,
-                                                     tiles, total, vec, (__nv_bfloat16*)y, (float*)partial);
+                                                     (const float*)bias, (const float*)aff, height, width, halo_top,
+                                                     in_height, tiles_x, tiles, total, vec, (__nv_bfloat16*)y,
+                                                     (float*)partial);
     return (int)cudaGetLastError();
 }
 
@@ -830,9 +850,10 @@ encoder_stats_kernel(const double* __restrict__ sums, int runs, float* __restric
 // 16-byte stores (the plan is ops/encoder_cuda.py `conv_plan`); bias and
 // the affine rows are fp32 in either case (in bf16, values the wrapper has
 // rounded to bf16). With statistics: `partial` (B, 2 tiles, 2, 64) fp32 and
-// `sums` (B, stat_runs, 2, 64) double run sums, `stats` (B, 2, 64).
+// `sums` (B, stat_runs, 2, 64) double run sums, `stats` (B, 2, 64). `height`
+// is y's rows; x has height + halo_top + halo_bottom (the halo form).
 extern "C" int raft_encoder_conv(const void* x, const void* w_t, const void* bias, const void* aff,
-                                 int form, int batch, int height, int width, void* y,
+                                 int form, int batch, int height, int width, int halo_top, int halo_bottom, void* y,
                                  void* partial, void* sums, void* stats, int bf16, int blocks, int shared_bytes,
                                  int vec, int stat_runs, void* stream) {
     if (form < FORM_NONE || form > FORM_BN) return (int)cudaErrorInvalidValue;
@@ -841,6 +862,8 @@ extern "C" int raft_encoder_conv(const void* x, const void* w_t, const void* bia
         return (int)cudaErrorInvalidValue;
     if (batch == 0 || height == 0 || width == 0) return 0;
     if (batch > 65535) return (int)cudaErrorInvalidValue;
+    if (halo_top < 0 || halo_top > 1 || halo_bottom < 0 || halo_bottom > 1) return (int)cudaErrorInvalidValue;
+    const int in_height = height + halo_top + halo_bottom;
     const int tile_w = bf16 ? TILE_W : F_TILE_W;
     const int tiles_x = (width + tile_w - 1) / tile_w;
     const int tiles = tiles_x * ((height + TILE_H - 1) / TILE_H);
@@ -853,24 +876,24 @@ extern "C" int raft_encoder_conv(const void* x, const void* w_t, const void* bia
     CUtensorMap xmap;
     memset(&xmap, 0, sizeof(xmap));
     if (vec) {
-        const int status = bf16 ? encode_x_map(&xmap, x, batch, height, width, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                                               WC_RAW_W, C)
-                                : encode_x_map(&xmap, x, batch, height, width, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
-                                               F_RAW_W, F_CK);
+        const int status = bf16 ? encode_x_map(&xmap, x, batch, in_height, width, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                                               2, WC_RAW_W, C)
+                                : encode_x_map(&xmap, x, batch, in_height, width, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                                               4, F_RAW_W, F_CK);
         if (status != 0) return status;
     }
     if (bf16) {
         if (shared_bytes != WC_SMEM_BYTES) return (int)cudaErrorInvalidValue;
         int status;
         if (form == FORM_IN)
-            status = launch_conv_wgmma<FORM_IN>(xmap, x, w_t, bias, aff, height, width, tiles_x, tiles, (int)total, vec,
-                                                y, partial, blocks, s);
+            status = launch_conv_wgmma<FORM_IN>(xmap, x, w_t, bias, aff, height, width, halo_top, in_height, tiles_x,
+                                                tiles, (int)total, vec, y, partial, blocks, s);
         else if (form == FORM_BN)
-            status = launch_conv_wgmma<FORM_BN>(xmap, x, w_t, bias, aff, height, width, tiles_x, tiles, (int)total, vec,
-                                                y, partial, blocks, s);
+            status = launch_conv_wgmma<FORM_BN>(xmap, x, w_t, bias, aff, height, width, halo_top, in_height, tiles_x,
+                                                tiles, (int)total, vec, y, partial, blocks, s);
         else
-            status = launch_conv_wgmma<FORM_NONE>(xmap, x, w_t, bias, aff, height, width, tiles_x, tiles, (int)total,
-                                                  vec, y, partial, blocks, s);
+            status = launch_conv_wgmma<FORM_NONE>(xmap, x, w_t, bias, aff, height, width, halo_top, in_height,
+                                                  tiles_x, tiles, (int)total, vec, y, partial, blocks, s);
         if (status != 0) return status;
     } else {
         if (shared_bytes != F_SMEM_BYTES) return (int)cudaErrorInvalidValue;
@@ -879,7 +902,7 @@ extern "C" int raft_encoder_conv(const void* x, const void* w_t, const void* bia
         if (err != cudaSuccess) return (int)err;
         encoder_conv_kernel<<<blocks, THREADS, F_SMEM_BYTES, s>>>(
             xmap, (const float*)x, (const float*)w_t, (const float*)bias, (const float*)aff, form, height, width,
-            tiles_x, tiles, (int)total, vec, (float*)y, (float*)partial);
+            halo_top, in_height, tiles_x, tiles, (int)total, vec, (float*)y, (float*)partial);
     }
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess || stats == nullptr) return (int)err;

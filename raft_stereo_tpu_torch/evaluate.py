@@ -71,7 +71,9 @@ class Evaluator:
         i1, i2 = padder.pad(i1, i2)
         # A banded model (parallel/spatial.py, validation inside a spatial
         # run) takes this rank's band of the padded images and gathers the
-        # whole flow on every rank of its group.
+        # whole flow on every rank of its group; with `fused_encoder` its
+        # test-mode forward runs the fused layer1 and the pyramid kernel
+        # on the band.
         whole = getattr(self.model, "forward_whole", None)
         with torch.no_grad():
             _sync(device)

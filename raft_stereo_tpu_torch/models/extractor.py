@@ -16,9 +16,9 @@ backward, so a training forward takes the direct path.
 
 On a band (parallel/spatial.py) the trunk's levels are banded and the
 context encoder's layer4/layer5 levels follow the ragged-level rule
-(`spatial.coarser`, `spatial.level`); `fused_layer1` is refused there:
-its kernels zero-pad at their tensor's edge and take the band's own
-instance statistics.
+(`spatial.coarser`, `spatial.level`); `fused_layer1` runs there too, its
+convs on their halo form with one row of each neighbour band and its
+instance statistics (the stem's and every conv's) summed over the bands.
 
 Both encoders follow their input's dtype: under mixed precision the images
 arrive in bf16, the convs and norms run in bf16 on fp32 parameters, and the
@@ -60,9 +60,6 @@ class EncoderTrunk(nn.Module):
         self.layer3_1 = ResidualBlock(128, 128, norm_fn, stride=1)
 
     def forward(self, x: torch.Tensor, test_mode: bool = False) -> torch.Tensor:
-        if self.fused_layer1 and test_mode and spatial.active() is not None:
-            raise ValueError("fused_encoder does not run on row bands (a spatial axis above 1): its kernels "
-                             "take no halo and no cross-band statistics")
         x = self.conv1(x)
         if (self.fused_layer1 and test_mode and x.shape[3] % 2 == 0
                 and self.norm_fn in ("instance", "batch")):
@@ -75,13 +72,14 @@ class EncoderTrunk(nn.Module):
 
     def _fused_layer1(self, stem_y: torch.Tensor) -> torch.Tensor:
         """Stem norm + layer1 from the RAW stem output: the stem's norm is
-        left pending and folded into the first conv's operand read."""
-        b, _, h, w = stem_y.shape
+        left pending and folded into the first conv's operand read (on a
+        band with the whole image's statistics)."""
+        b = stem_y.shape[0]
         batch_norm = self.norm_fn == "batch"
         if batch_norm:
             stem_aff = encoder_cuda.bn_affine(*self.norm1.affine(), b)
         else:
-            stem_aff = encoder_cuda.instance_affine_from_stats(encoder_cuda.channel_stats(stem_y), h * w)
+            stem_aff = encoder_cuda.instance_affine_from_stats(*encoder_cuda.band_stats(stem_y))
         blocks = []
         for blk in (self.layer1_0, self.layer1_1):
             affs = ((encoder_cuda.bn_affine(*blk.norm1.affine(), b),

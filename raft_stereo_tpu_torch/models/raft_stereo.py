@@ -22,10 +22,13 @@ in bf16 and they are saved in bf16 across the remat, the flows the loss
 reads are fp32, and the lookup's backward (`ops/corr_cuda.py` `CorrLookup`)
 returns d(pyramid) in the pyramid's dtype.
 
-Inside a band scope (parallel/spatial.py `BandedModel`) the images are a
-band of rows and so is every output; the correlation state and its
-lookups are the band's own (row-local, no exchange), the context and GRU
-levels follow the ragged-level rule.
+Inside a band scope (parallel/spatial.py `BandedModel`, or the banded
+serving engine) the images are a band of rows and so is every output; the
+correlation state and its lookups are the band's own (row-local, no
+exchange: with `fused_encoder` in test mode the pyramid kernel builds the
+band's levels from the band's feature maps), the fused layer1 takes its
+halo rows and cross-band statistics (ops/encoder_cuda.py), the context and
+GRU levels follow the ragged-level rule.
 
 The training forward detaches the coordinates at the start of every
 iteration, as JAX's `stop_gradient` does, and with `remat_iterations` runs

@@ -25,6 +25,15 @@ run in that dtype, the conv sums its products in fp32, rounds the sum and
 adds the bias in the operand dtype, and the statistics are fp32 sums over
 the stored outputs. The join runs in the operand dtype.
 
+The conv takes a halo form (`halo=(top, bottom)`, each 0 or 1): x then
+holds `top` rows above and `bottom` rows below the output's rows, the
+neighbour band's real rows (parallel/spatial.py `raw_halo_rows`), and z
+is zero only outside x's rows and columns, so such a row enters the conv
+with the affine and relu applied; y and its statistics cover the output's
+rows only. `fused_layer1` inside a band scope takes one such row from each
+neighbour band for every conv and sums the instance statistics over the
+bands (the join is row-local).
+
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version (`plain_conv`, `plain_join`) for CPU tensors; a CUDA tensor the
 kernel cannot take raises. Both conv kernels (fp32 FFMA, bf16 wgmma)
@@ -44,6 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from raft_stereo_tpu_torch.ops import _build
+from raft_stereo_tpu_torch.parallel import spatial
 
 # Kernel launches since the last reset; chip_smoke.py reads them to prove
 # the serving path went through the kernels. One conv call counts one
@@ -131,23 +141,49 @@ def channel_stats(y: torch.Tensor) -> torch.Tensor:
     return torch.stack([y.sum(dim=(2, 3)), (y * y).sum(dim=(2, 3))], dim=1)
 
 
-def plain_conv(x, weight, bias, aff, form, emit_stats):
+def plain_conv(x, weight, bias, aff, form, emit_stats, halo: Tuple[int, int] = (0, 0)):
     """The plain PyTorch version of the conv kernel: (y, stats or None). A
     bf16 operand is convolved as fp32 values of the bf16-rounded operand
     and weights (their products are exact in fp32; TF32 off on the card),
-    the sum rounded to bf16, then the bf16 bias added in bf16."""
+    the sum rounded to bf16, then the bf16 bias added in bf16. With a halo
+    the affine and relu apply to every row of x, z gets a zero row only on
+    a side without a halo row, and the conv pads no row."""
+    top, bottom = _check_halo(halo, x.shape[2])
     z = apply_affine(x, aff, form)
+    padding = 1
+    if top or bottom:
+        z = F.pad(z, (0, 0, 1 - top, 1 - bottom))
+        padding = (0, 1)
     if x.dtype == torch.bfloat16:
-        y = F.conv2d(z.float(), weight.to(x.dtype).float(), None, padding=1).to(x.dtype)
+        y = F.conv2d(z.float(), weight.to(x.dtype).float(), None, padding=padding).to(x.dtype)
         y = y + bias.to(x.dtype)[None, :, None, None]
     else:
-        y = F.conv2d(z, weight, bias, padding=1)
+        y = F.conv2d(z, weight, bias, padding=padding)
     return y, (channel_stats(y) if emit_stats else None)
+
+
+def _check_halo(halo, rows: int) -> Tuple[int, int]:
+    top, bottom = (int(v) for v in halo)
+    if top not in (0, 1) or bottom not in (0, 1):
+        raise ValueError(f"encoder_conv halo rows must be 0 or 1 on each side, got {tuple(halo)}")
+    if rows - top - bottom < 1:
+        raise ValueError(f"encoder_conv: {rows} rows leave no output row under a halo of {tuple(halo)}")
+    return top, bottom
 
 
 def plain_join(skip, y, aff_y, y_form, aff_skip=None, skip_form="none"):
     """The plain PyTorch version of the join kernel."""
     return torch.relu(apply_affine(skip, aff_skip, skip_form) + apply_affine(y, aff_y, y_form))
+
+
+def band_stats(y: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """(`channel_stats(y)`, H x W) of NCHW `y`; inside a band scope the sums
+    over the bands and the whole image's pixel count."""
+    stats, n = channel_stats(y), y.shape[2] * y.shape[3]
+    scope = spatial.banded()
+    if scope is not None:
+        stats, n = scope.band_sum(stats), n * scope.count
+    return stats, n
 
 
 def instance_affine_from_stats(stats: torch.Tensor, n: int, epsilon: float = 1e-5) -> torch.Tensor:
@@ -169,7 +205,7 @@ def _conv_lib():
     if lib.raft_encoder_conv.argtypes is None:
         lib.raft_encoder_conv.argtypes = (
             [ctypes.c_void_p] * 4  # x, weight (Ci, 3, 3, Co), bias, aff or NULL
-            + [ctypes.c_int] * 4  # form, batch, H, W
+            + [ctypes.c_int] * 6  # form, batch, H (output rows), W, halo rows above and below
             + [ctypes.c_void_p] * 4  # y, partial sums, their double runs, stats (the last three or NULL)
             + [ctypes.c_int] * 5  # bf16; plan: blocks, shared bytes, vec, statistics runs
             + [ctypes.c_void_p]  # stream
@@ -216,8 +252,10 @@ def _rounded(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def fused_conv(x, weight, bias, aff: Optional[torch.Tensor], form: str = "none",
-               emit_stats: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """3x3 "same" conv of form(x) with bias: x (B, 64, H, W) fp32 or bf16,
+               emit_stats: bool = False, halo: Tuple[int, int] = (0, 0)
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """3x3 "same" conv of form(x) with bias: x (B, 64, H + top + bottom, W)
+    fp32 or bf16 for `halo` = (top, bottom) rows around the output's H,
     weight (64, 64, 3, 3) OIHW, bias (64,), aff (B, 2, 64) or None with
     "none", all three fp32. Returns (y (B, 64, H, W) in x's dtype, stats
     (B, 2, 64) fp32 [sum, sumsq] of y or None)."""
@@ -225,9 +263,11 @@ def fused_conv(x, weight, bias, aff: Optional[torch.Tensor], form: str = "none",
         raise ValueError(f"form {form!r} not in {tuple(FORMS)}")
     if (aff is None) != (form == "none"):
         raise ValueError("aff must be given iff form != 'none'")
+    top, bottom = _check_halo(halo, x.shape[2])
     if not x.is_cuda:
-        return plain_conv(x, weight, bias, aff, form, emit_stats)
-    b, c, h, w = x.shape
+        return plain_conv(x, weight, bias, aff, form, emit_stats, (top, bottom))
+    b, c, rows, w = x.shape
+    h = rows - top - bottom
     if c != CHANNELS or tuple(weight.shape) != (CHANNELS, CHANNELS, 3, 3) or tuple(bias.shape) != (CHANNELS,):
         raise ValueError(f"encoder_conv kernel takes 64 -> 64 channels, 3x3; got x {tuple(x.shape)}, "
                          f"weight {tuple(weight.shape)}, bias {tuple(bias.shape)}")
@@ -244,7 +284,7 @@ def fused_conv(x, weight, bias, aff: Optional[torch.Tensor], form: str = "none",
         w_t = weight.permute(1, 2, 3, 0).contiguous()
     bias = _rounded(bias, x.dtype)
     aff = None if aff is None else _rounded(aff, x.dtype)
-    y = torch.empty_like(x)
+    y = torch.empty((b, c, h, w), dtype=x.dtype, device=x.device)
     plan = conv_plan_for(x, y)
     stats = partial = sums = None
     if emit_stats:
@@ -256,7 +296,7 @@ def fused_conv(x, weight, bias, aff: Optional[torch.Tensor], form: str = "none",
     lib = _conv_lib()
     status = lib.raft_encoder_conv(
         x.data_ptr(), w_t.data_ptr(), bias.data_ptr(), 0 if aff is None else aff.data_ptr(),
-        FORMS[form], b, h, w, y.data_ptr(),
+        FORMS[form], b, h, w, top, bottom, y.data_ptr(),
         *(0 if t is None else t.data_ptr() for t in (partial, sums, stats)),
         _build.DTYPE_FLAGS[x.dtype], plan.blocks, plan.shared_bytes, int(plan.vec), plan.stat_runs,
         torch.cuda.current_stream(x.device).cuda_stream,
@@ -267,9 +307,10 @@ def fused_conv(x, weight, bias, aff: Optional[torch.Tensor], form: str = "none",
 
 
 def conv_plan_for(x: torch.Tensor, y: torch.Tensor) -> ConvPlan:
-    """`conv_plan` for CUDA x and y (B, 64, H, W) of one dtype: their shape,
-    element size and alignment and their card's multiprocessors."""
-    b, _, h, w = x.shape
+    """`conv_plan` for CUDA x and y (B, 64, H, W) of one dtype (x with its
+    halo rows): y's shape, the element size and alignment and their card's
+    multiprocessors."""
+    b, _, h, w = y.shape
     return conv_plan(b, h, w, _build.multiprocessors(x.device.index), _build.aligned((x, y)), x.element_size())
 
 
@@ -327,18 +368,35 @@ def fused_layer1(stem_y: torch.Tensor, stem_aff: torch.Tensor,
     pending norm (instance [mean, inv] or batch [inv, shift]). blocks: per
     residual block (w1, b1, w2, b2, aff_bn1, aff_bn2), the BN affines None
     under instance norm (the conv kernels produce those statistics).
-    Returns the joined layer1 output."""
+    Returns the joined layer1 output.
+
+    Inside a band scope (parallel/spatial.py) stem_y is this band's rows,
+    stem_aff the whole image's (`band_stats`), every conv takes one row of
+    its raw operand from each neighbour band and its statistics are summed
+    over the bands, over the whole image's pixel count."""
     if norm_fn not in ("instance", "batch"):
         raise ValueError(f"fused layer1 takes instance or batch norm, got {norm_fn!r}")
     form = "in" if norm_fn == "instance" else "bn"
     emit = norm_fn == "instance"
-    n = stem_y.shape[2] * stem_y.shape[3]
+    scope = spatial.banded()
+    n = stem_y.shape[2] * stem_y.shape[3] * (scope.count if scope is not None else 1)
+
+    def conv(x, weight, bias, aff, x_form):
+        halo = (0, 0)
+        if scope is not None:
+            x, top, bottom = scope.raw_halo_rows(x, 1, 1)
+            halo = (top, bottom)
+        y, stats = fused_conv(x, weight, bias, aff, x_form, emit_stats=emit, halo=halo)
+        if emit and scope is not None:
+            stats = scope.band_sum(stats)
+        return y, (instance_affine_from_stats(stats, n) if emit else None)
+
     cur, cur_aff, cur_form = stem_y, stem_aff, form
     for w1, b1, w2, b2, aff_bn1, aff_bn2 in blocks:
-        y1, s1 = fused_conv(cur, w1, b1, cur_aff, cur_form, emit_stats=emit)
-        aff1 = instance_affine_from_stats(s1, n) if emit else aff_bn1
-        y2, s2 = fused_conv(y1, w2, b2, aff1, form, emit_stats=emit)
-        aff2 = instance_affine_from_stats(s2, n) if emit else aff_bn2
+        y1, aff1 = conv(cur, w1, b1, cur_aff, cur_form)
+        aff1 = aff1 if emit else aff_bn1
+        y2, aff2 = conv(y1, w2, b2, aff1, form)
+        aff2 = aff2 if emit else aff_bn2
         cur = fused_join(cur, y2, aff2, form, aff_skip=cur_aff, skip_form=cur_form)
         cur_aff, cur_form = None, "none"
     return cur

@@ -34,7 +34,9 @@ its, verbatim. How a preset runs is PyTorch's:
   ranks in one flat all-reduce: each rank's loss is its share of the
   global batch's (its band's valid pixels over the global count), so the
   sum is the global batch's gradient. ``fsdp`` on a spatial axis above 1
-  and ``fused_encoder`` on bands are refused (ROADMAP).
+  is refused (ROADMAP); ``fused_encoder`` runs on bands in test mode (the
+  trainer's validation), as JAX's trainer takes the fused branch only
+  there.
 
 Left out: the JAX module's HLO collective audit (`collective_counts`,
 `assert_no_collectives`), which reads XLA's compiled text; the port has
@@ -353,8 +355,6 @@ class ShardingEngine:
         if self.banded:
             from raft_stereo_tpu_torch.parallel import spatial
 
-            if model.config.fused_encoder:
-                raise ValueError("fused_encoder does not run on row bands (a spatial axis above 1)")
             return spatial.BandedModel(model, spatial.band_scope_for(self.mesh))
         data_mesh = self.mesh.device_mesh[DATA_AXIS]
         if self.preset.name != "fsdp":

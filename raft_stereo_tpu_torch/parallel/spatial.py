@@ -21,10 +21,20 @@ band index and band count are in force, and inside it:
   its (coarser) operand whole and computes this band's output rows with
   the band's rows of the interpolation matrix.
 
+- the fused encoder's layer1 (ops/encoder_cuda.py `fused_layer1`) takes
+  its conv operands' neighbour rows with `raw_halo_rows` (no rows at the
+  image's edges: the conv kernel pads z = form(x), not x, and is told how
+  many halo rows it got) and sums its instance statistics with `band_sum`.
+
 The correlation volume, pyramid, lookup and scatter are row-local (1-D
 matching along a row), so the CUDA kernels run unchanged on each band and
 the chain from `corr_state` to the taps makes no exchange
 (`BandScope.exchanges` counts every collective this module makes).
+
+The collectives go through a comm: `GroupComm` over a torch process group
+(one band per rank), or `ThreadComm` between the threads of one process
+(one band per thread, each on its own card or sharing one: the banded
+serving engine, serving/engine.py, and the CPU tests).
 
 **The band rule.** Rank k of s holds rows [k*R/s, (k+1)*R/s) of every
 banded level, R being that level's rows. The image height must divide by
@@ -57,7 +67,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -103,9 +113,78 @@ class GroupComm:
         return t
 
 
+class ThreadComm:
+    """The collectives of a band scope between the threads of one process,
+    band k on thread k: a slot per band and a `threading.Barrier`.
+    `bound(k)` is band k's comm. Its `all_gather` leaves a copy of the
+    band's tensor in its slot (on a card with an event recorded after the
+    copy on the thread's current stream), waits for every band, and takes
+    the other bands' tensors onto its own device: on a card the streams that
+    read them first wait on their producers' events, so nothing passes
+    through the host and no thread blocks on the device. A second wait
+    keeps a slot until every band has read it. `abort()` breaks the barrier
+    (a band that failed), `reset()` makes it usable again once every band's
+    thread has returned."""
+
+    def __init__(self, n: int):
+        self.count = n
+        self.barrier = threading.Barrier(n)
+        self.slots: list = [None] * n
+
+    def bound(self, k: int) -> "_ThreadBand":
+        return _ThreadBand(self, k)
+
+    def abort(self) -> None:
+        self.barrier.abort()
+
+    def reset(self) -> None:
+        self.barrier.reset()
+        self.slots = [None] * self.count
+
+
+class _ThreadBand:
+    def __init__(self, comm: ThreadComm, k: int):
+        self.comm = comm
+        self.k = k
+
+    def all_gather(self, t: torch.Tensor) -> List[torch.Tensor]:
+        comm, k = self.comm, self.k
+        mine = t.detach().clone(memory_format=torch.contiguous_format)
+        ready = None
+        if mine.is_cuda:
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(mine.device))
+        comm.slots[k] = (mine, ready)
+        comm.barrier.wait()
+        parts = []
+        for j, (src, event) in enumerate(list(comm.slots)):
+            if j == k:
+                parts.append(mine)
+                continue
+            if event is not None:
+                # The copy runs on the source card's current stream and the
+                # result is read on this band's: both wait for the producer.
+                for stream in {torch.cuda.current_stream(src.device), torch.cuda.current_stream(mine.device)}:
+                    stream.wait_event(event)
+                    src.record_stream(stream)
+            parts.append(src.to(mine.device, non_blocking=True))
+        comm.barrier.wait()
+        return parts
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum over the bands in band order, the same on every band; a
+        bf16 tensor is summed in fp32 and rounded once (as `GroupComm`)."""
+        parts = self.all_gather(t)
+        total = parts[0].float() if t.dtype == torch.bfloat16 else parts[0].clone()
+        for p in parts[1:]:
+            total += p
+        return t.copy_(total)
+
+
 class BandScope:
-    """Band `index` of `count` over `comm`'s group (a `GroupComm`, or any
-    object with `all_gather` and `all_reduce`). `height` is the whole
+    """Band `index` of `count` over `comm`'s group (a `GroupComm`, a
+    `ThreadComm.bound(index)`, or any object with `all_gather` and
+    `all_reduce`). `height` is the whole
     image's rows at full resolution, set by `bands` for each forward."""
 
     def __init__(self, comm, index: int, count: int):
@@ -165,7 +244,23 @@ class BandScope:
             return x
         if top > x.shape[2] or bottom > x.shape[2]:
             raise ValueError(f"a halo of {top} + {bottom} rows is taller than the band's {x.shape[2]} rows")
-        return _Halo.apply(x, self, top, bottom)
+        return _Halo.apply(x, self, top, bottom, True)
+
+    def raw_halo_rows(self, x: torch.Tensor, top: int, bottom: int) -> Tuple[torch.Tensor, int, int]:
+        """x (B, C, h, W), this band, with `top` rows of the band above and
+        `bottom` rows of the band below attached only where that band exists
+        (nothing at the image's top and bottom edges): (rows, rows attached
+        above, rows attached below), for a kernel that pads its own operand
+        (the fused conv pads z = form(x), not x). One exchange, as
+        `halo_rows`; differentiable likewise."""
+        k = self.index
+        got_top = top if k > 0 else 0
+        got_bottom = bottom if k < self.count - 1 else 0
+        if top == 0 and bottom == 0:
+            return x, 0, 0
+        if top > x.shape[2] or bottom > x.shape[2]:
+            raise ValueError(f"a halo of {top} + {bottom} rows is taller than the band's {x.shape[2]} rows")
+        return _Halo.apply(x, self, top, bottom, False), got_top, got_bottom
 
     def band_sum(self, t: torch.Tensor) -> torch.Tensor:
         """Sum of `t` over the group's bands (differentiable)."""
@@ -186,32 +281,40 @@ class BandScope:
 
 
 class _Halo(torch.autograd.Function):
+    """The halo exchange; `edges`: zero rows at the image's top and bottom
+    edges (`halo_rows`), else nothing there (`raw_halo_rows`)."""
+
     @staticmethod
-    def forward(ctx, x, scope, top, bottom):
+    def forward(ctx, x, scope, top, bottom, edges):
+        k, (b, c, h, w) = scope.index, x.shape
         ctx.scope, ctx.top, ctx.bottom = scope, top, bottom
-        h = x.shape[2]
+        ctx.got = (top if edges or k > 0 else 0, bottom if edges or k < scope.count - 1 else 0)
         # Each band sends its first `bottom` rows (the band above's lower
         # halo) and its last `top` rows (the band below's upper halo).
         parts = scope._gather(torch.cat([x[:, :, :bottom], x[:, :, h - top:]], dim=2))
-        k, (b, c, _, w) = scope.index, x.shape
-        above = parts[k - 1][:, :, bottom:] if k > 0 else x.new_zeros((b, c, top, w))
-        below = parts[k + 1][:, :, :bottom] if k < scope.count - 1 else x.new_zeros((b, c, bottom, w))
+        above = parts[k - 1][:, :, bottom:] if k > 0 else x.new_zeros((b, c, ctx.got[0], w))
+        below = parts[k + 1][:, :, :bottom] if k < scope.count - 1 else x.new_zeros((b, c, ctx.got[1], w))
         return torch.cat([above, x, below], dim=2)
 
     @staticmethod
     def backward(ctx, g):
         scope, top, bottom = ctx.scope, ctx.top, ctx.bottom
-        h = g.shape[2] - top - bottom
+        got_top, got_bottom = ctx.got
+        b, c, rows, w = g.shape
+        h = rows - got_top - got_bottom
         # Send each halo's gradient back: the upper halo's to the band
-        # above (its last rows), the lower halo's to the band below.
-        parts = scope._gather(torch.cat([g[:, :, :top], g[:, :, top + h:]], dim=2))
-        dx = g[:, :, top:top + h].clone()
+        # above (its last rows), the lower halo's to the band below; a
+        # halo not attached sends zeros, so every band's part has one shape.
+        g_top = g[:, :, :top] if got_top == top else g.new_zeros((b, c, top, w))
+        g_bottom = g[:, :, got_top + h:] if got_bottom == bottom else g.new_zeros((b, c, bottom, w))
+        parts = scope._gather(torch.cat([g_top, g_bottom], dim=2))
+        dx = g[:, :, got_top:got_top + h].clone()
         k = scope.index
         if k > 0:
             dx[:, :, :bottom] += parts[k - 1][:, :, top:]
         if k < scope.count - 1:
             dx[:, :, h - top:] += parts[k + 1][:, :, :top]
-        return dx, None, None, None
+        return dx, None, None, None, None
 
 
 class _BandSum(torch.autograd.Function):

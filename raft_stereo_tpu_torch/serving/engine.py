@@ -25,11 +25,24 @@ The request path the batcher calls (serving/batcher.py):
   hand its memory out while the runner still reads it), and `run_batch`
   refines. `torch.inference_mode` is per thread too; `run_batch` carries it.
 
-`sharding` says how the engine serves (/healthz's `sharding` field): a
-spatial preset would split rows over the visible devices, as JAX's engine
-does; with one visible device JAX serves unsharded, and so does this
-engine, which is always one device (`serve` refuses a spatial preset with
-more than one visible card).
+`sharding` says how the engine serves (/healthz's `sharding` field). A
+spatial preset (`sharding_rules` other than "dp") with more than one
+device is the banded engine, the counterpart of JAX's (1, n) mesh over
+the local devices: `devices` (default: every visible card; a device may
+repeat, so that one card, or the CPU, holds several bands) each hold a
+band of image rows (parallel/spatial.py). The engine keeps one copy of the
+model per distinct device, a `BandScope` per band over one in-process
+`ThreadComm` (halos and norm sums go card to card, never through the
+host), and a worker thread per band with its device current. `run_batch`
+splits each padded batch (and a stream's `flow_init`) into the bands on
+the first card, runs the prelude, every chunk and the finalize on every
+band at once, and gathers the flows onto the first card; warm-up, the
+chunk estimates, the watchdog, the run lock and `swap_variables` (into
+every copy under the one lock) are the single engine's. A failure in one
+band fails the batch (the other bands' exchanges are broken off), and the
+batcher counts it on the breaker. A bucket off the band rule
+(`config.band_shape_problem`) is refused at boot. With one device JAX
+serves unsharded, and so does this engine, and `sharding` says so.
 
 `swap_variables` hot-swaps the weights: the candidate state dict is checked
 key by key against the served model (shape and dtype) before anything is
@@ -43,18 +56,21 @@ call), so the next batch computes with the new values.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from raft_stereo_tpu_torch.config import ServeConfig
+from raft_stereo_tpu_torch.config import ServeConfig, band_shape_problem
 from raft_stereo_tpu_torch.models import anytime
 from raft_stereo_tpu_torch.models.init import build_model
 from raft_stereo_tpu_torch.models.raft_stereo import RAFTStereo
+from raft_stereo_tpu_torch.parallel import spatial
 from raft_stereo_tpu_torch.serving.lifecycle import CheckpointMismatchError, ServingLifecycle
 from raft_stereo_tpu_torch.utils.resilience import HangWatchdog
 
@@ -73,12 +89,121 @@ class BatchResult:
     device_time_s: float = 0.0
 
 
-class AnytimeEngine:
-    """One model on one device, warmed for every configured bucket.
+def band_devices(config: ServeConfig, device, devices: Optional[Sequence] = None) -> Optional[List[torch.device]]:
+    """The devices of the banded engine, or None for one device: a spatial
+    preset with `devices` of more than one entry, or with `devices` None,
+    `device` "cuda" (no index) and more than one visible card (then every
+    one of them)."""
+    if config.sharding_rules == "dp":
+        return None
+    if devices is None:
+        one = torch.device(device)
+        if one.type != "cuda" or one.index is not None or not torch.cuda.is_available() \
+                or torch.cuda.device_count() < 2:
+            return None
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    devices = [torch.device(d) for d in devices]
+    return devices if len(devices) > 1 else None
 
-    `model` is a `RAFTStereo` already on `device`; None builds one with
-    seeded random weights. `run_batch` holds a lock: the device serves one
-    batch at a time. Staging runs outside it."""
+
+def _bind_device(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+
+
+class _Bands:
+    """The banded engine's bands: band k on `devices[k]`, its model copy,
+    its `BandScope` over one `ThreadComm`, and its worker thread."""
+
+    def __init__(self, config: ServeConfig, model: RAFTStereo, devices: List[torch.device]):
+        n = len(devices)
+        for hw in config.buckets:
+            problem = band_shape_problem(hw[0], n, config.model.n_downsample)
+            if problem is not None:
+                raise ValueError(f"bucket {hw[0]}x{hw[1]} over {n} bands: {problem}")
+        self.devices = devices
+        self.f = config.model.downsample_factor
+        self.n_downsample = config.model.n_downsample
+        home = next(model.parameters()).device
+        copies = {}
+        for d in devices:
+            if d not in copies:
+                copies[d] = model if d == home else copy.deepcopy(model).to(d).eval()
+        self.models = [copies[d] for d in devices]
+        self.comm = spatial.ThreadComm(n)
+        self.scopes = [spatial.BandScope(self.comm.bound(k), k, n) for k in range(n)]
+        self.pools = [ThreadPoolExecutor(1, thread_name_prefix=f"band{k}", initializer=_bind_device, initargs=(d,))
+                      for k, d in enumerate(devices)]
+
+    def close(self) -> None:
+        for pool in self.pools:
+            pool.shutdown(wait=True)
+
+    @property
+    def exchanges(self) -> int:
+        """Collectives made so far, summed over the bands."""
+        return sum(s.exchanges for s in self.scopes)
+
+    def _call(self, k: int, work):
+        try:
+            with torch.inference_mode():
+                return work(k)
+        except BaseException:
+            self.comm.abort()  # the other bands' exchanges raise instead of waiting
+            raise
+
+    def run(self, work) -> list:
+        """`work(k)` on every band at once, each in its worker thread; the
+        results in band order. A band that raised fails the call with its
+        error, once every band has returned."""
+        futures = [pool.submit(self._call, k, work) for k, pool in enumerate(self.pools)]
+        results, errors = [], []
+        for fut in futures:
+            try:
+                results.append(fut.result())
+            except BaseException as exc:  # noqa: BLE001 (re-raised below)
+                errors.append(exc)
+        if errors:
+            self.comm.reset()
+            raise next((e for e in errors if not isinstance(e, threading.BrokenBarrierError)), errors[0])
+        return results
+
+    def _in_band(self, k: int, rows: int, fn):
+        with self.scopes[k].bands(rows, self.n_downsample):
+            return fn(self.models[k])
+
+    def prelude(self, image1, image2, flow_init) -> list:
+        n = len(self.devices)
+        rows = image1.shape[1] // n
+        low = rows // self.f
+
+        def work(k):
+            dev = self.devices[k]
+            i1, i2 = (t[:, k * rows:(k + 1) * rows].to(dev, non_blocking=True) for t in (image1, image2))
+            flow = None if flow_init is None else flow_init[:, k * low:(k + 1) * low].to(dev, non_blocking=True)
+            return self._in_band(k, rows, lambda m: anytime.prelude(m, i1, i2, flow))
+
+        return self.run(work)
+
+    def chunk(self, states: list, chunk_iters: int) -> list:
+        rows = states[0]["coords0"].shape[1] * self.f
+        return self.run(lambda k: self._in_band(k, rows, lambda m: anytime.chunk(m, states[k], chunk_iters)))
+
+    def finalize(self, states: list):
+        rows = states[0]["coords0"].shape[1] * self.f
+        outs = self.run(lambda k: self._in_band(k, rows, lambda m: anytime.finalize(m, states[k])))
+        home = self.devices[0]
+        return tuple(torch.cat([o[i].to(home) for o in outs], dim=1) for i in range(2))
+
+
+class AnytimeEngine:
+    """One model on one device, warmed for every configured bucket; with a
+    spatial preset and more than one device, row bands over `devices`.
+
+    `model` is a `RAFTStereo` already on `device` (the first of `devices`
+    when banded); None builds one with seeded random weights. `run_batch`
+    holds a lock: the device serves one batch at a time. Staging runs
+    outside it."""
 
     # One engine, one fault domain: /healthz reports it as `replicas` (the
     # JAX package's fleet serves several).
@@ -88,15 +213,22 @@ class AnytimeEngine:
     tracer = None
 
     def __init__(self, config: ServeConfig, model: Optional[RAFTStereo] = None,
-                 device="cuda", seed: int = 0, lifecycle: Optional[ServingLifecycle] = None):
+                 device="cuda", seed: int = 0, lifecycle: Optional[ServingLifecycle] = None,
+                 devices: Optional[Sequence] = None):
         self.config = config
-        self.device = torch.device(device)
+        banded = band_devices(config, device, devices)
+        self.device = banded[0] if banded else torch.device(devices[0] if devices else device)
         self.lifecycle = lifecycle if lifecycle is not None else ServingLifecycle()
         if model is None:
             model = build_model(config.model, seed=seed, device=self.device)
         self.model = model.eval()
-        self.sharding = ("dp (single-program)" if config.sharding_rules == "dp" else
-                         f"{config.sharding_rules} requested; one visible device: dp (single-program)")
+        self._bands = _Bands(config, self.model, banded) if banded else None
+        if banded:
+            self.model = self._bands.models[0]
+            self.sharding = f"spatial over {len(banded)} device(s)"
+        else:
+            self.sharding = ("dp (single-program)" if config.sharding_rules == "dp" else
+                             f"{config.sharding_rules} requested; one visible device: dp (single-program)")
         self._chunk_est_s: Dict[Tuple[Tuple[int, int], int], float] = {}
         self.prelude_s: Dict[Tuple[Tuple[int, int], int], float] = {}
         self._lock = threading.Lock()
@@ -111,10 +243,35 @@ class AnytimeEngine:
     def close(self) -> None:
         if self._watchdog is not None:
             self._watchdog.close()
+        if self._bands is not None:
+            self._bands.close()
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for d in (self._bands.devices if self._bands is not None else [self.device]):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+
+    @property
+    def band_exchanges(self) -> int:
+        """The banded engine's collectives so far (halos, norm sums and
+        gathers, over every band); 0 on one device."""
+        return self._bands.exchanges if self._bands is not None else 0
+
+    # The three stages, on one device or on every band.
+    def _prelude(self, image1, image2, flow_init=None):
+        if self._bands is not None:
+            return self._bands.prelude(image1, image2, flow_init)
+        return anytime.prelude(self.model, image1, image2, flow_init)
+
+    def _chunk(self, state):
+        if self._bands is not None:
+            return self._bands.chunk(state, self.config.chunk_iters)
+        return anytime.chunk(self.model, state, self.config.chunk_iters)
+
+    def _finalize(self, state):
+        if self._bands is not None:
+            return self._bands.finalize(state)
+        return anytime.finalize(self.model, state)
 
     def on_device(self):
         """The engine's card as the calling thread's current device (the
@@ -140,21 +297,21 @@ class AnytimeEngine:
             for batch in cfg.batch_sizes:
                 img = self.place(np.zeros((batch, *hw, cfg.model.in_channels), np.float32))
                 t = time.monotonic()
-                state = anytime.prelude(self.model, img, img)
+                state = self._prelude(img, img)
                 self._sync()
                 self.prelude_s[(hw, batch)] = time.monotonic() - t
                 if cfg.video is not None:
                     flow0 = self.place(np.zeros((batch, hw[0] // f, hw[1] // f), np.float32))
-                    anytime.prelude(self.model, img, img, flow0)
+                    self._prelude(img, img, flow0)
                     self._sync()
                 walls = []
                 for _ in range(2):
                     t = time.monotonic()
-                    state = anytime.chunk(self.model, state, cfg.chunk_iters)
+                    state = self._chunk(state)
                     self._sync()
                     walls.append(time.monotonic() - t)
                 self._chunk_est_s[(hw, batch)] = min(walls)
-                anytime.finalize(self.model, state)
+                self._finalize(state)
                 self._sync()
         self._warmed = True
         return {
@@ -255,14 +412,14 @@ class AnytimeEngine:
         with self._lock, watchdog.watch() if watchdog is not None else contextlib.nullcontext():
             device_s = 0.0
             t0 = time.perf_counter()
-            state = anytime.prelude(self.model, image1, image2, flow_init)
+            state = self._prelude(image1, image2, flow_init)
             if tracer is not None:
                 tracer.span("prelude", t0=t0, t1=time.perf_counter(), bucket=list(bucket), batch=batch,
                             warm=flow_init is not None, traces=tids)
             pending = set(range(n))
             for k in range(1, max(targets) + 1):
                 t0 = time.perf_counter()
-                state = anytime.chunk(self.model, state, cfg.chunk_iters)
+                state = self._chunk(state)
                 self._sync()
                 t1 = time.perf_counter()
                 device_s += t1 - t0
@@ -279,7 +436,7 @@ class AnytimeEngine:
                 if not deliver:
                     continue
                 t0 = time.perf_counter()
-                flow_lo, flow_up = anytime.finalize(self.model, state)
+                flow_lo, flow_up = self._finalize(state)
                 flow_np = flow_up.float().cpu().numpy()
                 lo_np = flow_lo.float().cpu().numpy()
                 t1 = time.perf_counter()
@@ -319,7 +476,8 @@ class AnytimeEngine:
         dict of the served model's architecture (tensors or numpy arrays):
         the same keys, and per key the same shape and dtype, else
         `CheckpointMismatchError` before anything is touched. The values are
-        copied in place under the run lock. Returns the new generation."""
+        copied in place under the run lock (into every band's copy on the
+        banded engine). Returns the new generation."""
         served = self.model.state_dict()
         missing = sorted(set(served) - set(new_state))
         unexpected = sorted(set(new_state) - set(served))
@@ -338,10 +496,12 @@ class AnytimeEngine:
                     f"model expects {tuple(tensor.shape)} {tensor.dtype}"
                 )
             candidate[name] = value
+        models = self._bands.models if self._bands is not None else [self.model]
         with self._lock:
             with torch.no_grad():
-                for name, tensor in served.items():
-                    tensor.copy_(candidate[name])
+                for model in {id(m): m for m in models}.values():
+                    for name, tensor in model.state_dict().items():
+                        tensor.copy_(candidate[name])
             self._sync()
             self.swap_generation += 1
             gen = self.swap_generation

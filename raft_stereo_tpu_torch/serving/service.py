@@ -34,6 +34,11 @@ refining from a wrong prior. Frames of one stream are submitted in order,
 each after the previous frame's future resolves; distinct streams are
 independent, and the batcher may mix warm and cold rows in one batch.
 
+With a spatial preset (`ServeConfig.sharding_rules` other than "dp") and
+more than one device (every visible card, or the `devices` given) the one
+engine serves row bands across them (serving/engine.py), staged onto the
+first card, and /healthz's `sharding` reads "spatial over n device(s)".
+
 With `ServeConfig.replicas` > 1 the engine is an `EngineFleet`
 (serving/fleet.py) behind the same batcher: one engine per device (one per
 card by default, or the `devices` given, which may repeat a device), a
@@ -107,7 +112,8 @@ class StereoService:
     `config.restore_ckpt` (the reference's .pth) or, without one, with
     seeded random weights. A fleet (`config.replicas` > 1) copies the
     model onto `devices`, one per replica; None is one card each, and on a
-    device other than a card the list must be given."""
+    device other than a card the list must be given. With a spatial preset
+    and one engine, `devices` are its bands' (None: every visible card)."""
 
     def __init__(self, config: ServeConfig, model: Optional[RAFTStereo] = None,
                  device="cuda", seed: int = 0, devices: Optional[Sequence] = None):
@@ -134,7 +140,8 @@ class StereoService:
                 fail_after=config.breaker_fail_after,
                 probation=config.breaker_probation,
             )
-            self.engine = AnytimeEngine(config, model, device=device, seed=seed, lifecycle=self.lifecycle)
+            self.engine = AnytimeEngine(config, model, device=device, seed=seed, lifecycle=self.lifecycle,
+                                        devices=devices)
         self.batcher = MicroBatcher(config, self.engine, lifecycle=self.lifecycle)
         self.warm_summary: Optional[Dict[str, object]] = None
         self._started = False

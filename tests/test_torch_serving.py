@@ -254,7 +254,7 @@ def test_serve_cli_warmup_only_exits_0(capsys):
 SERVE_EXIT_2 = [
     (["--replicas", "2"], "--replicas 2 counts cards; a fleet does not run on --device cpu"),
     (["--replicas", "0"], "--replicas 0 counts cards"),
-    (["--sharding_rules", "spatial", "--replicas", "2"], "serving row bands across cards in one process is not ported"),
+    (["--sharding_rules", "spatial", "--replicas", "2"], "replicas require --sharding_rules dp"),
     (["--aot_cache_dir", "cache"], "not ported yet"),
     (["--require_cache_hit"], "not ported yet"),
     (["--audit"], "not ported yet"),

@@ -1,9 +1,9 @@
 """Row bands over the spatial axis (parallel/spatial.py) against the whole
 image: the port's `spatial` and `dp+spatial` presets.
 
-Primitives, in one process: two bands run in two threads over an
-in-process exchange (`ThreadComm`, the band scope's collectives as
-shared slots behind a barrier), no process group. Each banded layer's
+Primitives, in one process: two bands run in two threads over the
+package's in-process comm (`spatial.ThreadComm`, the band scope's
+collectives as shared slots behind a barrier), no process group. Each banded layer's
 output, gathered, equals the whole layer's at fp32 within 1e-6 (only the
 conv algorithm's blocking and the norms' sums differ), and the halo's
 backward equals autograd of the whole conv:
@@ -39,16 +39,16 @@ packages:
   runs the same bands (JAX's batch rules shard rows over `spatial` under
   every preset) and takes the same step.
 
-Plus the refusals (fused_encoder on bands, a crop off the band rule, fsdp
-on bands, serving a spatial preset on more than one card), the loader's
-shard for a spatial group and the band loss against the whole loss.
+Plus the refusals (a crop off the band rule, fsdp on bands, serving a
+spatial preset with replicas) and what is accepted (`fused_encoder` on
+bands), the loader's shard for a spatial group and the band loss against
+the whole loss.
 """
 
 import os
 import pickle
 import subprocess
 import sys
-import threading
 
 import numpy as np
 import pytest
@@ -66,10 +66,9 @@ from raft_stereo_tpu_torch.parallel.mesh import Mesh, shard_batch
 from raft_stereo_tpu_torch.parallel.sharding import ShardingEngine
 from raft_stereo_tpu_torch.train.loss import sequence_loss, valid_count
 from raft_stereo_tpu_torch.train.trainer import Trainer, rank_batch_size
-from raft_stereo_tpu_torch.utils import checkpoints as ck
 from raft_stereo_tpu_torch.utils import geometry
 from raft_stereo_tpu_torch.utils.checkpoints import load_jax_variables
-from torch_parity import free_port, jax_apply, rank_env
+from torch_parity import flax_variables, free_port, jax_apply, rank_env, run_bands
 from torch_parity import torch_single_thread  # noqa: F401 (autouse fixture)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -83,55 +82,6 @@ FNET_TOL = 2e-1
 
 
 # -- two bands in two threads -----------------------------------------------------
-
-
-class ThreadComm:
-    """The band scope's collectives between the threads of one process: a
-    slot per band and a barrier."""
-
-    def __init__(self, n: int):
-        self.barrier = threading.Barrier(n)
-        self.slots = [None] * n
-
-    def bound(self, k: int):
-        comm = self
-
-        class Band:
-            def all_gather(self, t):
-                comm.slots[k] = t.detach().clone()
-                comm.barrier.wait()
-                parts = list(comm.slots)
-                comm.barrier.wait()
-                return parts
-
-            def all_reduce(self, t):
-                return t.copy_(torch.stack(self.all_gather(t)).sum(0))
-
-        return Band()
-
-
-def run_bands(fn, n: int = 2):
-    """fn(scope) on each of n bands, one thread each; the results in band
-    order. A failure in one band aborts the other's barrier and raises."""
-    comm = ThreadComm(n)
-    out, errors = [None] * n, []
-
-    def work(k):
-        try:
-            torch.set_num_threads(1)
-            out[k] = fn(spatial.BandScope(comm.bound(k), k, n))
-        except BaseException as e:  # noqa: BLE001 (re-raised below)
-            errors.append(e)
-            comm.barrier.abort()
-
-    threads = [threading.Thread(target=work, args=(k,)) for k in range(n)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    if errors:
-        raise errors[0]
-    return out
 
 
 def banded(scope, height, fn):
@@ -246,20 +196,6 @@ def test_ragged_level_rule():
 
 
 # -- the model over two gloo ranks -------------------------------------------------
-
-
-def flax_variables(model) -> dict:
-    """The port model's tensors as a flax variables tree (the weight
-    bridge's names, HWIO kernels): what `load_jax_variables` reads back."""
-    tree = {}
-    for name, tensor in model.state_dict().items():
-        key, is_kernel = ck._flax_key(model, name)
-        value = tensor.numpy().copy()
-        node = tree
-        for part in key[:-1]:
-            node = node.setdefault(part, {})
-        node[key[-1]] = value.transpose(2, 3, 1, 0) if is_kernel else value
-    return tree
 
 
 @pytest.fixture(scope="module")
@@ -435,11 +371,10 @@ def test_training_step_on_bands_matches_unsharded(runs, preset):
 
 
 def test_band_rule_refusals():
-    """fused_encoder and fsdp on a spatial axis above 1, and a crop off the
-    band rule, raise with what to use; on a spatial axis of 1 all three
-    are fine."""
-    with pytest.raises(ValueError, match="fused_encoder does not run on row bands"):
-        TrainConfig(model=RAFTStereoConfig(fused_encoder=True), mesh_shape=(1, 2))
+    """fsdp on a spatial axis above 1 and a crop off the band rule raise
+    with what to use; on a spatial axis of 1 both are fine. fused_encoder
+    is accepted on bands (its layer1 runs there: tests/test_torch_spatial_fused.py)."""
+    TrainConfig(model=RAFTStereoConfig(fused_encoder=True), mesh_shape=(1, 2))
     with pytest.raises(ValueError, match=r"crop_size \(100, 720\).*use a height of 104"):
         TrainConfig(augment=AugmentConfig(crop_size=(100, 720)), mesh_shape=(1, 2))
     with pytest.raises(ValueError, match="use a height of 48"):
@@ -454,25 +389,23 @@ def test_band_rule_refusals():
     with pytest.raises(ValueError, match="use a height of 24"):
         with scope.bands(10, n_downsample=2):
             pass
-    model = RAFTStereo(RAFTStereoConfig(hidden_dims=(16, 16, 16), fused_encoder=True))
-    img = torch.zeros(1, 24, 32, 3)
-    with pytest.raises(ValueError, match="fused_encoder does not run on row bands"):
-        with scope.bands(24, n_downsample=2):
-            model.cnet.trunk(img.permute(0, 3, 1, 2), test_mode=True)
 
 
 def test_serve_spatial_on_one_device_and_refused_on_two(capsys, monkeypatch):
     """`serve --sharding_rules spatial` boots the plain engine on one
-    visible device and says so; with two visible cards it exits 2 before
-    anything is built."""
+    visible device and says so; with two visible cards it is not refused
+    (the banded engine serves them, tests/test_torch_spatial_serving.py),
+    and with two replicas it exits 2 before anything is built, as JAX's
+    `--replicas` requires dp."""
     argv = ["serve", "--device", "cpu", "--warmup_only", "--buckets", "64x96", "--max_batch", "1",
             "--chunk_iters", "1", "--max_iters", "1", "--hidden_dims", "16", "16", "16"]
     assert cli.main([*argv, "--sharding_rules", "dp+spatial"]) == 0
     assert '"sharding": "dp+spatial requested; one visible device: dp (single-program)"' in capsys.readouterr().out
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    assert cli.main(["serve", "--device", "cuda", "--sharding_rules", "spatial"]) == 2
-    assert "spatial serving across cards" in capsys.readouterr().err
+    assert cli._spatial_serving_problem("spatial", 1) is None
+    assert cli.main(["serve", "--device", "cuda", "--sharding_rules", "spatial", "--replicas", "2"]) == 2
+    assert "replicas require --sharding_rules dp" in capsys.readouterr().err
 
 
 def test_spatial_group_reads_the_same_batch_and_keeps_disjoint_bands(monkeypatch, batch):

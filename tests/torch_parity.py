@@ -130,6 +130,23 @@ def flax_params(model, grads: bool = False) -> dict:
     return tree
 
 
+def flax_variables(model) -> dict:
+    """A port model's tensors as a flax variables tree (the weight bridge's
+    names, HWIO kernels): what `load_jax_variables` reads back, and what
+    the JAX package's model takes."""
+    from raft_stereo_tpu_torch.utils.checkpoints import _flax_key
+
+    tree = {}
+    for name, tensor in model.state_dict().items():
+        key, is_kernel = _flax_key(model, name)
+        value = tensor.numpy().copy()
+        node = tree
+        for part in key[:-1]:
+            node = node.setdefault(part, {})
+        node[key[-1]] = value.transpose(2, 3, 1, 0) if is_kernel else value
+    return tree
+
+
 def flat_leaves(tree, prefix=()):
     """{path tuple: leaf} of a nested dict."""
     out = {}
@@ -203,6 +220,35 @@ def reference_state_dict(variables, jcfg, rng):
             value = np.concatenate([value, rng.standard_normal(value.shape).astype(np.float32)], axis=0)
         sd[key] = np.ascontiguousarray(value)
     return sd
+
+
+def run_bands(fn, n: int = 2):
+    """fn(scope) on each of n row bands, one thread each, over the port's
+    in-process comm (`spatial.ThreadComm`); the results in band order. A
+    failure in one band aborts the others' barrier and raises."""
+    import threading
+
+    from raft_stereo_tpu_torch.parallel import spatial
+
+    comm = spatial.ThreadComm(n)
+    out, errors = [None] * n, []
+
+    def work(k):
+        try:
+            torch.set_num_threads(1)
+            out[k] = fn(spatial.BandScope(comm.bound(k), k, n))
+        except BaseException as e:  # noqa: BLE001 (re-raised below)
+            errors.append(e)
+            comm.abort()
+
+    threads = [threading.Thread(target=work, args=(k,)) for k in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out
 
 
 def free_port() -> int:
