@@ -57,6 +57,7 @@ then one JSON line describing the kernels, and as its last line
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -75,6 +76,17 @@ import tempfile
 import threading
 import time
 
+if __name__ == "__main__" and not os.environ.get("PYTHONPYCACHEPREFIX"):
+    # One bytecode cache for the script and every process it starts: where
+    # the installed packages hold no compiled bytecode and cannot be written
+    # to, each process would compile torch's sources again (about 10 s of an
+    # H100 host's CPU per process, and the script starts dozens).
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = tempfile.mkdtemp(prefix="chip-smoke-bytecode-")
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = os.environ["PYTHONPYCACHEPREFIX"]
+    atexit.register(shutil.rmtree, sys.pycache_prefix, True)
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -91,6 +103,7 @@ from raft_stereo_tpu_torch.serving.service import StereoService, make_http_serve
 from raft_stereo_tpu_torch.train import synthetic
 from raft_stereo_tpu_torch.train.trainer import Trainer, rank_file
 from raft_stereo_tpu_torch.utils.checkpoints import export_reference_state_dict, load_reference_checkpoint
+from raft_stereo_tpu_torch.utils.fsck import fsck_root
 from raft_stereo_tpu_torch.utils.http import request, request_json
 from raft_stereo_tpu_torch.utils.run_report import validate_run_report
 from serve_compare import FRONT_BURST, FRONT_CLIENTS
@@ -484,6 +497,91 @@ def gpu_line() -> str:
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip()
     return out.splitlines()[0]
+
+
+# -- the processes the script starts --------------------------------------------
+
+# prctl(2): make this process the child subreaper of its descendants.
+PR_SET_CHILD_SUBREAPER = 36
+# Seconds a leftover process gets between SIGTERM and SIGKILL.
+STOP_GRACE_S = 10.0
+
+
+def adopt_orphans() -> None:
+    """Make this process the subreaper of everything it starts: a process
+    whose parent ends first (torchrun's ranks, which sit in sessions of
+    their own; a serve process's children) is re-parented here, not to
+    init, so `stop_descendants` still finds it."""
+    import ctypes
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) != 0:
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER)")
+
+
+def descendants() -> dict:
+    """{pid: (state, command line)} of every process below this one, read
+    from /proc (its own process groups and sessions included)."""
+    parent, info = {}, {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                argv = f.read()
+        except OSError:
+            continue
+        fields = stat[stat.rfind(")") + 2:].split()  # the state and the parent follow the name
+        parent[int(entry)] = int(fields[1])
+        info[int(entry)] = (fields[0], argv.replace(b"\0", b" ").decode(errors="replace").strip())
+    me, found = os.getpid(), {}
+    for pid in parent:
+        up = parent[pid]
+        while up in parent and up not in (me, 0, 1):
+            up = parent[up]
+        if up == me:
+            found[pid] = info[pid]
+    return found
+
+
+def stop_descendants(grace_s: float = STOP_GRACE_S) -> list:
+    """Stop every process still running below this one (SIGTERM, SIGKILL
+    after `grace_s`) and reap this process's ended children. Returns the
+    command lines that were still running."""
+    running = {pid: cmd for pid, (state, cmd) in descendants().items() if state != "Z"}
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for pid in running:
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, sig)
+        deadline = time.monotonic() + grace_s
+        while time.monotonic() < deadline and any(state != "Z" for state, _ in descendants().values()):
+            time.sleep(0.1)
+    while True:
+        try:
+            pid, _ = os.waitpid(-1, os.WNOHANG)
+        except ChildProcessError:
+            break
+        if pid == 0:
+            break
+    return sorted(f"{pid} {cmd[:200]}" for pid, cmd in running.items())
+
+
+def remove_bytecode_cache() -> None:
+    """Remove the bytecode cache that the script made for its processes."""
+    prefix = sys.pycache_prefix
+    if prefix and os.path.basename(prefix).startswith("chip-smoke-bytecode-"):
+        shutil.rmtree(prefix, ignore_errors=True)
+
+
+def stop_on_signal(signum, frame) -> None:
+    """SIGTERM or SIGINT: stop every process the script started, then exit."""
+    left = stop_descendants(grace_s=2.0)
+    remove_bytecode_cache()
+    print(f"chip_smoke: signal {signum}: stopped {len(left)} process(es) it had started: {left}", file=sys.stderr,
+          flush=True)
+    os._exit(128 + signum)
 
 
 # -- inputs at main-path shapes ------------------------------------------------
@@ -996,9 +1094,12 @@ def train_batch(rng, b, h, w, max_disp=48.0):
 
 
 def phase_train(rng) -> tuple:
-    """The training step at the recipe: one warm step, then timed steps,
-    each with its launch counts. Returns (trainer, launch counts over the
-    timed steps, a batch for the e2e check)."""
+    """The training step at the recipe: TRAIN_TIMED_STEPS timed steps, each
+    with its launch counts, the first included (no warm step: at this
+    shape a first step took 35.543 s against the next one's 35.065, cuDNN
+    choosing its algorithms by heuristics, not by benchmark, and the script
+    needs the minute). Returns (trainer, launch counts over the timed
+    steps, a batch for the e2e check)."""
     h, w = TRAIN_HW
     cfg = TrainConfig(model=TRAIN_CONFIG, batch_size=TRAIN_BATCH, train_iters=TRAIN_ITERS, seed=SEED)
     t0 = time.perf_counter()
@@ -1008,18 +1109,13 @@ def phase_train(rng) -> tuple:
     trainer = Trainer(cfg, (h, w, 3), device=DEVICE)
     before = [p.detach().clone() for p in trainer.model.parameters()]
     torch.cuda.reset_peak_memory_stats()
-    t = time.perf_counter()
-    m = trainer.train_step(batches[0])
-    torch.cuda.synchronize()
-    log(f"[train] warm step: loss {m['live_loss']:.6f}, grad_norm {m['grad_norm']:.6f}, lr {m['learning_rate']:.6e}, "
-        f"{time.perf_counter() - t:.3f} s")
     per_step = expect(corr_lookup=TRAIN_ITERS, corr_scatter=TRAIN_ITERS)
     reset_launches()
     secs = []
     for i in range(TRAIN_TIMED_STEPS):
         before_counts = launches()
         t = time.perf_counter()
-        m = trainer.train_step(batches[(i + 1) % len(batches)])
+        m = trainer.train_step(batches[i % len(batches)])
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t)
         delta = {k: v - before_counts[k] for k, v in launches().items()}
@@ -1244,7 +1340,12 @@ def phase_mixed_converge() -> None:
     """The JAX package's shipping-numerics convergence test, run by the
     port with the kernels: CONVERGE_STEPS fresh synthetic batches
     (`train/synthetic.py`, the port's copy of the test's generator), then
-    the held-out EPE by `synthetic.validate_epe`."""
+    the held-out EPE by `synthetic.validate_epe`. `main` runs it on a
+    thread beside [spatial] (ii)-(iv) (`phase_train_cli(beside=...)`): a
+    step is 0.23-0.29 s of host-bound dispatch on a card those ranks leave
+    about 98% idle, and run alone it took a ninth of the script's limit.
+    No other phase of this process launches a kernel meanwhile, so its
+    launch counts stay its own."""
     h, w = CONVERGE_HW
     cfg = TrainConfig(model=MIXED_TRAIN_CONFIG, batch_size=CONVERGE_BATCH, num_steps=CONVERGE_STEPS,
                       train_iters=CONVERGE_ITERS, lr=CONVERGE_LR)
@@ -1614,10 +1715,12 @@ def phase_evaluate() -> tuple:
     over one synthetic 1980x2870 pair in the evaluate configuration, 32
     iterations, with each image's forward seconds and launches; at 4
     iterations the evaluate configuration against the plain one, and the
-    kernel configuration (the dense lookup) equal to it bit for bit; the gates configuration at 32 iterations (launches)
-    and against its twin without the variable at 4. Returns the launch
-    counts of the evaluate run and of the 32-iteration gates forward, and
-    the first image's flow."""
+    kernel configuration (the dense lookup) equal to it bit for bit; the
+    gates configuration at 4 iterations (seconds, launches, and against its
+    twin without the variable; a 32-iteration gates forward is left out to
+    keep the script inside its time limit). Returns the launch counts of
+    the evaluate run and of the gates forward, and the first image's
+    flow."""
     dataset = SyntheticEvalDataset(n=1, shape=EVAL_SHAPE)
     model = build_model(EVAL_CONFIG, seed=SEED, device=DEVICE)
     evaluator = Evaluator(model, iters=EVAL_ITERS)
@@ -1693,31 +1796,25 @@ def phase_evaluate() -> tuple:
 
     gated = build_model(GATES_CONFIG, seed=SEED, device=DEVICE)
     gated.load_state_dict(model.state_dict())
-    ev = Evaluator(gated, iters=EVAL_ITERS)
+    ev = Evaluator(gated, iters=E2E_ITERS)
     os.environ[gates.ENV_VAR] = "1"
     try:
         reset_launches()
-        _, seconds = ev(*pair)
+        flow_gates, seconds = ev(*pair)
         gates_counts = launches()
-        ev.iters = E2E_ITERS
-        reset_launches()
-        flow_gates, _ = ev(*pair)
-        short_counts = launches()
     finally:
         os.environ.pop(gates.ENV_VAR)
     reset_launches()
     flow_twin, _ = ev(*pair)
     twin_counts = launches()
     err = float(np.abs(flow_gates - flow_twin).max())
-    log(f"[evaluate] gates configuration, first image, {EVAL_ITERS} iters: forward {seconds:.3f} s, launches "
-        f"{gates_counts}; at {E2E_ITERS} iters against its twin without {gates.ENV_VAR}: flow_up max abs "
-        f"diff {err:.3e} px (tol {E2E_TOL_PX:g} px); twin launches {twin_counts}")
-    want = expect(corr_prefetch_lookup=EVAL_ITERS, gates_rh=3 * EVAL_ITERS, gates_combine=3 * EVAL_ITERS)
+    log(f"[evaluate] gates configuration, first image, {E2E_ITERS} iters: forward {seconds:.3f} s, launches "
+        f"{gates_counts}; against its twin without {gates.ENV_VAR}: flow_up max abs diff {err:.3e} px (tol "
+        f"{E2E_TOL_PX:g} px); twin launches {twin_counts}")
+    it = E2E_ITERS
+    want = expect(corr_prefetch_lookup=it, gates_rh=3 * it, gates_combine=3 * it)
     if gates_counts != want:
         raise AssertionError(f"gates configuration: launches {gates_counts} != expected {want}")
-    it = E2E_ITERS
-    if short_counts != expect(corr_prefetch_lookup=it, gates_rh=3 * it, gates_combine=3 * it):
-        raise AssertionError(f"gates configuration at {it} iters: launches {short_counts}")
     if twin_counts != expect(corr_prefetch_lookup=it):
         raise AssertionError(f"gates twin: launches {twin_counts} != expected only the windowed lookup")
     if not (np.isfinite(flow_gates).all() and err <= E2E_TOL_PX):
@@ -2111,11 +2208,16 @@ def phase_mixed_cli() -> None:
 
 # [serving-front]: the kernel configuration at the default buckets, max
 # batch 4, chunk 4, 32 iterations, streams on, the hang watchdog armed,
-# behind the HTTP front. FRONT_CLIENTS client threads send FRONT_BURST
-# (serve_compare.py; each image new, so every response maps back to its
-# batch row by its padded pixels); then one tight-deadline request alone
-# (a queue would shed it).
+# behind the HTTP front. FRONT_CLIENTS client threads send FRONT_HTTP_BURST
+# (each image new, so every response maps back to its batch row by its
+# padded pixels); then one tight-deadline request alone (a queue would
+# shed it).
 FRONT_TIGHT_MS = 1.0
+# serve_compare.py's FRONT_BURST with each count halved (rounded up): 18
+# requests of its 31 and the same mix of buckets, padding and an oversize
+# pair. The host's JSON work made the whole burst 45 s of the script's
+# 1200 s limit, and each answer is replayed and forwarded again below.
+FRONT_HTTP_BURST = tuple((label, hw, -(-n // 2)) for label, hw, n in FRONT_BURST)
 # Iterations at which each batch is replayed against its pairs' batch-1
 # direct forwards, where the serving bound is held (as in [e2e]).
 FRONT_DRIFT_ITERS = (E2E_ITERS,)
@@ -2250,7 +2352,7 @@ def phase_serving_front(rng, card: str) -> None:
 
 def front_traffic(service, url, recorder, rng, card) -> None:
     engine, cfg = service.engine, service.config
-    jobs = [(label, *int_pair(rng, h, w)) for label, (h, w), n in FRONT_BURST for _ in range(n)]
+    jobs = [(label, *int_pair(rng, h, w)) for label, (h, w), n in FRONT_HTTP_BURST for _ in range(n)]
     jobs = [jobs[i] for i in rng.permutation(len(jobs))]
     answers = [None] * len(jobs)
     errors = []
@@ -3541,7 +3643,28 @@ def prefetch_check(workdir: str) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_train_cli(card: str) -> dict:
+class Beside:
+    """`fn()` on a thread of its own while the caller runs another phase;
+    `join()` waits for it and raises what it raised."""
+
+    def __init__(self, fn):
+        self.error = None
+        self.thread = threading.Thread(target=self._run, args=(fn,), name=f"beside-{fn.__name__}", daemon=True)
+        self.thread.start()
+
+    def _run(self, fn) -> None:
+        try:
+            fn()
+        except BaseException as exc:  # noqa: BLE001 - raised again by join()
+            self.error = exc
+
+    def join(self) -> None:
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+
+
+def phase_train_cli(card: str, beside=None) -> dict:
     """The train, evaluate and demo command lines as a user runs them, each
     as a process on a dataset written from the seed: a control run of
     TRAIN_CLI_STEPS steps (exit 0, a valid run report, a committed last
@@ -3553,8 +3676,10 @@ def phase_train_cli(card: str) -> dict:
     to the control's, every later step's loss within TRAIN_CLI_LOSS_RTOL of
     the control's); then `evaluate --dataset things` and `demo` (the JAX
     bench's test-mode levers) on the control's model.pth: exit 0, finite
-    EPE and MAE, one depth output per frame. Any failure kills every
-    process and fails the phase."""
+    EPE and MAE, one depth output per frame; then [parallel] and
+    [spatial] (ii)-(iv), with `beside()`, when given, on a thread of its
+    own while (ii)-(iv) run. Any failure kills every process and fails
+    the phase."""
     from raft_stereo_tpu_torch.data import trees
     from raft_stereo_tpu_torch.utils.run_report import validate_run_report
 
@@ -3693,7 +3818,14 @@ def phase_train_cli(card: str) -> dict:
             dm.fail(f"launches {dm_counts} != expected {want_demo}")
         log(f"[train-cli] {card}: {json.dumps(numbers)}")
         phase_parallel(card, workdir, control_steps, start)
-        phase_spatial_train(card, workdir, control_steps, start)
+        other = Beside(beside) if beside is not None else None
+        try:
+            phase_spatial_train(card, workdir, control_steps, start)
+        finally:
+            if other is not None:
+                other.thread.join()
+        if other is not None:
+            other.join()
         return {"control": counts, "evaluate": ev_counts, "demo": dm_counts}
     finally:
         for run in runs:
@@ -3740,11 +3872,13 @@ def parallel_wait(run: CliRun) -> int:
         run.fail(f"no exit within {TRAIN_CLI_TIMEOUT_S} s")
 
 
-def parallel_check(run: CliRun, control_steps: dict, first: int, last: int, rtol: float) -> tuple:
+def parallel_check(run: CliRun, control_steps: dict, first: int, last: int, rtol: float,
+                   validate_at: int = TRAIN_CLI_STEPS) -> tuple:
     """The step losses first..last against the control's, and the lookup
     and scatter kernels launched once an iteration of every step taken
     (and the lookup of every validation iteration, when the run reached
-    the control's validation step)."""
+    its validation step, `validate_at`: the control's unless the run sets
+    its own)."""
     got = run.steps()
     if sorted(got) != list(range(first, last + 1)):
         run.fail(f"step lines {sorted(got)}, expected {first}-{last}")
@@ -3753,7 +3887,7 @@ def parallel_check(run: CliRun, control_steps: dict, first: int, last: int, rtol
         run.fail(f"losses differ from the control's by {gap:.3e} relative (tol {rtol:g}): "
                  f"{gap_text(run, control_steps)}")
     taken = last - first + 1
-    validated = TRAIN_CLI_PAIRS[1] * TRAIN_CLI_VALID_ITERS if last == TRAIN_CLI_STEPS else 0
+    validated = TRAIN_CLI_PAIRS[1] * TRAIN_CLI_VALID_ITERS if last == validate_at else 0
     counts = run.launches()
     if counts != expect(corr_lookup_bf16=MIXED_TRAIN_ITERS * taken + validated,
                         corr_scatter_bf16=MIXED_TRAIN_ITERS * taken):
@@ -3914,11 +4048,12 @@ def phase_parallel(card: str, workdir: str, control_steps: dict, start) -> dict:
 # the control's instance norm summing its two row halves as the two bands
 # do) to E2E_TOL_PX at 32 iterations (the serving front's pinned bound;
 # measured 0.0). (ii) `train` under `--sharding_rules spatial --mesh_shape
-# 1 2` in [train-cli]'s setup over the control's steps, validation on
-# bands included: losses within the two-rank tolerance of [parallel] (c)
-# (the bands round the bf16 sums in another order), 22 lookups and 22
-# scatters a step on each rank. (iii) `dp+spatial` on a (2, 2) mesh, four
-# ranks, 2 steps (the schedule matches the control's up to step 2).
+# 1 2` in [train-cli]'s setup over the control's first steps (2 since the
+# eighteenth slice, below), validation on bands included: losses within
+# the two-rank tolerance of [parallel] (c) (the bands round the bf16 sums
+# in another order), 22 lookups and 22 scatters a step on each rank.
+# (iii) `dp+spatial` on a (2, 2) mesh, four ranks, 2 steps (the schedule
+# matches the control's up to step 2).
 # The seventeenth slice adds to (i) the JAX bench's model (MIXED_CONFIG:
 # the fused encoder and the bf16 pyramid kernel) on the same two bands,
 # in the same rank processes: per rank per forward 8 bf16 conv launches
@@ -3931,13 +4066,39 @@ def phase_parallel(card: str, workdir: str, control_steps: dict, start) -> dict:
 # the fused against the direct prelude, MIXED_STATE_ULPS); the flow drift
 # as run at 1, 4 and 32 iterations printed, and the exchanges a forward
 # against the unfused model's.
+# The eighteenth slice adds (iv): `fsdp` on the same (2, 2) mesh in (iii)'s
+# setup, FSDP2 over each data group of two ranks on the one card (its
+# all-gather and reduce-scatter over gloo on CUDA tensors) inside the row
+# bands; each rank logs its local shapes of a conv weight whose C_out
+# divides 2 (half) and of the C_out=1 flow head (whole), with both AdamW
+# moments, after its last step (`fsdp_train_rank`). To keep the script
+# inside its time limit (iv) took from (ii) its steps 3-8: (ii) runs 2
+# steps and validates on bands at step 2 (the one-cycle schedule matches
+# the control's up to step 2, as (iii)'s does).
 SPATIAL_PRELUDE_ULPS = MIXED_STATE_ULPS
 SPATIAL_ITERS = 32
 # Shorter forwards as run, for the drift's growth with the iterations.
 SPATIAL_DRIFT_ITERS = (1, 4)
 SPATIAL_TRAIN_RTOL = PARALLEL_TWO_RANK_RTOL
+SPATIAL_PAIR_STEPS = 2
 SPATIAL_QUAD_STEPS = 2
 SPATIAL_RANK = ("-c", "import sys, chip_smoke; sys.exit(chip_smoke.spatial_forward_rank(sys.argv[1]))")
+FSDP_RANK = ("-c", "import sys; from raft_stereo_tpu_torch.parallel import init_multihost; "
+             "init_multihost(backend='gloo'); import chip_smoke; sys.exit(chip_smoke.fsdp_train_rank(sys.argv[1:]))")
+# (label, mesh, preset, steps, extra flags, launcher). The ranks read with
+# loader threads, not [train-cli]'s worker processes (which the control,
+# preempt and resume runs and [parallel] keep): a worker process per
+# rank imports torch beside the ranks on the host's 8 cores and slowed
+# their boot, and the convergence test runs beside them; the batches are
+# the same (each sample's generator is seeded by its index) and a step's
+# data wait is milliseconds either way.
+SPATIAL_LOADER = ("--worker_type", "thread", "--num_workers", "1")
+SPATIAL_TRAIN_RUNS = (("(ii)", (1, 2), "spatial", SPATIAL_PAIR_STEPS,
+                       ("--validate_every", str(SPATIAL_PAIR_STEPS), *SPATIAL_LOADER), GLOO_RANK),
+                      ("(iii)", (2, 2), "dp+spatial", SPATIAL_QUAD_STEPS, SPATIAL_LOADER, GLOO_RANK),
+                      ("(iv)", (2, 2), "fsdp", SPATIAL_QUAD_STEPS, SPATIAL_LOADER, FSDP_RANK))
+# (iv)'s shape checks: C_out 256 (sharded over the data axis of 2) and 1 (whole).
+FSDP_SHAPE_PARAMS = {"fnet.conv2.weight": 2, "update_block.flow_head.conv2.weight": 1}
 
 
 @contextlib.contextmanager
@@ -4336,27 +4497,59 @@ def rank_peak_gib(run: CliRun) -> float:
     return int(found.group(1)) / 2.0 ** 30
 
 
+def fsdp_train_rank(argv) -> int:
+    """`train` (cli.main(argv)) in a rank that logs, after its fit, its
+    local shapes of FSDP_SHAPE_PARAMS and of their AdamW moments as
+    "local shapes: {name: [param, mu, nu]}"."""
+    from raft_stereo_tpu_torch.parallel.sharding import local_tensor
+    from raft_stereo_tpu_torch.train import trainer as tr
+
+    fit = tr.Trainer.fit
+
+    def logged_fit(self, *args, **kwargs):
+        out = fit(self, *args, **kwargs)
+        named = dict(self.model.named_parameters())
+        shapes = {n: [list(local_tensor(t).shape) for t in (named[n], *(self.optimizer.state[named[n]][k]
+                                                                       for k in ("mu", "nu")))]
+                  for n in FSDP_SHAPE_PARAMS}
+        print(f"local shapes: {json.dumps(shapes)}", file=sys.stderr, flush=True)
+        return out
+
+    tr.Trainer.fit = logged_fit
+    return cli.main(argv)
+
+
+def fsdp_shape_check(run: CliRun) -> dict:
+    """(iv): the rank's local shapes: C_out / FSDP_SHAPE_PARAMS[name] rows
+    of the parameter and of both moments, the other dims whole."""
+    found = re.findall(r"local shapes: (\{.*\})", run.err())
+    if not found:
+        run.fail("no local shapes logged")
+    shapes = json.loads(found[-1])
+    with torch.device("meta"):
+        named = dict(RAFTStereo(MIXED_TRAIN_CONFIG).named_parameters())
+    for name, split in FSDP_SHAPE_PARAMS.items():
+        full = list(named[name].shape)
+        if shapes[name] != [[full[0] // split, *full[1:]]] * 3:
+            run.fail(f"{name}: local shapes {shapes[name]}, whole {full}, expected C_out / {split}")
+    return shapes
+
+
 def phase_spatial_train(card: str, workdir: str, control_steps: dict, start) -> dict:
-    """[spatial] (ii) and (iii) on [train-cli]'s tree against its control
-    run: each rank exit 0 with a completed report, the last step committed,
+    """[spatial] (ii)-(iv) on [train-cli]'s tree against its control run:
+    each rank exit 0 with a completed report, the last step committed,
     losses within SPATIAL_TRAIN_RTOL of the control's, the lookup and the
     scatter on every step of every rank (and validation's lookups on bands);
-    s/step and peak memory per rank."""
+    under fsdp each rank's local shapes; s/step and peak memory per rank."""
     tag = "[spatial]"
     numbers = {}
-    runs = {}
-    # (iii)'s four ranks read with one loader worker each (16 worker
-    # processes on the host's 8 cores slowed their boot; the data wait of a
-    # step is milliseconds either way).
-    for label, mesh, preset, steps, extra in (("(ii)", (1, 2), "spatial", TRAIN_CLI_STEPS, ()),
-                                              ("(iii)", (2, 2), "dp+spatial", SPATIAL_QUAD_STEPS,
-                                               ("--num_workers", "1"))):
+    for label, mesh, preset, steps, extra, launcher in SPATIAL_TRAIN_RUNS:
         world = mesh[0] * mesh[1]
         port = free_port()
-        name = f"spatial-{mesh[0]}x{mesh[1]}"
+        name = f"spatial-{preset.replace('+', '-')}-{mesh[0]}x{mesh[1]}"
         ranks = [start(f"{name}-rank{r}", ["train", "--name", name, *TRAIN_CLI_FLAGS, "--sharding_rules", preset,
                                             "--mesh_shape", *map(str, mesh), "--num_steps", str(steps), *extra],
-                       launcher=GLOO_RANK, env=gloo_rank_env(r, world, port)) for r in range(world)]
+                       launcher=launcher, env=gloo_rank_env(r, world, port)) for r in range(world)]
         codes = [parallel_wait(run) for run in ranks]
         if codes != [0] * world:
             ranks[0].fail(f"exit codes {codes}; " + "; ".join(run.err()[-1500:] for run in ranks[1:]))
@@ -4364,21 +4557,31 @@ def phase_spatial_train(card: str, workdir: str, control_steps: dict, start) -> 
         if any(r["stop_cause"] != "completed" or r["final_step"] != steps or r["process_count"] != world
                for r in reports):
             ranks[0].fail(f"reports {reports}")
-        check_committed(workdir, name, steps, f"spatial {label}")
-        checks = [parallel_check(run, control_steps, 1, steps, SPATIAL_TRAIN_RTOL) for run in ranks]
+        step_dir = check_committed(workdir, name, steps, f"spatial {label}")
+        verdict = fsck_root(os.path.dirname(step_dir))
+        if verdict["invalid_steps"] or verdict["latest_valid"] != steps:
+            ranks[0].fail(f"fsck: {verdict}")
+        # A run that sets its own validation cadence validates at its last step.
+        validate_at = steps if "--validate_every" in extra else TRAIN_CLI_STEPS
+        checks = [parallel_check(run, control_steps, 1, steps, SPATIAL_TRAIN_RTOL, validate_at) for run in ranks]
         nums = train_numbers(ranks[0], workdir, f"{preset} {mesh[0]}x{mesh[1]}, {world} ranks on one card",
                              phase="spatial")
         nums["rank_peak_gib"] = [rank_peak_gib(run) for run in ranks]
         nums["loss_gap"] = max(c[0] for c in checks)
-        numbers[preset] = nums
-        runs[label] = ranks
+        nums["launches_per_rank"] = [c[1] for c in checks]
+        shapes = ""
+        if preset == "fsdp":
+            nums["local_shapes"] = [fsdp_shape_check(run) for run in ranks]
+            shapes = f"; local shapes (parameter, mu, nu) on every rank {json.dumps(nums['local_shapes'][0])}"
+        numbers[f"{label} {preset}"] = nums
         log(f"{tag} {label} `train --sharding_rules {preset} --mesh_shape {mesh[0]} {mesh[1]}`, {world} ranks on one "
-            f"card over gloo, {steps} steps: every rank exit 0 with a completed report, step {steps} committed; "
-            f"largest relative loss gap to the control {nums['loss_gap']:.3e} (tol {SPATIAL_TRAIN_RTOL:g}), per step "
-            f"{gap_text(ranks[0], control_steps)}; "
-            f"s/step {nums['s_per_step_median']} (rank 0); peak allocated per rank "
-            f"{', '.join(f'{g:.2f}' for g in nums['rank_peak_gib'])} GiB; launches per rank {checks[0][1]}")
-    log(f"{tag} (ii)-(iii) {card}: {json.dumps(numbers)}")
+            f"card over gloo, {steps} steps: every rank exit {codes}, completed reports, step {steps} committed and "
+            f"fsck-valid; largest relative loss gap to the control {nums['loss_gap']:.3e} (tol "
+            f"{SPATIAL_TRAIN_RTOL:g}), per step {gap_text(ranks[0], control_steps)}; s/step "
+            f"{nums['s_per_step_median']} (rank 0); peak allocated per rank "
+            f"{', '.join(f'{g:.2f}' for g in nums['rank_peak_gib'])} GiB; launches per rank "
+            f"{nums['launches_per_rank']}{shapes}")
+    log(f"{tag} (ii)-(iv) {card}: {json.dumps(numbers)}")
     return numbers
 
 
@@ -5068,6 +5271,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    adopt_orphans()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, stop_on_signal)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     card = gpu_line()
@@ -5121,8 +5327,6 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_mixed_train_e2e(mixed_batch)
     torch.cuda.empty_cache()
-    phase_mixed_converge()
-    torch.cuda.empty_cache()
     realtime_counts = phase_realtime(rng)
     torch.cuda.empty_cache()
     phase_realtime_e2e(rng)
@@ -5135,7 +5339,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_spatial_serving(rng, card)
     torch.cuda.empty_cache()
-    phase_train_cli(card)
+    phase_train_cli(card, beside=phase_mixed_converge)
     torch.cuda.empty_cache()
     phase_model_options(rng, card)
     torch.cuda.empty_cache()
@@ -5165,6 +5369,8 @@ def main() -> int:
         counts[name] = lever_counts["gates"][name]
     counts["corr_prefetch_lookup_bf16"] = lever_counts["prefetch_lookup"]["corr_prefetch_lookup_bf16"]
     kernels = phase_timing(gen, errs, counts)
+    left = stop_descendants()
+    log(f"[processes] still running at the end and stopped now: {left or 'none'}")
 
     log("[phase-seconds] " + ", ".join(f"{k} {v:.1f}" for k, v in sorted(PHASE_SECONDS.items(),
                                                                        key=lambda kv: -kv[1])))
@@ -5178,4 +5384,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        stop_descendants()
+    sys.exit(code)

@@ -11,6 +11,7 @@
     python -m raft_stereo_tpu_torch frontier --backends 127.0.0.1:8080 127.0.0.1:8090 --port 8081
     python -m raft_stereo_tpu_torch frontier --rollout new.pth --port 8081
     torchrun --standalone --nproc_per_node 2 -m raft_stereo_tpu_torch train --sharding_rules spatial --mesh_shape 1 2
+    torchrun --standalone --nproc_per_node 4 -m raft_stereo_tpu_torch train --sharding_rules fsdp --mesh_shape 2 2
     python -m raft_stereo_tpu_torch fsck checkpoints/raft-stereo --quarantine
     python -m raft_stereo_tpu_torch check-report runs/run_report.json
 
@@ -31,11 +32,11 @@ torch.distributed.run`), each process is one rank of a process group
 (parallel/distributed.py: NCCL on the cards, gloo on the CPU),
 `--mesh_shape D S` lays them on a (data, spatial) mesh that must cover
 them all (else exit 2), and `--sharding_rules` picks how they share the
-model: dp (DDP), fsdp (FSDP2), and on a spatial axis above 1 (spatial,
-dp+spatial, or dp there) row bands of each image (parallel/spatial.py;
-the crop height must divide by S x 2**n_downsample, fsdp is refused
-there). `--batch_size` is one host's batch, split over
-the host's data groups; each data group reads its own stride of the
+model: dp (DDP), fsdp (FSDP2 over the data axis), and on a spatial axis
+above 1 (under every preset) row bands of each image (parallel/spatial.py;
+the crop height must divide by S x 2**n_downsample), with fsdp's shards
+the same on every rank of a spatial group. `--batch_size` is one host's
+batch, split over the host's data groups; each data group reads its own stride of the
 data, and the S ranks of a spatial group read the same samples and each
 keeps its band of rows. Rank k > 0 writes run_report.p<k>.json and
 flight_recorder.p<k>.json beside rank 0's files. `torchrun` turns any
@@ -53,9 +54,9 @@ HTTP front until SIGTERM or Ctrl-C, which drain the backlog and exit 0;
 `--replicas N` serves a fleet of N engines, one per card (0: every card;
 more than the cards, or any fleet off the card, exits 2), and
 `--auto_respawn` replaces a replica whose breaker sticks failed (it needs
-two replicas or more). `--sharding_rules spatial|dp+spatial` serves row
-bands across every visible card from one process (serving/engine.py, JAX's
-(1, n) mesh), and on the plain engine with one visible card (or `--device
+two replicas or more). `--sharding_rules spatial|dp+spatial|fsdp` serves
+row bands across every visible card from one process (serving/engine.py,
+JAX's (1, n) mesh), and on the plain engine with one visible card (or `--device
 cpu`), as JAX's engine does on one device; /healthz's `sharding` says
 which. With `--replicas` other than 1 it exits 2 (JAX's `--replicas`
 requires dp). The AOT-cache and audit
@@ -298,8 +299,8 @@ def _train_parser() -> argparse.ArgumentParser:
                    "(the crop height must divide by spatial x 2**n_downsample)")
     p.add_argument("--sharding_rules", choices=list(SHARDING_PRESETS), default="dp",
                    help="dp: DistributedDataParallel; fsdp: FSDP2, conv weights and their AdamW moments sharded "
-                   "over the data axis; spatial, dp+spatial (and dp on a spatial axis above 1): row bands over the "
-                   "spatial axis, parameters whole, halos and cross-band norm sums exchanged")
+                   "over the data axis; on a spatial axis above 1 every preset runs row bands over it, halos and "
+                   "cross-band norm sums exchanged (parameters whole, or under fsdp sharded over data as above)")
     p.add_argument("--explain_sharding", action="store_true",
                    help="print every parameter's placement decision under the preset and mesh, then exit "
                    "without training")
@@ -656,10 +657,10 @@ def _resolve_replicas(replicas: int, device: str):
 
 
 def _spatial_serving_problem(rules: str, replicas: int) -> Optional[str]:
-    """None when a spatial preset can be served: JAX maps it to a (1, n)
-    row-band mesh over the n visible devices (the banded engine,
-    serving/engine.py) and serves unsharded on one. As in JAX, `--replicas`
-    requires dp."""
+    """None when a preset other than dp (spatial, dp+spatial or fsdp) can
+    be served: JAX maps each to a (1, n) row-band mesh over the n visible
+    devices (the banded engine, serving/engine.py) and serves unsharded on
+    one. As in JAX, `--replicas` requires dp."""
     if replicas != 1:
         return (f"--sharding_rules {rules} with --replicas {replicas}: replicas require --sharding_rules dp "
                 "(a spatial preset serves one engine whose row bands span the visible cards)")
@@ -740,8 +741,8 @@ def cmd_serve(argv: List[str]) -> int:
     p.add_argument("--auto_respawn", action="store_true",
                    help="fleet self-healing: replace a replica whose breaker sticks 'failed' with a fresh engine "
                    "on the same card, validated and in probation (requires --replicas >= 2)")
-    p.add_argument("--sharding_rules", choices=["dp", "spatial", "dp+spatial"], default="dp",
-                   help="spatial presets split image rows over the visible cards (JAX's (1, n) mesh): one engine, "
+    p.add_argument("--sharding_rules", choices=list(SHARDING_PRESETS), default="dp",
+                   help="every preset but dp splits image rows over the visible cards (JAX's (1, n) mesh): one engine, "
                    "a band of rows per card, halos and norm sums exchanged card to card; with one visible card "
                    "(or --device cpu) the plain engine serves; /healthz's sharding says which. --replicas "
                    "requires dp")

@@ -20,8 +20,8 @@ reference's realtime model, with `n_downsample=3`, `n_gru_layers=2`,
 
 `TrainConfig` is the JAX package's whole training config (with
 `CameraConfig` and `AugmentConfig`), defaults and validation included,
-plus the port's own checks of a spatial axis above 1 (the band rule,
-`band_shape_problem`; no fsdp on bands). The
+plus the port's own check of a spatial axis above 1 (the band rule,
+`band_shape_problem`, under every preset, fsdp included). The
 fields the training loop does not act on keep their JAX names and
 defaults, and the `train` command line refuses any other value with exit
 2 (`UNPORTED_TRAIN_DEFAULTS`): `strict_mode`, `recompile_grace` and
@@ -68,8 +68,6 @@ SAMPLE_POLICIES = ("raise", "quarantine")
 # mesh's axis sizes decide what runs: a spatial preset on an (n, 1) mesh is
 # dp, as in JAX.
 SHARDING_PRESETS = ("dp", "spatial", "dp+spatial", "fsdp")
-# The presets `serve` takes (the JAX CLI's choices).
-SERVE_SHARDING = ("dp", "spatial", "dp+spatial")
 
 
 def band_shape_problem(height: int, spatial: int, n_downsample: int):
@@ -260,9 +258,10 @@ class ServeConfig:
     request onto the smallest bucket that fits. Refinement runs in chunks
     of `chunk_iters`; `max_iters` is rounded up to whole chunks. The JAX
     package's AOT-cache and HLO-audit fields are not ported (the `serve`
-    flags for them exit 2). `sharding_rules` is JAX's: a spatial preset
-    maps to a row-band mesh over the visible devices, and with one visible
-    device the plain engine serves (as JAX's does; /healthz says so).
+    flags for them exit 2). `sharding_rules` is JAX's: every preset but dp
+    (fsdp included) maps to a row-band mesh over the visible devices, and
+    with one visible device the plain engine serves (as JAX's does;
+    /healthz says so).
     """
 
     model: RAFTStereoConfig = dataclasses.field(default_factory=RAFTStereoConfig)
@@ -305,8 +304,9 @@ class ServeConfig:
     # so one hung or failing replica is one fault domain and its batch is
     # requeued onto another. 1 keeps the single-engine path.
     replicas: int = 1
-    # "dp", "spatial" or "dp+spatial" (serving/engine.py: a spatial preset
-    # serves row bands across the engine's devices, and unsharded on one).
+    # A `SHARDING_PRESETS` name, as in JAX (serving/engine.py: every preset
+    # but dp serves row bands across the engine's devices, and unsharded on
+    # one).
     sharding_rules: str = "dp"
     # Fleet self-healing: a replica whose breaker sticks `failed` is
     # replaced in the background by a fresh engine on the same device,
@@ -358,8 +358,8 @@ class ServeConfig:
             raise ValueError(f"drain_timeout_s must be >= 0, got {self.drain_timeout_s}")
         if self.replicas < 1:
             raise ValueError(f"replicas must be >= 1, got {self.replicas}")
-        if self.sharding_rules not in SERVE_SHARDING:
-            raise ValueError(f"sharding_rules {self.sharding_rules!r} not in {SERVE_SHARDING}")
+        if self.sharding_rules not in SHARDING_PRESETS:
+            raise ValueError(f"sharding_rules {self.sharding_rules!r} not in {SHARDING_PRESETS}")
         if self.auto_respawn and self.replicas < 2:
             raise ValueError(
                 "auto_respawn requires replicas >= 2: respawn replaces one fleet replica while the others "
@@ -765,8 +765,6 @@ class TrainConfig:
             raise ValueError(f"sharding_rules {self.sharding_rules!r} not in {SHARDING_PRESETS}")
         spatial = self.mesh_shape[1]
         if spatial > 1:
-            if self.sharding_rules == "fsdp":
-                raise ValueError(f"fsdp with a spatial axis of {spatial} is not ported; use dp+spatial")
             problem = band_shape_problem(self.augment.crop_size[0], spatial, self.model.n_downsample)
             if problem is not None:
                 raise ValueError(f"crop_size {tuple(self.augment.crop_size)}: {problem}")

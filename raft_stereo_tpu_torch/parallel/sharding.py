@@ -33,10 +33,15 @@ its, verbatim. How a preset runs is PyTorch's:
   rank, and after the backward every gradient is summed over all the
   ranks in one flat all-reduce: each rank's loss is its share of the
   global batch's (its band's valid pixels over the global count), so the
-  sum is the global batch's gradient. ``fsdp`` on a spatial axis above 1
-  is refused (ROADMAP); ``fused_encoder`` runs on bands in test mode (the
-  trainer's validation), as JAX's trainer takes the fused branch only
-  there.
+  sum is the global batch's gradient. ``fused_encoder`` runs on bands in
+  test mode (the trainer's validation), as JAX's trainer takes the fused
+  branch only there.
+- ``fsdp`` on a spatial axis above 1 is both: FSDP2 over the data axis
+  (the 1-D data sub-mesh, so the DTensors carry that mesh and FSDP2's
+  reduce-scatter averages over the data group only), inside the band
+  scope. The reduce-scatter sums a band's gradients over its data group;
+  `reduce_replicated_grads` then sums the local pieces over the spatial
+  group, and the whole parameters' gradients over every rank.
 
 Left out: the JAX module's HLO collective audit (`collective_counts`,
 `assert_no_collectives`), which reads XLA's compiled text; the port has
@@ -163,12 +168,14 @@ def make_shard_and_gather_fns(mesh: Mesh, spec_tree):
     import torch.distributed as dist
 
     rank = dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+    # make_mesh's row-major layout: rank = data index * spatial + spatial index.
+    index = rank // mesh.spatial
 
     def _shard_fn(spec):
         dim = _sharded_dim(spec)
         if dim is None or mesh.data == 1:
             return lambda x: x
-        return lambda x: x.chunk(mesh.data, dim=dim)[rank % mesh.data]
+        return lambda x: x.chunk(mesh.data, dim=dim)[index % mesh.data]
 
     def _gather_fn(spec):
         return full_tensor
@@ -177,11 +184,29 @@ def make_shard_and_gather_fns(mesh: Mesh, spec_tree):
 
 
 def full_tensor(x: torch.Tensor) -> torch.Tensor:
-    """The whole of a (possibly sharded) tensor: `DTensor.full_tensor()`,
-    collective, or the tensor itself."""
-    from torch.distributed.tensor import DTensor
+    """The whole of a (possibly sharded) tensor, or the tensor itself. A
+    DTensor sharded on dim k of its 1-D mesh is gathered with one
+    `all_gather_into_tensor` over the mesh's group (collective: every rank
+    of the group calls it), not with `DTensor.full_tensor()`, whose
+    functional collectives crash over gloo on CUDA tensors (ranks sharing
+    one card)."""
+    from torch.distributed.tensor import DTensor, Shard
 
-    return x.full_tensor() if isinstance(x, DTensor) else x
+    if not isinstance(x, DTensor):
+        return x
+    import torch.distributed as dist
+
+    (placement,) = x.placements
+    local = x.to_local()
+    if not isinstance(placement, Shard):
+        return local
+    mesh, dim = x.device_mesh, placement.dim
+    if x.shape[dim] != mesh.size() * local.shape[dim]:
+        raise ValueError(f"uneven shards: {tuple(x.shape)} over {mesh.size()} rank(s) on dim {dim}")
+    piece = local.detach().movedim(dim, 0).contiguous()
+    whole = piece.new_empty((mesh.size() * piece.shape[0], *piece.shape[1:]))
+    dist.all_gather_into_tensor(whole, piece, group=mesh.get_group())
+    return whole.movedim(0, dim).contiguous()
 
 
 def local_tensor(x: torch.Tensor) -> torch.Tensor:
@@ -286,9 +311,6 @@ class ShardingEngine:
     def __init__(self, mesh: Mesh, rules: str = "dp"):
         if rules not in PRESETS:
             raise ValueError(f"unknown sharding preset {rules!r}; have {sorted(PRESETS)}")
-        if rules == "fsdp" and mesh.spatial > 1:
-            raise ValueError(f"fsdp on a {mesh.data}x{mesh.spatial} mesh: fsdp with a spatial axis above 1 is not "
-                             "ported; use --sharding_rules dp+spatial (parameters whole on every rank)")
         self.mesh = mesh
         self.preset = PRESETS[rules]
 
@@ -336,74 +358,72 @@ class ShardingEngine:
         return self.mesh.spatial > 1
 
     @property
+    def fsdp(self) -> bool:
+        return self.preset.name == "fsdp"
+
+    @property
     def loss_scale(self) -> int:
         """What a rank's share of the global loss is scaled by before its
-        backward: DDP and FSDP2 average the ranks' gradients, so the data
-        axis; the banded path sums them, so 1."""
-        return 1 if self.banded else self.mesh.data
+        backward: DDP and FSDP2 average the ranks' gradients over the data
+        axis, so its size (under fsdp on bands too); the other banded
+        presets sum them, so 1."""
+        return 1 if self.banded and not self.fsdp else self.mesh.data
 
     def wrap(self, model: torch.nn.Module) -> torch.nn.Module:
         """The module the training step calls. Outside a process group the
-        model itself; on a spatial axis above 1 a `BandedModel` (the model
-        on this rank's band of rows, parameters whole); dp (or a spatial
-        preset on a spatial axis of 1): a DistributedDataParallel around
-        it; fsdp: the model, sharded in
-        place by FSDP2 (its parameters become DTensors outside the forward
-        and backward)."""
+        model itself; dp (or a spatial preset on a spatial axis of 1): a
+        DistributedDataParallel around it; fsdp: the model, sharded in
+        place by FSDP2 over the data axis (its parameters become DTensors
+        outside the forward and backward); on a spatial axis above 1 that
+        (fsdp) or the model itself (the other presets, parameters whole),
+        in a `BandedModel`, on this rank's band of rows."""
         if not self.distributed:
             return model
+        if self.fsdp:
+            from torch.distributed.fsdp import fully_shard
+            from torch.distributed.tensor import Shard
+
+            specs = self.param_specs(model)
+            placement = {id(p): _sharded_dim(specs[name]) for name, p in model.named_parameters()}
+            # One unit, the root, and the backward follows the forward at
+            # once: the whole parameters stay gathered between them, which
+            # the fused encoder and the correlation's autograd function
+            # (they read weights directly) need.
+            fully_shard(model, mesh=self.mesh.device_mesh[DATA_AXIS], reshard_after_forward=False,
+                        shard_placement_fn=lambda p: Shard(placement[id(p)]),
+                        ignored_params=set(self.replicated_params(model)))
         if self.banded:
             from raft_stereo_tpu_torch.parallel import spatial
 
             return spatial.BandedModel(model, spatial.band_scope_for(self.mesh))
-        data_mesh = self.mesh.device_mesh[DATA_AXIS]
-        if self.preset.name != "fsdp":
-            from torch.nn.parallel import DistributedDataParallel
+        if self.fsdp:
+            return model
+        from torch.nn.parallel import DistributedDataParallel
 
-            on_card = next(model.parameters()).device.type == "cuda"
-            # The frozen batch norm's statistics are equal on every rank by
-            # construction: no per-forward broadcast.
-            return DistributedDataParallel(model, device_ids=[torch.cuda.current_device()] if on_card else None,
-                                           process_group=data_mesh.get_group(), broadcast_buffers=False)
-        from torch.distributed.fsdp import fully_shard
-        from torch.distributed.tensor import Shard
-
-        specs = self.param_specs(model)
-        placement = {id(p): _sharded_dim(specs[name]) for name, p in model.named_parameters()}
-        # One unit, the root, and the backward follows the forward at once:
-        # the whole parameters stay gathered between them.
-        fully_shard(model, mesh=data_mesh, reshard_after_forward=False,
-                    shard_placement_fn=lambda p: Shard(placement[id(p)]),
-                    ignored_params=set(self.replicated_params(model)))
-        return model
+        on_card = next(model.parameters()).device.type == "cuda"
+        # The frozen batch norm's statistics are equal on every rank by
+        # construction: no per-forward broadcast.
+        return DistributedDataParallel(model, device_ids=[torch.cuda.current_device()] if on_card else None,
+                                       process_group=self.mesh.device_mesh[DATA_AXIS].get_group(),
+                                       broadcast_buffers=False)
 
     def reduce_replicated_grads(self, model: torch.nn.Module) -> None:
-        """The gradients no wrapper reduces, in one collective. Under fsdp
-        the whole parameters' across the data axis, divided by its size
-        (the mean FSDP2's reduce-scatter takes); on a spatial axis above 1
-        every parameter's, summed over all the ranks (each rank's loss is
-        its share of the global batch's)."""
-        if not self.distributed:
+        """The gradients no wrapper reduces: afterwards every rank holds the
+        global batch's gradient (its piece of a sharded one). The whole
+        parameters' (under fsdp the ones FSDP2 ignores, on bands every
+        one) in one all-reduce over every rank, divided by `loss_scale`;
+        under fsdp on bands, also the sharded gradients' local pieces
+        (FSDP2's reduce-scatter summed them over the data group) in one
+        all-reduce over the spatial group."""
+        if not self.distributed or self.mesh.data * self.mesh.spatial == 1:
             return
-        import torch.distributed as dist
-
-        if self.banded:
-            grads, group, divide = [p.grad for p in model.parameters() if p.grad is not None], None, 1
-        elif self.preset.name == "fsdp" and self.mesh.data > 1:
-            grads = [p.grad for p in self.replicated_params(model) if p.grad is not None]
-            group, divide = self.mesh.device_mesh[DATA_AXIS].get_group(), self.mesh.data
-        else:
-            return
-        if not grads:
-            return
-        flat = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(flat, group=group)
-        if divide > 1:
-            flat.div_(divide)
-        offset = 0
-        for g in grads:
-            g.copy_(flat[offset:offset + g.numel()].view_as(g))
-            offset += g.numel()
+        if self.fsdp:
+            _all_reduce([p.grad for p in self.replicated_params(model)], None, self.loss_scale)
+            if self.banded:
+                _all_reduce([local_tensor(p.grad) for p in model.parameters() if is_sharded(p)],
+                            self.mesh.device_mesh[SPATIAL_AXIS].get_group(), 1)
+        elif self.banded:
+            _all_reduce([p.grad for p in model.parameters()], None, 1)
 
     def explain(self, model: Optional[torch.nn.Module] = None,
                 batch_template: Optional[Dict[str, int]] = None) -> str:
@@ -413,10 +433,17 @@ class ShardingEngine:
         rule's decision."""
         d, s = self.mesh.data, self.mesh.spatial
         lines = [f"sharding preset: {self.preset.name} ({self.preset.description})",
-                 f"mesh: {d}x{s} (data x spatial) over {d * s} rank(s)",
-                 (f"row bands: rank k of the {s} in a spatial group holds rows [k*R/{s}, (k+1)*R/{s}) of every "
-                  "level whose rows R divide by it (and every finer level's do); ragged levels whole on every rank; "
-                  "gradients summed over all ranks" if s > 1 else "row bands: off")]
+                 f"mesh: {d}x{s} (data x spatial) over {d * s} rank(s)"]
+        if s == 1:
+            lines.append("row bands: off")
+        else:
+            lines.append(f"row bands: rank k of the {s} in a spatial group holds rows [k*R/{s}, (k+1)*R/{s}) of "
+                         "every level whose rows R divide by it (and every finer level's do); ragged levels whole "
+                         "on every rank; " + (
+                             f"conv weights and their AdamW moments sharded over the data axis ({d}), the same "
+                             "shard on every rank of a spatial group; gradients reduce-scattered over data, then "
+                             "summed over spatial (the whole parameters' over all ranks)" if self.fsdp else
+                             "gradients summed over all ranks"))
         if model is not None:
             params = dict(model.named_parameters())
             lines.append(explain_sharding(self.preset.param_rules, params, label="parameters"))
@@ -429,3 +456,21 @@ class ShardingEngine:
         probe = {name: torch.empty((2,) * ndim, device="meta") for name, ndim in template.items()}
         lines.append(explain_sharding(self.preset.batch_rules, probe, label="batch"))
         return "\n".join(lines)
+
+
+def _all_reduce(tensors, group, divide: int) -> None:
+    """Sum `tensors` (None entries skipped) over `group` (None: every rank)
+    in one flat collective, divided by `divide`, written back in place."""
+    import torch.distributed as dist
+
+    tensors = [t for t in tensors if t is not None]
+    if not tensors:
+        return
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    if divide > 1:
+        flat.div_(divide)
+    offset = 0
+    for t in tensors:
+        t.copy_(flat[offset:offset + t.numel()].view_as(t))
+        offset += t.numel()

@@ -90,10 +90,11 @@ class BatchResult:
 
 
 def band_devices(config: ServeConfig, device, devices: Optional[Sequence] = None) -> Optional[List[torch.device]]:
-    """The devices of the banded engine, or None for one device: a spatial
-    preset with `devices` of more than one entry, or with `devices` None,
-    `device` "cuda" (no index) and more than one visible card (then every
-    one of them)."""
+    """The devices of the banded engine, or None for one device: a preset
+    other than dp (JAX's engine maps spatial, dp+spatial and fsdp alike to
+    a (1, n) mesh) with `devices` of more than one entry, or with `devices`
+    None, `device` "cuda" (no index) and more than one visible card (then
+    every one of them)."""
     if config.sharding_rules == "dp":
         return None
     if devices is None:

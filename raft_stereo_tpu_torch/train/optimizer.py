@@ -69,12 +69,15 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element (optax.global_norm).
 
     Under fsdp a gradient is a DTensor of which this rank holds one piece:
-    each piece's sum of squares is all-reduced across the mesh (one
+    each piece's sum of squares is all-reduced across its data mesh (one
     collective for all of them), the whole (replicated) tensors, equal on
     every rank, are counted once, and the per-tensor sums are added in
     the tensors' order, as without sharding: every rank gets the norm of
     the whole gradient and clips by it, and one rank's norm is the
-    unsharded one bit for bit."""
+    unsharded one bit for bit. On a spatial axis above 1 the ranks of a
+    spatial group hold the same piece (the sharding engine summed it over
+    them) and each sums over its own data group, so each piece counts
+    once there too."""
     from raft_stereo_tpu_torch.parallel.sharding import is_sharded
 
     tensors = list(tensors)

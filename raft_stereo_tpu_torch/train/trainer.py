@@ -36,17 +36,20 @@ run_report.json on every exit path. Not ported: the jit-hygiene monitor
 (the port compiles no XLA programs).
 
 Across ranks (a process group, parallel/): the model is wrapped by the
-sharding preset (dp: DistributedDataParallel; fsdp: FSDP2; a spatial axis
-above 1: the band scope, parallel/spatial.py), each rank steps on its own
-part of the global batch (its data group's rows; on a spatial axis above 1
-its band of their image rows), and a step's loss, metrics and gradients
-are those of the global batch: every rank divides by the global batch's
-valid-pixel count and the ranks' shares are summed over every rank. Pod
-coordination (`HostCoordinator`) makes every stop, abort and rollback
-branch the same on every rank at the same step; validation, metrics and
-the sidecar run on rank 0 while the others wait. A checkpoint is
-written by rank 0 in the single-card layout (whole tensors, gathered under
-fsdp) with every rank's run state beside it, so it restores into any world
+sharding preset (dp: DistributedDataParallel; fsdp: FSDP2 over the data
+axis; a spatial axis above 1: the band scope, parallel/spatial.py, around
+either the whole model or, under fsdp, the sharded one), each rank steps
+on its own part of the global batch (its data group's rows; on a spatial
+axis above 1 its band of their image rows), and a step's loss, metrics
+and gradients are those of the global batch: every rank divides by the
+global batch's valid-pixel count and the ranks' shares are summed over
+every rank. Pod coordination (`HostCoordinator`) makes every stop, abort
+and rollback branch the same on every rank at the same step; validation,
+metrics and the sidecar run on rank 0 while the others wait (validation
+on bands on every rank of the first data group, under fsdp on a whole
+copy that every rank gathers). A checkpoint is written by rank 0 in the
+single-card layout (whole tensors, gathered on every rank under fsdp)
+with every rank's run state beside it, so it restores into any world
 size and preset.
 """
 
@@ -479,19 +482,25 @@ class Trainer:
     def _validation_model(self):
         """The model validation runs on: on rank 0 the model itself, or
         under fsdp a whole copy (gathered on every rank: collective); on a
-        spatial axis above 1 the banded model on every rank of the first
-        data group (they validate together, band by band), None on the
-        others."""
-        if self.sharding.distributed and self.sharding.banded:
-            return self._wrapped if self.mesh.coordinate(DATA_AXIS) == 0 else None
-        if not (self.sharding.distributed and self.sharding.preset.name == "fsdp"):
+        spatial axis above 1 the banded model (under fsdp around the whole
+        copy) on every rank of the first data group (they validate
+        together, band by band), None on the others."""
+        sharding = self.sharding
+        if not sharding.distributed:
             return self.model
+        first = self.mesh.coordinate(DATA_AXIS) == 0 if sharding.banded else self.process_index == 0
+        if not sharding.fsdp:
+            return (self._wrapped if first else None) if sharding.banded else self.model
         state = {k: full_tensor(v).detach() for k, v in self.model.state_dict().items()}
-        if self.process_index:
+        if not first:
             return None
         if self._eval_model is None:
             self._eval_model = build_model(self.config.model, seed=self.config.seed, device=self.device)
         self._eval_model.load_state_dict(state)
+        if sharding.banded:
+            from raft_stereo_tpu_torch.parallel.spatial import BandedModel
+
+            return BandedModel(self._eval_model, self._wrapped.band_scope)
         return self._eval_model
 
     def fit(self, data: Iterable[Mapping[str, Any]], metrics_logger=None, validate_fn=None):

@@ -3,14 +3,17 @@
 
 - `trace(logdir)`: a context manager around `torch.profiler` (CPU and CUDA
   activities) that writes a Chrome trace, `<logdir>/trace.json`, of the
-  block; the trainer's `profile_steps` window uses it.
+  block and logs its `trace_summary`; the trainer's `profile_steps` window
+  uses it.
 - `StepTimer`: wall-clock step statistics (steps/s, p50, p95) without a
   trace viewer; a device synchronize happens only at report time.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import json
 import logging
 import os
 import time
@@ -34,6 +37,34 @@ def trace(logdir: str = "runs/profile") -> Iterator[None]:
     path = os.path.join(logdir, "trace.json")
     prof.export_chrome_trace(path)
     logger.info("profiler trace written to %s", path)
+    logger.info("profiler trace summary: %s", json.dumps(trace_summary(path)))
+
+
+def trace_summary(path: str, top: int = 8) -> dict:
+    """A Chrome trace's totals in ms: the host window (first to last host
+    event), device kernel and copy time, the device's busy share (kernel
+    time over the window), and the `top` user annotations by host time
+    (collectives, as `gloo:all_gather`; FSDP2's `FSDP::...`; the optimizer)
+    as [ms, count]. Nested annotations each count in full."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    totals = collections.Counter()
+    notes = collections.Counter()
+    counts = collections.Counter()
+    start, end = float("inf"), float("-inf")
+    for e in events:
+        cat, dur = e.get("cat", ""), float(e.get("dur", 0.0)) / 1e3
+        totals[cat] += dur
+        if cat in ("cpu_op", "user_annotation", "cuda_runtime"):
+            start, end = min(start, float(e["ts"]) / 1e3), max(end, float(e["ts"]) / 1e3 + dur)
+        if cat == "user_annotation":
+            notes[e["name"]] += dur
+            counts[e["name"]] += 1
+    window = max(end - start, 0.0)
+    return {"window_ms": round(window, 3), "kernel_ms": round(totals["kernel"], 3),
+            "memcpy_ms": round(totals["gpu_memcpy"], 3),
+            "busy": round(totals["kernel"] / window, 4) if window else 0.0,
+            "annotations": {name: [round(ms, 3), counts[name]] for name, ms in notes.most_common(top)}}
 
 
 class StepTimer:

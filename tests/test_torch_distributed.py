@@ -25,24 +25,18 @@ import pickle
 import subprocess
 import sys
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from raft_stereo_tpu.config import RAFTStereoConfig as JaxConfig
-from raft_stereo_tpu.config import TrainConfig as JaxTrainConfig
 from raft_stereo_tpu.models import RAFTStereo as JaxRAFTStereo
-from raft_stereo_tpu.parallel.mesh import make_mesh as jax_make_mesh
-from raft_stereo_tpu.parallel.sharding import ShardingEngine as JaxShardingEngine
-from raft_stereo_tpu.train.optimizer import make_optimizer as jax_make_optimizer
-from raft_stereo_tpu.train.trainer import TrainState, make_train_step
 from raft_stereo_tpu_torch import cli
 from raft_stereo_tpu_torch.config import RAFTStereoConfig, TrainConfig
 from raft_stereo_tpu_torch.models.raft_stereo import RAFTStereo
 from raft_stereo_tpu_torch.train.trainer import Trainer
 from raft_stereo_tpu_torch.utils import checkpoints as ck
-from torch_parity import flat_leaves, free_port, halve_kernels, jax_init, rank_env
+from torch_parity import assert_step_matches_jax, free_port, halve_kernels, jax_init, jax_sharded_step, rank_env
 from torch_parity import torch_single_thread  # noqa: F401 (autouse fixture)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -50,9 +44,6 @@ H, W, ITERS, B = 48, 64, 3, 2
 HID = (32, 32, 32)
 MODEL = {"hidden_dims": HID, "corr_implementation": "pallas"}
 PRESETS = ("dp", "fsdp")
-# tests/test_torch_train.py's tolerances (see GRAD_TOL and FNET_TOL there).
-GRAD_TOL = 5e-3
-FNET_TOL = 2e-1
 
 
 @pytest.fixture(scope="module")
@@ -72,24 +63,6 @@ def batch():
     return {"image1": left[:, :, 6:], "image2": left[:, :, :W], "flow": flow, "valid": valid}
 
 
-def jax_sharded_step(weights, batch, preset):
-    """One JAX training step on a (2, 1) mesh under `preset`, as the JAX
-    Trainer jits it. Returns (metrics, new params) as numpy."""
-    jcfg = JaxTrainConfig(model=JaxConfig(hidden_dims=HID, encoder_s2d=False, corr_implementation="pallas"),
-                          batch_size=B, train_iters=ITERS, num_steps=1000, mesh_shape=(2, 1), sharding_rules=preset)
-    tx, schedule = jax_make_optimizer(jcfg.lr, jcfg.num_steps, jcfg.wdecay, jcfg.grad_clip_norm)
-    params = jax.tree.map(jnp.asarray, weights["params"])
-    state = TrainState(step=jnp.zeros((), jnp.int32), params=params,
-                       batch_stats=jax.tree.map(jnp.asarray, weights["batch_stats"]), opt_state=tx.init(params))
-    engine = JaxShardingEngine(jax_make_mesh((2, 1)), preset)
-    shardings = engine.state_shardings(state)
-    step = jax.jit(make_train_step(jcfg, tx, schedule), in_shardings=(shardings, engine.batch_shardings()),
-                   out_shardings=(shardings, engine.replicated()))
-    with jax.default_matmul_precision("highest"):
-        new_state, metrics = step(engine.place_state(state), engine.place_batch(batch))
-    return {k: float(v) for k, v in metrics.items()}, flat_leaves(jax.tree.map(np.asarray, new_state.params))
-
-
 @pytest.fixture(scope="module")
 def runs(weights, batch, tmp_path_factory):
     """The two ranks' dp and fsdp steps (one launch), the JAX steps computed
@@ -103,7 +76,7 @@ def runs(weights, batch, tmp_path_factory):
                                ",".join(PRESETS)], env=rank_env(r, 2, port), stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True) for r in range(2)]
     try:
-        want = {preset: jax_sharded_step(weights, batch, preset) for preset in PRESETS}
+        want = {preset: jax_sharded_step(weights, batch, preset, (2, 1), HID, ITERS) for preset in PRESETS}
         outs = [p.communicate(timeout=300)[0] for p in procs]
     finally:
         for p in procs:
@@ -123,50 +96,17 @@ def runs(weights, batch, tmp_path_factory):
     return workdir, got, want
 
 
-def to_flax(named: dict) -> dict:
-    """{port parameter name: OIHW array} as {flax path: HWIO array}, through
-    the weight bridge's name mapping."""
-    model = RAFTStereo(RAFTStereoConfig(**MODEL))
-    out = {}
-    for name in named:
-        (collection, *path), is_kernel = ck._flax_key(model, name)
-        v = named[name]
-        out[tuple(path)] = v.transpose(2, 3, 1, 0) if is_kernel else v
-    return out
-
-
 @pytest.mark.parametrize("preset", PRESETS)
 def test_two_rank_step_matches_jax(weights, runs, preset):
     """One step over two ranks against JAX's step on a (2, 1) mesh under the
     same preset: the metrics, the gradient norm before clipping (each rank
     clips by it) and the updated parameters."""
     _, got, want = runs
-    want_metrics, want_params = want[preset]
     mine = got[preset]["metrics"]
-    assert set(mine) == set(want_metrics)
     for r in range(2):  # every rank reports the global batch's values
         assert got[preset]["local"][r]["metrics"] == mine
-    assert mine["nonfinite"] == want_metrics["nonfinite"] == 0.0
-    assert mine["learning_rate"] == want_metrics["learning_rate"]
-    for k in ("epe", "1px", "3px", "5px", "live_loss"):
-        np.testing.assert_allclose(mine[k], want_metrics[k], rtol=1e-5, err_msg=k)
-    np.testing.assert_allclose(mine["grad_norm"], want_metrics["grad_norm"], rtol=1e-4)
-    # The update check of test_train_step_matches_jax: every update within
-    # the step's size, and within 1e-3 lr (plus rounding) where the
-    # gradient is well resolved.
-    lr = want_metrics["learning_rate"]
-    before = flat_leaves(weights["params"])
-    after, grads = to_flax(got[preset]["params"]), to_flax(got[preset]["grads"])
-    assert set(after) == set(want_params)
-    for key, w_new in want_params.items():
-        d_got, d_want = after[key] - before[key], w_new - before[key]
-        assert np.abs(d_got - d_want).max() <= 2.0 * lr * (1 + 1e-3), key
-        if key[:2] == ("fnet", "trunk") and key[-1] == "bias":
-            continue
-        g = np.abs(grads[key])
-        sure = g > 1.5 * (FNET_TOL if key[:2] == ("fnet", "trunk") else GRAD_TOL) * g.max()
-        ulp = np.spacing(np.maximum(np.abs(w_new), np.abs(after[key])))
-        assert (np.abs(d_got - d_want) <= 1e-3 * lr + ulp)[sure].all(), key
+    assert_step_matches_jax(RAFTStereo(RAFTStereoConfig(**MODEL)), weights, mine, got[preset]["params"],
+                            got[preset]["grads"], want[preset])
 
 
 def test_fsdp_ranks_hold_half_of_each_dividing_weight_and_its_moments(runs):

@@ -147,15 +147,16 @@ def models():
     return build_model(RAFTStereoConfig(), seed=0, device="cpu"), shapes["params"]
 
 
-@pytest.mark.parametrize("data", [2, 4])
-def test_fsdp_shards_where_jax_does(models, data):
+@pytest.mark.parametrize("data,spatial", [(2, 1), (4, 1), (2, 2), (4, 2)], ids=["2", "4", "2x2", "4x2"])
+def test_fsdp_shards_where_jax_does(models, data, spatial):
     """The default model: each parameter is sharded by the port's fsdp
-    exactly where JAX's fsdp shards its flax counterpart on a (data, 1)
-    mesh (the 126-channel motion conv demoted at data 4, the C_out=1 flow
-    head at both), and always over the output channels."""
+    exactly where JAX's fsdp shards its flax counterpart on a (data,
+    spatial) mesh (the 126-channel motion conv demoted at data 4, the
+    C_out=1 flow head at both; the spatial axis shards no parameter), and
+    always over the output channels."""
     model, jax_params = models
-    want = _leaf_specs(jax_sharding.ShardingEngine(jax_make_mesh((data, 1)), "fsdp").state_specs(jax_params))
-    got = ShardingEngine(Mesh(data, 1), "fsdp").param_specs(model)
+    want = _leaf_specs(jax_sharding.ShardingEngine(jax_make_mesh((data, spatial)), "fsdp").state_specs(jax_params))
+    got = ShardingEngine(Mesh(data, spatial), "fsdp").param_specs(model)
     assert len(got) == len(want) == len(list(model.parameters()))
     flips = 0
     for name, spec in got.items():
@@ -169,7 +170,7 @@ def test_fsdp_shards_where_jax_does(models, data):
     assert "update_block.flow_head.conv2.weight" in demoted
     assert ("update_block.encoder.conv.weight" in demoted) == (data == 4)
     assert flips == sum(1 for p in model.parameters() if p.dim() == 4) - len(demoted)
-    dp = ShardingEngine(Mesh(data, 1), "dp").param_specs(model)
+    dp = ShardingEngine(Mesh(data, spatial), "dp").param_specs(model)
     assert all(s == P() for s in dp.values())
 
 
@@ -194,20 +195,27 @@ def test_shard_and_gather_fns_round_trip():
     assert torch.equal(gather["w"](shard["w"](t)), t) and torch.equal(shard["b"](t), t)
 
 
-@pytest.mark.parametrize("rules,mesh", [("spatial", (1, 2)), ("dp+spatial", (2, 2)), ("dp", (1, 2))],
-                         ids=["spatial", "dp+spatial", "spatial-axis"])
+@pytest.mark.parametrize("rules,mesh", [("spatial", (1, 2)), ("dp+spatial", (2, 2)), ("dp", (1, 2)), ("fsdp", (2, 2))],
+                         ids=["spatial", "dp+spatial", "spatial-axis", "fsdp"])
 def test_spatial_presets_and_axes_are_refused(rules, mesh):
-    """A spatial axis above 1 is not refused: under every preset but fsdp
-    it runs row bands (parameters whole, gradients summed over the ranks,
-    the loss unscaled), as JAX's batch rules shard rows over `spatial`
-    under every preset; `--explain_sharding` prints the band layout.
-    tests/test_torch_spatial.py runs them over gloo ranks."""
+    """A spatial axis above 1 is not refused: under every preset it runs
+    row bands, as JAX's batch rules shard rows over `spatial` under every
+    preset, with parameters whole, gradients summed over the ranks and the
+    loss unscaled, or under fsdp its conv weights sharded over the data
+    axis and the loss scaled by it (FSDP2 averages over the data group);
+    `--explain_sharding` prints the band layout. tests/test_torch_spatial.py,
+    tests/test_torch_spatial_quad.py and tests/test_torch_fsdp_spatial.py
+    run them over gloo ranks."""
     engine = ShardingEngine(Mesh(*mesh), rules)
-    assert engine.banded and engine.loss_scale == 1
+    fsdp = rules == "fsdp"
+    assert engine.banded and engine.loss_scale == (mesh[0] if fsdp else 1)
     model = build_model(RAFTStereoConfig(hidden_dims=(16, 16, 16)), device="cpu")
-    assert len(engine.replicated_params(model)) == len(list(model.parameters()))
+    whole = len(engine.replicated_params(model))
+    assert whole < len(list(model.parameters())) if fsdp else whole == len(list(model.parameters()))
     text = engine.explain()
     assert f"mesh: {mesh[0]}x{mesh[1]}" in text and "row bands: rank k of the 2 in a spatial group" in text
+    assert ("gradients reduce-scattered over data, then summed over spatial" in text) == fsdp
+    assert ("gradients summed over all ranks" in text) != fsdp
 
 
 def test_mesh_must_cover_the_world():

@@ -184,13 +184,16 @@ UNPORTED_OR_UNFIT = [
     # (one process here) is a usage error.
     (["--mesh_shape", "1", "2"], "mesh 1x2 covers 2 rank(s) but the world has 1"),
     (["--sharding_rules", "spatial", "--mesh_shape", "-1", "2"], "1 ranks not divisible by spatial=2"),
+    (["--sharding_rules", "fsdp", "--mesh_shape", "-1", "2"], "1 ranks not divisible by spatial=2"),
     (["--strict_mode"], "not ported yet: --strict_mode"),
     (["--recompile_grace", "3"], "not ported yet: --recompile_grace"),
     (["--compilation_cache_dir", "cache"], "not ported yet: --compilation_cache_dir"),
 ]
 
 
-@pytest.mark.parametrize("flags,message", UNPORTED_OR_UNFIT, ids=[f[0].lstrip("-") for f, _ in UNPORTED_OR_UNFIT])
+@pytest.mark.parametrize("flags,message", UNPORTED_OR_UNFIT,
+                         ids=["mesh_shape", "sharding_rules", "fsdp_sharding_rules", "strict_mode", "recompile_grace",
+                              "compilation_cache_dir"])
 def test_unported_train_flags_exit_2(flags, message, capsys, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     assert cli.main(["train", "--device", "cpu", *flags]) == 2

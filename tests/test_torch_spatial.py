@@ -68,7 +68,7 @@ from raft_stereo_tpu_torch.train.loss import sequence_loss, valid_count
 from raft_stereo_tpu_torch.train.trainer import Trainer, rank_batch_size
 from raft_stereo_tpu_torch.utils import geometry
 from raft_stereo_tpu_torch.utils.checkpoints import load_jax_variables
-from torch_parity import flax_variables, free_port, jax_apply, rank_env, run_bands
+from torch_parity import assert_updates_match_one_process, flax_variables, free_port, jax_apply, rank_env, run_bands
 from torch_parity import torch_single_thread  # noqa: F401 (autouse fixture)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -76,9 +76,6 @@ W, ITERS, TRAIN_ITERS, B = 64, 3, 2, 2
 HID = (32, 32, 32)
 MODEL = {"hidden_dims": HID}
 CASES = [("reg", 48), ("pallas", 48), ("reg", 64), ("pallas", 64)]
-# tests/test_torch_train.py's tolerances (GRAD_TOL, FNET_TOL there say why).
-GRAD_TOL = 5e-3
-FNET_TOL = 2e-1
 
 
 # -- two bands in two threads -----------------------------------------------------
@@ -329,9 +326,10 @@ def test_correlation_chain_makes_no_exchange(runs, case):
 def test_training_step_on_bands_matches_unsharded(runs, preset):
     """(c) One step on two bands (each rank its 24 rows of the batch)
     against the port's unsharded step: metrics 1e-5, the norm 1e-4, every
-    clipped gradient within GRAD_TOL of its leaf's largest magnitude
-    (FNET_TOL in the feature trunk), every update within the step's size
-    and within 1e-3 lr where the gradient is well resolved. dp on a (1, 2)
+    clipped gradient within tests/test_torch_train.py's GRAD_TOL of its
+    leaf's largest magnitude (FNET_TOL in the feature trunk), every update
+    within the step's size and within 1e-3 lr where the gradient is well
+    resolved (`torch_parity.assert_updates_match_one_process`). dp on a (1, 2)
     mesh runs the same bands."""
     got, want = runs
     step = want["step"]
@@ -344,24 +342,7 @@ def test_training_step_on_bands_matches_unsharded(runs, preset):
             np.testing.assert_allclose(mine["metrics"][k], step["metrics"][k], rtol=1e-5, err_msg=k)
         np.testing.assert_allclose(mine["metrics"]["grad_norm"], step["metrics"]["grad_norm"], rtol=1e-4)
         assert mine["metrics"]["learning_rate"] == step["metrics"]["learning_rate"]
-        lr = step["metrics"]["learning_rate"]
-        largest = max(np.abs(g).max() for g in step["grads"].values())
-        for name, w_new in step["params"].items():
-            trunk = name.startswith("fnet.trunk.")
-            g_want, g_got = step["grads"][name], mine["grads"][name]
-            d_got, d_want = mine["params"][name] - step["before"][name], w_new - step["before"][name]
-            assert np.abs(d_got - d_want).max() <= 2.0 * lr * (1 + 1e-3), name
-            if trunk and name.endswith("bias"):
-                # A true gradient of zero (the instance norm removes any
-                # per-channel constant): rounding noise on both sides, and
-                # its sign, which moves the update, is a coin.
-                assert max(np.abs(g_got).max(), np.abs(g_want).max()) <= 1e-6 * largest, name
-                continue
-            tol = (FNET_TOL if trunk else GRAD_TOL) * np.abs(g_want).max()
-            assert np.abs(g_got - g_want).max() <= tol, name
-            sure = np.abs(g_want) > 1.5 * tol
-            ulp = np.spacing(np.maximum(np.abs(w_new), np.abs(mine["params"][name])))
-            assert (np.abs(d_got - d_want) <= 1e-3 * lr + ulp)[sure].all(), name
+        assert_updates_match_one_process(mine["params"], mine["grads"], step)
         # Both ranks hold the same parameters after the step.
         for name, value in mine["params"].items():
             assert np.array_equal(value, got[0]["train"][preset]["params"][name]), name
@@ -371,18 +352,18 @@ def test_training_step_on_bands_matches_unsharded(runs, preset):
 
 
 def test_band_rule_refusals():
-    """fsdp on a spatial axis above 1 and a crop off the band rule raise
-    with what to use; on a spatial axis of 1 both are fine. fused_encoder
-    is accepted on bands (its layer1 runs there: tests/test_torch_spatial_fused.py)."""
+    """A crop off the band rule raises with what to use; on a spatial axis
+    of 1 it is fine. fsdp is accepted on bands (tests/test_torch_fsdp_spatial.py
+    runs it; on a data axis of 1 its loss is unscaled), and so is
+    fused_encoder (its layer1 runs there: tests/test_torch_spatial_fused.py)."""
     TrainConfig(model=RAFTStereoConfig(fused_encoder=True), mesh_shape=(1, 2))
     with pytest.raises(ValueError, match=r"crop_size \(100, 720\).*use a height of 104"):
         TrainConfig(augment=AugmentConfig(crop_size=(100, 720)), mesh_shape=(1, 2))
     with pytest.raises(ValueError, match="use a height of 48"):
         TrainConfig(augment=AugmentConfig(crop_size=(32, 720)), mesh_shape=(1, 4))
-    with pytest.raises(ValueError, match="fsdp with a spatial axis of 2 is not ported"):
-        TrainConfig(sharding_rules="fsdp", mesh_shape=(1, 2))
-    with pytest.raises(ValueError, match="fsdp with a spatial axis above 1 is not ported"):
-        ShardingEngine(Mesh(1, 2), "fsdp")
+    TrainConfig(sharding_rules="fsdp", mesh_shape=(1, 2))
+    engine = ShardingEngine(Mesh(1, 2), "fsdp")
+    assert engine.banded and engine.loss_scale == 1
     TrainConfig(model=RAFTStereoConfig(fused_encoder=True), augment=AugmentConfig(crop_size=(100, 720)),
                 sharding_rules="spatial")
     scope = spatial.BandScope(None, 1, 2)

@@ -7,8 +7,9 @@ of it), "pallas" fp32, 2 iterations, seeded weights with every conv kernel
 halved (tests/test_torch_model.py says why). The loss and metrics are the
 global batch's on every rank (rtol 1e-5, the norm 1e-4), every rank holds
 the same parameters after the step, and the clipped gradients and updates
-are held as tests/test_torch_spatial.py holds the two-rank step's (that
-file's GRAD_TOL and FNET_TOL, tests/test_torch_train.py's).
+are held as tests/test_torch_spatial.py holds the two-rank step's
+(`torch_parity.assert_updates_match_one_process`, with
+tests/test_torch_train.py's GRAD_TOL and FNET_TOL).
 """
 
 import os
@@ -21,14 +22,12 @@ import pytest
 
 from raft_stereo_tpu_torch.config import RAFTStereoConfig, TrainConfig
 from raft_stereo_tpu_torch.train.trainer import Trainer
-from torch_parity import free_port, rank_env
+from torch_parity import assert_updates_match_one_process, free_port, rank_env
 from torch_parity import torch_single_thread  # noqa: F401 (autouse fixture)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 H, W, B, TRAIN_ITERS = 48, 64, 2, 2
 MODEL = {"hidden_dims": (32, 32, 32)}
-GRAD_TOL = 5e-3
-FNET_TOL = 2e-1
 
 
 @pytest.fixture(scope="module")
@@ -97,19 +96,4 @@ def test_dp_spatial_step_on_four_ranks_matches_unsharded(quad):
 
 def test_dp_spatial_gradients_and_updates_match_unsharded(quad):
     got, want = quad
-    lr = want["metrics"]["learning_rate"]
-    largest = max(np.abs(g).max() for g in want["grads"].values())
-    for name, w_new in want["params"].items():
-        trunk = name.startswith("fnet.trunk.")
-        g_want, g_got = want["grads"][name], got[0]["grads"][name]
-        d_got, d_want = got[0]["params"][name] - want["before"][name], w_new - want["before"][name]
-        assert np.abs(d_got - d_want).max() <= 2.0 * lr * (1 + 1e-3), name
-        if trunk and name.endswith("bias"):
-            # A true gradient of zero: rounding noise, its sign a coin.
-            assert max(np.abs(g_got).max(), np.abs(g_want).max()) <= 1e-6 * largest, name
-            continue
-        tol = (FNET_TOL if trunk else GRAD_TOL) * np.abs(g_want).max()
-        assert np.abs(g_got - g_want).max() <= tol, name
-        sure = np.abs(g_want) > 1.5 * tol
-        ulp = np.spacing(np.maximum(np.abs(w_new), np.abs(got[0]["params"][name])))
-        assert (np.abs(d_got - d_want) <= 1e-3 * lr + ulp)[sure].all(), name
+    assert_updates_match_one_process(got[0]["params"], got[0]["grads"], want)

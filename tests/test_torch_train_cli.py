@@ -126,3 +126,28 @@ def test_prefetched_mixed_step_equals_plain_copy(tmp_path, monkeypatch):
     ma, mb = a.train_step(host), b.train_step(staged)
     assert ma == mb
     assert all(torch.equal(x, y) for x, y in zip(a.model.parameters(), b.model.parameters()))
+
+
+def test_profile_trace_summary(tmp_path):
+    """`trace_summary` (logged after `train --profile_steps`'s trace) on a
+    written Chrome trace: the host window from the first to the last host
+    event, kernel and copy totals, the busy share, and the annotations by
+    host time with their counts."""
+    import json
+
+    from raft_stereo_tpu_torch.utils.profiling import trace_summary
+
+    def event(cat, name, ts, dur):
+        return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur}
+
+    events = [event("cpu_op", "aten::mm", 1000.0, 500.0),
+              event("user_annotation", "gloo:all_gather", 1200.0, 300.0),
+              event("user_annotation", "gloo:all_gather", 1600.0, 100.0),
+              event("cuda_runtime", "cudaMemcpy", 2800.0, 200.0),
+              event("kernel", "gemm", 1100.0, 400.0),
+              event("gpu_memcpy", "Memcpy HtoD", 2900.0, 50.0),
+              {"ph": "i", "cat": "cpu_op", "name": "mark", "ts": 0.0}]  # an instant: not a span
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    assert trace_summary(str(path)) == {"window_ms": 2.0, "kernel_ms": 0.4, "memcpy_ms": 0.05, "busy": 0.2,
+                                        "annotations": {"gloo:all_gather": [0.4, 2]}}

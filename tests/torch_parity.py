@@ -82,6 +82,105 @@ def jax_init(module, *args, seed: int = 0, **kwargs):
     return perturb(init(jax.random.PRNGKey(seed), *args), seed)
 
 
+def jax_sharded_step(weights, batch, preset, mesh_shape, hidden_dims, iters):
+    """One JAX training step under `preset` on a `mesh_shape` mesh of the
+    conftest's host devices, jitted with the JAX `ShardingEngine`'s
+    shardings as the JAX Trainer jits it (fp32, "highest" matmul
+    precision), on `batch` (the global batch) from `weights`. Returns
+    (metrics, new params) as numpy."""
+    from raft_stereo_tpu.config import RAFTStereoConfig as JaxConfig
+    from raft_stereo_tpu.config import TrainConfig as JaxTrainConfig
+    from raft_stereo_tpu.parallel.mesh import make_mesh
+    from raft_stereo_tpu.parallel.sharding import ShardingEngine
+    from raft_stereo_tpu.train.optimizer import make_optimizer
+    from raft_stereo_tpu.train.trainer import TrainState, make_train_step
+
+    jcfg = JaxTrainConfig(model=JaxConfig(hidden_dims=tuple(hidden_dims), encoder_s2d=False,
+                                          corr_implementation="pallas"),
+                          batch_size=len(batch["image1"]), train_iters=iters, num_steps=1000,
+                          mesh_shape=tuple(mesh_shape), sharding_rules=preset)
+    tx, schedule = make_optimizer(jcfg.lr, jcfg.num_steps, jcfg.wdecay, jcfg.grad_clip_norm)
+    params = jax.tree.map(jnp.asarray, weights["params"])
+    state = TrainState(step=jnp.zeros((), jnp.int32), params=params,
+                       batch_stats=jax.tree.map(jnp.asarray, weights["batch_stats"]), opt_state=tx.init(params))
+    engine = ShardingEngine(make_mesh(tuple(mesh_shape)), preset)
+    shardings = engine.state_shardings(state)
+    step = jax.jit(make_train_step(jcfg, tx, schedule), in_shardings=(shardings, engine.batch_shardings()),
+                   out_shardings=(shardings, engine.replicated()))
+    with jax.default_matmul_precision("highest"):
+        new_state, metrics = step(engine.place_state(state), engine.place_batch(batch))
+    return {k: float(v) for k, v in metrics.items()}, flat_leaves(jax.tree.map(np.asarray, new_state.params))
+
+
+def to_flax(model, named: dict) -> dict:
+    """{port parameter name of `model`: OIHW array} as {flax path: HWIO
+    array}, through the weight bridge's name mapping."""
+    from raft_stereo_tpu_torch.utils.checkpoints import _flax_key
+
+    out = {}
+    for name, v in named.items():
+        (_, *path), is_kernel = _flax_key(model, name)
+        out[tuple(path)] = v.transpose(2, 3, 1, 0) if is_kernel else v
+    return out
+
+
+def assert_step_matches_jax(model, weights, metrics, params, grads, want, grad_tol=5e-3, fnet_tol=2e-1):
+    """One port training step against JAX's (`want`: `jax_sharded_step`'s
+    metrics and new params) from the same JAX `weights`, with
+    tests/test_torch_train.py::test_train_step_matches_jax's tolerances
+    (its GRAD_TOL and FNET_TOL): the metrics at rtol 1e-5, the gradient norm
+    before clipping at 1e-4, every update within the step's size, and
+    within 1e-3 lr (plus rounding) where the gradient is well resolved.
+    `params` and `grads` are `model`'s, whole, by port name."""
+    want_metrics, want_params = want
+    assert set(metrics) == set(want_metrics)
+    assert metrics["nonfinite"] == want_metrics["nonfinite"] == 0.0
+    assert metrics["learning_rate"] == want_metrics["learning_rate"]
+    for k in ("epe", "1px", "3px", "5px", "live_loss"):
+        np.testing.assert_allclose(metrics[k], want_metrics[k], rtol=1e-5, err_msg=k)
+    np.testing.assert_allclose(metrics["grad_norm"], want_metrics["grad_norm"], rtol=1e-4)
+    lr = want_metrics["learning_rate"]
+    before = flat_leaves(weights["params"])
+    after, grads = to_flax(model, params), to_flax(model, grads)
+    assert set(after) == set(want_params)
+    for key, w_new in want_params.items():
+        d_got, d_want = after[key] - before[key], w_new - before[key]
+        assert np.abs(d_got - d_want).max() <= 2.0 * lr * (1 + 1e-3), key
+        if key[:2] == ("fnet", "trunk") and key[-1] == "bias":
+            continue
+        g = np.abs(grads[key])
+        sure = g > 1.5 * (fnet_tol if key[:2] == ("fnet", "trunk") else grad_tol) * g.max()
+        ulp = np.spacing(np.maximum(np.abs(w_new), np.abs(after[key])))
+        assert (np.abs(d_got - d_want) <= 1e-3 * lr + ulp)[sure].all(), key
+
+
+def assert_updates_match_one_process(params, grads, want, grad_tol=5e-3, fnet_tol=2e-1):
+    """A sharded port step's whole `params` and `grads` (by port name)
+    against the port's one-process step on the whole batch (`want`: its
+    "metrics", parameters "before" and after ("params"), and "grads"), with
+    tests/test_torch_train.py's GRAD_TOL and FNET_TOL: every update within
+    the step's size, each gradient within its tolerance of the leaf's
+    largest, and the update within 1e-3 lr (plus rounding) where the
+    gradient is well resolved; the feature trunk's biases, whose true
+    gradient is zero, hold only rounding noise."""
+    lr = want["metrics"]["learning_rate"]
+    largest = max(np.abs(g).max() for g in want["grads"].values())
+    for name, w_new in want["params"].items():
+        trunk = name.startswith("fnet.trunk.")
+        g_want, g_got = want["grads"][name], grads[name]
+        d_got, d_want = params[name] - want["before"][name], w_new - want["before"][name]
+        assert np.abs(d_got - d_want).max() <= 2.0 * lr * (1 + 1e-3), name
+        if trunk and name.endswith("bias"):
+            # A true gradient of zero: rounding noise, its sign a coin.
+            assert max(np.abs(g_got).max(), np.abs(g_want).max()) <= 1e-6 * largest, name
+            continue
+        tol = (fnet_tol if trunk else grad_tol) * np.abs(g_want).max()
+        assert np.abs(g_got - g_want).max() <= tol, name
+        sure = np.abs(g_want) > 1.5 * tol
+        ulp = np.spacing(np.maximum(np.abs(w_new), np.abs(params[name])))
+        assert (np.abs(d_got - d_want) <= 1e-3 * lr + ulp)[sure].all(), name
+
+
 def halve_kernels(tree):
     """A variables tree with every conv kernel halved: the model-level
     parity tests' weights (tests/test_torch_model.py `weights` says why)."""
