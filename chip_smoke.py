@@ -1409,6 +1409,11 @@ def phase_serving(rng) -> tuple:
     drain_service(service, "[serving]")
     counts = launches()
     log(f"[serving] launches over {len(requests)} requests ({iters_total} iterations): {counts}")
+    hygiene = service.engine.hygiene.report()
+    log(f"[serving] jit hygiene after the traffic: compiles_total {hygiene['compiles_total']}, compiles_post_grace "
+        f"{hygiene['compiles_post_grace']}, windows {hygiene['whitelisted_windows']}")
+    if hygiene["compiles_post_grace"] != 0 or hygiene["violations"]:
+        raise AssertionError(f"[serving] a kernel was built after the warm-up: {hygiene}")
     if responses[-1][1]["iters_completed"] != cfg.chunk_iters or not responses[-1][1]["early_exit"]:
         raise AssertionError("the tight-deadline request did not exit after one chunk")
     if any(r["iters_completed"] != cfg.max_iters for _, r in responses[:-1]):
@@ -2234,6 +2239,17 @@ SERVE_CLI_CONFIGS = (
 )
 SERVE_CLI_REQUESTS = ((384, 512), (512, 768), (300, 500))
 SERVE_CLI_BOOT_S = 300
+# The kernel cache's two boots (serving/aot.py): `serve --warmup_only
+# --require_cache_hit` in the mixed configuration on one small bucket, first
+# on an empty directory (exit 3, every library a miss), then again (exit 0,
+# every library a hit, nothing built). They run on a thread from the start
+# of the script; [serve-cli] reads them, damages one library in the
+# directory, and boots its mixed server from it (the library evicted and
+# built again, the server serving); [train-cli]'s control builds its
+# training-only libraries into it.
+CACHE_BOOT_FLAGS = ("serve", "--warmup_only", "--require_cache_hit", "--buckets", "384x512", "--max_batch", "1",
+                    *SERVE_CLI_CONFIGS[1][1])
+CACHE_DAMAGED = "encoder_join"
 
 
 def int_pair(rng, h, w, shift=12):
@@ -2587,22 +2603,89 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def phase_serve_cli(rng) -> None:
+class CacheBoots:
+    """CACHE_BOOT_FLAGS twice against `cache_dir`, one process after the
+    other, on a thread of their own (started before the kernel phases,
+    which leave the host's cores idle). `results()` joins them and returns
+    [(exit code, boot block, seconds, stderr)] for the two boots."""
+
+    def __init__(self, cache_dir: str):
+        self.cache_dir = cache_dir
+        self.boots = []
+        self.runner = Beside(self.run_boots)
+
+    def run_boots(self) -> None:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "raft_stereo_tpu_torch", *CACHE_BOOT_FLAGS,
+                                   "--aot_cache_dir", self.cache_dir], capture_output=True, text=True,
+                                  env=cli_env(), timeout=SERVE_CLI_BOOT_S)
+            line = next((ln for ln in proc.stdout.splitlines() if ln.startswith("{")), "{}")
+            self.boots.append((proc.returncode, json.loads(line).get("boot", {}), time.perf_counter() - t0,
+                               proc.stderr))
+
+    def results(self) -> list:
+        self.runner.join()
+        return self.boots
+
+
+def check_cache_boots(boots) -> None:
+    """The empty directory's boot exits 3 with every library a miss (and
+    built), the second exits 0 with every library a hit and nothing built."""
+    (code1, cold, s1, err1), (code2, warm, s2, err2) = boots
+    log(f"[serve-cli] cache boot 1 (empty directory): exit {code1} in {s1:.1f} s, boot {json.dumps(cold)}")
+    log(f"[serve-cli] cache boot 2: exit {code2} in {s2:.1f} s, boot {json.dumps(warm)}")
+    if code1 != 3 or not cold.get("cache_enabled") or not cold["entries"] > 0 or \
+            cold["cache_misses"] != cold["entries"] or cold["compiles_total"] != cold["entries"] or \
+            "missed the cache" not in err1:
+        raise AssertionError(f"[serve-cli] cache boot 1: exit {code1}, {cold}\n{err1[-3000:]}")
+    if code2 != 0 or warm["cache_hits"] != warm["entries"] or warm["entries"] != cold["entries"] or \
+            warm["cache_misses"] != 0 or warm["compiles_total"] != 0:
+        raise AssertionError(f"[serve-cli] cache boot 2: exit {code2}, {warm}\n{err2[-3000:]}")
+
+
+def damage_library(cache_dir: str, name: str) -> str:
+    """Flip one byte in the middle of `name`'s library in the cache (its
+    size kept: only the digest can see it). Returns its path."""
+    (path,) = glob.glob(os.path.join(cache_dir, "*", f"lib{name}-*.so"))
+    with open(path, "r+b") as f:
+        f.seek(os.path.getsize(path) // 2)
+        byte = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    return path
+
+
+def phase_serve_cli(rng, cache_dir: str, boots: CacheBoots) -> None:
     """`python -m raft_stereo_tpu_torch serve` as a process in each of
     SERVE_CLI_CONFIGS, the processes side by side on the card: /healthz
     turns healthy within SERVE_CLI_BOOT_S, both buckets answer, /metrics
     answers in JSON and Prometheus text, SIGTERM drains and exits 0. Any
-    failure kills the process."""
+    failure kills the process. First the kernel cache's two boots
+    (`CacheBoots`); then one library in the cache is damaged and the mixed
+    server boots from the cache: the library is evicted loudly, built
+    again (one miss, one build, one eviction) and the server serves."""
+    check_cache_boots(boots.results())
+    damaged = damage_library(cache_dir, CACHE_DAMAGED)
     errors = []
 
-    def run(gen, name, flags):
+    def check_evicted(boot, stderr):
+        log(f"[serve-cli] mixed boot from the cache with {os.path.basename(damaged)} damaged: {json.dumps(boot)}")
+        if boot.get("evictions") != 1 or boot.get("cache_misses") != 1 or boot.get("compiles_total") != 1 or \
+                boot.get("cache_hits") != boot.get("entries", 0) - 1 or "evicted" not in stderr:
+            raise AssertionError(f"[serve-cli] mixed: the damaged library was not evicted and rebuilt: {boot}")
+
+    configs = [(SERVE_CLI_CONFIGS[0][0], SERVE_CLI_CONFIGS[0][1], None),
+               (SERVE_CLI_CONFIGS[1][0], [*SERVE_CLI_CONFIGS[1][1], "--aot_cache_dir", cache_dir], check_evicted)]
+
+    def run(gen, name, flags, check_boot):
         try:
-            serve_cli(gen, name, flags)
+            serve_cli(gen, name, flags, check_boot)
         except Exception as exc:  # noqa: BLE001 - re-raised below
             errors.append(exc)
 
-    threads = [threading.Thread(target=run, args=(gen, name, flags))
-               for gen, (name, flags) in zip(rng.spawn(len(SERVE_CLI_CONFIGS)), SERVE_CLI_CONFIGS)]
+    threads = [threading.Thread(target=run, args=(gen, *config))
+               for gen, config in zip(rng.spawn(len(configs)), configs)]
     for t in threads:
         t.start()
     for t in threads:
@@ -2611,7 +2694,9 @@ def phase_serve_cli(rng) -> None:
         raise errors[0]
 
 
-def serve_cli(rng, name: str, flags) -> None:
+def serve_cli(rng, name: str, flags, check_boot=None) -> None:
+    """One `serve` process: healthy, answers, SIGTERM; `check_boot(boot
+    block, stderr)` when given, after it exits."""
     tag = f"[serve-cli] {name}"
     port = free_port()
     url = f"http://127.0.0.1:{port}"
@@ -2661,6 +2746,8 @@ def serve_cli(rng, name: str, flags) -> None:
         f"{json.loads(boot_line).get('boot', {}).get('warmup_seconds')} s); SIGTERM -> exit {code}")
     if code != 0 or "backlog drained" not in stderr:
         raise AssertionError(f"{tag}: exit {code} after SIGTERM: {stderr[-2000:]}")
+    if check_boot is not None:
+        check_boot(json.loads(boot_line).get("boot", {}), stderr)
 
 
 # -- the eighth slice: the realtime model and the bf16 levers --------------------
@@ -3495,7 +3582,9 @@ TRAIN_CLI_VALID_ITERS = 32
 TRAIN_CLI_LOSS_RTOL = 1e-3
 TRAIN_CLI_TIMEOUT_S = 600
 GATED_DAY = "2024-03-05_11-20-00"
-STEP_LINE = re.compile(r"^(\S+ \S+) INFO .* step (\d+): live_loss (\S+),", re.M)
+# Not anchored at the line's start: a child process's stderr (the loader's
+# resource tracker at exit) may run into a line without a newline.
+STEP_LINE = re.compile(r"(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d,\d{3}) INFO .* step (\d+): live_loss (\S+),")
 
 
 def log_time(stamp: str) -> float:
@@ -3664,11 +3753,100 @@ class Beside:
             raise self.error
 
 
-def phase_train_cli(card: str, beside=None) -> dict:
+# The sync guard against gloo's collectives on CUDA tensors: two ranks
+# sharing the card all-reduce a CUDA tensor, then the same under
+# JitHygiene(strict=True).guard(). `train --strict_mode` refuses gloo on the
+# card (cli.strict_mode_problem) on what this shows. Started beside the
+# kernel phases; [train-cli] reads it.
+GLOO_GUARD_RANK = ("-c", "import sys, chip_smoke; sys.exit(chip_smoke.gloo_guard_rank())")
+
+
+def gloo_guard_rank() -> int:
+    """One rank (torchrun's environment): prints whether a gloo all-reduce
+    of a CUDA tensor runs outside the guard and raises inside it."""
+    import torch.distributed as dist
+
+    from raft_stereo_tpu_torch.utils.jit_hygiene import JitHygiene
+
+    dist.init_process_group("gloo")
+    try:
+        t = torch.ones(8, device=DEVICE)
+        dist.all_reduce(t)
+        outside = float(t.sum().item())
+        raised = None
+        with JitHygiene(strict=True, device=DEVICE).guard():
+            try:
+                dist.all_reduce(t)
+            except RuntimeError as exc:
+                raised = str(exc).splitlines()[0]
+        print(json.dumps({"rank": dist.get_rank(), "outside_guard": outside, "inside_guard_raised": raised}),
+              flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+class GlooGuard:
+    """GLOO_GUARD_RANK as two ranks on a thread of their own; `results()`
+    joins them and returns each rank's line and exit code."""
+
+    def __init__(self):
+        self.ranks = []
+        self.runner = Beside(self.run_ranks)
+
+    def run_ranks(self) -> None:
+        port = free_port()
+        procs = [subprocess.Popen([sys.executable, *GLOO_GUARD_RANK], env=gloo_rank_env(r, 2, port), text=True,
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE) for r in range(2)]
+        for proc in procs:
+            out, err = proc.communicate(timeout=300)
+            line = next((ln for ln in out.splitlines() if ln.startswith("{")), "{}")
+            self.ranks.append((proc.returncode, json.loads(line), err[-2000:]))
+
+    def results(self) -> list:
+        self.runner.join()
+        return self.ranks
+
+
+def check_gloo_guard(ranks) -> None:
+    for code, line, err in ranks:
+        log(f"[train-cli] gloo under the sync guard, rank {line.get('rank')}: exit {code}, a CUDA all-reduce outside "
+            f"the guard {line.get('outside_guard')}, inside it raised {line.get('inside_guard_raised')!r}")
+        if code != 0 or line.get("outside_guard") != 16.0 or not line.get("inside_guard_raised"):
+            raise AssertionError(f"[train-cli] gloo under the sync guard: exit {code}, {line}\n{err}")
+
+
+def sync_guard_check() -> None:
+    """In this process: under `JitHygiene(strict=True)` on the card a
+    `.item()` raises at its line, and inside a transfer window it passes."""
+    from raft_stereo_tpu_torch.utils.jit_hygiene import JitHygiene
+
+    x = torch.ones(8, device=DEVICE)
+    hygiene = JitHygiene(strict=True, device=DEVICE)
+    with hygiene.guard():
+        try:
+            x.sum().item()
+        except RuntimeError as exc:
+            raised = str(exc).splitlines()[0]
+        else:
+            raised = None
+        with hygiene.transfer_window("fetch"):
+            fetched = x.sum().item()
+    log(f"[train-cli] sync guard: .item() under JitHygiene(strict=True).guard() raised: {raised!r}; inside "
+        f"transfer_window: {fetched}; the mode after the guard: {torch.cuda.get_sync_debug_mode()}")
+    if raised is None or fetched != 8.0 or torch.cuda.get_sync_debug_mode() != 0:
+        raise AssertionError("[train-cli] the sync guard did not raise on .item(), or its window did not open")
+
+
+def phase_train_cli(card: str, cache_dir: str, beside=None, gloo_guard=None) -> dict:
     """The train, evaluate and demo command lines as a user runs them, each
     as a process on a dataset written from the seed: a control run of
-    TRAIN_CLI_STEPS steps (exit 0, a valid run report, a committed last
-    step, the lookup and scatter kernels launched every step); the same
+    TRAIN_CLI_STEPS steps under `--strict_mode` with its kernels built and
+    loaded from the kernel cache `cache_dir` that [serve-cli] left (exit 0,
+    a valid run report, a committed last step, the lookup and scatter
+    kernels launched every step, the `jit_hygiene` block clean: no sync
+    outside the named windows on the card, and every library the cache
+    lacked built inside the grace window); the same
     command with --auto_resume under another name, stopped with SIGTERM to
     its process group after TRAIN_CLI_PREEMPT_AFTER steps (exit 13, a
     committed checkpoint at the stopped step), then rerun (resumed from that
@@ -3696,6 +3874,9 @@ def phase_train_cli(card: str, beside=None) -> dict:
             f"{time.perf_counter() - t0:.1f} s")
 
         prefetch_check(workdir)
+        sync_guard_check()
+        if gloo_guard is not None:
+            check_gloo_guard(gloo_guard.results())
 
         def start(tag, argv, **kw):
             run = CliRun(workdir, tag, argv, **kw)
@@ -3715,11 +3896,21 @@ def phase_train_cli(card: str, beside=None) -> dict:
                 run.fail(f"run report invalid: {problems}")
             return report
 
-        # 1. Control.
-        control = start("control", ["train", "--name", "control", *TRAIN_CLI_FLAGS])
+        # 1. Control, strict, on the kernel cache.
+        cached = set(glob.glob(os.path.join(cache_dir, "*", "*.so")))
+        control = start("control", ["train", "--name", "control", "--strict_mode", "--compilation_cache_dir",
+                                    cache_dir, *TRAIN_CLI_FLAGS])
         report = finish(control, 0)
         if report["final_step"] != TRAIN_CLI_STEPS or report["last_good_step"] != TRAIN_CLI_STEPS:
             control.fail(f"report {report}")
+        built = sorted(os.path.basename(p) for p in set(glob.glob(os.path.join(cache_dir, "*", "*.so"))) - cached)
+        hygiene = report["jit_hygiene"]
+        log(f"[train-cli] control (--strict_mode --compilation_cache_dir): jit_hygiene {json.dumps(hygiene)}; "
+            f"libraries the cache lacked, built by the run: {built}")
+        if not (hygiene["strict_mode"] and hygiene["transfer_guard"] == "disallow") or \
+                hygiene["compiles_post_grace"] != 0 or hygiene["violations"] or not built or \
+                hygiene["compiles_total"] != len(built) or hygiene["steps_seen"] != TRAIN_CLI_STEPS:
+            control.fail(f"jit_hygiene {hygiene}, built {built}")
         control_dir = check_committed(workdir, "control", TRAIN_CLI_STEPS, "control")
         control_steps = control.steps()
         if sorted(control_steps) != list(range(1, TRAIN_CLI_STEPS + 1)):
@@ -3754,6 +3945,14 @@ def phase_train_cli(card: str, beside=None) -> dict:
         check_committed(workdir, "preempt", stopped, "preempt")
         log(f"[train-cli] preempt: SIGTERM after step {seen}, exit 13 {time.time() - t_sig:.2f} s later with "
             f"stop_cause preempted and step {stopped} committed")
+        # The preempted run is the control's command without --strict_mode
+        # and the cache: the same losses.
+        early = first.steps()
+        gap = max(abs(early[n][1] - control_steps[n][1]) / abs(control_steps[n][1]) for n in early)
+        log(f"[train-cli] preempt (not strict) against the strict control over steps 1-{max(early)}: largest "
+            f"relative loss gap {gap:.3e} (tol {TRAIN_CLI_LOSS_RTOL:g})")
+        if not gap <= TRAIN_CLI_LOSS_RTOL:
+            first.fail(f"losses differ from the strict control's by {gap:.3e} relative")
         numbers["preempt"] = train_numbers(first, workdir, "preempt")
 
         # 3. Resume: the same command again.
@@ -3920,7 +4119,8 @@ def phase_parallel(card: str, workdir: str, control_steps: dict, start) -> dict:
     torchrun after PARALLEL_PREEMPT_AFTER steps (the rank's report:
     preempted, its checkpoints committed), then rerun with `--auto_resume`
     under dp to the end, beside `--explain_sharding` listing every
-    parameter; (c) two ranks on the one card over gloo, 2 rows each:
+    parameter, with `--strict_mode` (the sync guard under DDP over NCCL);
+    (c) two ranks on the one card over gloo, 2 rows each:
     SIGTERM to rank 1 alone, both ranks stopped at one step with exit 13
     and preempted reports, one checkpoint committed, losses within
     PARALLEL_TWO_RANK_RTOL of the control's batch-4 steps. Any failure
@@ -3973,15 +4173,18 @@ def phase_parallel(card: str, workdir: str, control_steps: dict, start) -> dict:
         f"during the run, step counter {sorted(set(scraped))}; {spine['async_commits']} async commits, longest "
         f"{spine['max_commit_latency_s']:.3f} s; steps {committed} committed")
 
-    # (b) resumed under dp, beside the fsdp placement dump.
+    # (b) resumed under dp (DDP over NCCL) with the sync guard on, beside
+    # the fsdp placement dump: strict mode runs under NCCL (gloo refuses it).
     resume = start("parallel-resume", ["train", "--name", "par-fsdp", "--auto_resume", *TRAIN_CLI_FLAGS,
-                                       "--sharding_rules", "dp"], launcher=TORCHRUN_ONE_RANK)
+                                       "--sharding_rules", "dp", "--strict_mode"], launcher=TORCHRUN_ONE_RANK)
     explain = start("parallel-explain", ["train", "--explain_sharding", "--sharding_rules", "fsdp",
                                          *TRAIN_CLI_FLAGS])
     if parallel_wait(resume) != 0:
         resume.fail("exit non-zero")
     report = parallel_report(resume, workdir)
-    if report["resumed_from_step"] != stop or report["final_step"] != last or report["resume_count"] != 1:
+    hygiene = report["jit_hygiene"]
+    if report["resumed_from_step"] != stop or report["final_step"] != last or report["resume_count"] != 1 or \
+            hygiene["transfer_guard"] != "disallow" or hygiene["compiles_post_grace"] or hygiene["violations"]:
         resume.fail(f"report {report}")
     gap, counts, backend = parallel_check(resume, control_steps, stop + 1, last, TRAIN_CLI_LOSS_RTOL)
     if parallel_wait(explain) != 0:
@@ -3992,8 +4195,8 @@ def phase_parallel(card: str, workdir: str, control_steps: dict, start) -> dict:
     if missing or "sharding preset: fsdp" not in explain.out():
         explain.fail(f"parameters missing from the dump: {missing[:5]}")
     numbers["dp"] = train_numbers(resume, workdir, "dp resumed, world 1", phase="parallel")
-    log(f"[parallel] (b) --auto_resume under dp (torchrun, 1 rank, backend {backend}) from the fsdp run's step "
-        f"{stop}: exit 0 at step {last}, "
+    log(f"[parallel] (b) --auto_resume --strict_mode under dp (torchrun, 1 rank, backend {backend}) from the fsdp "
+        f"run's step {stop}: exit 0 at step {last}, jit_hygiene {json.dumps(hygiene)}, "
         f"relative loss gaps to the control per step {gap_text(resume, control_steps)} (tol "
         f"{TRAIN_CLI_LOSS_RTOL:g}), launches {counts}; "
         f"--explain_sharding: {len(names)} parameters, each listed")
@@ -5284,6 +5487,10 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
 
     phase_build()
+    cache_dir = tempfile.mkdtemp(prefix="kernel-cache-")
+    atexit.register(shutil.rmtree, cache_dir, True)
+    boots = CacheBoots(cache_dir)
+    gloo_guard = GlooGuard()
     errs = phase_kernels(gen)
     errs.update(phase_fused_kernels(gen))
     errs.update(phase_prefetch_kernels(gen))
@@ -5306,7 +5513,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_serving_front(rng, card)
     torch.cuda.empty_cache()
-    phase_serve_cli(rng)
+    phase_serve_cli(rng, cache_dir, boots)
     torch.cuda.empty_cache()
     eval_counts, gates_counts, eval_flow = phase_evaluate()
     torch.cuda.empty_cache()
@@ -5339,7 +5546,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_spatial_serving(rng, card)
     torch.cuda.empty_cache()
-    phase_train_cli(card, beside=phase_mixed_converge)
+    phase_train_cli(card, cache_dir, beside=phase_mixed_converge, gloo_guard=gloo_guard)
     torch.cuda.empty_cache()
     phase_model_options(rng, card)
     torch.cuda.empty_cache()

@@ -43,9 +43,13 @@ flight_recorder.p<k>.json beside rank 0's files. `torchrun` turns any
 non-zero exit of a rank into its own failure code: read each rank's run
 report (or exit code, when the ranks are started directly) for `train`'s.
 `--explain_sharding` prints every parameter's placement and exits without
-training. The JAX flags of what the port does not run yet exit 2:
-`--strict_mode`, `--recompile_grace` other than 2 and
-`--compilation_cache_dir`.
+training. `--strict_mode` runs the loop under the sync guard on the card
+(an implicit device-host sync raises at its line) and fails the run on a
+kernel build after `--recompile_grace` steps outside validation and
+checkpoint windows (utils/jit_hygiene.py); under a gloo process group on
+the card it exits 2 (gloo moves CUDA tensors through the host and syncs
+on every collective: use NCCL). `--compilation_cache_dir DIR` builds and
+loads every rank's kernel libraries under DIR (serving/aot.py).
 
 `serve` boots a `StereoService`, warms every (bucket, batch) and serves the
 HTTP front until SIGTERM or Ctrl-C, which drain the backlog and exit 0;
@@ -59,9 +63,12 @@ row bands across every visible card from one process (serving/engine.py,
 JAX's (1, n) mesh), and on the plain engine with one visible card (or `--device
 cpu`), as JAX's engine does on one device; /healthz's `sharding` says
 which. With `--replicas` other than 1 it exits 2 (JAX's `--replicas`
-requires dp). The AOT-cache and audit
-flags (`--aot_cache_dir`, `--require_cache_hit`, `--audit`) are not
-ported yet and exit 2.
+requires dp). `--aot_cache_dir DIR` boots from the kernel-library cache
+under DIR (serving/aot.py: built libraries are loaded, missing or damaged
+ones built there), and `--warmup_only --require_cache_hit` is its proof,
+with JAX's exit codes: 2 without `--warmup_only`, 3 when the cache is
+disabled or any library missed it. `--audit` is not ported yet and exits
+2.
 
 `fsck ROOT [--quarantine]` and `check-report PATH [--selftest]` are the
 JAX package's `scripts/fsck_checkpoints.py` and
@@ -87,7 +94,6 @@ from typing import List, Optional
 from raft_stereo_tpu_torch.config import (
     MODALITIES,
     SHARDING_PRESETS,
-    UNPORTED_TRAIN_DEFAULTS,
     AugmentConfig,
     RAFTStereoConfig,
     TrainConfig,
@@ -340,8 +346,13 @@ def _train_parser() -> argparse.ArgumentParser:
                    help="hard-fail once this fraction of attempted samples has been dropped")
     p.add_argument("--no_signal_handlers", action="store_true",
                    help="disable graceful SIGTERM/SIGINT preemption handling")
-    p.add_argument("--strict_mode", action="store_true", help="not ported yet (exits 2)")
-    p.add_argument("--recompile_grace", type=int, default=2, help="not ported yet: values other than 2 exit 2")
+    p.add_argument("--strict_mode", action="store_true",
+                   help="run the training loop under the sync guard on the card (torch.cuda.set_sync_debug_mode"
+                   "('error'): an implicit device-host sync raises at its line; the named fetch, checkpoint and "
+                   "validation windows stay legal) and fail on any kernel build after --recompile_grace steps")
+    p.add_argument("--recompile_grace", type=int, default=2,
+                   help="steps from the start during which kernel builds are expected; afterwards a build outside "
+                   "a whitelisted phase fails a --strict_mode run")
     p.add_argument("--async_checkpoint", action="store_true",
                    help="write and commit checkpoints on a background thread (the snapshot stays on the step; "
                    "one commit in flight)")
@@ -351,7 +362,10 @@ def _train_parser() -> argparse.ArgumentParser:
                    help="serve Prometheus /metrics of the training loop on this port (rank 0; 0 disables)")
     p.add_argument("--flight_recorder_events", type=int, default=256,
                    help="flight-recorder ring capacity (runs/flight_recorder.json on every exit; 0 disables)")
-    p.add_argument("--compilation_cache_dir", default=None, metavar="DIR", help="not ported yet (exits 2)")
+    p.add_argument("--compilation_cache_dir", default=None, metavar="DIR",
+                   help="kernel-library cache: every rank builds and loads its CUDA kernels under "
+                   "DIR/<toolchain and card fingerprint>/, so a restart or --auto_resume relaunch builds nothing "
+                   "(the serving analogue is `serve --aot_cache_dir`)")
     p.add_argument("--device", default="cuda", help="torch device of the model (default: the card)")
     _add_model_args(p)
     return p
@@ -396,10 +410,17 @@ def run_training(trainer, loader, metrics_logger=None, validate_fn=None) -> int:
     return rr.EXIT_PREEMPTED if report.get("preempted") else rr.EXIT_OK
 
 
-def _unported_train_flags(args) -> List[str]:
-    given = {"strict_mode": args.strict_mode, "recompile_grace": args.recompile_grace,
-             "compilation_cache_dir": args.compilation_cache_dir}
-    return [f"--{k} {v}" for k, v in given.items() if v != UNPORTED_TRAIN_DEFAULTS[k]]
+def strict_mode_problem(strict: bool, device: str) -> Optional[str]:
+    """Why `--strict_mode` cannot run in this process group, or None: on
+    the card under gloo, whose collectives copy CUDA tensors through the
+    host and synchronize on every call, which the sync guard refuses."""
+    import torch
+    import torch.distributed as dist
+
+    if strict and torch.device(device).type == "cuda" and dist.is_initialized() and dist.get_backend() == "gloo":
+        return ("--strict_mode on the card needs the NCCL backend: this process group's backend is gloo, whose "
+                "collectives on CUDA tensors copy through the host and synchronize on every call")
+    return None
 
 
 def cmd_train(argv: List[str]) -> int:
@@ -407,10 +428,6 @@ def cmd_train(argv: List[str]) -> int:
 
     from raft_stereo_tpu_torch.utils import run_report as rr
 
-    unported = _unported_train_flags(args)
-    if unported:
-        print(f"train: not ported yet: {', '.join(unported)}", file=sys.stderr)
-        return rr.EXIT_USAGE
     try:
         config = _train_config_from_args(args)
     except Exception as e:
@@ -427,12 +444,19 @@ def cmd_train(argv: List[str]) -> int:
     distributed.init_multihost(device=torch.device(args.device).type)
     try:
         from raft_stereo_tpu_torch.parallel.mesh import make_mesh
+        from raft_stereo_tpu_torch.serving.aot import maybe_cache
 
         try:
             make_mesh(config.mesh_shape)
         except ValueError as e:
             print(f"train: {e}", file=sys.stderr)
             return rr.EXIT_USAGE
+        problem = strict_mode_problem(config.strict_mode, args.device)
+        if problem is not None:
+            print(f"train: {problem}", file=sys.stderr)
+            return rr.EXIT_USAGE
+        # Before any kernel loads: the process's build directory.
+        cache = maybe_cache(config.compilation_cache_dir)
         if args.explain_sharding:
             # Dry run: build the trainer and print every parameter's
             # placement, touching no dataset and no checkpoint.
@@ -444,6 +468,9 @@ def cmd_train(argv: List[str]) -> int:
             return 0
         code = _run_train(args, config)
         _log_launches("train")
+        if cache is not None:
+            logging.getLogger(__name__).info("train kernel cache: %s", json.dumps(cache.stats(), sort_keys=True))
+            cache.close()
         return code
     finally:
         distributed.shutdown()
@@ -746,20 +773,19 @@ def cmd_serve(argv: List[str]) -> int:
                    "a band of rows per card, halos and norm sums exchanged card to card; with one visible card "
                    "(or --device cpu) the plain engine serves; /healthz's sharding says which. --replicas "
                    "requires dp")
-    # The JAX CLI's flags the port does not have yet: refused, never ignored.
-    p.add_argument("--aot_cache_dir", default=None, help="not ported yet (exits 2)")
-    p.add_argument("--require_cache_hit", action="store_true", help="not ported yet (exits 2)")
+    p.add_argument("--aot_cache_dir", default=None, metavar="DIR",
+                   help="kernel-library cache: the boot loads the CUDA kernels built under DIR/<toolchain and card "
+                   "fingerprint>/ and builds the missing (or damaged) ones there, so a second boot builds nothing")
+    p.add_argument("--require_cache_hit", action="store_true",
+                   help="with --warmup_only: exit 3 unless every kernel library of the boot came from the cache "
+                   "(the CI form of the cached-boot proof)")
+    # The JAX CLI's flag the port does not have yet: refused, never ignored.
     p.add_argument("--audit", action="store_true", help="not ported yet (exits 2)")
     _add_model_args(p)
     args = p.parse_args(argv)
 
-    unported = [flag for flag, given in (
-        ("--aot_cache_dir", args.aot_cache_dir is not None),
-        ("--require_cache_hit", args.require_cache_hit),
-        ("--audit", args.audit),
-    ) if given]
-    if unported:
-        print(f"serve: not ported yet: {', '.join(unported)}", file=sys.stderr)
+    if args.audit:
+        print("serve: not ported yet: --audit", file=sys.stderr)
         return 2
     if args.reload_ckpt is not None:
         return _reload_checkpoint_client(args.host, args.port, args.reload_ckpt)
@@ -812,13 +838,28 @@ def cmd_serve(argv: List[str]) -> int:
         drain_timeout_s=args.drain_timeout_s,
         log_dir=args.log_dir,
         flight_recorder_events=args.flight_recorder_events,
+        aot_cache_dir=args.aot_cache_dir,
     )
+    if args.require_cache_hit and not args.warmup_only:
+        print("--require_cache_hit only makes sense with --warmup_only", file=sys.stderr)
+        return 2
     _cuda_flags(args.device)  # process-wide, set once at boot, never per request
     service = StereoService(config, device=args.device).start()
-    print(json.dumps({"warmup": service.warm_summary, "boot": service.boot_block(),
-                      "device": str(service.engine.device)}, default=str), flush=True)
+    boot = service.boot_block()
+    print(json.dumps({"warmup": service.warm_summary, "boot": boot, "device": str(service.engine.device)},
+                     default=str), flush=True)
     if args.warmup_only:
         service.close()
+        if args.require_cache_hit:
+            if not boot["cache_enabled"]:
+                print("--require_cache_hit: the kernel cache is disabled (no --aot_cache_dir, or the directory "
+                      "could not be used)", file=sys.stderr)
+                return 3
+            if boot["cache_misses"] > 0:
+                print(f"--require_cache_hit: {boot['cache_misses']} kernel librar"
+                      f"{'y' if boot['cache_misses'] == 1 else 'ies'} missed the cache (built from source)",
+                      file=sys.stderr)
+                return 3
         return 0
     serve_http(service, config.host, config.port)
     return 0

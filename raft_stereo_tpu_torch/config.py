@@ -21,20 +21,24 @@ reference's realtime model, with `n_downsample=3`, `n_gru_layers=2`,
 `TrainConfig` is the JAX package's whole training config (with
 `CameraConfig` and `AugmentConfig`), defaults and validation included,
 plus the port's own check of a spatial axis above 1 (the band rule,
-`band_shape_problem`, under every preset, fsdp included). The
-fields the training loop does not act on keep their JAX names and
-defaults, and the `train` command line refuses any other value with exit
-2 (`UNPORTED_TRAIN_DEFAULTS`): `strict_mode`, `recompile_grace` and
-`compilation_cache_dir`.
+`band_shape_problem`, under every preset, fsdp included). `strict_mode`
+and `recompile_grace` drive the loop's jit hygiene
+(utils/jit_hygiene.py: the sync guard on a card and the kernel-build
+monitor), and `compilation_cache_dir` is the kernel-library cache
+(serving/aot.py) that every rank's builds use, the training side of
+`ServeConfig.aot_cache_dir`.
 
 The `"alt"` correlation strategy and `sequential_encoder` (with
 `models.raft_stereo.sequential_batch_forward`) are ported; `ServeConfig`
 has the fleet's `replicas` and `auto_respawn`, and `FrontierConfig` is the
 JAX package's, field for field (the front tier, serving/frontier.py).
 
+`ServeConfig.aot_cache_dir` is the kernel-library cache of a boot
+(serving/aot.py), JAX's AOT executable cache's counterpart.
+
 Not yet ported, so not present: `encoder_s2d` (a TPU layout; the port
-computes its values with the direct convs), the AOT executable cache
-(`aot_cache_dir`) and the HLO audit (`hlo_audit`).
+computes its values with the direct convs) and the HLO audit
+(`hlo_audit`).
 """
 
 from __future__ import annotations
@@ -256,9 +260,10 @@ class ServeConfig:
 
     Every (bucket, batch) combination is warmed at boot; admission maps a
     request onto the smallest bucket that fits. Refinement runs in chunks
-    of `chunk_iters`; `max_iters` is rounded up to whole chunks. The JAX
-    package's AOT-cache and HLO-audit fields are not ported (the `serve`
-    flags for them exit 2). `sharding_rules` is JAX's: every preset but dp
+    of `chunk_iters`; `max_iters` is rounded up to whole chunks.
+    `aot_cache_dir` keeps the boot's kernel libraries (serving/aot.py); the
+    JAX package's HLO audit is not ported (`serve --audit` exits 2).
+    `sharding_rules` is JAX's: every preset but dp
     (fsdp included) maps to a row-band mesh over the visible devices, and
     with one visible device the plain engine serves (as JAX's does;
     /healthz says so).
@@ -321,6 +326,10 @@ class ServeConfig:
     log_dir: Optional[str] = None
     # Flight-recorder ring capacity (spans and events); 0 disables it.
     flight_recorder_events: int = 512
+    # The kernel-library cache (serving/aot.py): the boot loads the
+    # libraries built under <aot_cache_dir>/<fingerprint>/ and builds the
+    # missing ones there. None keeps the package's _build/.
+    aot_cache_dir: Optional[str] = None
 
     def __post_init__(self):
         if not self.buckets:
@@ -691,8 +700,9 @@ class TrainConfig:
     # Consecutive non-finite steps before skip escalates to an error or
     # rollback restores the last good checkpoint.
     nan_patience: int = 10
-    # Host-side detection cadence in steps; None resolves to 1 (the port's
-    # step reads its loss and norm on the host every step anyway).
+    # Host-side detection cadence in steps: the steps' values wait on the
+    # device and are fetched in one copy every this many steps. None
+    # resolves to 1.
     nan_check_every: Optional[int] = None
     # Pod coordination cadence in steps across ranks
     # (parallel/coordination.py); None resolves to nan_check_every.
@@ -714,7 +724,10 @@ class TrainConfig:
     # checkpoint.
     handle_signals: bool = True
 
-    # --- the JAX package's jit hygiene: not ported (no XLA compiles) ---
+    # --- jit hygiene (utils/jit_hygiene.py) ---
+    # Run the loop under the sync guard on a card (an implicit device-host
+    # sync raises at its line; the named windows stay legal) and fail on
+    # any kernel build after `recompile_grace` steps outside a whitelist.
     strict_mode: bool = False
     recompile_grace: int = 2
 
@@ -733,7 +746,8 @@ class TrainConfig:
     # Flight-recorder ring capacity (obs/trace.py): dumped as
     # <log_dir>/flight_recorder.json on every fit() exit path.
     flight_recorder_events: int = 256
-    # The JAX package's persistent XLA compilation cache: not ported.
+    # The kernel-library cache (serving/aot.py) every rank's builds use;
+    # None keeps the package's _build/.
     compilation_cache_dir: Optional[str] = None
 
     def __post_init__(self):
@@ -774,21 +788,11 @@ class TrainConfig:
             raise ValueError(f"flight_recorder_events must be >= 0, got {self.flight_recorder_events}")
 
 
-# The fields the port's training loop does not act on yet, with the one
-# value it runs (the JAX default): the `train` command line refuses any
-# other with exit 2.
-UNPORTED_TRAIN_DEFAULTS = {
-    "strict_mode": False,
-    "recompile_grace": 2,
-    "compilation_cache_dir": None,
-}
-
-
 def finalize_train_config(config: TrainConfig) -> TrainConfig:
     """Resolve `nan_check_every` None to 1 (the JAX package resolves it per
-    backend; the port's step already reads its loss on the host every
-    step) and `coord_interval` None to `nan_check_every`, as JAX does.
-    Idempotent."""
+    backend: 1 on the CPU, 25 on a TPU; the port drains every step, so
+    each step's line is logged as it ends) and `coord_interval` None to
+    `nan_check_every`, as JAX does. Idempotent."""
     if config.nan_check_every is not None and config.coord_interval is not None:
         return config
     nan_check = config.nan_check_every if config.nan_check_every is not None else 1

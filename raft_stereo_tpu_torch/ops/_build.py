@@ -2,12 +2,29 @@
 
 Each `csrc/<name>.cu` file is compiled by `nvcc` into its own shared library
 with a plain C interface and loaded with `ctypes` — no PyTorch headers, so a
-build takes seconds. Libraries land in `raft_stereo_tpu_torch/_build/`
-(git-ignored), named by a hash of the source, the shared headers
-(`csrc/*.cuh`) and the flags, so an edited source or header is rebuilt and
-an unchanged one is reused. The build happens at first
-use, never at import; `build(names)` compiles several sources in parallel,
-one `nvcc` process each. Each source has its own flags (`SOURCE_FLAGS`).
+build takes seconds. Libraries land in the build directory, by default
+`raft_stereo_tpu_torch/_build/` (git-ignored), named by a hash of the
+source, the shared headers (`csrc/*.cuh`) and the flags, so an edited
+source or header is rebuilt and an unchanged one is reused. The build
+happens at first use, never at import; `build(names)` compiles several
+sources in parallel, one `nvcc` process each. Each source has its own
+flags (`SOURCE_FLAGS`). Every write goes to a temporary file first and
+lands with `os.replace`, so several processes (the ranks of one machine)
+may share a directory.
+
+The build directory is set once per process, before the first library
+loads (`set_build_dir`; serving/aot.py points it at a kernel cache).
+Beside each library lies `<lib>.sha256`, the digest of its bytes: a
+library whose bytes or digest do not match, or that does not load, is
+removed with a warning and built again (`evictions`), so a damaged
+directory costs a build and never a run.
+
+Two kinds of listener observe the directory (utils/jit_hygiene.py,
+serving/aot.py): compile listeners get `(name, seconds)` for each `nvcc`
+run, the port's counterpart of JAX's backend-compile event; load
+listeners get `(name, hit)` for each library a process makes ready, `hit`
+when it was found built. Loading a library already built is not a
+compile.
 
 No fallback: a missing `nvcc` or a failed compile raises.
 
@@ -24,15 +41,18 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import logging
 import os
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, List
 
 import torch
+
+logger = logging.getLogger(__name__)
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -74,9 +94,13 @@ DTYPE_FLAGS = {torch.float32: 0, torch.bfloat16: 1}
 # kernel plan checks its shared bytes against.
 MAX_SHARED_BYTES = 232448
 
-_lock = threading.Lock()
+# RLock: `load` builds while holding it, and `set_build_dir` takes it too.
+_lock = threading.RLock()
 _libs: Dict[str, ctypes.CDLL] = {}
-
+_compile_listeners: List[Callable[[str, float], None]] = []
+_load_listeners: List[Callable[[str, bool], None]] = []
+# Libraries removed because their bytes, digest or load failed.
+evictions = 0
 
 
 # Launch counters are shared by every thread that launches: a fleet's
@@ -111,6 +135,58 @@ def nvcc_command(nvcc: str, name: str, out: Path) -> list:
     return [nvcc, *nvcc_flags(name), "-o", str(out), str(CSRC_DIR / f"{name}.cu")]
 
 
+def set_build_dir(path) -> Path:
+    """Point every later build and load of this process at `path`. Before
+    the first library loads it may move freely; after that, only to the
+    directory it already names (a loaded library cannot move), else
+    RuntimeError."""
+    global BUILD_DIR
+    path = Path(path).resolve()
+    with _lock:
+        if _libs and path != Path(BUILD_DIR).resolve():
+            raise RuntimeError(f"the kernel build directory is {BUILD_DIR} and {sorted(_libs)} loaded from it; "
+                               f"it cannot move to {path} in this process")
+        BUILD_DIR = path
+    return path
+
+
+def add_compile_listener(fn: Callable[[str, float], None]) -> None:
+    with _lock:
+        _compile_listeners.append(fn)
+
+
+def remove_compile_listener(fn: Callable[[str, float], None]) -> None:
+    with _lock:
+        if fn in _compile_listeners:
+            _compile_listeners.remove(fn)
+
+
+def add_load_listener(fn: Callable[[str, bool], None]) -> None:
+    with _lock:
+        _load_listeners.append(fn)
+
+
+def remove_load_listener(fn: Callable[[str, bool], None]) -> None:
+    with _lock:
+        if fn in _load_listeners:
+            _load_listeners.remove(fn)
+
+
+def _notify(listeners, *args) -> None:
+    with _lock:
+        targets = list(listeners)
+    for fn in targets:
+        fn(*args)
+
+
+def _digest_file(so: Path) -> Path:
+    return so.with_suffix(".sha256")
+
+
+def _sha256(path: Path) -> str:
+    return hashlib.sha256(path.read_bytes()).hexdigest()
+
+
 def _target(name: str) -> Path:
     """The library of `csrc/<name>.cu`, named by a hash of its source, the
     shared headers and its flags."""
@@ -143,25 +219,78 @@ def build(names: Iterable[str]) -> Dict[str, float]:
     for name, (so, tmp, proc) in procs.items():
         out, _ = proc.communicate()
         times[name] = time.perf_counter() - t0
-        so.with_suffix(".log").write_text(out)
+        _replace_text(so.with_suffix(".log"), out)
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{out}")
             continue
+        # The digest lands first: a reader that finds the library finds
+        # its digest.
+        _replace_text(_digest_file(so), _sha256(tmp))
         os.replace(tmp, so)
+        _notify(_compile_listeners, name, times[name])
     if errors:
         raise RuntimeError("\n".join(errors))
     return times
 
 
+def _replace_text(path: Path, text: str) -> None:
+    tmp = path.with_name(f"{path.name}.tmp{os.getpid()}")
+    tmp.write_text(text)
+    os.replace(tmp, path)
+
+
+def _evict(name: str, so: Path, why: str) -> None:
+    """Remove a library that cannot be trusted, loudly; the caller builds
+    it again."""
+    global evictions
+    for path in (so, _digest_file(so)):
+        try:
+            path.unlink()
+        except FileNotFoundError:
+            pass
+    with _lock:
+        evictions += 1
+    logger.warning("kernel library %s evicted from %s (%s): building it again", name, so.parent, why)
+
+
+def _open_built(name: str, so: Path):
+    """The loaded library at `so` if it is there, its digest matches and
+    it loads; else None, after evicting whatever was there."""
+    if not so.exists():
+        return None
+    digest = _digest_file(so)
+    try:
+        want = digest.read_text().strip()
+        got = _sha256(so)
+    except OSError as exc:
+        _evict(name, so, f"unreadable: {exc!r}")
+        return None
+    if got != want:
+        _evict(name, so, f"sha256 {got[:16]} does not match its digest {want[:16]}")
+        return None
+    try:
+        return ctypes.CDLL(str(so))
+    except OSError as exc:
+        _evict(name, so, f"does not load: {exc}")
+        return None
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built first if needed."""
+    """The loaded library of `csrc/<name>.cu`, built first if needed (or
+    if what was built cannot be trusted)."""
     with _lock:
         lib = _libs.get(name)
-        if lib is None:
+        if lib is not None:
+            return lib
+        so = _target(name)
+        lib = _open_built(name, so)
+        hit = lib is not None
+        if not hit:
             build([name])
-            lib = ctypes.CDLL(str(_target(name)))
-            _libs[name] = lib
-        return lib
+            lib = ctypes.CDLL(str(so))
+        _libs[name] = lib
+    _notify(_load_listeners, name, hit)
+    return lib
 
 
 def build_log(name: str) -> str:

@@ -116,13 +116,18 @@ def shard_batch(mesh: Mesh, batch: Mapping[str, Any], device="cpu",
     global batch is the data groups' rows in order); on a spatial axis
     above 1 this rank keeps the image rows [k*H/s, (k+1)*H/s) of them, k
     its spatial coordinate (`spatial_index`, default the DeviceMesh's).
-    Nothing is communicated; non-array entries (paths) are dropped."""
+    Nothing is communicated; non-array entries (paths) are dropped. A host
+    batch reaches a card from pinned memory without blocking the host (the
+    step makes no sync); a batch already on the device stays there."""
     k = mesh.coordinate(SPATIAL_AXIS) if spatial_index is None else spatial_index
+    device = torch.device(device)
     out = {}
     for key in ("image1", "image2", "flow", "valid"):
         t = torch.as_tensor(batch[key])
         if mesh.spatial > 1:
             rows = t.shape[1] // mesh.spatial
             t = t[:, k * rows:(k + 1) * rows]
+        if device.type == "cuda" and t.device.type == "cpu":
+            t = t.to(torch.float32).contiguous().pin_memory().to(device, non_blocking=True)
         out[key] = t.to(device=device, dtype=torch.float32)
     return out

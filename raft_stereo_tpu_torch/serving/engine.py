@@ -44,6 +44,15 @@ batcher counts it on the breaker. A bucket off the band rule
 (`config.band_shape_problem`) is refused at boot. With one device JAX
 serves unsharded, and so does this engine, and `sharding` says so.
 
+Hygiene and the kernel cache, as JAX's engine has them: the engine runs
+one `JitHygiene(strict=False, recompile_grace=0)` (utils/jit_hygiene.py;
+a fleet passes the one its replicas share) and warms inside its
+`whitelist("warmup")`, so the kernel builds of the boot are counted and
+excused, and a build after the warm-up (a path the warm-up missed) is a
+counted violation, never a crash. `aot_cache` is the boot's kernel cache
+(serving/aot.py) or None; the warm-up summary carries its stats and the
+boot's build count (`compiles_total`).
+
 `swap_variables` hot-swaps the weights: the candidate state dict is checked
 key by key against the served model (shape and dtype) before anything is
 touched, then copied into the served tensors in place under the run lock,
@@ -72,6 +81,7 @@ from raft_stereo_tpu_torch.models.init import build_model
 from raft_stereo_tpu_torch.models.raft_stereo import RAFTStereo
 from raft_stereo_tpu_torch.parallel import spatial
 from raft_stereo_tpu_torch.serving.lifecycle import CheckpointMismatchError, ServingLifecycle
+from raft_stereo_tpu_torch.utils.jit_hygiene import JitHygiene
 from raft_stereo_tpu_torch.utils.resilience import HangWatchdog
 
 
@@ -215,8 +225,16 @@ class AnytimeEngine:
 
     def __init__(self, config: ServeConfig, model: Optional[RAFTStereo] = None,
                  device="cuda", seed: int = 0, lifecycle: Optional[ServingLifecycle] = None,
-                 devices: Optional[Sequence] = None):
+                 devices: Optional[Sequence] = None, hygiene: Optional[JitHygiene] = None, aot_cache=None):
         self.config = config
+        # An engine's own hygiene is stopped by close(); a shared one by
+        # its owner (the fleet).
+        self._owns_hygiene = hygiene is None
+        if hygiene is None:
+            hygiene = JitHygiene(strict=False, recompile_grace=0)
+            hygiene.monitor.label = "serving"
+        self.hygiene = hygiene
+        self.aot_cache = aot_cache
         banded = band_devices(config, device, devices)
         self.device = banded[0] if banded else torch.device(devices[0] if devices else device)
         self.lifecycle = lifecycle if lifecycle is not None else ServingLifecycle()
@@ -246,6 +264,8 @@ class AnytimeEngine:
             self._watchdog.close()
         if self._bands is not None:
             self._bands.close()
+        if self._owns_hygiene:
+            self.hygiene.monitor.stop()
 
     def _sync(self) -> None:
         for d in (self._bands.devices if self._bands is not None else [self.device]):
@@ -286,8 +306,10 @@ class AnytimeEngine:
         """Run prelude (and the flow_init prelude with streams), two chunks
         and finalize for every (bucket, batch); the faster chunk's wall
         time is that combo's estimate (the deadline check's, and the
-        batcher's choice of batch size)."""
-        with self.on_device():
+        batcher's choice of batch size). Inside the hygiene's warm-up
+        window: the kernel builds of the boot are counted there."""
+        self.hygiene.monitor.start()
+        with self.on_device(), self.hygiene.whitelist("warmup"):
             return self._warm()
 
     def _warm(self) -> Dict[str, object]:
@@ -317,7 +339,9 @@ class AnytimeEngine:
         self._warmed = True
         return {
             "combos": len(cfg.buckets) * len(cfg.batch_sizes),
+            "compiles_total": self.hygiene.monitor.stats()["compiles_total"],
             "warmup_seconds": time.monotonic() - t_start,
+            "aot_cache": self.aot_cache.stats() if self.aot_cache is not None else {"enabled": False},
             "sharding": self.sharding,
             "chunk_est_ms": {f"{hw[0]}x{hw[1]}/b{b}": s * 1e3 for (hw, b), s in self._chunk_est_s.items()},
             "prelude_ms": {f"{hw[0]}x{hw[1]}/b{b}": s * 1e3 for (hw, b), s in self.prelude_s.items()},

@@ -45,9 +45,11 @@ reports the card's allocated memory before the boot and after the old
 engine is released (a wedged call still running on the old engine keeps
 its memory until it returns).
 
-The JAX fleet also shares one `JitHygiene` recompile monitor across its
-replicas; the port compiles nothing at serving time (its kernels are built
-from source at first use), so it has none, and no AOT cache.
+As in JAX, the fleet shares one `JitHygiene` (utils/jit_hygiene.py) and
+one kernel cache (serving/aot.py) among its replicas, and a respawned
+replica boots under both: the build monitor's listener is process-wide,
+so one monitor counts every replica's builds, and a respawn's warm-up
+builds nothing (its libraries are loaded already).
 
 `FleetLifecycle` derives the service verdict from the replica breakers:
 `healthy` when every replica is, `failed` when every replica is, `degraded`
@@ -73,6 +75,7 @@ from raft_stereo_tpu_torch.models.init import build_model
 from raft_stereo_tpu_torch.models.raft_stereo import RAFTStereo
 from raft_stereo_tpu_torch.serving.engine import AnytimeEngine, BatchResult
 from raft_stereo_tpu_torch.serving.lifecycle import ServingLifecycle
+from raft_stereo_tpu_torch.utils.jit_hygiene import JitHygiene
 
 logger = logging.getLogger(__name__)
 
@@ -244,10 +247,11 @@ class EngineFleet:
 
     `model` is the `RAFTStereo` whose weights every replica copies (None:
     seeded random weights from `seed`); `devices` one torch device per
-    replica (None: one card each)."""
+    replica (None: one card each); `aot_cache` the boot's kernel cache
+    (serving/aot.py) or None."""
 
     def __init__(self, config: ServeConfig, model: Optional[RAFTStereo] = None,
-                 devices: Optional[Sequence] = None, seed: int = 0):
+                 devices: Optional[Sequence] = None, seed: int = 0, aot_cache=None):
         if config.replicas < 2:
             raise ValueError("EngineFleet needs replicas >= 2; the single-engine service is the replicas=1 path")
         if devices is None:
@@ -259,10 +263,13 @@ class EngineFleet:
         if model is None:
             model = build_model(config.model, seed=seed, device="cpu")
         source = {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+        self.hygiene = JitHygiene(strict=False, recompile_grace=0)
+        self.hygiene.monitor.label = "serving-fleet"
+        self.aot_cache = aot_cache
         self.replicas: List[_Replica] = []
         for i in range(config.replicas):
             engine = AnytimeEngine(config, self._model_on(devices[i], source), device=devices[i],
-                                   lifecycle=self._new_lifecycle(i))
+                                   lifecycle=self._new_lifecycle(i), hygiene=self.hygiene, aot_cache=aot_cache)
             self.replicas.append(_Replica(i, devices[i], engine))
         del source
         self.lifecycle = FleetLifecycle([r.lifecycle for r in self.replicas])
@@ -346,7 +353,10 @@ class EngineFleet:
         per = [r.engine.warm() for r in self.replicas]
         return {
             "combos": per[0]["combos"],
+            "compiles_total": self.hygiene.monitor.stats()["compiles_total"],
             "warmup_seconds": time.monotonic() - t0,
+            # The shared cache's counters span every replica's warm-up.
+            "aot_cache": self.aot_cache.stats() if self.aot_cache is not None else {"enabled": False},
             "replicas": len(self.replicas),
             "devices": [str(r.device) for r in self.replicas],
             "chunk_est_ms": per[0]["chunk_est_ms"],
@@ -373,6 +383,7 @@ class EngineFleet:
         self.join_run_threads(thread_join_timeout_s)
         for r in self.replicas:
             r.engine.close()
+        self.hygiene.monitor.stop()
 
     def chunk_estimate_s(self, bucket: Tuple[int, int], batch: int) -> float:
         """The slowest replica's warmed chunk time over the number of
@@ -521,7 +532,7 @@ class EngineFleet:
         lifecycle.on_transition = old_engine.lifecycle.on_transition
         state = {k: v.detach().to("cpu", copy=True) for k, v in self.variables.items()}
         engine = AnytimeEngine(self.config, self._model_on(rep.device, state), device=rep.device,
-                               lifecycle=lifecycle)
+                               lifecycle=lifecycle, hygiene=self.hygiene, aot_cache=self.aot_cache)
         engine.tracer = old_engine.tracer
         engine.warm()
         engine.swap_variables(self.variables)

@@ -46,6 +46,13 @@ breaker per replica aggregated into the service's state, failover requeue,
 and a rolling POST /reload. /healthz then carries every replica's state.
 `replicas=1` is the single engine, unchanged.
 
+Boot from the kernel cache (`ServeConfig.aot_cache_dir`, serving/aot.py):
+the service makes the process's cache before anything loads, hands it to
+its engine (or fleet), and `boot_block()` reports its real numbers: hits,
+misses, entries, evictions and the boot's `nvcc` builds
+(`compiles_total`; 0 on a boot whose libraries were all cached). /healthz
+carries the engine's `jit_hygiene` block, as JAX's does.
+
 The service never moves work to the CPU: on "cuda" every batch runs the
 model's kernels on the card, and a batch whose kernel fails to build or
 launch fails with the error and counts against the breaker.
@@ -117,8 +124,13 @@ class StereoService:
 
     def __init__(self, config: ServeConfig, model: Optional[RAFTStereo] = None,
                  device="cuda", seed: int = 0, devices: Optional[Sequence] = None):
+        from raft_stereo_tpu_torch.serving.aot import maybe_cache
+
         self.config = config
         fleet = config.replicas > 1
+        # Before any kernel loads: the cache sets the process's build
+        # directory (None: the package's _build/).
+        self.aot_cache = maybe_cache(config.aot_cache_dir)
         if model is None and config.restore_ckpt:
             from raft_stereo_tpu_torch.models.init import build_model
             from raft_stereo_tpu_torch.utils.checkpoints import load_reference_checkpoint
@@ -132,7 +144,7 @@ class StereoService:
 
             if devices is None and torch.device(device).type != "cuda":
                 raise ValueError(f"replicas={config.replicas} on {device!r}: pass the devices list")
-            self.engine = EngineFleet(config, model, devices=devices, seed=seed)
+            self.engine = EngineFleet(config, model, devices=devices, seed=seed, aot_cache=self.aot_cache)
             self.lifecycle = self.engine.lifecycle
         else:
             self.lifecycle = ServingLifecycle(
@@ -141,7 +153,7 @@ class StereoService:
                 probation=config.breaker_probation,
             )
             self.engine = AnytimeEngine(config, model, device=device, seed=seed, lifecycle=self.lifecycle,
-                                        devices=devices)
+                                        devices=devices, aot_cache=self.aot_cache)
         self.batcher = MicroBatcher(config, self.engine, lifecycle=self.lifecycle)
         self.warm_summary: Optional[Dict[str, object]] = None
         self._started = False
@@ -196,6 +208,8 @@ class StereoService:
             self._started = False
             self.tracer.dump("service_close")
         self.engine.close()
+        if self.aot_cache is not None:
+            self.aot_cache.close()
 
     def drain(self, timeout_s: Optional[float] = None) -> bool:
         """Graceful shutdown: stop admission (new submits get 503), finish
@@ -457,19 +471,20 @@ class StereoService:
                                              streams_active=self.streams_active())
 
     def boot_block(self) -> Dict[str, object]:
-        """The boot numbers, with the JAX package's keys: warmup wall time;
-        the port has no executable cache and compiles nothing at boot (the
-        kernels build from source at first use, inside the warmup), so the
-        cache and compile counts are 0."""
+        """The boot numbers, with the JAX package's keys: warmup wall time,
+        the kernel cache's accounting (entries == hits + misses, the
+        libraries the boot made ready), the boot's kernel builds and the
+        replica respawns."""
         ws = self.warm_summary or {}
+        cache = ws.get("aot_cache") or {"enabled": False}
         return {
             "warmup_seconds": float(ws.get("warmup_seconds", 0.0) or 0.0),
-            "cache_enabled": False,
-            "cache_hits": 0,
-            "cache_misses": 0,
-            "entries": 0,
-            "evictions": 0,
-            "compiles_total": 0,
+            "cache_enabled": bool(cache.get("enabled", False)),
+            "cache_hits": int(cache.get("cache_hits", 0)),
+            "cache_misses": int(cache.get("cache_misses", 0)),
+            "entries": int(cache.get("entries", 0)),
+            "evictions": int(cache.get("evictions", 0)),
+            "compiles_total": int(ws.get("compiles_total", 0)),
             "respawns_total": int(getattr(self.engine, "respawns_total", 0)),
         }
 
@@ -529,6 +544,7 @@ class StereoService:
         report = build_run_report(
             stop_cause="completed",
             final_step=self.engine.batches_total,
+            jit_hygiene=self.engine.hygiene.report(),
             observability=observability_block(self.tracer),
         )
         report["serving"] = {

@@ -50,7 +50,8 @@ def sequence_loss(
     adjusted_gamma = loss_gamma ** (15.0 / (n_predictions - 1)) if n_predictions > 1 else loss_gamma
     # Weight of prediction i: gamma^(n-1-i), in fp32 as the JAX package takes it.
     exponents = torch.arange(n_predictions - 1, -1, -1, dtype=torch.float32, device=preds.device)
-    weights = torch.tensor(adjusted_gamma, dtype=torch.float32, device=preds.device) ** exponents
+    # torch.full, not torch.tensor: filled on the device, no copy from the host.
+    weights = torch.full((), adjusted_gamma, dtype=torch.float32, device=preds.device) ** exponents
 
     abs_err = (preds - gt[None]).abs()
     per_iter = (abs_err * mask_f[None]).sum(dim=tuple(range(1, abs_err.dim()))) / denom

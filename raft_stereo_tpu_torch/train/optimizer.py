@@ -19,11 +19,19 @@ a linear one-cycle schedule over `num_steps + 100`. Where optax and
 
 The schedule is evaluated in fp32 as optax evaluates it, so the learning
 rates agree exactly.
+
+The step reads nothing back from the device, as the JAX step does not:
+the count is a device integer, and the learning rate and both bias
+corrections come from a table on the device with one entry per count,
+computed once on the host with the same fp32 expressions. `step(finite=)`
+is JAX's guarded apply (`jnp.where(finite, new, old)` over params and
+opt_state): where the device flag is false, parameters, both moments and
+the count keep their values.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, Tuple
+from typing import Callable, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -92,16 +100,45 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(next(sums) if is_sharded(t) else torch.sum(t * t) for t in tensors))
 
 
+def step_table(schedule: Schedule, b1: float, b2: float, counts: int) -> np.ndarray:
+    """(counts, 3) fp32: for each count n the update's learning rate
+    schedule(n) and the bias corrections 1 - b1**(n+1), 1 - b2**(n+1) of
+    the update that advances the count to n + 1, formed in fp32 as optax
+    forms them."""
+    table = np.empty((counts, 3), np.float32)
+    for n in range(counts):
+        c = np.float32(n + 1)
+        table[n] = (np.float32(schedule(n)), np.float32(1.0) - np.float32(b1) ** c,
+                    np.float32(1.0) - np.float32(b2) ** c)
+    return table
+
+
+def _upload(table: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host table on `device`; onto a card from pinned memory without
+    blocking the host (no sync)."""
+    t = torch.from_numpy(table)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 class AdamW(torch.optim.Optimizer):
     """optax.chain(clip_by_global_norm(grad_clip_norm), adamw(schedule, b1,
     b2, eps, weight_decay)) over the parameters' `.grad`.
 
     `clip_grads_()` clips the gradients in place and returns their global
-    norm before clipping; `step()` applies one update at the schedule's
-    value for the current count and advances the count. A caller that
-    drops a step calls neither `step()` nor anything else: parameters,
-    moments and count stay as they were, as optax's state does when the
-    JAX step keeps the old state.
+    norm before clipping; `step(finite=None)` applies one update at the
+    schedule's value for the current count and advances the count. With
+    `finite`, a 0-dim bool tensor on the parameters' device, the update
+    lands only where it is true: where it is false, parameters, moments
+    and count keep their values, as optax's state does when the JAX step
+    keeps the old state. Nothing here reads the device: `count` (a
+    property) does, for checkpoints and tests.
+
+    `table_counts` sizes the device table of learning rates and bias
+    corrections (`step_table`) at the start; the host knows a bound of
+    the count (the updates dispatched since it was last set) and extends
+    the table before the count could pass it.
 
     Under fsdp a parameter, its gradient and its moments are DTensors
     sharded alike (the moments are created `zeros_like` the parameter); the
@@ -111,11 +148,33 @@ class AdamW(torch.optim.Optimizer):
     sizes and presets."""
 
     def __init__(self, params, schedule: Schedule, grad_clip_norm: float = 1.0, b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 1e-5):
+                 b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 1e-5, table_counts: int = 1):
         super().__init__(params, dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay))
+        if len(self.param_groups) != 1:
+            raise ValueError("AdamW takes one parameter group (one count, one table)")
         self.schedule = schedule
         self.grad_clip_norm = grad_clip_norm
-        self.count = 0
+        device = self.param_groups[0]["params"][0].device
+        self._count = torch.zeros((), dtype=torch.int64, device=device)
+        self._count_bound = 0  # the count is at most this (a host number)
+        self._table = _upload(step_table(schedule, b1, b2, max(int(table_counts), 1)), device)
+
+    @property
+    def count(self) -> int:
+        """Updates applied so far (reads the device)."""
+        return int(self._count.item())
+
+    @count.setter
+    def count(self, value: int) -> None:
+        self._count.fill_(int(value))
+        self._count_bound = int(value)
+
+    def _reserve(self, counts: int) -> None:
+        """Make the device table cover counts 0 .. counts - 1."""
+        if counts > self._table.shape[0]:
+            group = self.param_groups[0]
+            table = step_table(self.schedule, group["b1"], group["b2"], max(counts, 2 * self._table.shape[0]))
+            self._table = _upload(table, self._table.device)
 
     @torch.no_grad()
     def clip_grads_(self) -> torch.Tensor:
@@ -128,35 +187,40 @@ class AdamW(torch.optim.Optimizer):
         return norm
 
     @torch.no_grad()
-    def step(self, closure=None):
+    def step(self, closure=None, finite: Optional[torch.Tensor] = None):
         if closure is not None:
             raise ValueError("AdamW.step takes no closure")
-        from raft_stereo_tpu_torch.parallel.sharding import is_sharded, local_tensor
+        from raft_stereo_tpu_torch.parallel.sharding import local_tensor
 
-        lr = np.float32(self.schedule(self.count))
-        self.count += 1
-        for group in self.param_groups:
-            b1, b2, eps, wd = group["b1"], group["b2"], group["eps"], group["weight_decay"]
-            # Bias corrections in fp32, as optax forms them from its count.
-            c1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(self.count))
-            c2 = float(np.float32(1.0) - np.float32(b2) ** np.float32(self.count))
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
-                state = self.state[p]
-                if not state:
-                    state["mu"] = torch.zeros_like(p)
-                    state["nu"] = torch.zeros_like(p)
-                g, w = local_tensor(p.grad), local_tensor(p)
-                mu = (1 - b1) * g + b1 * local_tensor(state["mu"])
-                nu = (1 - b2) * (g * g) + b2 * local_tensor(state["nu"])
-                if is_sharded(p):
-                    local_tensor(state["mu"]).copy_(mu)
-                    local_tensor(state["nu"]).copy_(nu)
-                else:
-                    state["mu"], state["nu"] = mu, nu
-                update = (mu / c1) / (torch.sqrt(nu / c2) + eps) + wd * w
-                w.add_(float(-lr) * update)
+        group = self.param_groups[0]
+        b1, b2, eps, wd = group["b1"], group["b2"], group["eps"], group["weight_decay"]
+        self._reserve(self._count_bound + 1)
+        self._count_bound += 1
+        # This count's row of the table: index_select reads the count on
+        # the device (indexing by a tensor in Python would fetch it).
+        lr, c1, c2 = torch.index_select(self._table, 0, self._count.reshape(1))[0]
+        neg_lr = -lr
+        for p in group["params"]:
+            if p.grad is None:
+                continue
+            state = self.state[p]
+            if not state:
+                state["mu"] = torch.zeros_like(p)
+                state["nu"] = torch.zeros_like(p)
+            g, w = local_tensor(p.grad), local_tensor(p)
+            m, v = local_tensor(state["mu"]), local_tensor(state["nu"])
+            mu = (1 - b1) * g + b1 * m
+            nu = (1 - b2) * (g * g) + b2 * v
+            update = (mu / c1) / (torch.sqrt(nu / c2) + eps) + wd * w
+            if finite is None:
+                m.copy_(mu)
+                v.copy_(nu)
+                w.add_(neg_lr * update)
+            else:
+                m.copy_(torch.where(finite, mu, m))
+                v.copy_(torch.where(finite, nu, v))
+                w.copy_(torch.where(finite, w + neg_lr * update, w))
+        self._count.add_(1 if finite is None else finite.to(torch.int64))
         return None
 
     def full_state_dict(self) -> dict:
@@ -189,4 +253,5 @@ def make_optimizer(params, lr: float, num_steps: int, wdecay: float = 1e-5,
     """The recipe's optimizer over `params` and its schedule, one-cycle over
     `num_steps + 100` (reference train_stereo.py:73-80)."""
     schedule = onecycle_linear(lr, num_steps + 100)
-    return AdamW(params, schedule, grad_clip_norm=grad_clip_norm, weight_decay=wdecay), schedule
+    return AdamW(params, schedule, grad_clip_norm=grad_clip_norm, weight_decay=wdecay,
+                 table_counts=num_steps + 101), schedule

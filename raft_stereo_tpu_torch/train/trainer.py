@@ -2,15 +2,22 @@
 port's counterpart of `raft_stereo_tpu/train/trainer.py` (`Trainer`,
 `make_train_step`, `fit`), one process on one device.
 
-`Trainer.train_step` takes one optimizer step on a batch and returns the
-JAX step's metrics dict. Frozen batch norm is structural as in the JAX
-package: `FrozenBatchNorm` never consumes batch statistics, so only its
-scale and bias train. Under `nan_policy` "skip" or "rollback" a non-finite
-loss or gradient norm leaves the parameters and the optimizer's state
-(moments and count) untouched while the trainer's step count advances, as
-the JAX step keeps its old params and opt_state; `learning_rate` in the
-metrics is the schedule at the trainer's step, as in JAX. Under "raise"
-the step raises `NonFiniteLossError` before any update lands.
+The step has the JAX step's contract: `Trainer.dispatch_step` takes one
+optimizer step on a batch and reads nothing back from the device. It
+returns the step's values (epe, 1px, 3px, 5px, live_loss, grad_norm,
+nonfinite) as one device tensor, a `StepResult`, that the host fetches
+later, several steps in one copy (`fetch_steps`). Under `nan_policy`
+"skip" or "rollback" the update is applied on the device where the loss
+and the gradient norm are finite only (the optimizer's guarded apply):
+a non-finite step leaves the parameters and the optimizer's state
+(moments and count) untouched while the trainer's step count advances,
+as the JAX step keeps its old params and opt_state; `learning_rate` is
+the schedule at the trainer's step, as in JAX. Under "raise" there is no
+device guard, as in JAX: the host raises `NonFiniteLossError` when it
+reads the flag. `Trainer.train_step` is "dispatch, fetch, policy" for
+one step and returns the metrics as floats. Frozen batch norm is
+structural as in the JAX package: `FrozenBatchNorm` never consumes batch
+statistics, so only its scale and bias train.
 
 Mixed precision trains as in JAX (`RAFTStereoConfig(corr_implementation=
 "pallas", mixed_precision=True, corr_dtype="bfloat16")`): bf16 compute and
@@ -31,9 +38,19 @@ applied by the next `fit`.
 `NonFiniteGuard` under all three policies, `PreemptionGuard` (SIGTERM:
 final checkpoint, exit 13), `StepWatchdog` (exit 16), the device
 prefetcher, the loader's failure budget, the flight recorder, the async
-checkpoint committer (train/io_spine.py), the `/metrics` sidecar and
-run_report.json on every exit path. Not ported: the jit-hygiene monitor
-(the port compiles no XLA programs).
+checkpoint committer (train/io_spine.py), the `/metrics` sidecar,
+run_report.json on every exit path, and the jit hygiene
+(utils/jit_hygiene.py): the kernel-build monitor always, and under
+`strict_mode` on a card the whole loop under the sync guard. The steps'
+values wait on the device in `pending_flags` and reach the host in one
+fetch inside a named window: the non-finite drain (every
+`nan_check_every` steps, where each fetched step's line is logged and
+its metrics pushed), the pod sync, the end of the run. Validation,
+checkpoint saves (the snapshot is taken on the loop's thread; the async
+commit thread touches host copies only), rollback, the pod sync and the
+profiler's stop run in `whitelist` windows, as in JAX's fit, and so does
+DDP's one rebuild of its gradient buckets, moved from the second step's
+forward to just after the first step.
 
 Across ranks (a process group, parallel/): the model is wrapped by the
 sharding preset (dp: DistributedDataParallel; fsdp: FSDP2 over the data
@@ -61,7 +78,7 @@ import logging
 import os
 import shutil
 import time
-from typing import Any, Dict, Iterable, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -131,6 +148,32 @@ def _until_stopped(data: Iterable, pguard) -> Iterable:
             logger.warning("data stream ended after the stop signal", exc_info=True)
             return
         yield batch
+
+
+class StepResult:
+    """One dispatched step, its values still on the device: `values`, a
+    1-dim fp32 tensor in the order of `names`, with the host's `step` (the
+    step count after it) and `learning_rate` (the schedule at it), and
+    the host clock's `t0` when its batch arrived."""
+
+    __slots__ = ("names", "values", "step", "learning_rate", "t0")
+
+    def __init__(self, names: Sequence[str], values: torch.Tensor, step: int, learning_rate: float,
+                 t0: Optional[float] = None):
+        self.names = tuple(names)
+        self.values = values
+        self.step = step
+        self.learning_rate = learning_rate
+        self.t0 = t0
+
+
+def fetch_steps(results: Sequence[StepResult]) -> List[Dict[str, float]]:
+    """The dispatched steps' metrics as floats, in one device-to-host copy
+    (under the sync guard: inside a window)."""
+    if not results:
+        return []
+    rows = torch.stack([r.values for r in results]).tolist()
+    return [dict(zip(r.names, row), learning_rate=r.learning_rate) for r, row in zip(results, rows)]
 
 
 def rank_file(name: str, process_index: int) -> str:
@@ -238,7 +281,16 @@ class Trainer:
         rank's rows). Returns epe, 1px, 3px, 5px, live_loss, grad_norm
         (before clipping), nonfinite (1.0 when the loss or the norm was
         NaN/Inf) and learning_rate (the schedule at this step), all of the
-        global batch and equal on every rank."""
+        global batch and equal on every rank. `dispatch_step`, then one
+        fetch, then the policy: under "raise" a non-finite step raises."""
+        (out,) = fetch_steps([self.dispatch_step(batch)])
+        if out["nonfinite"] > 0.0 and self.config.nan_policy == "raise":
+            raise NonFiniteLossError(f"non-finite loss/grad_norm at step {self.step - 1} (nan_policy=raise)")
+        return out
+
+    def dispatch_step(self, batch: Mapping[str, Any], t0: Optional[float] = None) -> StepResult:
+        """One optimizer step, as `train_step`, with nothing read back from
+        the device: the values wait in the returned StepResult."""
         cfg = self.config
         b = self._device_batch(batch)
         self.optimizer.zero_grad(set_to_none=True)
@@ -259,17 +311,14 @@ class Trainer:
         shares = torch.stack([*metrics.values(), loss.detach()])
         if distributed:
             torch.distributed.all_reduce(shares)
-        values = torch.cat([shares, grad_norm.reshape(1)]).tolist()
-        finite = bool(np.isfinite(values[-2]) and np.isfinite(values[-1]))
-        if finite:
-            self.optimizer.step()
-        elif cfg.nan_policy == "raise":
-            raise NonFiniteLossError(f"non-finite loss/grad_norm at step {self.step} (nan_policy=raise)")
-        out = dict(zip(metrics, values))
-        out.update(live_loss=values[-2], grad_norm=values[-1], nonfinite=0.0 if finite else 1.0,
-                   learning_rate=self.schedule(self.step))
+        finite = torch.isfinite(shares[-1]) & torch.isfinite(grad_norm)
+        # skip and rollback: JAX's jnp.where(finite, new, old) on the device.
+        self.optimizer.step(finite=finite if cfg.nan_policy in ("skip", "rollback") else None)
+        values = torch.cat([shares, grad_norm.reshape(1), (~finite).to(shares.dtype).reshape(1)])
+        result = StepResult((*metrics, "live_loss", "grad_norm", "nonfinite"), values, self.step + 1,
+                            self.schedule(self.step), t0)
         self.step += 1
-        return out
+        return result
 
     # --- checkpoints --------------------------------------------------------
     def checkpoint_path(self) -> str:
@@ -536,6 +585,7 @@ class Trainer:
         from raft_stereo_tpu_torch.parallel.coordination import HostCoordinator
         from raft_stereo_tpu_torch.utils import run_report as rr
         from raft_stereo_tpu_torch.utils.checkpoints import list_checkpoint_steps
+        from raft_stereo_tpu_torch.utils.jit_hygiene import JitHygiene
         from raft_stereo_tpu_torch.utils.profiling import StepTimer, trace
         from raft_stereo_tpu_torch.utils.resilience import (
             FailureBudgetExceeded,
@@ -555,6 +605,10 @@ class Trainer:
         guard = NonFiniteGuard(cfg.nan_policy, patience=cfg.nan_patience)
         pguard = PreemptionGuard()
         coord = HostCoordinator(self._host_group)
+        # The kernel-build monitor always counts (the report's jit_hygiene
+        # block carries it either way); strict mode adds the sync guard on
+        # a card and fails on builds after the grace window.
+        hygiene = JitHygiene(strict=cfg.strict_mode, recompile_grace=cfg.recompile_grace, device=self.device)
         if cfg.log_dir:
             os.makedirs(cfg.log_dir, exist_ok=True)
         tracer = Tracer(capacity=cfg.flight_recorder_events,
@@ -565,6 +619,8 @@ class Trainer:
         data_wait_hist = registry.histogram("raft_train_data_wait_ms", "Host wait for the loader between steps")
         steps_counter = registry.counter("raft_train_steps_total", "Optimizer steps taken this run")
         metrics_server = serve_registry(registry, cfg.metrics_port) if cfg.metrics_port and primary else None
+        hygiene.monitor.on_compile = lambda duration_s, whitelisted, post_grace: tracer.event(
+            "compile", duration_s=duration_s, whitelisted=whitelisted, post_grace=post_grace)
         prefetcher = None
         if cfg.device_prefetch:
             from raft_stereo_tpu_torch.data.prefetch import DevicePrefetcher
@@ -629,6 +685,7 @@ class Trainer:
                 watchdog=watchdog.state(),
                 io_spine=build_io_spine_block(cfg.async_checkpoint, cfg.device_prefetch, committer=self._committer,
                                               prefetcher=prefetcher),
+                jit_hygiene=hygiene.report(),
                 observability=observability_block(tracer),
                 error=error,
                 traces=traces,
@@ -660,28 +717,51 @@ class Trainer:
 
             validate_fn.set_heartbeat(_validation_heartbeat)
 
-        # Non-finite flags awaiting the host check: (step, flag).
-        pending_flags: list = []
+        # Dispatched steps whose values still wait on the device.
+        pending_flags: List[StepResult] = []
         # A fatal non-finite verdict held until the pod has heard it: a rank
         # must not raise while its peers enter the next collective step.
         fatal: list = []
+        last: Dict[str, Any] = {"metrics": {}}
 
-        def drain_flags() -> str:
-            flags = list(pending_flags)
+        def drain_flags(window: Optional[str] = "nonfinite_drain") -> str:
+            """Fetch the pending steps' values in one copy (inside the
+            `window` transfer window; None when the caller opened one),
+            log each step's line and push its metrics, and feed its
+            non-finite flag to the guard. A rollback verdict stops the
+            observation: the rest of the window belongs to the timeline
+            the rollback discards."""
+            if not pending_flags:
+                return "ok"
+            window_steps = list(pending_flags)
             pending_flags.clear()
-            for s, bad in flags:
+            with hygiene.transfer_window(window) if window else contextlib.nullcontext():
+                fetched = fetch_steps(window_steps)
+            t_fetched = time.perf_counter()
+            for r, m in zip(window_steps, fetched):
+                last["metrics"] = m
+                logger.info("step %d: live_loss %.9g, grad_norm %.9g, epe %.6g, %.3f s", r.step, m["live_loss"],
+                            m["grad_norm"], m["epe"], t_fetched - r.t0)
+                bad = m["nonfinite"] > 0.0
                 if bad:
-                    tracer.event("nonfinite", step=s)
-                if guard.observe(bad, s) == "rollback":
+                    tracer.event("nonfinite", step=r.step)
+                verdict = guard.observe(bad, r.step)
+                if metrics_logger is not None and primary:
+                    extra = guard.stats()
+                    loader_stats = getattr(data, "resilience_stats", None)
+                    if loader_stats is not None:
+                        extra.update(loader_stats())
+                    metrics_logger.push(dict(m, **extra), r.step)
+                if verdict == "rollback":
                     tracer.dump("nonfinite-rollback")
                     return "rollback"
             return "ok"
 
-        def checked_drain() -> str:
+        def checked_drain(window: Optional[str] = "nonfinite_drain") -> str:
             """drain_flags, but under coordination a fatal verdict is parked
             for the pod instead of raised."""
             try:
-                return drain_flags()
+                return drain_flags(window)
             except NonFiniteLossError as e:
                 if not coord.active:
                     raise
@@ -694,11 +774,12 @@ class Trainer:
             agreed to stop."""
             nonlocal local_rollback, pod_rollback, fatal_synced
             t_sync0 = time.perf_counter()
-            if checked_drain() == "rollback":
-                local_rollback = True
-            decision = coord.sync(stop=pguard.stop_requested, nonfinite=bool(fatal), rollback=local_rollback,
-                                  dropped=int(quarantine.dropped) if quarantine else 0,
-                                  served=int(quarantine.served) if quarantine else 0)
+            with hygiene.whitelist("coord_sync"):
+                if checked_drain(window=None) == "rollback":
+                    local_rollback = True
+                decision = coord.sync(stop=pguard.stop_requested, nonfinite=bool(fatal), rollback=local_rollback,
+                                      dropped=int(quarantine.dropped) if quarantine else 0,
+                                      served=int(quarantine.served) if quarantine else 0)
             if fatal:
                 fatal_synced = True
             tracer.span("coord-sync", t0=t_sync0, t1=time.perf_counter(), step=step)
@@ -719,7 +800,10 @@ class Trainer:
             watchdog.grant(cfg.watchdog_grace_s)
             watchdog.mark_phase("final-save" if final else "checkpoint-save")
             t_save0 = time.perf_counter()
-            self.save(run_state=make_run_state(), wait=final)
+            # The snapshot (device to host) is taken here, on the loop's
+            # thread, inside the window; an async commit touches host copies.
+            with hygiene.whitelist("checkpoint_save"):
+                self.save(run_state=make_run_state(), wait=final)
             tracer.span("checkpoint-save", t0=t_save0, t1=time.perf_counter(), step=self.step, final=final)
             set_memory_gauges(registry)
             watchdog.mark_phase(None)
@@ -729,18 +813,23 @@ class Trainer:
                            "peers; set --step_timeout_s so the watchdog can end them")
         stop_cause = "completed"
         error_repr = None
-        metrics: Dict[str, float] = {}
         try:
             stopping = False
             local_rollback = False  # this rank's rollback wish, not yet pod-agreed
             pod_rollback = False    # pod-agreed rollback awaiting execution
             fatal_synced = False    # the pod has heard this rank's parked fatal
             pending_reseed = False  # a rollback is waiting on a fresh data epoch
-            with pguard if cfg.handle_signals else contextlib.nullcontext(), watchdog:
+            # DDP rebuilds its gradient buckets once, at its second forward,
+            # and reads the new bucket order back from the device (a sync).
+            # Done after the first step, in a window of its own, it leaves
+            # every step sync-free; the second forward finds them built.
+            ddp_buckets = isinstance(self._wrapped, torch.nn.parallel.DistributedDataParallel)
+            with pguard if cfg.handle_signals else contextlib.nullcontext(), watchdog, hygiene.guard():
                 if cfg.nan_policy == "rollback" and not list_checkpoint_steps(self.checkpoint_path()):
                     # Rollback needs a last good anchor before the first
                     # periodic save: the initial (or restored) state.
-                    self.save(run_state=make_run_state())
+                    with hygiene.whitelist("checkpoint_save"):
+                        self.save(run_state=make_run_state())
                     watchdog.beat(step)
                     watchdog.grant(cfg.watchdog_grace_s)
                 while step < cfg.num_steps and not stopping:
@@ -755,31 +844,33 @@ class Trainer:
                         if profile_window and step == profile_window.start:
                             profile_ctx = trace(os.path.join(cfg.log_dir, rank_file("profile", rank)))
                             profile_ctx.__enter__()
-                        metrics = self.train_step(batch)
-                        tick = timer.tick()
-                        tracer.span("step", t0=t_batch, t1=time.perf_counter(), step=step + 1)
-                        steps_counter.inc()
-                        if tick is not None:
-                            step_hist.observe(tick * 1e3)
+                        pending_flags.append(self.dispatch_step(batch, t0=t_batch))
                         step = self.step
-                        logger.info("step %d: live_loss %.9g, grad_norm %.9g, epe %.6g, %.3f s", step,
-                                    metrics["live_loss"], metrics["grad_norm"], metrics["epe"],
-                                    time.perf_counter() - t_batch)
+                        if ddp_buckets:
+                            with hygiene.whitelist("ddp_buckets"):
+                                self._wrapped.reducer._rebuild_buckets()
+                            ddp_buckets = False
+                        # Step boundary for the build monitor: raises
+                        # RecompileError (strict mode) when a kernel was
+                        # built outside a whitelist after the grace window.
+                        hygiene.step(step)
                         if profile_ctx is not None and step >= profile_window.stop:
-                            profile_ctx.__exit__(None, None, None)
+                            with hygiene.transfer_window("profile"):
+                                profile_ctx.__exit__(None, None, None)
                             profile_ctx = None
-                        pending_flags.append((step, metrics["nonfinite"] > 0.0))
                         sync_due = coord.active and (step % cfg.coord_interval == 0
                                                      or step % cfg.checkpoint_every == 0)
                         if len(pending_flags) >= cfg.nan_check_every and not sync_due:
                             if checked_drain() == "rollback":
                                 local_rollback = True
-                        if metrics_logger is not None and primary:
-                            extra = guard.stats()
-                            loader_stats = getattr(data, "resilience_stats", None)
-                            if loader_stats is not None:
-                                extra.update(loader_stats())
-                            metrics_logger.push(dict(metrics, **extra), step)
+                        # The step span ends after its drain when one fell
+                        # on it (so it covers the device's work); otherwise
+                        # at the dispatch, as JAX's does.
+                        tick = timer.tick()
+                        tracer.span("step", t0=t_batch, t1=time.perf_counter(), step=step)
+                        steps_counter.inc()
+                        if tick is not None:
+                            step_hist.observe(tick * 1e3)
                         if step % cfg.checkpoint_every == 0:
                             if coord.active and pod_sync():
                                 stopping = True
@@ -793,14 +884,17 @@ class Trainer:
                             watchdog.grant(cfg.watchdog_grace_s)
                             watchdog.mark_phase("validation")
                             try:
-                                model = self._validation_model()
-                                if model is not None and (primary or self.sharding.banded):
-                                    results = validate_fn(model)
-                                    if primary:
-                                        logger.info("validation (%d): %s", step, results)
-                                        if metrics_logger is not None:
-                                            metrics_logger.write(results, step)
-                                self._barrier(self._host_group)
+                                # Validation builds kernels, fetches maps and
+                                # syncs: legitimate here, never in the step.
+                                with hygiene.whitelist("validation"):
+                                    model = self._validation_model()
+                                    if model is not None and (primary or self.sharding.banded):
+                                        results = validate_fn(model)
+                                        if primary:
+                                            logger.info("validation (%d): %s", step, results)
+                                            if metrics_logger is not None:
+                                                metrics_logger.write(results, step)
+                                    self._barrier(self._host_group)
                             finally:
                                 watchdog.mark_phase(None)
                             watchdog.beat(step)
@@ -818,10 +912,12 @@ class Trainer:
                         if want_rollback and (synced or not coord.active):
                             pod_rollback = local_rollback = False
                             if profile_ctx is not None:
-                                profile_ctx.__exit__(None, None, None)
+                                with hygiene.transfer_window("profile"):
+                                    profile_ctx.__exit__(None, None, None)
                                 profile_ctx = None
                             profile_window = range(0)
-                            step = self.rollback()
+                            with hygiene.whitelist("rollback"):
+                                step = self.rollback()
                             watchdog.beat(step)
                             pending_reseed = True
                             logger.warning("rolled back to step %d after %d consecutive non-finite steps; "
@@ -845,7 +941,8 @@ class Trainer:
                         raise ValueError("data iterable yielded no batches (dataset smaller than one batch, or an "
                                          "exhausted generator was passed)")
                 if profile_ctx is not None:
-                    profile_ctx.__exit__(None, None, None)
+                    with hygiene.transfer_window("profile"):
+                        profile_ctx.__exit__(None, None, None)
                 # One final pod sync: every rank reaches this point at the
                 # same pod-agreed boundary, and it settles what happened
                 # after the last in-loop sync (a stop on one rank in the
@@ -859,7 +956,8 @@ class Trainer:
                                              "window; the run ended before it could execute — resume from the "
                                              "last good checkpoint")
                 drain_flags()
-                stats = timer.report(self.device)
+                with hygiene.transfer_window("step_timing"):
+                    stats = timer.report(self.device)
                 if stats:
                     logger.info("step timing: %s", stats)
                 if self.device.type == "cuda":
@@ -910,4 +1008,4 @@ class Trainer:
                 metrics_server.shutdown()
                 metrics_server.server_close()
                 metrics_server._serve_thread.join(timeout=5.0)
-        return metrics
+        return last["metrics"]

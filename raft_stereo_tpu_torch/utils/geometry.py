@@ -61,7 +61,7 @@ def _build_interp_matrix(n_in: int, n_out: int, device: torch.device) -> torch.T
     m = torch.zeros((n_out, n_in), dtype=torch.float32)
     if n_out == 1 or n_in == 1:
         m[:, 0] = 1.0
-        return m.to(device)
+        return _to_device(m, device)
     # Positions in float32 exactly as XLA evaluates the JAX package's
     # linspace(0, n_in - 1, n_out): ((n_in - 1) * (1 / (n_out - 1))) * o.
     recip = torch.tensor(1.0, dtype=torch.float32) / torch.tensor(float(n_out - 1))
@@ -73,7 +73,16 @@ def _build_interp_matrix(n_in: int, n_out: int, device: torch.device) -> torch.T
     o = torch.arange(n_out)
     m.index_put_((o, i0), 1.0 - frac, accumulate=True)
     m.index_put_((o, i0 + 1), frac, accumulate=True)
-    return m.to(device)
+    return _to_device(m, device)
+
+
+def _to_device(m: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host matrix on `device`; onto a card from pinned memory without
+    blocking the host (its first use may fall inside a training step,
+    which makes no sync)."""
+    if torch.device(device).type != "cuda":
+        return m.to(device)
+    return m.pin_memory().to(device, non_blocking=True)
 
 
 def resize_bilinear_align_corners(x: torch.Tensor, out_h: int, out_w: int, rows: slice = None) -> torch.Tensor:

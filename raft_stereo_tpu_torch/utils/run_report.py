@@ -33,11 +33,13 @@ Schema (version 2) — keys marked * are required:
     watchdog*         dict  — {enabled, fired, timeout_s, last_beat_step, phase}
     jit_hygiene       dict  — OPTIONAL (additive): jit-hygiene verdict
                               from utils/jit_hygiene.py. When present:
-                                strict_mode            bool — transfer guard +
-                                                       recompile hard-fail on
-                                recompile_grace        int  — compile grace steps
-                                transfer_guard         str  — "disallow" | "off"
-                                compiles_total         int  — XLA backend compiles
+                                strict_mode            bool — sync guard +
+                                                       build hard-fail on
+                                recompile_grace        int  — build grace steps
+                                transfer_guard         str  — "disallow" (the
+                                                       sync guard on a card) |
+                                                       "off"
+                                compiles_total         int  — kernel builds (nvcc)
                                 compiles_post_grace    int  — compiles after grace
                                                        outside whitelists (0 on a
                                                        hygienic steady-state run)
@@ -83,8 +85,8 @@ Version history: v2 added the resume-provenance fields
 (resumed_from_step / resume_count / fallback_steps_skipped) and the
 watchdog phase label as required keys; the jit_hygiene, io_spine and
 observability blocks are ADDITIVE within v2: optional keys, no bump. The
-port's /healthz carries `observability` and no `jit_hygiene` (PyTorch has
-no compile monitor to report).
+port's run reports and /healthz carry `jit_hygiene` as JAX's do; its
+compiles are the kernel libraries' `nvcc` builds.
 """
 
 from __future__ import annotations

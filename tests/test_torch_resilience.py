@@ -90,10 +90,13 @@ def report(tmp_path):
 
 
 def test_nan_policy_raise(base, tmp_path):
+    """JAX's contract: "raise" has no device guard, the bad step is taken
+    (the step count reads 2) and the host raises when it reads the flag."""
     t = trainer_for(base, tmp_path, nan_policy="raise")
     assert cli.run_training(t, Stream(bad=lambda p, i: i == 1)) == 14
     r = report(tmp_path)
-    assert r["stop_cause"] == "nonfinite" and r["final_step"] == 1 and "NonFiniteLossError" in r["error"]
+    assert r["stop_cause"] == "nonfinite" and r["final_step"] == 2 and "NonFiniteLossError" in r["error"]
+    assert "at step 2" in r["error"]
 
 
 def test_nan_policy_skip(base, tmp_path):
@@ -185,15 +188,11 @@ UNPORTED_OR_UNFIT = [
     (["--mesh_shape", "1", "2"], "mesh 1x2 covers 2 rank(s) but the world has 1"),
     (["--sharding_rules", "spatial", "--mesh_shape", "-1", "2"], "1 ranks not divisible by spatial=2"),
     (["--sharding_rules", "fsdp", "--mesh_shape", "-1", "2"], "1 ranks not divisible by spatial=2"),
-    (["--strict_mode"], "not ported yet: --strict_mode"),
-    (["--recompile_grace", "3"], "not ported yet: --recompile_grace"),
-    (["--compilation_cache_dir", "cache"], "not ported yet: --compilation_cache_dir"),
 ]
 
 
 @pytest.mark.parametrize("flags,message", UNPORTED_OR_UNFIT,
-                         ids=["mesh_shape", "sharding_rules", "fsdp_sharding_rules", "strict_mode", "recompile_grace",
-                              "compilation_cache_dir"])
+                         ids=["mesh_shape", "sharding_rules", "fsdp_sharding_rules"])
 def test_unported_train_flags_exit_2(flags, message, capsys, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     assert cli.main(["train", "--device", "cpu", *flags]) == 2
@@ -206,12 +205,14 @@ def test_unported_train_flags_exit_2(flags, message, capsys, tmp_path, monkeypat
     (["--coord_interval", "5"], "coord_interval", 5), (["--async_checkpoint"], "async_checkpoint", True),
     (["--metrics_port", "9100"], "metrics_port", 9100), (["--mesh_shape", "1", "2"], "mesh_shape", (1, 2)),
     (["--sharding_rules", "dp+spatial", "--mesh_shape", "-1", "2"], "sharding_rules", "dp+spatial"),
+    (["--strict_mode"], "strict_mode", True), (["--recompile_grace", "3"], "recompile_grace", 3),
+    (["--compilation_cache_dir", "cache"], "compilation_cache_dir", "cache"),
 ], ids=["mesh_shape", "sharding_rules", "coord_interval", "async_checkpoint", "metrics_port", "spatial_mesh_shape",
-        "spatial_sharding_rules"])
+        "spatial_sharding_rules", "strict_mode", "recompile_grace", "compilation_cache_dir"])
 def test_formerly_unported_train_flags_are_taken(flags, field, value):
-    """The flags the training-across-ranks slice ported pass the refusal
-    and reach the config; `--explain_sharding` is a dry run
-    (tests/test_torch_parallel.py)."""
+    """The flags once refused reach the config, and `train` no longer
+    refuses them: `--explain_sharding` is a dry run
+    (tests/test_torch_parallel.py), and the jit hygiene's flags are driven
+    in tests/test_torch_jit_hygiene.py."""
     args = cli._train_parser().parse_args(flags)
-    assert cli._unported_train_flags(args) == []
     assert getattr(cli._train_config_from_args(args), field) == value

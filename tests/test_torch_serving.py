@@ -18,6 +18,7 @@ HTTP front and the `serve` command line, on the CPU.
 Every wait has its own limit; the fixtures close what they start.
 """
 
+import json
 import os
 import signal
 import socket
@@ -255,8 +256,7 @@ SERVE_EXIT_2 = [
     (["--replicas", "2"], "--replicas 2 counts cards; a fleet does not run on --device cpu"),
     (["--replicas", "0"], "--replicas 0 counts cards"),
     (["--sharding_rules", "spatial", "--replicas", "2"], "replicas require --sharding_rules dp"),
-    (["--aot_cache_dir", "cache"], "not ported yet"),
-    (["--require_cache_hit"], "not ported yet"),
+    (["--require_cache_hit"], "--require_cache_hit only makes sense with --warmup_only"),
     (["--audit"], "not ported yet"),
     (["--auto_respawn"], "--auto_respawn requires replicas >= 2"),
 ]
@@ -264,11 +264,29 @@ SERVE_EXIT_2 = [
 
 @pytest.mark.parametrize("flags,message", SERVE_EXIT_2, ids=[f[0][2:] for f, _ in SERVE_EXIT_2])
 def test_serve_cli_unported_flags_exit_2(flags, message, capsys):
-    """The flags the port does not have exit 2 with "not ported yet"; the
-    fleet's flags are ported and exit 2 where the fleet cannot run (off
-    the card, or auto-respawn without a second replica)."""
+    """The flag the port does not have (`--audit`) exits 2 with "not
+    ported yet"; the fleet's flags exit 2 where the fleet cannot run (off
+    the card, or auto-respawn without a second replica), and
+    `--require_cache_hit` without `--warmup_only` with JAX's message."""
     assert cli.main(["serve", "--device", "cpu", *flags]) == 2
     assert message in capsys.readouterr().err
+
+
+def test_serve_cli_aot_cache_dir_boots(capsys, tmp_path, monkeypatch):
+    """`--aot_cache_dir` boots from the kernel cache: on the CPU no kernel
+    library loads, so the boot is an enabled cache with no entries, and
+    `--require_cache_hit` passes (exit 0). The build directory moves under
+    the cache; monkeypatch puts it back."""
+    from raft_stereo_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR)
+    argv = ["serve", "--device", "cpu", "--warmup_only", "--buckets", "64x96", "--max_batch", "1",
+            "--chunk_iters", "1", "--max_iters", "1", "--hidden_dims", "32", "32", "32",
+            "--aot_cache_dir", str(tmp_path / "cache"), "--require_cache_hit"]
+    assert cli.main(argv) == 0
+    boot = json.loads(next(ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("{")))["boot"]
+    assert boot["cache_enabled"] and boot["entries"] == boot["cache_hits"] + boot["cache_misses"] == 0
+    assert boot["compiles_total"] == 0 and os.path.isdir(tmp_path / "cache")
 
 
 def _free_port() -> int:

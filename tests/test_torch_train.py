@@ -337,10 +337,12 @@ def test_nonfinite_step_is_skipped_or_raises(batch):
     before = [p.detach().clone() for p in trainer.model.parameters()]
     out = trainer.train_step(bad)
     assert out["nonfinite"] == 1.0 and not np.isfinite(out["live_loss"])
-    # Params and optimizer state untouched; the step count (and the
-    # schedule it reads) advances.
+    # Params and optimizer state untouched (the moments, made at the first
+    # dispatch as optax makes them at init, all zero; the count 0); the
+    # step count (and the schedule it reads) advances.
     assert all(torch.equal(a, p) for a, p in zip(before, trainer.model.parameters()))
-    assert trainer.optimizer.count == 0 and not trainer.optimizer.state
+    assert trainer.optimizer.count == 0
+    assert all(not v.any() for st in trainer.optimizer.state.values() for v in st.values())
     assert trainer.step == 1 and out["learning_rate"] == trainer.schedule(0)
     good = trainer.train_step(batch)
     assert good["nonfinite"] == 0.0 and good["learning_rate"] == trainer.schedule(1)

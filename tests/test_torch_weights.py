@@ -111,14 +111,14 @@ def test_flax_init_scale_is_reproduced():
 
 def test_port_imports_no_jax():
     """Importing every port module (the training package, the evaluate
-    entry point and its command line included) and chip_smoke.py's imports
-    loads no JAX and nothing of the JAX package."""
+    entry point and its command line included), chip_smoke.py's imports and
+    train_compare.py's loads no JAX and nothing of the JAX package."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import raft_stereo_tpu_torch\n"
         "for m in pkgutil.walk_packages(raft_stereo_tpu_torch.__path__, 'raft_stereo_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import chip_smoke\n"
+        "import chip_smoke, train_compare\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "             or k == 'raft_stereo_tpu' or k.startswith('raft_stereo_tpu.'))\n"
         "assert not bad, bad\n"
@@ -132,7 +132,7 @@ def test_port_imports_no_jax():
         "          'serving.fleet', 'serving.frontier', 'serving.engine', 'models.raft_stereo', 'ops.corr',\n"
         "          'parallel', 'parallel.distributed', 'parallel.mesh', 'parallel.sharding',\n"
         "          'parallel.coordination', 'train.io_spine', 'parallel.spatial', 'utils.fsck',\n"
-        "          'utils.check_report'):\n"
+        "          'utils.check_report', 'utils.jit_hygiene', 'serving.aot'):\n"
         "    assert 'raft_stereo_tpu_torch.' + m in walked, m\n"
         "print('ok', len(walked))\n"
     )

@@ -9,6 +9,9 @@ weight bridge.
 
 from __future__ import annotations
 
+import sys
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +31,46 @@ def torch_single_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(prev)
+
+
+FAKE_LIBRARY = b"fake library of "
+
+
+@pytest.fixture
+def fake_toolchain(tmp_path, monkeypatch):
+    """ops/_build.py with a stand-in compiler and loader, in a build
+    directory of its own (the CPU tests have no nvcc): the "compiler" is a
+    Python script that writes FAKE_LIBRARY plus the source's path to its
+    `-o` file, and the "loader" accepts exactly such files (anything else
+    raises OSError, as dlopen does on a damaged library). The module's
+    loaded libraries, listeners and eviction count start empty and come
+    back after the test. Returns the build directory, the compiled
+    sources in order, and the loaded paths."""
+    from raft_stereo_tpu_torch.ops import _build
+
+    nvcc = tmp_path / "fake-nvcc"
+    nvcc.write_text(f"#!{sys.executable}\nimport sys\nargs = sys.argv[1:]\n"
+                    f"open(args[args.index('-o') + 1], 'wb').write({FAKE_LIBRARY!r} + args[-1].encode())\n")
+    nvcc.chmod(0o755)
+    loaded = []
+
+    def load_library(path):
+        with open(path, "rb") as f:
+            if not f.read().startswith(FAKE_LIBRARY):
+                raise OSError(f"{path}: invalid ELF header")
+        loaded.append(path)
+        return types.SimpleNamespace(path=path)
+
+    monkeypatch.setattr(_build, "nvcc_path", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "_compile_listeners", [])
+    monkeypatch.setattr(_build, "_load_listeners", [])
+    monkeypatch.setattr(_build, "evictions", 0)
+    monkeypatch.setattr(_build.ctypes, "CDLL", load_library)
+    compiles = []
+    _build.add_compile_listener(lambda name, seconds: compiles.append(name))
+    return types.SimpleNamespace(build_dir=tmp_path / "build", compiles=compiles, loaded=loaded)
 
 
 @pytest.fixture(autouse=True, scope="module")
